@@ -1,0 +1,644 @@
+"""Top-level config tree.
+
+Parity: trlx/data/configs.py in the reference — the same six sections
+(method/model/optimizer/scheduler/tokenizer/train) with yaml IO, `evolve`,
+and dotted-key `update` for sweeps — plus the `parallel` and `inference`
+sections. The field set is the same as the JAX package's, so one yaml
+file configures either package; sections this package does not run yet
+(`parallel`, the learn-loop fields of `train`) are parsed and kept but
+not read.
+"""
+
+from copy import deepcopy
+from dataclasses import asdict, dataclass, field
+from typing import Any, Dict, List, Optional, Set
+
+import yaml
+
+from trlx_tpu_torch.data.method_configs import MethodConfig, get_method
+
+
+def merge(base: Dict, update: Dict, updated: Set) -> Dict:
+    """Recursively update a nested dict in place, recording touched keys.
+    Keys novel to `base` are added too — validation of unknown paths
+    happens before the merge (TRLConfig.update), and open-ended dicts
+    (gen_kwargs etc.) legitimately accept new keys the defaults lack."""
+    for k, v in update.items():
+        if k in base and isinstance(base[k], dict) and isinstance(v, dict):
+            base[k] = merge(base[k], v, updated)
+        else:
+            base[k] = v
+        updated.add(k)
+    return base
+
+
+def _merge_dicts(base: Dict, update: Dict) -> Dict:
+    """Recursively merge two dicts, returning a new dict."""
+    base = deepcopy(base)
+    for k, v in update.items():
+        if isinstance(v, dict):
+            # `or {}` so a dict can replace an explicit None default
+            # (e.g. evolving model.peft_config from None to a LoRA dict)
+            base[k] = _merge_dicts(base.get(k) or {}, v)
+        else:
+            base[k] = v
+    return base
+
+
+@dataclass
+class ModelConfig:
+    """Config for the model being trained.
+
+    :param model_path: HF checkpoint path/name, a local orbax/msgpack dir, or
+        a builtin preset name (e.g. "random:gpt2-tiny" for from-scratch init).
+    :param model_arch_type: "causal" or "seq2seq".
+    :param num_layers_unfrozen: number of top transformer blocks to train;
+        -1 trains everything. Unlike the reference (which does module surgery
+        to clone a frozen branch, modeling_ppo.py:385-499), here this is a
+        gradient mask plus a reference copy of the top-branch params used in
+        the same compiled graph.
+    :param peft_config: optional LoRA config dict, e.g.
+        {"peft_type": "LORA", "r": 8, "lora_alpha": 32}.
+    """
+
+    model_path: str
+    model_arch_type: str = "causal"
+    num_layers_unfrozen: int = -1
+    peft_config: Any = None
+    model_extra_configs: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]):
+        return cls(**config)
+
+
+@dataclass
+class TokenizerConfig:
+    """Config for the tokenizer.
+
+    :param tokenizer_path: HF tokenizer name, or builtin "byte:"/"char:" presets
+        (offline-friendly fallbacks).
+    """
+
+    tokenizer_path: str
+    padding_side: str = "left"
+    truncation_side: str = "right"
+    tokenizer_extra_configs: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]):
+        return cls(**config)
+
+
+@dataclass
+class OptimizerConfig:
+    """Optax optimizer by registry name + kwargs (lr, betas, eps, weight_decay)."""
+
+    name: str
+    kwargs: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]):
+        return cls(**config)
+
+
+@dataclass
+class SchedulerConfig:
+    """Optax LR schedule by registry name + kwargs (e.g. T_max, eta_min)."""
+
+    name: str
+    kwargs: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]):
+        return cls(**config)
+
+
+@dataclass
+class ParallelConfig:
+    """Device-mesh layout, kept so configs round-trip with the JAX
+    package. Nothing in this package reads it yet (ROADMAP queue A,
+    parallelism).
+
+    Axis sizes of -1 mean "fill with all remaining devices". The mesh axes
+    are, in order: data (pure data parallel, DCN-friendly), fsdp (ZeRO-style
+    param/optimizer sharding), tensor (megatron-style TP), sequence (context
+    parallelism / ring attention).
+
+    :param remat: rematerialize (jax.checkpoint) transformer blocks.
+    :param scan_layers: stack identical blocks and lax.scan over them
+        (faster compiles, required for pipeline parallelism).
+    :param param_dtype: dtype of the master params.
+    :param compute_dtype: activations/matmul dtype (bfloat16 on the MXU).
+    """
+
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    sequence: int = 1
+    pipeline: int = 1
+    # virtual stages per pipeline device (interleaved schedule; >1 shrinks
+    # the pipeline bubble by ~1/pipeline_interleave at the cost of more
+    # ring hops — megatron's virtual PP)
+    pipeline_interleave: int = 1
+    # microbatch schedule for the pipelined trainers' TRAIN step:
+    # "gpipe" (default) = all-forward-then-autodiff-backward, loss computed
+    # on the full banked logits; "1f1b" = the hand-scheduled one-forward-
+    # one-backward engine (parallel/onef1b.py) with per-microbatch in-pipe
+    # loss — activation residency bounded by ~2*pipeline microbatches and
+    # no [batch, seq, vocab] logits bank (the reference Apex engine's
+    # memory behavior, modeling_nemo_ppo.py:713-731)
+    pipeline_schedule: str = "gpipe"
+    # multi-slice scale-out: number of DCN-connected slices, folded into the
+    # data axis so only data-parallel gradient reductions cross DCN
+    dcn_data: int = 1
+    # pipelined trainers only: during rollout/eval generation, DONATE the
+    # stacked train layout into the decode-mesh view and rebuild it before
+    # the next train step, so peak param residency stays ~one layout
+    # instead of two (stacked + decode view). Costs two reshard programs
+    # per generate phase — enable when the model doesn't fit twice.
+    decode_param_swap: bool = False
+    remat: bool = False
+    scan_layers: bool = False
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]):
+        return cls(**config)
+
+
+@dataclass
+class InferenceConfig:
+    """Policy inference server (the `inference` package): continuous-batching
+    generation-as-a-service over a slot-based KV-cache pool.
+
+    :param num_slots: KV-cache slots = max concurrent decodes. Each slot
+        holds a (max_prompt_len + max_new_tokens)-long cache row.
+    :param max_prompt_len: longest admissible prompt (rounded up to
+        `prompt_bucket`); longer submissions are rejected with HTTP 400.
+    :param max_new_tokens: engine-wide generation budget; requests may
+        ask for less via their own `max_new_tokens`, never more (it
+        sizes the cache).
+    :param max_prefill_batch: rows per jitted prefill call; admission
+        chunks bigger batches.
+    :param prompt_bucket: prompt widths compile per multiple-of-this
+        bucket (the `_bucket_prompts` idiom) to bound recompilation.
+    :param max_queue_depth: queued requests beyond this are rejected
+        with HTTP 503 + Retry-After (explicit backpressure).
+    :param max_wait_s: admission waits up to this long for more queued
+        requests so prefills batch together (ignored when the pool is
+        idle).
+    :param default_deadline_s: per-request deadline when the request
+        doesn't carry one; None = no deadline. Expired requests answer
+        HTTP 504 and free their slot.
+    :param watch_dir: checkpoint directory to watch for hot-reload; the
+        newest manifest-complete checkpoint is swapped in live.
+    :param reload_interval_s: watcher poll interval.
+    :param gen_kwargs: serving-time generation knobs, overriding the
+        method's `gen_kwargs` (HF names: temperature, top_k, top_p,
+        do_sample, ...). Fixed at server start — per-request overrides
+        are limited to max_new_tokens.
+    :param kv_paging: allocate KV cache from a global block arena through
+        per-slot block tables instead of one full-length row per slot —
+        memory scales with resident tokens, not slots × max length.
+    :param kv_block_size: tokens per KV block (paged mode). Also the
+        prefix-sharing granularity.
+    :param kv_pool_blocks: total arena blocks; 0 sizes the arena to the
+        fixed-slot equivalent (num_slots × blocks-per-full-row + zero
+        block) so paging is a strict superset at equal HBM.
+    :param kv_cache_dtype: "auto" (model dtype) | "f32" | "bf16" |
+        "int8" (per-token-per-head symmetric quantization, paged only —
+        halves/quarters KV bytes at a small logit tolerance).
+    :param decode_kernel: paged decode attention read path. "auto"
+        (default) and "pallas" use the fused paged-attention kernel
+        (`ops/paged_attention.py`: direct block-table KV fetch, in-kernel
+        int8 dequant, online softmax, GQA-grouped) — the CUDA kernel on a
+        cuda device, its plain PyTorch version on the CPU; "xla" pins the
+        gather+dense-softmax read path. Configs the kernel cannot express
+        (alibi/sliding-window biases, paging off) fall back to the gather
+        path per dispatch with a counted reason
+        (``kv_kernel_fallbacks{reason}`` in /metrics and healthz).
+    :param prefix_cache: share prompt-prefix KV blocks across requests
+        (exact token-chain keys, refcounted, LRU-evicted when idle);
+        requires kv_paging.
+    :param prefix_cache_capacity: max idle cached blocks retained after
+        release; 0 = bounded only by allocation pressure.
+    :param multi_tenant: serve many LoRA adapters over one shared trunk
+        (S-LoRA shape): per-request `adapter_id` picks the adapter,
+        requests from different tenants share every decode step (batched
+        heterogeneous-adapter gather), and prefix-cache keys are salted
+        per adapter so K/V never crosses tenants. Requires a
+        LoRA-enabled policy; off = single-policy serving, bit-identical
+        to previous behavior.
+    :param adapter_dir: directory of adapter checkpoints (subdirectory
+        name = adapter id, each a trainer `save` of adapters+heads);
+        adapters load on demand and hot-reload per adapter when their
+        checkpoint moves.
+    :param max_resident_adapters: device-resident adapter slots; idle
+        adapters evict LRU-first when slots run out.
+    :param adapter_hbm_budget_mb: cap resident-adapter HBM bytes; the
+        effective capacity is min(max_resident_adapters, budget //
+        bytes-per-adapter). 0 = no byte cap.
+    :param fair_share: weighted deficit round-robin admission across
+        tenants (multi-tenant only) — a saturating tenant cannot starve
+        the others; off = global FIFO.
+    :param tenant_weights: relative fair-share weights by adapter id
+        (missing tenants weigh 1.0; the base policy is tenant "base").
+    :param tenant_queue_depth: per-tenant queued-request cap, rejected
+        with HTTP 503 + Retry-After beyond it; 0 = only the global
+        max_queue_depth applies.
+    :param tracing: request tracing (the `observability` package): per-request
+        span trees (queue wait, admission, adapter loads, block
+        allocation, prefill, decode, serialization), the
+        ``/debug/trace?last=N`` endpoint, and per-component flight
+        recorders. Off (default) keeps the serving hot paths bitwise
+        identical and allocation-free.
+    :param trace_sample_rate: fraction of decode steps recorded as
+        individual batch-level spans (deterministic counter-based
+        sampling; per-request decode spans always aggregate). 0 disables
+        per-step spans so tracing stays cheap enough for load tests.
+    :param trace_ring: completed request traces retained in memory (the
+        ``/debug/trace`` window).
+    :param flight_recorder_events: per-component flight-recorder ring
+        capacity (events retained for postmortem bundles).
+    :param sessions: multi-turn chat sessions (``POST /chat``): the
+        conversation's KV blocks stay pinned server-side between turns,
+        so every turn after the first prefills only its delta tokens.
+        Requires kv_paging; off (default) keeps serving bit-identical
+        and /chat answers 400.
+    :param session_ttl_s: idle sessions older than this are dropped by
+        the scheduler's sweep (their next turn answers HTTP 409
+        ``session_reset``).
+    :param session_max: resident-session cap; creating one past it
+        evicts the LRU idle session, and with every session busy the
+        create answers HTTP 503 + Retry-After.
+    :param session_bytes_budget_mb: cap on retained-KV bytes across all
+        sessions; past it, idle sessions lose their pins LRU-first (the
+        token history is kept, so the next turn transparently
+        re-prefills). 0 = bounded only by block-pool pressure.
+    """
+
+    num_slots: int = 8
+    max_prompt_len: int = 256
+    max_new_tokens: int = 64
+    max_prefill_batch: int = 8
+    prompt_bucket: int = 32
+    max_queue_depth: int = 64
+    max_wait_s: float = 0.01
+    default_deadline_s: Optional[float] = None
+    host: str = "0.0.0.0"
+    port: int = 8600
+    watch_dir: Optional[str] = None
+    reload_interval_s: float = 5.0
+    gen_kwargs: Dict[str, Any] = field(default_factory=dict)
+    kv_paging: bool = False
+    kv_block_size: int = 32
+    kv_pool_blocks: int = 0
+    kv_cache_dtype: str = "auto"
+    decode_kernel: str = "auto"
+    prefix_cache: bool = False
+    prefix_cache_capacity: int = 0
+    multi_tenant: bool = False
+    adapter_dir: Optional[str] = None
+    max_resident_adapters: int = 8
+    adapter_hbm_budget_mb: float = 0.0
+    fair_share: bool = True
+    tenant_weights: Dict[str, float] = field(default_factory=dict)
+    tenant_queue_depth: int = 0
+    tracing: bool = False
+    trace_sample_rate: float = 0.0
+    trace_ring: int = 256
+    flight_recorder_events: int = 512
+    sessions: bool = False
+    session_ttl_s: float = 600.0
+    session_max: int = 256
+    session_bytes_budget_mb: float = 0.0
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]):
+        return cls(**config)
+
+
+@dataclass
+class TrainConfig:
+    """Training-run config. Field set mirrors reference TrainConfig
+    (trlx/data/configs.py:140-236) so user configs carry over unchanged."""
+
+    total_steps: int
+    seq_length: int
+    epochs: int
+    batch_size: int
+
+    checkpoint_interval: int
+    eval_interval: int
+
+    pipeline: str  # registered pipeline name
+    trainer: str  # registered trainer name
+    trainer_kwargs: Dict[str, Any] = field(default_factory=dict)
+
+    project_name: str = "trlx_tpu"
+    run_name: Optional[str] = None
+    entity_name: Optional[str] = None
+    group_name: Optional[str] = None
+
+    checkpoint_dir: str = "ckpts"
+    rollout_logging_dir: Optional[str] = None
+    save_best: bool = True
+    save_optimizer: bool = True
+    resume_from_checkpoint: Optional[str] = None
+
+    # Preemption safety (trlx_tpu/resilience.py). `auto_resume` scans
+    # checkpoint_dir on startup for the newest manifest-complete
+    # checkpoint (truncated ones are skipped) and continues from it;
+    # combined with the SIGTERM/SIGINT emergency checkpoint written at
+    # the next step boundary, a preempted run restarted with the same
+    # command loses at most one step. `checkpoint_keep_n` bounds disk:
+    # keep only the newest N step checkpoints (best_checkpoint and the
+    # latest are never GC'd); 0 keeps everything.
+    auto_resume: bool = False
+    checkpoint_keep_n: int = 0
+    # Install the SIGTERM/SIGINT emergency-checkpoint handler during
+    # learn(). Off -> signals keep their default behavior.
+    handle_preemption: bool = True
+
+    tracker: Optional[str] = None
+    logging_dir: Optional[str] = None
+    tags: Optional[List[str]] = field(default_factory=list)
+
+    seed: int = 1000
+
+    minibatch_size: Optional[int] = None
+
+    # JAX profiler tracing (SURVEY.md §5.1: the reference only has coarse
+    # time/* metrics + NeMo nsys hooks; here a real trace). When set,
+    # learn() captures steps [profile_start, profile_stop) into
+    # profile_dir for TensorBoard / Perfetto.
+    profile_dir: Optional[str] = None
+    profile_start: int = 2
+    profile_stop: int = 4
+
+    # --- Health sentinel (trlx_tpu/sentinel.py) -----------------------
+    # Self-healing training (the reference has no failure detection at
+    # all — SURVEY.md §5.3). `sentinel` is the master switch for the
+    # four-layer subsystem: (1) an in-jit gradient guard that skips the
+    # optimizer update when the global grad norm is non-finite or above
+    # `grad_skip_threshold` (jnp.where-masked inside the compiled step —
+    # no recompile, no host round trip); (2) rolling median/MAD anomaly
+    # detection over loss, grad norm, approx_kl, reward mean, and
+    # entropy with an escalation ladder warn -> skip-chunk -> rewind ->
+    # abort; (3) rewind-and-skip recovery from a pinned `last_good`
+    # checkpoint with a `max_rewinds` budget and an LR-damp/KL-boost
+    # cooldown; (4) a step hang watchdog (`step_timeout_s`). Off
+    # (default) keeps training bit-identical to the pre-sentinel
+    # trainer: the compiled train step is built without the guard.
+    sentinel: bool = False
+    # Skip the update in-jit when the global grad norm exceeds this
+    # (non-finite norms are always skipped when the sentinel is on);
+    # None = skip on non-finite only. Surfaced per step as
+    # train/grad_global_norm and train/skipped_updates.
+    grad_skip_threshold: Optional[float] = None
+    # Non-finite-loss policy (legacy names kept so existing configs work
+    # unchanged — this was the standalone "nan_guard" before the
+    # sentinel subsumed it). Sentinel off: warn each bad step and abort
+    # after `nan_guard_patience` consecutive ones, BEFORE any checkpoint
+    # write so the last good checkpoint survives. Sentinel on: the same
+    # streak instead escalates through the ladder (rewind before abort).
+    nan_guard: bool = True
+    nan_guard_patience: int = 3
+    # Rolling anomaly detection: each monitored metric keeps a
+    # `sentinel_window`-sample window of clean history; a new sample
+    # further than `sentinel_zscore` robust (median/MAD) z-scores from
+    # the window median is anomalous. Detection starts once a metric
+    # has `sentinel_warmup` samples.
+    sentinel_window: int = 32
+    sentinel_zscore: float = 8.0
+    sentinel_warmup: int = 8
+    # Escalation ladder: consecutive anomalous steps before each rung —
+    # warn on the first, drop the current rollout chunk (skip-chunk) at
+    # `sentinel_skip_after`, rewind to `last_good` at
+    # `sentinel_rewind_after`; a rewind with no budget (or no pin yet)
+    # falls through to the abort.
+    sentinel_skip_after: int = 2
+    sentinel_rewind_after: int = 3
+    # The last_good checkpoint is (re)pinned after this many consecutive
+    # clean steps, at most once per `sentinel_pin_interval` steps (each
+    # pin is one full checkpoint write to <checkpoint_dir>/last_good;
+    # never garbage-collected).
+    sentinel_good_steps: int = 4
+    sentinel_pin_interval: int = 10
+    # Total rewinds allowed before falling through to the abort.
+    max_rewinds: int = 2
+    # Post-rewind cooldown: for this many steps the optimizer update is
+    # scaled by `sentinel_lr_damp` and (PPO) the KL penalty coefficient
+    # is multiplied by `sentinel_kl_boost`.
+    sentinel_cooldown_steps: int = 8
+    sentinel_lr_damp: float = 0.5
+    sentinel_kl_boost: float = 1.0
+    # Rollout quarantine (PPO make_experience): drop reward-outlier rows
+    # (> this many robust z-scores from the rolling per-sample reward
+    # median) and degenerate rows (response shorter than
+    # `sentinel_min_response_tokens`, or one token making up more than
+    # `sentinel_max_repetition_frac` of it) before they enter the PPO
+    # store; dropped rows are regenerated. 0 disables the quarantine.
+    sentinel_quarantine_zscore: float = 0.0
+    sentinel_min_response_tokens: int = 2
+    sentinel_max_repetition_frac: float = 0.95
+    # Hang watchdog: if no step boundary is reached for this many
+    # seconds, dump every thread's stack (faulthandler) and exit with
+    # code 75 (EX_TEMPFAIL) so auto_resume restarts the run. None
+    # disables. Active only inside learn().
+    step_timeout_s: Optional[float] = None
+
+    # --- Observability (trlx_tpu/observability/) ----------------------
+    # Training timeline tracing: phase spans around generate / score /
+    # make_experience / train_minibatch (first jit-compile call split
+    # from steady state), exported as timing/* stats through the tracker
+    # and as a Chrome-trace/Perfetto JSON at the end of learn(). Also
+    # arms the postmortem bundler: a StepWatchdog fire, a sentinel
+    # rewind/abort, or a supervisor seat quarantine dumps the flight
+    # recorders + thread stacks + last stats + config into
+    # `postmortem_dir`. Off (default) keeps the trainer bit-identical
+    # and allocation-free.
+    tracing: bool = False
+    # Where the training-timeline Chrome trace is written; None derives
+    # logs/traces (under logging_dir when set).
+    trace_dir: Optional[str] = None
+    postmortem_dir: str = "logs/postmortems"
+    # Opt-in JAX persistent compilation cache: compiled programs are
+    # written under this directory and reloaded on the next run, so
+    # repeat smokes of an unchanged config stop paying warm-up compiles.
+    # Hits/misses surface through the compile ledger (`compile/cache_*`
+    # stats) when `tracing` is on. None (default) leaves the cache off.
+    compilation_cache_dir: Optional[str] = None
+    # Per-function recompile budgets layered over the wrap sites'
+    # declared defaults (observability/compile_ledger.py): a function
+    # compiled more than its budget fires a retrace-storm postmortem.
+    # Only read when `tracing` is on.
+    compile_budgets: Dict[str, int] = field(default_factory=dict)
+
+    # Generation shape buckets: round generate batches up to multiples of
+    # 8 rows / 32 prompt columns (masked padding, outputs trimmed back)
+    # so ragged eval tails and RFT chunks reuse one compiled program per
+    # bucket instead of compiling per exact shape.
+    bucket_generation: bool = True
+
+    # Fuse each inner epoch's optimizer steps into ONE jitted lax.scan
+    # dispatch (TPU-idiomatic; a torch trainer can't do this). Semantics
+    # are identical — one optimizer update per minibatch — but stats are
+    # averaged over the epoch and logged once, and eval/checkpoint
+    # intervals are checked between epochs rather than between steps.
+    # Ignored when gradient accumulation is on (minibatch_size <
+    # batch_size).
+    fuse_inner_epoch: bool = False
+    # Even fewer dispatches: ALL inner epochs (e.g. the 4 PPO epochs over
+    # one rollout store) run as a single lax.scan dispatch; per-epoch
+    # reshuffles are precomputed on host and optimizer-update semantics
+    # are unchanged. Implies fuse_inner_epoch.
+    fuse_all_inner_epochs: bool = False
+
+    # Disaggregated rollouts (trlx_tpu/inference/fleet.py). "local"
+    # (default): make_experience generates on the trainer as always —
+    # bit-identical to the pre-fleet behavior. "fleet": prompts fan out
+    # to the `rollout_fleet_urls` inference replicas through a
+    # ReplicaRouter (health probes, per-replica circuit breakers,
+    # failover, hedging, bounded staleness); per-token behavior-policy
+    # logprobs come back from the replicas' decode path. If the whole
+    # fleet is down, the cycle degrades to local generation with a
+    # one-time warning rather than failing.
+    rollout_backend: str = "local"  # "local" | "fleet"
+    rollout_fleet_urls: List[str] = field(default_factory=list)
+    # Replicas reporting checkpoint_step more than this many trainer
+    # steps behind receive no new requests until they hot-reload.
+    rollout_max_staleness_steps: int = 1
+    # Extra ReplicaRouter kwargs (timeout, hedge_after_s, concurrency...).
+    rollout_fleet_kwargs: Dict[str, Any] = field(default_factory=dict)
+    # Self-healing fleet (trlx_tpu/inference/supervisor.py). With
+    # rollout_backend="fleet" and rollout_fleet_supervised=true the
+    # trainer LAUNCHES its own fleet instead of connecting to
+    # rollout_fleet_urls: a FleetSupervisor spawns
+    # `rollout_fleet_size` in-process replicas (+ optional warm
+    # `rollout_fleet_spares`), watches their health, respawns crashes
+    # with exponential backoff, quarantines crash-loopers, and performs
+    # rolling weight sync from train.checkpoint_dir (drain -> reload ->
+    # re-probe -> undrain, one replica at a time, so serving capacity
+    # never drops below N-1). The fleet is torn down when learn() exits.
+    rollout_fleet_supervised: bool = False
+    rollout_fleet_size: int = 2
+    rollout_fleet_spares: int = 0
+    # Extra FleetSupervisor kwargs (probe_interval_s, flap_budget,
+    # respawn_backoff_s, metrics_port, watch_dir override...).
+    rollout_fleet_supervisor_kwargs: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]):
+        return cls(**config)
+
+
+@dataclass
+class TRLConfig:
+    """Top-level config. Same shape as reference TRLConfig
+    (trlx/data/configs.py:239-335) plus the `parallel` mesh section."""
+
+    method: MethodConfig
+    model: ModelConfig
+    optimizer: OptimizerConfig
+    scheduler: SchedulerConfig
+    tokenizer: TokenizerConfig
+    train: TrainConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    inference: InferenceConfig = field(default_factory=InferenceConfig)
+
+    @classmethod
+    def load_yaml(cls, yml_fp: str):
+        with open(yml_fp, mode="r") as file:
+            config = yaml.safe_load(file)
+        return cls.from_dict(config)
+
+    def to_dict(self):
+        return {
+            "method": dict(self.method.__dict__),
+            "model": dict(self.model.__dict__),
+            "optimizer": dict(self.optimizer.__dict__),
+            "scheduler": dict(self.scheduler.__dict__),
+            "tokenizer": dict(self.tokenizer.__dict__),
+            "train": dict(self.train.__dict__),
+            "parallel": dict(self.parallel.__dict__),
+            "inference": dict(self.inference.__dict__),
+        }
+
+    def evolve(self, **kwargs) -> "TRLConfig":
+        """Return a new config with nested overrides applied.
+
+        >>> config = config.evolve(method=dict(gamma=0.99))
+        """
+        return TRLConfig.from_dict(_merge_dicts(self.to_dict(), kwargs))
+
+    @classmethod
+    def from_dict(cls, config: Dict):
+        parallel = config.get("parallel")
+        inference = config.get("inference")
+        return cls(
+            method=get_method(config["method"]["name"]).from_dict(config["method"]),
+            model=ModelConfig.from_dict(config["model"]),
+            tokenizer=TokenizerConfig.from_dict(config["tokenizer"]),
+            optimizer=OptimizerConfig.from_dict(config["optimizer"]),
+            scheduler=SchedulerConfig.from_dict(config["scheduler"]),
+            train=TrainConfig.from_dict(config["train"]),
+            parallel=ParallelConfig.from_dict(parallel) if parallel else ParallelConfig(),
+            inference=InferenceConfig.from_dict(inference) if inference else InferenceConfig(),
+        )
+
+    @classmethod
+    def update(cls, baseconfig: Dict, config: Dict):
+        """Apply sweep-style overrides given as dotted keys
+        ("method.gamma": 0.99) or nested dicts; raises on unknown keys."""
+        update = {}
+        for name, value in config.items():
+            if "." not in name:
+                update[name] = value
+            else:
+                # Unflatten dotted keys — also when the value is a dict
+                # (the reference drops those silently, configs.py:308-311).
+                *layers, var = name.split(".")
+                d = update.setdefault(layers[0], {})
+                for layer in layers[1:]:
+                    d = d.setdefault(layer, {})
+                d[var] = value
+
+        if not isinstance(baseconfig, Dict):
+            baseconfig = baseconfig.to_dict()
+
+        # Validate every leaf path before merging (the reference only checks
+        # top-level keys, configs.py:322-327, silently dropping nested typos
+        # like "train.batch_sz" — we check recursively).
+        # Open-ended dicts accept arbitrary new keys (a sweep may set e.g.
+        # method.gen_kwargs.temperature even if the base dict lacks it).
+        open_dicts = {
+            "kwargs", "gen_kwargs", "gen_experience_kwargs",
+            "trainer_kwargs", "model_extra_configs", "peft_config",
+            "rollout_fleet_kwargs", "rollout_fleet_supervisor_kwargs",
+        }
+
+        def _check_keys(base: Dict, upd: Dict, prefix: str = ""):
+            for k, v in upd.items():
+                if k not in base:
+                    raise ValueError(
+                        f"parameter {prefix}{k} is not present in the config (typo or a wrong config)"
+                    )
+                if k in open_dicts:
+                    continue
+                if isinstance(v, dict) and isinstance(base[k], dict):
+                    _check_keys(base[k], v, prefix + k + ".")
+
+        _check_keys(baseconfig, update)
+
+        updates: Set[str] = set()
+        merged = merge(baseconfig, update, updates)
+
+        return cls.from_dict(merged)
+
+    def __str__(self):
+        import json
+
+        return json.dumps(self.to_dict(), indent=4)

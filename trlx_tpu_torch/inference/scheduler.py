@@ -1,0 +1,1080 @@
+"""Request scheduling for the continuous-batching engine.
+
+FIFO admission into free KV-cache slots with:
+
+- **bounded queue + explicit backpressure** — `submit` raises
+  `QueueFullError` (the server maps it to HTTP 503 + Retry-After)
+  instead of letting latency grow without bound;
+- **max-wait batching** — when the pool is already busy, admission waits
+  up to `max_wait_s` for more queued requests so prefills batch together
+  (one jitted prefill per bucket instead of one per request); an idle
+  pool admits immediately;
+- **per-request deadlines** — requests expire both in the queue and
+  mid-flight; expired in-flight requests release their slot for the
+  next admission;
+- **fair-share admission** (`fair_share=True`, multi-tenant serving) —
+  weighted deficit round-robin over per-tenant demand replaces the
+  strict FIFO pop: each admission round tops every queued tenant's
+  deficit up by its weight and serves requests against those deficits,
+  so one hot tenant can saturate spare capacity but can never starve
+  the rest below their weight share. Per-tenant queue-depth caps bound
+  how much backlog any single tenant can park (503 + Retry-After).
+
+The scheduler loop runs on one daemon thread (device dispatch is kept
+single-threaded); HTTP handler threads only touch the queue under the
+condition lock and block on each request's completion event.
+"""
+
+import itertools
+import math
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional, Set, Tuple
+
+import numpy as np
+
+from trlx_tpu_torch.inference.errors import AdapterCapacityError, AdapterError
+from trlx_tpu_torch.inference.metrics import InferenceMetrics
+from trlx_tpu_torch.inference.paging import KVPoolExhaustedError
+from trlx_tpu_torch.observability.tracing import Span
+from trlx_tpu_torch.utils import logging
+
+logger = logging.get_logger(__name__)
+
+
+class QueueFullError(RuntimeError):
+    """Queue depth limit hit — back off and retry after `retry_after`s
+    (derived from observed decode latency × the shortest remaining token
+    budget in flight — the predicted time to the next free slot/blocks —
+    not a constant)."""
+
+    def __init__(self, depth: int, retry_after: float = 1.0):
+        self.depth = depth
+        self.retry_after = retry_after
+        super().__init__(f"request queue full ({depth} deep)")
+
+
+class DrainingError(RuntimeError):
+    """The scheduler is in reject-new drain mode (graceful shutdown or an
+    orchestrated reload): new submits are refused while already-accepted
+    requests finish. The server maps this to 503 + Retry-After so fleet
+    routers fail the request over to another replica."""
+
+    def __init__(self, retry_after: float = 1.0):
+        self.retry_after = retry_after
+        super().__init__("scheduler is draining (reject-new mode)")
+
+
+@dataclass
+class InferenceRequest:
+    id: int
+    prompt_ids: np.ndarray
+    max_new_tokens: int
+    deadline: Optional[float]  # absolute time.monotonic()
+    adapter_id: Optional[str] = None  # multi-tenant: None = base policy
+    # server/router-assigned id (echoed in every reply and error body)
+    request_id: Optional[str] = None
+    # per-request stop strings: generation halts with finish_reason
+    # "stop" when the decoded response contains one (token-granular
+    # truncation to the largest prefix containing no stop)
+    stop_sequences: Optional[List[str]] = None
+    # chat session this request extends (paged engines only): its
+    # retained blocks seed the prefill, and the finishing turn's leading
+    # blocks are pinned back into it
+    session: Optional[object] = field(default=None, repr=False)
+    # incremental token sink (server streaming): the loop thread puts
+    # {"token_ids": [...]} deltas as tokens clear the stop holdback, and
+    # None as the done sentinel after the finish fields are set
+    stream: Optional[object] = field(default=None, repr=False)
+    # tokens already pushed to `stream`
+    streamed: int = 0
+    # admission pipeline position — constant interned strings, maintained
+    # even with tracing off so a 504 can always say which stage the
+    # request died in: queued -> admitted -> prefill -> decode
+    stage: str = "queued"
+    # live RequestTrace when inference.tracing is on (None otherwise)
+    trace: Optional[object] = field(default=None, repr=False)
+    enqueue_time: float = field(default_factory=time.monotonic)
+    # first emitted token's wall time (TTFT = this - enqueue_time)
+    first_token_time: Optional[float] = None
+    token_ids: List[int] = field(default_factory=list)
+    # per-token policy logprobs (raw-logit log-softmax at each emitted
+    # token), filled alongside token_ids by the fused decode step
+    token_logprobs: List[float] = field(default_factory=list)
+    finish_reason: Optional[str] = None  # eos | length | stop | deadline | shutdown | error
+    finish_time: Optional[float] = None
+    _done: threading.Event = field(default_factory=threading.Event, repr=False)
+
+    @property
+    def ok(self) -> bool:
+        return self.finish_reason in ("eos", "length", "stop")
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        if self.first_token_time is None:
+            return None
+        return self.first_token_time - self.enqueue_time
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        if self.finish_time is None:
+            return None
+        return self.finish_time - self.enqueue_time
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self._done.wait(timeout)
+
+
+class Scheduler:
+    """Drives an `InferenceEngine`: admit → decode → deliver, forever."""
+
+    def __init__(
+        self,
+        engine,
+        max_queue_depth: int = 64,
+        max_wait_s: float = 0.01,
+        default_deadline_s: Optional[float] = None,
+        metrics: Optional[InferenceMetrics] = None,
+        fair_share: bool = False,
+        tenant_weights: Optional[Dict[str, float]] = None,
+        tenant_queue_depth: int = 0,
+        tracer=None,
+        recorder=None,
+        detokenize=None,
+    ):
+        self.engine = engine
+        # token-ids -> text (the server passes its tokenizer's decode);
+        # needed for stop-sequence matching and the streaming holdback —
+        # without it, stop_sequences on submit are rejected
+        self.detokenize = detokenize
+        # observability (both None unless inference.tracing is on; every
+        # use is guarded so the flag-off hot path allocates nothing)
+        self.tracer = tracer
+        self.recorder = recorder
+        self.max_queue_depth = int(max_queue_depth)
+        self.max_wait_s = float(max_wait_s)
+        self.default_deadline_s = default_deadline_s
+        self.metrics = metrics or InferenceMetrics(engine.num_slots)
+        self.fair_share = bool(fair_share)
+        # priority classes: admission shares are proportional to weight
+        # (unlisted tenants get weight 1.0); 0 = no per-tenant depth cap
+        self.tenant_weights = dict(tenant_weights or {})
+        for t, w in self.tenant_weights.items():
+            if not float(w) > 0.0:
+                raise ValueError(
+                    f"tenant weight for '{t}' must be > 0, got {w!r}"
+                )
+        self.tenant_queue_depth = int(tenant_queue_depth)
+        self._deficit: Dict[str, float] = {}  # WDRR state, tenants with demand
+        self._blocked_tenants: Set[str] = set()  # per-adapter drain gates
+        self._queue: Deque[InferenceRequest] = deque()
+        self._cond = threading.Condition()
+        self._slot_req: Dict[int, InferenceRequest] = {}
+        # requests popped for admission but not yet registered in
+        # _slot_req (prefill in progress) — drain_tenant must see these,
+        # else a hot-reload can race a mid-admission adapter pin
+        self._admitting: List[InferenceRequest] = []
+        self._free: List[int] = list(range(engine.num_slots))
+        self._ids = itertools.count()
+        self._running = False
+        self._paused = False  # admission gate for drain-on-sync
+        self._rejecting = False  # reject-new/finish-inflight shutdown mode
+        # the engine error that stopped the loop (see _loop), or None
+        self.failure: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+        # EWMA of decode-step wall time, feeding Retry-After predictions
+        self._decode_ewma = 0.0
+        self._slots_active_peak = 0
+        self._last_session_sweep = 0.0
+
+    # ------------------------------------------------------------------
+    # Client surface (any thread)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _tenant(req_or_name) -> str:
+        name = getattr(req_or_name, "adapter_id", req_or_name)
+        return name if name else "base"
+
+    def _validate(self, prompt_ids, max_new_tokens: Optional[int],
+                  adapter_id: Optional[str] = None,
+                  stop_sequences: Optional[List[str]] = None):
+        if stop_sequences:
+            if self.detokenize is None:
+                raise ValueError(
+                    "stop sequences need a scheduler built with a "
+                    "detokenize callable (the server wires its tokenizer)"
+                )
+            if not all(isinstance(s, str) and s for s in stop_sequences):
+                raise ValueError("stop sequences must be non-empty strings")
+        if adapter_id is not None:
+            if not getattr(self.engine, "multi_tenant", False):
+                raise ValueError(
+                    "adapter_id requires an engine built with "
+                    "inference.multi_tenant"
+                )
+            if not self.engine.adapter_store.known(adapter_id):
+                raise ValueError(f"unknown adapter '{adapter_id}'")
+        ids = np.asarray(prompt_ids, np.int32).reshape(-1)
+        if ids.size == 0:
+            raise ValueError("empty prompt")
+        if ids.size > self.engine.max_prompt_len:
+            raise ValueError(
+                f"prompt length {ids.size} exceeds max_prompt_len "
+                f"{self.engine.max_prompt_len}"
+            )
+        max_new = int(max_new_tokens or self.engine.gen_cfg.max_new_tokens)
+        if not 0 < max_new <= self.engine.gen_cfg.max_new_tokens:
+            raise ValueError(
+                f"max_new_tokens {max_new} outside (0, "
+                f"{self.engine.gen_cfg.max_new_tokens}]"
+            )
+        if getattr(self.engine, "kv_paging", False):
+            need = self.engine.projected_blocks(ids, max_new, ignore_cache=True)
+            if need > self.engine.total_blocks:
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool holds "
+                    f"only {self.engine.total_blocks} — it can never be "
+                    "admitted"
+                )
+        return ids, max_new
+
+    def _predicted_retry_after(self) -> float:
+        """Seconds until the next slot (and its KV blocks) should free:
+        observed decode-step latency × the shortest remaining token
+        budget in flight. Falls back to a one-wave-per-pool queue
+        estimate before any decode step has been timed. Call with
+        `self._cond` held."""
+        if self._decode_ewma > 0.0 and self._slot_req:
+            remaining = min(
+                max(req.max_new_tokens - len(req.token_ids), 1)
+                for req in self._slot_req.values()
+            )
+            per_step = max(1, getattr(self.engine, "spec_k", 0) + 1)
+            steps = -(-remaining // per_step)
+            return max(0.05, self._decode_ewma * steps)
+        return float(max(1, len(self._queue) // max(self.engine.num_slots, 1)))
+
+    def _enqueue(self, reqs: List[InferenceRequest]) -> None:
+        with self._cond:
+            if self.failure is not None:
+                raise RuntimeError(f"the engine failed and the scheduler stopped: {self.failure!r}")
+            if not self._running:
+                raise RuntimeError("scheduler is not running")
+            if self._rejecting:
+                self.metrics.inc("requests_rejected_total", len(reqs))
+                if self.recorder is not None:
+                    self.recorder.record("reject", reason="draining", n=len(reqs))
+                raise DrainingError(retry_after=self._predicted_retry_after())
+            if len(self._queue) + len(reqs) > self.max_queue_depth:
+                self.metrics.inc("requests_rejected_total", len(reqs))
+                if self.recorder is not None:
+                    self.recorder.record(
+                        "reject", reason="queue_full",
+                        depth=len(self._queue), n=len(reqs),
+                    )
+                raise QueueFullError(
+                    len(self._queue), retry_after=self._predicted_retry_after()
+                )
+            if self.tenant_queue_depth:
+                tenant = self._tenant(reqs[0])
+                depth = sum(1 for r in self._queue if self._tenant(r) == tenant)
+                if depth + len(reqs) > self.tenant_queue_depth:
+                    self.metrics.inc("requests_rejected_total", len(reqs))
+                    self.metrics.inc(
+                        "adapter_requests_rejected_total", len(reqs),
+                        labels={"adapter": tenant},
+                    )
+                    raise QueueFullError(
+                        depth, retry_after=self._predicted_retry_after()
+                    )
+            self._queue.extend(reqs)
+            self.metrics.set_gauge("queue_depth", len(self._queue))
+            self._cond.notify_all()
+
+    def submit(
+        self,
+        prompt_ids,
+        max_new_tokens: Optional[int] = None,
+        deadline_s: Optional[float] = None,
+        adapter_id: Optional[str] = None,
+        request_id: Optional[str] = None,
+        trace=None,
+        stop_sequences: Optional[List[str]] = None,
+        session=None,
+        stream=None,
+    ) -> InferenceRequest:
+        ids, max_new = self._validate(
+            prompt_ids, max_new_tokens, adapter_id, stop_sequences
+        )
+        if session is not None and not getattr(self.engine, "kv_paging", False):
+            raise ValueError("sessions require a paged engine (kv_paging)")
+        dl = deadline_s if deadline_s is not None else self.default_deadline_s
+        req = InferenceRequest(
+            id=next(self._ids),
+            prompt_ids=ids,
+            max_new_tokens=max_new,
+            deadline=(time.monotonic() + dl) if dl else None,
+            adapter_id=adapter_id,
+            request_id=request_id,
+            trace=trace,
+            stop_sequences=list(stop_sequences) if stop_sequences else None,
+            session=session,
+            stream=stream,
+        )
+        self._enqueue([req])
+        return req
+
+    def submit_n(
+        self,
+        prompt_ids,
+        n: int,
+        max_new_tokens: Optional[int] = None,
+        deadline_s: Optional[float] = None,
+        adapter_id: Optional[str] = None,
+        request_id: Optional[str] = None,
+        traces: Optional[List] = None,
+        stop_sequences: Optional[List[str]] = None,
+    ) -> List[InferenceRequest]:
+        """GRPO-style fan-out: enqueue `n` independent generations of one
+        prompt as ADJACENT queue entries under one lock, so the paged
+        engine admits them in one batch and its prefix store turns the
+        group into one full prefill plus (n-1) suffix prefills sharing
+        the prompt's KV blocks. All-or-nothing against queue depth."""
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
+        ids, max_new = self._validate(
+            prompt_ids, max_new_tokens, adapter_id, stop_sequences
+        )
+        dl = deadline_s if deadline_s is not None else self.default_deadline_s
+        deadline = (time.monotonic() + dl) if dl else None
+        reqs = [
+            InferenceRequest(
+                id=next(self._ids),
+                prompt_ids=ids,
+                max_new_tokens=max_new,
+                deadline=deadline,
+                adapter_id=adapter_id,
+                request_id=request_id,
+                trace=(traces[i] if traces else None),
+                stop_sequences=list(stop_sequences) if stop_sequences else None,
+            )
+            for i in range(n)
+        ]
+        self._enqueue(reqs)
+        return reqs
+
+    def generate(self, prompt_ids, max_new_tokens=None, deadline_s=None,
+                 timeout: Optional[float] = None, adapter_id=None) -> InferenceRequest:
+        """Blocking submit + wait convenience (tests, in-process callers)."""
+        req = self.submit(prompt_ids, max_new_tokens, deadline_s, adapter_id)
+        req.wait(timeout)
+        return req
+
+    # ------------------------------------------------------------------
+    # Drain (weight-sync coordination)
+    # ------------------------------------------------------------------
+
+    def pause_admission(self) -> None:
+        """Stop moving queued requests into slots. In-flight requests
+        keep decoding to completion; new submits still enqueue (they are
+        admitted on `resume_admission`)."""
+        with self._cond:
+            self._paused = True
+
+    def resume_admission(self) -> None:
+        with self._cond:
+            self._paused = False
+            self._cond.notify_all()
+
+    def reject_new(self) -> None:
+        """Enter reject-new/finish-inflight shutdown mode: `submit`
+        raises `DrainingError` while everything already accepted (queued
+        AND in-flight) runs to completion. Unlike `pause_admission`,
+        queued requests keep being admitted into freed slots — this is
+        the graceful-shutdown half of a drain, not the weight-sync one."""
+        with self._cond:
+            self._rejecting = True
+
+    def accept_new(self) -> None:
+        with self._cond:
+            self._rejecting = False
+            self._cond.notify_all()
+
+    @property
+    def accepting(self) -> bool:
+        """False while in reject-new drain mode or after an engine failure
+        (healthz readiness off)."""
+        with self._cond:
+            return not self._rejecting and self.failure is None
+
+    def wait_idle(self, timeout_s: float = 30.0) -> bool:
+        """Wait until the queue and every slot are empty (all accepted
+        work delivered). Returns False on timeout. Pair with
+        `reject_new` for a graceful drain-then-exit."""
+        deadline = time.monotonic() + float(timeout_s)
+        while time.monotonic() < deadline:
+            with self._cond:
+                if not self._queue and not self._slot_req:
+                    return True
+            time.sleep(0.005)
+        with self._cond:
+            return not self._queue and not self._slot_req
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Pause admission and wait until every slot is empty. Returns
+        True when fully drained (False on timeout — the caller decides
+        whether to swap anyway). Caller must `resume_admission` after."""
+        self.pause_admission()
+        deadline = time.monotonic() + float(timeout_s)
+        while time.monotonic() < deadline:
+            with self._cond:
+                if not self._slot_req:
+                    return True
+            time.sleep(0.005)
+        with self._cond:
+            return not self._slot_req
+
+    def drain_tenant(self, adapter_id: Optional[str], timeout_s: float = 30.0) -> bool:
+        """Block ONE tenant's admission and wait until none of its
+        requests are in flight (per-adapter hot-reload: the other
+        tenants keep decoding and admitting throughout). Caller must
+        `resume_tenant` after. Returns False on timeout."""
+        tenant = self._tenant(adapter_id)
+        with self._cond:
+            self._blocked_tenants.add(tenant)
+        deadline = time.monotonic() + float(timeout_s)
+        while time.monotonic() < deadline:
+            with self._cond:
+                if not self._tenant_in_flight(tenant):
+                    return True
+            time.sleep(0.005)
+        with self._cond:
+            return not self._tenant_in_flight(tenant)
+
+    def _tenant_in_flight(self, tenant: str) -> bool:
+        """True while any of `tenant`'s requests hold (or are acquiring)
+        an engine slot: decoding in _slot_req OR popped for admission but
+        not yet registered (the prefill window where the adapter pin is
+        already taken). Call with `self._cond` held."""
+        return any(
+            self._tenant(r) == tenant for r in self._slot_req.values()
+        ) or any(self._tenant(r) == tenant for r in self._admitting)
+
+    def resume_tenant(self, adapter_id: Optional[str]) -> None:
+        with self._cond:
+            self._blocked_tenants.discard(self._tenant(adapter_id))
+            self._cond.notify_all()
+
+    # ------------------------------------------------------------------
+    # Lifecycle
+    # ------------------------------------------------------------------
+
+    def start(self) -> "Scheduler":
+        with self._cond:
+            if self._running:
+                return self
+            self._running = True
+        self._thread = threading.Thread(
+            target=self._loop, name="trlx-tpu-inference-scheduler", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        with self._cond:
+            self._running = False
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=30.0)
+            self._thread = None
+        # fail whatever is left so no caller blocks forever
+        with self._cond:
+            leftovers = list(self._queue) + list(self._slot_req.values())
+            self._queue.clear()
+        self.engine.release_slots(list(self._slot_req))
+        store = getattr(self.engine, "session_store", None)
+        for req in leftovers:
+            req.finish_reason = "shutdown"
+            req.finish_time = time.monotonic()
+            if req.stream is not None:
+                req.stream.put(None)
+            if req.session is not None and store is not None:
+                store.end_turn(req.session)
+            if req.trace is not None:
+                req.trace.attrs["finish_reason"] = "shutdown"
+                req.trace.attrs["stage"] = req.stage
+                if self.tracer is not None:
+                    self.tracer.finish(req.trace)
+                else:
+                    req.trace.finish(req.finish_time)
+            req._done.set()
+        self._slot_req.clear()
+        self._free = list(range(self.engine.num_slots))
+
+    # ------------------------------------------------------------------
+    # Driver loop (one thread)
+    # ------------------------------------------------------------------
+
+    def _loop(self) -> None:
+        while True:
+            store = getattr(self.engine, "session_store", None)
+            if store is not None:
+                now = time.monotonic()
+                if now - self._last_session_sweep > 1.0:
+                    self._last_session_sweep = now
+                    store.sweep(now)
+            with self._cond:
+                if not self._running:
+                    return
+                idle = not self._queue and not self._slot_req
+                # paused with nothing in flight: queued requests must
+                # wait for resume_admission, so don't busy-spin on them
+                if idle or (self._paused and not self._slot_req):
+                    self._cond.wait(timeout=0.05)
+                    continue
+            try:
+                self._expire_queued()
+                self._admit()
+                if self._slot_req:
+                    self._decode_once()
+            except Exception as exc:
+                # The JAX loop logs and retries. Here an engine failure
+                # stops the loop: a CUDA error is sticky, so every retry
+                # would fail too and requests would hang to their deadline.
+                logger.exception("inference engine step failed; the scheduler stops")
+                self._fail_all(exc)
+                return
+
+    def _fail_all(self, exc: BaseException) -> None:
+        """Finish every accepted request (queued, mid-prefill, decoding)
+        with reason "error" and refuse new ones. Host bookkeeping only:
+        the device may be unusable."""
+        with self._cond:
+            self.failure = exc
+            self._running = False
+            reqs = list(self._queue) + self._admitting + list(self._slot_req.values())
+            self._queue.clear()
+            self._admitting = []
+            self._slot_req.clear()
+            self._cond.notify_all()
+        for req in reqs:
+            self._finish_request(req, "error")
+
+    def _expire_queued(self) -> None:
+        now = time.monotonic()
+        expired = []
+        with self._cond:
+            alive: Deque[InferenceRequest] = deque()
+            for req in self._queue:
+                (expired if req.deadline and now > req.deadline else alive).append(req)
+            if expired:
+                self._queue = alive
+                self.metrics.set_gauge("queue_depth", len(self._queue))
+        for req in expired:
+            self._finish_request(req, "deadline")
+
+    def _weight(self, tenant: str) -> float:
+        return max(float(self.tenant_weights.get(tenant, 1.0)), 1e-6)
+
+    def _pop_weighted(self, paged: bool, budget: int):
+        """Weighted deficit round-robin pop (called under self._cond).
+
+        Each tenant carries a deficit counter topped up by its weight
+        whenever no tenant can afford an admission; admitting one request
+        costs one deficit unit. The max-deficit tenant goes first, so over
+        time tenants are served proportionally to their weights no matter
+        how lopsided the arrival rates are. Tenants in `_blocked_tenants`
+        (mid hot-reload drain) and tenants whose head request does not fit
+        the paged block budget are skipped *without* stalling the others —
+        unlike the FIFO path, one tenant's oversized head cannot convoy
+        the whole queue."""
+        batch: List[InferenceRequest] = []
+        slots: List[int] = []
+        skipped: Set[str] = set()  # blocked on block budget this round
+        while self._queue and self._free:
+            tenants: List[str] = []
+            for req in self._queue:
+                t = self._tenant(req)
+                if t not in tenants and t not in skipped and t not in self._blocked_tenants:
+                    tenants.append(t)
+            if not tenants:
+                break
+            affordable = [t for t in tenants if self._deficit.get(t, 0.0) >= 1.0]
+            if not affordable:
+                # top every tenant up by as many weight rounds as the
+                # quickest-to-afford tenant needs to reach 1.0 — in ONE
+                # step. A per-round loop is equivalent but would spin
+                # ~1/w times for tiny weights while holding the
+                # condition lock, stalling the loop thread.
+                rounds = max(1, min(
+                    math.ceil(
+                        (1.0 - self._deficit.get(t, 0.0)) / self._weight(t)
+                    )
+                    for t in tenants
+                ))
+                for t in tenants:
+                    self._deficit[t] = (
+                        self._deficit.get(t, 0.0) + rounds * self._weight(t)
+                    )
+                affordable = [t for t in tenants if self._deficit.get(t, 0.0) >= 1.0]
+                if not affordable:
+                    continue  # float rounding fell short; top up again
+            pick = max(affordable, key=lambda t: self._deficit.get(t, 0.0))
+            req = next(r for r in self._queue if self._tenant(r) == pick)
+            if paged:
+                need = self.engine.projected_blocks(
+                    req.prompt_ids, req.max_new_tokens,
+                    adapter_id=req.adapter_id, session=req.session,
+                ) if getattr(self.engine, "multi_tenant", False) else (
+                    self.engine.projected_blocks(
+                        req.prompt_ids, req.max_new_tokens, session=req.session
+                    )
+                )
+                if need > budget:
+                    skipped.add(pick)  # this tenant waits; others may still fit
+                    continue
+                budget -= need
+            self._queue.remove(req)
+            self._deficit[pick] = self._deficit.get(pick, 0.0) - 1.0
+            batch.append(req)
+            slots.append(self._free.pop())
+        # deficits are only meaningful while a tenant has backlog: reset
+        # drained tenants so an idle tenant cannot bank unbounded credit
+        live = {self._tenant(r) for r in self._queue}
+        for t in [t for t in self._deficit if t not in live]:
+            del self._deficit[t]
+        return batch, slots, budget
+
+    def _admit(self) -> None:
+        t_admit0 = time.monotonic() if self.tracer is not None else 0.0
+        with self._cond:
+            if self._paused or not self._queue or not self._free:
+                return
+            want = min(len(self._free), self.engine.max_prefill_batch)
+            oldest_wait = time.monotonic() - self._queue[0].enqueue_time
+            if (
+                self._slot_req  # pool busy: decoding continues regardless,
+                and len(self._queue) < want  # so wait a beat to batch the
+                and oldest_wait < self.max_wait_s  # prefills together
+            ):
+                return
+            paged = getattr(self.engine, "kv_paging", False)
+            budget = self.engine.blocks_available() if paged else 0
+            batch, slots = [], []
+            if self.fair_share or self._blocked_tenants:
+                batch, slots, budget = self._pop_weighted(paged, budget)
+            else:
+                while self._queue and self._free:
+                    if paged:
+                        head = self._queue[0]
+                        need = self.engine.projected_blocks(
+                            head.prompt_ids, head.max_new_tokens,
+                            session=head.session,
+                        )
+                        if need > budget:
+                            break  # FIFO head waits until decodes free blocks
+                        budget -= need
+                    batch.append(self._queue.popleft())
+                    slots.append(self._free.pop())
+            if not batch:
+                return
+            self._admitting = list(batch)
+            self.metrics.set_gauge("queue_depth", len(self._queue))
+        if self.tracer is not None:
+            t_pop = time.monotonic()
+            for req in batch:
+                if req.trace is not None:
+                    req.trace.add("queue_wait", req.enqueue_time, t_admit0)
+                    req.trace.add(
+                        "admission", t_admit0, t_pop,
+                        fair_share=self.fair_share, batch=len(batch),
+                    )
+        for req in batch:
+            req.stage = "admitted"
+        if self.recorder is not None:
+            self.recorder.record(
+                "admit", batch=len(batch), queue_depth=len(self._queue),
+            )
+        # on an engine error the batch stays in _admitting for _fail_all
+        self._insert_batch(batch, slots)
+        with self._cond:
+            self._admitting = []
+        self._sync_kv_metrics()
+
+    def _requeue(self, batch: List[InferenceRequest], slots: List[int]) -> None:
+        for req in batch:
+            req.stage = "queued"
+        if self.recorder is not None:
+            self.recorder.record("requeue", n=len(batch))
+        with self._cond:
+            self._queue.extendleft(reversed(batch))
+            self._free.extend(slots)
+            self.metrics.set_gauge("queue_depth", len(self._queue))
+
+    def _insert_batch(self, batch: List[InferenceRequest], slots: List[int]) -> None:
+        """Prefill an admitted batch into its slots, shrinking the batch
+        under adapter-capacity pressure so admission always progresses."""
+        multi_tenant = getattr(self.engine, "multi_tenant", False)
+        traced = self.tracer is not None and any(
+            r.trace is not None for r in batch
+        )
+        ts0 = 0.0
+        if traced:
+            # hand the engine a buffer: it appends (name, t0, t1, attrs)
+            # tuples for adapter loads, block placement, and per-bucket
+            # prefill dispatches; they become children of "prefill"
+            self.engine.trace_buf = []
+            ts0 = time.monotonic()
+        for req in batch:
+            req.stage = "prefill"
+        while True:
+            rows = (
+                [(r.prompt_ids, r.max_new_tokens, r.adapter_id) for r in batch]
+                if multi_tenant
+                else [(r.prompt_ids, r.max_new_tokens) for r in batch]
+            )
+            sessions = (
+                [r.session for r in batch]
+                if any(r.session is not None for r in batch) else None
+            )
+            t0 = time.perf_counter()
+            try:
+                self.engine.insert_requests(rows, slots, sessions=sessions)
+                break
+            except AdapterCapacityError:
+                # the batch needs more distinct adapters pinned at once
+                # than the store holds slots (e.g. a burst of >capacity
+                # tenants into an idle pool, where no in-flight work will
+                # ever free one) — requeueing the identical batch would
+                # retry forever. Shed the last distinct-adapter group and
+                # try again: the head request's group alone always fits
+                # once any in-flight pins drain.
+                tenants: List[str] = []
+                for r in batch:
+                    t = self._tenant(r)
+                    if t not in tenants:
+                        tenants.append(t)
+                if len(tenants) <= 1:
+                    # a single adapter that cannot pin means every store
+                    # slot is held by in-flight work — requeue and retry
+                    # once those requests finish
+                    if traced:
+                        self.engine.trace_buf = None
+                    self._requeue(batch, slots)
+                    return
+                shed = tenants[-1]
+                kept = [
+                    (r, s) for r, s in zip(batch, slots)
+                    if self._tenant(r) != shed
+                ]
+                self._requeue(
+                    [r for r, s in zip(batch, slots) if self._tenant(r) == shed],
+                    [s for r, s in zip(batch, slots) if self._tenant(r) == shed],
+                )
+                batch = [r for r, _ in kept]
+                slots = [s for _, s in kept]
+                with self._cond:
+                    self._admitting = list(batch)
+            except (KVPoolExhaustedError, AdapterError):
+                # projection raced block state (e.g. an idle cached block
+                # the probe counted as shared got evicted mid-placement);
+                # the engine rolled the whole call back — requeue in
+                # order and retry once blocks / adapter slots free
+                if traced:
+                    self.engine.trace_buf = None
+                self._requeue(batch, slots)
+                return
+        self.metrics.observe(
+            "prefill_latency_seconds", time.perf_counter() - t0,
+            # exemplar: any traced request of the batch links the bucket
+            # back to its /debug/trace entry
+            trace_id=next((r.trace.trace_id for r in batch
+                           if r.trace is not None), None),
+        )
+        self.metrics.inc("prefill_batches_total")
+        if traced:
+            ts1 = time.monotonic()
+            buf = getattr(self.engine, "trace_buf", None) or []
+            self.engine.trace_buf = None
+            children = []
+            for name, a, b, attrs in buf:
+                children.append(Span(name, t0=a, attrs=attrs or None).end(b))
+            for req in batch:
+                if req.trace is not None:
+                    sp = req.trace.add("prefill", ts0, ts1, batch=len(batch))
+                    sp.children.extend(children)
+                    req.trace.mark("decode_start", ts1)
+        with self._cond:
+            for req, slot in zip(batch, slots):
+                self._slot_req[slot] = req
+                req.stage = "decode"
+            self.metrics.set_gauge("slots_active", len(self._slot_req))
+            if len(self._slot_req) > self._slots_active_peak:
+                self._slots_active_peak = len(self._slot_req)
+                self.metrics.set_gauge("slots_active_peak", self._slots_active_peak)
+
+    def _decode_once(self) -> None:
+        t0 = time.perf_counter()
+        m0 = time.monotonic() if self.tracer is not None else 0.0
+        tokens, logprobs, valid, finished = self.engine.step()
+        dt = time.perf_counter() - t0
+        self.metrics.observe("decode_step_latency_seconds", dt)
+        self._decode_ewma = (
+            dt if self._decode_ewma == 0.0 else 0.8 * self._decode_ewma + 0.2 * dt
+        )
+        # normalize the plain program's [P] outputs to the speculative
+        # program's [P, K] layout — one loop body serves both; plain mode
+        # is just K == 1
+        if tokens.ndim == 1:
+            tokens = tokens[:, None]
+            logprobs = logprobs[:, None]
+            valid = valid[:, None]
+        spec = getattr(self.engine, "spec_k", 0) > 0
+        multi_tenant = getattr(self.engine, "multi_tenant", False)
+        tenant_emitted: Dict[str, int] = {}
+        emitted = 0
+        now = time.monotonic()
+        eos = self.engine.gen_cfg.eos_token_id
+        for slot, req in list(self._slot_req.items()):
+            n_slot = 0
+            for j in range(tokens.shape[1]):
+                if valid[slot, j]:
+                    req.token_ids.append(int(tokens[slot, j]))
+                    req.token_logprobs.append(float(logprobs[slot, j]))
+                    n_slot += 1
+            emitted += n_slot
+            if n_slot and req.first_token_time is None:
+                req.first_token_time = now
+                self.metrics.observe(
+                    "ttft_seconds", req.first_token_time - req.enqueue_time,
+                    trace_id=(req.trace.trace_id if req.trace is not None
+                              else None),
+                )
+            if multi_tenant and n_slot:
+                t = self._tenant(req)
+                tenant_emitted[t] = tenant_emitted.get(t, 0) + n_slot
+            if spec and n_slot:
+                # accept-length per slot per speculative round (1 pending
+                # + accepted drafts) — the serving-side mirror of the
+                # trainer's rollout/spec_accept_rate
+                self.metrics.observe("spec_accepted_tokens", n_slot)
+            stopped = bool(n_slot) and self._apply_stop(req)
+            if stopped:
+                # a stop sequence matched: truncated, session retained,
+                # slot cancelled (release_slots deactivates + reclaims)
+                self._retain_session(slot, req)
+                self.engine.release_slots([slot])
+                self._release(slot)
+                self._finish_request(req, "stop")
+            elif finished[slot]:
+                last = req.token_ids[-1] if req.token_ids else -1
+                reason = "eos" if last == eos else "length"
+                # retention must run BEFORE reclaim frees the slot's
+                # blocks — the session's new pins piggyback on the
+                # request's still-live references
+                self._retain_session(slot, req)
+                self.engine.reclaim_slots([slot])
+                self._release(slot)
+                self._finish_request(req, reason)
+            elif req.deadline and now > req.deadline:
+                self.engine.release_slots([slot])
+                self._release(slot)
+                self._finish_request(req, "deadline")
+            elif n_slot:
+                self._stream_emit(req)
+        self.metrics.add("tokens_generated_total", emitted)
+        for t, n in tenant_emitted.items():
+            self.metrics.add(
+                "adapter_tokens_generated_total", n, labels={"adapter": t}
+            )
+        self.metrics.record_token_rate(emitted, dt)
+        if self.tracer is not None and self.tracer.sample_decode_step():
+            self.tracer.add_aggregate(
+                Span(
+                    "decode_step", t0=m0,
+                    attrs={"slots": len(self._slot_req), "tokens": emitted},
+                ).end(m0 + dt)
+            )
+        self._sync_kv_metrics()
+
+    # ------------------------------------------------------------------
+    # Stop sequences / streaming / session retention
+    # ------------------------------------------------------------------
+
+    def _hits_stop(self, token_ids, stops) -> bool:
+        text = self.detokenize(token_ids)
+        return any(s in text for s in stops)
+
+    def _apply_stop(self, req: InferenceRequest) -> bool:
+        """Host-side stop-sequence scan over the decoded response text.
+        Token boundaries need not align with the stop string, so matching
+        happens on text: if any stop appears, the response is truncated to
+        the longest token prefix whose decoding contains no stop. Returns
+        True when the request should finish with reason "stop"."""
+        if not req.stop_sequences or not req.token_ids:
+            return False
+        if self._hits_stop(req.token_ids, req.stop_sequences):
+            k = len(req.token_ids)
+            while k and self._hits_stop(req.token_ids[:k], req.stop_sequences):
+                k -= 1
+            del req.token_ids[k:]
+            del req.token_logprobs[k:]
+            # streaming holdback guarantees streamed <= k; clamp anyway
+            req.streamed = min(req.streamed, k)
+            return True
+        return False
+
+    def _stream_emit(self, req: InferenceRequest, final: bool = False) -> None:
+        """Push newly decoded tokens to the request's stream queue. With
+        stop sequences active, hold back the last `max_stop_len - 1` chars
+        worth of tokens — a stop match can straddle the boundary between
+        already-emitted and pending text, and emitted tokens can never be
+        recalled. The final flush (post stop-scan) emits everything."""
+        if req.stream is None:
+            return
+        n = len(req.token_ids)
+        if not final and req.stop_sequences and n:
+            text = self.detokenize(req.token_ids)
+            max_stop = max(len(s) for s in req.stop_sequences)
+            safe_chars = len(text) - (max_stop - 1)
+            k = req.streamed
+            while (
+                k < n
+                and len(self.detokenize(req.token_ids[: k + 1])) <= safe_chars
+            ):
+                k += 1
+            n = k
+        if n > req.streamed:
+            req.stream.put({"token_ids": list(req.token_ids[req.streamed:n])})
+            req.streamed = n
+
+    def _retain_session(self, slot: int, req: InferenceRequest) -> None:
+        """Pin the conversation's leading full blocks in the block pool
+        before the slot's references are dropped, so turn N+1 prefills
+        only its delta tokens. Only runs on ok finishes — a failed turn
+        leaves the session at its previous turn's state for a clean
+        retry."""
+        if req.session is None:
+            return
+        full_ids = np.concatenate(
+            [req.prompt_ids, np.asarray(req.token_ids, np.int32)]
+        )
+        self.engine.retain_session(slot, req.session, full_ids)
+
+    def _sync_kv_metrics(self) -> None:
+        """Mirror the engine's block-pool tallies into the Prometheus
+        registry (gauges for occupancy, absolute-synced counters for the
+        prefix cache — the pool is the source of truth)."""
+        store = getattr(self.engine, "adapter_store", None)
+        if store is not None and getattr(self.engine, "multi_tenant", False):
+            astats = store.stats()
+            self.metrics.set_gauge("adapters_resident", len(astats["resident"]))
+            self.metrics.set_gauge("adapters_capacity", astats["capacity"])
+            self.metrics.set_gauge("adapter_resident_bytes", astats["resident_bytes"])
+            self.metrics.set_counter("adapter_loads_total", astats["loads"])
+            self.metrics.set_counter("adapter_evictions_total", astats["evictions"])
+            self.metrics.set_counter("adapter_reloads_total", astats["reloads"])
+        stats = self.engine.kv_stats() if hasattr(self.engine, "kv_stats") else {}
+        if not stats:
+            return
+        for name in (
+            "kv_blocks_total", "kv_blocks_free", "kv_blocks_used",
+            "kv_pool_bytes", "prefix_cache_idle_blocks",
+        ):
+            self.metrics.set_gauge(name, stats[name])
+        for name in (
+            "prefix_cache_hits", "prefix_cache_misses", "prefix_cache_evictions",
+        ):
+            self.metrics.set_counter(name, stats[name])
+        # paged decode kernel dispatch accounting (absolute-synced like
+        # the prefix-cache counters; fallbacks keyed by reason label)
+        if "kv_kernel_dispatches" in stats:
+            self.metrics.set_counter(
+                "kv_kernel_dispatches", stats["kv_kernel_dispatches"]
+            )
+            for reason, n in sorted(stats.get("kv_kernel_fallbacks", {}).items()):
+                self.metrics.set_counter(
+                    "kv_kernel_fallbacks", n, labels={"reason": reason}
+                )
+        sstore = getattr(self.engine, "session_store", None)
+        if sstore is not None:
+            sstats = sstore.stats()
+            for name in (
+                "sessions_active", "sessions_max",
+                "session_retained_blocks", "session_retained_bytes",
+            ):
+                self.metrics.set_gauge(name, sstats[name])
+            for name in (
+                "session_created_total", "session_retained_hits_total",
+                "session_retained_blocks_reused_total",
+                "session_evictions_ttl_total", "session_evictions_lru_total",
+                "session_evictions_blocks_total", "session_resets_total",
+            ):
+                self.metrics.set_counter(name, sstats[name])
+
+    def _release(self, slot: int) -> None:
+        with self._cond:
+            self._slot_req.pop(slot, None)
+            self._free.append(slot)
+            self.metrics.set_gauge("slots_active", len(self._slot_req))
+
+    def _finish_request(self, req: InferenceRequest, reason: str) -> None:
+        req.finish_reason = reason
+        req.finish_time = time.monotonic()
+        if req.stream is not None:
+            # flush anything held back, then the done sentinel — finish
+            # fields are set, so the reader can collect summary state
+            self._stream_emit(req, final=True)
+            req.stream.put(None)
+        if req.session is not None:
+            store = getattr(self.engine, "session_store", None)
+            if store is not None:
+                store.end_turn(req.session)
+        if req.trace is not None:
+            t_dec = req.trace.marks.get("decode_start")
+            if t_dec is not None:
+                req.trace.add(
+                    "decode", t_dec, req.finish_time,
+                    status=("ok" if reason in ("eos", "length", "stop") else reason),
+                    tokens=len(req.token_ids),
+                )
+            elif req.stage == "queued":
+                # died waiting (queue-deadline expiry / shutdown): the
+                # whole lifetime was queue wait
+                req.trace.add(
+                    "queue_wait", req.enqueue_time, req.finish_time,
+                    status=reason,
+                )
+            req.trace.attrs["finish_reason"] = reason
+            req.trace.attrs["stage"] = req.stage
+            if self.tracer is not None:
+                self.tracer.finish(req.trace)
+            else:
+                req.trace.finish(req.finish_time)
+        if self.recorder is not None:
+            self.recorder.record(
+                "finish", req=req.request_id or req.id, reason=reason,
+                stage=req.stage, tokens=len(req.token_ids),
+            )
+        self.metrics.inc(f'requests_total{{outcome="{reason}"}}')
+        trace_id = req.trace.trace_id if req.trace is not None else None
+        if req.latency_s is not None:
+            self.metrics.observe("request_latency_seconds", req.latency_s,
+                                 trace_id=trace_id)
+        if getattr(self.engine, "multi_tenant", False):
+            tenant = self._tenant(req)
+            self.metrics.inc(
+                "adapter_requests_total",
+                labels={"adapter": tenant, "outcome": reason},
+            )
+            if req.latency_s is not None:
+                self.metrics.observe(
+                    "adapter_request_latency_seconds",
+                    req.latency_s,
+                    labels={"adapter": tenant},
+                    trace_id=trace_id,
+                )
+        req._done.set()

@@ -1,0 +1,603 @@
+"""Decoder-only transformer LM (PyTorch) with the paged-KV decode path.
+
+Port of the JAX package's `models/transformer.py` for the serving slice:
+`TransformerConfig`, `PRESETS`, `TransformerLM` with `embed`/`unembed`,
+the per-row cached `prefill_rows` and `decode_step_rows` over a paged KV
+arena, and `init_paged_kv_arena`. Families: GPT-2 (learned positions,
+LayerNorm, tanh-gelu, tied embeddings) and the llama knobs (rope,
+RMSNorm, silu-glu, GQA/MQA, untied head, no biases).
+
+Numerics follow the flax layers: parameters are f32 and cast to
+`cfg.dtype` at use (a `Dense` with `param_dtype=f32, dtype=bf16`),
+norms take their statistics in f32, attention scores and softmax are
+f32, and masked columns carry a -1e9 additive bias whose exp is exactly
+0.0.
+
+The KV arena is updated IN PLACE (the JAX package scattered functionally
+into a donated pool). JAX silently drops a scatter to block index
+`n_blocks`; torch indexing would raise instead, so `init_paged_kv_arena`
+allocates one spare block at index `n_blocks` that no block table names,
+and every write the JAX code would drop (right pad, inactive slots,
+padding rows with all-out-of-range tables) is redirected there
+explicitly.
+"""
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from trlx_tpu_torch.ops import quant
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int
+    d_model: int
+    n_layers: int
+    n_heads: int
+    d_ff: int
+    n_kv_heads: Optional[int] = None  # GQA/MQA; None = n_heads
+    max_seq_len: int = 2048
+    pos_embed: str = "learned"  # "learned" | "rope" | "none"
+    norm: str = "layernorm"  # "layernorm" | "rmsnorm"
+    activation: str = "gelu"  # "gelu" (tanh approx) | "gelu_exact" | "silu" | "relu"
+    glu: bool = False
+    tie_embeddings: bool = True
+    rope_theta: float = 10000.0
+    layer_norm_epsilon: float = 1e-5
+    use_bias: bool = True
+    # knobs of the JAX config this package does not run yet; kept so
+    # configs carry over, and refused by `check_supported`
+    parallel_residual: bool = False
+    shared_ln: bool = False
+    rotary_pct: float = 1.0
+    alibi: bool = False
+    pos_offset: int = 0
+    embed_ln: bool = False
+    attn_bias: Optional[bool] = None
+    lm_head_bias: bool = False
+    sliding_window: Optional[int] = None
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_aux_coef: float = 0.01
+    hf_family: Optional[str] = None
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ("q_proj", "v_proj")
+    prompt_tokens: int = 0
+    prefix_tokens: int = 0
+    dtype: Any = torch.bfloat16  # activation/compute dtype
+    param_dtype: Any = torch.float32
+    remat_blocks: bool = False
+    attn_impl: str = "xla"
+
+    def __post_init__(self):
+        check_supported(self)
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def check_supported(cfg: TransformerConfig) -> None:
+    """Refuse the knobs this port does not run yet, naming the ROADMAP
+    item that brings them."""
+    later = {
+        "alibi": cfg.alibi,
+        "parallel_residual": cfg.parallel_residual or cfg.shared_ln,
+        "partial rotary (rotary_pct < 1)": cfg.rotary_pct != 1.0,
+        "pos_offset": cfg.pos_offset != 0,
+        "embed_ln": cfg.embed_ln,
+        "attn_bias override": cfg.attn_bias is not None and cfg.attn_bias != cfg.use_bias,
+        "lm_head_bias": cfg.lm_head_bias,
+        "sliding_window": cfg.sliding_window is not None,
+        "pos_embed='none'": cfg.pos_embed not in ("learned", "rope"),
+    }
+    for name, on in later.items():
+        if on:
+            raise NotImplementedError(
+                f"{name} is not ported yet (ROADMAP queue A, the remaining model families)"
+            )
+    if cfg.moe_experts > 0:
+        raise NotImplementedError("the MoE MLP is not ported yet (ROADMAP queue A, model features)")
+    if cfg.lora_rank > 0 or cfg.prompt_tokens > 0 or cfg.prefix_tokens > 0:
+        raise NotImplementedError(
+            "LoRA / prompt / prefix tuning are not ported yet (ROADMAP queue A, model features)"
+        )
+    if cfg.attn_impl != "xla":
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} (flash/ring training attention) is not ported yet "
+            "(ROADMAP queue B, K3-K6)"
+        )
+
+
+def activation_fn(cfg: TransformerConfig):
+    """cfg.activation -> callable; jax.nn.gelu's default is the tanh form."""
+    return {
+        "silu": F.silu,
+        "relu": F.relu,
+        "gelu_exact": lambda x: F.gelu(x, approximate="none"),
+    }.get(cfg.activation, lambda x: F.gelu(x, approximate="tanh"))
+
+
+def _normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    with torch.no_grad():
+        return t.normal_(0.0, std, generator=generator)
+
+
+class Linear(nn.Module):
+    """flax `nn.Dense(param_dtype=f32, dtype=cfg.dtype)`: weight [out, in]
+    (the JAX kernel transposed), input, weight and bias cast to the compute
+    dtype at use."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool, dtype, param_dtype,
+                 device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=param_dtype, device=device))
+        _normal_(self.weight, 1.0 / math.sqrt(in_features), generator)
+        self.bias = (
+            nn.Parameter(torch.zeros(out_features, dtype=param_dtype, device=device)) if bias else None
+        )
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """flax LayerNorm: statistics and affine in f32, output in cfg.dtype."""
+
+    def __init__(self, d: int, eps: float, dtype, param_dtype, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(d, dtype=param_dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, dtype=param_dtype, device=device))
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(), self.bias.float(), self.eps)
+        return y.to(self.dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax RMSNorm: mean square in f32, output in cfg.dtype."""
+
+    def __init__(self, d: int, eps: float, dtype, param_dtype, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(d, dtype=param_dtype, device=device))
+
+    def forward(self, x):
+        x32 = x.float()
+        y = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
+        return (y * self.weight.float()).to(self.dtype)
+
+
+def make_norm(cfg: TransformerConfig, device=None) -> nn.Module:
+    cls = RMSNorm if cfg.norm == "rmsnorm" else LayerNorm
+    return cls(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, cfg.param_dtype, device)
+
+
+class Embed(nn.Module):
+    """flax `nn.Embed`: lookup and the tied `attend` (h @ E.T), both in
+    cfg.dtype."""
+
+    def __init__(self, num: int, d: int, dtype, param_dtype, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num, d, dtype=param_dtype, device=device))
+        _normal_(self.weight, 1.0 / math.sqrt(d), generator)
+
+    def forward(self, ids):
+        return self.weight[ids].to(self.dtype)
+
+    def attend(self, h):
+        return h.to(self.dtype) @ self.weight.to(self.dtype).T
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary position embedding (half-split / rotate_half convention).
+    x: [b, t, h, hd], positions: [b, t]."""
+    freqs = torch.from_numpy(np.asarray(rope_frequencies(x.shape[-1], theta), np.float32))
+    angles = positions[..., None].float() * freqs.to(x.device)  # [b, t, hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.einsum's type promotion: both operands in their promoted type."""
+    ct = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(ct), b.to(ct))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        lin = lambda i, o: Linear(i, o, cfg.use_bias, cfg.dtype, cfg.param_dtype, device, generator)
+        self.q_proj = lin(d, nh * hd)
+        self.k_proj = lin(d, nkv * hd)
+        self.v_proj = lin(d, nkv * hd)
+        self.o_proj = lin(nh * hd, d)
+
+    def forward(
+        self,
+        h: torch.Tensor,  # [b, t, d]
+        attn_bias: torch.Tensor,  # [b, 1, t, S] additive, f32
+        positions: torch.Tensor,  # [b, t]
+        layer_cache: Optional[Dict[str, torch.Tensor]] = None,
+        cache_index: Optional[torch.Tensor] = None,  # [b] per-row write offsets
+        attn_mask: Optional[torch.Tensor] = None,  # [b, t] write validity
+        attn_kernel: Optional[str] = None,  # paged decode read: None (gather) | "kernel"
+    ):
+        cfg = self.cfg
+        b, t, d = h.shape
+        nh, nkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        q = self.q_proj(h).reshape(b, t, nh, hd)
+        k = self.k_proj(h).reshape(b, t, nkv, hd)
+        v = self.v_proj(h).reshape(b, t, nkv, hd)
+        if cfg.pos_embed == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+
+        if layer_cache is None or "table" not in layer_cache:
+            raise NotImplementedError(
+                "only the paged-KV cached path is ported (the fixed-slot pool and the "
+                "training forward wait for later slices, ROADMAP queue A)"
+            )
+        # Paged KV pool: a global block arena k/v [n_blocks + 1, blk, nkv,
+        # hd] shared by every slot plus a per-row block table [b, n_tbl].
+        # This step's K/V is written in place at per-row columns
+        # [cache_index, cache_index + t).
+        table = layer_cache["table"]
+        arena_k, arena_v = layer_cache["k"], layer_cache["v"]
+        n_blocks, blk_sz = arena_k.shape[0] - 1, arena_k.shape[1]  # last block: dropped writes
+        n_tbl = table.shape[1]
+        cols = cache_index[:, None] + torch.arange(t, device=h.device)[None, :]  # [b, t]
+        blk = torch.clamp(cols // blk_sz, 0, n_tbl - 1)
+        phys = torch.gather(table, 1, blk)
+        off = cols % blk_sz
+        # the writes JAX drops as out of bounds: right pad and inactive
+        # rows (attn_mask 0) and padding rows whose tables are all n_blocks
+        write = (phys >= 0) & (phys < n_blocks)
+        if attn_mask is not None:
+            write = write & attn_mask.bool()
+        phys = torch.where(write, phys, torch.full_like(phys, n_blocks)).long()
+        off = off.long()
+        quantized = arena_k.dtype == torch.int8
+        if quantized:
+            kq, ks = quant.quantize_kv(k)
+            vq, vs = quant.quantize_kv(v)
+            arena_k[phys, off] = kq
+            arena_v[phys, off] = vq
+            layer_cache["k_scale"][phys, off] = ks
+            layer_cache["v_scale"][phys, off] = vs
+        else:
+            arena_k[phys, off] = k.to(arena_k.dtype)
+            arena_v[phys, off] = v.to(arena_v.dtype)
+
+        if attn_kernel is not None:
+            # fused read side (ops/paged_attention.py): the CUDA kernel on
+            # a cuda device, its plain version on the CPU
+            if t != 1:
+                raise ValueError(f"paged decode kernel takes single-position queries; got t={t}")
+            from trlx_tpu_torch.ops.paged_attention import paged_attention_decode
+
+            # decode_bias writes exactly 0.0 on attendable columns
+            key_mask = attn_bias[:, 0, 0, :] == 0.0
+            out = paged_attention_decode(
+                q[:, 0].contiguous(), arena_k, arena_v, table, key_mask,
+                k_scale=layer_cache.get("k_scale"), v_scale=layer_cache.get("v_scale"),
+                out_dtype=cfg.dtype,
+            )
+            return self.o_proj(out.reshape(b, 1, nh * hd)), layer_cache
+
+        idx = table.long().clamp(0, arena_k.shape[0] - 1)
+        S = n_tbl * blk_sz
+        if quantized:
+            k = quant.dequantize_kv(
+                arena_k[idx].reshape(b, S, nkv, hd), layer_cache["k_scale"][idx].reshape(b, S, nkv), cfg.dtype
+            )
+            v = quant.dequantize_kv(
+                arena_v[idx].reshape(b, S, nkv, hd), layer_cache["v_scale"][idx].reshape(b, S, nkv), cfg.dtype
+            )
+        else:
+            k = arena_k[idx].reshape(b, S, nkv, hd)
+            v = arena_v[idx].reshape(b, S, nkv, hd)
+        if nkv != nh:  # GQA: q head h reads kv head h // group
+            k = k.repeat_interleave(nh // nkv, dim=2)
+            v = v.repeat_interleave(nh // nkv, dim=2)
+        # [b, h, t, S] scores in f32 (preferred_element_type=f32)
+        scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+        probs = torch.softmax(scores + attn_bias, dim=-1).to(cfg.dtype)
+        out = _einsum("bhts,bshd->bthd", probs, v).reshape(b, t, nh * hd)
+        return self.o_proj(out), layer_cache
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        lin = lambda i, o: Linear(i, o, cfg.use_bias, cfg.dtype, cfg.param_dtype, device, generator)
+        self.up_proj = lin(cfg.d_model, cfg.d_ff)
+        if cfg.glu:
+            self.gate_proj = lin(cfg.d_model, cfg.d_ff)
+        self.down_proj = lin(cfg.d_ff, cfg.d_model)
+        self.act = activation_fn(cfg)
+
+    def forward(self, h):
+        if self.cfg.glu:
+            return self.down_proj(self.act(self.gate_proj(h)) * self.up_proj(h))
+        return self.down_proj(self.act(self.up_proj(h)))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+        super().__init__()
+        self.ln_attn = make_norm(cfg, device)
+        self.attn = Attention(cfg, device, generator)
+        self.ln_mlp = make_norm(cfg, device)
+        self.mlp = MLP(cfg, device, generator)
+
+    def forward(self, h, attn_bias, positions, layer_cache=None, cache_index=None,
+                attn_mask=None, attn_kernel=None):
+        attn_out, new_cache = self.attn(
+            self.ln_attn(h), attn_bias, positions, layer_cache, cache_index, attn_mask, attn_kernel
+        )
+        h = h + attn_out
+        h = h + self.mlp(self.ln_mlp(h))
+        return h, new_cache
+
+
+def position_ids(attn_mask: torch.Tensor) -> torch.Tensor:
+    """Position ids robust to left padding: cumsum of the mask - 1, clipped."""
+    return torch.clamp(torch.cumsum(attn_mask.to(torch.int64), dim=-1) - 1, min=0)
+
+
+def decode_bias(cache_mask: torch.Tensor, t: int) -> torch.Tensor:
+    """Bias during cached decode: 0.0 on every valid cache column, -1e9
+    elsewhere. [b, S] -> [b, 1, 1, S] f32."""
+    allowed = cache_mask[:, None, None, :].bool()
+    return torch.where(allowed, 0.0, -1e9).to(torch.float32)
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only LM; blocks are registered as `block_{i}` like the JAX
+    parameter tree."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, cfg.param_dtype, device, generator)
+        if cfg.pos_embed == "learned":
+            self.embed_pos = Embed(cfg.max_seq_len, cfg.d_model, cfg.dtype, cfg.param_dtype, device, generator)
+        self.blocks = []
+        for i in range(cfg.n_layers):
+            blk = Block(cfg, device, generator)
+            self.add_module(f"block_{i}", blk)
+            self.blocks.append(blk)
+        self.ln_f = make_norm(cfg, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = Linear(cfg.d_model, cfg.vocab_size, False, cfg.dtype, cfg.param_dtype, device, generator)
+
+    def embed(self, tokens, positions):
+        h = self.embed_tokens(tokens)
+        if self.cfg.pos_embed == "learned":
+            h = h + self.embed_pos(positions)
+        return h
+
+    def unembed(self, h):
+        """Final norm + output projection. Returns (logits, h_final)."""
+        h_final = self.ln_f(h)
+        if self.cfg.tie_embeddings:
+            return self.embed_tokens.attend(h_final), h_final
+        return self.lm_head(h_final), h_final
+
+    def run_blocks(self, h, attn_bias, positions, cache, cache_index, attn_mask=None, attn_kernel=None):
+        new_layers = []
+        for blk, layer_cache in zip(self.blocks, cache):
+            h, new_cache = blk(h, attn_bias, positions, layer_cache, cache_index, attn_mask, attn_kernel)
+            new_layers.append(new_cache)
+        return h, new_layers
+
+    def decode_step_rows(
+        self,
+        tokens: torch.Tensor,  # [b, 1]
+        cache: Dict[str, Any],
+        token_mask: torch.Tensor,  # [b, 1] validity (0 = free/inactive slot)
+        attn_kernel: Optional[str] = None,
+    ):
+        """One cached decode step where every row carries its own write
+        offset (`cache["row_index"]`, [b]) — the continuous-batching slot
+        pool. Inactive rows write a 0 into the mask at their current
+        column (a no-op) and do not advance; their arena writes go to the
+        spare block. Returns (logits, new_cache)."""
+        row_index = cache["row_index"]
+        positions = cache["pos"][:, None]
+        step_valid = token_mask[:, 0].to(row_index.dtype)
+        mask = cache["mask"]
+        S = mask.shape[-1]
+        # a finished row may sit at column S, where JAX's scatter drops
+        col = row_index.clamp(max=S - 1)[:, None]
+        cur = torch.gather(mask, 1, col)
+        val = torch.where(row_index[:, None] < S, token_mask[:, :1].to(mask.dtype), cur)
+        new_mask = mask.scatter(1, col, val)
+        bias = decode_bias(new_mask, 1)
+        h = self.embed(tokens, positions)
+        h, new_layers = self.run_blocks(
+            h, bias, positions, cache["layers"], row_index, attn_mask=token_mask,
+            attn_kernel=attn_kernel,
+        )
+        logits, _ = self.unembed(h)
+        new_cache = {
+            "row_index": row_index + step_valid,
+            "mask": new_mask,
+            "pos": cache["pos"] + step_valid,
+            "layers": new_layers,
+        }
+        return logits, new_cache
+
+    def prefill_rows(
+        self,
+        tokens: torch.Tensor,  # [b, t] RIGHT-padded prompt (suffix) tokens
+        cache: Dict[str, Any],
+        token_mask: torch.Tensor,  # [b, t] validity (0 = right pad)
+    ):
+        """Multi-token cached prefill where every row carries its own write
+        offset (`cache["row_index"]`): row r's valid tokens occupy columns
+        [row_index_r, row_index_r + len_r); queries see every valid cache
+        column plus the causal prefix of their own span. Right-pad
+        positions write nothing the model can see. Returns (logits,
+        new_cache)."""
+        b, t = tokens.shape
+        row_index = cache["row_index"]
+        lens = token_mask.sum(-1).to(row_index.dtype)
+        positions = cache["pos"][:, None] + position_ids(token_mask)
+        mask = cache["mask"]
+        S = mask.shape[-1]
+        cols = row_index[:, None] + torch.arange(t, device=tokens.device)[None, :]
+        # pad columns land on already-zero cells (or clip to S-1, also zero
+        # until decode begins), so their 0 writes are no-ops
+        new_mask = mask.scatter(1, cols.clamp(0, S - 1), token_mask.to(mask.dtype))
+        bias = decode_bias(new_mask, t)
+        q_ids = torch.arange(t, device=tokens.device)[None, :, None]
+        k_ids = torch.arange(S, device=tokens.device)[None, None, :]
+        start = row_index[:, None, None]
+        within = (k_ids >= start) & (k_ids - start > q_ids)  # [b, t, S]
+        bias = bias + torch.where(within[:, None], -1e9, 0.0).to(torch.float32)
+        h = self.embed(tokens, positions)
+        h, new_layers = self.run_blocks(
+            h, bias, positions, cache["layers"], row_index, attn_mask=token_mask,
+        )
+        logits, _ = self.unembed(h)
+        new_cache = {
+            "row_index": row_index + lens,
+            "mask": new_mask,
+            "pos": cache["pos"] + lens,
+            "layers": new_layers,
+        }
+        return logits, new_cache
+
+
+def init_paged_kv_arena(cfg: TransformerConfig, num_blocks: int, block_size: int,
+                        dtype=None, device=None):
+    """Allocate the per-layer paged KV arenas: `num_blocks` blocks of
+    `block_size` token columns each, plus one spare block at index
+    `num_blocks` that receives the writes JAX drops as out of bounds (no
+    table names it). Block 0 is reserved by the engine as the zero block
+    backing padding table entries. int8 arenas carry f32 scale planes
+    (per token per kv head, ops/quant.quantize_kv)."""
+    dtype = dtype or cfg.dtype
+    shape = (num_blocks + 1, block_size, cfg.kv_heads, cfg.head_dim)
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+        }
+        if dtype == torch.int8:
+            layer["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+            layer["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+        layers.append(layer)
+    return layers
+
+
+# ---------------------------------------------------------------------------
+# Model family presets (the JAX package's table; the families this port
+# refuses raise in TransformerConfig.__post_init__)
+# ---------------------------------------------------------------------------
+
+PRESETS: Dict[str, Dict[str, Any]] = {
+    "gpt2-tiny": dict(d_model=64, n_layers=2, n_heads=4, d_ff=256, max_seq_len=256),
+    "gpt2-small": dict(d_model=768, n_layers=12, n_heads=12, d_ff=3072, max_seq_len=1024),
+    "gpt2-medium": dict(d_model=1024, n_layers=24, n_heads=16, d_ff=4096, max_seq_len=1024),
+    "gpt2-large": dict(d_model=1280, n_layers=36, n_heads=20, d_ff=5120, max_seq_len=1024),
+    "gpt2-xl": dict(d_model=1600, n_layers=48, n_heads=25, d_ff=6400, max_seq_len=1024),
+    "llama-tiny": dict(
+        d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=256, max_seq_len=256,
+        pos_embed="rope", norm="rmsnorm", activation="silu", glu=True,
+        tie_embeddings=False, use_bias=False,
+    ),
+    "llama-7b": dict(
+        d_model=4096, n_layers=32, n_heads=32, d_ff=11008, max_seq_len=4096,
+        pos_embed="rope", norm="rmsnorm", activation="silu", glu=True,
+        tie_embeddings=False, use_bias=False,
+    ),
+    "neox-tiny": dict(
+        d_model=64, n_layers=2, n_heads=4, d_ff=256, max_seq_len=256,
+        pos_embed="rope", rotary_pct=0.25, activation="gelu_exact",
+        parallel_residual=True, tie_embeddings=False,
+    ),
+    "pythia-160m": dict(
+        d_model=768, n_layers=12, n_heads=12, d_ff=3072, max_seq_len=2048,
+        pos_embed="rope", rotary_pct=0.25, activation="gelu_exact",
+        parallel_residual=True, tie_embeddings=False,
+    ),
+    "pythia-1.4b": dict(
+        d_model=2048, n_layers=24, n_heads=16, d_ff=8192, max_seq_len=2048,
+        pos_embed="rope", rotary_pct=0.25, activation="gelu_exact",
+        parallel_residual=True, tie_embeddings=False,
+    ),
+    "pythia-6.9b": dict(
+        d_model=4096, n_layers=32, n_heads=32, d_ff=16384, max_seq_len=2048,
+        pos_embed="rope", rotary_pct=0.25, activation="gelu_exact",
+        parallel_residual=True, tie_embeddings=False,
+    ),
+    "gptj-tiny": dict(
+        d_model=64, n_layers=2, n_heads=4, d_ff=256, max_seq_len=256,
+        pos_embed="rope", rotary_pct=0.5, parallel_residual=True, shared_ln=True,
+        tie_embeddings=False, attn_bias=False, lm_head_bias=True,
+    ),
+    "gptj-6b": dict(
+        d_model=4096, n_layers=28, n_heads=16, d_ff=16384, max_seq_len=2048,
+        pos_embed="rope", rotary_pct=0.25, parallel_residual=True, shared_ln=True,
+        tie_embeddings=False, attn_bias=False, lm_head_bias=True,
+    ),
+    "opt-tiny": dict(
+        d_model=64, n_layers=2, n_heads=4, d_ff=256, max_seq_len=256,
+        activation="relu", pos_offset=2,
+    ),
+    "opt-125m": dict(
+        d_model=768, n_layers=12, n_heads=12, d_ff=3072, max_seq_len=2048,
+        activation="relu", pos_offset=2,
+    ),
+    "bloom-tiny": dict(
+        d_model=64, n_layers=2, n_heads=4, d_ff=256, max_seq_len=256,
+        pos_embed="none", alibi=True, embed_ln=True,
+    ),
+    "bloom-560m": dict(
+        d_model=1024, n_layers=24, n_heads=16, d_ff=4096, max_seq_len=2048,
+        pos_embed="none", alibi=True, embed_ln=True,
+    ),
+    "bigcode-tiny": dict(
+        d_model=64, n_layers=2, n_heads=4, n_kv_heads=1, d_ff=256, max_seq_len=256,
+    ),
+    "moe-tiny": dict(
+        d_model=64, n_layers=2, n_heads=4, d_ff=256, max_seq_len=256,
+        moe_experts=4, moe_top_k=2,
+    ),
+}
+
+
+def config_from_preset(name: str, vocab_size: int, **overrides) -> TransformerConfig:
+    if name not in PRESETS:
+        raise ValueError(f"Unknown model preset '{name}'. Available: {sorted(PRESETS)}")
+    kwargs = dict(PRESETS[name])
+    kwargs.update(overrides)
+    return TransformerConfig(vocab_size=vocab_size, **kwargs)

@@ -1,0 +1,409 @@
+"""Dependency-free request tracing: spans, per-request traces, a bounded
+tracer, and a Chrome-trace-event (Perfetto) exporter.
+
+Design rules:
+
+- **monotonic clocks** — every span timestamp is `time.monotonic()`; the
+  wall-clock anchor (`EPOCH_OFFSET`, captured once at import) is applied
+  only at serialization time, so durations never go backwards under NTP
+  steps and traces from the same process merge exactly.
+- **explicit context objects** — a `RequestTrace` travels with the
+  request it describes (`InferenceRequest.trace`, router-local
+  variables, HTTP payload `trace_id`); there is no thread-local or
+  ambient "current span" that could leak across the scheduler loop
+  thread, HTTP handler threads, and router coordinator pools.
+- **off = free** — components hold `tracer = None` by default and every
+  span site is guarded by `if tracer is not None`; with tracing off the
+  hot paths allocate nothing and the outputs are bitwise identical
+  (pinned by tests/test_observability.py).
+
+Span trees serialize to plain dicts (`Span.to_dict`/`from_dict`) so an
+inference replica can return its server-side spans inside the /generate
+reply and the `ReplicaRouter` can graft them under its dispatch span —
+one cross-process timeline per request.
+"""
+
+import json
+import os
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Any, Dict, Iterable, List, Optional
+
+# Wall-clock anchor: monotonic t + EPOCH_OFFSET ~= time.time(). Captured
+# once so all spans in a process share one consistent mapping.
+EPOCH_OFFSET = time.time() - time.monotonic()
+
+
+def new_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+class Span:
+    """One named interval on the monotonic clock, with attributes,
+    a status, and child spans. Not thread-safe per instance — a span is
+    owned by whichever thread is doing the work it measures."""
+
+    __slots__ = ("name", "t0", "t1", "status", "attrs", "children")
+
+    def __init__(self, name: str, t0: Optional[float] = None,
+                 attrs: Optional[Dict[str, Any]] = None):
+        self.name = name
+        self.t0 = time.monotonic() if t0 is None else float(t0)
+        self.t1: Optional[float] = None
+        self.status = "ok"
+        self.attrs: Dict[str, Any] = dict(attrs) if attrs else {}
+        self.children: List["Span"] = []
+
+    def end(self, t1: Optional[float] = None, status: Optional[str] = None) -> "Span":
+        if self.t1 is None:  # first end wins; re-ends are no-ops
+            self.t1 = time.monotonic() if t1 is None else float(t1)
+        if status is not None:
+            self.status = status
+        return self
+
+    def child(self, name: str, t0: Optional[float] = None, **attrs) -> "Span":
+        sp = Span(name, t0=t0, attrs=attrs or None)
+        self.children.append(sp)
+        return sp
+
+    @property
+    def duration_s(self) -> Optional[float]:
+        return None if self.t1 is None else self.t1 - self.t0
+
+    def to_dict(self) -> Dict[str, Any]:
+        # epoch-based ts so trees survive process boundaries (subprocess
+        # replicas share the machine clock; thread replicas are exact)
+        out: Dict[str, Any] = {
+            "name": self.name,
+            "ts": self.t0 + EPOCH_OFFSET,
+            "dur": (self.t1 - self.t0) if self.t1 is not None else None,
+            "status": self.status,
+        }
+        if self.attrs:
+            out["attrs"] = dict(self.attrs)
+        if self.children:
+            out["children"] = [c.to_dict() for c in self.children]
+        return out
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Span":
+        sp = cls(d["name"], t0=float(d["ts"]) - EPOCH_OFFSET,
+                 attrs=d.get("attrs"))
+        dur = d.get("dur")
+        if dur is not None:
+            sp.t1 = sp.t0 + float(dur)
+        sp.status = d.get("status", "ok")
+        sp.children = [cls.from_dict(c) for c in d.get("children", ())]
+        return sp
+
+
+class RequestTrace:
+    """The explicit per-request context: ids, the top-level span list,
+    and named time marks. Appends are lock-free under the GIL (list
+    append is atomic); readers snapshot via `to_dict`."""
+
+    def __init__(self, trace_id: Optional[str] = None,
+                 request_id: Optional[str] = None):
+        self.trace_id = trace_id or new_id()
+        self.request_id = request_id or new_id()
+        self.t_start = time.monotonic()
+        self.t_end: Optional[float] = None
+        self.spans: List[Span] = []
+        self.marks: Dict[str, float] = {}
+        self.attrs: Dict[str, Any] = {}
+
+    def span(self, name: str, t0: Optional[float] = None, **attrs) -> Span:
+        sp = Span(name, t0=t0, attrs=attrs or None)
+        self.spans.append(sp)
+        return sp
+
+    def add(self, name: str, t0: float, t1: float, status: str = "ok",
+            **attrs) -> Span:
+        """Record an already-measured interval."""
+        sp = Span(name, t0=t0, attrs=attrs or None)
+        sp.end(t1, status=status)
+        self.spans.append(sp)
+        return sp
+
+    def mark(self, name: str, t: Optional[float] = None) -> float:
+        t = time.monotonic() if t is None else float(t)
+        self.marks[name] = t
+        return t
+
+    def adopt(self, span_dicts: Iterable[Dict[str, Any]],
+              parent: Optional[Span] = None) -> None:
+        """Graft serialized spans (a replica-returned tree) into this
+        trace — under `parent` when given, else at top level."""
+        for d in span_dicts or ():
+            sp = Span.from_dict(d)
+            (parent.children if parent is not None else self.spans).append(sp)
+
+    def finish(self, t: Optional[float] = None) -> "RequestTrace":
+        if self.t_end is None:
+            self.t_end = time.monotonic() if t is None else float(t)
+        return self
+
+    def open_spans(self) -> int:
+        """Unfinished spans anywhere in the tree — the leak detector."""
+        def count(spans: List[Span]) -> int:
+            n = 0
+            for sp in spans:
+                n += int(sp.t1 is None) + count(sp.children)
+            return n
+        return count(self.spans)
+
+    def coverage(self) -> float:
+        """Fraction of [t_start, t_end] covered by the union of the
+        finished top-level spans — the >=95% acceptance metric."""
+        if self.t_end is None or self.t_end <= self.t_start:
+            return 0.0
+        ivals = sorted(
+            (max(s.t0, self.t_start), min(s.t1, self.t_end))
+            for s in self.spans if s.t1 is not None and s.t1 > s.t0
+        )
+        covered, cursor = 0.0, self.t_start
+        for a, b in ivals:
+            if b <= cursor:
+                continue
+            covered += b - max(a, cursor)
+            cursor = b
+        return covered / (self.t_end - self.t_start)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "trace_id": self.trace_id,
+            "request_id": self.request_id,
+            "ts": self.t_start + EPOCH_OFFSET,
+            "dur": (self.t_end - self.t_start) if self.t_end is not None else None,
+            **({"attrs": dict(self.attrs)} if self.attrs else {}),
+            "spans": [s.to_dict() for s in self.spans],
+        }
+
+
+class Tracer:
+    """Factory + bounded store of completed request traces, plus the
+    deterministic sampler for per-decode-step spans (counter-based, not
+    random, so runs are reproducible)."""
+
+    def __init__(self, max_traces: int = 256, sample_rate: float = 0.0,
+                 max_aggregate_spans: int = 2048):
+        self.sample_rate = float(sample_rate)
+        self._stride = int(round(1.0 / self.sample_rate)) if self.sample_rate > 0 else 0
+        self._sample_n = 0
+        self._completed: deque = deque(maxlen=int(max_traces))
+        # batch-level spans with no single owning request (sampled
+        # decode steps): bounded, exported on their own timeline lane
+        self.aggregate_spans: deque = deque(maxlen=int(max_aggregate_spans))
+        self._lock = threading.Lock()
+
+    def new_trace(self, trace_id: Optional[str] = None,
+                  request_id: Optional[str] = None) -> RequestTrace:
+        return RequestTrace(trace_id=trace_id, request_id=request_id)
+
+    def finish(self, trace: RequestTrace) -> RequestTrace:
+        trace.finish()
+        with self._lock:
+            self._completed.append(trace)
+        return trace
+
+    def sample_decode_step(self) -> bool:
+        """True every 1/sample_rate-th call (False when rate is 0)."""
+        if not self._stride:
+            return False
+        self._sample_n += 1
+        return self._sample_n % self._stride == 0
+
+    def add_aggregate(self, span: Span) -> None:
+        with self._lock:
+            self.aggregate_spans.append(span)
+
+    def recent(self, n: int = 32) -> List[Dict[str, Any]]:
+        with self._lock:
+            traces = list(self._completed)[-int(n):]
+        return [t.to_dict() for t in traces]
+
+    def to_chrome_trace(self, n: Optional[int] = None) -> Dict[str, Any]:
+        with self._lock:
+            traces = list(self._completed)
+            agg = list(self.aggregate_spans)
+        if n is not None:
+            traces = traces[-int(n):]
+        return to_chrome_trace(
+            [t.to_dict() for t in traces],
+            aggregate_spans=[s.to_dict() for s in agg],
+        )
+
+    def write_chrome_trace(self, path: str, n: Optional[int] = None) -> str:
+        return write_chrome_trace(path, self.to_chrome_trace(n=n))
+
+
+# ----------------------------------------------------------------------
+# Chrome trace event format (Perfetto / chrome://tracing)
+# ----------------------------------------------------------------------
+
+
+def _emit_span(events: List[Dict], d: Dict[str, Any], pid: int, tid: int,
+               extra_args: Optional[Dict[str, Any]] = None) -> None:
+    dur = d.get("dur")
+    args = dict(d.get("attrs") or {})
+    if d.get("status", "ok") != "ok":
+        args["status"] = d["status"]
+    if extra_args:
+        args.update(extra_args)
+    events.append({
+        "name": d["name"],
+        "ph": "X",
+        "ts": float(d["ts"]) * 1e6,
+        "dur": max(float(dur), 0.0) * 1e6 if dur is not None else 0.0,
+        "pid": pid,
+        "tid": tid,
+        **({"args": args} if args else {}),
+    })
+    for c in d.get("children", ()):
+        _emit_span(events, c, pid, tid, extra_args=None)
+
+
+def to_chrome_trace(trace_dicts: Iterable[Dict[str, Any]],
+                    aggregate_spans: Iterable[Dict[str, Any]] = (),
+                    phase_spans: Iterable[Dict[str, Any]] = (),
+                    pid: int = 1) -> Dict[str, Any]:
+    """Serialize trace dicts (RequestTrace.to_dict shape) into the Chrome
+    trace-event JSON object format: one tid lane per request, a
+    dedicated lane for batch-level aggregate spans, and an optional lane
+    of trainer phase spans ({"name","ts","dur","args"} dicts)."""
+    events: List[Dict[str, Any]] = []
+    meta_names: Dict[int, str] = {}
+    tid = 0
+    for td in trace_dicts:
+        tid += 1
+        meta_names[tid] = f"req {td.get('request_id', tid)}"
+        ids = {"trace_id": td.get("trace_id"), "request_id": td.get("request_id")}
+        for sd in td.get("spans", ()):
+            _emit_span(events, sd, pid, tid, extra_args=ids)
+    if aggregate_spans:
+        tid += 1
+        meta_names[tid] = "engine (sampled decode steps)"
+        for sd in aggregate_spans:
+            _emit_span(events, sd, pid, tid)
+    if phase_spans:
+        tid += 1
+        meta_names[tid] = "trainer phases"
+        for sd in phase_spans:
+            _emit_span(events, sd, pid, tid)
+    for t, name in meta_names.items():
+        events.append({
+            "name": "thread_name", "ph": "M", "pid": pid, "tid": t,
+            "args": {"name": name},
+        })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def write_chrome_trace(path: str, trace_obj: Dict[str, Any]) -> str:
+    directory = os.path.dirname(path)
+    if directory:
+        os.makedirs(directory, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(trace_obj, f)
+    return path
+
+
+# ----------------------------------------------------------------------
+# Training phase timeline
+# ----------------------------------------------------------------------
+
+
+class PhaseTimeline:
+    """Phase spans around the training cycle (generate / score /
+    make_experience / train_minibatch ...), with the first occurrence of
+    each phase split out from steady state — the first call includes jit
+    compilation, and averaging it into the steady-state number hides
+    both. `drain_stats` empties the steady accumulators into `timing/*`
+    floats for the JSONLTracker; the full span list persists for the
+    Chrome trace written at the end of learn()."""
+
+    def __init__(self, max_spans: int = 100_000):
+        self._lock = threading.Lock()
+        self.spans: deque = deque(maxlen=int(max_spans))
+        self._first: Dict[str, float] = {}
+        self._steady: Dict[str, List[float]] = {}
+        self._drained_first: set = set()
+        # optional GoodputLedger (observability/goodput.py): every add()
+        # is forwarded as observe_phase so wall-clock attribution rides
+        # the same hooks as the timing stats. Assigned, never constructed
+        # here — the timeline stays dependency-free.
+        self.ledger = None
+        # optional HBMLedger (observability/hbm.py): same hook — each
+        # phase boundary takes one device-memory sample into that
+        # phase's peak watermark.
+        self.hbm = None
+
+    def phase(self, name: str, step: Optional[int] = None) -> "_PhaseCtx":
+        return _PhaseCtx(self, name, step)
+
+    def add(self, name: str, t0: float, t1: float,
+            step: Optional[int] = None, **attrs) -> None:
+        dur = t1 - t0
+        with self._lock:
+            first = name not in self._first
+            if first:
+                self._first[name] = dur
+            else:
+                self._steady.setdefault(name, []).append(dur)
+            span = {
+                "name": name, "ts": t0 + EPOCH_OFFSET, "dur": dur,
+                "attrs": {
+                    **attrs,
+                    **({"step": step} if step is not None else {}),
+                    **({"first_call": True} if first else {}),
+                },
+            }
+            self.spans.append(span)
+        ledger = self.ledger
+        if ledger is not None:  # outside the lock: the ledger has its own
+            ledger.observe_phase(name, t0, t1, first=first,
+                                 attrs=span["attrs"])
+        hbm = self.hbm
+        if hbm is not None:
+            hbm.observe_phase(name, t0, t1, first=first,
+                              attrs=span["attrs"])
+
+    def drain_stats(self) -> Dict[str, float]:
+        """`timing/<phase>_ms` (steady-state mean since last drain) and
+        `timing/<phase>_first_ms` (once, on the drain after the first
+        call — the compile+run time)."""
+        out: Dict[str, float] = {}
+        with self._lock:
+            for name, durs in self._steady.items():
+                if durs:
+                    out[f"timing/{name}_ms"] = 1e3 * sum(durs) / len(durs)
+            self._steady = {}
+            for name, dur in self._first.items():
+                if name not in self._drained_first:
+                    self._drained_first.add(name)
+                    out[f"timing/{name}_first_ms"] = 1e3 * dur
+        return out
+
+    def to_chrome_trace(self) -> Dict[str, Any]:
+        with self._lock:
+            spans = list(self.spans)
+        return to_chrome_trace([], phase_spans=spans)
+
+    def write(self, path: str) -> str:
+        return write_chrome_trace(path, self.to_chrome_trace())
+
+
+class _PhaseCtx:
+    __slots__ = ("_tl", "_name", "_step", "_t0")
+
+    def __init__(self, tl: PhaseTimeline, name: str, step: Optional[int]):
+        self._tl, self._name, self._step = tl, name, step
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._tl.add(self._name, self._t0, time.monotonic(), step=self._step)
+        return False
