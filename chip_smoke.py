@@ -23,7 +23,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    with an int8 KV pool;
 5. greedy equality on the card: the engine with the kernel and with the
    gather path emit identical greedy token streams at f32 across slot
-   reuse (int8 KV: at most one stream may differ).
+   reuse (int8 KV: at most one stream may differ);
+6. the training kernels against their plain versions on the card: flash
+   attention forward without and with lse (K3, K4), backward dq (K5) and
+   dk/dv (K6) at gpt2-small training shapes (b 8, t 1024, 12/12/64, bf16,
+   left-padded rows and one row with no valid key), llama-7b (32/32/128)
+   and GQA (32/8/128) at t 2048, b 1; the label logprob (K7) at [8184,
+   50257] bf16 with out-of-range labels; with kernel, plain-version,
+   library (scaled_dot_product_attention forward / backward; logsumexp
+   plus gather) and bound times;
+7. training, the port's second main path: `trlx_tpu_torch.train(samples=
+   ..., config=cfg)` runs SFT on random:gpt2-small at full width (seq 1024,
+   batch 8, bf16 activations, attn_impl="flash", num_layers_unfrozen=2):
+   per-step loss, step time, training tokens/s and evaluation time; the
+   launch counts equal K3 x10, K4 x2, K5 x2, K6 x2 and K7 x1 per step; the
+   `done` checkpoint loads into a fresh trainer with equal parameters;
+8. one SFT step at f32 with the kernels and with their plain versions
+   gives equal loss and trainable-parameter gradients.
 
 The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object; the last line is
@@ -43,6 +59,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores (data sheet)
 ROOT = Path(__file__).resolve().parent
 
 
@@ -369,6 +386,344 @@ def phase_greedy():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the training kernels (K3-K7) vs their plain versions
+# ---------------------------------------------------------------------------
+
+# name: (b, t, nh, nkv, hd, left pads per row; a pad of t is a row with no valid key)
+FLASH_SHAPES = {
+    "gpt2-small": (8, 1024, 12, 12, 64, [0, 0, 17, 100, 256, 511, 700, 1024]),
+    "llama-7b": (1, 2048, 32, 32, 128, [0]),
+    "gqa": (1, 2048, 32, 8, 128, [0]),
+}
+CE_ROWS, CE_VOCAB = 8 * 1023, 50257
+# tolerances: bf16 outputs (out, dq): both sides compute in f32 and round
+# once to bf16, so one bf16 ulp apart at most: rtol 8e-3, atol 1e-3. f32
+# outputs (lse, per-head dk/dv, logprobs): the same f32 arithmetic summed
+# in another order over up to 2048 keys (50257 vocabulary entries).
+BF16_TOL = dict(rtol=8e-3, atol=1e-3)
+LSE_TOL = dict(rtol=2e-5, atol=2e-5)
+DKV_TOL = dict(rtol=1e-4, atol=1e-3)
+CE_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def flash_case(b, t, nh, nkv, hd, pads, gen, device):
+    import torch
+
+    from trlx_tpu_torch.ops import attention
+
+    bf = torch.bfloat16
+    q = torch.randn(b, t, nh, hd, generator=gen, device=device).to(bf)
+    k = torch.randn(b, t, nkv, hd, generator=gen, device=device).to(bf)
+    v = torch.randn(b, t, nkv, hd, generator=gen, device=device).to(bf)
+    g = torch.randn(b, t, nh, hd, generator=gen, device=device).to(bf)
+    pads_t = torch.tensor(pads, device=device)
+    mask = (torch.arange(t, device=device)[None, :] >= pads_t[:, None]).to(torch.int32)
+    out, lse = attention.flash_fwd_plain(q, k, v, mask, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, mask, g, lse, delta
+
+
+def allowed_pairs(t, pads):
+    """(query, key) pairs the causal mask allows on this run's rows: a row
+    with p left pads has t - p real queries, query i seeing i - p + 1 keys."""
+    return sum((t - p) * (t - p + 1) // 2 for p in pads)
+
+
+def flash_bound(b, t, nh, nkv, hd, pads, kind):
+    """(ms, "bytes" | "operations"): causal products over the bf16
+    tensor-core peak vs each operand read or written once over the memory
+    rate. kind: fwd, fwd_lse, dq, dkv."""
+    pairs = allowed_pairs(t, pads)
+    products = {"fwd": 2, "fwd_lse": 2, "dq": 3, "dkv": 4}[kind]  # t x t x hd matmuls per head
+    ops = 2 * products * nh * hd * pairs
+    q_bytes, kv_bytes, rows = b * t * nh * hd * 2, b * t * nkv * hd * 2, b * nh * t * 4
+    moved = q_bytes + 2 * kv_bytes + b * t * 4  # q, k, v, mask
+    moved += {"fwd": q_bytes, "fwd_lse": q_bytes + rows,
+              "dq": 2 * q_bytes + 2 * rows,  # dout, dq; lse, delta
+              "dkv": q_bytes + 2 * rows + 2 * b * t * nh * hd * 4}[kind]  # dout; lse, delta; dk, dv f32
+    ops_ms, bytes_ms = ops / BF16_FLOPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def sdpa_calls(q, k, v, g, nh, nkv):
+    """scaled_dot_product_attention(is_causal=True) forward, and its
+    backward (dq, dk, dv together) on a saved graph: the yardstick the
+    port never calls. Layouts are prepared outside the timed calls."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    gqa = dict(enable_gqa=True) if nkv != nh else {}
+    fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, **gqa)
+    bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), gt, retain_graph=True)
+    return fwd, bwd
+
+
+def phase_train_kernels(device):
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.ops import attention as A
+    from trlx_tpu_torch.ops.fused_ce import fused_logprobs_of_labels, label_logprobs, label_logprobs_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    err = {n: 0.0 for n in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "label_logprobs")}
+    results = {}
+
+    def note(name, got, want, tol):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        e = float((got.float() - want.float()).abs().max())
+        err[name] = max(err[name], e)
+        return e
+
+    for shape, (b, t, nh, nkv, hd, pads) in FLASH_SHAPES.items():
+        q, k, v, mask, g, lse_p, delta = flash_case(b, t, nh, nkv, hd, pads, gen, device)
+        out3 = A.flash_fwd(q, k, v, mask, True)
+        out4, lse = A.flash_fwd(q, k, v, mask, True, with_lse=True)
+        dq = A.flash_bwd_dq(q, k, v, mask, g, lse_p, delta, True)
+        dk, dv = A.flash_bwd_dkv(q, k, v, mask, g, lse_p, delta, True)
+        torch.cuda.synchronize()
+        out_p, _ = A.flash_fwd_plain(q, k, v, mask, True)
+        dq_p = A.flash_bwd_dq_plain(q, k, v, mask, g, lse_p, delta, True)
+        dk_p, dv_p = A.flash_bwd_dkv_plain(q, k, v, mask, g, lse_p, delta, True)
+        errs = [note("flash_fwd", out3, out_p, BF16_TOL), note("flash_fwd_lse", out4, out_p, BF16_TOL),
+                note("flash_fwd_lse", lse, lse_p, LSE_TOL), note("flash_bwd_dq", dq, dq_p, BF16_TOL),
+                note("flash_bwd_dkv", dk, dk_p, DKV_TOL), note("flash_bwd_dkv", dv, dv_p, DKV_TOL)]
+        dead = mask.sum(-1) == 0
+        if bool(dead.any()) and not (bool((out3[dead] == 0).all()) and bool((lse[dead] == A.DEAD_LSE).all())):
+            raise AssertionError(f"{shape}: a row with no valid key is not exactly 0 / DEAD_LSE")
+        sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, g, nh, nkv)
+        lib_fwd, lib_bwd = device_time_ms(sdpa_fwd, 20), device_time_ms(sdpa_bwd, 10)
+        timed = {
+            "flash_fwd": (lambda: A.flash_fwd(q, k, v, mask, True),
+                          lambda: A.flash_fwd_plain(q, k, v, mask, True), lib_fwd, "fwd"),
+            "flash_fwd_lse": (lambda: A.flash_fwd(q, k, v, mask, True, with_lse=True),
+                              lambda: A.flash_fwd_plain(q, k, v, mask, True), lib_fwd, "fwd_lse"),
+            "flash_bwd_dq": (lambda: A.flash_bwd_dq(q, k, v, mask, g, lse_p, delta, True),
+                             lambda: A.flash_bwd_dq_plain(q, k, v, mask, g, lse_p, delta, True), lib_bwd, "dq"),
+            "flash_bwd_dkv": (lambda: A.flash_bwd_dkv(q, k, v, mask, g, lse_p, delta, True),
+                              lambda: A.flash_bwd_dkv_plain(q, k, v, mask, g, lse_p, delta, True), lib_bwd, "dkv"),
+        }
+        for name, (kern, plain, lib, kind) in timed.items():
+            least_ms, bound_by = flash_bound(b, t, nh, nkv, hd, pads, kind)
+            results[(name, shape)] = dict(ms=device_time_ms(kern, 10), plain_ms=device_time_ms(plain, 3),
+                                          library_ms=lib, bound_ms=least_ms, bound_by=bound_by)
+            r = results[(name, shape)]
+            log(f"[train-kernels] {name} {shape} b={b} t={t} nh={nh} nkv={nkv} hd={hd}: "
+                f"kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms={lib:.5f} "
+                f"bound_ms={least_ms:.5f} ({bound_by})")
+        log(f"[train-kernels] {shape}: max_abs_err out/out_lse/lse/dq/dk/dv = "
+            + " ".join(f"{e:.3g}" for e in errs))
+        del q, k, v, mask, g, lse_p, delta, out3, out4, lse, dq, dk, dv, out_p, dq_p, dk_p, dv_p
+        torch.cuda.empty_cache()
+
+    # K7: the CE loss's shape, through the entry point that clamps labels
+    logits = torch.randn(CE_ROWS, CE_VOCAB, generator=gen, device=device).mul_(3).to(torch.bfloat16)
+    labels = torch.randint(0, CE_VOCAB, (CE_ROWS,), generator=gen, device=device)
+    labels[::97] = -100
+    labels[1::89] = CE_VOCAB + 5
+    with torch.no_grad():
+        out = fused_logprobs_of_labels(logits, labels)
+    clamped = labels.clamp(0, CE_VOCAB - 1).to(torch.int32)
+    ref_out, ref_lse = label_logprobs_plain(logits, clamped)
+    got_out, got_lse = label_logprobs(logits, clamped)
+    torch.cuda.synchronize()
+    errs = [note("label_logprobs", out, ref_out, CE_TOL), note("label_logprobs", got_lse, ref_lse, CE_TOL)]
+    log(f"[train-kernels] label_logprobs [{CE_ROWS}, {CE_VOCAB}] bf16: max_abs_err logprob/lse = "
+        + " ".join(f"{e:.3g}" for e in errs))
+    lib = lambda: torch.gather(logits.float(), 1, clamped.long()[:, None])[:, 0] - torch.logsumexp(logits.float(), -1)
+    moved = CE_ROWS * CE_VOCAB * 2 + CE_ROWS * 4 * 3  # logits, labels, logprobs and lse
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, 4 * CE_ROWS * CE_VOCAB / F32_FLOPS_PER_S * 1e3
+    least_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    results[("label_logprobs", "gpt2-small")] = dict(
+        ms=device_time_ms(lambda: label_logprobs(logits, clamped), 20),
+        plain_ms=device_time_ms(lambda: label_logprobs_plain(logits, clamped), 5),
+        library_ms=device_time_ms(lib, 5), bound_ms=least_ms, bound_by=bound_by)
+    r = results[("label_logprobs", "gpt2-small")]
+    log(f"[train-kernels] label_logprobs: kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+        f"library_ms={r['library_ms']:.5f} bound_ms={least_ms:.5f} ({bound_by})")
+    del logits, labels
+    torch.cuda.empty_cache()
+    kernels.reset_launches()  # the comparison launches above do not count
+    return results, err
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: SFT training (the second main path)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+TRAIN_KERNELS_PER_STEP = {"flash_fwd": 10, "flash_fwd_lse": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                          "label_logprobs": 1}
+
+
+def sft_samples(n=8, seed=0):
+    """Text from a seed: words of a small vocabulary, 700 to 1300 bytes (the
+    longer ones truncated at seq_length 1024, the shorter left padded)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    words = ["".join(chr(97 + c) for c in rng.randint(0, 26, rng.randint(2, 8))) for _ in range(64)]
+    out = []
+    for _ in range(n):
+        text = ""
+        target = rng.randint(700, 1300)
+        while len(text) < target:
+            text += words[rng.randint(0, len(words))] + " "
+        out.append(text)
+    return out
+
+
+def training_config(work, **model_extra):
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+
+    return default_sft_config().evolve(
+        train=dict(seq_length=1024, batch_size=8, total_steps=TRAIN_STEPS, eval_interval=10000,
+                   checkpoint_dir=str(work / "ckpts"), logging_dir=str(work / "logs")),
+        model=dict(model_path="random:gpt2-small", num_layers_unfrozen=2,
+                   model_extra_configs={"vocab_size": 50257, "attn_impl": "flash", **model_extra}),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(gen_kwargs=dict(max_new_tokens=40, do_sample=False)),
+    )
+
+
+def phase_train(card):
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    work = ROOT / "build" / "chip_smoke_sft"
+    if work.exists():
+        import shutil
+
+        shutil.rmtree(work)
+    config = training_config(work)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = trlx_tpu_torch.train(samples=sft_samples(), config=config)  # device defaults to cuda
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    metrics = next((work / "logs").glob("*.metrics.jsonl"))
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    steps = [r for r in rows if "loss" in r]
+    evals = [r["time/generate"] for r in rows if "time/generate" in r]
+    losses = [r["loss"] for r in steps]
+    for r in steps:
+        log(f"[train] step {r['_step']}: loss={r['loss']:.6f} step_s={r['time/train_step_s']:.4f} "
+            f"train_tokens_per_s={r['throughput/train_tokens_per_s']:.1f}")
+    steady = steps[1:]  # step 1 pays the first-call warm-up (cuBLAS, allocator)
+    step_s = statistics.median(r["time/train_step_s"] for r in steady)
+    tok_s = statistics.median(r["throughput/train_tokens_per_s"] for r in steady)
+    log(f"[train] gpt2-small SFT seq 1024 batch 8 bf16 flash, num_layers_unfrozen=2: {len(steps)} steps in "
+        f"{wall:.2f}s wall (evaluations and the checkpoint included); median step_s={step_s:.4f} "
+        f"train_tokens_per_s={tok_s:.1f}; eval generate ms={[round(e, 1) for e in evals]}; "
+        f"launches={launches} ({card})")
+    if len(steps) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated sample set: {losses}")
+    if len(evals) != 2:
+        raise AssertionError(f"expected the first and the last evaluation, got {len(evals)}")
+    want = {n: c * TRAIN_STEPS for n, c in TRAIN_KERNELS_PER_STEP.items()}
+    got = {n: launches.get(n, 0) for n in want}
+    if got != want:
+        raise AssertionError(f"training launches {got} != {want} (per step: {TRAIN_KERNELS_PER_STEP})")
+    # the `done` checkpoint loads into a fresh trainer with equal parameters
+    directory = work / "ckpts" / f"checkpoint_{TRAIN_STEPS}"
+    fresh = SFTTrainer(config)
+    fresh.load(str(directory))
+    same = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                                   fresh.model.state_dict().values()))
+    if not same or fresh.iter_count != TRAIN_STEPS:
+        raise AssertionError("the done checkpoint did not load back with equal parameters")
+    log(f"[train] checkpoint {directory.name} loads into a fresh trainer: parameters equal, step {fresh.iter_count}")
+    del trainer, fresh
+    torch.cuda.empty_cache()
+    return got, dict(losses=losses, step_s=step_s, train_tokens_per_s=tok_s, eval_ms=evals, wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: one f32 SFT step, kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+# f32 throughout; the two runs differ only in the order of the sums inside
+# attention and the CE reduction: loss within 1e-5 relative, each
+# trainable gradient within 1e-3 of its largest element (atol) plus 1e-3
+# relative. The key projection's bias has an exactly-zero gradient (a
+# row's softmax ignores a shift shared by every key): on both sides it
+# must be rounding noise, below 1e-5 of the largest gradient element.
+GRAD_TOL = 1e-3
+ZERO_GRAD_TOL = 1e-5
+
+
+def sft_step_grads(trainer, batch):
+    trainer.model.zero_grad(set_to_none=True)
+    loss, _ = trainer.make_loss_fn()(trainer.batch_to_device(batch))
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters() if p.requires_grad}
+
+
+def phase_grad_check():
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.ops import attention as A
+    from trlx_tpu_torch.ops import fused_ce
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    work = ROOT / "build" / "chip_smoke_grad"
+    config = training_config(work, dtype="float32", n_layers=4).evolve(train=dict(batch_size=4))
+    trainer = SFTTrainer(config)
+    trainer.make_experience(sft_samples(4, seed=1), config.train.seq_length)
+    batch = next(iter(trainer.store.create_loader(4)))
+    kernels.reset_launches()
+    loss_k, grads_k = sft_step_grads(trainer, batch)
+    launched = dict(kernels.LAUNCHES)
+    # the same step with the wrappers' plain versions, on the same card
+    swaps = {(A, "flash_fwd"): lambda q, k, v, m, c=True, with_lse=False: (
+                 A.flash_fwd_plain(q, k, v, m, c) if with_lse else A.flash_fwd_plain(q, k, v, m, c)[0]),
+             (A, "flash_bwd_dq"): A.flash_bwd_dq_plain, (A, "flash_bwd_dkv"): A.flash_bwd_dkv_plain,
+             (fused_ce, "label_logprobs"): fused_ce.label_logprobs_plain}
+    saved = {key: getattr(*key) for key in swaps}
+    try:
+        for (mod, name), fn in swaps.items():
+            setattr(mod, name, fn)
+        kernels.reset_launches()
+        loss_p, grads_p = sft_step_grads(trainer, batch)
+        if any(kernels.LAUNCHES.values()):
+            raise AssertionError(f"the plain run launched kernels: {kernels.LAUNCHES}")
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    worst = 0.0
+    largest = max(float(g.abs().max()) for g in grads_p.values())
+    for name, gk in grads_k.items():
+        gp = grads_p[name]
+        if name.endswith("attn.k_proj.bias"):
+            noise = max(float(gk.abs().max()), float(gp.abs().max()))
+            if noise > ZERO_GRAD_TOL * largest:
+                raise AssertionError(f"{name}: gradient {noise} is not rounding noise")
+            continue
+        scale = float(gp.abs().max())
+        torch.testing.assert_close(gk, gp, rtol=GRAD_TOL, atol=GRAD_TOL * max(scale, 1e-12))
+        worst = max(worst, float((gk - gp).abs().max()) / max(scale, 1e-12))
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        raise AssertionError(f"f32 loss kernels {loss_k} vs plain {loss_p}")
+    log(f"[grad] gpt2-small width, 4 layers, f32, b 4 t 1024: loss kernels={loss_k:.7f} plain={loss_p:.7f}; "
+        f"{len(grads_k)} trainable grads, worst max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}); "
+        f"kernel launches {launched}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -396,6 +751,9 @@ def main() -> int:
     launches_bf16 = serve_and_check(serving_config(), 16, "paged_decode", card)
     launches_int8 = serve_and_check(serving_config(kv_cache_dtype="int8"), 8, "paged_decode_int8", card)
     phase_greedy()
+    train_timings, train_errs = phase_train_kernels(device)
+    train_launches, _ = phase_train(card)
+    phase_grad_check()
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -408,6 +766,18 @@ def main() -> int:
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
     ]}
+    train_rows = [
+        ("flash_fwd", "trlx_tpu_torch/csrc/flash_attention.cu", "trlx_tpu/ops/attention.py:207"),
+        ("flash_fwd_lse", "trlx_tpu_torch/csrc/flash_attention.cu", "trlx_tpu/ops/attention.py:361"),
+        ("flash_bwd_dq", "trlx_tpu_torch/csrc/flash_attention.cu", "trlx_tpu/ops/attention.py:496"),
+        ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_attention.cu", "trlx_tpu/ops/attention.py:532"),
+        ("label_logprobs", "trlx_tpu_torch/csrc/fused_ce.cu", "trlx_tpu/ops/fused_ce.py:50"),
+    ]
+    for name, src, replaces in train_rows:
+        report["kernels"].append(dict(
+            name=name, route="cuda", source=src, replaces=replaces, launches=train_launches[name],
+            max_abs_err=train_errs[name], held_against_plain_in="phase 6: kernel vs plain version on the card",
+            **train_timings[(name, "gpt2-small")]))
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

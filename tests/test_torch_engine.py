@@ -22,6 +22,10 @@ from trlx_tpu_torch.convert import params_from_jax
 from trlx_tpu_torch.inference import InferenceEngine
 from trlx_tpu_torch.ops.sampling import GenerationConfig, process_logits, topk_mask, topp_mask
 
+# one intra-op thread: the tensors here are tiny, and the suite runs in
+# several worker processes at once, which extra threads only slow down
+torch.set_num_threads(1)
+
 EOS_FREE = 10_000  # an id the byte model never emits -> length-capped runs
 MAX_NEW = 8
 # prompt lengths straddling the kv_block_size=8 boundaries

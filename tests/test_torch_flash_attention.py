@@ -1,0 +1,112 @@
+"""The port's flash attention (trlx_tpu_torch/ops/attention.py) against
+the JAX package's Pallas kernels run in interpret mode, on the same numpy
+inputs: the forward with and without the lse (K4, K3), the backward's dq
+(K5) and dk/dv (K6, group-summed), causal with left padding and a row
+with no valid key, for MHA (4, 4), GQA (4, 2) and MQA (4, 1), at f32 and
+bf16. On the CPU the port's wrappers run their plain versions.
+
+Tolerances: at f32 both sides compute in f32 and differ in summation
+order only: 1e-5 (the backward sums t products per element: 2e-5). At
+bf16 both compute in f32 from the same bf16 inputs and round once to
+bf16, so they may differ by one bf16 ulp: rtol 8e-3 plus atol 1e-3 near
+zero.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trlx_tpu.ops.attention import _flash_bwd_pallas, _flash_fwd_pallas, _flash_fwd_pallas_lse
+from trlx_tpu_torch.ops import attention as A
+
+# one intra-op thread: the tensors here are tiny, and the suite runs in
+# several worker processes at once, which extra threads only slow down
+torch.set_num_threads(1)
+
+B, T, NH, HD, BLK = 3, 64, 4, 16, 32
+TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=8e-3, atol=1e-3)}
+BWD_TOL = {"f32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=8e-3, atol=1e-3)}
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _case(nkv, dtype, seed=0):
+    """Left pads 0, 9 and T (the last row has no valid key)."""
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(B, T, n, HD).astype(np.float32) for n in (NH, nkv, nkv, NH)]
+    mask = (np.arange(T)[None, :] >= np.asarray([0, 9, T])[:, None]).astype(np.int32)
+    jdt, tdt = DTYPES[dtype]
+    jax_in = [jnp.asarray(a, jdt) for a in arrays] + [jnp.asarray(mask)]
+    torch_in = [torch.from_numpy(a).to(tdt) for a in arrays] + [torch.from_numpy(mask)]
+    return jax_in, torch_in
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("nkv", [4, 2, 1])
+def test_flash_forward_and_lse_match_pallas(nkv, dtype):
+    (jq, jk, jv, _, jm), (tq, tk, tv, _, tm) = _case(nkv, dtype)
+    j_out, j_lse = _flash_fwd_pallas_lse(jq, jk, jv, jm, True, BLK, BLK, interpret=True)
+    j_out3 = _flash_fwd_pallas(jq, jk, jv, jm, True, BLK, BLK, interpret=True)
+    t_out, t_lse = A.flash_fwd(tq, tk, tv, tm, True, with_lse=True)
+    t_out3 = A.flash_fwd(tq, tk, tv, tm, True)
+    assert t_out.dtype == tq.dtype
+    np.testing.assert_allclose(_np(t_out), _np(j_out), **TOL[dtype])
+    np.testing.assert_allclose(_np(t_out3), _np(j_out3), **TOL[dtype])
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), rtol=1e-5, atol=1e-5)
+    # the row with no valid key: exactly 0 and the dead-row lse
+    assert float(t_out[-1].abs().max()) == 0.0 and bool((t_lse[-1] == A.DEAD_LSE).all())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("nkv", [4, 2, 1])
+def test_flash_backward_matches_pallas(nkv, dtype):
+    (jq, jk, jv, jg, jm), (tq, tk, tv, tg, tm) = _case(nkv, dtype, seed=1)
+    j_out, j_lse = _flash_fwd_pallas_lse(jq, jk, jv, jm, True, BLK, BLK, interpret=True)
+    j_grads = _flash_bwd_pallas(jq, jk, jv, jm, j_out, j_lse, jg, True, BLK, BLK, interpret=True)
+    # the same residuals on both sides
+    t_out = torch.from_numpy(np.array(_np(j_out))).to(tq.dtype)
+    t_lse = torch.from_numpy(np.array(j_lse))
+    t_grads = A.flash_backward(tq, tk, tv, tm, t_out, t_lse, tg, True)
+    for t, j in zip(t_grads, j_grads):
+        assert t.shape == tuple(j.shape)
+        np.testing.assert_allclose(_np(t), _np(j), **BWD_TOL[dtype])
+
+
+def test_flash_attention_autograd_through_the_function():
+    """The autograd Function's grads equal `flash_backward` on the saved
+    residuals, and a dead row contributes nothing."""
+    _, (tq, tk, tv, tg, tm) = _case(2, "f32", seed=2)
+    q, k, v = (x.clone().requires_grad_(True) for x in (tq, tk, tv))
+    out = A.flash_attention(q, k, v, tm)
+    out.backward(tg)
+    ref_out, lse = A.flash_fwd(tq, tk, tv, tm, True, with_lse=True)
+    ref = A.flash_backward(tq, tk, tv, tm, ref_out, lse, tg, True)
+    for got, want in zip((q.grad, k.grad, v.grad), ref):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert float(q.grad[-1].abs().max()) == 0.0
+
+
+def test_k3_without_grad_k4_with_grad(monkeypatch):
+    """Frozen inputs (or no_grad) take the forward without lse and record
+    no graph; an input that requires grad takes the lse forward."""
+    calls = []
+    real = A.flash_fwd
+
+    def spy(*args, with_lse=False, **kw):
+        calls.append(with_lse)
+        return real(*args, with_lse=with_lse, **kw)
+
+    monkeypatch.setattr(A, "flash_fwd", spy)
+    _, (tq, tk, tv, _, tm) = _case(4, "f32")
+    out = A.flash_attention(tq, tk, tv, tm)
+    assert out.grad_fn is None
+    with torch.no_grad():
+        out = A.flash_attention(tq.clone().requires_grad_(True), tk, tv, tm)
+    assert out.grad_fn is None
+    out = A.flash_attention(tq, tk.clone().requires_grad_(True), tv, tm)
+    assert out.grad_fn is not None
+    assert calls == [False, False, True]

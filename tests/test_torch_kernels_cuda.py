@@ -78,3 +78,150 @@ def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
     q, ka, va, table, mask, _ = (t.to(cuda) for t in _case(1, 4, 4))
     with pytest.raises(ValueError, match="contiguous"):
         paged_attention_decode(q.transpose(0, 1).contiguous().transpose(0, 1), ka, va, table, mask)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (K3-K6) and the fused label logprob (K7)
+# ---------------------------------------------------------------------------
+
+# f32: both sides compute in f32 and differ only in summation order
+# (forward rtol/atol 2e-5; the backward sums t products per element, 1e-4).
+# bf16 outputs: both sides compute in f32 and round once to bf16, so they
+# may differ by one bf16 ulp: rtol 8e-3 plus atol 1e-3 near zero.
+FWD_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
+F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)  # dk/dv are f32 outputs at either input type
+
+
+def _flash_case(seed, b, t, nh, nkv, hd, dtype, device):
+    """Left-padded rows (pads 0, 5, 70, ...) and, with b >= 3, one row with
+    no valid key at all."""
+    from trlx_tpu_torch.ops import attention
+
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(b, t, nh, hd).astype(np.float32)).to(device, dtype)
+    k = torch.from_numpy(rng.randn(b, t, nkv, hd).astype(np.float32)).to(device, dtype)
+    v = torch.from_numpy(rng.randn(b, t, nkv, hd).astype(np.float32)).to(device, dtype)
+    g = torch.from_numpy(rng.randn(b, t, nh, hd).astype(np.float32)).to(device, dtype)
+    pads = [0, 5, 70, t][:b]
+    mask = torch.from_numpy((np.arange(t)[None, :] >= np.asarray(pads)[:, None]).astype(np.int32)).to(device)
+    out, lse = attention.flash_fwd_plain(q, k, v, mask, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, mask, g, out, lse, delta
+
+
+FLASH_SHAPES = [(3, 130, 4, 4, 64), (2, 96, 4, 2, 32), (3, 64, 4, 1, 128), (2, 200, 2, 2, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,nh,nkv,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda, b, t, nh, nkv, hd, dtype):
+    from trlx_tpu_torch.ops import attention as A
+
+    q, k, v, mask, g, out_ref, lse_ref, delta = _flash_case(0, b, t, nh, nkv, hd, dtype, cuda)
+    kernels.reset_launches()
+    out = A.flash_fwd(q, k, v, mask, True)
+    out2, lse = A.flash_fwd(q, k, v, mask, True, with_lse=True)
+    dq = A.flash_bwd_dq(q, k, v, mask, g, lse_ref, delta, True)
+    dk, dv = A.flash_bwd_dkv(q, k, v, mask, g, lse_ref, delta, True)
+    torch.cuda.synchronize()
+    assert {n: kernels.LAUNCHES.get(n) for n in (A.KERNEL_FWD, A.KERNEL_FWD_LSE, A.KERNEL_BWD_DQ, A.KERNEL_BWD_DKV)} == {
+        A.KERNEL_FWD: 1, A.KERNEL_FWD_LSE: 1, A.KERNEL_BWD_DQ: 1, A.KERNEL_BWD_DKV: 1}
+    torch.testing.assert_close(out.float(), out_ref.float(), **FWD_TOL[dtype])
+    torch.testing.assert_close(out2.float(), out_ref.float(), **FWD_TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+    dead = mask.sum(-1) == 0
+    if bool(dead.any()):
+        assert bool((out[dead] == 0).all()) and bool((lse[dead] == A.DEAD_LSE).all())
+    torch.testing.assert_close(dq.float(), A.flash_bwd_dq_plain(q, k, v, mask, g, lse_ref, delta).float(),
+                               **BWD_TOL[dtype])
+    dk_ref, dv_ref = A.flash_bwd_dkv_plain(q, k, v, mask, g, lse_ref, delta)
+    torch.testing.assert_close(dk, dk_ref, **F32_BWD_TOL)
+    torch.testing.assert_close(dv, dv_ref, **F32_BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,nkv", [(4, 4), (4, 2), (4, 1)])
+def test_flash_attention_autograd_matches_cpu(cuda, nh, nkv):
+    """The autograd Function on the card (K4 forward, K5/K6 backward and the
+    GQA group-sum) against the same function on CPU copies (plain
+    versions), f32."""
+    from trlx_tpu_torch.ops.attention import flash_attention
+
+    q, k, v, mask, g, *_ = _flash_case(1, 3, 80, nh, nkv, 32, torch.float32, torch.device("cpu"))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        qs, ks, vs = (x.to(dev).requires_grad_(True) for x in (q, k, v))
+        out = flash_attention(qs, ks, vs, mask.to(dev), causal=True)
+        out.backward(g.to(dev))
+        grads.append([out.detach().cpu(), qs.grad.cpu(), ks.grad.cpu(), vs.grad.cpu()])
+    for a, b_ in zip(*grads):
+        torch.testing.assert_close(a, b_, **F32_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_dispatch_k3_without_grad_k4_with(cuda):
+    from trlx_tpu_torch.ops import attention as A
+
+    q, k, v, mask, *_ = _flash_case(2, 2, 64, 4, 4, 64, torch.bfloat16, cuda)
+    kernels.reset_launches()
+    with torch.no_grad():
+        A.flash_attention(q.requires_grad_(True), k, v, mask)
+    A.flash_attention(q.detach(), k, v, mask)
+    assert kernels.LAUNCHES.get(A.KERNEL_FWD) == 2 and not kernels.LAUNCHES.get(A.KERNEL_FWD_LSE)
+    A.flash_attention(q.detach().requires_grad_(True), k, v, mask).float().sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES.get(A.KERNEL_FWD_LSE) == 1
+    assert kernels.LAUNCHES.get(A.KERNEL_BWD_DQ) == 1 and kernels.LAUNCHES.get(A.KERNEL_BWD_DKV) == 1
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    from trlx_tpu_torch.ops import attention as A
+
+    q, k, v, mask, *_ = _flash_case(3, 2, 64, 4, 4, 48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.flash_fwd(q, k, v, mask)
+    q, k, v, mask, *_ = _flash_case(3, 2, 64, 4, 4, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask)
+    with pytest.raises(ValueError, match="dtypes"):
+        A.flash_fwd(q.half(), k.half(), v.half(), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_label_logprobs_kernel_matches_plain(cuda, dtype):
+    """Both sides read the same logits and compute in f32: 1e-5."""
+    from trlx_tpu_torch.ops.fused_ce import KERNEL as CE, label_logprobs, label_logprobs_plain
+
+    rng = np.random.RandomState(4)
+    logits = torch.from_numpy((3 * rng.randn(300, 1001)).astype(np.float32)).to(cuda, dtype)
+    labels = torch.from_numpy(rng.randint(0, 1001, 300).astype(np.int32)).to(cuda)
+    kernels.reset_launches()
+    out, lse = label_logprobs(logits, labels)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[CE] == 1
+    ref_out, ref_lse = label_logprobs_plain(logits, labels)
+    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_logprobs_value_and_grad_on_card(cuda):
+    """Out-of-range labels clamp into [0, V); the gradient is the plain
+    torch backward against log_softmax + gather autograd."""
+    from trlx_tpu_torch.ops.fused_ce import fused_logprobs_of_labels
+
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(3, 7, 515).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.randint(-3, 520, (3, 7)).astype(np.int64)).to(cuda)
+    a = x.clone().requires_grad_(True)
+    out = fused_logprobs_of_labels(a, labels)
+    out.sum().backward()
+    b_ = x.clone().requires_grad_(True)
+    ref = torch.gather(torch.log_softmax(b_, -1), -1, labels.clamp(0, 514)[..., None])[..., 0]
+    ref.sum().backward()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(a.grad, b_.grad, rtol=1e-5, atol=1e-5)

@@ -22,6 +22,10 @@ from trlx_tpu_torch.data.configs import ModelConfig
 from trlx_tpu_torch.models import build_model
 from trlx_tpu_torch.models.transformer import init_paged_kv_arena, position_ids
 
+# one intra-op thread: the tensors here are tiny, and the suite runs in
+# several worker processes at once, which extra threads only slow down
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 V, BLK, N_TBL, N_BLOCKS = 259, 8, 4, 10
 
@@ -131,3 +135,28 @@ def test_prefill_then_decode_match_jax(pair):
     for layer in t_arena:
         assert not np.any(layer["k"].numpy()[[0, 8, 9]])
         assert not np.any(layer["v"].numpy()[[0, 8, 9]])
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_training_forward_matches_jax(pair, attn_impl):
+    """The no-cache forward (logits, values, h_split) over left-padded rows:
+    the dense causal bias path and the flash path (JAX: blockwise XLA on
+    the CPU; port: the kernels' plain versions)."""
+    import dataclasses
+
+    from trlx_tpu_torch.models.policy import CausalLMWithValueHead
+
+    jmodel, jcfg, jparams, tmodel, tcfg = pair
+    jm = type(jmodel)(dataclasses.replace(jcfg, attn_impl=attn_impl))
+    tm = CausalLMWithValueHead(dataclasses.replace(tcfg, attn_impl=attn_impl))
+    tm.load_state_dict(tmodel.state_dict())
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, 256, (3, 12)).astype(np.int32)
+    mask = (np.arange(12)[None, :] >= np.asarray([0, 5, 11])[:, None]).astype(np.int32)
+    j_logits, j_values, j_split = jm.apply({"params": jparams}, jnp.asarray(ids), jnp.asarray(mask), None, 1)
+    with torch.no_grad():
+        t_logits, t_values, t_split = tm(torch.from_numpy(ids).long(), torch.from_numpy(mask), None, 1)
+    valid = mask.astype(bool)
+    np.testing.assert_allclose(t_logits.numpy()[valid], np.asarray(j_logits)[valid], **TOL)
+    np.testing.assert_allclose(t_values.numpy()[valid], np.asarray(j_values)[valid], **TOL)
+    np.testing.assert_allclose(t_split.numpy(), np.asarray(j_split), **TOL)

@@ -26,6 +26,10 @@ from trlx_tpu_torch.ops.paged_attention import (
     paged_attention_reference,
 )
 
+# one intra-op thread: the tensors here are tiny, and the suite runs in
+# several worker processes at once, which extra threads only slow down
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

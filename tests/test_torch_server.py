@@ -14,6 +14,10 @@ import torch
 
 from trlx_tpu_torch.convert import params_from_jax
 
+# one intra-op thread: the tensors here are tiny, and the suite runs in
+# several worker processes at once, which extra threads only slow down
+torch.set_num_threads(1)
+
 
 def _config():
     from trlx_tpu.data.default_configs import default_sft_config

@@ -9,10 +9,22 @@ Slices ported so far (ROADMAP.md, queue A):
 
 - serving: `SFTTrainer(config).serve()` -> `InferenceEngine` (paged KV)
   -> `Scheduler` -> `InferenceServer`, with the paged-attention decode
-  kernel hand-written in CUDA for sm_90a (`csrc/paged_attention.cu`).
+  kernel hand-written in CUDA for sm_90a (`csrc/paged_attention.cu`);
+- supervised fine-tuning: `trlx_tpu_torch.train(samples=..., config=...)`
+  -> `SFTTrainer.learn()`, with causal flash attention forward and
+  backward (`csrc/flash_attention.cu`) and the fused label logprob of the
+  CE loss (`csrc/fused_ce.cu`) hand-written in CUDA.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 asking for `cuda` where there is none raises.
 """
 
 __version__ = "0.1.0"
+
+
+def train(*args, **kwargs):
+    """`trlx_tpu_torch.trlx.train`, imported at first call so that
+    `import trlx_tpu_torch` stays light."""
+    from trlx_tpu_torch.trlx import train as _train
+
+    return _train(*args, **kwargs)

@@ -1,17 +1,19 @@
-"""Model construction from a ModelConfig (causal value-head `random:`
-presets; loading an HF checkpoint directory waits for a later slice)."""
+"""Model construction from a ModelConfig: causal value-head policies from
+`random:` presets (loading an HF checkpoint directory is ROADMAP queue A,
+item 4)."""
 
 from typing import Optional, Tuple
 
 import torch
 
 from trlx_tpu_torch.models.heads import MLPHead  # noqa: F401
-from trlx_tpu_torch.models.policy import CausalLMWithValueHead
+from trlx_tpu_torch.models.policy import CausalLMWithValueHead, resolve_split, trainable_mask  # noqa: F401
 from trlx_tpu_torch.models.transformer import (  # noqa: F401
     PRESETS,
     TransformerConfig,
     TransformerLM,
     config_from_preset,
+    init_kv_cache,
     init_paged_kv_arena,
     position_ids,
 )
@@ -32,9 +34,9 @@ def resolve_transformer_config(model_config, vocab_size: int) -> TransformerConf
     path = model_config.model_path
     extra = dict(model_config.model_extra_configs or {})
     if getattr(model_config, "model_arch_type", "causal") != "causal":
-        raise NotImplementedError("seq2seq models are not ported yet (ROADMAP queue A, model features)")
+        raise NotImplementedError("seq2seq models are not ported yet (ROADMAP queue A, item 4: model features)")
     if getattr(model_config, "peft_config", None) is not None:
-        raise NotImplementedError("peft/LoRA is not ported yet (ROADMAP queue A, model features)")
+        raise NotImplementedError("peft/LoRA is not ported yet (ROADMAP queue A, item 4: model features)")
     if "dtype" in extra:
         name = str(extra.pop("dtype"))
         if name not in DTYPES:
@@ -43,7 +45,7 @@ def resolve_transformer_config(model_config, vocab_size: int) -> TransformerConf
     if not path.startswith("random:"):
         raise NotImplementedError(
             f"loading '{path}' from an HF checkpoint is not ported yet; use a "
-            "random:<preset> model (ROADMAP queue A, model layer)"
+            "random:<preset> model (ROADMAP queue A, item 4: HF loading)"
         )
     vocab_size = extra.pop("vocab_size", vocab_size)
     return config_from_preset(path[len("random:"):], vocab_size=vocab_size, **extra)

@@ -1,11 +1,14 @@
-"""Decoder-only transformer LM (PyTorch) with the paged-KV decode path.
+"""Decoder-only transformer LM (PyTorch).
 
-Port of the JAX package's `models/transformer.py` for the serving slice:
-`TransformerConfig`, `PRESETS`, `TransformerLM` with `embed`/`unembed`,
-the per-row cached `prefill_rows` and `decode_step_rows` over a paged KV
-arena, and `init_paged_kv_arena`. Families: GPT-2 (learned positions,
-LayerNorm, tanh-gelu, tied embeddings) and the llama knobs (rope,
-RMSNorm, silu-glu, GQA/MQA, untied head, no biases).
+Port of the JAX package's `models/transformer.py`: `TransformerConfig`,
+`PRESETS`, `TransformerLM` with `embed`/`unembed`, the training/scoring
+forward (`forward`, dense causal bias or the flash kernels under
+`attn_impl="flash"`), the fixed-slot dense KV cache (`init_kv_cache`,
+`decode_step`) that the sampler uses, and the per-row cached
+`prefill_rows` and `decode_step_rows` over a paged KV arena
+(`init_paged_kv_arena`) that the inference engine uses. Families: GPT-2
+(learned positions, LayerNorm, tanh-gelu, tied embeddings) and the llama
+knobs (rope, RMSNorm, silu-glu, GQA/MQA, untied head, no biases).
 
 Numerics follow the flax layers: parameters are f32 and cast to
 `cfg.dtype` at use (a `Dense` with `param_dtype=f32, dtype=bf16`),
@@ -105,19 +108,28 @@ def check_supported(cfg: TransformerConfig) -> None:
     for name, on in later.items():
         if on:
             raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP queue A, the remaining model families)"
+                f"{name} is not ported yet (ROADMAP queue A, item 4: model families)"
             )
     if cfg.moe_experts > 0:
-        raise NotImplementedError("the MoE MLP is not ported yet (ROADMAP queue A, model features)")
+        raise NotImplementedError("the MoE MLP is not ported yet (ROADMAP queue A, item 4: model features)")
     if cfg.lora_rank > 0 or cfg.prompt_tokens > 0 or cfg.prefix_tokens > 0:
         raise NotImplementedError(
-            "LoRA / prompt / prefix tuning are not ported yet (ROADMAP queue A, model features)"
+            "LoRA / prompt / prefix tuning are not ported yet (ROADMAP queue A, item 4: model features)"
         )
-    if cfg.attn_impl != "xla":
+    if cfg.attn_impl not in ("xla", "flash"):
         raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} (flash/ring training attention) is not ported yet "
-            "(ROADMAP queue B, K3-K6)"
+            f"attn_impl={cfg.attn_impl!r} (ring/blockwise attention) is not ported yet "
+            "(ROADMAP queue A, item 4: parallelism)"
         )
+
+
+def fused_attention_ok(cfg: TransformerConfig) -> bool:
+    """Whether the flash kernels express cfg's attention structure (plain
+    causal plus key padding). The single source of truth for Attention's
+    branch and `train_bias`: the bias is None exactly when the kernel
+    builds the structure itself. (ALiBi and sliding windows, which need
+    the dense bias, are refused by `check_supported` until they port.)"""
+    return cfg.attn_impl == "flash"
 
 
 def activation_fn(cfg: TransformerConfig):
@@ -256,11 +268,25 @@ class Attention(nn.Module):
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
 
-        if layer_cache is None or "table" not in layer_cache:
-            raise NotImplementedError(
-                "only the paged-KV cached path is ported (the fixed-slot pool and the "
-                "training forward wait for later slices, ROADMAP queue A)"
-            )
+        if layer_cache is None:
+            if fused_attention_ok(cfg) and attn_mask is not None:
+                # Fused training/scoring path: causal and key-padding
+                # structure come from `attn_mask` inside the kernels
+                # (attn_bias encodes exactly that structure and is
+                # ignored); K/V stay at n_kv_heads.
+                from trlx_tpu_torch.ops.attention import flash_attention
+
+                out = flash_attention(q, k, v, mask=attn_mask, causal=True).to(cfg.dtype)
+                return self.o_proj(out.reshape(b, t, nh * hd)), None
+            return self._dense(q, k, v, attn_bias), None
+        if "table" not in layer_cache:
+            # Fixed-slot dense cache (the sampler's): write this step's K/V
+            # in place at the scalar column `cache_index`, then attend over
+            # the whole static-length cache under the caller's bias.
+            idx = int(cache_index)
+            layer_cache["k"][:, idx:idx + t] = k.to(layer_cache["k"].dtype)
+            layer_cache["v"][:, idx:idx + t] = v.to(layer_cache["v"].dtype)
+            return self._dense(q, layer_cache["k"], layer_cache["v"], attn_bias), layer_cache
         # Paged KV pool: a global block arena k/v [n_blocks + 1, blk, nkv,
         # hd] shared by every slot plus a per-row block table [b, n_tbl].
         # This step's K/V is written in place at per-row columns
@@ -320,14 +346,21 @@ class Attention(nn.Module):
         else:
             k = arena_k[idx].reshape(b, S, nkv, hd)
             v = arena_v[idx].reshape(b, S, nkv, hd)
-        if nkv != nh:  # GQA: q head h reads kv head h // group
-            k = k.repeat_interleave(nh // nkv, dim=2)
-            v = v.repeat_interleave(nh // nkv, dim=2)
+        return self._dense(q, k, v, attn_bias), layer_cache
+
+    def _dense(self, q, k, v, attn_bias):
+        """The einsum path: f32 scores, the additive bias, softmax in f32,
+        probabilities cast to cfg.dtype, then o_proj."""
+        cfg = self.cfg
+        b, t, nh, hd = q.shape
+        if k.shape[2] != nh:  # GQA: q head h reads kv head h // group
+            k = k.repeat_interleave(nh // k.shape[2], dim=2)
+            v = v.repeat_interleave(nh // v.shape[2], dim=2)
         # [b, h, t, S] scores in f32 (preferred_element_type=f32)
         scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (1.0 / math.sqrt(hd))
         probs = torch.softmax(scores + attn_bias, dim=-1).to(cfg.dtype)
         out = _einsum("bhts,bshd->bthd", probs, v).reshape(b, t, nh * hd)
-        return self.o_proj(out), layer_cache
+        return self.o_proj(out)
 
 
 class MLP(nn.Module):
@@ -377,6 +410,24 @@ def decode_bias(cache_mask: torch.Tensor, t: int) -> torch.Tensor:
     return torch.where(allowed, 0.0, -1e9).to(torch.float32)
 
 
+def causal_bias(attn_mask: torch.Tensor) -> torch.Tensor:
+    """Additive bias of a no-cache forward: causal plus key padding.
+    attn_mask [b, t] (1 = real token) -> [b, 1, t, t] f32, 0.0 where
+    allowed and -1e9 elsewhere."""
+    t = attn_mask.shape[-1]
+    causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=attn_mask.device))
+    allowed = causal[None, None] & attn_mask[:, None, None, :].bool()
+    return torch.where(allowed, 0.0, -1e9).to(torch.float32)
+
+
+def train_bias(cfg: TransformerConfig, attn_mask: torch.Tensor) -> Optional[torch.Tensor]:
+    """Additive bias for a no-cache forward, or None when the flash kernels
+    build the structure themselves."""
+    if fused_attention_ok(cfg):
+        return None
+    return causal_bias(attn_mask)
+
+
 class TransformerLM(nn.Module):
     """Decoder-only LM; blocks are registered as `block_{i}` like the JAX
     parameter tree."""
@@ -415,6 +466,55 @@ class TransformerLM(nn.Module):
             h, new_cache = blk(h, attn_bias, positions, layer_cache, cache_index, attn_mask, attn_kernel)
             new_layers.append(new_cache)
         return h, new_layers
+
+    def forward(self, tokens, attn_mask, positions=None, split: int = 0):
+        """Training/scoring forward (no cache). tokens, attn_mask [b, t].
+        Returns (logits, h_split, h_final): h_split is the activation
+        entering block `split` (the embedding output for split 0)."""
+        if positions is None:
+            positions = position_ids(attn_mask)
+        h = self.embed(tokens, positions)
+        bias = train_bias(self.cfg, attn_mask)
+        h_split = h
+        for i, blk in enumerate(self.blocks):
+            if i == split:
+                h_split = h
+            h, _ = blk(h, bias, positions, attn_mask=attn_mask)
+        if split >= self.cfg.n_layers:
+            h_split = h
+        logits, h_final = self.unembed(h)
+        return logits, h_split, h_final
+
+    def decode_step(self, tokens, cache: Dict[str, Any], token_mask, is_prefill: bool = False):
+        """One cached call over the fixed-slot dense cache (`init_kv_cache`):
+        a prefill of the prompt block at the cache's write offset, or one
+        decode step. The cache carries `index` (the write offset, a python
+        int), `mask` [b, S], `pos` [b] (each row's next position id) and
+        `layers`; its K/V tensors are written in place. Returns (logits,
+        h_final, new_cache)."""
+        b, t = tokens.shape
+        index = int(cache["index"])
+        if is_prefill:
+            positions = position_ids(token_mask)
+            next_pos = token_mask.sum(-1).to(torch.int64)
+        else:
+            positions = cache["pos"][:, None]
+            next_pos = cache["pos"] + token_mask[:, 0].to(torch.int64)
+        new_mask = cache["mask"].clone()
+        new_mask[:, index:index + t] = token_mask.to(new_mask.dtype)
+        bias = decode_bias(new_mask, t)
+        if is_prefill:
+            # causal structure within the prefill block
+            S = new_mask.shape[-1]
+            q_ids = torch.arange(t, device=tokens.device)[:, None]
+            k_ids = torch.arange(S, device=tokens.device)[None, :]
+            within = (k_ids < index + t) & (k_ids >= index) & (k_ids - index > q_ids)
+            bias = bias + torch.where(within[None, None], -1e9, 0.0).to(torch.float32)
+        h = self.embed(tokens, positions)
+        h, new_layers = self.run_blocks(h, bias, positions, cache["layers"], index)
+        logits, h_final = self.unembed(h)
+        new_cache = {"index": index + t, "mask": new_mask, "pos": next_pos, "layers": new_layers}
+        return logits, h_final, new_cache
 
     def decode_step_rows(
         self,
@@ -493,6 +593,23 @@ class TransformerLM(nn.Module):
             "layers": new_layers,
         }
         return logits, new_cache
+
+
+def init_kv_cache(cfg: TransformerConfig, batch_size: int, max_len: int, dtype=None, device=None):
+    """An empty fixed-slot KV cache of `max_len` columns per row (see
+    `TransformerLM.decode_step`)."""
+    dtype = dtype or cfg.dtype
+    shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
+    layers = [
+        {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for _ in range(cfg.n_layers)
+    ]
+    return {
+        "index": 0,
+        "mask": torch.zeros((batch_size, max_len), dtype=torch.int32, device=device),
+        "pos": torch.zeros((batch_size,), dtype=torch.int64, device=device),
+        "layers": layers,
+    }
 
 
 def init_paged_kv_arena(cfg: TransformerConfig, num_blocks: int, block_size: int,

@@ -1,17 +1,23 @@
-"""Token selection for the inference engine.
+"""Token selection and the autoregressive sampler.
 
-Port of `GenerationConfig`, `process_logits`, `select_token`,
-`sampled_token_logprob` and `topp_mask` from the JAX package's
-`ops/sampling.py` (and `topk_mask` from its `ops/ilql.py`). Sampling draws
-from an explicit `torch.Generator`; JAX's PRNG streams cannot be
-reproduced in torch, so sampled tokens agree with the JAX package only in
-distribution, while greedy decoding is token-exact. The rollout sampler
-(`make_generate_fn`) comes with the rollout slice.
+Port of the JAX package's `ops/sampling.py`: `GenerationConfig`,
+`process_logits`, `select_token`, `sampled_token_logprob`, `topp_mask`
+(and `topk_mask` from its `ops/ilql.py`), and the sampler
+`make_generate_fn` / `generate` for a causal LM with one beam: prefill
+the (left-padded) prompt batch into a fixed-slot KV cache, then decode
+token by token with logit processing, a transition logit mask,
+`suppress_tokens` and eos stop, until every row is finished or the
+budget runs out. Sampling draws from an explicit `torch.Generator`;
+JAX's PRNG streams cannot be reproduced in torch, so sampled tokens
+agree with the JAX package only in distribution, while greedy decoding
+is token-exact. ILQL, seq2seq, beams, stat capture and speculative
+decode raise (ROADMAP queue A, items 2 and 4).
 """
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -118,3 +124,94 @@ def sampled_token_logprob(raw_logits: torch.Tensor, token: torch.Tensor) -> torc
     f32 logits [b, V]."""
     lp = torch.log_softmax(raw_logits.float(), dim=-1)
     return torch.gather(lp, 1, token[:, None].long())[:, 0]
+
+
+def make_generate_fn(
+    model,
+    model_cfg,
+    gen_cfg: GenerationConfig,
+    mode: str = "lm",
+    logit_mask: Optional[np.ndarray] = None,  # [V, V] True = forbidden transition
+    capture: bool = False,
+    spec_k: int = 0,
+) -> Callable:
+    """Build generate(input_ids [b, p], attn_mask [b, p], generator) ->
+    dict(samples, samples_mask, response_tokens, response_mask), with
+    outputs [b, p + max_new_tokens] / [b, max_new_tokens] like the JAX
+    sampler's. `model` is a `CausalLMWithValueHead` whose parameters live
+    on the device the inputs are moved to."""
+    from trlx_tpu_torch.models.transformer import init_kv_cache
+
+    if mode != "lm":
+        raise NotImplementedError(f"mode={mode!r} (ILQL sampling) is not ported yet (ROADMAP queue A, item 4)")
+    if getattr(model_cfg, "is_seq2seq", False):
+        raise NotImplementedError("seq2seq generation is not ported yet (ROADMAP queue A, item 4)")
+    if gen_cfg.num_beams > 1:
+        raise NotImplementedError("beam search is not ported yet (ROADMAP queue A, item 4)")
+    if capture or spec_k > 0:
+        raise NotImplementedError(
+            "rollout stat capture and speculative decode are not ported yet (ROADMAP queue A, item 2)"
+        )
+    max_new = gen_cfg.max_new_tokens
+    track_seen = gen_cfg.repetition_penalty != 1.0
+
+    @torch.no_grad()
+    def generate(input_ids, attn_mask, generator: Optional[torch.Generator] = None):
+        device = next(model.parameters()).device
+        input_ids = torch.as_tensor(np.asarray(input_ids), device=device).long()
+        attn_mask = torch.as_tensor(np.asarray(attn_mask), device=device).to(torch.int32)
+        b, plen = input_ids.shape
+        V = model_cfg.vocab_size
+        suppress = forbid = None
+        if gen_cfg.suppress_tokens:
+            suppress = torch.zeros(V, dtype=torch.float32, device=device)
+            suppress[torch.as_tensor(gen_cfg.suppress_tokens, device=device).long()] = -float("inf")
+        if logit_mask is not None:
+            forbid = torch.as_tensor(np.asarray(logit_mask), device=device).bool()
+        cache = init_kv_cache(model_cfg, b, plen + max_new, device=device)
+        logits, cache = model.decode_step(input_ids, cache, attn_mask, is_prefill=True)
+        logits = logits[:, -1].float()
+        seen = None
+        if track_seen:  # HF semantics: the penalty covers prompt tokens too
+            counts = torch.zeros((b, V), dtype=torch.int32, device=device)
+            rows = torch.arange(b, device=device)[:, None].expand(b, plen)
+            counts.index_put_((rows, input_ids), attn_mask, accumulate=True)
+            seen = counts > 0
+        prev = input_ids[:, -1]
+        finished = torch.zeros(b, dtype=torch.bool, device=device)
+        out_tokens = torch.full((b, max_new), gen_cfg.pad_token_id, dtype=torch.long, device=device)
+        out_mask = torch.zeros((b, max_new), dtype=torch.int32, device=device)
+        for i in range(max_new):
+            if i > 0:
+                step_logits, cache = model.decode_step(prev[:, None], cache, out_mask[:, i - 1:i])
+                logits = step_logits[:, -1].float()
+            scores = logits
+            if suppress is not None:
+                scores = scores + suppress
+            if forbid is not None:  # transitions from the previous token
+                scores = torch.where(forbid[prev], -float("inf"), scores)
+            scores = process_logits(scores, gen_cfg, i, seen)
+            token = select_token(scores, generator, gen_cfg)
+            token = torch.where(finished, torch.full_like(token, gen_cfg.pad_token_id), token)
+            out_tokens[:, i] = token
+            out_mask[:, i] = (~finished).to(torch.int32)
+            finished = finished | (token == gen_cfg.eos_token_id)
+            if track_seen:
+                seen[torch.arange(b, device=device), token] = True
+            prev = token
+            if bool(finished.all()):  # early exit, like the JAX while_loop's condition
+                break
+        return {
+            "samples": torch.cat([input_ids, out_tokens], dim=1),
+            "samples_mask": torch.cat([attn_mask, out_mask], dim=1),
+            "response_tokens": out_tokens,
+            "response_mask": out_mask,
+        }
+
+    return generate
+
+
+def generate(model, model_cfg, input_ids, attn_mask, gen_cfg: GenerationConfig,
+             generator: Optional[torch.Generator] = None, mode: str = "lm", logit_mask=None):
+    """One-shot convenience wrapper over `make_generate_fn`."""
+    return make_generate_fn(model, model_cfg, gen_cfg, mode, logit_mask)(input_ids, attn_mask, generator)

@@ -1,0 +1,176 @@
+"""Offline pipelines: prompt datasets, dialogue tokenization and the SFT
+dialog store.
+
+Port of the JAX package's `pipeline/offline_pipeline.py` (the ILQL
+storages are not ported yet: ROADMAP queue A, item 4). Batches are numpy
+and padded to a pipeline-wide length, as in the JAX package, so every
+step of a run sees one shape.
+"""
+
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, List, Tuple, Union
+
+import numpy as np
+
+from trlx_tpu_torch.pipeline import BasePipeline, BaseRolloutStore, DataLoader, register_datapipeline
+from trlx_tpu_torch.tokenizers import BaseTokenizer
+
+
+@dataclass
+class DialogMessage:
+    """One message in a dialogue: model output or prompt."""
+
+    is_output: bool
+    tokens: Tuple[int, ...]
+
+
+def tokenize_dialogue(
+    dialogue: Union[str, Iterable[str]],
+    tokenizer: BaseTokenizer,
+    max_length: int = 2048,
+) -> List[DialogMessage]:
+    """Tokenize an interleaved (prompt_1, output_1, prompt_2, ...) dialogue,
+    ensuring a trailing eos (token-level), side-aware truncation (via the
+    reversal trick), and a leading bos when the first message would
+    otherwise be an output."""
+    if isinstance(dialogue, str):
+        bos = tokenizer.bos_token or tokenizer.eos_token
+        dialogue = [bos, dialogue]
+    else:
+        dialogue = list(dialogue)
+        if len(dialogue) % 2 != 0:
+            raise ValueError("Dialogue must have an even number of phrases, alternating prompt and output")
+
+    tokenized = [
+        DialogMessage(is_output=i % 2 == 1, tokens=tuple(tokenizer.encode(dialogue[i], add_special_tokens=False)))
+        for i in range(len(dialogue))
+    ]
+    last = tokenized[-1]
+    if not last.tokens or last.tokens[-1] != tokenizer.eos_token_id:
+        tokenized[-1] = DialogMessage(last.is_output, last.tokens + (tokenizer.eos_token_id,))
+
+    # flip so truncation always cuts from the configured side
+    if tokenizer.truncation_side == "left":
+        tokenized = [DialogMessage(m.is_output, m.tokens[::-1]) for m in tokenized[::-1]]
+
+    lengths = [len(t.tokens) for t in tokenized]
+    cumsum_lengths = [sum(lengths[:i]) for i in range(len(lengths))]
+    truncated = [
+        DialogMessage(t.is_output, t.tokens[: max(max_length - cl, 0)])
+        for t, cl in zip(tokenized, cumsum_lengths)
+    ]
+
+    if tokenizer.truncation_side == "left":
+        truncated = [DialogMessage(m.is_output, m.tokens[::-1]) for m in truncated[::-1]]
+
+    out = [t for t in truncated if len(t.tokens) > 0]
+
+    if out and out[0].is_output:
+        if sum(len(m.tokens) for m in out) == max_length:
+            if tokenizer.truncation_side == "left":
+                out[0] = DialogMessage(out[0].is_output, out[0].tokens[1:])
+            else:
+                out[-1] = DialogMessage(out[-1].is_output, out[-1].tokens[:-1])
+        bos_id = tokenizer.bos_token_id if tokenizer.bos_token_id is not None else tokenizer.eos_token_id
+        out.insert(0, DialogMessage(False, (bos_id,)))
+    return out
+
+
+class DialogStore(BaseRolloutStore):
+    """SFT store over tokenized dialogues: labels are the tokens where
+    is_output, else IGNORE_INDEX."""
+
+    IGNORE_INDEX = -100
+
+    def __init__(self, dialogs: List[List[DialogMessage]], tokenizer: BaseTokenizer):
+        super().__init__()
+        self.tokenizer = tokenizer
+        self.history = []
+        for d in dialogs:
+            ids = np.asarray([t for m in d for t in m.tokens], dtype=np.int32)
+            labels = np.asarray(
+                [t if m.is_output else self.IGNORE_INDEX for m in d for t in m.tokens], dtype=np.int32
+            )
+            self.history.append(dict(input_ids=ids, attention_mask=np.ones_like(ids), labels=labels))
+        self._max_len = max((len(h["input_ids"]) for h in self.history), default=0)
+
+    def create_loader(self, batch_size: int, shuffle: bool = False, **kwargs) -> DataLoader:
+        pad_id = self.tokenizer.pad_token_id
+        max_len = self._max_len
+
+        def collate(items):
+            b = len(items)
+            ids = np.full((b, max_len), pad_id, dtype=np.int32)
+            mask = np.zeros((b, max_len), dtype=np.int32)
+            labels = np.full((b, max_len), self.IGNORE_INDEX, dtype=np.int32)
+            for i, it in enumerate(items):
+                n = len(it["input_ids"])
+                ids[i, :n] = it["input_ids"]
+                mask[i, :n] = 1
+                labels[i, :n] = it["labels"]
+            return dict(input_ids=ids, attention_mask=mask, labels=labels)
+
+        return DataLoader(
+            self.history, batch_size, shuffle=shuffle, collate_fn=collate,
+            seed=kwargs.get("seed", 0), drop_last=kwargs.get("drop_last", False),
+        )
+
+
+@register_datapipeline
+class PromptPipeline(BasePipeline):
+    """Tokenized prompts (optionally with metadata dicts passed through to
+    the reward function), padded on the tokenizer's padding side to the
+    pipeline's longest prompt."""
+
+    def __init__(
+        self,
+        prompts: Union[List[Dict[str, Any]], List[str]],
+        max_prompt_length: int,
+        tokenizer: BaseTokenizer,
+        add_special_tokens: bool = False,
+    ):
+        super().__init__()
+        if prompts and isinstance(prompts[0], dict):
+            metadata = [dict(x) for x in prompts]
+            prompts = [x.pop("prompt") for x in metadata]
+        else:
+            metadata = [{}] * len(prompts)
+
+        self.tokenizer = tokenizer
+        self.prompts = []
+        for text, meta in zip(prompts, metadata):
+            ids = tokenizer.encode(text, add_special_tokens=add_special_tokens)
+            if len(ids) > max_prompt_length:
+                ids = ids[:max_prompt_length] if tokenizer.truncation_side == "right" else ids[-max_prompt_length:]
+            self.prompts.append({"input_ids": ids, "attention_mask": [1] * len(ids), **meta})
+        self.max_prompt_length = max((len(p["input_ids"]) for p in self.prompts), default=0)
+
+    def __getitem__(self, ix: int):
+        return self.prompts[ix]
+
+    def __len__(self) -> int:
+        return len(self.prompts)
+
+    def create_loader(self, batch_size: int, shuffle: bool = False, drop_last: bool = False,
+                      seed: int = 0) -> DataLoader:
+        pad_id = self.tokenizer.pad_token_id
+        left = self.tokenizer.padding_side == "left"
+        max_len = self.max_prompt_length
+
+        def collate(items):
+            b = len(items)
+            ids = np.full((b, max_len), pad_id, dtype=np.int32)
+            mask = np.zeros((b, max_len), dtype=np.int32)
+            for i, it in enumerate(items):
+                n = len(it["input_ids"])
+                cols = slice(max_len - n, max_len) if left else slice(0, n)
+                ids[i, cols] = it["input_ids"]
+                mask[i, cols] = 1
+            out = {"input_ids": ids, "attention_mask": mask}
+            for key in items[0]:
+                if key not in ("input_ids", "attention_mask"):
+                    out[key] = [it[key] for it in items]
+            return out
+
+        return DataLoader(self.prompts, batch_size, shuffle=shuffle, collate_fn=collate,
+                          drop_last=drop_last, seed=seed)
