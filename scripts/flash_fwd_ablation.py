@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""What holds the bf16 flash forward (K3 on the tensor cores) back,
+measured by ablation on one CUDA device.
+
+Builds variants of `trlx_tpu_torch/csrc/flash_attention.cu`, each with one
+part of `flash_fwd_wgmma_kernel`'s tile loop removed or serialised by a
+textual edit of the source, into `build/flash_fwd_ablation/`, and times
+the forward without lse of each at `chip_smoke.py` phase 6's gpt2-small
+shapes (b 8, t 1024, 12/12/64, bf16, the same left pads), device time per
+call from torch.profiler. A variant's answers are wrong by construction:
+only its time is read. What a variant saves is what the removed part costs
+where nothing else hides it. SDPA's forward is timed beside them as the
+yardstick. Prints one JSON line at the end.
+
+    python3 scripts/flash_fwd_ablation.py
+"""
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+# name: (what it shows, [(text in the source, replacement)])
+VARIANTS = {
+    "full": ("the kernel as built for the port", []),
+    "no_p_lo": ("without the p_lo.V product (two products a pair instead of three)",
+                [("      wgmma_rs<HD>(o, a_lo[kk], dv);\n", "")]),
+    "no_pv": ("without both p.V products (and the bf16 packing they read)",
+              [("      wgmma_rs<HD>(o, a_hi[kk], dv);\n      wgmma_rs<HD>(o, a_lo[kk], dv);\n", "")]),
+    "no_mma": ("without any wgmma: the loads, the mask, the softmax and the barriers",
+               [("      wgmma_ss_n64(s, desc_kmajor<HD>(sQ, WG_ROWS, kk), desc_kmajor<HD>(kt, WG_KEYS, kk), kk > 0);\n", ""),
+                ("      wgmma_rs<HD>(o, a_hi[kk], dv);\n      wgmma_rs<HD>(o, a_lo[kk], dv);\n", "")]),
+    "no_exp": ("the exps of p replaced by an addition (the softmax's special-function work)",
+               [("fast_exp2(fmaf(x, LOG2E, neg_shift2))", "(x + neg_shift2)")]),
+    "serial_loads": ("each K/V tile waited for before the tile computes (no ring)",
+                     [("      cp_async_wait<1>();\n", "      cp_async_wait<0>();\n")]),
+    "four_blocks": ("registers capped at 128 a thread, so four blocks fit an SM",
+                    [("__launch_bounds__(WG_THREADS)\n    flash_fwd_wgmma_kernel",
+                      "__launch_bounds__(WG_THREADS, 4)\n    flash_fwd_wgmma_kernel")]),
+    "no_skip": ("every causal tile computed, padding included",
+                [("    while (j < n_tiles && (valid[2 * j] | valid[2 * j + 1]) == 0u) ++j;\n", "")]),
+}
+
+
+def build_variants(out_dir):
+    from trlx_tpu_torch import kernels
+
+    src = (kernels.CSRC / "flash_attention.cu").read_text()
+    procs = {}
+    for name, (_, edits) in VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: the edited text is not in the source once: {old!r}")
+            text = text.replace(old, new)
+        d = out_dir / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "flash_attention.cu").write_text(text)
+        for h in kernels.CSRC.glob("*.cuh"):
+            (d / h.name).write_text(h.read_text())
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(d / "lib.so"),
+               str(d / "flash_attention.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, resources = {}, {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
+        resources[name] = k3_resources(out)
+        lib = ctypes.CDLL(str(out_dir / name / "lib.so"))
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.trlx_flash_fwd.argtypes = [ptr] * 6 + [i32] * 8 + [f32, ptr]
+        lib.trlx_flash_fwd.restype = i32
+        libs[name] = lib
+    return libs, resources
+
+
+def k3_resources(log):
+    """ptxas's registers and spills of the hd-64 kernel without lse."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "flash_fwd_wgmma_kernelILi64ELb0E" in line:
+            return "; ".join(l.split(":", 1)[-1].strip() for l in lines[i + 1:i + 4] if "spill" in l or "Used" in l)
+    return "not found"
+
+
+def main() -> int:
+    import torch
+
+    from chip_smoke import FLASH_SHAPES, card_line, device_time_ms, flash_bound, flash_case, sdpa_calls
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    libs, resources = build_variants(ROOT / "build" / "flash_fwd_ablation")
+    b, t, nh, nkv, hd, pads = FLASH_SHAPES["gpt2-small"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    q, k, v, mask, g, _, _ = flash_case(b, t, nh, nkv, hd, pads, gen, torch.device("cuda"))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib):
+        rc = lib.trlx_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), None,
+                                1, b, t, t, nh, nkv, hd, 1, 1.0 / math.sqrt(hd), stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+    print(f"card: {card}")
+    times = {}
+    for _ in range(2):  # two passes in turns; the second pass is reported
+        for name, lib in libs.items():
+            times[name] = device_time_ms(lambda: call(lib), 20)
+    sdpa_ms = device_time_ms(sdpa_calls(q, k, v, g, nh, nkv)[0], 20)
+    bound_ms, bound_by = flash_bound(b, t, nh, nkv, hd, pads, "fwd")
+    for name, (what, _) in VARIANTS.items():
+        print(f"  {name:13s} {times[name]:.5f} ms ({times[name] - times['full']:+.5f} vs full): {what} "
+              f"[{resources[name]}]")
+    print(f"  SDPA forward  {sdpa_ms:.5f} ms; bound {bound_ms:.5f} ms ({bound_by})")
+    print(json.dumps({"card": card, "ms": times, "sdpa_ms": sdpa_ms, "bound_ms": bound_ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -86,14 +86,17 @@ def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
 
 # f32: both sides compute in f32 and differ only in summation order
 # (forward rtol/atol 2e-5; the backward sums t products per element, 1e-4).
-# bf16 outputs: both sides compute in f32 and round once to bf16, so they
-# may differ by one bf16 ulp: rtol 8e-3 plus atol 1e-3 near zero.
+# bf16 outputs: both sides round once to bf16 from f32 values that differ
+# only in summation order (the bf16 forward's q.k^T products are exact on
+# the tensor cores, and its p.V carries p to about 2^-17 through a bf16
+# hi/lo split), so they may differ by one bf16 ulp: rtol 8e-3 plus atol
+# 1e-3 near zero.
 FWD_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
 BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
 F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)  # dk/dv are f32 outputs at either input type
 
 
-def _flash_case(seed, b, t, nh, nkv, hd, dtype, device):
+def _flash_case(seed, b, t, nh, nkv, hd, dtype, device, pads=None, causal=True):
     """Left-padded rows (pads 0, 5, 70, ...) and, with b >= 3, one row with
     no valid key at all."""
     from trlx_tpu_torch.ops import attention
@@ -103,40 +106,56 @@ def _flash_case(seed, b, t, nh, nkv, hd, dtype, device):
     k = torch.from_numpy(rng.randn(b, t, nkv, hd).astype(np.float32)).to(device, dtype)
     v = torch.from_numpy(rng.randn(b, t, nkv, hd).astype(np.float32)).to(device, dtype)
     g = torch.from_numpy(rng.randn(b, t, nh, hd).astype(np.float32)).to(device, dtype)
-    pads = [0, 5, 70, t][:b]
+    pads = [0, 5, 70, t][:b] if pads is None else pads
     mask = torch.from_numpy((np.arange(t)[None, :] >= np.asarray(pads)[:, None]).astype(np.int32)).to(device)
-    out, lse = attention.flash_fwd_plain(q, k, v, mask, True)
+    out, lse = attention.flash_fwd_plain(q, k, v, mask, causal)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, mask, g, out, lse, delta
 
 
-FLASH_SHAPES = [(3, 130, 4, 4, 64), (2, 96, 4, 2, 32), (3, 64, 4, 1, 128), (2, 200, 2, 2, 16)]
+# (b, t, nh, nkv, hd, left pads or None for 0, 5, 70, t). The bf16 forward
+# runs on 64-row q tiles and 64-key tiles: pad 70 makes q tile 0 of its row
+# wholly dead under the causal mask, a pad of t a wholly dead batch row,
+# pads 200 and 131 rows whose first key tiles are all padding; t = 1 and t
+# not a multiple of 64 exercise the ragged tail.
+FLASH_SHAPES = [(3, 130, 4, 4, 64, None), (2, 96, 4, 2, 32, None), (3, 64, 4, 1, 128, None),
+                (2, 200, 2, 2, 16, None), (4, 300, 4, 2, 64, [0, 200, 300, 131]),
+                (2, 1, 4, 1, 32, [0, 1]), (2, 257, 4, 2, 128, [190, 0])]
+
+
+def _dead_rows(mask, causal):
+    """[b, t] True where a query has no allowed key."""
+    if causal:
+        return mask.cumsum(-1) == 0
+    return (mask.sum(-1) == 0)[:, None].expand(mask.shape)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,nh,nkv,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("b,t,nh,nkv,hd,pads", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernels_match_plain(cuda, b, t, nh, nkv, hd, dtype):
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_match_plain(cuda, b, t, nh, nkv, hd, pads, dtype, causal):
     from trlx_tpu_torch.ops import attention as A
 
-    q, k, v, mask, g, out_ref, lse_ref, delta = _flash_case(0, b, t, nh, nkv, hd, dtype, cuda)
+    q, k, v, mask, g, out_ref, lse_ref, delta = _flash_case(0, b, t, nh, nkv, hd, dtype, cuda, pads, causal)
     kernels.reset_launches()
-    out = A.flash_fwd(q, k, v, mask, True)
-    out2, lse = A.flash_fwd(q, k, v, mask, True, with_lse=True)
-    dq = A.flash_bwd_dq(q, k, v, mask, g, lse_ref, delta, True)
-    dk, dv = A.flash_bwd_dkv(q, k, v, mask, g, lse_ref, delta, True)
+    out = A.flash_fwd(q, k, v, mask, causal)
+    out2, lse = A.flash_fwd(q, k, v, mask, causal, with_lse=True)
+    dq = A.flash_bwd_dq(q, k, v, mask, g, lse_ref, delta, causal)
+    dk, dv = A.flash_bwd_dkv(q, k, v, mask, g, lse_ref, delta, causal)
     torch.cuda.synchronize()
     assert {n: kernels.LAUNCHES.get(n) for n in (A.KERNEL_FWD, A.KERNEL_FWD_LSE, A.KERNEL_BWD_DQ, A.KERNEL_BWD_DKV)} == {
         A.KERNEL_FWD: 1, A.KERNEL_FWD_LSE: 1, A.KERNEL_BWD_DQ: 1, A.KERNEL_BWD_DKV: 1}
     torch.testing.assert_close(out.float(), out_ref.float(), **FWD_TOL[dtype])
     torch.testing.assert_close(out2.float(), out_ref.float(), **FWD_TOL[dtype])
     torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
-    dead = mask.sum(-1) == 0
+    dead = _dead_rows(mask, causal)  # [b, t]
     if bool(dead.any()):
-        assert bool((out[dead] == 0).all()) and bool((lse[dead] == A.DEAD_LSE).all())
-    torch.testing.assert_close(dq.float(), A.flash_bwd_dq_plain(q, k, v, mask, g, lse_ref, delta).float(),
+        assert bool((out[dead] == 0).all()) and bool((out2[dead] == 0).all())
+        assert bool((lse.transpose(1, 2)[dead] == A.DEAD_LSE).all())
+    torch.testing.assert_close(dq.float(), A.flash_bwd_dq_plain(q, k, v, mask, g, lse_ref, delta, causal).float(),
                                **BWD_TOL[dtype])
-    dk_ref, dv_ref = A.flash_bwd_dkv_plain(q, k, v, mask, g, lse_ref, delta)
+    dk_ref, dv_ref = A.flash_bwd_dkv_plain(q, k, v, mask, g, lse_ref, delta, causal)
     torch.testing.assert_close(dk, dk_ref, **F32_BWD_TOL)
     torch.testing.assert_close(dv, dv_ref, **F32_BWD_TOL)
 
@@ -188,6 +207,11 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
         A.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask)
     with pytest.raises(ValueError, match="dtypes"):
         A.flash_fwd(q.half(), k.half(), v.half(), mask)
+    qb = q.bfloat16()
+    shifted = torch.empty(qb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(qb.shape)  # contiguous, 2 bytes off
+    shifted.copy_(qb)
+    with pytest.raises(ValueError, match="aligned"):
+        A.flash_fwd(shifted, k.bfloat16(), v.bfloat16(), mask)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,10 @@
 // bound to Python with ctypes.
 //
 // Replaces the four TPU kernels of trlx_tpu/ops/attention.py:
-//   K3 `_flash_fwd_kernel`       -> flash_fwd_kernel<T, HD, false>
-//   K4 `_flash_fwd_kernel_lse`   -> flash_fwd_kernel<T, HD, true>
+//   K3 `_flash_fwd_kernel`       -> flash_fwd_wgmma_kernel<HD, false> (bf16),
+//                                   flash_fwd_kernel<float, HD, false> (f32)
+//   K4 `_flash_fwd_kernel_lse`   -> flash_fwd_wgmma_kernel<HD, true> (bf16),
+//                                   flash_fwd_kernel<float, HD, true> (f32)
 //   K5 `_flash_bwd_dq_kernel`    -> flash_bwd_dq_kernel<T, HD>
 //   K6 `_flash_bwd_dkv_kernel`   -> flash_bwd_dkv_kernel<T, HD>
 //
@@ -18,42 +20,75 @@
 //                                    wrapper does outside its kernel)
 // GQA: q head h reads kv head h / (nh / nkv).
 //
-// Math: every product and sum in f32, as the TPU kernels do (they cast
-// q, k, v to f32 and compute p.V with p in f32). A key is allowed when its
-// mask is set and, if causal, its index is <= the query's index. Scores of
-// disallowed keys are NEG_INF = -1e30 and get exactly zero weight; the
-// online-softmax shift is clamped as on the TPU, so a query with no
-// allowed key (left padding, an empty row) writes exactly 0 and, in the
-// LSE variant, lse = DEAD_LSE = 1e9. The backward relies on that:
+// Semantics (both forward routes, and the backward): a key is allowed
+// when its mask is set and, if causal, its index is <= the query's index.
+// Scores of disallowed keys are NEG_INF = -1e30 and get exactly zero
+// weight; the online-softmax shift is clamped as on the TPU, so a query
+// with no allowed key (left padding, an empty row) writes exactly 0 and,
+// in the LSE variant, lse = DEAD_LSE = 1e9. The backward relies on that:
 // exp(s - 1e9) underflows to 0, so dead rows add nothing to dq/dk/dv.
 //
-// Design. One thread block of 256 threads owns a 64-row tile: a q tile in
-// the forward and dq kernels, a k tile in the dk/dv kernel. It loops over
-// the other side's 64-row tiles (the TPU's sequential grid axis becomes
-// this loop), and with causal=1 skips the tiles that lie wholly above the
-// diagonal. Tiles are staged in shared memory as f32 with one padding
-// column, so that the 16 threads of a half warp read 16 distinct banks.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns the 4 rows ty*4..ty*4+3 of
-// the 64x64 score tile at columns tx + 16 j, and the same rows of the
-// accumulator at columns tx + 16 jj: row statistics reduce over the 16
-// lanes of a half warp with shuffles, and the corrections apply in
-// registers. The forward runs its q tiles in reverse order, so the long
-// causal rows start first.
+// Forward, bf16: flash_fwd_wgmma_kernel<HD, LSE>, on the tensor cores.
+// The TPU kernels cast bf16 q/k/v to f32 and compute two products:
+// - q.k^T: a product of two bf16 values is exact in f32, so one bf16
+//   wgmma with f32 accumulation forms the same products; only the order
+//   of the f32 sums differs. The scale multiplies the f32 scores
+//   afterwards, as on the TPU (for hd 32 it is not a power of two, so
+//   folding it into a bf16 q would round differently).
+// - p.V with p in f32: p is split as p_hi = bf16(p), p_lo = bf16(p - p_hi)
+//   and O += p_hi.V + p_lo.V with two bf16 wgmmas. V is exact in bf16 and
+//   p_hi + p_lo carries p to about 2^-17 relative error, far inside the
+//   one-bf16-ulp agreement with the f32 plain version; dropping p_lo would
+//   leave 2^-9. The row sum l is taken over the f32 p, not the split.
+// - exp(s - shift) is ex2.approx(s * log2(e) - shift * log2(e)): s and the
+//   running max stay in the TPU kernel's scaled domain, so lse = m + log(l)
+//   keeps its form. A tile whose keys are all valid and at or below the
+//   diagonal skips the per-element mask.
+// One block is one warpgroup (128 threads) owning 64 query rows: S =
+// Q.K^T is wgmma m64n64k16 with Q and a 64-key K tile read from shared
+// memory (both K-major), and O += P.V is wgmma m64n{hd}k16 with P from
+// registers (the S accumulator repacked to bf16 pairs) and V from shared
+// memory as a transposed B ([key][hd], tnspB). Tiles are swizzled for
+// wgmma (32, 64, 128 and 2 x 128 bytes for hd 16, 32, 64, 128; see
+// wgmma.cuh). K/V tiles come into a two-stage ring with 16-byte cp.async
+// copies, so tile k + 1 loads while tile k computes; the ragged tail reads
+// zeros. At the start the block reads its batch row's mask once into a
+// bitmask of valid keys and skips every 64-key tile with no valid key, as
+// well as the tiles above the causal diagonal. Both skips are exact: a
+// tile with no allowed key leaves m, l and O unchanged under the clamped
+// shift. A q tile with no valid key at all writes 0 (and DEAD_LSE)
+// without entering the loop.
 //
-// Bound. At gpt2-small training shapes (b 8, t 1024, 12 heads, hd 64) the
-// forward does 2 * 2 * b * nh * hd * t^2 / 2 ~ 12.9 GFLOP of causal
-// products against ~50 MB of q/k/v/out, so it is bound by operations: the
-// least time is 0.013 ms at the 989 TFLOP/s bf16 tensor-core peak. These
-// kernels compute on the CUDA cores in f32 (67 TFLOP/s peak, and an
-// f32 FMA tile reading shared memory reaches a fraction of that), which
-// keeps them equal to the TPU kernels' arithmetic; moving the products
-// to wgmma (bf16 q.k^T, with p.V split into bf16 hi/lo parts) is the next
-// kernel PR's work.
+// Forward, f32, and the backward: flash_fwd_kernel<float, HD, LSE>,
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel compute every product on
+// the CUDA cores in f32. One block of 256 threads owns a 64-row tile (a q
+// tile in the forward and dq kernels, a k tile in the dk/dv kernel) and
+// loops over the other side's 64-row tiles (the TPU's sequential grid axis
+// becomes this loop), with causal=1 skipping the tiles wholly above the
+// diagonal. Tiles are staged in shared memory as f32 with one padding
+// column, so the 16 threads of a half warp read 16 distinct banks. Thread
+// (ty, tx) = (tid / 16, tid % 16) owns the 4 rows ty*4..ty*4+3 of the
+// 64x64 score tile at columns tx + 16 j, and the same rows of the
+// accumulator at columns tx + 16 jj: row statistics reduce over the 16
+// lanes of a half warp with shuffles. The f32 forward runs its q tiles in
+// reverse order, so the long causal rows start first.
+//
+// Bound. At gpt2-small training shapes (b 8, t 1024, 12 heads, hd 64,
+// bf16) the forward moves q, k, v and out once, about 50 MB: 0.0150 ms at
+// 3.35 TB/s. Its products, 2 * 2 * hd flops per allowed (query, key) pair
+// per head, take 0.0077 ms at the 989 TFLOP/s bf16 tensor-core peak for
+// the pairs the main path's padding leaves (0.013 ms for full causal
+// tiles), so it is bound by bytes (chip_smoke.py `flash_bound`). The bf16
+// forward issues three products per pair (q.k^T, p_hi.V, p_lo.V).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -205,6 +240,229 @@ __global__ void __launch_bounds__(THREADS)
     for (int jj = 0; jj < J; ++jj) o[tx + 16 * jj] = from_f32<T>(acc[i][jj] / denom);
     if (LSE && tx == 0)
       lse[((size_t)bi * nh + h) * tq + row] = l[i] > 0.f ? m[i] + logf(denom) : DEAD_LSE;
+  }
+}
+
+constexpr int WG_THREADS = 128;  // one warpgroup
+constexpr int WG_ROWS = 64;      // q rows of a block: wgmma's m64
+constexpr int WG_KEYS = 64;      // keys of a K/V tile: S is m64n64
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (about 2 ulp; results below 2^-126
+// flush to 0, where exp(s - shift) is negligible beside the row's 1)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Q tile, two K and two V stages, the key-validity bitmask (two words per
+// 64-key tile) and 1024 bytes to align the tiles for the swizzle.
+size_t wgmma_fwd_smem(int hd, int tk) {
+  return 1024 + 5 * (size_t)WG_ROWS * hd * 2 + 8 * (size_t)((tk + WG_KEYS - 1) / WG_KEYS);
+}
+
+template <int HD, bool LSE>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ mask,
+                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int tq, int tk,
+                           int nh, int nkv, int causal, float scale) {
+  using namespace hopper;
+  constexpr uint32_t TILE_BYTES = WG_ROWS * HD * 2;  // a bf16 tile of 64 rows
+  constexpr int CHUNKS = HD / 8;  // 16-byte chunks of a row
+  constexpr int NO = HD / 2;      // output accumulator registers
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + TILE_BYTES, sV = base + 3 * TILE_BYTES;
+  uint32_t* valid = reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + 5 * TILE_BYTES);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WG_ROWS;  // long causal rows first
+  const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
+  const int kvh = h / (nh / nkv);
+  const int k_end = causal ? min(tk, q0 + WG_ROWS) : tk;
+  const int n_tiles = (k_end + WG_KEYS - 1) / WG_KEYS;
+
+  // The batch row's mask, read once: bit i of word w is key 32 w + i.
+  const int32_t* mrow = mask + (size_t)bi * tk;
+  for (int w = warp; w < 2 * n_tiles; w += WG_THREADS / 32) {
+    const int key = w * 32 + lane;
+    const unsigned bits = __ballot_sync(0xffffffffu, key < k_end && mrow[key] > 0);
+    if (lane == 0) valid[w] = bits;
+  }
+  __syncthreads();
+  // first tile at or after j with a valid key (n_tiles if none); the same
+  // answer in every thread
+  auto next_live = [&](int j) {
+    while (j < n_tiles && (valid[2 * j] | valid[2 * j + 1]) == 0u) ++j;
+    return j;
+  };
+
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);                // and columns 8 j + col0 + {0, 1}
+  int j = next_live(0);
+  if (j == n_tiles) {  // no query of the tile has an allowed key
+    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+    for (int i = tid; i < WG_ROWS * HD / 2; i += WG_THREADS) {
+      const int r = i / (HD / 2), c = 2 * (i % (HD / 2));
+      if (q0 + r < tq)
+        *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)bi * tq + q0 + r) * nh + h) * HD + c) = zero;
+    }
+    if (LSE && tid < WG_ROWS && q0 + tid < tq) lse[((size_t)bi * nh + h) * tq + q0 + tid] = DEAD_LSE;
+    return;
+  }
+
+  const __nv_bfloat16* qh = q + ((size_t)bi * tq * nh + h) * HD;
+  for (int i = tid; i < WG_ROWS * CHUNKS; i += WG_THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = q0 + r < tq;
+    cp_async16(sQ + tile_offset<HD>(WG_ROWS, r, c), qh + (size_t)(ok ? q0 + r : 0) * nh * HD + c * 8, ok);
+  }
+  cp_async_commit();
+
+  const size_t kv_stride = (size_t)nkv * HD;
+  const __nv_bfloat16* kh = k + ((size_t)bi * tk * nkv + kvh) * HD;
+  const __nv_bfloat16* vh = v + ((size_t)bi * tk * nkv + kvh) * HD;
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = tile * WG_KEYS;
+    for (int i = tid; i < WG_KEYS * CHUNKS; i += WG_THREADS) {
+      const int r = i / CHUNKS, c = i % CHUNKS;
+      const bool ok = k0 + r < tk;
+      const size_t src = (size_t)(ok ? k0 + r : 0) * kv_stride + c * 8;
+      const uint32_t dst = stage * TILE_BYTES + tile_offset<HD>(WG_KEYS, r, c);
+      cp_async16(sK + dst, kh + src, ok);
+      cp_async16(sV + dst, vh + src, ok);
+    }
+    cp_async_commit();
+  };
+
+  float o[NO], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+
+  int stage = 0;
+  load_kv(j, 0);
+  while (j < n_tiles) {
+    const int jn = next_live(j + 1);
+    if (jn < n_tiles) {
+      load_kv(jn, stage ^ 1);  // in flight while this tile computes
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // tile j (and Q) landed for every thread
+
+    const uint32_t kt = sK + stage * TILE_BYTES, vt = sV + stage * TILE_BYTES;
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor<HD>(sQ, WG_ROWS, kk), desc_kmajor<HD>(kt, WG_KEYS, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    const int k0 = j * WG_KEYS;
+    const uint64_t bits = ((uint64_t)valid[2 * j + 1] << 32) | valid[2 * j];
+    // every key of the tile valid and at or below every row's diagonal:
+    // nothing to mask (the same branch in every thread)
+    const bool whole = bits == ~0ull && (!causal || k0 + WG_KEYS - 1 <= q0);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      float mc = NEG_INF;
+      if (whole) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * jj + 2 * hh + e];
+            x *= scale;
+            mc = fmaxf(mc, x);
+          }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * jj + col0 + e;
+            const bool ok = ((bits >> c) & 1u) && (!causal || k0 + c <= row);
+            float& x = s[4 * jj + 2 * hh + e];
+            x = ok ? x * scale : NEG_INF;
+            mc = fmaxf(mc, x);
+          }
+      }
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+      const float m_new = fmaxf(m[hh], mc);
+      const float shift = m_new <= NEG_INF / 2 ? 0.f : m_new;
+      const float neg_shift2 = -shift * LOG2E;
+      float rs = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * jj + 2 * hh + e];
+          x = x <= NEG_INF / 2 ? 0.f : fast_exp2(fmaf(x, LOG2E, neg_shift2));
+          rs += x;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      const float corr = m[hh] <= NEG_INF / 2 ? 0.f : fast_exp2((m[hh] - m_new) * LOG2E);
+      l[hh] = l[hh] * corr + rs;
+      m[hh] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj) {
+        o[4 * jj + 2 * hh] *= corr;
+        o[4 * jj + 2 * hh + 1] *= corr;
+      }
+    }
+
+    // p as bf16 hi/lo A fragments: 16-key slice kk is S registers 8 kk .. 8 kk + 7
+    uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p0 = s[8 * kk + 2 * r], p1 = s[8 * kk + 2 * r + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        a_hi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+        a_lo[kk][r] = pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
+      }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = desc_mnmajor<HD>(vt, WG_KEYS, kk);
+      wgmma_rs<HD>(o, a_hi[kk], dv);
+      wgmma_rs<HD>(o, a_lo[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncthreads();  // every thread is done with this stage before it is refilled
+    stage ^= 1;
+    j = jn;
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= tq) continue;
+    const float denom = l[hh] > 0.f ? l[hh] : 1.f;
+    __nv_bfloat16* orow = out + (((size_t)bi * tq + row) * nh + h) * HD;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jj + col0) =
+          pack_bf16(o[4 * jj + 2 * hh] / denom, o[4 * jj + 2 * hh + 1] / denom);
+    if (LSE && (lane & 3) == 0)
+      lse[((size_t)bi * nh + h) * tq + row] = l[hh] > 0.f ? m[hh] + logf(denom) : DEAD_LSE;
   }
 }
 
@@ -455,25 +713,50 @@ int prepare(Kernel kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <int HD, bool LSE>
+int fwd_wgmma(const void* q, const void* k, const void* v, const int32_t* mask, void* out,
+              float* lse, int b, int tq, int tk, int nh, int nkv, int causal, float scale,
+              cudaStream_t s) {
+  // cp.async moves 16-byte chunks: every row of q, k and v starts 16-byte
+  // aligned when the base pointers do (a row is hd * 2 >= 32 bytes)
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15u)
+    return (int)cudaErrorMisalignedAddress;
+  const size_t smem = wgmma_fwd_smem(HD, tk);
+  auto kernel = flash_fwd_wgmma_kernel<HD, LSE>;
+  if (int err = prepare(kernel, smem)) return err;
+  const dim3 grid((tq + WG_ROWS - 1) / WG_ROWS, b * nh);
+  kernel<<<grid, WG_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), lse, tq, tk,
+      nh, nkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, const int32_t* mask, void* out, float* lse,
         int b, int tq, int tk, int nh, int nkv, int causal, float scale, cudaStream_t s) {
-  const size_t smem = fwd_smem(HD);
-  const dim3 grid((tq + TILE - 1) / TILE, b * nh);
-  if (lse != nullptr) {
-    auto kernel = flash_fwd_kernel<T, HD, true>;
-    if (int err = prepare(kernel, smem)) return err;
-    kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), mask, static_cast<T*>(out), lse,
-                                       tq, tk, nh, nkv, causal, scale);
-  } else {
-    auto kernel = flash_fwd_kernel<T, HD, false>;
-    if (int err = prepare(kernel, smem)) return err;
-    kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), mask, static_cast<T*>(out),
-                                       nullptr, tq, tk, nh, nkv, causal, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // tensor cores
+    if (lse != nullptr)
+      return fwd_wgmma<HD, true>(q, k, v, mask, out, lse, b, tq, tk, nh, nkv, causal, scale, s);
+    return fwd_wgmma<HD, false>(q, k, v, mask, out, nullptr, b, tq, tk, nh, nkv, causal, scale, s);
+  } else {  // f32: CUDA cores
+    const size_t smem = fwd_smem(HD);
+    const dim3 grid((tq + TILE - 1) / TILE, b * nh);
+    if (lse != nullptr) {
+      auto kernel = flash_fwd_kernel<T, HD, true>;
+      if (int err = prepare(kernel, smem)) return err;
+      kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                         static_cast<const T*>(v), mask, static_cast<T*>(out), lse,
+                                         tq, tk, nh, nkv, causal, scale);
+    } else {
+      auto kernel = flash_fwd_kernel<T, HD, false>;
+      if (int err = prepare(kernel, smem)) return err;
+      kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                         static_cast<const T*>(v), mask, static_cast<T*>(out),
+                                         nullptr, tq, tk, nh, nkv, causal, scale);
+    }
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -527,8 +810,8 @@ bool bad_shape(int b, int tq, int tk, int nh, int nkv) {
 
 extern "C" {
 
-// Dynamic shared memory of one block, in bytes: which = 0 forward,
-// 1 dq, 2 dk/dv.
+// Dynamic shared memory of one block of the CUDA-core kernels, in bytes:
+// which = 0 forward (f32), 1 dq, 2 dk/dv.
 size_t trlx_flash_smem_bytes(int which, int hd) {
   return which == 0 ? fwd_smem(hd) : which == 1 ? dq_smem(hd) : dkv_smem(hd);
 }

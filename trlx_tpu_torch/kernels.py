@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled with
 `nvcc` into its own shared library at first use (no PyTorch headers, so
 a build takes seconds), then loaded with `ctypes`. Libraries land in the
 build directory (`build/kernels/` beside the package, or
-`$TRLX_TPU_TORCH_BUILD_DIR`), named by a hash of the source, so an edited
-source is rebuilt and a stale library is never loaded.
+`$TRLX_TPU_TORCH_BUILD_DIR`), named by a hash of the source and the
+shared headers (`csrc/*.cuh`), so an edited source is rebuilt and a stale
+library is never loaded.
 
 `LAUNCHES` counts launches per kernel: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main
@@ -64,8 +65,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
 
 

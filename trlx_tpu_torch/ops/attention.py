@@ -15,7 +15,10 @@ bias tensor; q head h reads kv head h // (nh // nkv).
   between a `custom_vjp`'s primal and its forward rule: frozen blocks
   (no input carries a tangent) run K3, trainable ones K4.
 - `flash_fwd`, `flash_bwd_dq`, `flash_bwd_dkv`: the kernels' wrappers
-  (`csrc/flash_attention.cu`, CUDA for sm_90a). On cuda tensors they
+  (`csrc/flash_attention.cu`, CUDA for sm_90a; the bf16 forward runs on
+  the tensor cores with exact bf16 q.k^T products and p.V through a bf16
+  hi/lo split of p, the f32 forward and the backward on the CUDA cores in
+  f32; the dtype picks the route). On cuda tensors they
   launch the kernel or raise; on CPU tensors they run the plain versions
   `flash_fwd_plain` (blockwise online softmax with lse, the JAX package's
   `blockwise_attention_lse`), `flash_bwd_dq_plain` and
@@ -213,6 +216,8 @@ def flash_fwd(q, k, v, mask, causal: bool = True, with_lse: bool = False):
         out, lse = flash_fwd_plain(q, k, v, mask, causal)
         return (out, lse) if with_lse else out
     (b, tq, tk, nh, nkv, hd), mask = _check_cuda(q, k, v, mask)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 forward copies q, k, v in 16-byte chunks: their data must be 16-byte aligned")
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
