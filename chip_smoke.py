@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    boundaries plus one inactive row (exactly 0), KV in f32, bf16 and
    int8; with kernel, plain-version, library (scaled_dot_product_attention
    over the gathered KV, a yardstick the port never calls) and bound
-   times (device time per call, from torch.profiler);
+   times (device time per call, from torch.profiler, or from CUDA events
+   where two traces in a row hold no device event);
 4. serving, the port's main path: `SFTTrainer(config).serve()` of
    random:gpt2-small at full width (vocab 50257, bf16 activations) with a
    paged KV pool answers 16 concurrent POST /generate requests, and the
@@ -32,7 +33,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    50257] bf16 with out-of-range labels; with kernel, plain-version,
    library (scaled_dot_product_attention forward / backward; logsumexp
    plus gather) and bound times, and the share of causal tiles the bf16
-   forward skips as padding;
+   forward and backward skip as padding;
 7. training, the port's second main path: `trlx_tpu_torch.train(samples=
    ..., config=cfg)` runs SFT on random:gpt2-small at full width (seq 1024,
    batch 8, bf16 activations, attn_impl="flash", num_layers_unfrozen=2):
@@ -76,18 +77,13 @@ def card_line():
     ).stdout.strip().splitlines()[0]
 
 
-def device_time_ms(fn, iters, warmup=3):
-    """Device time per call: the CUDA kernels that torch.profiler traces
-    over `iters` calls, summed and divided by `iters`. Host time between
-    launches (the wrappers' Python) is excluded, so a kernel shorter than
-    its launch overhead is still timed as a kernel."""
+def profiled_device_us(fn, iters):
+    """Device microseconds of the CUDA kernels that torch.profiler traces
+    over `iters` calls of `fn`; 0.0 when the trace holds no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         for _ in range(iters):
             fn()
@@ -96,9 +92,57 @@ def device_time_ms(fn, iters, warmup=3):
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             total_us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler traced no device time")
-    return total_us / 1e3 / iters
+    return total_us
+
+
+def event_time_ms(fn, iters):
+    """(ms per call, gapless) between two CUDA events around `iters`
+    calls. A spin kernel (`torch.cuda._sleep`) holds the stream while the
+    host queues the calls, so they run back to back, with no host gap
+    between launches, when the host is done before the spin is
+    (`gapless`); the spin is made 10x longer up to three times until it
+    is."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for cycles in (10**7, 10**8, 10**9):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        gapless = not start.query()
+        end.synchronize()
+        if gapless:
+            break
+    return start.elapsed_time(end) / iters, gapless
+
+
+def device_time_ms(fn, iters, warmup=3, label=""):
+    """Device time per call: the CUDA kernels that torch.profiler traces
+    over `iters` calls, summed and divided by `iters`. Host time between
+    launches (the wrappers' Python) is excluded, so a kernel shorter than
+    its launch overhead is still timed as a kernel.
+
+    Now and then a trace comes back without a single device event (the
+    CUPTI records are lost, not the kernels). The call is then traced once
+    more, and if that trace is empty too, timed by `event_time_ms`; the
+    log line says so."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(2):
+        total_us = profiled_device_us(fn, iters)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+        log(f"[timing] torch.profiler traced no device time for {label or 'a timed call'} (trace {attempt + 1} of 2)")
+    ms, gapless = event_time_ms(fn, iters)
+    log(f"[timing] {label or 'a timed call'}: {ms:.5f} ms per call by CUDA events"
+        + ("" if gapless else ", host gaps included: the longest spin ended before every call was queued"))
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -235,9 +279,10 @@ def phase_kernels(device):
                 kk, vv, ex = layers[next(it) % LAYERS]
                 paged_attention_plain(q, kk, vv, table, mask, **ex)
 
-            kernel_ms = device_time_ms(kernel_fn, 240)
-            plain_ms = device_time_ms(plain_fn, 24)
-            library_ms = device_time_ms(library_call(q, k, v, table, mask, extra, nh, nkv), 240)
+            kernel_ms = device_time_ms(kernel_fn, 240, label=f"{name} {kv} kernel")
+            plain_ms = device_time_ms(plain_fn, 24, label=f"{name} {kv} plain")
+            library_ms = device_time_ms(library_call(q, k, v, table, mask, extra, nh, nkv), 240,
+                                        label=f"{name} {kv} library")
             least_ms, bound_by = bound(nh, nkv, hd, kv, 2)
             results[(name, kv)] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                                        bound_ms=least_ms, bound_by=bound_by)
@@ -401,13 +446,16 @@ FLASH_SHAPES = {
 CE_ROWS, CE_VOCAB = 8 * 1023, 50257
 # tolerances: bf16 outputs (out, dq): both sides round once to bf16 from
 # f32 values that differ only in summation order, so one bf16 ulp apart at
-# most: rtol 8e-3, atol 1e-3. That holds for the bf16 forward on the
-# tensor cores too: a product of two bf16 values is exact in f32, so its
-# q.k^T products equal the plain version's, and its p.V splits the f32 p
-# into bf16 hi and lo parts, which carry p to about 2^-17 relative error
-# against V exact in bf16, far below the 2^-8 of one output ulp. f32
-# outputs (lse, per-head dk/dv, logprobs): the same f32 arithmetic summed
-# in another order over up to 2048 keys (50257 vocabulary entries).
+# most: rtol 8e-3, atol 1e-3. That holds for the bf16 kernels on the
+# tensor cores too: a product of two bf16 values is exact in f32, so their
+# q.k^T and dO.v^T products equal the plain version's, and the products
+# with an f32 operand (p.V in the forward; p^T.dO, ds.k and ds^T.q in the
+# backward) split p and ds into bf16 hi and lo parts, which carry them to
+# about 2^-17 relative error against V, dO, k and q exact in bf16: far
+# below the 2^-8 of one output ulp, and below DKV_TOL's 1e-4 for the f32
+# per-head dk/dv, whose sums over up to 2048 queries are the same f32
+# arithmetic in another order (as lse over the keys, and the logprobs over
+# 50257 vocabulary entries).
 BF16_TOL = dict(rtol=8e-3, atol=1e-3)
 LSE_TOL = dict(rtol=2e-5, atol=2e-5)
 DKV_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -438,9 +486,11 @@ def allowed_pairs(t, pads):
 
 
 def skipped_tiles(t, pads, tile=64):
-    """(skipped, total) causal 64 x 64 tiles of this run's rows that the
-    bf16 forward skips as padding: a tile on or below the diagonal whose
-    64 keys are all left padding."""
+    """(skipped, total) causal 64 x 64 (q, key) tiles of this run's rows
+    that the bf16 kernels skip as padding: a tile on or below the diagonal
+    whose 64 keys are all left padding. The forward and dq (K3-K5) skip it
+    in their loop over key tiles; dk/dv (K6) skips the key tile's whole
+    loop over q tiles, which are the same tiles."""
     n = (t + tile - 1) // tile
     total = len(pads) * n * (n + 1) // 2
     skipped = 0
@@ -518,7 +568,8 @@ def phase_train_kernels(device):
         if bool(dead.any()) and not (bool((out3[dead] == 0).all()) and bool((lse[dead] == A.DEAD_LSE).all())):
             raise AssertionError(f"{shape}: a row with no valid key is not exactly 0 / DEAD_LSE")
         sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, g, nh, nkv)
-        lib_fwd, lib_bwd = device_time_ms(sdpa_fwd, 20), device_time_ms(sdpa_bwd, 10)
+        lib_fwd = device_time_ms(sdpa_fwd, 20, label=f"{shape} SDPA forward")
+        lib_bwd = device_time_ms(sdpa_bwd, 10, label=f"{shape} SDPA backward")
         timed = {
             "flash_fwd": (lambda: A.flash_fwd(q, k, v, mask, True),
                           lambda: A.flash_fwd_plain(q, k, v, mask, True), lib_fwd, "fwd"),
@@ -531,7 +582,8 @@ def phase_train_kernels(device):
         }
         for name, (kern, plain, lib, kind) in timed.items():
             least_ms, bound_by = flash_bound(b, t, nh, nkv, hd, pads, kind)
-            results[(name, shape)] = dict(ms=device_time_ms(kern, 10), plain_ms=device_time_ms(plain, 3),
+            results[(name, shape)] = dict(ms=device_time_ms(kern, 10, label=f"{name} {shape} kernel"),
+                                          plain_ms=device_time_ms(plain, 3, label=f"{name} {shape} plain"),
                                           library_ms=lib, bound_ms=least_ms, bound_by=bound_by)
             r = results[(name, shape)]
             log(f"[train-kernels] {name} {shape} b={b} t={t} nh={nh} nkv={nkv} hd={hd}: "
@@ -540,7 +592,8 @@ def phase_train_kernels(device):
         skipped, total = skipped_tiles(t, pads)
         log(f"[train-kernels] {shape}: max_abs_err out/out_lse/lse/dq/dk/dv = "
             + " ".join(f"{e:.3g}" for e in errs)
-            + f"; causal tiles skipped as padding by the bf16 forward: {skipped}/{total} ({skipped / total:.3f})")
+            + f"; causal tiles skipped as padding by the bf16 forward and backward (K3-K6): "
+            f"{skipped}/{total} ({skipped / total:.3f})")
         del q, k, v, mask, g, lse_p, delta, out3, out4, lse, dq, dk, dv, out_p, dq_p, dk_p, dv_p
         torch.cuda.empty_cache()
 
@@ -563,9 +616,9 @@ def phase_train_kernels(device):
     bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, 4 * CE_ROWS * CE_VOCAB / F32_FLOPS_PER_S * 1e3
     least_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     results[("label_logprobs", "gpt2-small")] = dict(
-        ms=device_time_ms(lambda: label_logprobs(logits, clamped), 20),
-        plain_ms=device_time_ms(lambda: label_logprobs_plain(logits, clamped), 5),
-        library_ms=device_time_ms(lib, 5), bound_ms=least_ms, bound_by=bound_by)
+        ms=device_time_ms(lambda: label_logprobs(logits, clamped), 20, label="label_logprobs kernel"),
+        plain_ms=device_time_ms(lambda: label_logprobs_plain(logits, clamped), 5, label="label_logprobs plain"),
+        library_ms=device_time_ms(lib, 5, label="label_logprobs library"), bound_ms=least_ms, bound_by=bound_by)
     r = results[("label_logprobs", "gpt2-small")]
     log(f"[train-kernels] label_logprobs: kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
         f"library_ms={r['library_ms']:.5f} bound_ms={least_ms:.5f} ({bound_by})")
@@ -582,9 +635,9 @@ def phase_train_kernels(device):
 TRAIN_STEPS = 6
 TRAIN_KERNELS_PER_STEP = {"flash_fwd": 10, "flash_fwd_lse": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
                           "label_logprobs": 1}
-# phase 7's losses with the CUDA-core forward (NVIDIA H100 80GB HBM3, the
-# same seed and data): a change of the forward's arithmetic that keeps it
-# within one bf16 ulp keeps the losses within LOSS_TOL of these
+# phase 7's losses with the CUDA-core forward and backward (NVIDIA H100
+# 80GB HBM3, the same seed and data): a change of the kernels' arithmetic
+# that keeps them within one bf16 ulp keeps the losses within LOSS_TOL
 RECORDED_LOSSES = [11.3069, 10.4265, 9.5923, 8.8458, 8.2835, 8.0096]
 LOSS_TOL = 0.02
 
@@ -755,6 +808,28 @@ def phase_grad_check():
     torch.cuda.empty_cache()
 
 
+def build_report(ptxas_out):
+    """One line per compiled kernel from `nvcc -Xptxas -v`: its name and
+    template arguments (float, head dim, lse), registers and spills; and every
+    warning (a wgmma serialized by ptxas says so in one)."""
+    import re
+
+    lines, kernel, spill = [], None, ""
+    for line in ptxas_out.splitlines():
+        entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)I(\w*?)EEv", line)
+        if entry:
+            args = re.sub(r"L[ib]", "", entry.group(2)).replace("E", ",").rstrip(",")
+            kernel = f"{entry.group(1)}<{args.replace('f', 'float,')}>"
+        elif "spill" in line:
+            spill = line.split(",", 1)[-1].strip()
+        elif "registers" in line and kernel:
+            lines.append(f"{kernel}: {line.split(':', 1)[-1].strip()}; {spill}")
+            kernel = None
+        elif "arning" in line:
+            lines.append(line.strip())
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -774,9 +849,8 @@ def main() -> int:
     build_logs = kernels.build(kernels.all_sources())
     log(f"[build] {kernels.all_sources()} in {time.perf_counter() - t0:.1f}s")
     for name, out in build_logs.items():
-        for line in out.splitlines():
-            if any(w in line for w in ("registers", "smem", "spill", "wgmma", "arning")):
-                log(f"[build] {name}: {line.strip()}")
+        for line in build_report(out):
+            log(f"[build] {name}: {line}")
 
     timings, errs = phase_kernels(device)
     launches_bf16 = serve_and_check(serving_config(), 16, "paged_decode", card)

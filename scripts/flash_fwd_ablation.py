@@ -4,7 +4,7 @@ measured by ablation on one CUDA device.
 
 Builds variants of `trlx_tpu_torch/csrc/flash_attention.cu`, each with one
 part of `flash_fwd_wgmma_kernel`'s tile loop removed or serialised by a
-textual edit of the source, into `build/flash_fwd_ablation/`, and times
+textual edit inside that kernel, into `build/flash_fwd_ablation/`, and times
 the forward without lse of each at `chip_smoke.py` phase 6's gpt2-small
 shapes (b 8, t 1024, 12/12/64, bf16, the same left pads), device time per
 call from torch.profiler. A variant's answers are wrong by construction:
@@ -47,17 +47,30 @@ VARIANTS = {
 }
 
 
-def build_variants(out_dir):
+def edit_kernel(text, kernel, old, new):
+    """`text` with `old` replaced by `new` inside the definition of
+    `kernel` (from its `template` line to the first closing brace at
+    column 0), where `old` must occur exactly once."""
+    start = text.rindex("template", 0, text.index(f"    {kernel}("))
+    end = text.index("\n}\n", start)
+    body = text[start:end]
+    if body.count(old) != 1:
+        raise RuntimeError(f"the edited text is not in {kernel} once: {old!r}")
+    return text[:start] + body.replace(old, new) + text[end:]
+
+
+def build_variants(out_dir, variants=None, kernel="flash_fwd_wgmma_kernel"):
+    """Compile every variant (all nvcc processes started together).
+    Returns ({name: loaded library}, {name: ptxas output})."""
     from trlx_tpu_torch import kernels
 
     src = (kernels.CSRC / "flash_attention.cu").read_text()
     procs = {}
-    for name, (_, edits) in VARIANTS.items():
+    for name, (_, edits) in (variants or VARIANTS).items():
         text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: the edited text is not in the source once: {old!r}")
-            text = text.replace(old, new)
+        for edit in edits:
+            target, old, new = edit if len(edit) == 3 else (kernel, *edit)
+            text = edit_kernel(text, target, old, new)
         d = out_dir / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "flash_attention.cu").write_text(text)
@@ -66,25 +79,30 @@ def build_variants(out_dir):
         cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(d / "lib.so"),
                str(d / "flash_attention.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs, resources = {}, {}
+    libs, logs = {}, {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
-        resources[name] = k3_resources(out)
+        logs[name] = out
         lib = ctypes.CDLL(str(out_dir / name / "lib.so"))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.trlx_flash_fwd.argtypes = [ptr] * 6 + [i32] * 8 + [f32, ptr]
         lib.trlx_flash_fwd.restype = i32
+        lib.trlx_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 8 + [f32, ptr]
+        lib.trlx_flash_bwd_dq.restype = i32
+        lib.trlx_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 8 + [f32, ptr]
+        lib.trlx_flash_bwd_dkv.restype = i32
         libs[name] = lib
-    return libs, resources
+    return libs, logs
 
 
-def k3_resources(log):
-    """ptxas's registers and spills of the hd-64 kernel without lse."""
+def resources(log, mangled):
+    """ptxas's registers and spills of the kernel whose mangled name
+    contains `mangled`."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and "flash_fwd_wgmma_kernelILi64ELb0E" in line:
+        if "Compiling entry" in line and mangled in line:
             return "; ".join(l.split(":", 1)[-1].strip() for l in lines[i + 1:i + 4] if "spill" in l or "Used" in l)
     return "not found"
 
@@ -98,7 +116,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     card = card_line()
-    libs, resources = build_variants(ROOT / "build" / "flash_fwd_ablation")
+    libs, logs = build_variants(ROOT / "build" / "flash_fwd_ablation")
+    used = {name: resources(log, "flash_fwd_wgmma_kernelILi64ELb0E") for name, log in logs.items()}
     b, t, nh, nkv, hd, pads = FLASH_SHAPES["gpt2-small"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -121,7 +140,7 @@ def main() -> int:
     bound_ms, bound_by = flash_bound(b, t, nh, nkv, hd, pads, "fwd")
     for name, (what, _) in VARIANTS.items():
         print(f"  {name:13s} {times[name]:.5f} ms ({times[name] - times['full']:+.5f} vs full): {what} "
-              f"[{resources[name]}]")
+              f"[{used[name]}]")
     print(f"  SDPA forward  {sdpa_ms:.5f} ms; bound {bound_ms:.5f} ms ({bound_by})")
     print(json.dumps({"card": card, "ms": times, "sdpa_ms": sdpa_ms, "bound_ms": bound_ms}))
     return 0

@@ -27,8 +27,10 @@ STEPS = 4  # optimizer steps per timed window
 OURS = {  # name fragments of the hand-written kernels in the trace
     "flash_fwd_wgmma_kernel": "flash forward, bf16 on the tensor cores (K3, K4)",
     "flash_fwd_kernel": "flash forward, f32 on the CUDA cores (K3, K4)",
-    "flash_bwd_dq_kernel": "flash dq (K5)",
-    "flash_bwd_dkv_kernel": "flash dk/dv (K6)",
+    "flash_bwd_dq_wgmma_kernel": "flash dq, bf16 on the tensor cores (K5)",
+    "flash_bwd_dq_kernel": "flash dq, f32 on the CUDA cores (K5)",
+    "flash_bwd_dkv_wgmma_kernel": "flash dk/dv, bf16 on the tensor cores (K6)",
+    "flash_bwd_dkv_kernel": "flash dk/dv, f32 on the CUDA cores (K6)",
     "label_logprob_kernel": "label logprob (K7)",
 }
 

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from trlx_tpu.ops.attention import _flash_fwd_pallas_lse
+from trlx_tpu.ops.attention import _flash_bwd_pallas, _flash_fwd_pallas_lse
 from trlx_tpu_torch.ops import attention as A
 
 torch.set_num_threads(1)
@@ -108,4 +108,116 @@ def test_p_lo_product_is_what_keeps_the_forward_exact(hd):
     err_hi = float(np.abs(emulate(tq, tk, tv, tm, split=False)[0].numpy() - ref).max())
     msg = f"hd {hd}: max abs error p_hi + p_lo {err_split:.3g}, p_hi alone {err_hi:.3g}"
     assert err_split < 1e-5, msg
+    assert err_hi > 100 * err_split, msg
+
+
+# ---------------------------------------------------------------------------
+# The backward: K5 (dq) and K6 (dk/dv) on the tensor cores
+# ---------------------------------------------------------------------------
+
+DKV_TOL = dict(rtol=1e-4, atol=1e-3)  # chip_smoke.py phase 6, f32 dk/dv
+BF16_TOL = dict(rtol=8e-3, atol=1e-3)  # one bf16 ulp
+
+
+def _halves(x, split):
+    """x as the bf16 products see it: hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.bfloat16().float()
+    return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+
+def emulate_backward(q, k, v, mask, g, lse, delta, split=True):
+    """(dq before its bf16 rounding, per-q-head dk, dv), f32 [b, t, nh, hd],
+    as `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel` compute
+    them, causal: over 64 x 64 (q, key) tiles, key tiles with no valid key
+    skipped; s = q.k^T and dp = dO.v^T as bf16 products summed in f32; p =
+    exp2(fma(s, scale * log2(e), -lse * log2(e))); ds = p * (dp - delta) *
+    scale; dq += ds.k, dv += p^T.dO and dk += ds^T.q with p and ds split
+    into bf16 hi and lo halves against the bf16 k, dO and q."""
+    b, t, nh, hd = q.shape
+    group = nh // k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qf, gf = q.float().transpose(1, 2), g.float().transpose(1, 2)  # [b, nh, t, hd]
+    kf = k.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    sl2 = (torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)).double()
+    nl2 = (-lse * LOG2E).double()
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(qf), torch.zeros_like(qf)
+    for k0 in range(0, t, BLK):
+        ks = slice(k0, k0 + BLK)
+        valid = mask[:, None, None, ks] > 0
+        if not bool(valid.any()):
+            continue  # no valid key in any row: each kernel skips such a tile, per batch row
+        cols = torch.arange(k0, min(k0 + BLK, t))[None, :]
+        for q0 in range(k0 // BLK * BLK, t, BLK):  # causal: from the diagonal on
+            qs = slice(q0, q0 + BLK)
+            rows = torch.arange(q0, min(q0 + BLK, t))[:, None]
+            s = qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)
+            arg = (s.double() * sl2 + nl2[:, :, qs, None]).float()  # one rounding, as fmaf
+            p = torch.where(valid & (cols <= rows), torch.exp2(arg), 0.0)
+            dp = gf[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, qs, None]) * scale
+            for part in _halves(ds, split):
+                dq[:, :, qs] += part @ kf[:, :, ks]
+                dk[:, :, ks] += part.transpose(-1, -2) @ qf[:, :, qs]
+            for part in _halves(p, split):
+                dv[:, :, ks] += part.transpose(-1, -2) @ gf[:, :, qs]
+    return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
+
+
+def _fold(x, nkv):
+    """Per-q-head dk/dv summed onto the kv heads, as `flash_backward` does."""
+    b, t, nh, hd = x.shape
+    return x.reshape(b, t, nkv, nh // nkv, hd).sum(3)
+
+
+def _backward_case(hd, seed):
+    """bf16-exact inputs, the Pallas forward's (out, lse) at f32, and the
+    Pallas backward's f32 (dq, dk, dv) in interpret mode."""
+    (q, k, v), mask = _inputs(hd, seed)
+    g = torch.from_numpy(np.random.RandomState(seed + 1).randn(B, T, NH, hd).astype(np.float32)).bfloat16().float()
+    jq, jk, jv, jg, jm = (jnp.asarray(a) for a in (q, k, v, g.numpy(), mask))
+    j_out, j_lse = _flash_fwd_pallas_lse(jq, jk, jv, jm, True, BLK, BLK, interpret=True)
+    j_grads = _flash_bwd_pallas(jq, jk, jv, jm, j_out, j_lse, jg, True, BLK, BLK, interpret=True)
+    out = torch.from_numpy(np.array(j_out))
+    lse = torch.from_numpy(np.array(j_lse))
+    delta = (g * out).sum(-1).transpose(1, 2)  # [b, nh, t], as flash_backward forms it
+    tensors = [torch.from_numpy(a) for a in (q, k, v, mask)] + [g, lse, delta]
+    return tensors, [np.array(x) for x in j_grads]
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_bf16_backward_arithmetic_matches_pallas(hd):
+    """dq within one bf16 ulp of the Pallas dq once both are rounded to
+    bf16; the f32 dk/dv within phase 6's DKV_TOL; dq of rows with no
+    allowed key and the per-head dk/dv of padding keys exactly 0."""
+    (q, k, v, mask, g, lse, delta), (j_dq, j_dk, j_dv) = _backward_case(hd, seed=200 + hd)
+    dq, dk, dv = emulate_backward(q, k, v, mask, g, lse, delta)
+    np.testing.assert_allclose(dq.bfloat16().float().numpy(),
+                               torch.from_numpy(j_dq).bfloat16().float().numpy(), **BF16_TOL)
+    np.testing.assert_allclose(_fold(dk, NKV).numpy(), j_dk, **DKV_TOL)
+    np.testing.assert_allclose(_fold(dv, NKV).numpy(), j_dv, **DKV_TOL)
+    dead = mask.cumsum(-1) == 0  # [b, t] rows with no allowed key
+    padding = mask == 0
+    assert bool(dead.any()) and bool((dq[dead] == 0).all())
+    assert bool((dk[padding] == 0).all()) and bool((dv[padding] == 0).all())
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_lo_halves_are_what_keep_the_backward_exact(hd):
+    """Against the Pallas backward in f32 on the same bf16-exact values,
+    before any output rounding: with the hi/lo split of p and ds the
+    largest error over dq, dk and dv is 1.05e-5 at hd 32 and 1.53e-5 at
+    hd 64 (measured on the CPU; the order of the sums and the exp2 form,
+    on values up to about 10); with the hi halves alone it is 7.66e-3 and
+    7.03e-3, some 460 to 730 times more."""
+    (q, k, v, mask, g, lse, delta), j_grads = _backward_case(hd, seed=300 + hd)
+
+    def worst(split):
+        dq, dk, dv = emulate_backward(q, k, v, mask, g, lse, delta, split=split)
+        got = (dq, _fold(dk, NKV), _fold(dv, NKV))
+        return max(float(np.abs(a.numpy() - j).max()) for a, j in zip(got, j_grads))
+
+    err_split, err_hi = worst(True), worst(False)
+    msg = f"hd {hd}: max abs error hi + lo {err_split:.3g}, hi alone {err_hi:.3g}"
+    assert err_split < 2e-5, msg
     assert err_hi > 100 * err_split, msg

@@ -87,10 +87,12 @@ def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
 # f32: both sides compute in f32 and differ only in summation order
 # (forward rtol/atol 2e-5; the backward sums t products per element, 1e-4).
 # bf16 outputs: both sides round once to bf16 from f32 values that differ
-# only in summation order (the bf16 forward's q.k^T products are exact on
-# the tensor cores, and its p.V carries p to about 2^-17 through a bf16
-# hi/lo split), so they may differ by one bf16 ulp: rtol 8e-3 plus atol
-# 1e-3 near zero.
+# only in summation order (on the tensor cores the products of two bf16
+# operands, q.k^T and dO.v^T, are exact, and the products with an f32
+# operand, p.V, p^T.dO, ds.k and ds^T.q, carry p and ds to about 2^-17
+# through a bf16 hi/lo split), so they may differ by one bf16 ulp: rtol
+# 8e-3 plus atol 1e-3 near zero. The per-head dk/dv are f32 at either
+# input type, and the split's 2^-17 stays inside their 1e-4.
 FWD_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
 BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
 F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)  # dk/dv are f32 outputs at either input type
@@ -113,14 +115,16 @@ def _flash_case(seed, b, t, nh, nkv, hd, dtype, device, pads=None, causal=True):
     return q, k, v, mask, g, out, lse, delta
 
 
-# (b, t, nh, nkv, hd, left pads or None for 0, 5, 70, t). The bf16 forward
-# runs on 64-row q tiles and 64-key tiles: pad 70 makes q tile 0 of its row
+# (b, t, nh, nkv, hd, left pads or None for 0, 5, 70, t). The bf16 kernels
+# run on 64-row q tiles and 64-key tiles: pad 70 makes q tile 0 of its row
 # wholly dead under the causal mask, a pad of t a wholly dead batch row,
 # pads 200 and 131 rows whose first key tiles are all padding; t = 1 and t
-# not a multiple of 64 exercise the ragged tail.
+# not a multiple of 64 exercise the ragged tail; t 1024 with pads 0, 511
+# and 1024 is phase 6 of chip_smoke.py in small, with many tiles skipped.
 FLASH_SHAPES = [(3, 130, 4, 4, 64, None), (2, 96, 4, 2, 32, None), (3, 64, 4, 1, 128, None),
                 (2, 200, 2, 2, 16, None), (4, 300, 4, 2, 64, [0, 200, 300, 131]),
-                (2, 1, 4, 1, 32, [0, 1]), (2, 257, 4, 2, 128, [190, 0])]
+                (2, 1, 4, 1, 32, [0, 1]), (2, 257, 4, 2, 128, [190, 0]),
+                (3, 1024, 2, 2, 64, [0, 511, 1024])]
 
 
 def _dead_rows(mask, causal):
@@ -153,6 +157,10 @@ def test_flash_kernels_match_plain(cuda, b, t, nh, nkv, hd, pads, dtype, causal)
     if bool(dead.any()):
         assert bool((out[dead] == 0).all()) and bool((out2[dead] == 0).all())
         assert bool((lse.transpose(1, 2)[dead] == A.DEAD_LSE).all())
+        assert bool((dq[dead] == 0).all())
+    padding = mask == 0  # [b, t] keys nobody may attend: their per-head dk, dv are exactly 0
+    if bool(padding.any()):
+        assert bool((dk[padding] == 0).all()) and bool((dv[padding] == 0).all())
     torch.testing.assert_close(dq.float(), A.flash_bwd_dq_plain(q, k, v, mask, g, lse_ref, delta, causal).float(),
                                **BWD_TOL[dtype])
     dk_ref, dv_ref = A.flash_bwd_dkv_plain(q, k, v, mask, g, lse_ref, delta, causal)
@@ -212,6 +220,10 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     shifted.copy_(qb)
     with pytest.raises(ValueError, match="aligned"):
         A.flash_fwd(shifted, k.bfloat16(), v.bfloat16(), mask)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device=cuda)
+    for bwd in (A.flash_bwd_dq, A.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="aligned"):
+            bwd(qb, k.bfloat16(), v.bfloat16(), mask, shifted, lse, lse)
 
 
 @pytest.mark.cuda

@@ -6,8 +6,10 @@
 //                                   flash_fwd_kernel<float, HD, false> (f32)
 //   K4 `_flash_fwd_kernel_lse`   -> flash_fwd_wgmma_kernel<HD, true> (bf16),
 //                                   flash_fwd_kernel<float, HD, true> (f32)
-//   K5 `_flash_bwd_dq_kernel`    -> flash_bwd_dq_kernel<T, HD>
-//   K6 `_flash_bwd_dkv_kernel`   -> flash_bwd_dkv_kernel<T, HD>
+//   K5 `_flash_bwd_dq_kernel`    -> flash_bwd_dq_wgmma_kernel<HD> (bf16),
+//                                   flash_bwd_dq_kernel<float, HD> (f32)
+//   K6 `_flash_bwd_dkv_kernel`   -> flash_bwd_dkv_wgmma_kernel<HD> (bf16),
+//                                   flash_bwd_dkv_kernel<float, HD> (f32)
 //
 // Layouts (the model's, read in place; no transposes around the calls):
 //   q, out, dout  [b, tq, nh, hd]    T (f32 or bf16)
@@ -59,10 +61,38 @@
 // shift. A q tile with no valid key at all writes 0 (and DEAD_LSE)
 // without entering the loop.
 //
-// Forward, f32, and the backward: flash_fwd_kernel<float, HD, LSE>,
-// flash_bwd_dq_kernel and flash_bwd_dkv_kernel compute every product on
-// the CUDA cores in f32. One block of 256 threads owns a 64-row tile (a q
-// tile in the forward and dq kernels, a k tile in the dk/dv kernel) and
+// Backward, bf16: flash_bwd_dq_wgmma_kernel<HD> (K5) and
+// flash_bwd_dkv_wgmma_kernel<HD> (K6), on the tensor cores, two kernels as
+// on the TPU (deterministic: no atomics on dq). The TPU kernels form five
+// products from f32 casts of the bf16 inputs: s = q.k^T and dp = dO.v^T
+// are products of two bf16 operands, exact in f32, so each is one bf16
+// wgmma with f32 accumulation; dv = p^T.dO, dq = ds.k and dk = ds^T.q have
+// the f32 p or ds as one operand, which is split into bf16 hi and lo
+// halves as p is in the forward (two wgmmas, about 2^-17 relative error).
+// p = exp(s * scale - lse) is ex2.approx(s * scale * log2(e) - lse *
+// log2(e)), ds = p * (dp - delta) * scale in f32. K5: one warpgroup owns
+// 64 q rows (lse and delta in registers) and loops over the live key tiles
+// up to the diagonal from a two-stage cp.async K/V ring; S and dP are SS
+// wgmmas (both K-major), dq += ds_hi.K + ds_lo.K reads the same K tile as
+// an MN-major B; dq is written once, in bf16. K6: one warpgroup owns 64
+// keys of one q head and loops over the q tiles from the diagonal on from
+// a two-stage Q/dO ring (each stage with the tile's lse and delta, which
+// are per column here); it computes the scores transposed, S^T = K.Q^T
+// and dP^T = V.dO^T, so p^T and ds^T land in the accumulator layout that
+// packs into A fragments, and dv += p^T_hi.dO + p^T_lo.dO, dk += ds^T_hi.Q
+// + ds^T_lo.Q read the same Q and dO tiles as MN-major B. Padding is
+// skipped exactly as in the forward: K5 skips key tiles with no valid key
+// (a q tile with none writes 0), K6 writes 0 for a key tile with no valid
+// key and does nothing else. At gpt2-small training shapes the backward
+// is bound by bytes: 0.019 ms (K5) and 0.030 ms (K6) at 3.35 TB/s, against
+// 0.015 and 0.023 ms for its 4 and 6 tile products a pair at the bf16
+// peak (chip_smoke.py `flash_bound`).
+//
+// Forward and backward, f32: flash_fwd_kernel<float, HD, LSE>,
+// flash_bwd_dq_kernel<float, HD> and flash_bwd_dkv_kernel<float, HD>
+// compute every product on the CUDA cores in f32. One block of 256
+// threads owns a 64-row tile (a q tile in the forward and dq kernels, a k
+// tile in the dk/dv kernel) and
 // loops over the other side's 64-row tiles (the TPU's sequential grid axis
 // becomes this loop), with causal=1 skipping the tiles wholly above the
 // diagonal. Tiles are staged in shared memory as f32 with one padding
@@ -98,13 +128,10 @@ constexpr int THREADS = 256;
 constexpr int TILE = 64;         // rows of every tile (q and k side)
 constexpr int TP = TILE + 1;     // padded row length of a 64-wide score tile
 
+// the CUDA-core kernels run at f32 only (bf16 takes the tensor cores)
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Sum / max over the 16 lanes of a half warp (lanes differing in bits 0-3).
 __device__ __forceinline__ float half_warp_sum(float x) {
@@ -256,6 +283,22 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// bf16 hi/lo A fragments of a 64 x 64 f32 tile x held in the accumulator
+// layout: 16-column slice kk is registers 8 kk .. 8 kk + 7, and fragment
+// register r of it packs the pair x[8 kk + 2 r], x[8 kk + 2 r + 1].
+__device__ __forceinline__ void split_fragments(const float (&x)[32], uint32_t (&hi)[4][4],
+                                                uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = x[8 * kk + 2 * r], x1 = x[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][r] = hopper::pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+    }
+}
+
 // Q tile, two K and two V stages, the key-validity bitmask (two words per
 // 64-key tile) and 1024 bytes to align the tiles for the swizzle.
 size_t wgmma_fwd_smem(int hd, int tk) {
@@ -365,7 +408,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     for (int kk = 0; kk < HD / 16; ++kk)
       wgmma_ss_n64(s, desc_kmajor<HD>(sQ, WG_ROWS, kk), desc_kmajor<HD>(kt, WG_KEYS, kk), kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     const int k0 = j * WG_KEYS;
@@ -424,17 +467,8 @@ __global__ void __launch_bounds__(WG_THREADS)
       }
     }
 
-    // p as bf16 hi/lo A fragments: 16-key slice kk is S registers 8 kk .. 8 kk + 7
-    uint32_t a_hi[4][4], a_lo[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p0 = s[8 * kk + 2 * r], p1 = s[8 * kk + 2 * r + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        a_hi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
-        a_lo[kk][r] = pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
-      }
+    uint32_t a_hi[4][4], a_lo[4][4];  // p as bf16 hi/lo A fragments
+    split_fragments(s, a_hi, a_lo);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
@@ -444,7 +478,7 @@ __global__ void __launch_bounds__(WG_THREADS)
       wgmma_rs<HD>(o, a_lo[kk], dv);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(o);
     __syncthreads();  // every thread is done with this stage before it is refilled
     stage ^= 1;
@@ -700,6 +734,398 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Q and dO tiles, two K and two V stages, the key bitmask, alignment.
+size_t wgmma_dq_smem(int hd, int tk) {
+  return 1024 + 6 * (size_t)WG_ROWS * hd * 2 + 8 * (size_t)((tk + WG_KEYS - 1) / WG_KEYS);
+}
+// K and V tiles, two Q and two dO stages, two stages of the q tile's lse
+// and delta (2 x 2 x 64 f32), the key tile's bitmask, alignment.
+size_t wgmma_dkv_smem(int hd) { return 1024 + 6 * (size_t)WG_KEYS * hd * 2 + 4 * WG_ROWS * 4 + 8; }
+
+// K5 at bf16: one warpgroup owns 64 q rows and loops over the live key
+// tiles up to the diagonal: S = Q.K^T and dP = dO.V^T (SS, both K-major),
+// then dq += ds_hi.K + ds_lo.K with the same K tile read as an MN-major B.
+// lse and delta are per row: two registers each.
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ mask,
+                              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                              const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int tq,
+                              int tk, int nh, int nkv, int causal, float scale) {
+  using namespace hopper;
+  constexpr uint32_t TILE_BYTES = WG_ROWS * HD * 2;
+  constexpr int CHUNKS = HD / 8;
+  constexpr int NA = HD / 2;  // dq accumulator registers
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base, sO = base + TILE_BYTES, sK = base + 2 * TILE_BYTES,
+                 sV = base + 4 * TILE_BYTES;
+  uint32_t* valid = reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + 6 * TILE_BYTES);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WG_ROWS;  // long causal rows first
+  const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
+  const int kvh = h / (nh / nkv);
+  const int k_end = causal ? min(tk, q0 + WG_ROWS) : tk;
+  const int n_tiles = (k_end + WG_KEYS - 1) / WG_KEYS;
+
+  const int32_t* mrow = mask + (size_t)bi * tk;
+  for (int w = warp; w < 2 * n_tiles; w += WG_THREADS / 32) {
+    const int key = w * 32 + lane;
+    const unsigned bits = __ballot_sync(0xffffffffu, key < k_end && mrow[key] > 0);
+    if (lane == 0) valid[w] = bits;
+  }
+  __syncthreads();
+  auto next_live = [&](int j) {
+    while (j < n_tiles && (valid[2 * j] | valid[2 * j + 1]) == 0u) ++j;
+    return j;
+  };
+
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);                // and key columns 8 j + col0 + {0, 1}
+  int j = next_live(0);
+  if (j == n_tiles) {  // no row of the tile has an allowed key: dq is 0
+    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+    for (int i = tid; i < WG_ROWS * HD / 2; i += WG_THREADS) {
+      const int r = i / (HD / 2), c = 2 * (i % (HD / 2));
+      if (q0 + r < tq)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (((size_t)bi * tq + q0 + r) * nh + h) * HD + c) = zero;
+    }
+    return;
+  }
+
+  const size_t q_stride = (size_t)nh * HD;
+  const __nv_bfloat16* qh = q + ((size_t)bi * tq * nh + h) * HD;
+  const __nv_bfloat16* oh = dout + ((size_t)bi * tq * nh + h) * HD;
+  for (int i = tid; i < WG_ROWS * CHUNKS; i += WG_THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = q0 + r < tq;
+    const size_t src = (size_t)(ok ? q0 + r : 0) * q_stride + c * 8;
+    cp_async16(sQ + tile_offset<HD>(WG_ROWS, r, c), qh + src, ok);
+    cp_async16(sO + tile_offset<HD>(WG_ROWS, r, c), oh + src, ok);
+  }
+  cp_async_commit();
+
+  const size_t kv_stride = (size_t)nkv * HD;
+  const __nv_bfloat16* kh = k + ((size_t)bi * tk * nkv + kvh) * HD;
+  const __nv_bfloat16* vh = v + ((size_t)bi * tk * nkv + kvh) * HD;
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = tile * WG_KEYS;
+    for (int i = tid; i < WG_KEYS * CHUNKS; i += WG_THREADS) {
+      const int r = i / CHUNKS, c = i % CHUNKS;
+      const bool ok = k0 + r < tk;
+      const size_t src = (size_t)(ok ? k0 + r : 0) * kv_stride + c * 8;
+      const uint32_t dst = stage * TILE_BYTES + tile_offset<HD>(WG_KEYS, r, c);
+      cp_async16(sK + dst, kh + src, ok);
+      cp_async16(sV + dst, vh + src, ok);
+    }
+    cp_async_commit();
+  };
+
+  // rows past tq: lse = DEAD_LSE makes p = 0 (their q and dO rows read 0)
+  float nl2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const size_t at = ((size_t)bi * nh + h) * tq + row;
+    nl2[hh] = -(row < tq ? lse[at] : DEAD_LSE) * LOG2E;
+    dl[hh] = row < tq ? delta[at] : 0.f;
+  }
+  const float sl2 = scale * LOG2E;
+
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+
+  int stage = 0;
+  load_kv(j, 0);
+  while (j < n_tiles) {
+    const int jn = next_live(j + 1);
+    if (jn < n_tiles) {
+      load_kv(jn, stage ^ 1);  // in flight while this tile computes
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // tile j (and Q, dO) landed for every thread
+
+    const uint32_t kt = sK + stage * TILE_BYTES, vt = sV + stage * TILE_BYTES;
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor<HD>(sQ, WG_ROWS, kk), desc_kmajor<HD>(kt, WG_KEYS, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(dp, desc_kmajor<HD>(sO, WG_ROWS, kk), desc_kmajor<HD>(vt, WG_KEYS, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // s is ready; dp may still be in flight
+    fence_regs(s);
+
+    const int k0 = j * WG_KEYS;
+    const uint64_t bits = ((uint64_t)valid[2 * j + 1] << 32) | valid[2 * j];
+    // every key valid and at or below every row's diagonal: no mask
+    const bool whole = bits == ~0ull && (!causal || k0 + WG_KEYS - 1 <= q0);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * jj + col0 + e;
+          const bool ok = whole || (((bits >> c) & 1u) && (!causal || k0 + c <= row0 + 8 * hh));
+          float& x = s[4 * jj + 2 * hh + e];
+          x = ok ? fast_exp2(fmaf(x, sl2, nl2[hh])) : 0.f;  // p
+        }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * hh + e;
+          dp[i] = s[i] * (dp[i] - dl[hh]) * scale;  // ds
+        }
+
+    uint32_t d_hi[4][4], d_lo[4][4];
+    split_fragments(dp, d_hi, d_lo);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bk = desc_mnmajor<HD>(kt, WG_KEYS, kk);
+      wgmma_rs<HD>(acc, d_hi[kk], bk);
+      wgmma_rs<HD>(acc, d_lo[kk], bk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every thread is done with this stage before it is refilled
+    stage ^= 1;
+    j = jn;
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= tq) continue;
+    __nv_bfloat16* drow = dq + (((size_t)bi * tq + row) * nh + h) * HD;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(drow + 8 * jj + col0) =
+          pack_bf16(acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
+  }
+}
+
+// K6 at bf16: one warpgroup owns 64 keys of one q head and loops over the
+// q tiles from the diagonal on, with the scores transposed: S^T = K.Q^T
+// and dP^T = V.dO^T (SS, both K-major), so p^T and ds^T come out in the
+// accumulator layout, which is an A operand after packing; then
+// dv += p^T_hi.dO + p^T_lo.dO and dk += ds^T_hi.Q + ds^T_lo.Q read the
+// same Q and dO tiles as MN-major B. lse and delta are per column: each q
+// tile's 64 values come into shared memory beside the tile.
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ mask,
+                               const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                               const float* __restrict__ delta, float* __restrict__ dk,
+                               float* __restrict__ dv, int tq, int tk, int nh, int nkv, int causal,
+                               float scale) {
+  using namespace hopper;
+  constexpr uint32_t TILE_BYTES = WG_KEYS * HD * 2;
+  constexpr int CHUNKS = HD / 8;
+  constexpr int NA = HD / 2;  // registers of each of the dk and dv accumulators
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + TILE_BYTES, sQ = base + 2 * TILE_BYTES,
+                 sO = base + 4 * TILE_BYTES, sRows = base + 6 * TILE_BYTES;
+  // per stage: lse [64], then delta [64]
+  const float* rows_f = reinterpret_cast<const float*>(smem_raw + (sRows - raw));
+  uint32_t* valid = reinterpret_cast<uint32_t*>(smem_raw + (sRows - raw) + 4 * WG_ROWS * 4);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * WG_KEYS;  // key tile 0 has the most q tiles: it starts first
+  const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
+  const int kvh = h / (nh / nkv);
+  if (warp < 2) {
+    const int key = k0 + warp * 32 + lane;
+    const unsigned bits = __ballot_sync(0xffffffffu, key < tk && mask[(size_t)bi * tk + key] > 0);
+    if (lane == 0) valid[warp] = bits;
+  }
+  __syncthreads();
+  const uint64_t bits = ((uint64_t)valid[1] << 32) | valid[0];
+  const int n_q = (tq + WG_ROWS - 1) / WG_ROWS;
+  const int i_begin = causal ? k0 / WG_ROWS : 0;  // the first q tile holding a row >= k0
+
+  if (bits == 0ull || i_begin >= n_q) {  // no allowed pair: dk and dv are 0
+    for (int i = tid; i < WG_KEYS * HD; i += WG_THREADS) {
+      const int r = i / HD, c = i % HD;
+      if (k0 + r < tk) {
+        const size_t at = (((size_t)bi * tk + k0 + r) * nh + h) * HD + c;
+        dk[at] = 0.f;
+        dv[at] = 0.f;
+      }
+    }
+    return;
+  }
+
+  const size_t kv_stride = (size_t)nkv * HD;
+  const __nv_bfloat16* kh = k + ((size_t)bi * tk * nkv + kvh) * HD;
+  const __nv_bfloat16* vh = v + ((size_t)bi * tk * nkv + kvh) * HD;
+  for (int i = tid; i < WG_KEYS * CHUNKS; i += WG_THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = k0 + r < tk;
+    const size_t src = (size_t)(ok ? k0 + r : 0) * kv_stride + c * 8;
+    cp_async16(sK + tile_offset<HD>(WG_KEYS, r, c), kh + src, ok);
+    cp_async16(sV + tile_offset<HD>(WG_KEYS, r, c), vh + src, ok);
+  }
+  cp_async_commit();
+
+  const size_t q_stride = (size_t)nh * HD;
+  const __nv_bfloat16* qh = q + ((size_t)bi * tq * nh + h) * HD;
+  const __nv_bfloat16* oh = dout + ((size_t)bi * tq * nh + h) * HD;
+  const float* lrow = lse + ((size_t)bi * nh + h) * tq;
+  const float* erow = delta + ((size_t)bi * nh + h) * tq;
+  // rows past tq read zeros (q, dO, lse and delta) and are masked below;
+  // threads 0-63 copy the tile's lse, threads 64-127 its delta
+  auto load_q = [&](int tile, int stage) {
+    const int q0 = tile * WG_ROWS;
+    for (int i = tid; i < WG_ROWS * CHUNKS; i += WG_THREADS) {
+      const int r = i / CHUNKS, c = i % CHUNKS;
+      const bool ok = q0 + r < tq;
+      const size_t src = (size_t)(ok ? q0 + r : 0) * q_stride + c * 8;
+      const uint32_t dst = stage * TILE_BYTES + tile_offset<HD>(WG_ROWS, r, c);
+      cp_async16(sQ + dst, qh + src, ok);
+      cp_async16(sO + dst, oh + src, ok);
+    }
+    const int r = tid % WG_ROWS;
+    const bool ok = q0 + r < tq;
+    cp_async4(sRows + (uint32_t)(stage * 2 * WG_ROWS + tid) * 4,
+              (tid < WG_ROWS ? lrow : erow) + (ok ? q0 + r : 0), ok);
+    cp_async_commit();
+  };
+
+  const int kr0 = warp * 16 + (lane >> 2);  // this thread's keys: k0 + kr0, k0 + kr0 + 8
+  const int col0 = 2 * (lane & 3);          // and q columns 8 j + col0 + {0, 1}
+  bool key_ok[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) key_ok[hh] = (bits >> (kr0 + 8 * hh)) & 1u;
+  const float sl2 = scale * LOG2E;
+
+  float acc_k[NA], acc_v[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  int stage = 0;
+  load_q(i_begin, 0);
+  for (int it = i_begin; it < n_q; ++it) {
+    if (it + 1 < n_q) {
+      load_q(it + 1, stage ^ 1);  // in flight while this tile computes
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // q tile `it` (and K, V) landed for every thread
+
+    const uint32_t qt = sQ + stage * TILE_BYTES, ot = sO + stage * TILE_BYTES;
+    const float* ls = rows_f + stage * 2 * WG_ROWS;
+    const float* es = ls + WG_ROWS;
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor<HD>(sK, WG_KEYS, kk), desc_kmajor<HD>(qt, WG_ROWS, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(dp, desc_kmajor<HD>(sV, WG_KEYS, kk), desc_kmajor<HD>(ot, WG_ROWS, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // s^T is ready; dp^T may still be in flight
+    fence_regs(s);
+
+    const int q0 = it * WG_ROWS;
+    // every key valid, every row real and at or past every key: no mask
+    const bool whole = bits == ~0ull && q0 + WG_ROWS <= tq && (!causal || k0 + WG_KEYS - 1 <= q0);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 8 * jj + col0;
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = q0 + c + e, key = k0 + kr0 + 8 * hh;
+          const bool ok = whole || (key_ok[hh] && row < tq && (!causal || key <= row));
+          float& x = s[4 * jj + 2 * hh + e];
+          x = ok ? fast_exp2(fmaf(x, sl2, -(e ? l2.y : l2.x) * LOG2E)) : 0.f;  // p^T
+        }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 d2 = *reinterpret_cast<const float2*>(es + 8 * jj + col0);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * hh + e;
+          dp[i] = s[i] * (dp[i] - (e ? d2.y : d2.x)) * scale;  // ds^T
+        }
+    }
+
+    uint32_t p_hi[4][4], p_lo[4][4], d_hi[4][4], d_lo[4][4];
+    split_fragments(s, p_hi, p_lo);
+    split_fragments(dp, d_hi, d_lo);
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bo = desc_mnmajor<HD>(ot, WG_ROWS, kk), bq = desc_mnmajor<HD>(qt, WG_ROWS, kk);
+      wgmma_rs<HD>(acc_v, p_hi[kk], bo);
+      wgmma_rs<HD>(acc_v, p_lo[kk], bo);
+      wgmma_rs<HD>(acc_k, d_hi[kk], bq);
+      wgmma_rs<HD>(acc_k, d_lo[kk], bq);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+    __syncthreads();  // every thread is done with this stage before it is refilled
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + kr0 + 8 * hh;
+    if (key >= tk) continue;
+    const size_t at = (((size_t)bi * tk + key) * nh + h) * HD + col0;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      *reinterpret_cast<float2*>(dk + at + 8 * jj) = make_float2(acc_k[4 * jj + 2 * hh], acc_k[4 * jj + 2 * hh + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * jj) = make_float2(acc_v[4 * jj + 2 * hh], acc_v[4 * jj + 2 * hh + 1]);
+    }
+  }
+}
+
 size_t fwd_smem(int hd) {
   return (2 * TILE * (hd + 1) + TILE * hd + TILE * TP) * sizeof(float) + TILE * sizeof(int);
 }
@@ -713,14 +1139,17 @@ int prepare(Kernel kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// cp.async moves 16-byte chunks: every row of the bf16 operands starts
+// 16-byte aligned when the base pointers do (a row is hd * 2 >= 32 bytes)
+bool misaligned(const void* a, const void* b, const void* c, const void* d) {
+  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d) & 15u) != 0;
+}
+
 template <int HD, bool LSE>
 int fwd_wgmma(const void* q, const void* k, const void* v, const int32_t* mask, void* out,
               float* lse, int b, int tq, int tk, int nh, int nkv, int causal, float scale,
               cudaStream_t s) {
-  // cp.async moves 16-byte chunks: every row of q, k and v starts 16-byte
-  // aligned when the base pointers do (a row is hd * 2 >= 32 bytes)
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15u)
-    return (int)cudaErrorMisalignedAddress;
+  if (misaligned(q, k, v, out)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = wgmma_fwd_smem(HD, tk);
   auto kernel = flash_fwd_wgmma_kernel<HD, LSE>;
   if (int err = prepare(kernel, smem)) return err;
@@ -763,29 +1192,55 @@ template <typename T, int HD>
 int bwd_dq(const void* q, const void* k, const void* v, const int32_t* mask, const void* dout,
            const float* lse, const float* delta, void* dq, int b, int tq, int tk, int nh, int nkv,
            int causal, float scale, cudaStream_t s) {
-  const size_t smem = dq_smem(HD);
-  auto kernel = flash_bwd_dq_kernel<T, HD>;
-  if (int err = prepare(kernel, smem)) return err;
-  const dim3 grid((tq + TILE - 1) / TILE, b * nh);
-  kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), mask, static_cast<const T*>(dout),
-                                     lse, delta, static_cast<T*>(dq), tq, tk, nh, nkv, causal,
-                                     scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // tensor cores
+    if (misaligned(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+    const size_t smem = wgmma_dq_smem(HD, tk);
+    auto kernel = flash_bwd_dq_wgmma_kernel<HD>;
+    if (int err = prepare(kernel, smem)) return err;
+    const dim3 grid((tq + WG_ROWS - 1) / WG_ROWS, b * nh);
+    kernel<<<grid, WG_THREADS, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), mask, static_cast<const __nv_bfloat16*>(dout), lse,
+        delta, static_cast<__nv_bfloat16*>(dq), tq, tk, nh, nkv, causal, scale);
+    return (int)cudaGetLastError();
+  } else {  // f32: CUDA cores
+    const size_t smem = dq_smem(HD);
+    auto kernel = flash_bwd_dq_kernel<T, HD>;
+    if (int err = prepare(kernel, smem)) return err;
+    const dim3 grid((tq + TILE - 1) / TILE, b * nh);
+    kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                       static_cast<const T*>(v), mask, static_cast<const T*>(dout),
+                                       lse, delta, static_cast<T*>(dq), tq, tk, nh, nkv, causal,
+                                       scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int HD>
 int bwd_dkv(const void* q, const void* k, const void* v, const int32_t* mask, const void* dout,
             const float* lse, const float* delta, float* dk, float* dv, int b, int tq, int tk,
             int nh, int nkv, int causal, float scale, cudaStream_t s) {
-  const size_t smem = dkv_smem(HD);
-  auto kernel = flash_bwd_dkv_kernel<T, HD>;
-  if (int err = prepare(kernel, smem)) return err;
-  const dim3 grid((tk + TILE - 1) / TILE, b * nh);
-  kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), mask, static_cast<const T*>(dout),
-                                     lse, delta, dk, dv, tq, tk, nh, nkv, causal, scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // tensor cores
+    if (misaligned(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+    const size_t smem = wgmma_dkv_smem(HD);
+    auto kernel = flash_bwd_dkv_wgmma_kernel<HD>;
+    if (int err = prepare(kernel, smem)) return err;
+    const dim3 grid((tk + WG_KEYS - 1) / WG_KEYS, b * nh);
+    kernel<<<grid, WG_THREADS, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), mask, static_cast<const __nv_bfloat16*>(dout), lse,
+        delta, dk, dv, tq, tk, nh, nkv, causal, scale);
+    return (int)cudaGetLastError();
+  } else {  // f32: CUDA cores
+    const size_t smem = dkv_smem(HD);
+    auto kernel = flash_bwd_dkv_kernel<T, HD>;
+    if (int err = prepare(kernel, smem)) return err;
+    const dim3 grid((tk + TILE - 1) / TILE, b * nh);
+    kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                       static_cast<const T*>(v), mask, static_cast<const T*>(dout),
+                                       lse, delta, dk, dv, tq, tk, nh, nkv, causal, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 // Dispatch on (dtype code, head_dim): 0 = f32, 1 = bf16; hd in {16, 32, 64, 128}.

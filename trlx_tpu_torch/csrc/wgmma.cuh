@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX: warpgroup matrix multiply
 // (wgmma) with its shared-memory descriptors and swizzled tile layouts,
-// and 16-byte cp.async copies. Used by the bf16 flash-attention forward in
-// flash_attention.cu.
+// and cp.async copies. Used by the bf16 flash-attention forward and
+// backward in flash_attention.cu.
 //
 // Tile layout. A tile of R rows by HD bf16 columns (R a multiple of 8) is
 // stored as HD / CB column blocks of CB = min(HD, 64) columns, each block
@@ -88,7 +88,11 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows, int k)
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Pin the accumulator registers at this point of the program, so the
 // compiler moves no read or write of them across a wgmma fence or wait.
@@ -109,6 +113,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4-byte copy to shared memory (one f32); with valid == false it writes 0.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }

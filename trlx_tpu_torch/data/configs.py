@@ -4,9 +4,9 @@ Parity: trlx/data/configs.py in the reference — the same six sections
 (method/model/optimizer/scheduler/tokenizer/train) with yaml IO, `evolve`,
 and dotted-key `update` for sweeps — plus the `parallel` and `inference`
 sections. The field set is the same as the JAX package's, so one yaml
-file configures either package; sections this package does not run yet
-(`parallel`, the learn-loop fields of `train`) are parsed and kept but
-not read.
+file configures either package. The trainer reads the learn-loop fields
+of `train`, and checks `parallel`: the port runs on one device, so a
+section asking for more is refused (ROADMAP queue A, item 4).
 """
 
 from copy import deepcopy
@@ -117,8 +117,8 @@ class SchedulerConfig:
 @dataclass
 class ParallelConfig:
     """Device-mesh layout, kept so configs round-trip with the JAX
-    package. Nothing in this package reads it yet (ROADMAP queue A,
-    parallelism).
+    package. The port runs on one device: the trainer refuses any axis
+    above 1 (ROADMAP queue A, item 4, parallelism).
 
     Axis sizes of -1 mean "fill with all remaining devices". The mesh axes
     are, in order: data (pure data parallel, DCN-friendly), fsdp (ZeRO-style

@@ -15,13 +15,14 @@ bias tensor; q head h reads kv head h // (nh // nkv).
   between a `custom_vjp`'s primal and its forward rule: frozen blocks
   (no input carries a tangent) run K3, trainable ones K4.
 - `flash_fwd`, `flash_bwd_dq`, `flash_bwd_dkv`: the kernels' wrappers
-  (`csrc/flash_attention.cu`, CUDA for sm_90a; the bf16 forward runs on
-  the tensor cores with exact bf16 q.k^T products and p.V through a bf16
-  hi/lo split of p, the f32 forward and the backward on the CUDA cores in
-  f32; the dtype picks the route). On cuda tensors they
-  launch the kernel or raise; on CPU tensors they run the plain versions
-  `flash_fwd_plain` (blockwise online softmax with lse, the JAX package's
-  `blockwise_attention_lse`), `flash_bwd_dq_plain` and
+  (`csrc/flash_attention.cu`, CUDA for sm_90a). At bf16 the forward and
+  the backward run on the tensor cores: the products of two bf16 operands
+  (q.k^T, dO.v^T) are exact, and the products with an f32 operand (p.V,
+  p^T.dO, ds.k, ds^T.q) go through a bf16 hi/lo split of p and ds. At f32
+  every kernel runs on the CUDA cores in f32. The dtype picks the route.
+  On cuda tensors they launch the kernel or raise; on CPU tensors they
+  run the plain versions `flash_fwd_plain` (blockwise online softmax with
+  lse, the JAX package's `blockwise_attention_lse`), `flash_bwd_dq_plain` and
   `flash_bwd_dkv_plain` (its `_flash_bwd_xla`). The plain versions follow
   the Pallas kernels' arithmetic: everything in f32, p.V with p in f32
   (the XLA blockwise path casts p to v's dtype first; at bf16 the two
@@ -199,6 +200,13 @@ def _check_cuda(q, k, v, mask, *extra):
     return dims, mask.to(torch.int32).contiguous()
 
 
+def _check_aligned(what, *tensors):
+    """The bf16 kernels copy their bf16 operands in 16-byte chunks."""
+    if tensors[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the bf16 {what} copies q, k, v (and dout) in 16-byte chunks: "
+                         "their data must be 16-byte aligned")
+
+
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -216,8 +224,7 @@ def flash_fwd(q, k, v, mask, causal: bool = True, with_lse: bool = False):
         out, lse = flash_fwd_plain(q, k, v, mask, causal)
         return (out, lse) if with_lse else out
     (b, tq, tk, nh, nkv, hd), mask = _check_cuda(q, k, v, mask)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the bf16 forward copies q, k, v in 16-byte chunks: their data must be 16-byte aligned")
+    _check_aligned("forward", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
@@ -236,6 +243,7 @@ def flash_bwd_dq(q, k, v, mask, g, lse, delta, causal: bool = True) -> torch.Ten
         return flash_bwd_dq_plain(q, k, v, mask, g, lse, delta, causal)
     (b, tq, tk, nh, nkv, hd), mask = _check_cuda(q, k, v, mask, g, lse, delta)
     _check_rows(q, g, lse, delta)
+    _check_aligned("backward", q, k, v, g)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _load().trlx_flash_bwd_dq(
@@ -253,6 +261,7 @@ def flash_bwd_dkv(q, k, v, mask, g, lse, delta, causal: bool = True):
         return flash_bwd_dkv_plain(q, k, v, mask, g, lse, delta, causal)
     (b, tq, tk, nh, nkv, hd), mask = _check_cuda(q, k, v, mask, g, lse, delta)
     _check_rows(q, g, lse, delta)
+    _check_aligned("backward", q, k, v, g)
     dk = torch.empty((b, tk, nh, hd), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):

@@ -12,11 +12,15 @@ everything goes into a sibling `.tmp` directory (`state.pt` from
 `torch.save`, `trainer_state.json`), `manifest.json` is written last and
 one `os.replace` promotes the stage.
 
+With `train.handle_preemption` (the default) `learn` installs a
+`PreemptionGuard`: after SIGTERM or SIGINT the loop finishes its step,
+writes `checkpoint_<step>_preempt` and exits with code 75.
+
 Not ported yet, and refused when their flags are set: the fused-epoch
 dispatch, the health sentinel, the step watchdog, tracing (timeline,
-goodput and the ledgers), `auto_resume`, checkpoint retention and the
-rollout fleet (ROADMAP queue A, item 4). Preemption signals are not
-handled: `handle_preemption` has no effect in the port.
+goodput and the ledgers), `auto_resume`, checkpoint retention, the
+rollout fleet and parallelism (any `parallel` axis above one device;
+ROADMAP queue A, item 4).
 """
 
 import hashlib
@@ -30,6 +34,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from trlx_tpu_torch import resilience
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models.policy import resolve_split, trainable_mask
 from trlx_tpu_torch.pipeline import MiniBatchIterator
@@ -100,6 +105,20 @@ _UNPORTED_TRAIN_FLAGS = {
     "checkpoint_keep_n": "checkpoint retention",
     "profile_dir": "profiler capture",
 }
+# parallel-config axes; the port runs on one device, so none may exceed 1
+# (-1, "the remaining devices", is one device on one card)
+_PARALLEL_AXES = ("data", "fsdp", "tensor", "sequence", "pipeline", "dcn_data")
+
+
+def check_single_device(parallel) -> None:
+    """Refuse a `parallel` section that asks for more than one device."""
+    for axis in _PARALLEL_AXES:
+        size = getattr(parallel, axis)
+        if size > 1:
+            raise NotImplementedError(
+                f"parallel.{axis}={size}: the port runs on one device; parallelism is not ported yet "
+                "(ROADMAP queue A, item 4)"
+            )
 
 
 @register_trainer
@@ -124,6 +143,7 @@ class TorchTrainer:
                 )
         if getattr(config.train, "rollout_backend", "local") != "local":
             raise NotImplementedError("train.rollout_backend='fleet' is not ported yet (ROADMAP queue A, item 3)")
+        check_single_device(config.parallel)
         set_seed(config.train.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(config.train.seed))
@@ -177,6 +197,7 @@ class TorchTrainer:
         self._loop_pos: Optional[Dict[str, int]] = None
         self._resume_pos: Optional[Dict[str, int]] = None
         self._best_reward = -float("inf")
+        self._preemption_guard: Optional[resilience.PreemptionGuard] = None
 
     # ------------------------------------------------------------------
     # Abstract surface
@@ -363,7 +384,9 @@ class TorchTrainer:
         """Outer loop: initial evaluation, then optimizer steps over the
         train loader's minibatches with crossing-interval checkpoints and
         evaluations. An explicit `train.resume_from_checkpoint` loads first
-        and continues at the saved loop position."""
+        and continues at the saved loop position. A preemption signal ends
+        the run at the next step boundary with a `_preempt` checkpoint and
+        `SystemExit(75)`."""
         logger.info("Starting training")
         self.iter_count = 0
         self.nth_evaluation = 0
@@ -382,7 +405,20 @@ class TorchTrainer:
         if not resumed:
             results = self.evaluate()
             self.tracker.log(results, step=self.iter_count)
-        return self._learn_loop(self._best_reward, Clock())
+        if self.config.train.handle_preemption:
+            self._preemption_guard = resilience.PreemptionGuard().install()
+        try:
+            return self._learn_loop(self._best_reward, Clock())
+        except resilience.PreemptionInterrupt as e:
+            logger.warning(
+                f"Preempted (signal {e.signum}); emergency checkpoint at step {self.iter_count} under "
+                f"'{self.config.train.checkpoint_dir}'. Exiting with code {resilience.PREEMPTION_EXIT_CODE}."
+            )
+            raise SystemExit(resilience.PREEMPTION_EXIT_CODE) from e
+        finally:
+            if self._preemption_guard is not None:
+                self._preemption_guard.uninstall()
+                self._preemption_guard = None
 
     def _learn_loop(self, best_reward, clock):
         results = {}
@@ -429,8 +465,16 @@ class TorchTrainer:
         # checked before any checkpoint write, so a NaN-poisoned state never
         # overwrites the last good checkpoint
         self._check_divergence(stats)
+        subfolder = f"checkpoint_{self.iter_count:0{len(str(self.total_steps))}d}"
+        guard = self._preemption_guard
+        if guard is not None and guard.triggered:
+            # a preemption signal arrived during the step: save this step
+            # boundary and leave; a resume from it continues bit for bit
+            directory = os.path.join(self.config.train.checkpoint_dir, f"{subfolder}_preempt")
+            logger.warning(f"Writing emergency checkpoint (signal {guard.signum}) to {directory}")
+            self.save(directory)
+            raise resilience.PreemptionInterrupt(guard.signum)
         if crossed(self.config.train.checkpoint_interval) or done:
-            subfolder = f"checkpoint_{self.iter_count:0{len(str(self.total_steps))}d}"
             directory = os.path.join(self.config.train.checkpoint_dir, subfolder)
             self.save(directory)
             self.save_pretrained(os.path.join(directory, "hf_model"))
