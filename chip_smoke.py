@@ -12,11 +12,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of gpt2-small (12/12/64), llama-7b (32/32/128), GQA (32/8/128)
    and MQA (16/1/64) with 32-token blocks, row lengths at block
-   boundaries plus one inactive row (exactly 0), KV in f32, bf16 and
-   int8; with kernel, plain-version, library (scaled_dot_product_attention
-   over the gathered KV, a yardstick the port never calls) and bound
-   times (device time per call, from torch.profiler, or from CUDA events
-   where two traces in a row hold no device event);
+   boundaries plus one inactive row (exactly 0), and at gqa-4k (Llama-3-8B's
+   32/8/128 over rows of up to 4096 tokens, crossing split edges), KV in
+   f32, bf16 and int8; two calls on the same inputs bitwise equal; with
+   kernel, plain-version, library (scaled_dot_product_attention over the
+   gathered KV, a yardstick the port never calls) and bound times (device
+   time per call, from torch.profiler, or from CUDA events where two
+   traces in a row hold no device event);
 4. serving, the port's main path: `SFTTrainer(config).serve()` of
    random:gpt2-small at full width (vocab 50257, bf16 activations) with a
    paged KV pool answers 16 concurrent POST /generate requests, and the
@@ -149,19 +151,24 @@ def device_time_ms(fn, iters, warmup=3, label=""):
 # Phase 3: kernel vs plain version
 # ---------------------------------------------------------------------------
 
-SHAPES = {  # name: (nh, nkv, hd)
-    "gpt2-small": (12, 12, 64),
-    "llama-7b": (32, 32, 128),
-    "gqa": (32, 8, 128),
-    "mqa": (16, 1, 64),
-}
 SLOTS, BLK, N_TBL, LAYERS = 8, 32, 10, 12
 # row lengths at block boundaries, a full table, and one inactive row
 LENS = [1, 31, 32, 33, 64, 200, N_TBL * BLK, 0]
+# long rows across the split edges (8 pages a split at this shape), one inactive
+LENS_4K = [4096, 4095, 4064, 3000, 2048, 1025, 33, 0]
+SHAPES = {  # name: (nh, nkv, hd, row lengths, table entries, arena pairs rotated)
+    "gpt2-small": (12, 12, 64, LENS, N_TBL, LAYERS),
+    "llama-7b": (32, 32, 128, LENS, N_TBL, LAYERS),
+    "gqa": (32, 8, 128, LENS, N_TBL, LAYERS),
+    "mqa": (16, 1, 64, LENS, N_TBL, LAYERS),
+    # Llama-3-8B's attention at 4096 tokens: an arena pair is 134 MB in bf16,
+    # so 3 pairs (more than the 50 MB L2) stand in for the layers
+    "gqa-4k": (32, 8, 128, LENS_4K, 128, 3),
+}
 
 
-def paged_case(nh, nkv, hd, kv, gen, device):
-    """Random inputs shaped like the engine's: `LAYERS` arena pairs (the
+def paged_case(nh, nkv, hd, kv, gen, device, lens=LENS, n_tbl=N_TBL, n_layers=LAYERS):
+    """Random inputs shaped like the engine's: `n_layers` arena pairs (the
     timing walks them like a decode step walks its layers, so KV comes
     from device memory, not L2), each slot owning distinct blocks, table
     slack on the zero block."""
@@ -169,16 +176,16 @@ def paged_case(nh, nkv, hd, kv, gen, device):
 
     from trlx_tpu_torch.ops import quant
 
-    n_blocks = SLOTS * N_TBL + 1
+    n_blocks = SLOTS * n_tbl + 1
     q = torch.randn(SLOTS, nh, hd, generator=gen, device=device).to(torch.bfloat16)
     perm = torch.randperm(n_blocks - 1, generator=gen, device=device) + 1
-    table = perm[: SLOTS * N_TBL].reshape(SLOTS, N_TBL).to(torch.int32)
-    lens = torch.tensor(LENS, device=device)
-    mask = (torch.arange(N_TBL * BLK, device=device)[None, :] < lens[:, None]).to(torch.int32)
-    used = (torch.arange(N_TBL, device=device)[None, :] * BLK) < lens[:, None]
+    table = perm[: SLOTS * n_tbl].reshape(SLOTS, n_tbl).to(torch.int32)
+    lens = torch.tensor(lens, device=device)
+    mask = (torch.arange(n_tbl * BLK, device=device)[None, :] < lens[:, None]).to(torch.int32)
+    used = (torch.arange(n_tbl, device=device)[None, :] * BLK) < lens[:, None]
     table = torch.where(used, table, torch.zeros_like(table))
     layers = []
-    for _ in range(LAYERS):
+    for _ in range(n_layers):
         k = torch.randn(n_blocks, BLK, nkv, hd, generator=gen, device=device)
         v = torch.randn(n_blocks, BLK, nkv, hd, generator=gen, device=device)
         if kv == "int8":
@@ -191,26 +198,26 @@ def paged_case(nh, nkv, hd, kv, gen, device):
     return q, table, mask, layers
 
 
-def bound_bytes(nh, nkv, hd, kv, q_bytes):
+def bound_bytes(nh, nkv, hd, kv, q_bytes, lens=LENS, n_tbl=N_TBL):
     """Bytes the function must move for this run's data: q in and out
     once, the table and mask, and K and V (plus int8 scales) for every
     valid column once per kv head."""
-    cols = sum(LENS)
+    cols = sum(lens)
     kv_bytes = {"f32": 4, "bf16": 2, "int8": 1}[kv]
-    n = 2 * SLOTS * nh * hd * q_bytes + SLOTS * N_TBL * 4 + SLOTS * N_TBL * BLK * 4
+    n = 2 * SLOTS * nh * hd * q_bytes + SLOTS * n_tbl * 4 + SLOTS * n_tbl * BLK * 4
     n += 2 * cols * nkv * hd * kv_bytes
     if kv == "int8":
         n += 2 * cols * nkv * 4
     return n
 
 
-def bound(nh, nkv, hd, kv, q_bytes):
+def bound(nh, nkv, hd, kv, q_bytes, lens=LENS, n_tbl=N_TBL):
     """(ms, "bytes" | "operations"): the least time the card could take,
     the larger of the bytes over the memory rate and the f32 operations
     (q.k and p.v, 2 flops each per valid column, q head and dim) over the
     f32 rate."""
-    bytes_ms = bound_bytes(nh, nkv, hd, kv, q_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * sum(LENS) * nh * hd / F32_FLOPS_PER_S * 1e3
+    bytes_ms = bound_bytes(nh, nkv, hd, kv, q_bytes, lens, n_tbl) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * sum(lens) * nh * hd / F32_FLOPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -239,7 +246,7 @@ def phase_kernels(device):
     import torch
 
     from trlx_tpu_torch import kernels
-    from trlx_tpu_torch.ops.paged_attention import paged_attention_decode, paged_attention_plain
+    from trlx_tpu_torch.ops.paged_attention import paged_attention_decode, paged_attention_plain, split_plan
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -252,13 +259,17 @@ def phase_kernels(device):
               ("int8", torch.bfloat16, bf16_tol)]
     results = {}
     err = {"paged_decode": 0.0, "paged_decode_int8": 0.0}
-    for name, (nh, nkv, hd) in SHAPES.items():
+    for name, (nh, nkv, hd, lens, n_tbl, n_layers) in SHAPES.items():
+        pps, n_splits = split_plan(SLOTS, nkv, n_tbl)
         for kv, qt, tol in checks:
-            q, table, mask, layers = paged_case(nh, nkv, hd, kv, gen, device)
+            q, table, mask, layers = paged_case(nh, nkv, hd, kv, gen, device, lens, n_tbl, n_layers)
             q = q.to(qt)
             k, v, extra = layers[0]
             out = paged_attention_decode(q, k, v, table, mask, **extra)
+            again = paged_attention_decode(q, k, v, table, mask, **extra)
             torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"{name}/{kv}: two calls on the same inputs differ")
             ref = paged_attention_plain(q, k, v, table, mask, **extra)
             torch.testing.assert_close(out.float(), ref.float(), **tol)
             if not bool((out[-1] == 0).all()):
@@ -266,31 +277,36 @@ def phase_kernels(device):
             key = "paged_decode_int8" if kv == "int8" else "paged_decode"
             e = float((out.float() - ref.float()).abs().max())
             err[key] = max(err[key], e)
+            shape = f"{name} nh={nh} nkv={nkv} hd={hd} n_tbl={n_tbl} splits={n_splits}x{pps} kv={kv}"
             if kv == "f32":
-                log(f"[kernels] {name} nh={nh} nkv={nkv} hd={hd} kv={kv}: max_abs_err={e:.3g} (tol {tol})")
+                log(f"[kernels] {shape}: max_abs_err={e:.3g} (tol {tol}), repeat bitwise equal")
+                del q, table, mask, layers, k, v, extra, out, again, ref
+                torch.cuda.empty_cache()
                 continue
             it = iter(range(10**9))
 
             def kernel_fn():
-                kk, vv, ex = layers[next(it) % LAYERS]
+                kk, vv, ex = layers[next(it) % n_layers]
                 paged_attention_decode(q, kk, vv, table, mask, **ex)
 
             def plain_fn():
-                kk, vv, ex = layers[next(it) % LAYERS]
+                kk, vv, ex = layers[next(it) % n_layers]
                 paged_attention_plain(q, kk, vv, table, mask, **ex)
 
             kernel_ms = device_time_ms(kernel_fn, 240, label=f"{name} {kv} kernel")
             plain_ms = device_time_ms(plain_fn, 24, label=f"{name} {kv} plain")
             library_ms = device_time_ms(library_call(q, k, v, table, mask, extra, nh, nkv), 240,
                                         label=f"{name} {kv} library")
-            least_ms, bound_by = bound(nh, nkv, hd, kv, 2)
+            least_ms, bound_by = bound(nh, nkv, hd, kv, 2, lens, n_tbl)
             results[(name, kv)] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                                        bound_ms=least_ms, bound_by=bound_by)
             log(
-                f"[kernels] {name} nh={nh} nkv={nkv} hd={hd} kv={kv}: max_abs_err={e:.3g} (tol {tol}) "
+                f"[kernels] {shape}: max_abs_err={e:.3g} (tol {tol}), repeat bitwise equal; "
                 f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
                 f"bound_ms={least_ms:.5f} ({bound_by})"
             )
+            del q, table, mask, layers, k, v, extra, out, again, ref
+            torch.cuda.empty_cache()
     kernels.reset_launches()  # the comparison launches above do not count
     return results, err
 

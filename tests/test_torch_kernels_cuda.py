@@ -17,6 +17,7 @@ from trlx_tpu_torch.ops.paged_attention import (
     KERNEL_INT8,
     paged_attention_decode,
     paged_attention_plain,
+    split_plan,
 )
 
 
@@ -78,6 +79,59 @@ def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
     q, ka, va, table, mask, _ = (t.to(cuda) for t in _case(1, 4, 4))
     with pytest.raises(ValueError, match="contiguous"):
         paged_attention_decode(q.transpose(0, 1).contiguous().transpose(0, 1), ka, va, table, mask)
+
+
+def _long_case(seed, nh, nkv, hd, b=4, blk=32, n_tbl=72):
+    """Rows of 72 pages split as the wrapper splits them: lengths one below
+    and one above a split edge, a full row with holes (a masked run of
+    eleven pages and scattered columns) and two out-of-range entries under
+    a mask of 1, and an inactive row."""
+    rng = np.random.RandomState(seed)
+    n_blocks = b * n_tbl + 1
+    edge = split_plan(b, nkv, n_tbl)[0] * blk
+    q = torch.from_numpy(rng.randn(b, nh, hd).astype(np.float32))
+    ka = torch.from_numpy(rng.randn(n_blocks, blk, nkv, hd).astype(np.float32))
+    va = torch.from_numpy(rng.randn(n_blocks, blk, nkv, hd).astype(np.float32))
+    table = rng.permutation(np.arange(1, n_blocks))[: b * n_tbl].reshape(b, n_tbl).astype(np.int32)
+    table[2, 10], table[2, 30] = -1, n_blocks + 7
+    lens = np.asarray([5 * edge - 1, 7 * edge + 1, n_tbl * blk, 0])
+    mask = np.arange(n_tbl * blk)[None, :] < lens[:, None]
+    mask[2, 40 * blk:51 * blk] = False
+    mask[2, rng.randint(0, n_tbl * blk, 300)] = False
+    return q, ka, va, torch.from_numpy(table), torch.from_numpy(mask), torch.from_numpy(lens > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,nkv,hd", [(16, 1, 64), (16, 4, 128)])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("mask_dtype", [torch.int32, torch.bool])
+def test_paged_decode_kernel_split_edges_and_repeats(cuda, nh, nkv, hd, kv, mask_dtype):
+    """Long rows across split edges, holes and out-of-range entries: the
+    kernel within the tolerances above (f32 q with f32 KV, bf16 q with bf16
+    and int8 KV), inactive rows exactly 0, one counted launch a call, and a
+    second call bitwise equal to the first (the merge's order is fixed)."""
+    q, ka, va, table, mask, active = (t.to(cuda) for t in _long_case(2, nh, nkv, hd))
+    mask = mask.to(mask_dtype)
+    q = q.to(torch.float32 if kv == "f32" else torch.bfloat16)
+    tol = dict(rtol=1e-5, atol=1e-5) if kv == "f32" else dict(rtol=8e-3, atol=1e-3)
+    extra = {}
+    if kv == "int8":
+        k, ks = quant.quantize_kv(ka)
+        v, vs = quant.quantize_kv(va)
+        extra = dict(k_scale=ks, v_scale=vs)
+    else:
+        dt = torch.bfloat16 if kv == "bf16" else torch.float32
+        k, v = ka.to(dt), va.to(dt)
+    kernels.reset_launches()
+    out = paged_attention_decode(q, k, v, table, mask, **extra)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[KERNEL_INT8 if kv == "int8" else KERNEL] == 1
+    again = paged_attention_decode(q, k, v, table, mask, **extra)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = paged_attention_plain(q, k, v, table, mask, **extra)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert bool((out[~active] == 0).all())
 
 
 # ---------------------------------------------------------------------------

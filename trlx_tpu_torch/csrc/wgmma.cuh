@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX: warpgroup matrix multiply
 // (wgmma) with its shared-memory descriptors and swizzled tile layouts,
 // and cp.async copies. Used by the bf16 flash-attention forward and
-// backward in flash_attention.cu.
+// backward in flash_attention.cu; the paged decode (paged_attention.cu)
+// uses the cp.async copies only.
 //
 // Tile layout. A tile of R rows by HD bf16 columns (R a multiple of 8) is
 // stored as HD / CB column blocks of CB = min(HD, 64) columns, each block
@@ -113,6 +114,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 8-byte copy to shared memory; with valid == false it writes zeros.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 // 4-byte copy to shared memory (one f32); with valid == false it writes 0.

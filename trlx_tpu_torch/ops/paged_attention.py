@@ -2,12 +2,14 @@
 version, and the gather reference.
 
 Port of the JAX package's `ops/paged_attention.py`. The decode read path
-of the paged KV arena collapses into one kernel pass per (slot, kv head)
-that walks the slot's block table, fetches each physical block once,
-dequantizes int8 tiles in registers and runs an online softmax across the
-walk, applying the whole q-head group to each tile (GQA reads KV once per
-group). The kernel is hand-written CUDA for sm_90a,
-`csrc/paged_attention.cu`, built at first use by `kernels.py`.
+of the paged KV arena collapses into one kernel launch
+(`csrc/paged_attention.cu`, hand-written CUDA for sm_90a, built at first
+use by `kernels.py`): each slot's block table is split across thread
+blocks (`split_plan`, from the shapes alone), each block fetches its
+pages' K/V tiles once with cp.async, dequantizes int8 in registers and
+runs an online softmax over them with the whole q-head group (GQA reads KV
+once per group), and the last block of each (slot, kv head) merges the
+splits in index order.
 
 - `paged_attention_decode`: the wrapper. On a cuda tensor it launches
   the kernel or raises; on a CPU tensor it runs `paged_attention_plain`.
@@ -22,9 +24,10 @@ group). The kernel is hand-written CUDA for sm_90a,
 
 Layouts are the JAX package's: q [b, nh, hd]; arenas [n_blocks, blk, nkv,
 hd] (f32/bf16, or int8 with [n_blocks, blk, nkv] f32 scales); table
-[b, n_tbl] int32; key_mask [b, n_tbl*blk]. A row whose mask is all zero
-returns exact 0.0. Table entries outside [0, n_blocks) count as masked
-columns in the kernel and its plain version.
+[b, n_tbl] int32; key_mask [b, n_tbl*blk] (the kernel reads int32 or one
+byte: bool, uint8, int8). A row whose mask is all zero returns exact 0.0.
+Table entries outside [0, n_blocks) count as masked columns in the kernel
+and its plain version.
 """
 
 import ctypes
@@ -40,10 +43,17 @@ NEG_INF = -1e30
 KERNEL = "paged_decode"  # launch-counter names (kernels.LAUNCHES)
 KERNEL_INT8 = "paged_decode_int8"
 MAX_SMEM_BYTES = 232448  # per-block dynamic shared memory on sm_90
+GRID_CAP = 1024  # thread blocks a launch aims at: about 8 per SM of an H100's 132
+MAX_SPLITS = 32  # splits of one table row at most: its last block reads them all
+MAX_STAGES = 2  # K/V pages in flight per block
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _lib = None
+# device -> int32 counters of the kernel's merge, one per (slot, kv head);
+# zero between launches (the merging block resets its own). Launches that
+# share them run in stream order, as the port's decode does.
+_counters = {}
 
 
 def _check_args(q, k_arena, v_arena, table, key_mask, k_scale, v_scale):
@@ -70,6 +80,20 @@ def _check_args(q, k_arena, v_arena, table, key_mask, k_scale, v_scale):
     if quantized and (k_scale.shape != k_arena.shape[:3] or v_scale.shape != k_arena.shape[:3]):
         raise ValueError("k_scale/v_scale must be [n_blocks, blk, nkv]")
     return b, nh, hd, n_blocks, blk, nkv, n_tbl, quantized
+
+
+def split_plan(b: int, nkv: int, n_tbl: int, grid_cap: int = GRID_CAP):
+    """(pages_per_split, n_splits) of a launch, from the shapes alone:
+    the fewest pages a split that keep the grid (b * nkv * n_splits
+    blocks) within `grid_cap` and a row's splits within MAX_SPLITS. A
+    serving table (b 8, 12 kv heads, 10 entries) gets one page a split; a
+    long one (b 8, 8 kv heads, 128 entries) 8."""
+    pairs = b * nkv
+    pps = max(1, -(-pairs * n_tbl // grid_cap), -(-n_tbl // MAX_SPLITS))
+    while pps < n_tbl and pairs * -(-n_tbl // pps) > grid_cap:
+        pps += 1
+    pps = min(pps, n_tbl)
+    return pps, -(-n_tbl // pps)
 
 
 def paged_attention_decode(
@@ -102,10 +126,12 @@ def _load():
     if _lib is None:
         lib = kernels.load("paged_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.trlx_paged_attention_decode.argtypes = [ptr] * 8 + [i32] * 7 + [ctypes.c_float, i32, i32, ptr]
+        lib.trlx_paged_attention_decode.argtypes = [ptr] * 10 + [i32] * 10 + [ctypes.c_float] + [i32] * 3 + [ptr]
         lib.trlx_paged_attention_decode.restype = i32
-        lib.trlx_paged_attention_smem_bytes.argtypes = [i32, i32, i32]
+        lib.trlx_paged_attention_smem_bytes.argtypes = [i32] * 7
         lib.trlx_paged_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.trlx_paged_attention_record_floats.argtypes = [i32, i32]
+        lib.trlx_paged_attention_record_floats.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
@@ -135,15 +161,38 @@ def _launch(q, k_arena, v_arena, table, key_mask, k_scale, v_scale, out_dtype):
     if quantized and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise ValueError("k_scale/v_scale must be float32")
     lib = _load()
-    smem = lib.trlx_paged_attention_smem_bytes(nh // nkv, hd, blk)
+    group, kv_code = nh // nkv, _KV_CODES[k_arena.dtype]
+    pps, n_splits = split_plan(b, nkv, n_tbl)
+    stages = min(pps, MAX_STAGES)
+    smem = lib.trlx_paged_attention_smem_bytes(group, hd, blk, kv_code, pps, n_splits, stages)
+    # too large a block for shared memory: fewer pages in flight, then fewer
+    # splits to merge (still a function of the shapes alone)
+    while smem > MAX_SMEM_BYTES and (stages > 1 or n_splits > 1):
+        if stages > 1:
+            stages -= 1
+        else:
+            pps = -(-n_tbl // (n_splits - 1))
+            n_splits = -(-n_tbl // pps)
+        smem = lib.trlx_paged_attention_smem_bytes(group, hd, blk, kv_code, pps, n_splits, stages)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"group {nh // nkv} x head_dim {hd} x block {blk} needs {smem} bytes "
+            f"group {group} x head_dim {hd} x block {blk} needs {smem} bytes "
             f"of shared memory, above {MAX_SMEM_BYTES}"
         )
     table = table.to(torch.int32).contiguous()
-    key_mask = key_mask.to(torch.int32).contiguous()
+    if key_mask.dtype in (torch.bool, torch.uint8, torch.int8):
+        mask_bytes = 1
+    else:
+        key_mask, mask_bytes = key_mask.to(torch.int32), 4
+    key_mask = key_mask.contiguous()
     out = torch.empty((b, nh, hd), dtype=q.dtype, device=q.device)
+    partial = counters = None
+    if n_splits > 1:
+        records = b * nkv * n_splits * lib.trlx_paged_attention_record_floats(group, hd)
+        partial = torch.empty(records, dtype=torch.float32, device=q.device)
+        counters = _counters.get(q.device)
+        if counters is None or counters.numel() < b * nkv:
+            counters = _counters[q.device] = torch.zeros(b * nkv, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.trlx_paged_attention_decode(
@@ -151,8 +200,10 @@ def _launch(q, k_arena, v_arena, table, key_mask, k_scale, v_scale, out_dtype):
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             table.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
-            b, nh, nkv, hd, n_blocks, blk, n_tbl, 1.0 / math.sqrt(hd),
-            _Q_CODES[q.dtype], _KV_CODES[k_arena.dtype], stream,
+            partial.data_ptr() if partial is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            b, nh, nkv, hd, n_blocks, blk, n_tbl, pps, n_splits, stages, 1.0 / math.sqrt(hd),
+            _Q_CODES[q.dtype], kv_code, mask_bytes, stream,
         )
     if rc != 0:
         raise RuntimeError(f"paged_attention_decode kernel launch failed: CUDA error {rc}")
