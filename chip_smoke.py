@@ -31,8 +31,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    attention forward without and with lse (K3, K4), backward dq (K5) and
    dk/dv (K6) at gpt2-small training shapes (b 8, t 1024, 12/12/64, bf16,
    left-padded rows and one row with no valid key), llama-7b (32/32/128)
-   and GQA (32/8/128) at t 2048, b 1; the label logprob (K7) at [8184,
-   50257] bf16 with out-of-range labels; with kernel, plain-version,
+   and GQA (32/8/128) at t 2048, b 1, and at phase 9's shapes (t 104, rows
+   padded at both ends, one with a hole, one with no valid key: b 128 for
+   K3, b 32 for K4-K6); the label logprob (K7) at [8184, 50257] bf16 with
+   out-of-range labels, at [128 x 104, 50257] on shifted labels and at
+   [32 x 40, 50257]; with kernel, plain-version,
    library (scaled_dot_product_attention forward / backward; logsumexp
    plus gather) and bound times, and the share of causal tiles the bf16
    forward and backward skip as padding;
@@ -44,7 +47,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    x2, K6 x2 and K7 x1 per step; the `done` checkpoint loads into a fresh
    trainer with equal parameters;
 8. one SFT step at f32 with the kernels and with their plain versions
-   gives equal loss and trainable-parameter gradients.
+   gives equal loss and trainable-parameter gradients;
+9. PPO, the port's third main path: `trlx_tpu_torch.train(reward_fn=...,
+   prompts=..., config=cfg)` on random:gpt2-small at full width
+   (`default_ppo_config`: 128 rollouts a collection of 64-byte prompts and
+   40 sampled tokens, batch 32, 4 PPO epochs, num_layers_unfrozen=2, bf16,
+   attn_impl="flash", 2 collections and 32 optimizer steps; checkpoints and
+   logs under `build/chip_smoke_ppo/`): per collection generate and score
+   seconds and rollout tokens/s, per step time and training tokens/s,
+   samples/s per cycle, the evaluations' reward; every loss finite; the
+   launch counts exact (per step K3 x10, K4-K6 x2, K7 x1; per scoring chunk
+   K3 x14, K7 x2); the `done` checkpoint loads into a fresh PPOTrainer with
+   the same policy, reference, KL value, running moments and store;
+10. one injected 32-row rollout batch at f32 (4 layers): the scoring pass
+   (logprobs, values, log-ratio against a perturbed reference) and one PPO
+   step with the kernels and with their plain versions agree (scoring
+   within 1e-5, the loss and gradients within phase 8's tolerances).
 
 The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object; the last line is
@@ -60,6 +78,7 @@ import sys
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -453,13 +472,46 @@ def phase_greedy():
 # Phase 6: the training kernels (K3-K7) vs their plain versions
 # ---------------------------------------------------------------------------
 
-# name: (b, t, nh, nkv, hd, left pads per row; a pad of t is a row with no valid key)
+# PPO rows (phase 9's shapes): a 64-token query bucket, left padded, and a
+# 40-token response, right padded; row 1 holds a hole, row 2 no valid key
+PPO_T, PPO_QUERY = 104, 64
+
+
+def ppo_mask_rows(b):
+    """[b, PPO_T] 0/1 rows padded at both ends, one with a hole, one dead."""
+    import numpy as np
+
+    mask = np.ones((b, PPO_T), np.int32)
+    for r in range(b):
+        left, right = (r * 7) % 48, (r * 11) % 40
+        mask[r, :left] = 0
+        mask[r, PPO_T - right:] = 0
+    mask[1, 70:76] = 0
+    mask[2] = 0
+    return mask
+
+
+def left_pad_rows(t, pads):
+    import numpy as np
+
+    return (np.arange(t)[None, :] >= np.asarray(pads)[:, None]).astype(np.int32)
+
+
+# name: (b, t, nh, nkv, hd, key-validity rows [b, t] (a row of zeros has no
+# valid key), the kernels timed there). The PPO shapes time the kernels
+# phase 9 runs at them: K3 when scoring 128 rows, K4-K6 in a 32-row step.
+ALL_FLASH = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
 FLASH_SHAPES = {
-    "gpt2-small": (8, 1024, 12, 12, 64, [0, 0, 17, 100, 256, 511, 700, 1024]),
-    "llama-7b": (1, 2048, 32, 32, 128, [0]),
-    "gqa": (1, 2048, 32, 8, 128, [0]),
+    "gpt2-small": (8, 1024, 12, 12, 64, left_pad_rows(1024, [0, 0, 17, 100, 256, 511, 700, 1024]), ALL_FLASH),
+    "llama-7b": (1, 2048, 32, 32, 128, left_pad_rows(2048, [0]), ALL_FLASH),
+    "gqa": (1, 2048, 32, 8, 128, left_pad_rows(2048, [0]), ALL_FLASH),
+    "ppo-score": (128, PPO_T, 12, 12, 64, ppo_mask_rows(128), ("flash_fwd",)),
+    "ppo-train": (32, PPO_T, 12, 12, 64, ppo_mask_rows(32), ALL_FLASH[1:]),
 }
 CE_ROWS, CE_VOCAB = 8 * 1023, 50257
+# K7 at phase 9's shapes: scoring reads the full [128, 104, V] logits with
+# the labels shifted one column; a step reads the [32, 40, V] window
+CE_PPO = {"ppo-score": (128, PPO_T), "ppo-train": (32, 40)}
 # tolerances: bf16 outputs (out, dq): both sides round once to bf16 from
 # f32 values that differ only in summation order, so one bf16 ulp apart at
 # most: rtol 8e-3, atol 1e-3. That holds for the bf16 kernels on the
@@ -478,7 +530,7 @@ DKV_TOL = dict(rtol=1e-4, atol=1e-3)
 CE_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
-def flash_case(b, t, nh, nkv, hd, pads, gen, device):
+def flash_case(b, t, nh, nkv, hd, rows, gen, device):
     import torch
 
     from trlx_tpu_torch.ops import attention
@@ -488,39 +540,41 @@ def flash_case(b, t, nh, nkv, hd, pads, gen, device):
     k = torch.randn(b, t, nkv, hd, generator=gen, device=device).to(bf)
     v = torch.randn(b, t, nkv, hd, generator=gen, device=device).to(bf)
     g = torch.randn(b, t, nh, hd, generator=gen, device=device).to(bf)
-    pads_t = torch.tensor(pads, device=device)
-    mask = (torch.arange(t, device=device)[None, :] >= pads_t[:, None]).to(torch.int32)
+    mask = torch.from_numpy(rows).to(device)
     out, lse = attention.flash_fwd_plain(q, k, v, mask, True)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, mask, g, lse, delta
 
 
-def allowed_pairs(t, pads):
-    """(query, key) pairs the causal mask allows on this run's rows: a row
-    with p left pads has t - p real queries, query i seeing i - p + 1 keys."""
-    return sum((t - p) * (t - p + 1) // 2 for p in pads)
+def allowed_pairs(rows):
+    """(query, key) pairs the causal mask allows on this run's rows [b, t]:
+    query i sees the valid keys at or before it (with p left pads only, a
+    row's query i >= p sees i - p + 1 keys)."""
+    return int(rows.cumsum(axis=1).sum())
 
 
-def skipped_tiles(t, pads, tile=64):
+def skipped_tiles(rows, tile=64):
     """(skipped, total) causal 64 x 64 (q, key) tiles of this run's rows
     that the bf16 kernels skip as padding: a tile on or below the diagonal
-    whose 64 keys are all left padding. The forward and dq (K3-K5) skip it
-    in their loop over key tiles; dk/dv (K6) skips the key tile's whole
-    loop over q tiles, which are the same tiles."""
+    whose 64 keys are all padding. The forward and dq (K3-K5) skip it in
+    their loop over key tiles; dk/dv (K6) skips the key tile's whole loop
+    over q tiles, which are the same tiles."""
+    b, t = rows.shape
     n = (t + tile - 1) // tile
-    total = len(pads) * n * (n + 1) // 2
+    total = b * n * (n + 1) // 2
     skipped = 0
-    for p in pads:
-        dead_k = min(p // tile, n)  # key tiles wholly inside the padding
-        skipped += sum(min(dead_k, qt + 1) for qt in range(n))
+    for row in rows:
+        for kt in range(n):
+            if not row[kt * tile:(kt + 1) * tile].any():
+                skipped += n - kt  # q tiles kt..n-1 reach key tile kt
     return skipped, total
 
 
-def flash_bound(b, t, nh, nkv, hd, pads, kind):
+def flash_bound(b, t, nh, nkv, hd, rows, kind):
     """(ms, "bytes" | "operations"): causal products over the bf16
     tensor-core peak vs each operand read or written once over the memory
     rate. kind: fwd, fwd_lse, dq, dkv."""
-    pairs = allowed_pairs(t, pads)
+    pairs = allowed_pairs(rows)
     products = {"fwd": 2, "fwd_lse": 2, "dq": 3, "dkv": 4}[kind]  # t x t x hd matmuls per head
     ops = 2 * products * nh * hd * pairs
     q_bytes, kv_bytes, rows = b * t * nh * hd * 2, b * t * nkv * hd * 2, b * nh * t * 4
@@ -549,6 +603,27 @@ def sdpa_calls(q, k, v, g, nh, nkv):
     return fwd, bwd
 
 
+def ce_times(logits, labels):
+    """Kernel, plain-version, library (logsumexp plus gather) and bound
+    times of K7 on [N, V] logits and in-range labels [N]."""
+    import torch
+
+    from trlx_tpu_torch.ops.fused_ce import label_logprobs, label_logprobs_plain
+
+    rows, vocab = logits.shape
+    lib = lambda: torch.gather(logits.float(), 1, labels.long()[:, None])[:, 0] - torch.logsumexp(logits.float(), -1)
+    moved = rows * vocab * logits.element_size() + rows * 4 * 3  # logits, labels, logprobs and lse
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, 4 * rows * vocab / F32_FLOPS_PER_S * 1e3
+    least_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    r = dict(ms=device_time_ms(lambda: label_logprobs(logits, labels), 20, label=f"label_logprobs {rows} kernel"),
+             plain_ms=device_time_ms(lambda: label_logprobs_plain(logits, labels), 5, label=f"label_logprobs {rows} plain"),
+             library_ms=device_time_ms(lib, 5, label=f"label_logprobs {rows} library"),
+             bound_ms=least_ms, bound_by=bound_by)
+    log(f"[train-kernels] label_logprobs [{rows}, {vocab}]: kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+        f"library_ms={r['library_ms']:.5f} bound_ms={least_ms:.5f} ({bound_by})")
+    return r
+
+
 def phase_train_kernels(device):
     import torch
 
@@ -567,8 +642,8 @@ def phase_train_kernels(device):
         err[name] = max(err[name], e)
         return e
 
-    for shape, (b, t, nh, nkv, hd, pads) in FLASH_SHAPES.items():
-        q, k, v, mask, g, lse_p, delta = flash_case(b, t, nh, nkv, hd, pads, gen, device)
+    for shape, (b, t, nh, nkv, hd, rows, kinds) in FLASH_SHAPES.items():
+        q, k, v, mask, g, lse_p, delta = flash_case(b, t, nh, nkv, hd, rows, gen, device)
         out3 = A.flash_fwd(q, k, v, mask, True)
         out4, lse = A.flash_fwd(q, k, v, mask, True, with_lse=True)
         dq = A.flash_bwd_dq(q, k, v, mask, g, lse_p, delta, True)
@@ -597,7 +672,9 @@ def phase_train_kernels(device):
                               lambda: A.flash_bwd_dkv_plain(q, k, v, mask, g, lse_p, delta, True), lib_bwd, "dkv"),
         }
         for name, (kern, plain, lib, kind) in timed.items():
-            least_ms, bound_by = flash_bound(b, t, nh, nkv, hd, pads, kind)
+            if name not in kinds:
+                continue
+            least_ms, bound_by = flash_bound(b, t, nh, nkv, hd, rows, kind)
             results[(name, shape)] = dict(ms=device_time_ms(kern, 10, label=f"{name} {shape} kernel"),
                                           plain_ms=device_time_ms(plain, 3, label=f"{name} {shape} plain"),
                                           library_ms=lib, bound_ms=least_ms, bound_by=bound_by)
@@ -605,7 +682,7 @@ def phase_train_kernels(device):
             log(f"[train-kernels] {name} {shape} b={b} t={t} nh={nh} nkv={nkv} hd={hd}: "
                 f"kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms={lib:.5f} "
                 f"bound_ms={least_ms:.5f} ({bound_by})")
-        skipped, total = skipped_tiles(t, pads)
+        skipped, total = skipped_tiles(rows)
         log(f"[train-kernels] {shape}: max_abs_err out/out_lse/lse/dq/dk/dv = "
             + " ".join(f"{e:.3g}" for e in errs)
             + f"; causal tiles skipped as padding by the bf16 forward and backward (K3-K6): "
@@ -627,19 +704,30 @@ def phase_train_kernels(device):
     errs = [note("label_logprobs", out, ref_out, CE_TOL), note("label_logprobs", got_lse, ref_lse, CE_TOL)]
     log(f"[train-kernels] label_logprobs [{CE_ROWS}, {CE_VOCAB}] bf16: max_abs_err logprob/lse = "
         + " ".join(f"{e:.3g}" for e in errs))
-    lib = lambda: torch.gather(logits.float(), 1, clamped.long()[:, None])[:, 0] - torch.logsumexp(logits.float(), -1)
-    moved = CE_ROWS * CE_VOCAB * 2 + CE_ROWS * 4 * 3  # logits, labels, logprobs and lse
-    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, 4 * CE_ROWS * CE_VOCAB / F32_FLOPS_PER_S * 1e3
-    least_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
-    results[("label_logprobs", "gpt2-small")] = dict(
-        ms=device_time_ms(lambda: label_logprobs(logits, clamped), 20, label="label_logprobs kernel"),
-        plain_ms=device_time_ms(lambda: label_logprobs_plain(logits, clamped), 5, label="label_logprobs plain"),
-        library_ms=device_time_ms(lib, 5, label="label_logprobs library"), bound_ms=least_ms, bound_by=bound_by)
-    r = results[("label_logprobs", "gpt2-small")]
-    log(f"[train-kernels] label_logprobs: kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
-        f"library_ms={r['library_ms']:.5f} bound_ms={least_ms:.5f} ({bound_by})")
+    results[("label_logprobs", "gpt2-small")] = ce_times(logits, clamped)
     del logits, labels
     torch.cuda.empty_cache()
+    # K7 at the PPO shapes: scoring passes the full contiguous logits with
+    # the labels shifted one column (`shifted_logprobs`)
+    from trlx_tpu_torch.trainer.ppo_trainer import shifted_logprobs
+
+    for shape, (b, t) in CE_PPO.items():
+        n = b * t
+        logits = torch.randn(b, t, CE_VOCAB, generator=gen, device=device).mul_(3).to(torch.bfloat16)
+        tokens = torch.randint(0, CE_VOCAB, (b, t), generator=gen, device=device)
+        if shape == "ppo-score":
+            with torch.no_grad():
+                got = shifted_logprobs(logits, tokens)
+            want = label_logprobs_plain(logits[:, :-1].reshape(-1, CE_VOCAB), tokens[:, 1:].reshape(-1))[0]
+            e = note("label_logprobs", got.reshape(-1), want, CE_TOL)
+        else:
+            got, _ = label_logprobs(logits.view(n, CE_VOCAB), tokens.view(n).to(torch.int32))
+            e = note("label_logprobs", got, label_logprobs_plain(logits.view(n, CE_VOCAB), tokens.view(n))[0], CE_TOL)
+        torch.cuda.synchronize()
+        log(f"[train-kernels] label_logprobs {shape} [{n}, {CE_VOCAB}] bf16: max_abs_err logprob = {e:.3g}")
+        results[("label_logprobs", shape)] = ce_times(logits.view(n, CE_VOCAB), tokens.view(n).to(torch.int32))
+        del logits, tokens, got
+        torch.cuda.empty_cache()
     kernels.reset_launches()  # the comparison launches above do not count
     return results, err
 
@@ -771,23 +859,14 @@ def sft_step_grads(trainer, batch):
     return float(loss.detach()), {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters() if p.requires_grad}
 
 
-def phase_grad_check():
-    import torch
-
+@contextmanager
+def plain_versions():
+    """The training kernels' wrappers (K3-K7) swapped for their plain
+    versions on the same card; fails if a kernel launches inside."""
     from trlx_tpu_torch import kernels
     from trlx_tpu_torch.ops import attention as A
     from trlx_tpu_torch.ops import fused_ce
-    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
 
-    work = ROOT / "build" / "chip_smoke_grad"
-    config = training_config(work, dtype="float32", n_layers=4).evolve(train=dict(batch_size=4))
-    trainer = SFTTrainer(config)
-    trainer.make_experience(sft_samples(4, seed=1), config.train.seq_length)
-    batch = next(iter(trainer.store.create_loader(4)))
-    kernels.reset_launches()
-    loss_k, grads_k = sft_step_grads(trainer, batch)
-    launched = dict(kernels.LAUNCHES)
-    # the same step with the wrappers' plain versions, on the same card
     swaps = {(A, "flash_fwd"): lambda q, k, v, m, c=True, with_lse=False: (
                  A.flash_fwd_plain(q, k, v, m, c) if with_lse else A.flash_fwd_plain(q, k, v, m, c)[0]),
              (A, "flash_bwd_dq"): A.flash_bwd_dq_plain, (A, "flash_bwd_dkv"): A.flash_bwd_dkv_plain,
@@ -797,12 +876,20 @@ def phase_grad_check():
         for (mod, name), fn in swaps.items():
             setattr(mod, name, fn)
         kernels.reset_launches()
-        loss_p, grads_p = sft_step_grads(trainer, batch)
+        yield
         if any(kernels.LAUNCHES.values()):
             raise AssertionError(f"the plain run launched kernels: {kernels.LAUNCHES}")
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
+
+
+def check_grads(grads_k, grads_p):
+    """Each trainable gradient kernels vs plain within GRAD_TOL of its
+    largest element; the key bias's (exactly 0) rounding noise only.
+    Returns the worst max|diff| / max|g|."""
+    import torch
+
     worst = 0.0
     largest = max(float(g.abs().max()) for g in grads_p.values())
     for name, gk in grads_k.items():
@@ -815,11 +902,326 @@ def phase_grad_check():
         scale = float(gp.abs().max())
         torch.testing.assert_close(gk, gp, rtol=GRAD_TOL, atol=GRAD_TOL * max(scale, 1e-12))
         worst = max(worst, float((gk - gp).abs().max()) / max(scale, 1e-12))
+    return worst
+
+
+def phase_grad_check():
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    work = ROOT / "build" / "chip_smoke_grad"
+    config = training_config(work, dtype="float32", n_layers=4).evolve(train=dict(batch_size=4))
+    trainer = SFTTrainer(config)
+    trainer.make_experience(sft_samples(4, seed=1), config.train.seq_length)
+    batch = next(iter(trainer.store.create_loader(4)))
+    kernels.reset_launches()
+    loss_k, grads_k = sft_step_grads(trainer, batch)
+    launched = dict(kernels.LAUNCHES)
+    # the same step with the wrappers' plain versions, on the same card
+    with plain_versions():
+        loss_p, grads_p = sft_step_grads(trainer, batch)
+    worst = check_grads(grads_k, grads_p)
     if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
         raise AssertionError(f"f32 loss kernels {loss_k} vs plain {loss_p}")
     log(f"[grad] gpt2-small width, 4 layers, f32, b 4 t 1024: loss kernels={loss_k:.7f} plain={loss_p:.7f}; "
         f"{len(grads_k)} trainable grads, worst max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}); "
         f"kernel launches {launched}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: PPO (the third main path)
+# ---------------------------------------------------------------------------
+
+PPO_EPOCHS, PPO_ROLLOUTS, PPO_BATCH = 2, 128, 32
+PPO_STEPS = PPO_EPOCHS * 4 * (PPO_ROLLOUTS // PPO_BATCH)  # epochs x ppo_epochs x loader length
+# per optimizer step: 10 frozen blocks K3, 2 trainable blocks K4-K6, the
+# windowed head's K7; per 128-row scoring chunk: 12 policy and 2 reference
+# blocks K3, the policy's and the reference's K7
+PPO_KERNELS_PER_STEP = {"flash_fwd": 10, "flash_fwd_lse": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                        "label_logprobs": 1}
+PPO_KERNELS_PER_CHUNK = {"flash_fwd": 14, "label_logprobs": 2}
+PPO_NEW = 40
+# The byte tokenizer decodes only ids below 256, and the rollout's text is
+# tokenized again for the store: a random model's draws over 50257 ids would
+# leave almost every response empty. As the JAX bench does, sampling is held
+# to printable ASCII (suppress_tokens, the full 50257-way softmax still
+# runs); eos is held back too, so every response is the 40 tokens of the
+# workload.
+PPO_SUPPRESS = [i for i in range(50257) if not 32 <= i < 127]
+
+
+def ppo_prompts(n=256, seed=0):
+    """Byte strings of exactly 64 bytes from a seed: words of lowercase
+    letters and spaces."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        text = ""
+        while len(text) < PPO_QUERY:
+            text += "".join(chr(97 + c) for c in rng.randint(0, 26, rng.randint(2, 9))) + " "
+        out.append(text[:PPO_QUERY])
+    return out
+
+
+def ppo_reward(samples, prompts, outputs, **kwargs):
+    """A deterministic host reward: the share of lowercase letters and
+    spaces in the output."""
+    return [sum(c.islower() or c == " " for c in o) / max(len(o), 1) for o in outputs]
+
+
+def ppo_config(work, **model_extra):
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+
+    return default_ppo_config().evolve(
+        train=dict(seq_length=1024, batch_size=PPO_BATCH, epochs=PPO_EPOCHS, eval_interval=16,
+                   checkpoint_dir=str(work / "ckpts"), logging_dir=str(work / "logs")),
+        model=dict(model_path="random:gpt2-small", num_layers_unfrozen=2,
+                   model_extra_configs={"vocab_size": 50257, "attn_impl": "flash", **model_extra}),
+        method=dict(num_rollouts=PPO_ROLLOUTS, chunk_size=PPO_ROLLOUTS, ppo_epochs=4,
+                    gen_kwargs=dict(max_new_tokens=PPO_NEW, top_k=0, top_p=1.0, do_sample=True,
+                                    suppress_tokens=PPO_SUPPRESS)),
+    )
+
+
+@contextmanager
+def ppo_probes(record):
+    """Wrap PPOTrainer's collection, scoring, evaluation and optimizer step
+    to record each call's wall time and its kernel launches, and after a
+    collection the response lengths in the store: measurement of this
+    script, the trainer is unchanged."""
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    originals = {name: getattr(PPOTrainer, name) for name in ("make_experience", "score", "evaluate",
+                                                              "train_minibatch")}
+
+    def probe(name):
+        fn = originals[name]
+
+        def wrapped(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = dict(kernels.LAUNCHES), time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launched = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items() if v - before.get(k, 0)}
+            lengths = [len(e.response_tensor) for e in self.store.history] if name == "make_experience" else None
+            record.append((name, t0, t1, launched, lengths))
+            return out
+
+        return wrapped
+
+    try:
+        for name in originals:
+            setattr(PPOTrainer, name, probe(name))
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(PPOTrainer, name, fn)
+
+
+def phase_ppo(card):
+    import shutil
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    work = ROOT / "build" / "chip_smoke_ppo"
+    if work.exists():
+        shutil.rmtree(work)
+    config = ppo_config(work)
+    record = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ppo_probes(record):
+        trainer = trlx_tpu_torch.train(reward_fn=ppo_reward, prompts=ppo_prompts(), config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rows = [json.loads(line) for line in next((work / "logs").glob("*.metrics.jsonl")).read_text().splitlines()]
+    collections = [r for r in rows if "time/rollout_generate" in r]
+    steps = [r for r in rows if "losses/total_loss" in r]
+    evals = [r for r in rows if "reward/mean" in r]
+    calls = lambda name: [c for c in record if c[0] == name]
+    scores, step_calls = calls("score"), calls("train_minibatch")
+    lengths = [c[4] for c in calls("make_experience")]
+
+    for i, (r, (_, s0, s1, *_), n) in enumerate(zip(collections, scores, lengths)):
+        log(f"[ppo] collection {i + 1}: generate_s={r['time/rollout_generate'] / 1e3:.4f} "
+            f"rollout_tokens_per_s={r['throughput/rollout_tokens_per_s']:.1f} score_s={s1 - s0:.4f} "
+            f"stored responses {len(n)}, tokens min/mean/max {min(n)}/{statistics.mean(n):.2f}/{max(n)} "
+            f"reward_fn_s={r['time/rollout_score'] / 1e3:.4f} policy/sqrt_kl={r['policy/sqrt_kl']:.6f}")
+    for r in steps:
+        log(f"[ppo] step {r['_step']}: total_loss={r['losses/total_loss']:.6f} "
+            f"policy_loss={r['losses/policy_loss']:.6f} value_loss={r['losses/value_loss']:.6f} "
+            f"approx_kl={r['policy/approx_kl']:.3g} step_s={r['time/train_step_s']:.4f} "
+            f"train_tokens_per_s={r['throughput/train_tokens_per_s']:.1f}")
+    for r in evals:
+        log(f"[ppo] eval at step {r['_step']}: reward/mean={r['reward/mean']:.5f} "
+            f"generate_ms={r['time/generate']:.1f}")
+    # a cycle: one collection and its optimizer steps (evaluations excluded)
+    starts = [c[1] for c in calls("make_experience")]
+    ends = starts[1:] + [float("inf")]
+    samples_per_s = []
+    for start, end in zip(starts, ends):
+        cycle_end = [c for c in step_calls if start <= c[1] < end][-1][2]
+        evals_in = sum(c[2] - c[1] for c in calls("evaluate") if start <= c[1] and c[2] <= cycle_end)
+        cycle_s = cycle_end - start - evals_in
+        samples_per_s.append(PPO_ROLLOUTS / cycle_s)
+    steady = steps[1:]  # step 1 pays the first-call warm-up (cuBLAS, allocator)
+    step_s = statistics.median(r["time/train_step_s"] for r in steady)
+    tok_s = statistics.median(r["throughput/train_tokens_per_s"] for r in steady)
+    log(f"[ppo] gpt2-small PPO, {PPO_ROLLOUTS} rollouts x {len(collections)} collections, batch {PPO_BATCH}, "
+        f"ppo_epochs 4, {PPO_NEW} new tokens, bf16 flash, num_layers_unfrozen=2: {len(steps)} steps in {wall:.2f}s wall; "
+        f"median step_s={step_s:.4f} train_tokens_per_s={tok_s:.1f}; samples_per_s per cycle="
+        f"{[round(x, 2) for x in samples_per_s]}; launches={launches} ({card})")
+
+    losses = [r[k] for r in steps for k in ("losses/total_loss", "losses/policy_loss", "losses/value_loss")]
+    if len(steps) != PPO_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {PPO_STEPS} steps of finite losses, got {len(steps)}: {losses}")
+    if len(collections) != PPO_EPOCHS or len(scores) != PPO_EPOCHS or len(evals) != 3:
+        raise AssertionError(f"expected {PPO_EPOCHS} collections and 3 evaluations, got {len(collections)}, "
+                             f"{len(scores)} scoring passes, {len(evals)}")
+    if [len(n) for n in lengths] != [PPO_ROLLOUTS] * PPO_EPOCHS or any(set(n) != {PPO_NEW} for n in lengths):
+        raise AssertionError(f"expected {PPO_ROLLOUTS} stored responses of {PPO_NEW} tokens a collection, got "
+                             f"{[(len(n), min(n), max(n)) for n in lengths]}")
+    for name, got, want in [("step", c[3], PPO_KERNELS_PER_STEP) for c in step_calls] + \
+            [("scoring chunk", c[3], PPO_KERNELS_PER_CHUNK) for c in scores]:
+        if got != want:
+            raise AssertionError(f"a {name} launched {got}, expected {want}")
+    want = {n: PPO_STEPS * PPO_KERNELS_PER_STEP.get(n, 0) + PPO_EPOCHS * PPO_KERNELS_PER_CHUNK.get(n, 0)
+            for n in PPO_KERNELS_PER_STEP}
+    got = {n: launches.get(n, 0) for n in want}
+    if got != want or any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"PPO launches {launches} != {want}")
+
+    # the `done` checkpoint loads into a fresh trainer with the same state
+    directory = work / "ckpts" / f"checkpoint_{PPO_STEPS}"
+    fresh = PPOTrainer(config, reward_fn=ppo_reward)
+    fresh.load(str(directory))
+    same = all(torch.equal(a, b) for m, f in ((trainer.model, fresh.model), (trainer.ref_model, fresh.ref_model))
+               for a, b in zip(m.state_dict().values(), f.state_dict().values()))
+    same = same and fresh.kl_ctl.value == trainer.kl_ctl.value and fresh.mean_kl == trainer.mean_kl
+    same = same and all(getattr(fresh.running_moments, k) == getattr(trainer.running_moments, k)
+                        for k in ("mean", "std", "var", "count"))
+    same = same and len(fresh.store) == len(trainer.store) and all(
+        (a.response_tensor == b.response_tensor).all() and (a.rewards == b.rewards).all()
+        for a, b in zip(fresh.store.history, trainer.store.history))
+    if not same or fresh.iter_count != PPO_STEPS:
+        raise AssertionError("the done checkpoint did not load back with the same state")
+    kept = sorted(p.name for p in (work / "ckpts").iterdir())
+    log(f"[ppo] checkpoint {directory.name} loads into a fresh PPOTrainer: policy and reference parameters, "
+        f"KL value, running moments and store equal; checkpoint dir holds {kept}")
+    del trainer, fresh
+    torch.cuda.empty_cache()
+    return launches, dict(step_s=step_s, train_tokens_per_s=tok_s, samples_per_s=samples_per_s, wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: one f32 PPO scoring pass and step, kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+SCORE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def ppo_injected_batch(n=PPO_BATCH, seed=2):
+    """A rollout batch from a seed: left-padded 64-token queries, right-padded
+    40-token responses of bytes, old logprobs, values and rewards."""
+    import numpy as np
+
+    from trlx_tpu_torch.data import PPORLBatch
+
+    rng = np.random.RandomState(seed)
+    mask = ppo_mask_rows(n)
+    mask[2] = 1  # every row has a query here
+    tokens = np.where(mask > 0, rng.randint(0, 256, mask.shape), 256).astype(np.int32)
+    stat = lambda scale: (rng.randn(n, 40) * scale).astype(np.float32)
+    return PPORLBatch(query_tensors=tokens[:, :PPO_QUERY], response_tensors=tokens[:, PPO_QUERY:],
+                      logprobs=stat(1.0) - 11.0, values=stat(0.5), rewards=stat(0.1))
+
+
+# The value head's hidden layer is a ReLU: a unit whose input sits within
+# the runs' 1e-6 difference of 0 at some position would be on in one run
+# and off in the other, and its row of the first layer's gradient would
+# then differ by that position's whole share. So the kernel run takes the
+# plain run's gate (the ReLU's on/off pattern) as fixed: relu(x) = x * gate
+# in value and in gradient at the plain run's gate, and every element of
+# every trainable gradient is held to GRAD_TOL.
+
+
+def ppo_step_grads(trainer, batch, gate=None):
+    """(loss, trainable gradients, the value head's ReLU gate) of one PPO
+    step's loss; with `gate` given, the head applies it in place of its
+    own ReLU's."""
+    head, used = trainer.model.v_head, []
+
+    def stash(mod, args, out):
+        used.append((out, out > 0 if gate is None else gate))
+
+    def gated(mod, args):
+        pre, g = used[-1]
+        return (pre * g,)
+
+    hooks = [head.dense_in.register_forward_hook(stash), head.dense_out.register_forward_pre_hook(gated)]
+    try:
+        trainer.model.zero_grad(set_to_none=True)
+        loss, _ = trainer.make_loss_fn()(trainer.batch_to_device(batch))
+        loss.backward()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters() if p.requires_grad}
+    return float(loss.detach()), grads, used[0][0].detach() > 0
+
+
+def phase_ppo_grad_check():
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    config = ppo_config(ROOT / "build" / "chip_smoke_ppo_grad", dtype="float32", n_layers=4)
+    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    with torch.no_grad():  # a reference apart from the policy, so the KL is not 0
+        gen = torch.Generator(device=trainer.device).manual_seed(3)
+        for p in trainer.ref_model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device=p.device))
+    batch = ppo_injected_batch()
+    tokens = torch.from_numpy(np.concatenate([batch.query_tensors, batch.response_tensors], 1)).to(trainer.device).long()
+    with plain_versions():
+        scored_p = trainer.score(tokens)
+        loss_p, grads_p, gate_p = ppo_step_grads(trainer, batch)
+    kernels.reset_launches()
+    scored_k = trainer.score(tokens)
+    loss_k, grads_k, gate_k = ppo_step_grads(trainer, batch, gate=gate_p)
+    launched = dict(kernels.LAUNCHES)
+    errs = []
+    for name, a, b in zip(("logprobs", "values", "log_ratio", "mean_kl", "mean_kl_per_token"), scored_k, scored_p):
+        torch.testing.assert_close(a, b, **SCORE_TOL, msg=lambda m: f"scoring {name}: {m}")
+        errs.append(f"{name} {float((a - b).abs().max()):.3g}")
+    if float(scored_k[3]) <= 0:
+        raise AssertionError("the perturbed reference gave no KL")
+    flips = int((gate_k != gate_p).sum())  # gate entries the kernel run's own ReLU would have set otherwise
+    worst = check_grads(grads_k, grads_p)
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        raise AssertionError(f"f32 PPO loss kernels {loss_k} vs plain {loss_p}")
+    log(f"[ppo-grad] gpt2-small width, 4 layers, f32, split 2, 32 injected rows t {PPO_T}: scoring max|diff| "
+        f"{', '.join(errs)} (tol {SCORE_TOL}); loss kernels={loss_k:.7f} plain={loss_p:.7f}; {len(grads_k)} "
+        f"trainable grads, every element held, worst max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}); the "
+        f"value head ran the plain run's ReLU gate ({flips} of {gate_p.numel()} entries differ from the kernel "
+        f"run's own); kernel launches {launched}")
     del trainer
     torch.cuda.empty_cache()
 
@@ -875,6 +1277,8 @@ def main() -> int:
     train_timings, train_errs = phase_train_kernels(device)
     train_launches, _ = phase_train(card)
     phase_grad_check()
+    ppo_launches, _ = phase_ppo(card)
+    phase_ppo_grad_check()
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -882,9 +1286,11 @@ def main() -> int:
     report = {"kernels": [
         dict(name="paged_decode", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:50", launches=launches_bf16,
+             launches_ppo=ppo_launches.get("paged_decode", 0),
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
+             launches_ppo=ppo_launches.get("paged_decode_int8", 0),
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
     ]}
     train_rows = [
@@ -895,10 +1301,14 @@ def main() -> int:
         ("label_logprobs", "trlx_tpu_torch/csrc/fused_ce.cu", "trlx_tpu/ops/fused_ce.py:50"),
     ]
     for name, src, replaces in train_rows:
+        # the times at phase 9's shapes: K3 when scoring, K4-K6 in a step,
+        # K7 at both
+        ppo_shapes = [s for s in ("ppo-score", "ppo-train") if (name, s) in train_timings]
         report["kernels"].append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=train_launches[name],
-            max_abs_err=train_errs[name], held_against_plain_in="phase 6: kernel vs plain version on the card",
-            **train_timings[(name, "gpt2-small")]))
+            launches_ppo=ppo_launches.get(name, 0), max_abs_err=train_errs[name],
+            held_against_plain_in="phase 6: kernel vs plain version on the card",
+            **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes}))
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -315,3 +315,79 @@ def test_fused_logprobs_value_and_grad_on_card(cuda):
     ref.sum().backward()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(a.grad, b_.grad, rtol=1e-5, atol=1e-5)
+
+
+def _ppo_rows(b=5, t=104):
+    """PPO rows at t 104 (a 64-token query bucket, a 40-token response):
+    unpadded; padded at both ends; a query wholly padded and the response
+    right padded; padded at both ends with a hole; no valid key at all."""
+    mask = np.ones((b, t), np.int32)
+    for row, (left, right) in enumerate([(0, 0), (5, 31), (64, 12), (10, 5), (t, 0)]):
+        mask[row, :left] = 0
+        mask[row, t - right:] = 0
+    mask[3, 50:53] = 0
+    return torch.from_numpy(mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad", [False, True])
+def test_flash_attention_at_ppo_shapes_matches_plain(cuda, dtype, grad):
+    """flash_attention at t 104 with rows padded at both ends, a hole and a
+    dead row: without grad K3 against the plain forward; with grad K4, K5
+    and K6 through autograd against the same function on CPU copies (the
+    plain versions). gpt2-small's 12/12/64."""
+    from trlx_tpu_torch.ops import attention as A
+
+    rng = np.random.RandomState(6)
+    b, t, nh, hd = 5, 104, 12, 64
+    q, k, v, g = (torch.from_numpy(rng.randn(b, t, nh, hd).astype(np.float32)).to(dtype) for _ in range(4))
+    mask = _ppo_rows(b, t)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        qs, ks, vs = (x.to(dev).requires_grad_(grad) for x in (q, k, v))
+        kernels.reset_launches()
+        with torch.set_grad_enabled(grad):
+            out = A.flash_attention(qs, ks, vs, mask.to(dev), causal=True)
+            if grad:
+                out.backward(g.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            want = ({A.KERNEL_FWD_LSE: 1, A.KERNEL_BWD_DQ: 1, A.KERNEL_BWD_DKV: 1} if grad
+                    else {A.KERNEL_FWD: 1})
+            assert {n: c for n, c in kernels.LAUNCHES.items() if c} == want
+        runs.append([out.detach().cpu()] + ([x.grad.cpu() for x in (qs, ks, vs)] if grad else []))
+    (out, *grads), (out_ref, *grads_ref) = runs
+    torch.testing.assert_close(out.float(), out_ref.float(), **FWD_TOL[dtype])
+    dead = mask.cumsum(-1) == 0  # queries with no valid key at or before them
+    assert bool((out[dead] == 0).all())
+    for got, ref in zip(grads, grads_ref):
+        torch.testing.assert_close(got.float(), ref.float(), **BWD_TOL[dtype])
+    if grad:
+        assert bool((grads[0][dead] == 0).all())
+        assert bool((grads[1][mask == 0] == 0).all()) and bool((grads[2][mask == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_label_logprobs_on_shifted_contiguous_logits(cuda):
+    """K7 at the scoring shape [128 x 104, 50257] bf16, called the way the
+    PPO scoring pass calls it: the full contiguous logits with the labels
+    shifted one column (`shifted_logprobs`), one launch and no copy of the
+    [b, t - 1, V] slice; against the plain version on that slice."""
+    from trlx_tpu_torch.ops.fused_ce import KERNEL as CE, label_logprobs_plain
+    from trlx_tpu_torch.trainer.ppo_trainer import shifted_logprobs
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, t, vocab = 128, 104, 50257
+    logits = torch.randn(b, t, vocab, generator=gen, device=cuda).mul_(3).to(torch.bfloat16)
+    tokens = torch.randint(0, vocab, (b, t), generator=gen, device=cuda)
+    kernels.reset_launches()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        got = shifted_logprobs(logits, tokens)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[CE] == 1 and got.shape == (b, t - 1)
+    assert torch.cuda.max_memory_allocated() - before < logits.numel()  # no copy of the logits
+    want = label_logprobs_plain(logits[:, :-1].reshape(-1, vocab), tokens[:, 1:].reshape(-1))[0]
+    torch.testing.assert_close(got.reshape(-1), want, rtol=1e-5, atol=1e-4)

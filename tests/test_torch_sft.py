@@ -284,3 +284,17 @@ def test_resume_from_checkpoint_continues_exactly(tmp_path):
     assert resumed.iter_count == full.iter_count == 2
     for (name, a), b in zip(full.model.state_dict().items(), resumed.model.state_dict().values()):
         assert torch.equal(a, b), name
+
+
+def test_sft_step_counts_the_attention_mask_tokens(tmp_path):
+    """The token count behind `throughput/train_tokens_per_s` (the trainer's
+    `count_tokens` hook) is each microbatch's attention-mask sum."""
+    cfg = _configs("gpt2-tiny", tmp_path, "torch").evolve(train=dict(minibatch_size=2))
+    trainer = SFTTrainer(cfg, device="cpu")
+    trainer.make_experience([s * 3 for s in _texts(8, 3)], 48)
+    (minibatch,) = list(MiniBatchIterator(trainer.store.create_loader(4), trainer.mb_size, trainer.num_mb))[:1]
+    want = sum(int(mb["attention_mask"].sum()) for mb in minibatch)
+    assert len(minibatch) == 2 and 0 < want < 2 * 2 * 48
+    assert [trainer.count_tokens(mb) for mb in minibatch] == [int(mb["attention_mask"].sum()) for mb in minibatch]
+    stats = trainer.train_minibatch(minibatch)
+    assert round(stats["throughput/train_tokens_per_s"] * stats["time/train_step_s"]) == want

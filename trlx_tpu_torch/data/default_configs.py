@@ -1,5 +1,6 @@
-"""Canonical default configs (the JAX package's `default_sft_config`;
-the other methods' defaults come with their trainers)."""
+"""Canonical default configs (the JAX package's `default_ppo_config` and
+`default_sft_config`; the other methods' defaults come with their
+trainers)."""
 
 from trlx_tpu_torch.data.configs import (
     ModelConfig,
@@ -10,7 +11,58 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
+from trlx_tpu_torch.trainer.ppo_trainer import PPOConfig
 from trlx_tpu_torch.trainer.sft_trainer import SFTConfig
+
+
+def default_ppo_config():
+    """Mirrors reference default_ppo_config (default_configs.py:17-59)."""
+    return TRLConfig(
+        train=TrainConfig(
+            seq_length=1024,
+            epochs=100,
+            total_steps=10000,
+            batch_size=32,
+            checkpoint_interval=10000,
+            eval_interval=100,
+            pipeline="PromptPipeline",
+            trainer="PPOTrainer",
+            tracker=None,
+            auto_resume=False,
+            checkpoint_keep_n=3,
+        ),
+        model=ModelConfig(model_path="random:gpt2-small", num_layers_unfrozen=2),
+        tokenizer=TokenizerConfig(tokenizer_path="byte", truncation_side="right"),
+        optimizer=OptimizerConfig(
+            name="adamw", kwargs=dict(lr=3e-5, betas=(0.9, 0.95), eps=1.0e-8, weight_decay=1.0e-6)
+        ),
+        scheduler=SchedulerConfig(name="cosine_annealing", kwargs=dict(T_max=1e12, eta_min=3e-5)),
+        method=PPOConfig(
+            name="PPOConfig",
+            num_rollouts=128,
+            chunk_size=128,
+            ppo_epochs=4,
+            init_kl_coef=0.001,
+            target=None,
+            horizon=10000,
+            gamma=1,
+            lam=0.95,
+            cliprange=0.2,
+            cliprange_value=0.2,
+            vf_coef=1,
+            scale_reward="ignored",
+            ref_mean=None,
+            ref_std=None,
+            cliprange_reward=10,
+            gen_kwargs=dict(
+                max_new_tokens=40,
+                top_k=0,
+                top_p=1.0,
+                do_sample=True,
+            ),
+        ),
+        parallel=ParallelConfig(),
+    )
 
 
 def default_sft_config():

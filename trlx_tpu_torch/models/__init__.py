@@ -7,7 +7,13 @@ from typing import Optional, Tuple
 import torch
 
 from trlx_tpu_torch.models.heads import MLPHead  # noqa: F401
-from trlx_tpu_torch.models.policy import CausalLMWithValueHead, resolve_split, trainable_mask  # noqa: F401
+from trlx_tpu_torch.models.policy import (  # noqa: F401
+    CausalLMWithValueHead,
+    HydraReference,
+    forward_policy_and_ref,
+    resolve_split,
+    trainable_mask,
+)
 from trlx_tpu_torch.models.transformer import (  # noqa: F401
     PRESETS,
     TransformerConfig,

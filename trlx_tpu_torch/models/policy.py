@@ -1,19 +1,25 @@
-"""Policy wrapper: LM + value head, and the freezing utilities.
+"""Policy wrapper: LM + value head, the hydra reference, and the freezing
+utilities.
 
 Port of the JAX package's `models/policy.py`: `CausalLMWithValueHead`
-with the MLP value head (the training forward, the cached decode steps
-of the sampler and the inference engine), `resolve_split` and
-`trainable_mask`. The hydra reference branch and the deeper value branch
-are ROADMAP queue A, item 1 (rollout and scoring); LoRA and prompt
-tuning are refused at model build until they port (item 4).
+with the MLP value head (the training forward, the windowed head of the
+PPO loss, the cached decode steps of the sampler and the inference
+engine), the frozen hydra reference (`HydraReference`, the JAX
+`ref_param_subtree` with `forward_ref_suffix` / `forward_ref_full`),
+`forward_policy_and_ref`, `resolve_split` and `trainable_mask`. The
+deeper value branch (`ValueBranch`) and the capture decode are ROADMAP
+queue A, item 1; LoRA and prompt tuning are refused at model build until
+they port (item 4).
 """
 
-from typing import Dict
+import copy
+from typing import Dict, Optional
 
+import torch
 from torch import nn
 
 from trlx_tpu_torch.models.heads import MLPHead
-from trlx_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+from trlx_tpu_torch.models.transformer import TransformerConfig, TransformerLM, position_ids, train_bias
 
 
 class CausalLMWithValueHead(nn.Module):
@@ -29,6 +35,13 @@ class CausalLMWithValueHead(nn.Module):
         logits, h_split, h_final = self.lm(tokens, attn_mask, positions, split)
         values = self.v_head(h_final)[..., 0]
         return logits, values, h_split
+
+    def forward_window(self, tokens, attn_mask, positions=None, start: int = 0, length: int = 1):
+        """(logits_win, values_win) over positions [start, start + length)
+        only: the slice the PPO loss reads. The MLP value head reads each
+        position's hidden state on its own, so windowing it is exact."""
+        logits, h_final = self.lm.forward_window(tokens, attn_mask, positions, start, length)
+        return logits, self.v_head(h_final)[..., 0]
 
     def decode_step(self, tokens, cache, token_mask, is_prefill: bool = False):
         """Cached decode over the fixed-slot cache (the sampler's). Returns
@@ -78,3 +91,57 @@ def trainable_mask(model: nn.Module, cfg: TransformerConfig, num_layers_unfrozen
         return parts[1] in ("ln_f", "lm_head")
 
     return {name: _trainable(name) for name, _ in model.named_parameters()}
+
+
+class HydraReference(nn.Module):
+    """The frozen reference of PPO's KL penalty: copies, taken once, of the
+    LM's modules from the hydra split up (blocks [split, n_layers), the
+    final norm and the unembedding, the tied embedding included), or of
+    the whole LM when split is 0. The copies own their storage (the JAX
+    `ref_param_subtree` copies its leaves the same way) and never take a
+    gradient, so training the policy cannot move them. Submodules carry
+    the LM's names, so the state dict has the JAX subtree's paths."""
+
+    def __init__(self, lm: TransformerLM, split: int):
+        super().__init__()
+        cfg = self.cfg = lm.cfg
+        self.split = split
+        names = []
+        if split == 0:
+            names += ["embed_tokens"] + (["embed_pos"] if cfg.pos_embed == "learned" else [])
+        names += [f"block_{i}" for i in range(split, cfg.n_layers)] + ["ln_f"]
+        head = "embed_tokens" if cfg.tie_embeddings else "lm_head"
+        if head not in names:
+            names.append(head)
+        for name in names:
+            self.add_module(name, copy.deepcopy(getattr(lm, name)))
+        self.requires_grad_(False)
+
+    def forward(self, tokens, h_split, attn_mask, positions=None):
+        """Reference logits [b, t, V]: from the tokens when split is 0 (the
+        JAX `forward_ref_full`), else resumed at block `split` from the
+        policy's activation there (`forward_ref_suffix`)."""
+        cfg = self.cfg
+        if positions is None:
+            positions = position_ids(attn_mask)
+        if self.split == 0:
+            h = self.embed_tokens(tokens)
+            if cfg.pos_embed == "learned":
+                h = h + self.embed_pos(positions)
+        else:
+            h = h_split.detach()
+        bias = train_bias(cfg, attn_mask)
+        for i in range(self.split, cfg.n_layers):
+            h, _ = getattr(self, f"block_{i}")(h, bias, positions, attn_mask=attn_mask)
+        h = self.ln_f(h)
+        return self.embed_tokens.attend(h) if cfg.tie_embeddings else self.lm_head(h)
+
+
+def forward_policy_and_ref(model: CausalLMWithValueHead, ref: HydraReference, tokens, attn_mask,
+                           positions: Optional[torch.Tensor] = None):
+    """Policy logits and values and the frozen reference's logits: the
+    trunk below the split runs once, the reference runs only its copied
+    top (or, at split 0, a whole pass of its own). Returns (logits,
+    values, ref_logits)."""
+    logits, values, h_split = model(tokens, attn_mask, positions, ref.split)
+    return logits, values, ref(tokens, h_split, attn_mask, positions).detach()

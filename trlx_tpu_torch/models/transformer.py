@@ -3,9 +3,10 @@
 Port of the JAX package's `models/transformer.py`: `TransformerConfig`,
 `PRESETS`, `TransformerLM` with `embed`/`unembed`, the training/scoring
 forward (`forward`, dense causal bias or the flash kernels under
-`attn_impl="flash"`), the fixed-slot dense KV cache (`init_kv_cache`,
-`decode_step`) that the sampler uses, and the per-row cached
-`prefill_rows` and `decode_step_rows` over a paged KV arena
+`attn_impl="flash"`; `forward_window`, the head over a window only), the
+fixed-slot dense KV cache (`init_kv_cache`, `decode_step`) that the sampler
+uses, and the per-row cached `prefill_rows` and `decode_step_rows` over a
+paged KV arena
 (`init_paged_kv_arena`) that the inference engine uses. Families: GPT-2
 (learned positions, LayerNorm, tanh-gelu, tied embeddings) and the llama
 knobs (rope, RMSNorm, silu-glu, GQA/MQA, untied head, no biases).
@@ -484,6 +485,19 @@ class TransformerLM(nn.Module):
             h_split = h
         logits, h_final = self.unembed(h)
         return logits, h_split, h_final
+
+    def forward_window(self, tokens, attn_mask, positions=None, start: int = 0, length: int = 1):
+        """The trunk over the full sequence, the final norm and unembedding
+        over positions [start, start + length) only: the slice a PPO step
+        reads (the [b, t, V] head was the largest product of the step).
+        Returns (logits_win, h_final_win)."""
+        if positions is None:
+            positions = position_ids(attn_mask)
+        h = self.embed(tokens, positions)
+        bias = train_bias(self.cfg, attn_mask)
+        for blk in self.blocks:
+            h, _ = blk(h, bias, positions, attn_mask=attn_mask)
+        return self.unembed(h[:, start:start + length])
 
     def decode_step(self, tokens, cache: Dict[str, Any], token_mask, is_prefill: bool = False):
         """One cached call over the fixed-slot dense cache (`init_kv_cache`):

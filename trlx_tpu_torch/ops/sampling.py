@@ -10,8 +10,8 @@ token by token with logit processing, a transition logit mask,
 budget runs out. Sampling draws from an explicit `torch.Generator`;
 JAX's PRNG streams cannot be reproduced in torch, so sampled tokens
 agree with the JAX package only in distribution, while greedy decoding
-is token-exact. ILQL, seq2seq, beams, stat capture and speculative
-decode raise (ROADMAP queue A, items 2 and 4).
+is token-exact. ILQL, seq2seq and beams (ROADMAP queue A, item 4), stat
+capture and speculative decode (item 1) raise.
 """
 
 from dataclasses import dataclass
@@ -148,9 +148,13 @@ def make_generate_fn(
         raise NotImplementedError("seq2seq generation is not ported yet (ROADMAP queue A, item 4)")
     if gen_cfg.num_beams > 1:
         raise NotImplementedError("beam search is not ported yet (ROADMAP queue A, item 4)")
-    if capture or spec_k > 0:
+    if capture:
         raise NotImplementedError(
-            "rollout stat capture and speculative decode are not ported yet (ROADMAP queue A, item 2)"
+            "rollout stat capture (the capture_split decode) is not ported yet (ROADMAP queue A, item 1)"
+        )
+    if spec_k > 0:
+        raise NotImplementedError(
+            "self-speculative decode is not ported yet (ROADMAP queue A, item 1: its remainder)"
         )
     max_new = gen_cfg.max_new_tokens
     track_seen = gen_cfg.repetition_penalty != 1.0

@@ -10,7 +10,8 @@ by their number before the update, as the JAX trainer's accumulate/apply
 pair does. Checkpoints keep the JAX layout's atomic stage-and-promote:
 everything goes into a sibling `.tmp` directory (`state.pt` from
 `torch.save`, `trainer_state.json`), `manifest.json` is written last and
-one `os.replace` promotes the stage.
+one `os.replace` promotes the stage. With `train.checkpoint_keep_n` the
+newest N step checkpoints are kept (`resilience.gc_checkpoints`).
 
 With `train.handle_preemption` (the default) `learn` installs a
 `PreemptionGuard`: after SIGTERM or SIGINT the loop finishes its step,
@@ -18,11 +19,12 @@ writes `checkpoint_<step>_preempt` and exits with code 75.
 
 Not ported yet, and refused when their flags are set: the fused-epoch
 dispatch, the health sentinel, the step watchdog, tracing (timeline,
-goodput and the ledgers), `auto_resume`, checkpoint retention, the
-rollout fleet and parallelism (any `parallel` axis above one device;
-ROADMAP queue A, item 4).
+goodput and the ledgers), `auto_resume`, the rollout fleet and
+parallelism (any `parallel` axis above one device; ROADMAP queue A,
+item 4).
 """
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -38,6 +40,7 @@ from trlx_tpu_torch import resilience
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models.policy import resolve_split, trainable_mask
 from trlx_tpu_torch.pipeline import MiniBatchIterator
+from trlx_tpu_torch.resilience import MANIFEST_NAME
 from trlx_tpu_torch.tokenizers import get_tokenizer
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.utils import Clock, get_optimizer, get_scheduler, logging, resolve_device, set_seed, significant
@@ -45,7 +48,6 @@ from trlx_tpu_torch.utils.tracking import get_tracker
 
 logger = logging.get_logger(__name__)
 
-MANIFEST_NAME = "manifest.json"
 MANIFEST_VERSION = 1
 
 
@@ -102,7 +104,6 @@ _UNPORTED_TRAIN_FLAGS = {
     "step_timeout_s": "the step watchdog",
     "tracing": "training tracing (timeline, goodput, compile/HBM ledgers)",
     "auto_resume": "auto_resume",
-    "checkpoint_keep_n": "checkpoint retention",
     "profile_dir": "profiler capture",
 }
 # parallel-config axes; the port runs on one device, so none may exceed 1
@@ -197,6 +198,7 @@ class TorchTrainer:
         self._loop_pos: Optional[Dict[str, int]] = None
         self._resume_pos: Optional[Dict[str, int]] = None
         self._best_reward = -float("inf")
+        self._resumed = False
         self._preemption_guard: Optional[resilience.PreemptionGuard] = None
 
     # ------------------------------------------------------------------
@@ -228,6 +230,22 @@ class TorchTrainer:
 
     def post_epoch_callback(self):
         pass
+
+    def push_to_store(self, data):
+        self.store.push(data)
+
+    def count_tokens(self, minibatch) -> int:
+        """The real tokens of one host microbatch, for the step's
+        `throughput/train_tokens_per_s`: its attention mask's sum."""
+        return int(np.asarray(minibatch["attention_mask"]).sum())
+
+    def _extra_resume_state(self) -> Dict[str, Any]:
+        """Trainer-specific host state that a checkpoint carries for an
+        exact resume (picklable); saved in `state.pt` when not empty."""
+        return {}
+
+    def _load_extra_resume_state(self, state: Dict[str, Any]) -> None:
+        """Inverse of `_extra_resume_state`."""
 
     def add_eval_pipeline(self, eval_pipeline):
         """Set the evaluation pipeline used during evaluate()."""
@@ -334,9 +352,13 @@ class TorchTrainer:
     # Train step with gradient accumulation
     # ------------------------------------------------------------------
 
-    def batch_to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    def batch_to_device(self, batch):
         """Numpy arrays -> tensors on the trainer's device (integer arrays
-        as int64); other leaves pass through."""
+        as int64); other leaves pass through. Takes a dict or a dataclass
+        batch (`PPORLBatch`) and returns the same kind."""
+        if dataclasses.is_dataclass(batch):
+            fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+            return dataclasses.replace(batch, **self.batch_to_device(fields))
         out = {}
         for k, v in batch.items():
             if isinstance(v, np.ndarray):
@@ -361,7 +383,7 @@ class TorchTrainer:
             loss, stats = self._loss_fn(self.batch_to_device(mb))
             loss.backward()
             stats_list.append(stats)
-            tokens += int(np.asarray(mb["attention_mask"]).sum())
+            tokens += self.count_tokens(mb)
         if len(minibatch) > 1:
             for p in self.trainable_params:
                 if p.grad is not None:
@@ -393,16 +415,18 @@ class TorchTrainer:
         self._loop_pos = None
         self._resume_pos = None
         self._best_reward = -float("inf")
+        self._resumed = False
         resume = self.config.train.resume_from_checkpoint
-        resumed = False
         if resume:
             if os.path.exists(resume):
+                # load() before prepare_learning, so the restored state
+                # (generator, step, a rollout store) feeds the loaders
                 self.load(resume)
-                resumed = True
+                self._resumed = True
             else:
                 logger.warning(f"resume_from_checkpoint={resume} does not exist; starting fresh")
         self.prepare_learning()
-        if not resumed:
+        if not self._resumed:
             results = self.evaluate()
             self.tracker.log(results, step=self.iter_count)
         if self.config.train.handle_preemption:
@@ -478,6 +502,8 @@ class TorchTrainer:
             directory = os.path.join(self.config.train.checkpoint_dir, subfolder)
             self.save(directory)
             self.save_pretrained(os.path.join(directory, "hf_model"))
+            if self.config.train.checkpoint_keep_n > 0:
+                resilience.gc_checkpoints(self.config.train.checkpoint_dir, self.config.train.checkpoint_keep_n)
         stats["time/step"] = clock.tick(self.config.train.batch_size * n_steps) / n_steps
         stats["learning_rate"] = float(self.lr_schedule(self.iter_count))
 
@@ -596,6 +622,9 @@ class TorchTrainer:
         if self.config.train.save_optimizer:
             state["optimizer"] = self.optimizer.state_dict()
             state["scheduler"] = self.scheduler.state_dict()
+        extra = self._extra_resume_state()
+        if extra:
+            state["extra"] = extra
         torch.save(state, os.path.join(tmp, "state.pt"))
         atomic_write_json(os.path.join(tmp, "trainer_state.json"), self._resume_state_dict())
         write_manifest(tmp, self.iter_count)
@@ -624,6 +653,8 @@ class TorchTrainer:
             logger.warning("Checkpoint was saved with train.save_optimizer=False; optimizer state starts fresh")
         if "generator" in state:
             self.generator.set_state(state["generator"].cpu())
+        if "extra" in state:
+            self._load_extra_resume_state(state["extra"])
         self.iter_count = int(meta.get("iter_count", 0))
         self._nan_streak = int(meta.get("nan_streak", 0))
         self._resume_pos = meta.get("loop_pos")

@@ -1,0 +1,423 @@
+"""PPO trainer (port of the classic local path of the JAX package's
+`trainer/ppo_trainer.py`).
+
+One cycle: sample rollouts for a chunk of prompts with the port's sampler
+(`ops/sampling.py`), decode them and score them with the user's
+`reward_fn` on the host, then one no-grad hydra pass over the chunk
+(`score`: policy logprobs and values, and the frozen reference's logprobs
+from its copy of the top blocks), per-token KL-penalized rewards into the
+rollout store, and `ppo_epochs` inner epochs of clipped PPO steps with
+GAE over the store. A step runs the trunk over the full sequence and the
+head over the response window only (`forward_window`).
+
+The JAX trainer overlaps the next chunk's sampling with this one's host
+work; eager torch runs them one after the other, drawing prompts and
+sampling in the same order. Refused at construction, naming their ROADMAP
+items: the rollout fast path and its relatives (`capture_rollout_stats`,
+`cache_trunk_activations`, `speculative_decode`, `quantize_frozen_trunk`,
+the deeper value branch; queue A item 1), multi-turn rollouts and the
+rollout fleet (item 3), and seq2seq (item 4). `pipelined_cycle` is not
+ported (item 1).
+"""
+
+import json
+import os
+import uuid
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.data import PPORLBatch, PPORLElement
+from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
+from trlx_tpu_torch.models import build_model
+from trlx_tpu_torch.models.policy import HydraReference, forward_policy_and_ref
+from trlx_tpu_torch.models.transformer import position_ids
+from trlx_tpu_torch.ops.ppo import AdaptiveKLController, FixedKLController, get_advantages_and_returns, ppo_loss
+from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.trainer import register_trainer
+from trlx_tpu_torch.trainer.base_trainer import TorchTrainer
+from trlx_tpu_torch.utils import Clock, flatten_dict, infinite_dataloader, logging
+from trlx_tpu_torch.utils.modeling import RunningMoments, logprobs_of_labels
+
+logger = logging.get_logger(__name__)
+
+
+@dataclass
+@register_method
+class PPOConfig(MethodConfig):
+    """PPO hyperparameters: every field of the JAX package's PPOConfig, so
+    configs carry over (the flags of features not ported yet are refused
+    by `PPOTrainer`)."""
+
+    ppo_epochs: int = 4
+    num_rollouts: int = 128
+    chunk_size: int = 128
+    init_kl_coef: float = 0.001
+    target: Optional[float] = None
+    horizon: int = 10000
+    gamma: float = 1.0
+    lam: float = 0.95
+    cliprange: float = 0.2
+    cliprange_value: float = 0.2
+    vf_coef: float = 1.0
+    scale_reward: Optional[str] = None
+    ref_mean: Optional[float] = None
+    ref_std: Optional[float] = None
+    cliprange_reward: float = 10.0
+    gen_kwargs: dict = field(default_factory=dict)
+    gen_experience_kwargs: Optional[dict] = None
+    num_value_layers_unfrozen: int = 0
+    capture_rollout_stats: bool = False
+    cache_trunk_activations: bool = False
+    trunk_cache_dtype: str = "bfloat16"
+    whiten_with_mask: bool = False
+    speculative_decode: bool = False
+    spec_k: int = 4
+    spec_draft_rank: int = 64
+    quantize_frozen_trunk: bool = False
+    multiturn_env: Optional[str] = None
+    multiturn_max_turns: int = 4
+    multiturn_env_kwargs: dict = field(default_factory=dict)
+
+
+# method flags of features the port does not run yet -> the ROADMAP item
+_UNPORTED_METHOD_FLAGS = {
+    "capture_rollout_stats": "queue A, item 1 (the rollout fast path)",
+    "cache_trunk_activations": "queue A, item 1 (the trunk activation cache)",
+    "speculative_decode": "queue A, item 1 (self-speculative decode)",
+    "quantize_frozen_trunk": "queue A, item 1 (the int8 frozen trunk)",
+    "num_value_layers_unfrozen": "queue A, item 1 (the value branch)",
+    "multiturn_env": "queue A, item 3 (multi-turn rollouts over the fleet)",
+}
+
+
+def shifted_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """logprob of tokens[:, i + 1] under logits[:, i], [b, t - 1]. The
+    label logprob reads the full, contiguous logits with the labels shifted
+    one column (the last column gets an in-range id and is dropped), so the
+    [b, t - 1, V] slice is never copied."""
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    return logprobs_of_labels(logits, labels)[:, :-1]
+
+
+@register_trainer
+class PPOTrainer(TorchTrainer):
+    def __init__(self, config: TRLConfig, **kwargs):
+        if config.model.model_arch_type == "seq2seq":
+            raise NotImplementedError("seq2seq PPO is not ported yet (ROADMAP queue A, item 4)")
+        for flag, item in _UNPORTED_METHOD_FLAGS.items():
+            if getattr(config.method, flag):
+                raise NotImplementedError(f"method.{flag} is not ported yet (ROADMAP {item})")
+        super().__init__(config, **kwargs)
+        self.store = PPORolloutStorage(self.tokenizer.pad_token_id, self.tokenizer.padding_side)
+        # the frozen reference (hydra): copies of the top of the model at init
+        self.ref_model = HydraReference(self.model.lm, self.split)
+        method = config.method
+        if method.target is not None:
+            self.kl_ctl = AdaptiveKLController(method.init_kl_coef, method.target, method.horizon)
+        else:
+            self.kl_ctl = FixedKLController(method.init_kl_coef)
+        self.running_moments = RunningMoments()
+        self.ref_mean = method.ref_mean
+        self.ref_std = method.ref_std
+        self.mean_kl = 0.0
+        self.generate_experience_kwargs = method.gen_experience_kwargs
+        self.prompt_pipeline = None
+        self.prompt_iterator = None
+        self._prompt_draws = 0
+        self.log_rollouts = config.train.rollout_logging_dir is not None
+        if self.log_rollouts:
+            self.setup_rollout_logging(config)
+
+    def get_arch(self, config: TRLConfig):
+        return build_model(config.model, vocab_size=self.tokenizer.vocab_size, seed=config.train.seed,
+                           device=self.device)
+
+    def setup_rollout_logging(self, config):
+        if not os.path.isdir(config.train.rollout_logging_dir):
+            raise FileNotFoundError(f"train.rollout_logging_dir {config.train.rollout_logging_dir} does not exist")
+        self.run_id = f"run-{uuid.uuid4()}"
+        self.rollout_logging_dir = os.path.join(config.train.rollout_logging_dir, self.run_id)
+        os.mkdir(self.rollout_logging_dir)
+        with open(os.path.join(self.rollout_logging_dir, "config.json"), "w") as f:
+            f.write(json.dumps(config.to_dict(), indent=2, default=str))
+
+    # ------------------------------------------------------------------
+    # Loss
+    # ------------------------------------------------------------------
+
+    def count_tokens(self, minibatch: PPORLBatch) -> int:
+        """The real query and response tokens (the loss's attention mask)."""
+        pad_id = self.tokenizer.pad_token_id
+        return int((np.asarray(minibatch.query_tensors) != pad_id).sum()
+                   + (np.asarray(minibatch.response_tensors) != pad_id).sum())
+
+    def make_loss_fn(self) -> Callable:
+        model = self.model
+        method = self.config.method
+        pad_id = self.tokenizer.pad_token_id
+
+        def loss_fn(batch: PPORLBatch):
+            query_tensors = batch.query_tensors
+            old_logprobs, old_values, old_rewards = batch.logprobs, batch.values, batch.rewards
+            response_length = old_rewards.shape[1]
+
+            tokens = torch.cat([query_tensors, batch.response_tensors], dim=1)
+            attention_mask = (tokens != pad_id).long()
+            positions = position_ids(attention_mask)
+            start = query_tensors.shape[1] - 1
+            end = start + response_length
+            mask = attention_mask[:, start + 1:end + 1]
+
+            advantages, returns = get_advantages_and_returns(
+                old_values, old_rewards, method.gamma, method.lam,
+                mask=mask if method.whiten_with_mask else None,
+            )
+            # the head over the response window only: the value branch and
+            # soft prompts, which would need the full forward, are refused
+            logits_w, values_pred = model.forward_window(tokens, attention_mask, positions, start, response_length)
+            logprobs = logprobs_of_labels(logits_w, tokens[:, start + 1:end + 1])
+
+            loss, stats = ppo_loss(
+                logprobs=logprobs, values=values_pred, old_logprobs=old_logprobs, old_values=old_values,
+                advantages=advantages, returns=returns, mask=mask, cliprange=method.cliprange,
+                cliprange_value=method.cliprange_value, vf_coef=method.vf_coef,
+            )
+            return loss, {k: v.detach() for k, v in flatten_dict(stats).items()}
+
+        return loss_fn
+
+    # ------------------------------------------------------------------
+    # Experience collection
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def score(self, all_tokens: torch.Tensor):
+        """The no-grad hydra pass over a chunk of query|response tokens
+        [b, t] on the device: (logprobs [b, t-1], values [b, t-1], masked
+        log_ratio against the reference [b, t-1], mean_kl, mean_kl_per_token),
+        the last two as 0-d tensors."""
+        attention_mask = (all_tokens != self.tokenizer.pad_token_id).long()
+        positions = position_ids(attention_mask)
+        logits, values, ref_logits = forward_policy_and_ref(
+            self.model, self.ref_model, all_tokens, attention_mask, positions
+        )
+        logprobs = shifted_logprobs(logits, all_tokens)
+        ref_logprobs = shifted_logprobs(ref_logits, all_tokens)
+        log_ratio = (logprobs - ref_logprobs) * attention_mask[:, :-1]
+        kl = torch.exp(log_ratio) - 1 - log_ratio
+        return logprobs, values[:, :-1], log_ratio, kl.sum(1).mean(), kl.mean()
+
+    def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
+        """Collect rollouts: generate -> decode and reward on the host ->
+        the hydra scoring pass -> per-token KL-penalized rewards -> store."""
+        logger.info("Collecting rollouts")
+        clock = Clock()
+        elements: List[PPORLElement] = []
+        accumulated_stats: List[Dict] = []
+        gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
+        while len(elements) < num_rollouts:
+            stats: Dict[str, float] = {}
+            batch = self._next_prompts()
+            n_this = len(np.asarray(batch["input_ids"]))
+            clock.tick()
+            out = self.generate(batch["input_ids"], batch["attention_mask"], gen_kwargs)
+            samples = out["samples"].cpu().numpy()
+            stats["time/rollout_generate"] = clock.tick()
+            # throughput over the real generated tokens (padding after eos
+            # does not count); tick() returns ms
+            gen_s = max(stats["time/rollout_generate"] / 1000.0, 1e-9)
+            stats["throughput/rollout_tokens_per_s"] = int(out["response_mask"].sum()) / gen_s
+            stats["throughput/rollout_requests_per_s"] = n_this / gen_s
+
+            prompt_tensors, sample_outputs, outputs, scores, scores_mask = self._host_process_chunk(
+                batch, samples, stats, clock
+            )
+            all_tokens = np.concatenate([prompt_tensors, sample_outputs], axis=1)
+            scored = self.score(torch.from_numpy(all_tokens).to(self.device).long())
+            logprobs, values, log_ratio = (x.cpu().numpy() for x in scored[:3])
+            mean_kl, mean_kl_per_token = float(scored[3]), float(scored[4])
+            elements.extend(self._chunk_to_elements(
+                prompt_tensors, sample_outputs, outputs, scores, scores_mask, logprobs, values, log_ratio
+            ))
+            stats["time/rollout_time"] = clock.tick()
+            stats["policy/sqrt_kl"] = float(np.sqrt(max(mean_kl, 0.0)))
+            stats["policy/kl_per_token"] = float(np.sqrt(max(mean_kl_per_token, 0.0)))
+            accumulated_stats.append(stats)
+            logger.info(f"[rollout {len(elements)} / {num_rollouts}]")
+
+        stats = {k: sum(xs[k] for xs in accumulated_stats) / len(accumulated_stats) for k in accumulated_stats[-1]}
+        stats["kl_ctl_value"] = self.kl_ctl.value
+        self.mean_kl = stats["policy/sqrt_kl"] ** 2
+        self.tracker.log(stats, step=iter_count)
+        self.push_to_store(elements)
+
+    def _score_samples(self, str_samples, str_prompts, str_outputs, metadata):
+        """reward_fn over a decoded chunk -> one score row per sample (length
+        1 for a scalar reward, more for dense rewards)."""
+        rows = self.reward_fn(samples=str_samples, prompts=str_prompts, outputs=str_outputs,
+                              tokenizer=self.tokenizer, **metadata)
+        return [np.atleast_1d(np.asarray(r, dtype=np.float32)) for r in rows]
+
+    def _host_process_chunk(self, batch, samples, stats=None, clock=None):
+        """The host stage of one rollout chunk: decode -> reward_fn ->
+        retokenize and right-pad the (stop-trimmed) outputs -> clip -> the
+        running-moments reward scaling. Returns (prompt_tensors,
+        sample_outputs, outputs, scores, scores_mask)."""
+        method = self.config.method
+        pad_id = self.tokenizer.pad_token_id
+        gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
+        max_new = int(gen_kwargs.get("max_new_tokens", 40))
+
+        prompt_tensors = np.asarray(batch["input_ids"])
+        n_samples = len(samples)
+        str_samples, str_prompts, str_outputs = self.decode(
+            prompt_tensors, samples, [prompt_tensors.shape[1]] * n_samples, append_eos_token=True
+        )
+        metadata = {k: v for k, v in batch.items() if k not in ("input_ids", "attention_mask")}
+        score_rows = self._score_samples(str_samples, str_prompts, str_outputs, metadata)
+        if stats is not None and clock is not None:
+            stats["time/rollout_score"] = clock.tick()
+        width = max(len(r) for r in score_rows)
+        scores = np.full((n_samples, width), -np.inf, dtype=np.float32)
+        for i, r in enumerate(score_rows):
+            scores[i, : len(r)] = r
+        scores_mask = scores != -np.inf
+
+        outputs = [self.tokenizer.encode(o, add_special_tokens=False)[:max_new] for o in str_outputs]
+        sample_outputs = np.full((n_samples, max_new), pad_id, dtype=np.int32)
+        for i, o in enumerate(outputs):
+            sample_outputs[i, : len(o)] = o
+
+        if method.cliprange_reward:
+            scores = np.where(scores_mask, np.clip(scores, -method.cliprange_reward, method.cliprange_reward), scores)
+
+        sample_scores = np.where(scores_mask, scores, 0.0).sum(axis=1)
+        if self.ref_mean is None:
+            self.ref_mean, self.ref_std = float(sample_scores.mean()), float(sample_scores.std())
+        all_scores_mean, all_scores_std = self.running_moments.update(sample_scores)
+        if stats is not None:
+            stats["rollout_scores/mean"] = all_scores_mean
+            stats["rollout_scores/std"] = all_scores_std
+            stats["rollout_scores/running_mean"] = self.running_moments.mean
+            stats["rollout_scores/running_std"] = self.running_moments.std
+        if method.scale_reward == "running":
+            scores = np.where(scores_mask, scores / max(self.running_moments.std, 1e-8), scores)
+        elif method.scale_reward == "ref":
+            scores = np.where(scores_mask, scores / max(self.ref_std, 1e-8), scores)
+        return prompt_tensors, sample_outputs, outputs, scores, scores_mask
+
+    def _chunk_to_elements(self, prompt_tensors, sample_outputs, outputs, scores, scores_mask,
+                           logprobs, values, log_ratio) -> List[PPORLElement]:
+        """Slice each sample's response window into a PPORLElement:
+        logprobs[i] is the logprob with which all_tokens[i + 1] was drawn."""
+        pad_id = self.tokenizer.pad_token_id
+        start = prompt_tensors.shape[1] - 1
+        kl_penalty = -self.kl_ctl.value * log_ratio
+        elements = []
+        for ix in range(len(sample_outputs)):
+            # an empty response keeps one (padding) slot
+            n_resp = max(int((sample_outputs[ix] != pad_id).sum()), 1)
+            end = start + n_resp
+            rewards = kl_penalty[ix, start:end].copy()
+            if scores.shape[1] == 1:
+                # a scalar score lands on the final token
+                rewards[-1] += scores[ix, 0]
+            else:
+                dense = scores[ix, : int(scores_mask[ix].sum())][: len(rewards)]
+                rewards[: len(dense)] += dense
+            elements.append(PPORLElement(
+                query_tensor=prompt_tensors[ix],
+                response_tensor=sample_outputs[ix, :n_resp],
+                logprobs=logprobs[ix, start:end],
+                values=values[ix, start:end],
+                rewards=rewards,
+            ))
+        return elements
+
+    # ------------------------------------------------------------------
+    # Loop wiring
+    # ------------------------------------------------------------------
+
+    def add_prompt_pipeline(self, pipeline):
+        """Rollout prompts: chunks of `chunk_size`, reshuffled every pass."""
+        self.prompt_pipeline = pipeline
+        self.prompt_iterator = infinite_dataloader(pipeline.create_loader(self.config.method.chunk_size, shuffle=True))
+        self._prompt_draws = 0
+
+    def _next_prompts(self):
+        self._prompt_draws += 1
+        return next(self.prompt_iterator)
+
+    def post_backward_callback(self):
+        self.kl_ctl.update(self.mean_kl, n_steps=self.config.train.batch_size)
+
+    def post_epoch_callback(self):
+        if self.log_rollouts:
+            self.store.export_history(location=self.rollout_logging_dir)
+        self.store.clear_history()
+        self.make_experience(self.config.method.num_rollouts, self.iter_count)
+
+    def create_train_dataloader(self, seed_offset: int = 0, drop_last: bool = False):
+        """A loader over the store, reshuffled per inner epoch. The query
+        width is the store's longest query rounded up to a 64-token bucket
+        (capped by the prompt budget), the response and stat widths the
+        experience budget, so batch shapes stay the same across
+        collections."""
+        exp_kwargs = self.generate_experience_kwargs or self.generate_kwargs
+        exp_max_new = int(exp_kwargs.get("max_new_tokens", 40))
+        eval_max_new = int(self.generate_kwargs.get("max_new_tokens", 40))
+        budget_q = self.config.train.seq_length - eval_max_new
+        obs_q = max((len(e.query_tensor) for e in self.store.history), default=0)
+        bucket_q = min(budget_q, -(-obs_q // 64) * 64)
+        return self.store.create_loader(
+            self.config.train.batch_size, shuffle=True, drop_last=drop_last,
+            seed=self.config.train.seed + self.iter_count + seed_offset,
+            max_query_len=bucket_q, max_response_len=exp_max_new, max_stat_len=exp_max_new,
+        )
+
+    def prepare_learning(self):
+        self.eval_dataloader = self.eval_pipeline.create_loader(self.config.method.chunk_size)
+        if self._resumed and len(self.store) > 0:
+            # exact resume: the checkpoint restored the rollout store
+            logger.info(f"Resume: reusing the restored rollout store ({len(self.store)} rollouts)")
+        else:
+            self.make_experience(self.config.method.num_rollouts)
+        self.train_dataloader = self.create_train_dataloader()
+        self.n_inner_epochs = self.config.method.ppo_epochs
+        self.total_steps = self.config.train.epochs * self.n_inner_epochs * len(self.train_dataloader)
+        self.total_steps = min(self.total_steps, self.config.train.total_steps)
+
+    def _extra_resume_state(self):
+        """The host state of an exact resume: the rollout store, the KL
+        controller and mean KL, the reward statistics, the frozen reference
+        and how many prompt chunks were drawn."""
+        return {
+            "store_history": list(self.store.history),
+            "kl_ctl_value": float(self.kl_ctl.value),
+            "mean_kl": float(self.mean_kl),
+            "running_moments": {k: getattr(self.running_moments, k) for k in ("mean", "std", "var", "count")},
+            "ref_mean": self.ref_mean,
+            "ref_std": self.ref_std,
+            "ref_model": self.ref_model.state_dict(),
+            "prompt_draws": self._prompt_draws,
+        }
+
+    def _load_extra_resume_state(self, state):
+        self.store.clear_history()
+        self.store.push(state["store_history"])
+        self.kl_ctl.value = state["kl_ctl_value"]
+        self.mean_kl = state["mean_kl"]
+        for k, v in state["running_moments"].items():
+            setattr(self.running_moments, k, v)
+        self.ref_mean, self.ref_std = state["ref_mean"], state["ref_std"]
+        self.ref_model.load_state_dict(state["ref_model"])
+        if self.prompt_pipeline is not None:
+            # a fresh prompt loader replays its shuffles; skip the chunks
+            # the saved run already drew
+            self.add_prompt_pipeline(self.prompt_pipeline)
+            for _ in range(state["prompt_draws"]):
+                self._next_prompts()

@@ -1,14 +1,16 @@
 """The `train()` entry point (port of the JAX package's `trlx.py`).
 
-Samples without rewards run supervised fine-tuning; online RL
-(`reward_fn`) and offline RL (`rewards`) are not ported yet.
+Samples without rewards run supervised fine-tuning; a `reward_fn` runs
+online RL with PPO. RFT and the other `reward_fn` trainers, and offline
+RL (`rewards`: ILQL), are not ported yet (ROADMAP queue A, item 4).
 """
 
 import warnings
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.data.default_configs import default_sft_config
+from trlx_tpu_torch.data.default_configs import default_ppo_config, default_sft_config
+from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 from trlx_tpu_torch.utils import set_seed
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
 
@@ -27,30 +29,41 @@ def train(
     logit_mask=None,
     device=None,
 ):
-    """Fine-tune on `samples` (strings, or alternating prompt/output
-    dialogues) and return the trainer. Same signature as the JAX
-    package's `train`, plus `device` (`cuda` unless the caller passes
-    another; "cpu" runs the kernels' plain versions)."""
-    if reward_fn is not None:
-        raise NotImplementedError("online RL (reward_fn: PPO/RFT) is not ported yet (ROADMAP queue A, item 2)")
+    """Train with PPO against `reward_fn` over `prompts`, or fine-tune on
+    `samples` (strings, or alternating prompt/output dialogues), and
+    return the trainer. Same signature as the JAX package's `train`, plus
+    `device` (`cuda` unless the caller passes another; "cpu" runs the
+    kernels' plain versions)."""
     if dataset:
         warnings.warn("the `dataset` argument is deprecated, split it into `samples` and `rewards`")
         samples, rewards = dataset
     if rewards is not None:
         raise NotImplementedError("offline RL (rewards: ILQL) is not ported yet (ROADMAP queue A, item 4)")
-    if not samples:
+    if not reward_fn and not samples:
         raise ValueError("Either `samples` or `reward_fn` should be given for training")
     if config is None:
         warnings.warn(
             "Passing the `config` argument implicitly is deprecated, adapt one "
             "from `trlx_tpu_torch/data/default_configs.py` instead"
         )
-        config = default_sft_config()
+        config = default_ppo_config() if reward_fn else default_sft_config()
+    if reward_fn:
+        try:
+            trainer_cls = get_trainer(config.train.trainer)
+        except ValueError:  # RFT, GRPO, ...: not registered in the port
+            trainer_cls = None
+        if trainer_cls is None or not issubclass(trainer_cls, PPOTrainer):
+            raise NotImplementedError(
+                f"online RL with {config.train.trainer} (RFT, GRPO, RLOO, ...) is not ported yet; "
+                "PPOTrainer is (ROADMAP queue A, item 4)"
+            )
+    else:
+        trainer_cls = get_trainer(config.train.trainer)
     set_seed(config.train.seed)
     if model_path:
         config.model.model_path = model_path
 
-    trainer = get_trainer(config.train.trainer)(
+    trainer = trainer_cls(
         config=config,
         reward_fn=reward_fn,
         metric_fn=metric_fn,
@@ -61,15 +74,21 @@ def train(
     )
     batch_size = config.train.batch_size
     max_prompt_length = config.train.seq_length - config.method.gen_kwargs.get("max_new_tokens", 40)
-    if eval_prompts is None:
-        eval_prompts = [trainer.tokenizer.bos_token] * batch_size
-    trainer.make_experience(samples, config.train.seq_length)
-    eval_pipeline = get_pipeline(config.train.pipeline)(
-        eval_prompts,
-        max_prompt_length,
-        trainer.tokenizer,
-        add_special_tokens=config.model.model_arch_type == "seq2seq",
-    )
+    pipeline_cls = get_pipeline(config.train.pipeline)
+    add_special_tokens = config.model.model_arch_type == "seq2seq"
+    if reward_fn:
+        prompts = prompts or [trainer.tokenizer.bos_token] * batch_size
+        if eval_prompts is None:
+            eval_prompts = prompts[:batch_size]
+        trainer.add_prompt_pipeline(
+            pipeline_cls(prompts, max_prompt_length, trainer.tokenizer, add_special_tokens=add_special_tokens)
+        )
+    else:
+        if eval_prompts is None:
+            eval_prompts = [trainer.tokenizer.bos_token] * batch_size
+        trainer.make_experience(samples, config.train.seq_length)
+    eval_pipeline = pipeline_cls(eval_prompts, max_prompt_length, trainer.tokenizer,
+                                 add_special_tokens=add_special_tokens)
     trainer.add_eval_pipeline(eval_pipeline)
     trainer.learn()
     return trainer

@@ -12,7 +12,7 @@ import random
 import time
 from enum import Enum
 from numbers import Number
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Iterable
 
 import numpy as np
 import torch
@@ -73,6 +73,12 @@ class Clock:
             self.total_time = 0
             self.total_samples = 0
         return sec_per_samp * n_samp * 1000
+
+
+def infinite_dataloader(dataloader: Iterable) -> Iterable:
+    """Yield batches forever, restarting the loader at exhaustion."""
+    while True:
+        yield from dataloader
 
 
 # ---------------------------------------------------------------------------

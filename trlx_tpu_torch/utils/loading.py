@@ -5,10 +5,12 @@ ported trainer and pipeline."""
 from trlx_tpu_torch.pipeline import _DATAPIPELINE
 from trlx_tpu_torch.pipeline import offline_pipeline  # noqa: F401  (registers PromptPipeline)
 from trlx_tpu_torch.trainer import _TRAINERS
+from trlx_tpu_torch.trainer import ppo_trainer  # noqa: F401  (registers PPOTrainer)
 from trlx_tpu_torch.trainer import sft_trainer  # noqa: F401  (registers SFTTrainer)
 
 # the reference's trainer names, so user configs carry over
-_ALIASES = {"acceleratesfttrainer": "sfttrainer", "nemosfttrainer": "sfttrainer"}
+_ALIASES = {"acceleratesfttrainer": "sfttrainer", "nemosfttrainer": "sfttrainer",
+            "accelerateppotrainer": "ppotrainer", "nemoppotrainer": "ppotrainer"}
 
 
 def get_trainer(name: str):
@@ -18,7 +20,7 @@ def get_trainer(name: str):
         return _TRAINERS[name]
     raise ValueError(
         f"Trainer '{name}' is not registered (ported: {sorted(_TRAINERS)}; the other "
-        "methods are ROADMAP queue A, items 2 and 4)"
+        "methods are ROADMAP queue A, item 4)"
     )
 
 

@@ -1,7 +1,12 @@
-"""Math helpers used by the losses (port of the JAX package's
-`utils/modeling.py`: `logprobs_of_labels`; the RL statistics come with
-the PPO slice)."""
+"""Math and statistics helpers of the losses and trainers (port of the JAX
+package's `utils/modeling.py`): `logprobs_of_labels`, the masked
+statistics, `whiten`, `entropy_from_logits`, `get_tensor_stats` and the
+host-side `RunningMoments`. On one device the global statistics are the
+local ones."""
 
+from typing import Dict, Optional, Tuple
+
+import numpy as np
 import torch
 
 
@@ -12,3 +17,86 @@ def logprobs_of_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     from trlx_tpu_torch.ops.fused_ce import fused_logprobs_of_labels
 
     return fused_logprobs_of_labels(logits, labels)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
+    mask = mask.to(x.dtype)
+    if dim is None:
+        return (x * mask).sum() / mask.sum().clamp(min=1.0)
+    return (x * mask).sum(dim=dim) / mask.sum(dim=dim).clamp(min=1.0)
+
+
+def masked_var(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    mean = masked_mean(x, mask)
+    return masked_mean((x - mean) ** 2, mask)
+
+
+def get_global_statistics(
+    xs: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean, var, count) of `xs` over `mask` (all of it without one)."""
+    mask = torch.ones_like(xs) if mask is None else mask.to(xs.dtype)
+    count = mask.sum()
+    mean = (xs * mask).sum() / count.clamp(min=1.0)
+    var = ((xs - mean) ** 2 * mask).sum() / count.clamp(min=1.0)
+    return mean, var, count
+
+
+def whiten(xs: torch.Tensor, shift_mean: bool = True, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Normalize to zero mean and unit variance."""
+    mean, var, _ = get_global_statistics(xs, mask)
+    whitened = (xs - mean) * torch.rsqrt(var + 1e-8)
+    if not shift_mean:
+        whitened = whitened + mean
+    return whitened
+
+
+def entropy_from_logits(logits: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    pd = torch.softmax(logits, dim=-1)
+    return torch.logsumexp(logits, dim=-1) - (pd * logits).sum(-1)
+
+
+def get_tensor_stats(xs: torch.Tensor, mask: torch.Tensor, n: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """mean/min/max/std over the masked entries; an all-zero mask gives
+    min = max = 0 instead of +-inf."""
+    mask = mask.to(xs.dtype)
+    any_valid = mask.sum() > 0
+    zero = torch.zeros((), dtype=xs.dtype, device=xs.device)
+    mean = (xs * mask).sum() / n
+    minimum = torch.where(any_valid, torch.where(mask > 0, xs, torch.inf).min(), zero)
+    maximum = torch.where(any_valid, torch.where(mask > 0, xs, -torch.inf).max(), zero)
+    std = torch.sqrt((((xs - mean) * mask) ** 2).sum() / n)
+    return dict(mean=mean, min=minimum, max=maximum, std=std)
+
+
+class RunningMoments:
+    """Host-side running mean and std over batches of scores (parallel
+    Welford merge), used to scale rollout rewards."""
+
+    def __init__(self):
+        self.mean = 0.0
+        self.std = 1.0
+        self.var = 1.0
+        self.count = 1e-24
+
+    def update(self, xs) -> Tuple[float, float]:
+        """Update from a batch; returns the batch's (mean, std)."""
+        xs = np.asarray(xs, dtype=np.float64)
+        xs_count = xs.size
+        xs_mean = xs.mean()
+        xs_var = xs.var()
+
+        delta = xs_mean - self.mean
+        tot_count = self.count + xs_count
+
+        new_sum = xs_var * xs_count
+        old_sum = self.var * self.count + delta**2 * self.count * xs_count / tot_count
+        tot_sum = old_sum + new_sum
+
+        self.mean += delta * xs_count / tot_count
+        self.var = tot_sum / tot_count
+        self.std = float(np.sqrt(self.var * tot_count / max(tot_count - 1, 1)))
+        self.count = tot_count
+
+        return float(xs_mean), float(np.sqrt(xs_var * xs_count / max(xs_count - 1, 1)))
