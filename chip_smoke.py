@@ -35,17 +35,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    padded at both ends, one with a hole, one with no valid key: b 128 for
    K3, b 32 for K4-K6); the label logprob (K7) at [8184, 50257] bf16 with
    out-of-range labels, at [128 x 104, 50257] on shifted labels and at
-   [32 x 40, 50257]; with kernel, plain-version,
-   library (scaled_dot_product_attention forward / backward; logsumexp
-   plus gather) and bound times, and the share of causal tiles the bf16
+   [32 x 40, 50257], and its backward kernel at [8184, 50257] (g = 0 on
+   the masked rows, which must come out all zeros) and [32 x 40, 50257];
+   with kernel, plain-version, library (scaled_dot_product_attention
+   forward / backward; logsumexp plus gather; the backward of
+   cross_entropy) and bound times, and the share of causal tiles the bf16
    forward and backward skip as padding;
 7. training, the port's second main path: `trlx_tpu_torch.train(samples=
    ..., config=cfg)` runs SFT on random:gpt2-small at full width (seq 1024,
    batch 8, bf16 activations, attn_impl="flash", num_layers_unfrozen=2):
    per-step loss (within 0.02 of the recorded losses), step time, training
    tokens/s and evaluation time; the launch counts equal K3 x10, K4 x2, K5
-   x2, K6 x2 and K7 x1 per step; the `done` checkpoint loads into a fresh
-   trainer with equal parameters;
+   x2, K6 x2, K7 x1 and K7's backward x1 per step; the `done` checkpoint
+   loads into a fresh trainer with equal parameters;
 8. one SFT step at f32 with the kernels and with their plain versions
    gives equal loss and trainable-parameter gradients;
 9. PPO, the port's third main path: `trlx_tpu_torch.train(reward_fn=...,
@@ -56,9 +58,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    logs under `build/chip_smoke_ppo/`): per collection generate and score
    seconds and rollout tokens/s, per step time and training tokens/s,
    samples/s per cycle, the evaluations' reward; every loss finite; the
-   launch counts exact (per step K3 x10, K4-K6 x2, K7 x1; per scoring chunk
-   K3 x14, K7 x2); the `done` checkpoint loads into a fresh PPOTrainer with
-   the same policy, reference, KL value, running moments and store;
+   launch counts exact (per step K3 x10, K4-K6 x2, K7 and its backward x1;
+   per scoring chunk K3 x14, K7 x2); the `done` checkpoint loads into a
+   fresh PPOTrainer with the same policy, reference, KL value, running
+   moments and store;
 10. one injected 32-row rollout batch at f32 (4 layers): the scoring pass
    (logprobs, values, log-ratio against a perturbed reference) and one PPO
    step with the kernels and with their plain versions agree (scoring
@@ -100,7 +103,14 @@ def card_line():
 
 def profiled_device_us(fn, iters):
     """Device microseconds of the CUDA kernels that torch.profiler traces
-    over `iters` calls of `fn`; 0.0 when the trace holds no device event."""
+    over `iters` calls of `fn`; 0.0 when the trace holds no device event.
+
+    A trace often loses a record (CUPTI drops them; most traces of phase 6
+    hold 9 of 10 or 19 of 20 launches of a kernel), and a sum over what
+    was kept would read low by as much. So each kernel is timed by its
+    mean over the launches the trace kept, times its launches a call (its
+    count over `iters`, rounded); events that come once a trace (the
+    profiler's own) round to none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -111,8 +121,9 @@ def profiled_device_us(fn, iters):
         torch.cuda.synchronize()
     total_us = 0.0
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            total_us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type == DeviceType.CUDA and e.count:
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+            total_us += us / e.count * round(e.count / iters) * iters
     return total_us
 
 
@@ -528,6 +539,11 @@ BF16_TOL = dict(rtol=8e-3, atol=1e-3)
 LSE_TOL = dict(rtol=2e-5, atol=2e-5)
 DKV_TOL = dict(rtol=1e-4, atol=1e-3)
 CE_TOL = dict(rtol=1e-5, atol=1e-4)
+# K7's backward at bf16: kernel and plain version round the same f32
+# formula once (the kernel's exp2 is ex2.approx, about 2 f32 ulp), so one
+# bf16 ulp apart at most: 2^-7 relative bounds an ulp (atol for denormals
+# the kernel's exponential flushes to 0)
+CE_BWD_TOL = dict(rtol=2**-7, atol=1e-20)
 
 
 def flash_case(b, t, nh, nkv, hd, rows, gen, device):
@@ -624,6 +640,55 @@ def ce_times(logits, labels):
     return r
 
 
+def ce_bwd_times(logits, labels, lse, g):
+    """Kernel, plain-version (the torch passes the port's backward ran
+    before the kernel: the "before" figure), library (the backward alone of
+    -cross_entropy(x, labels) with the same g, through autograd on a saved
+    graph) and bound times of K7's backward. The bound reads only the rows
+    whose g is not 0 (the kernel writes zeros for the others unread)."""
+    import torch
+    import torch.nn.functional as F
+
+    from trlx_tpu_torch.ops.fused_ce import label_logprobs_bwd, label_logprobs_bwd_plain
+
+    rows, vocab = logits.shape
+    x = logits.detach().requires_grad_(True)
+    ce = -F.cross_entropy(x, labels.long(), reduction="none")
+    lib = lambda: torch.autograd.grad(ce, x, g, retain_graph=True)
+    read_rows = int((g != 0).sum())
+    moved = (rows + read_rows) * vocab * logits.element_size() + rows * 4 * 3  # dlogits; logits; labels, lse, g
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, 5 * read_rows * vocab / F32_FLOPS_PER_S * 1e3
+    least_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    r = dict(ms=device_time_ms(lambda: label_logprobs_bwd(logits, labels, lse, g), 10,
+                               label=f"label_logprobs_bwd {rows} kernel"),
+             plain_ms=device_time_ms(lambda: label_logprobs_bwd_plain(logits, labels, lse, g), 3,
+                                     label=f"label_logprobs_bwd {rows} plain"),
+             library_ms=device_time_ms(lib, 3, label=f"label_logprobs_bwd {rows} library"),
+             bound_ms=least_ms, bound_by=bound_by)
+    log(f"[train-kernels] label_logprobs_bwd [{rows}, {vocab}] ({rows - read_rows} rows with g = 0): "
+        f"kernel_ms={r['ms']:.5f} plain_ms (the torch passes before the kernel)={r['plain_ms']:.5f} "
+        f"library_ms={r['library_ms']:.5f} bound_ms={least_ms:.5f} ({bound_by})")
+    del ce, x
+    return r
+
+
+def check_ce_bwd(note, logits, labels, g, shape):
+    """K7's backward against its plain version on the kernel's own lse;
+    returns (max abs err, lse)."""
+    import torch
+
+    from trlx_tpu_torch.ops.fused_ce import label_logprobs, label_logprobs_bwd, label_logprobs_bwd_plain
+
+    _, lse = label_logprobs(logits, labels)
+    got = label_logprobs_bwd(logits, labels, lse, g)
+    torch.cuda.synchronize()
+    if not bool((got[g == 0] == 0).all()):
+        raise AssertionError(f"label_logprobs_bwd {shape}: a row with g = 0 is not all zeros")
+    e = note("label_logprobs_bwd", got, label_logprobs_bwd_plain(logits, labels, lse, g), CE_BWD_TOL)
+    log(f"[train-kernels] label_logprobs_bwd {shape} {list(logits.shape)} bf16: max_abs_err dlogits = {e:.3g}")
+    return lse
+
+
 def phase_train_kernels(device):
     import torch
 
@@ -633,7 +698,8 @@ def phase_train_kernels(device):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    err = {n: 0.0 for n in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "label_logprobs")}
+    err = {n: 0.0 for n in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "label_logprobs",
+                            "label_logprobs_bwd")}
     results = {}
 
     def note(name, got, want, tol):
@@ -705,7 +771,12 @@ def phase_train_kernels(device):
     log(f"[train-kernels] label_logprobs [{CE_ROWS}, {CE_VOCAB}] bf16: max_abs_err logprob/lse = "
         + " ".join(f"{e:.3g}" for e in errs))
     results[("label_logprobs", "gpt2-small")] = ce_times(logits, clamped)
-    del logits, labels
+    # its backward, with g = 0 on the rows whose label the loss masks
+    g = torch.randn(CE_ROWS, generator=gen, device=device)
+    g[::97] = 0.0
+    lse = check_ce_bwd(note, logits, clamped, g, "gpt2-small")
+    results[("label_logprobs_bwd", "gpt2-small")] = ce_bwd_times(logits, clamped, lse, g)
+    del logits, labels, clamped, g, lse, out, ref_out, ref_lse, got_out, got_lse
     torch.cuda.empty_cache()
     # K7 at the PPO shapes: scoring passes the full contiguous logits with
     # the labels shifted one column (`shifted_logprobs`)
@@ -726,6 +797,12 @@ def phase_train_kernels(device):
         torch.cuda.synchronize()
         log(f"[train-kernels] label_logprobs {shape} [{n}, {CE_VOCAB}] bf16: max_abs_err logprob = {e:.3g}")
         results[("label_logprobs", shape)] = ce_times(logits.view(n, CE_VOCAB), tokens.view(n).to(torch.int32))
+        if shape == "ppo-train":  # a step's backward over the window
+            x, lab = logits.view(n, CE_VOCAB), tokens.view(n).to(torch.int32)
+            g = torch.randn(n, generator=gen, device=device)
+            lse = check_ce_bwd(note, x, lab, g, shape)
+            results[("label_logprobs_bwd", shape)] = ce_bwd_times(x, lab, lse, g)
+            del x, lab, g, lse
         del logits, tokens, got
         torch.cuda.empty_cache()
     kernels.reset_launches()  # the comparison launches above do not count
@@ -738,7 +815,7 @@ def phase_train_kernels(device):
 
 TRAIN_STEPS = 6
 TRAIN_KERNELS_PER_STEP = {"flash_fwd": 10, "flash_fwd_lse": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-                          "label_logprobs": 1}
+                          "label_logprobs": 1, "label_logprobs_bwd": 1}
 # phase 7's losses with the CUDA-core forward and backward (NVIDIA H100
 # 80GB HBM3, the same seed and data): a change of the kernels' arithmetic
 # that keeps them within one bf16 ulp keeps the losses within LOSS_TOL
@@ -861,7 +938,7 @@ def sft_step_grads(trainer, batch):
 
 @contextmanager
 def plain_versions():
-    """The training kernels' wrappers (K3-K7) swapped for their plain
+    """The training kernels' wrappers (K3-K7, K7's backward) swapped for their plain
     versions on the same card; fails if a kernel launches inside."""
     from trlx_tpu_torch import kernels
     from trlx_tpu_torch.ops import attention as A
@@ -870,7 +947,8 @@ def plain_versions():
     swaps = {(A, "flash_fwd"): lambda q, k, v, m, c=True, with_lse=False: (
                  A.flash_fwd_plain(q, k, v, m, c) if with_lse else A.flash_fwd_plain(q, k, v, m, c)[0]),
              (A, "flash_bwd_dq"): A.flash_bwd_dq_plain, (A, "flash_bwd_dkv"): A.flash_bwd_dkv_plain,
-             (fused_ce, "label_logprobs"): fused_ce.label_logprobs_plain}
+             (fused_ce, "label_logprobs"): fused_ce.label_logprobs_plain,
+             (fused_ce, "label_logprobs_bwd"): fused_ce.label_logprobs_bwd_plain}
     saved = {key: getattr(*key) for key in swaps}
     try:
         for (mod, name), fn in swaps.items():
@@ -939,10 +1017,10 @@ def phase_grad_check():
 PPO_EPOCHS, PPO_ROLLOUTS, PPO_BATCH = 2, 128, 32
 PPO_STEPS = PPO_EPOCHS * 4 * (PPO_ROLLOUTS // PPO_BATCH)  # epochs x ppo_epochs x loader length
 # per optimizer step: 10 frozen blocks K3, 2 trainable blocks K4-K6, the
-# windowed head's K7; per 128-row scoring chunk: 12 policy and 2 reference
+# windowed head's K7 and its backward; per 128-row scoring chunk: 12 policy and 2 reference
 # blocks K3, the policy's and the reference's K7
 PPO_KERNELS_PER_STEP = {"flash_fwd": 10, "flash_fwd_lse": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-                        "label_logprobs": 1}
+                        "label_logprobs": 1, "label_logprobs_bwd": 1}
 PPO_KERNELS_PER_CHUNK = {"flash_fwd": 14, "label_logprobs": 2}
 PPO_NEW = 40
 # The byte tokenizer decodes only ids below 256, and the rollout's text is
@@ -1299,10 +1377,12 @@ def main() -> int:
         ("flash_bwd_dq", "trlx_tpu_torch/csrc/flash_attention.cu", "trlx_tpu/ops/attention.py:496"),
         ("flash_bwd_dkv", "trlx_tpu_torch/csrc/flash_attention.cu", "trlx_tpu/ops/attention.py:532"),
         ("label_logprobs", "trlx_tpu_torch/csrc/fused_ce.cu", "trlx_tpu/ops/fused_ce.py:50"),
+        # the gradient the JAX package leaves to XLA (`_fused_bwd`, no Pallas kernel)
+        ("label_logprobs_bwd", "trlx_tpu_torch/csrc/fused_ce.cu", "trlx_tpu/ops/fused_ce.py:197"),
     ]
     for name, src, replaces in train_rows:
         # the times at phase 9's shapes: K3 when scoring, K4-K6 in a step,
-        # K7 at both
+        # K7 at both, its backward in a step
         ppo_shapes = [s for s in ("ppo-score", "ppo-train") if (name, s) in train_timings]
         report["kernels"].append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=train_launches[name],

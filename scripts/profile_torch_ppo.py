@@ -29,6 +29,7 @@ OURS = {  # name fragments of the hand-written kernels in the trace
     "flash_bwd_dq_wgmma_kernel": "flash dq, bf16 (K5)",
     "flash_bwd_dkv_wgmma_kernel": "flash dk/dv, bf16 (K6)",
     "label_logprob_kernel": "label logprob (K7)",
+    "label_logprob_bwd_kernel": "label logprob backward (K7 bwd)",
 }
 
 

@@ -32,6 +32,7 @@ OURS = {  # name fragments of the hand-written kernels in the trace
     "flash_bwd_dkv_wgmma_kernel": "flash dk/dv, bf16 on the tensor cores (K6)",
     "flash_bwd_dkv_kernel": "flash dk/dv, f32 on the CUDA cores (K6)",
     "label_logprob_kernel": "label logprob (K7)",
+    "label_logprob_bwd_kernel": "label logprob backward (K7 bwd)",
 }
 
 

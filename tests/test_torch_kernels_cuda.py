@@ -280,41 +280,167 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
             bwd(qb, k.bfloat16(), v.bfloat16(), mask, shifted, lse, lse)
 
 
+# K7's shapes: odd V (consecutive bf16 rows start at every 2-byte
+# alignment, so every head and tail length of the peel), V < 8 (no whole
+# vector), one row, and rows few enough that the plan splits each row over
+# a cluster of blocks (4 at bf16 and V 50257, 8 for one f32 row)
+CE_SHAPES = [(300, 1001), (37, 50257), (1, 50257), (9, 5), (1, 7)]
+# the backward, f32: both sides compute exp(x - lse) in f32 (ex2.approx on
+# the card, about 2 ulp), the one-hot difference and the scale: 1e-5
+# relative, 1e-6 absolute where (1 - p) at the label cancels. bf16: both
+# round that f32 value once, so one bf16 ulp apart at most (2^-7 relative
+# bounds an ulp; atol for denormals the kernel's exponential flushes).
+CE_BWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.bfloat16: dict(rtol=2**-7, atol=1e-20)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,v", CE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_label_logprobs_kernel_matches_plain(cuda, dtype):
-    """Both sides read the same logits and compute in f32: 1e-5."""
+def test_label_logprobs_kernel_matches_plain(cuda, dtype, n, v):
+    """Both sides read the same logits and compute in f32: 1e-5. A row
+    split over a cluster merges in rank order: two calls bitwise equal."""
     from trlx_tpu_torch.ops.fused_ce import KERNEL as CE, label_logprobs, label_logprobs_plain
 
     rng = np.random.RandomState(4)
-    logits = torch.from_numpy((3 * rng.randn(300, 1001)).astype(np.float32)).to(cuda, dtype)
-    labels = torch.from_numpy(rng.randint(0, 1001, 300).astype(np.int32)).to(cuda)
+    logits = torch.from_numpy((3 * rng.randn(n, v)).astype(np.float32)).to(cuda, dtype)
+    labels = torch.from_numpy(rng.randint(0, v, n).astype(np.int32)).to(cuda)
     kernels.reset_launches()
     out, lse = label_logprobs(logits, labels)
+    out2, lse2 = label_logprobs(logits, labels)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES[CE] == 1
+    assert kernels.LAUNCHES[CE] == 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     ref_out, ref_lse = label_logprobs_plain(logits, labels)
     torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
-def test_fused_logprobs_value_and_grad_on_card(cuda):
-    """Out-of-range labels clamp into [0, V); the gradient is the plain
-    torch backward against log_softmax + gather autograd."""
-    from trlx_tpu_torch.ops.fused_ce import fused_logprobs_of_labels
+@pytest.mark.parametrize("n,v", CE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_label_logprobs_bwd_kernel_matches_plain(cuda, dtype, n, v):
+    """dlogits against the plain backward, with zero incoming gradients on
+    some rows (written as zeros without reading the logits) and labels in
+    the head, the vectors and the tail of the rows."""
+    from trlx_tpu_torch.ops.fused_ce import (KERNEL_BWD, label_logprobs_bwd, label_logprobs_bwd_plain,
+                                             label_logprobs_plain)
 
     rng = np.random.RandomState(5)
-    x = torch.from_numpy(rng.randn(3, 7, 515).astype(np.float32)).to(cuda)
+    logits = torch.from_numpy((3 * rng.randn(n, v)).astype(np.float32)).to(cuda, dtype)
+    labels = rng.randint(0, v, n).astype(np.int32)
+    labels[: min(n, 3)] = [0, v - 1, v // 2][: min(n, 3)]
+    labels = torch.from_numpy(labels).to(cuda)
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    g[1::4] = 0.0
+    _, lse = label_logprobs_plain(logits, labels)
+    kernels.reset_launches()
+    got = label_logprobs_bwd(logits, labels, lse, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[KERNEL_BWD] == 1
+    assert got.dtype == dtype and got.shape == logits.shape
+    assert bool((got[1::4] == 0).all())
+    torch.testing.assert_close(got, label_logprobs_bwd_plain(logits, labels, lse, g), **CE_BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_label_logprobs_bwd_kernel_on_offset_logits(cuda):
+    """Logits whose first row is not 16-byte aligned (a view at an element
+    offset): the gradient is allocated at the same alignment, and matches."""
+    from trlx_tpu_torch.ops.fused_ce import label_logprobs, label_logprobs_bwd, label_logprobs_bwd_plain
+
+    rng = np.random.RandomState(6)
+    n, v = 16, 2001
+    flat = torch.from_numpy((3 * rng.randn(n * v + 3)).astype(np.float32)).to(cuda, torch.bfloat16)
+    logits = flat[3:].view(n, v)
+    assert logits.data_ptr() % 16 == 6
+    labels = torch.from_numpy(rng.randint(0, v, n).astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    _, lse = label_logprobs(logits, labels)
+    got = label_logprobs_bwd(logits, labels, lse, g)
+    torch.cuda.synchronize()
+    assert got.data_ptr() % 16 == 6
+    torch.testing.assert_close(got, label_logprobs_bwd_plain(logits, labels, lse, g), **CE_BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_label_logprobs_kernels_refuse_what_they_do_not_take(cuda):
+    from trlx_tpu_torch.ops.fused_ce import label_logprobs, label_logprobs_bwd
+
+    x = torch.randn(4, 33, device=cuda)
+    lab = torch.zeros(4, dtype=torch.int32, device=cuda)
+    row = torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        label_logprobs(x.t().contiguous().t(), lab)
+    with pytest.raises(ValueError, match="contiguous"):
+        label_logprobs_bwd(x.t().contiguous().t(), lab, row, row)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="dtype"):
+            label_logprobs(x.to(dtype), lab)
+        with pytest.raises(ValueError, match="dtype"):
+            label_logprobs_bwd(x.to(dtype), lab, row, row)
+    with pytest.raises(ValueError, match="every tensor"):
+        label_logprobs_bwd(x, lab, row.cpu(), row)
+    with pytest.raises(ValueError, match="expected"):
+        label_logprobs_bwd(x, lab, row[:3], row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_logprobs_value_and_grad_on_card(cuda, dtype):
+    """Out-of-range labels clamp into [0, V); through autograd the forward
+    and the backward kernel each launch once; against log_softmax + gather
+    autograd on the same values (at bf16 the gradient rounds to bf16 on
+    both sides: one ulp)."""
+    from trlx_tpu_torch.ops.fused_ce import KERNEL as CE, KERNEL_BWD, fused_logprobs_of_labels
+
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(3, 7, 515).astype(np.float32)).to(cuda, dtype)
     labels = torch.from_numpy(rng.randint(-3, 520, (3, 7)).astype(np.int64)).to(cuda)
     a = x.clone().requires_grad_(True)
+    kernels.reset_launches()
     out = fused_logprobs_of_labels(a, labels)
     out.sum().backward()
-    b_ = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    assert {n: kernels.LAUNCHES.get(n) for n in (CE, KERNEL_BWD)} == {CE: 1, KERNEL_BWD: 1}
+    b_ = x.float().clone().requires_grad_(True)
     ref = torch.gather(torch.log_softmax(b_, -1), -1, labels.clamp(0, 514)[..., None])[..., 0]
     ref.sum().backward()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(a.grad, b_.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(a.grad, b_.grad.to(dtype), **CE_BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_sft_loss_reads_full_logits_once(cuda):
+    """The SFT loss at gpt2-small's vocabulary over [2, 64] positions: one
+    forward and one backward launch on the full logits (no copy of the
+    [b, t - 1, V] slice), loss and gradient as on CPU copies."""
+    from trlx_tpu_torch.ops.fused_ce import KERNEL as CE, KERNEL_BWD
+    from trlx_tpu_torch.trainer.sft_trainer import causal_lm_ce_loss
+
+    rng = np.random.RandomState(8)
+    b, t, v = 2, 64, 50257
+    logits = torch.from_numpy((3 * rng.randn(b, t, v)).astype(np.float32)).to(torch.bfloat16)
+    ids = torch.from_numpy(rng.randint(0, v, (b, t)))
+    mask = torch.ones(b, t, dtype=torch.long)
+    mask[1, :9] = 0
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        x = logits.to(dev).requires_grad_(True)
+        kernels.reset_launches()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = causal_lm_ce_loss(x, ids.to(dev), mask.to(dev))
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {n: kernels.LAUNCHES.get(n) for n in (CE, KERNEL_BWD)} == {CE: 1, KERNEL_BWD: 1}
+            # the gradient itself, and no second [b, t, V] buffer
+            assert torch.cuda.max_memory_allocated() - before < 1.5 * logits.numel() * 2
+        runs.append((float(loss), x.grad.float().cpu()))
+    (loss_k, grad_k), (loss_p, grad_p) = runs
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert bool((grad_k[:, -1] == 0).all())  # the dropped last column
+    torch.testing.assert_close(grad_k, grad_p, **CE_BWD_TOL[torch.bfloat16])
 
 
 def _ppo_rows(b=5, t=104):

@@ -13,7 +13,7 @@ Slices ported so far (ROADMAP.md, queue A):
 - supervised fine-tuning: `trlx_tpu_torch.train(samples=..., config=...)`
   -> `SFTTrainer.learn()`, with causal flash attention forward and
   backward (`csrc/flash_attention.cu`) and the fused label logprob of the
-  CE loss (`csrc/fused_ce.cu`) hand-written in CUDA;
+  CE loss and its gradient (`csrc/fused_ce.cu`) hand-written in CUDA;
 - PPO: `trlx_tpu_torch.train(reward_fn=..., prompts=..., config=...)` ->
   `PPOTrainer.learn()`: rollouts from the sampler, one no-grad hydra
   scoring pass a chunk (policy, values and the frozen reference), the

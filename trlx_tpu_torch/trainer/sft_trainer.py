@@ -38,10 +38,14 @@ def ce_shift_labels_and_valid(input_ids, attention_mask, labels=None):
 
 
 def causal_lm_ce_loss(logits, input_ids, attention_mask, labels=None):
-    """Shifted CE over the valid tokens: (loss, {"loss": loss})."""
+    """Shifted CE over the valid tokens: (loss, {"loss": loss}). The label
+    logprob reads the full, contiguous logits with the labels shifted one
+    column (the last column gets label 0 and is dropped), so the
+    [b, t - 1, V] slice is never copied, nor zero-filled in the backward."""
     shift_labels, valid = ce_shift_labels_and_valid(input_ids, attention_mask, labels)
     safe_labels = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
-    nll = -logprobs_of_labels(logits[:, :-1, :], safe_labels)
+    safe_labels = torch.cat([safe_labels, torch.zeros_like(safe_labels[:, :1])], dim=1)
+    nll = -logprobs_of_labels(logits, safe_labels)[:, :-1]
     n = valid.sum().clamp(min=1)
     loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / n
     return loss, {"loss": loss.detach()}
