@@ -65,10 +65,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 10. one injected 32-row rollout batch at f32 (4 layers): the scoring pass
    (logprobs, values, log-ratio against a perturbed reference) and one PPO
    step with the kernels and with their plain versions agree (scoring
-   within 1e-5, the loss and gradients within phase 8's tolerances).
+   within 1e-5, the loss and gradients within phase 8's tolerances);
+11. PPO with the JAX bench's headline options: phase 9's run with
+   `cache_trunk_activations`, `speculative_decode` (spec_k 4, draft rank
+   64) and `quantize_frozen_trunk` on (`build/chip_smoke_ppo_options/`):
+   the same per-collection and per-step numbers plus the speculative
+   acceptance rate, tokens per round and the trunk fill's ms a chunk,
+   printed beside phase 9's; launch counts exact (per step K3 x0, K4-K6
+   x2, K7 and its backward x1; per chunk K3 x24, 10 for the trunk fill
+   and 14 for scoring, and K7 x2); no speculative fallback, the trunk
+   cache on for every rollout; the checkpoint (its store carrying the
+   cache rows) loads back; the int8 decode view's build time and bytes;
+   greedy speculative vs plain sampling of 128 prompts x 40 tokens on the
+   int8 view at f32 (a row may differ only where the plain sampler's top
+   two warped scores lie within 1e-4) and at bf16 (the share of equal
+   rows); one f32 PPO step from an f32 trunk cache equals the full path
+   (loss within 1e-6 relative, gradients within phase 8's tolerance under
+   phase 10's ReLU gate, no K3), a bf16 cache within 2e-3 relative.
 
 The line before the last is the card's name and power limit; the line
-before that is the `kernels` JSON object; the last line is
+before that is the `kernels` JSON object (with `ppo_options`, phase 11's
+checks and numbers); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
 """
@@ -1069,17 +1086,17 @@ def ppo_config(work, **model_extra):
 
 @contextmanager
 def ppo_probes(record):
-    """Wrap PPOTrainer's collection, scoring, evaluation and optimizer step
-    to record each call's wall time and its kernel launches, and after a
-    collection the response lengths in the store: measurement of this
-    script, the trainer is unchanged."""
+    """Wrap PPOTrainer's collection, scoring, trunk-cache fill, evaluation
+    and optimizer step to record each call's wall time and its kernel
+    launches, and after a collection the response lengths in the store:
+    measurement of this script, the trainer is unchanged."""
     import torch
 
     from trlx_tpu_torch import kernels
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
-    originals = {name: getattr(PPOTrainer, name) for name in ("make_experience", "score", "evaluate",
-                                                              "train_minibatch")}
+    originals = {name: getattr(PPOTrainer, name) for name in ("make_experience", "score", "trunk_cache_fill",
+                                                              "evaluate", "train_minibatch")}
 
     def probe(name):
         fn = originals[name]
@@ -1106,7 +1123,12 @@ def ppo_probes(record):
             setattr(PPOTrainer, name, fn)
 
 
-def phase_ppo(card):
+def ppo_run(card, tag, work, config, per_step, per_chunk):
+    """Drive `trlx_tpu_torch.train(reward_fn=...)` once under the probes;
+    print each collection, step and evaluation; check every loss finite,
+    every response 40 tokens and the launch counts exact (`per_chunk` is a
+    collection's scoring pass and trunk fill together); check that the
+    `done` checkpoint loads back. Returns (trainer, launches, metrics)."""
     import shutil
 
     import torch
@@ -1115,10 +1137,8 @@ def phase_ppo(card):
     from trlx_tpu_torch import kernels
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
-    work = ROOT / "build" / "chip_smoke_ppo"
     if work.exists():
         shutil.rmtree(work)
-    config = ppo_config(work)
     record = []
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1132,21 +1152,26 @@ def phase_ppo(card):
     steps = [r for r in rows if "losses/total_loss" in r]
     evals = [r for r in rows if "reward/mean" in r]
     calls = lambda name: [c for c in record if c[0] == name]
-    scores, step_calls = calls("score"), calls("train_minibatch")
+    scores, fills, step_calls = calls("score"), calls("trunk_cache_fill"), calls("train_minibatch")
     lengths = [c[4] for c in calls("make_experience")]
+    fill_ms = [(c[2] - c[1]) * 1e3 for c in fills]
 
     for i, (r, (_, s0, s1, *_), n) in enumerate(zip(collections, scores, lengths)):
-        log(f"[ppo] collection {i + 1}: generate_s={r['time/rollout_generate'] / 1e3:.4f} "
-            f"rollout_tokens_per_s={r['throughput/rollout_tokens_per_s']:.1f} score_s={s1 - s0:.4f} "
+        spec = (f" spec_accept_rate={r['rollout/spec_accept_rate']:.4f} "
+                f"spec_tokens_per_round={r['rollout/spec_tokens_per_round']:.4f}"
+                if "rollout/spec_accept_rate" in r else "")
+        fill = f" trunk_fill_ms={fill_ms[i]:.3f}" if fills else ""
+        log(f"[{tag}] collection {i + 1}: generate_s={r['time/rollout_generate'] / 1e3:.4f} "
+            f"rollout_tokens_per_s={r['throughput/rollout_tokens_per_s']:.1f} score_s={s1 - s0:.4f}{fill}{spec} "
             f"stored responses {len(n)}, tokens min/mean/max {min(n)}/{statistics.mean(n):.2f}/{max(n)} "
             f"reward_fn_s={r['time/rollout_score'] / 1e3:.4f} policy/sqrt_kl={r['policy/sqrt_kl']:.6f}")
     for r in steps:
-        log(f"[ppo] step {r['_step']}: total_loss={r['losses/total_loss']:.6f} "
+        log(f"[{tag}] step {r['_step']}: total_loss={r['losses/total_loss']:.6f} "
             f"policy_loss={r['losses/policy_loss']:.6f} value_loss={r['losses/value_loss']:.6f} "
             f"approx_kl={r['policy/approx_kl']:.3g} step_s={r['time/train_step_s']:.4f} "
             f"train_tokens_per_s={r['throughput/train_tokens_per_s']:.1f}")
     for r in evals:
-        log(f"[ppo] eval at step {r['_step']}: reward/mean={r['reward/mean']:.5f} "
+        log(f"[{tag}] eval at step {r['_step']}: reward/mean={r['reward/mean']:.5f} "
             f"generate_ms={r['time/generate']:.1f}")
     # a cycle: one collection and its optimizer steps (evaluations excluded)
     starts = [c[1] for c in calls("make_experience")]
@@ -1158,12 +1183,20 @@ def phase_ppo(card):
         cycle_s = cycle_end - start - evals_in
         samples_per_s.append(PPO_ROLLOUTS / cycle_s)
     steady = steps[1:]  # step 1 pays the first-call warm-up (cuBLAS, allocator)
-    step_s = statistics.median(r["time/train_step_s"] for r in steady)
-    tok_s = statistics.median(r["throughput/train_tokens_per_s"] for r in steady)
-    log(f"[ppo] gpt2-small PPO, {PPO_ROLLOUTS} rollouts x {len(collections)} collections, batch {PPO_BATCH}, "
-        f"ppo_epochs 4, {PPO_NEW} new tokens, bf16 flash, num_layers_unfrozen=2: {len(steps)} steps in {wall:.2f}s wall; "
-        f"median step_s={step_s:.4f} train_tokens_per_s={tok_s:.1f}; samples_per_s per cycle="
-        f"{[round(x, 2) for x in samples_per_s]}; launches={launches} ({card})")
+    metrics = dict(
+        wall_s=wall, samples_per_s=samples_per_s,
+        step_s=statistics.median(r["time/train_step_s"] for r in steady),
+        train_tokens_per_s=statistics.median(r["throughput/train_tokens_per_s"] for r in steady),
+        sampling_s=[r["time/rollout_generate"] / 1e3 for r in collections],
+        rollout_tokens_per_s=[r["throughput/rollout_tokens_per_s"] for r in collections],
+        spec_accept_rate=[r.get("rollout/spec_accept_rate") for r in collections],
+        spec_tokens_per_round=[r.get("rollout/spec_tokens_per_round") for r in collections],
+        trunk_fill_ms=fill_ms,
+    )
+    log(f"[{tag}] gpt2-small PPO, {PPO_ROLLOUTS} rollouts x {len(collections)} collections, batch {PPO_BATCH}, "
+        f"ppo_epochs 4, {PPO_NEW} new tokens, bf16 flash, num_layers_unfrozen=2: {len(steps)} steps in {wall:.2f}s "
+        f"wall; median step_s={metrics['step_s']:.4f} train_tokens_per_s={metrics['train_tokens_per_s']:.1f}; "
+        f"samples_per_s per cycle={[round(x, 2) for x in samples_per_s]}; launches={launches} ({card})")
 
     losses = [r[k] for r in steps for k in ("losses/total_loss", "losses/policy_loss", "losses/value_loss")]
     if len(steps) != PPO_STEPS or not all(math.isfinite(x) for x in losses):
@@ -1174,15 +1207,19 @@ def phase_ppo(card):
     if [len(n) for n in lengths] != [PPO_ROLLOUTS] * PPO_EPOCHS or any(set(n) != {PPO_NEW} for n in lengths):
         raise AssertionError(f"expected {PPO_ROLLOUTS} stored responses of {PPO_NEW} tokens a collection, got "
                              f"{[(len(n), min(n), max(n)) for n in lengths]}")
-    for name, got, want in [("step", c[3], PPO_KERNELS_PER_STEP) for c in step_calls] + \
-            [("scoring chunk", c[3], PPO_KERNELS_PER_CHUNK) for c in scores]:
+    chunks = [dict(c[3]) for c in scores]
+    for chunk, fill in zip(chunks, fills):
+        for k, v in fill[3].items():
+            chunk[k] = chunk.get(k, 0) + v
+    for name, got, want in [("step", c[3], per_step) for c in step_calls] + \
+            [("chunk (scoring and trunk fill)", c, per_chunk) for c in chunks]:
         if got != want:
-            raise AssertionError(f"a {name} launched {got}, expected {want}")
-    want = {n: PPO_STEPS * PPO_KERNELS_PER_STEP.get(n, 0) + PPO_EPOCHS * PPO_KERNELS_PER_CHUNK.get(n, 0)
-            for n in PPO_KERNELS_PER_STEP}
+            raise AssertionError(f"{tag}: a {name} launched {got}, expected {want}")
+    names = set(per_step) | set(per_chunk)
+    want = {n: PPO_STEPS * per_step.get(n, 0) + PPO_EPOCHS * per_chunk.get(n, 0) for n in names}
     got = {n: launches.get(n, 0) for n in want}
     if got != want or any(v for k, v in launches.items() if k not in want):
-        raise AssertionError(f"PPO launches {launches} != {want}")
+        raise AssertionError(f"{tag}: PPO launches {launches} != {want}")
 
     # the `done` checkpoint loads into a fresh trainer with the same state
     directory = work / "ckpts" / f"checkpoint_{PPO_STEPS}"
@@ -1195,15 +1232,27 @@ def phase_ppo(card):
                         for k in ("mean", "std", "var", "count"))
     same = same and len(fresh.store) == len(trainer.store) and all(
         (a.response_tensor == b.response_tensor).all() and (a.rewards == b.rewards).all()
+        and (a.h_split is None) == (b.h_split is None) and (a.h_split is None or torch.equal(a.h_split, b.h_split))
         for a, b in zip(fresh.store.history, trainer.store.history))
     if not same or fresh.iter_count != PPO_STEPS:
-        raise AssertionError("the done checkpoint did not load back with the same state")
+        raise AssertionError(f"{tag}: the done checkpoint did not load back with the same state")
     kept = sorted(p.name for p in (work / "ckpts").iterdir())
-    log(f"[ppo] checkpoint {directory.name} loads into a fresh PPOTrainer: policy and reference parameters, "
-        f"KL value, running moments and store equal; checkpoint dir holds {kept}")
-    del trainer, fresh
+    log(f"[{tag}] checkpoint {directory.name} loads into a fresh PPOTrainer: policy and reference parameters, "
+        f"KL value, running moments and store{' (with its trunk cache rows)' if fills else ''} equal; "
+        f"checkpoint dir holds {kept}")
+    del fresh
+    return trainer, launches, metrics
+
+
+def phase_ppo(card):
+    import torch
+
+    work = ROOT / "build" / "chip_smoke_ppo"
+    trainer, launches, metrics = ppo_run(card, "ppo", work, ppo_config(work), PPO_KERNELS_PER_STEP,
+                                         PPO_KERNELS_PER_CHUNK)
+    del trainer
     torch.cuda.empty_cache()
-    return launches, dict(step_s=step_s, train_tokens_per_s=tok_s, samples_per_s=samples_per_s, wall_s=wall)
+    return launches, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -1304,6 +1353,167 @@ def phase_ppo_grad_check():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: PPO with the bench's headline options
+# ---------------------------------------------------------------------------
+
+# the three method options the JAX bench turns on (`bench.py:123-160`), at
+# their defaults: spec_k 4, spec_draft_rank 64, a bf16 trunk cache
+PPO_OPTIONS = dict(cache_trunk_activations=True, speculative_decode=True, quantize_frozen_trunk=True)
+# per optimizer step: no K3 (the trunk cache stands in for the 10 frozen
+# blocks), K4-K6 in the 2 trainable ones, K7 and its backward; per 128-row
+# chunk: scoring's 14 K3 and 2 K7, and the trunk fill's 10 K3
+PPO_OPT_KERNELS_PER_STEP = {"flash_fwd_lse": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                            "label_logprobs": 1, "label_logprobs_bwd": 1}
+PPO_OPT_KERNELS_PER_CHUNK = {"flash_fwd": 24, "label_logprobs": 2}
+# greedy speculative vs plain decode at f32: a row may differ only where
+# the plain sampler's top two warped scores lie within TIE_GAP (the k+1-row
+# verify GEMM and the 1-row decode GEMM round differently)
+TIE_GAP = 1e-4
+# the trunk cache against the full path: f32 cache, loss within 1e-6
+# relative (gradients GRAD_TOL); bf16 cache, loss within 2e-3 relative
+# (`tests/test_trunk_cache.py`'s bound)
+CACHE_F32_LOSS_TOL, CACHE_BF16_LOSS_TOL = 1e-6, 2e-3
+
+
+def greedy_spec_vs_plain(trainer, batch):
+    """Greedy speculative and plain sampling of one prompt batch on the
+    trainer's decode view (the int8 trunk). Returns (rows, equal rows,
+    [(row, position, the plain sampler's top-two gap there)] for each row
+    that differs, the speculative counters)."""
+    import torch
+
+    from trlx_tpu_torch.ops import sampling
+
+    gen = dict(max_new_tokens=PPO_NEW, do_sample=False, suppress_tokens=PPO_SUPPRESS)
+    gaps, process = [], sampling.process_logits
+
+    def recording(logits, cfg, step, seen=None):
+        out = process(logits, cfg, step, seen)
+        top = torch.topk(out, 2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        return out
+
+    sampling.process_logits = recording  # the plain loop's warp, read at call time
+    try:
+        plain = trainer.generate(batch["input_ids"], batch["attention_mask"], gen)
+    finally:
+        sampling.process_logits = process
+    spec = trainer.generate(batch["input_ids"], batch["attention_mask"], gen, spec_k=trainer._spec_k_effective())
+    diff = plain["response_tokens"] != spec["response_tokens"]
+    first = diff.int().argmax(dim=1)
+    gap = torch.stack(gaps, dim=1)
+    differ = [(r, int(first[r]), float(gap[r, first[r]])) for r in diff.any(dim=1).nonzero()[:, 0].tolist()]
+    counters = (int(spec["spec_rounds"].sum()), int(spec["spec_accepted"].sum()))
+    return diff.shape[0], diff.shape[0] - len(differ), differ, counters
+
+
+def phase_ppo_options(card, base):
+    """PPO through `trlx_tpu_torch.train(reward_fn=...)` with the three
+    options on phase 9's configuration; then, on the card, greedy
+    speculative vs plain sampling (f32 and bf16, the int8 view in both),
+    the trunk cache against the full path (f32 and bf16 caches), and the
+    decode view's build time and bytes. `base` holds phase 9's numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.ops import quant, sampling
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    work = ROOT / "build" / "chip_smoke_ppo_options"
+    config = ppo_config(work).evolve(method=PPO_OPTIONS)
+    trainer, launches, m = ppo_run(card, "ppo-options", work, config, PPO_OPT_KERNELS_PER_STEP,
+                                   PPO_OPT_KERNELS_PER_CHUNK)
+    if trainer.spec_decode_fallbacks != 0 or not trainer._trunk_cache_available():
+        raise AssertionError(f"the options fell back: spec_decode_fallbacks={trainer.spec_decode_fallbacks}, "
+                             f"trunk cache gate {trainer._trunk_cache_available()}")
+    if None in m["spec_accept_rate"] or any(e.h_split is None for e in trainer.store.history):
+        raise AssertionError("a collection ran without speculative decode or without the trunk cache")
+
+    # the decode view: built once (the trainer's own was built at its first
+    # sampling call), dequantized once per sampling call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    view = quant.quantize_frozen(trainer.model, trainer.split)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dense = quant.dequantize_tree(view, torch.bfloat16)
+    torch.cuda.synchronize()
+    dequant_ms = (time.perf_counter() - t0) * 1e3
+    int8_bytes = quant.quantized_bytes(view)
+    bf16_bytes = sum(t.numel() * t.element_size() for t in dense.values())
+    f32_bytes = 2 * bf16_bytes
+    # the draft head: a host SVD, computed once inside the first sampling call
+    t0 = time.perf_counter()
+    sampling.spec_draft_head_from_params(trainer.model.state_dict(), trainer.model_cfg,
+                                         config.method.spec_draft_rank)
+    head_s = time.perf_counter() - t0
+    log(f"[ppo-options] decode view: {len(view)} frozen matrices, built in {build_ms:.2f} ms, {int8_bytes:,} bytes "
+        f"int8 and scales ({f32_bytes:,} bytes as f32 parameters); dequantized to bf16 per sampling call in "
+        f"{dequant_ms:.2f} ms, {bf16_bytes:,} bytes; the rank-{config.method.spec_draft_rank} draft head's SVD "
+        f"on the host {head_s:.2f} s, once ({card})")
+    del view, dense
+
+    # greedy speculative vs plain at bf16 (the run's trainer): a share only
+    trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
+    n, equal, _, (rounds, accepted) = greedy_spec_vs_plain(trainer, trainer._next_prompts())
+    log(f"[ppo-options] greedy speculative vs plain, bf16, int8 view: {equal} of {n} rows equal "
+        f"(accepted {accepted} drafts in {rounds} row-rounds)")
+    bf16_equal = equal / n
+    del trainer
+    torch.cuda.empty_cache()
+
+    # at f32: greedy speculative vs plain under the tie rule, and the trunk cache
+    f32_config = ppo_config(ROOT / "build" / "chip_smoke_ppo_options_f32", dtype="float32").evolve(
+        method=dict(PPO_OPTIONS, trunk_cache_dtype="float32"))
+    trainer = PPOTrainer(f32_config, reward_fn=ppo_reward)
+    trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
+    n, equal, differ, (rounds, accepted) = greedy_spec_vs_plain(trainer, trainer._next_prompts())
+    ties = [d for d in differ if d[2] <= TIE_GAP]
+    log(f"[ppo-options] greedy speculative vs plain, f32, int8 view, {n} rows x {PPO_NEW} tokens: {equal} equal; "
+        f"{len(differ)} differ, each at a near tie (row, first position, plain top-two gap): {differ} "
+        f"(tie rule: gap <= {TIE_GAP}); accepted {accepted} drafts in {rounds} row-rounds")
+    if len(ties) != len(differ):
+        raise AssertionError(f"greedy speculative decode left the plain sampler away from a tie: {differ}")
+
+    batch = ppo_injected_batch()
+    tokens = torch.from_numpy(np.concatenate([batch.query_tensors, batch.response_tensors], 1))
+    h32 = trainer.trunk_cache_fill(tokens.to(trainer.device).long())
+    loss_f, grads_f, gate = ppo_step_grads(trainer, batch)
+    kernels.reset_launches()
+    loss_c, grads_c, _ = ppo_step_grads(trainer, dataclasses.replace(batch, h_split=h32), gate=gate)
+    cached_launches = dict(kernels.LAUNCHES)
+    loss_b, _, _ = ppo_step_grads(trainer, dataclasses.replace(batch, h_split=h32.to(torch.bfloat16)), gate=gate)
+    worst = check_grads(grads_c, grads_f)
+    rel_f32, rel_bf16 = abs(loss_c - loss_f) / abs(loss_f), abs(loss_b - loss_f) / abs(loss_f)
+    log(f"[ppo-options] trunk cache, f32, 32 injected rows t {PPO_T}: loss full={loss_f:.9f} f32 cache={loss_c:.9f} "
+        f"(rel {rel_f32:.3g}, tol {CACHE_F32_LOSS_TOL}) bf16 cache={loss_b:.9f} (rel {rel_bf16:.3g}, tol "
+        f"{CACHE_BF16_LOSS_TOL}); {len(grads_c)} trainable grads with the full path's ReLU gate, worst "
+        f"max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}); the cached step launched {cached_launches}")
+    if rel_f32 > CACHE_F32_LOSS_TOL or rel_bf16 > CACHE_BF16_LOSS_TOL or cached_launches.get("flash_fwd", 0):
+        raise AssertionError("the trunk cache's step disagrees with the full path or ran the trunk")
+    del trainer
+    torch.cuda.empty_cache()
+
+    pair = lambda key, fmt: f"{key} {fmt(m[key])} (phase 9: {fmt(base[key])})"
+    rnd = lambda xs: [round(x, 4) for x in xs]
+    log(f"[ppo-options] vs phase 9 in this call ({card}): " + "; ".join([
+        pair("samples_per_s", rnd), pair("sampling_s", rnd), pair("rollout_tokens_per_s", rnd),
+        pair("step_s", lambda x: f"{x:.4f}"), pair("train_tokens_per_s", lambda x: f"{x:.1f}"),
+        f"spec_accept_rate {rnd(m['spec_accept_rate'])}", f"spec_tokens_per_round {rnd(m['spec_tokens_per_round'])}",
+        f"trunk_fill_ms per chunk {rnd(m['trunk_fill_ms'])}"]))
+    summary = dict(m, view_build_ms=build_ms, view_int8_bytes=int8_bytes, view_bf16_bytes=bf16_bytes,
+                   view_dequant_ms=dequant_ms, draft_head_s=head_s, greedy_f32_equal_rows=equal, greedy_f32_rows=n,
+                   greedy_f32_ties=differ, greedy_bf16_equal_share=bf16_equal, cache_f32_loss_rel=rel_f32,
+                   cache_bf16_loss_rel=rel_bf16, cache_grad_worst=worst, spec_decode_fallbacks=0)
+    return launches, summary
+
+
 def build_report(ptxas_out):
     """One line per compiled kernel from `nvcc -Xptxas -v`: its name and
     template arguments (float, head dim, lse), registers and spills; and every
@@ -1355,8 +1565,9 @@ def main() -> int:
     train_timings, train_errs = phase_train_kernels(device)
     train_launches, _ = phase_train(card)
     phase_grad_check()
-    ppo_launches, _ = phase_ppo(card)
+    ppo_launches, ppo_metrics = phase_ppo(card)
     phase_ppo_grad_check()
+    options_launches, options = phase_ppo_options(card, ppo_metrics)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -1365,10 +1576,12 @@ def main() -> int:
         dict(name="paged_decode", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:50", launches=launches_bf16,
              launches_ppo=ppo_launches.get("paged_decode", 0),
+             launches_ppo_options=options_launches.get("paged_decode", 0),
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
              launches_ppo=ppo_launches.get("paged_decode_int8", 0),
+             launches_ppo_options=options_launches.get("paged_decode_int8", 0),
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
     ]}
     train_rows = [
@@ -1386,9 +1599,17 @@ def main() -> int:
         ppo_shapes = [s for s in ("ppo-score", "ppo-train") if (name, s) in train_timings]
         report["kernels"].append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=train_launches[name],
-            launches_ppo=ppo_launches.get(name, 0), max_abs_err=train_errs[name],
+            launches_ppo=ppo_launches.get(name, 0), launches_ppo_options=options_launches.get(name, 0),
+            max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes}))
+    # phase 11's checks: the exact launch counts (K3 none a step, 24 a
+    # chunk), no fallback, greedy speculative vs plain under the tie rule,
+    # the trunk cache against the full path; and its numbers
+    report["ppo_options"] = dict(
+        kernels_per_step=PPO_OPT_KERNELS_PER_STEP, kernels_per_chunk=PPO_OPT_KERNELS_PER_CHUNK,
+        tie_gap=TIE_GAP, cache_loss_tol={"f32": CACHE_F32_LOSS_TOL, "bf16": CACHE_BF16_LOSS_TOL},
+        grad_tol=GRAD_TOL, **options)
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,15 @@ and the 16 optimizer steps. Each device phase is traced with
 `torch.profiler`: its wall time, device time by kernel, and the device's
 busy share. Prints one JSON line at the end.
 
-    python3 scripts/profile_torch_ppo.py
+With `--options` the trainer runs phase 11's configuration, the JAX
+bench's headline options (the int8 frozen-trunk decode view, speculative
+decode, the trunk activation cache): sampling is speculative, and the
+trunk cache's fill is a phase of its own after scoring.
+
+    python3 scripts/profile_torch_ppo.py [--options]
 """
+
+import argparse
 
 import json
 import subprocess
@@ -60,7 +67,7 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from chip_smoke import PPO_ROLLOUTS, ppo_config, ppo_prompts, ppo_reward
+    from chip_smoke import PPO_OPTIONS, PPO_ROLLOUTS, ppo_config, ppo_prompts, ppo_reward
     from trlx_tpu_torch.pipeline import MiniBatchIterator
     from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
@@ -71,7 +78,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--options", action="store_true", help="phase 11's options on")
+    args = parser.parse_args()
     config = ppo_config(ROOT / "build" / "profile_torch_ppo")
+    if args.options:
+        config = config.evolve(method=PPO_OPTIONS)
     trainer = PPOTrainer(config, reward_fn=ppo_reward)
     trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
     method = config.method
@@ -91,7 +103,9 @@ def main() -> int:
 
     phases = {}
     batch = trainer._next_prompts()
-    out, wall, rows = traced(lambda: trainer.generate(batch["input_ids"], batch["attention_mask"])["samples"].cpu())
+    spec_k = trainer._spec_k_effective()
+    out, wall, rows = traced(lambda: trainer.generate(batch["input_ids"], batch["attention_mask"],
+                                                      spec_k=spec_k)["samples"].cpu())
     phases["rollout_generate"] = (wall, rows)
     t0 = time.perf_counter()
     prompts, outputs, *_ = trainer._host_process_chunk(batch, out.numpy())
@@ -99,11 +113,15 @@ def main() -> int:
     tokens = torch.from_numpy(np.concatenate([prompts, outputs], axis=1)).to(trainer.device).long()
     _, wall, rows = traced(lambda: [x.cpu() for x in trainer.score(tokens)])
     phases["score"] = (wall, rows)
+    if trainer._trunk_cache_available():
+        _, wall, rows = traced(lambda: trainer.trunk_cache_fill(tokens))
+        phases["trunk_cache_fill"] = (wall, rows)
     n_steps, wall, rows = traced(train_cycle)
     phases["train_steps"] = (wall, rows)
 
     print(f"card: {card}")
-    report = {"card": card, "rollouts": PPO_ROLLOUTS, "train_steps": n_steps, "phases": {}}
+    report = {"card": card, "options": args.options, "rollouts": PPO_ROLLOUTS, "train_steps": n_steps,
+              "phases": {}}
     cycle_ms = sum(w for w, _ in phases.values())
     for name, (wall, rows) in phases.items():
         device_ms = sum(r[1] for r in rows)

@@ -221,9 +221,6 @@ def test_gc_checkpoints_matches_jax(keep_n, tmp_path):
 
 @pytest.mark.parametrize("section,key,value,item", [
     ("method", "capture_rollout_stats", True, "item 1"),
-    ("method", "cache_trunk_activations", True, "item 1"),
-    ("method", "speculative_decode", True, "item 1"),
-    ("method", "quantize_frozen_trunk", True, "item 1"),
     ("method", "num_value_layers_unfrozen", 1, "item 1"),
     ("method", "multiturn_env", "calculator", "item 3"),
     ("train", "rollout_backend", "fleet", "item 3"),

@@ -3,13 +3,16 @@ the PPO data containers (port of the JAX package's `data/__init__.py`:
 `PPORLElement` and `PPORLBatch`).
 
 Elements and batches are plain dataclasses of numpy arrays on the host;
-the trainer moves a batch's arrays to its device (`batch_to_device`).
+the trainer moves a batch's arrays to its device (`batch_to_device`). The
+one exception is the trunk activation cache (`h_split`), a torch tensor
+that stays on the device: it is bf16 by default, which numpy lacks.
 """
 
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -22,10 +25,12 @@ class PPORLElement:
     logprobs: np.ndarray  # [response_size]
     values: np.ndarray  # [response_size]
     rewards: np.ndarray  # [response_size]
-    # the trunk activation cache, GRPO group ids and multi-turn loss masks
-    # of the JAX package; their features are not ported yet, so they stay
-    # None here
-    h_split: Optional[np.ndarray] = None
+    # the frozen trunk's activation entering the hydra split over the
+    # query and response tokens, [query_size + response_size, d] on the
+    # device, when method.cache_trunk_activations is on
+    h_split: Optional[torch.Tensor] = None
+    # GRPO group ids and multi-turn loss masks of the JAX package; their
+    # features are not ported yet, so they stay None here
     group_id: Optional[int] = None
     loss_mask: Optional[np.ndarray] = None
 
@@ -40,6 +45,8 @@ class PPORLBatch:
     logprobs: Any  # f32 [b, padded_response]
     values: Any  # f32 [b, padded_response]
     rewards: Any  # f32 [b, padded_response]
+    # the trunk cache aligned with concat(query_tensors, response_tensors):
+    # [b, padded_query + padded_response, d] on the device, or None
     h_split: Any = None
     group_ids: Any = None
     loss_masks: Any = None

@@ -3,9 +3,11 @@ utilities.
 
 Port of the JAX package's `models/policy.py`: `CausalLMWithValueHead`
 with the MLP value head (the training forward, the windowed head of the
-PPO loss, the cached decode steps of the sampler and the inference
-engine), the frozen hydra reference (`HydraReference`, the JAX
-`ref_param_subtree` with `forward_ref_suffix` / `forward_ref_full`),
+PPO loss, the trunk cache's fill and the suffix resumed from it, the
+cached decode steps of the sampler, the speculative sampler's draft and
+verify, and the inference engine's), the frozen hydra reference
+(`HydraReference`, the JAX `ref_param_subtree` with `forward_ref_suffix` /
+`forward_ref_full`),
 `forward_policy_and_ref`, `resolve_split` and `trainable_mask`. The
 deeper value branch (`ValueBranch`) and the capture decode are ROADMAP
 queue A, item 1; LoRA and prompt tuning are refused at model build until
@@ -42,6 +44,41 @@ class CausalLMWithValueHead(nn.Module):
         position's hidden state on its own, so windowing it is exact."""
         logits, h_final = self.lm.forward_window(tokens, attn_mask, positions, start, length)
         return logits, self.v_head(h_final)[..., 0]
+
+    def forward_trunk(self, tokens, attn_mask, positions=None, split: int = 0):
+        """The frozen prefix alone: embeddings and blocks [0, split), the
+        activation entering the hydra split (the trunk cache's fill)."""
+        return self.lm.forward_trunk(tokens, attn_mask, positions, split)
+
+    def forward_from_cache(self, h_split, attn_mask, positions=None, start_layer: int = 0):
+        """(logits, values) resuming blocks [start_layer, n_layers), the
+        head and the value head from a cached trunk activation. Exact when
+        the trunk is frozen, as it is under any split > 0."""
+        logits, h_final = self.lm.forward_from_captures(h_split, attn_mask, positions, start_layer)
+        return logits, self.v_head(h_final)[..., 0]
+
+    def forward_from_cache_window(self, h_split, attn_mask, positions=None, start_layer: int = 0,
+                                  start: int = 0, length: int = 1):
+        """`forward_from_cache` with the windowed head: (logits_win,
+        values_win) over positions [start, start + length) only (the
+        trunk-cache step's forward)."""
+        logits, h_final = self.lm.forward_from_window(h_split, attn_mask, positions, start_layer, start, length)
+        return logits, self.v_head(h_final)[..., 0]
+
+    def spec_draft_step(self, tokens, cache, token_mask, split: int):
+        """Trunk-only per-row draft step of self-speculative decode. Returns
+        (h_split, ln_f(h_split), new_cache); no head runs."""
+        return self.lm.spec_draft_step(tokens, cache, token_mask, split)
+
+    def spec_verify_rows(self, h, cache, row_start, positions, split: int, with_value: bool = False,
+                         token_mask=None):
+        """Batched suffix verify from the trunk's own rows. Returns (logits,
+        values or None, layers); values come from the MLP value head on
+        h_final (the capture path asks for them; the deeper value branch,
+        which the JAX package refuses here, is not ported)."""
+        logits, h_final, layers = self.lm.spec_verify_rows(h, cache, row_start, positions, split, token_mask)
+        values = self.v_head(h_final)[..., 0] if with_value else None
+        return logits, values, layers
 
     def decode_step(self, tokens, cache, token_mask, is_prefill: bool = False):
         """Cached decode over the fixed-slot cache (the sampler's). Returns

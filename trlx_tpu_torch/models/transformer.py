@@ -4,10 +4,14 @@ Port of the JAX package's `models/transformer.py`: `TransformerConfig`,
 `PRESETS`, `TransformerLM` with `embed`/`unembed`, the training/scoring
 forward (`forward`, dense causal bias or the flash kernels under
 `attn_impl="flash"`; `forward_window`, the head over a window only), the
-fixed-slot dense KV cache (`init_kv_cache`, `decode_step`) that the sampler
-uses, and the per-row cached `prefill_rows` and `decode_step_rows` over a
-paged KV arena
-(`init_paged_kv_arena`) that the inference engine uses. Families: GPT-2
+trunk-cache pair (`forward_trunk`, the embeddings and the frozen blocks;
+`forward_from_captures` / `forward_from_window`, the rest resumed from
+their output), the fixed-slot dense KV cache (`init_kv_cache`,
+`decode_step`) that the sampler uses, with per-row offsets for the
+speculative sampler's `spec_draft_step` (the trunk alone) and
+`spec_verify_rows` (the suffix over all drafted positions at once), and
+the per-row cached `prefill_rows` and `decode_step_rows` over a paged KV
+arena (`init_paged_kv_arena`) that the inference engine uses. Families: GPT-2
 (learned positions, LayerNorm, tanh-gelu, tied embeddings) and the llama
 knobs (rope, RMSNorm, silu-glu, GQA/MQA, untied head, no biases).
 
@@ -282,12 +286,23 @@ class Attention(nn.Module):
             return self._dense(q, k, v, attn_bias), None
         if "table" not in layer_cache:
             # Fixed-slot dense cache (the sampler's): write this step's K/V
-            # in place at the scalar column `cache_index`, then attend over
-            # the whole static-length cache under the caller's bias.
-            idx = int(cache_index)
-            layer_cache["k"][:, idx:idx + t] = k.to(layer_cache["k"].dtype)
-            layer_cache["v"][:, idx:idx + t] = v.to(layer_cache["v"].dtype)
-            return self._dense(q, layer_cache["k"], layer_cache["v"], attn_bias), layer_cache
+            # in place at the scalar column `cache_index` (every row at one
+            # depth) or at per-row columns (a [b] tensor: the speculative
+            # sampler's rows diverge), then attend over the whole
+            # static-length cache under the caller's bias. Per-row starts
+            # clamp to [0, S - t] as JAX's dynamic_update_slice does.
+            ck, cv = layer_cache["k"], layer_cache["v"]
+            if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+                start = cache_index.clamp(0, ck.shape[1] - t)
+                cols = start[:, None] + torch.arange(t, device=h.device)[None, :]
+                rows = torch.arange(b, device=h.device)[:, None]
+                ck[rows, cols] = k.to(ck.dtype)
+                cv[rows, cols] = v.to(cv.dtype)
+            else:
+                idx = int(cache_index)
+                ck[:, idx:idx + t] = k.to(ck.dtype)
+                cv[:, idx:idx + t] = v.to(cv.dtype)
+            return self._dense(q, ck, cv, attn_bias), layer_cache
         # Paged KV pool: a global block arena k/v [n_blocks + 1, blk, nkv,
         # hd] shared by every slot plus a per-row block table [b, n_tbl].
         # This step's K/V is written in place at per-row columns
@@ -461,10 +476,13 @@ class TransformerLM(nn.Module):
             return self.embed_tokens.attend(h_final), h_final
         return self.lm_head(h_final), h_final
 
-    def run_blocks(self, h, attn_bias, positions, cache, cache_index, attn_mask=None, attn_kernel=None):
+    def run_blocks(self, h, attn_bias, positions, cache, cache_index, attn_mask=None, attn_kernel=None,
+                   start: int = 0, stop: Optional[int] = None):
+        """Blocks [start, stop) over their layer caches (indexed by absolute
+        layer). Returns (h, the caches of those layers)."""
         new_layers = []
-        for blk, layer_cache in zip(self.blocks, cache):
-            h, new_cache = blk(h, attn_bias, positions, layer_cache, cache_index, attn_mask, attn_kernel)
+        for i in range(start, self.cfg.n_layers if stop is None else stop):
+            h, new_cache = self.blocks[i](h, attn_bias, positions, cache[i], cache_index, attn_mask, attn_kernel)
             new_layers.append(new_cache)
         return h, new_layers
 
@@ -493,11 +511,42 @@ class TransformerLM(nn.Module):
         Returns (logits_win, h_final_win)."""
         if positions is None:
             positions = position_ids(attn_mask)
-        h = self.embed(tokens, positions)
-        bias = train_bias(self.cfg, attn_mask)
-        for blk in self.blocks:
-            h, _ = blk(h, bias, positions, attn_mask=attn_mask)
+        return self.forward_from_window(self.embed(tokens, positions), attn_mask, positions, 0, start, length)
+
+    def forward_trunk(self, tokens, attn_mask, positions=None, split: int = 0):
+        """Embeddings and blocks [0, split) only: the activation entering
+        block `split` (the h_split `forward` returns), no head. One such
+        pass per rollout chunk fills the PPO trunk cache."""
+        if positions is None:
+            positions = position_ids(attn_mask)
+        return self._run_from(self.embed(tokens, positions), attn_mask, positions, 0, split)
+
+    def forward_from_captures(self, h, attn_mask, positions=None, start_layer: int = 0):
+        """Resume blocks [start_layer, n_layers) from a cached activation
+        `h` entering `start_layer`, full-width head. Returns (logits,
+        h_final). (The JAX method also returns the deeper value branch's
+        input; the branch is not ported.)"""
+        if positions is None:
+            positions = position_ids(attn_mask)
+        return self.unembed(self._run_from(h, attn_mask, positions, start_layer))
+
+    def forward_from_window(self, h, attn_mask, positions=None, start_layer: int = 0, start: int = 0,
+                            length: int = 1):
+        """`forward_from_captures` with `forward_window`'s head: blocks
+        [start_layer, n_layers) over the full width, the final norm and
+        unembedding over positions [start, start + length) only. Returns
+        (logits_win, h_final_win)."""
+        if positions is None:
+            positions = position_ids(attn_mask)
+        h = self._run_from(h, attn_mask, positions, start_layer)
         return self.unembed(h[:, start:start + length])
+
+    def _run_from(self, h, attn_mask, positions, start_layer: int, stop_layer: Optional[int] = None):
+        """Blocks [start_layer, stop_layer) of a no-cache forward."""
+        bias = train_bias(self.cfg, attn_mask)
+        for blk in self.blocks[start_layer:stop_layer]:
+            h, _ = blk(h, bias, positions, attn_mask=attn_mask)
+        return h
 
     def decode_step(self, tokens, cache: Dict[str, Any], token_mask, is_prefill: bool = False):
         """One cached call over the fixed-slot dense cache (`init_kv_cache`):
@@ -566,6 +615,74 @@ class TransformerLM(nn.Module):
             "layers": new_layers,
         }
         return logits, new_cache
+
+    def spec_draft_step(
+        self,
+        tokens: torch.Tensor,  # [b, 1]
+        cache: Dict[str, Any],
+        token_mask: torch.Tensor,  # [b, 1] validity (0 = finished row)
+        split: int,
+    ):
+        """One per-row cached step of the trunk only (blocks [0, split)) for
+        self-speculative drafting, over the fixed-slot dense cache with
+        per-row offsets (`cache["row_index"]`, [b]). Writes the trunk's K/V
+        at each row's own column and the row's mask bit, leaves the suffix
+        layers' caches to the verify pass. A drafted position becomes a
+        visible key only once its mask bit is set, so a rejected draft rolls
+        back by clearing bits, and stale K/V past the frontier contributes
+        exactly 0 (exp(-1e9) is 0.0 in f32). Returns (h_split [b, 1, d],
+        ln_f(h_split), new_cache)."""
+        row_index = cache["row_index"]
+        positions = cache["pos"][:, None]
+        step_valid = token_mask[:, 0].to(row_index.dtype)
+        mask = cache["mask"]
+        S = mask.shape[-1]
+        # a row at column S is past the cache, where JAX's scatter drops
+        col = row_index.clamp(max=S - 1)[:, None]
+        cur = torch.gather(mask, 1, col)
+        val = torch.where(row_index[:, None] < S, token_mask[:, :1].to(mask.dtype), cur)
+        new_mask = mask.scatter(1, col, val)
+        bias = decode_bias(new_mask, 1)
+        h = self.embed(tokens, positions)
+        h, _ = self.run_blocks(h, bias, positions, cache["layers"], row_index, attn_mask=token_mask, stop=split)
+        new_cache = {
+            "row_index": row_index + step_valid,
+            "mask": new_mask,
+            "pos": cache["pos"] + step_valid,
+            "layers": cache["layers"],
+        }
+        return h, self.ln_f(h), new_cache
+
+    def spec_verify_rows(
+        self,
+        h: torch.Tensor,  # [b, t, d] the trunk's output at the t drafted positions
+        cache: Dict[str, Any],
+        row_start: torch.Tensor,  # [b] cache column of h's first position
+        positions: torch.Tensor,  # [b, t]
+        split: int,
+        token_mask: Optional[torch.Tensor] = None,  # [b, t] write validity
+    ):
+        """The batched suffix verify of self-speculative decode: blocks
+        [split, n_layers) resumed from the trunk's own rows, writing the
+        suffix K/V of all t positions in one pass. The draft steps already
+        set the mask bits of columns [row_start, row_start + t); within
+        that span query j may not see keys written for later queries (the
+        prefill's within-block causal correction with per-row offsets;
+        doubly forbidden columns carry -2e9, still exactly 0 after the
+        softmax). Returns (logits, h_final, layers)."""
+        b, t, _ = h.shape
+        mask = cache["mask"]
+        S = mask.shape[-1]
+        bias = decode_bias(mask, t)
+        q_ids = torch.arange(t, device=h.device)[None, :, None]
+        k_ids = torch.arange(S, device=h.device)[None, None, :]
+        start = row_start[:, None, None]
+        within = (k_ids >= start) & (k_ids - start > q_ids)  # [b, t, S]
+        bias = bias + torch.where(within[:, None], -1e9, 0.0).to(torch.float32)
+        h, _ = self.run_blocks(h, bias, positions, cache["layers"], row_start, attn_mask=token_mask,
+                               start=split)
+        logits, h_final = self.unembed(h)
+        return logits, h_final, cache["layers"]
 
     def prefill_rows(
         self,

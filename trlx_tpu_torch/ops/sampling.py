@@ -10,12 +10,24 @@ token by token with logit processing, a transition logit mask,
 budget runs out. Sampling draws from an explicit `torch.Generator`;
 JAX's PRNG streams cannot be reproduced in torch, so sampled tokens
 agree with the JAX package only in distribution, while greedy decoding
-is token-exact. ILQL, seq2seq and beams (ROADMAP queue A, item 4), stat
-capture and speculative decode (item 1) raise.
+is token-exact.
+
+With `spec_k > 0` the sampler is self-speculative (`generate_spec`): the
+frozen trunk below the hydra split and a low-rank readout of the
+unembedding (`spec_draft_head_from_params`) draft `spec_k` tokens a
+round, one suffix pass verifies them all, the longest agreeing prefix is
+kept (greedy: argmax agreement; sampled: rejection sampling with the
+residual correction), and the rejected K/V is rolled back by clearing
+mask bits. Greedy output is the plain sampler's; sampled output follows
+the same distribution. Either sampler may run on a decode view of the
+parameters (`params`, the int8 frozen trunk of `ops/quant.py`).
+
+ILQL, seq2seq and beams (ROADMAP queue A, item 4) and stat capture (item
+1) raise.
 """
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -133,14 +145,22 @@ def make_generate_fn(
     mode: str = "lm",
     logit_mask: Optional[np.ndarray] = None,  # [V, V] True = forbidden transition
     capture: bool = False,
-    spec_k: int = 0,
+    spec_k: int = 0,  # > 0: self-speculative decode, spec_k drafts a round
+    spec_split: int = 0,  # the hydra split: the draft trunk's depth
+    spec_draft_head: Optional[Tuple[np.ndarray, np.ndarray]] = None,  # (A [d, r], B [r, V])
 ) -> Callable:
-    """Build generate(input_ids [b, p], attn_mask [b, p], generator) ->
-    dict(samples, samples_mask, response_tokens, response_mask), with
-    outputs [b, p + max_new_tokens] / [b, max_new_tokens] like the JAX
-    sampler's. `model` is a `CausalLMWithValueHead` whose parameters live
-    on the device the inputs are moved to."""
+    """Build generate(input_ids [b, p], attn_mask [b, p], generator,
+    params=None) -> dict(samples, samples_mask, response_tokens,
+    response_mask), with outputs [b, p + max_new_tokens] / [b,
+    max_new_tokens] like the JAX sampler's, plus `spec_rounds` and
+    `spec_accepted` ([b]: rounds each row took part in, drafts it kept)
+    under speculative decode. `model` is a `CausalLMWithValueHead` whose
+    parameters live on the device the inputs are moved to; `params`, a
+    decode view `{name: tensor or (q, scale)}`, replaces those parameters
+    for the call (`ops/quant.dequantize_tree`)."""
     from trlx_tpu_torch.models.transformer import init_kv_cache
+    from trlx_tpu_torch.ops.quant import dequantize_tree
+    from trlx_tpu_torch.utils.modeling import swapped_params
 
     if mode != "lm":
         raise NotImplementedError(f"mode={mode!r} (ILQL sampling) is not ported yet (ROADMAP queue A, item 4)")
@@ -153,25 +173,46 @@ def make_generate_fn(
             "rollout stat capture (the capture_split decode) is not ported yet (ROADMAP queue A, item 1)"
         )
     if spec_k > 0:
-        raise NotImplementedError(
-            "self-speculative decode is not ported yet (ROADMAP queue A, item 1: its remainder)"
-        )
+        # the JAX sampler's own refusals: a direct caller must not get a
+        # sampler whose distribution differs from the plain one
+        if gen_cfg.repetition_penalty != 1.0:
+            raise NotImplementedError(
+                "speculative decode with repetition_penalty != 1 is not supported (the seen-token mask "
+                "would need per-draft rollback)"
+            )
+        if spec_split <= 0:
+            raise ValueError("speculative decode requires a hydra split > 0 (the frozen trunk is the draft model)")
+        if spec_draft_head is None:
+            raise ValueError("speculative decode requires a draft head (A, B); see spec_draft_head_from_params")
     max_new = gen_cfg.max_new_tokens
     track_seen = gen_cfg.repetition_penalty != 1.0
+    greedy = not gen_cfg.do_sample or gen_cfg.temperature == 0.0
 
-    @torch.no_grad()
-    def generate(input_ids, attn_mask, generator: Optional[torch.Generator] = None):
+    def setup(input_ids, attn_mask):
         device = next(model.parameters()).device
         input_ids = torch.as_tensor(np.asarray(input_ids), device=device).long()
         attn_mask = torch.as_tensor(np.asarray(attn_mask), device=device).to(torch.int32)
-        b, plen = input_ids.shape
-        V = model_cfg.vocab_size
         suppress = forbid = None
         if gen_cfg.suppress_tokens:
-            suppress = torch.zeros(V, dtype=torch.float32, device=device)
+            suppress = torch.zeros(model_cfg.vocab_size, dtype=torch.float32, device=device)
             suppress[torch.as_tensor(gen_cfg.suppress_tokens, device=device).long()] = -float("inf")
         if logit_mask is not None:
             forbid = torch.as_tensor(np.asarray(logit_mask), device=device).bool()
+
+        def shift(logits, prev):
+            """suppress_tokens, then the transitions from the previous token."""
+            if suppress is not None:
+                logits = logits + suppress
+            if forbid is not None:
+                logits = torch.where(forbid[prev], -float("inf"), logits)
+            return logits
+
+        return device, input_ids, attn_mask, shift
+
+    def generate_plain(input_ids, attn_mask, generator):
+        device, input_ids, attn_mask, shift = setup(input_ids, attn_mask)
+        b, plen = input_ids.shape
+        V = model_cfg.vocab_size
         cache = init_kv_cache(model_cfg, b, plen + max_new, device=device)
         logits, cache = model.decode_step(input_ids, cache, attn_mask, is_prefill=True)
         logits = logits[:, -1].float()
@@ -189,12 +230,7 @@ def make_generate_fn(
             if i > 0:
                 step_logits, cache = model.decode_step(prev[:, None], cache, out_mask[:, i - 1:i])
                 logits = step_logits[:, -1].float()
-            scores = logits
-            if suppress is not None:
-                scores = scores + suppress
-            if forbid is not None:  # transitions from the previous token
-                scores = torch.where(forbid[prev], -float("inf"), scores)
-            scores = process_logits(scores, gen_cfg, i, seen)
+            scores = process_logits(shift(logits, prev), gen_cfg, i, seen)
             token = select_token(scores, generator, gen_cfg)
             token = torch.where(finished, torch.full_like(token, gen_cfg.pad_token_id), token)
             out_tokens[:, i] = token
@@ -212,7 +248,162 @@ def make_generate_fn(
             "response_mask": out_mask,
         }
 
+    def generate_spec(input_ids, attn_mask, generator):
+        """The draft/verify rounds. Each round feeds the pending token and k
+        drafted ones through the trunk alone (k + 1 per-row steps, the
+        low-rank readout between them), runs one suffix pass over all k + 1
+        positions from the trunk's own rows, keeps the longest accepted
+        draft prefix plus one corrected (or bonus) token, and rolls the
+        rejected K/V back by clearing mask bits. One host sync a round (the
+        loop's condition), as the plain loop's `finished.all()`."""
+        k = spec_k
+        device, input_ids, attn_mask, shift = setup(input_ids, attn_mask)
+        b, plen = input_ids.shape
+        pad, eos = gen_cfg.pad_token_id, gen_cfg.eos_token_id
+        a_fac = torch.as_tensor(spec_draft_head[0], device=device).to(model_cfg.dtype)
+        b_fac = torch.as_tensor(spec_draft_head[1], device=device).to(model_cfg.dtype)
+        warp = lambda raw, prev, step: process_logits(shift(raw, prev), gen_cfg, step, None)
+        # k spare columns: a round may write k positions past the budget
+        # before the rollback clears them
+        cache = init_kv_cache(model_cfg, b, plen + max_new + k, device=device)
+        logits, cache = model.decode_step(input_ids, cache, attn_mask, is_prefill=True)
+        # token 0: the plain sampler's preamble (same prefill, same draw)
+        token0 = select_token(warp(logits[:, -1].float(), input_ids[:, -1], 0), generator, gen_cfg)
+        finished = (token0 == eos) | (max_new <= 1)
+        # one spare output column takes the writes JAX drops (index max_new)
+        out_tokens = torch.full((b, max_new + 1), pad, dtype=torch.long, device=device)
+        out_mask = torch.zeros((b, max_new + 1), dtype=torch.int32, device=device)
+        out_tokens[:, 0] = token0
+        out_mask[:, 0] = 1
+        # the prefill's scalar index becomes per-row offsets: rows diverge
+        # once they keep different numbers of drafts
+        cache = {"row_index": torch.full((b,), cache["index"], dtype=torch.long, device=device),
+                 "mask": cache["mask"], "pos": cache["pos"], "layers": cache["layers"]}
+        pending = token0
+        out_i = torch.ones(b, dtype=torch.long, device=device)
+        rounds = torch.zeros(b, dtype=torch.long, device=device)
+        accepted = torch.zeros(b, dtype=torch.long, device=device)
+        jidx = torch.arange(k + 1, device=device)[None, :]
+        rows_b = torch.arange(b, device=device)[:, None]
+        i = 0
+        while i <= max_new and not bool(finished.all()):
+            active = ~finished
+            act_i = active.long()
+            row_start, pos_start = cache["row_index"], cache["pos"]
+            f = pending
+            h_rows, q_scores, drafts, fed = [], [], [], [pending]
+            for j in range(k + 1):
+                h_j, hn_j, cache = model.spec_draft_step(f[:, None], cache, act_i[:, None], spec_split)
+                h_rows.append(h_j)
+                if j < k:
+                    sq = warp(((hn_j[:, 0] @ a_fac) @ b_fac).float(), f, out_i + j)
+                    f = select_token(sq, generator, gen_cfg)
+                    q_scores.append(sq)
+                    drafts.append(f)
+                    fed.append(f)
+            positions = pos_start[:, None] + jidx
+            logits_v, _, _ = model.spec_verify_rows(torch.cat(h_rows, dim=1), cache, row_start, positions,
+                                                    spec_split)
+            logits_v = logits_v.float()
+            p_scores = [warp(logits_v[:, j], fed[j], out_i + j) for j in range(k + 1)]
+            # the longest accepted draft prefix, m tokens
+            if greedy:
+                acc = [torch.argmax(p_scores[j], dim=-1) == drafts[j] for j in range(k)]
+            else:
+                acc = []
+                for j in range(k):
+                    u = torch.rand(b, generator=generator, device=device)
+                    tok = drafts[j][:, None]
+                    lr = (torch.log_softmax(p_scores[j], -1).gather(1, tok)
+                          - torch.log_softmax(q_scores[j], -1).gather(1, tok))[:, 0]
+                    acc.append(u < torch.exp(torch.clamp(lr, max=0.0)))
+            run = torch.ones(b, dtype=torch.bool, device=device)
+            m = torch.zeros(b, dtype=torch.long, device=device)
+            for j in range(k):
+                run = run & acc[j]
+                m = m + run.long()
+            # the token after the kept drafts, for each possible m: greedy,
+            # the full model's argmax; sampled, a draw from the residual
+            # normalize(clip(p - q, 0)) after a rejection at j, or from p
+            # itself (the bonus token) when all k were kept
+            corr = []
+            for j in range(k + 1):
+                if greedy:
+                    corr.append(torch.argmax(p_scores[j], dim=-1))
+                elif j < k:
+                    p_w = torch.softmax(p_scores[j], -1)
+                    res = torch.clamp(p_w - torch.softmax(q_scores[j], -1), min=0.0)
+                    tot = res.sum(-1, keepdim=True)
+                    res = torch.where(tot > 0, res / tot, p_w)
+                    corr.append(torch.multinomial(res, 1, generator=generator)[:, 0])
+                else:
+                    corr.append(select_token(p_scores[j], generator, gen_cfg))
+            corr = torch.stack(corr, dim=1)  # [b, k + 1]
+            corr_at_m = corr.gather(1, m[:, None])[:, 0]
+            draft_mat = torch.stack(drafts + [corr[:, k]], dim=1)
+            emit = torch.where(jidx < m[:, None], draft_mat,
+                               torch.where(jidx == m[:, None], corr_at_m[:, None], pad))
+            # eos and budget truncation of this round's emissions
+            alive, valids = active, []
+            for j in range(k + 1):
+                v_j = alive & (j <= m) & (out_i + j < max_new)
+                valids.append(v_j)
+                alive = v_j & (emit[:, j] != eos)
+            valid = torch.stack(valids, dim=1)
+            emit = torch.where(valid, emit, pad)
+            e = valid.long().sum(1)
+            hit_eos = (valid & (emit == eos)).any(1)
+            new_out_i = out_i + e
+            new_finished = finished | (active & (hit_eos | (new_out_i >= max_new)))
+            pending = torch.where(active & ~new_finished, corr_at_m, pending)
+            # roll back: keep the mask bits of the e fed-and-kept tokens,
+            # clear the rest; the next round writes from the first cleared
+            cache["mask"] = cache["mask"].scatter(1, row_start[:, None] + jidx,
+                                                  (jidx < e[:, None]).to(cache["mask"].dtype))
+            cache["row_index"], cache["pos"] = row_start + e, pos_start + e
+            out_idx = torch.where(valid, out_i[:, None] + jidx, max_new)
+            out_tokens[rows_b, out_idx] = emit
+            out_mask[rows_b, out_idx] = valid.to(torch.int32)
+            rounds += act_i
+            accepted += m * act_i
+            out_i, finished = new_out_i, new_finished
+            i += 1
+        out_tokens, out_mask = out_tokens[:, :max_new], out_mask[:, :max_new]
+        return {
+            "samples": torch.cat([input_ids, out_tokens], dim=1),
+            "samples_mask": torch.cat([attn_mask, out_mask], dim=1),
+            "response_tokens": out_tokens,
+            "response_mask": out_mask,
+            "spec_rounds": rounds,
+            "spec_accepted": accepted,
+        }
+
+    sample = generate_spec if spec_k > 0 else generate_plain
+
+    @torch.no_grad()
+    def generate(input_ids, attn_mask, generator: Optional[torch.Generator] = None, params: Optional[Dict] = None):
+        view = dequantize_tree(params, model_cfg.dtype) if params else None
+        with swapped_params(model, view):
+            return sample(input_ids, attn_mask, generator)
+
     return generate
+
+
+def spec_draft_head_from_params(state: Dict, model_cfg, rank: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The low-rank draft readout (A [d, r], B [r, V]) from the dense f32
+    unembedding W_U [d, V] (the tied embedding transposed, or the untied
+    head's JAX kernel), by a truncated SVD in numpy on the host, as the
+    JAX package computes it, so both packages get the same factors. Draft
+    logits = ln_f(h_split) @ A @ B. `state` is the policy's state dict
+    (`lm.*` names)."""
+    if model_cfg.tie_embeddings:
+        w = state["lm.embed_tokens.weight"].T
+    else:
+        w = state["lm.lm_head.weight"].T  # the port's [V, d] Linear weight
+    w = np.asarray(w.detach().cpu().float().numpy(), np.float32)
+    r = int(min(rank, min(w.shape)))
+    u, s, vt = np.linalg.svd(w, full_matrices=False)
+    return (u[:, :r] * s[:r][None, :]).astype(np.float32), vt[:r].astype(np.float32)
 
 
 def generate(model, model_cfg, input_ids, attn_mask, gen_cfg: GenerationConfig,

@@ -4,17 +4,18 @@ whose collation left-pads queries and right-pads responses and the
 per-token stats, so the query|response seam sits at one fixed column.
 
 The collation is the numpy branch of the JAX package's `native.ppo_collate`
-(`pad_stack` per field). The trunk cache, GRPO group ids and multi-turn
-loss masks of that collation are not ported yet (ROADMAP queue A, items
-1 and 3): their batch fields stay None.
+(`pad_stack` per field), and its trunk-cache collation (`collate_h_split`,
+on the device). GRPO group ids and multi-turn loss masks are not ported
+yet (ROADMAP queue A, item 3): their batch fields stay None.
 """
 
 import json
 import os
 import time
-from typing import Iterable, List
+from typing import Iterable, List, Optional
 
 import numpy as np
+import torch
 
 from trlx_tpu_torch.data import PPORLBatch, PPORLElement
 from trlx_tpu_torch.pipeline import BaseRolloutStore, DataLoader
@@ -32,6 +33,27 @@ def pad_stack(seqs: List[np.ndarray], pad_value, max_len: int, dtype, left: bool
     return out
 
 
+def collate_h_split(elems: List[PPORLElement], max_q: int, max_r: int,
+                    left_queries: bool) -> Optional[torch.Tensor]:
+    """The elements' trunk cache rows aligned with the padded
+    concat(query, response) layout, [n, max_q + max_r, d], or None unless
+    every element has them. The zero rows of padding are exact: padded
+    columns are attention-masked, so their values are never read."""
+    if not elems or any(e.h_split is None for e in elems):
+        return None
+    first = elems[0].h_split
+    out = torch.zeros((len(elems), max_q + max_r, first.shape[-1]), dtype=first.dtype, device=first.device)
+    for i, e in enumerate(elems):
+        qi = len(e.query_tensor)
+        w = min(e.h_split.shape[0] - qi, max_r)
+        if left_queries:
+            out[i, max_q - qi:max_q] = e.h_split[:qi]
+        else:
+            out[i, :qi] = e.h_split[:qi]
+        out[i, max_q:max_q + w] = e.h_split[qi:qi + w]
+    return out
+
+
 def ppo_collate(elems: List[PPORLElement], max_q: int, max_r: int, max_p: int, pad_id: int,
                 left_queries: bool) -> PPORLBatch:
     return PPORLBatch(
@@ -40,6 +62,7 @@ def ppo_collate(elems: List[PPORLElement], max_q: int, max_r: int, max_p: int, p
         logprobs=pad_stack([e.logprobs for e in elems], 0.0, max_p, np.float32),
         values=pad_stack([e.values for e in elems], 0.0, max_p, np.float32),
         rewards=pad_stack([e.rewards for e in elems], 0.0, max_p, np.float32),
+        h_split=collate_h_split(elems, max_q, max_r, left_queries),
     )
 
 
@@ -58,13 +81,15 @@ class PPORolloutStorage(BaseRolloutStore):
 
     def export_history(self, location: str, only_text: bool = True):
         """Dump the rollouts as JSON into `location` (an existing
-        directory), for offline analysis."""
+        directory), for offline analysis. The trunk cache rows are not
+        exported."""
         if not os.path.isdir(location):
             raise FileNotFoundError(f"rollout export directory {location} does not exist")
         fpath = os.path.join(location, f"epoch-{str(time.time())}.json")
 
         def exp_to_dict(exp):
-            return {k: np.asarray(v).tolist() for k, v in exp.__dict__.items() if v is not None}
+            return {k: np.asarray(v).tolist() for k, v in exp.__dict__.items()
+                    if v is not None and k != "h_split"}
 
         data = [exp_to_dict(exp) for exp in self.history]
         if only_text:

@@ -261,19 +261,34 @@ class TorchTrainer:
         serves while this trainer steps reads the updated weights."""
         return self.model.state_dict()
 
-    def get_generate_fn(self, batch_size: int, prompt_len: int, gen_kwargs: Dict, mode: str = "lm"):
-        """Sampler per (shape, kwargs) bucket."""
+    def get_generate_fn(self, batch_size: int, prompt_len: int, gen_kwargs: Dict, mode: str = "lm",
+                        spec_k: int = 0):
+        """Sampler per (shape, kwargs) bucket; spec_k > 0 builds the
+        self-speculative sampler, drafting on the trunk below the split."""
         from trlx_tpu_torch.ops.sampling import GenerationConfig, make_generate_fn
 
-        key = (batch_size, prompt_len, repr(sorted(gen_kwargs.items())), mode)
+        key = (batch_size, prompt_len, repr(sorted(gen_kwargs.items())), mode, int(spec_k))
         if key not in self._generate_cache:
             gen_cfg = GenerationConfig.from_gen_kwargs(
                 gen_kwargs, self.tokenizer.eos_token_id, self.tokenizer.pad_token_id
             )
             self._generate_cache[key] = make_generate_fn(
-                self.model, self.model_cfg, gen_cfg, mode=mode, logit_mask=self.logit_mask
+                self.model, self.model_cfg, gen_cfg, mode=mode, logit_mask=self.logit_mask,
+                spec_k=spec_k, spec_split=self.split if spec_k > 0 else 0,
+                spec_draft_head=self._spec_draft_head() if spec_k > 0 else None,
             )
         return self._generate_cache[key]
+
+    def _spec_draft_head(self):
+        """The draft readout of speculative decode; trainers that run it
+        (PPO) provide it."""
+        raise NotImplementedError("speculative decode needs a trainer-provided draft head")
+
+    def _decode_params(self) -> Optional[Dict]:
+        """The parameter view the sampler reads, or None for the module's
+        own parameters; PPO's int8 frozen-trunk view overrides it. Training
+        and scoring never read it."""
+        return None
 
     def _bucket_prompts(self, input_ids, attention_mask):
         """Round the generate batch up to a multiple of 8 rows and the
@@ -307,9 +322,10 @@ class TorchTrainer:
             trimmed[k] = v
         return trimmed
 
-    def generate(self, input_ids, attention_mask, gen_kwargs: Optional[Dict] = None, mode: str = "lm"):
-        """Sample continuations for a host prompt batch; returns the
-        sampler's dict of device tensors."""
+    def generate(self, input_ids, attention_mask, gen_kwargs: Optional[Dict] = None, mode: str = "lm",
+                 spec_k: int = 0):
+        """Sample continuations for a host prompt batch on the decode view
+        (`_decode_params`); returns the sampler's dict of device tensors."""
         gen_kwargs = gen_kwargs if gen_kwargs is not None else self.generate_kwargs
         input_ids = np.asarray(input_ids)
         attention_mask = np.asarray(attention_mask)
@@ -317,8 +333,9 @@ class TorchTrainer:
             input_ids, attention_mask, orig = self._bucket_prompts(input_ids, attention_mask)
         else:
             orig = (input_ids.shape[0], 0)
-        fn = self.get_generate_fn(input_ids.shape[0], input_ids.shape[1], gen_kwargs, mode)
-        return self._unbucket_output(fn(input_ids, attention_mask, self.generator), orig)
+        fn = self.get_generate_fn(input_ids.shape[0], input_ids.shape[1], gen_kwargs, mode, spec_k)
+        out = fn(input_ids, attention_mask, self.generator, params=self._decode_params())
+        return self._unbucket_output(out, orig)
 
     def decode(self, prompts, samples, prompt_sizes=None,
                append_eos_token: bool = False) -> Tuple[List[str], List[str], List[str]]:

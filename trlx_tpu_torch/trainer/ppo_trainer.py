@@ -10,14 +10,27 @@ rollout store, and `ppo_epochs` inner epochs of clipped PPO steps with
 GAE over the store. A step runs the trunk over the full sequence and the
 head over the response window only (`forward_window`).
 
+The method options of the JAX bench's headline PPO run:
+- `quantize_frozen_trunk`: the sampler reads an int8 view of the frozen
+  trunk's weight matrices (`_decode_params`, quantized once; the live
+  trainable parameters are read as they are);
+- `speculative_decode`: the sampler drafts `spec_k` tokens a round on the
+  trunk below the split through a rank-`spec_draft_rank` readout and
+  verifies them with one suffix pass (`ops/sampling.py`), where the JAX
+  gate allows it (`_spec_decode_available`; a refusal counts in
+  `spec_decode_fallbacks`);
+- `cache_trunk_activations`: after scoring, one no-grad pass of the
+  frozen trunk over the chunk (`trunk_cache_fill`) stores each rollout's
+  activation entering the split beside it (torch tensors on the device,
+  in `trunk_cache_dtype`), and every step resumes the trainable blocks
+  from it (`forward_from_cache_window`) instead of running the trunk.
+
 The JAX trainer overlaps the next chunk's sampling with this one's host
 work; eager torch runs them one after the other, drawing prompts and
 sampling in the same order. Refused at construction, naming their ROADMAP
-items: the rollout fast path and its relatives (`capture_rollout_stats`,
-`cache_trunk_activations`, `speculative_decode`, `quantize_frozen_trunk`,
-the deeper value branch; queue A item 1), multi-turn rollouts and the
-rollout fleet (item 3), and seq2seq (item 4). `pipelined_cycle` is not
-ported (item 1).
+items: the rollout fast path (`capture_rollout_stats`) and the deeper
+value branch (queue A item 1), multi-turn rollouts and the rollout fleet
+(item 3), and seq2seq (item 4). `pipelined_cycle` is not ported (item 1).
 """
 
 import json
@@ -35,6 +48,7 @@ from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
 from trlx_tpu_torch.models import build_model
 from trlx_tpu_torch.models.policy import HydraReference, forward_policy_and_ref
 from trlx_tpu_torch.models.transformer import position_ids
+from trlx_tpu_torch.ops import quant
 from trlx_tpu_torch.ops.ppo import AdaptiveKLController, FixedKLController, get_advantages_and_returns, ppo_loss
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.trainer import register_trainer
@@ -86,9 +100,6 @@ class PPOConfig(MethodConfig):
 # method flags of features the port does not run yet -> the ROADMAP item
 _UNPORTED_METHOD_FLAGS = {
     "capture_rollout_stats": "queue A, item 1 (the rollout fast path)",
-    "cache_trunk_activations": "queue A, item 1 (the trunk activation cache)",
-    "speculative_decode": "queue A, item 1 (self-speculative decode)",
-    "quantize_frozen_trunk": "queue A, item 1 (the int8 frozen trunk)",
     "num_value_layers_unfrozen": "queue A, item 1 (the value branch)",
     "multiturn_env": "queue A, item 3 (multi-turn rollouts over the fleet)",
 }
@@ -128,6 +139,13 @@ class PPOTrainer(TorchTrainer):
         self.prompt_pipeline = None
         self.prompt_iterator = None
         self._prompt_draws = 0
+        # speculative decode: JAX-gate refusals while the flag is on, and
+        # the running round and accepted-draft totals
+        self.spec_decode_fallbacks = 0
+        self.spec_decode_rounds = 0
+        self.spec_decode_accepted = 0
+        self._spec_draft_head_cache = None
+        self._quant_frozen = None
         self.log_rollouts = config.train.rollout_logging_dir is not None
         if self.log_rollouts:
             self.setup_rollout_logging(config)
@@ -178,7 +196,17 @@ class PPOTrainer(TorchTrainer):
             )
             # the head over the response window only: the value branch and
             # soft prompts, which would need the full forward, are refused
-            logits_w, values_pred = model.forward_window(tokens, attention_mask, positions, start, response_length)
+            if batch.h_split is not None:
+                # the trunk cache: resume the trainable blocks from the
+                # activation entering the split. Exact: the trunk is frozen
+                # (split > 0), and the zero rows of collation padding sit
+                # at masked columns, whose exp(-1e9) is exactly 0
+                h0 = batch.h_split.detach().to(self.model_cfg.dtype)
+                logits_w, values_pred = model.forward_from_cache_window(
+                    h0, attention_mask, positions, self.split, start, response_length)
+            else:
+                logits_w, values_pred = model.forward_window(tokens, attention_mask, positions, start,
+                                                             response_length)
             logprobs = logprobs_of_labels(logits_w, tokens[:, start + 1:end + 1])
 
             loss, stats = ppo_loss(
@@ -213,7 +241,8 @@ class PPOTrainer(TorchTrainer):
 
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
         """Collect rollouts: generate -> decode and reward on the host ->
-        the hydra scoring pass -> per-token KL-penalized rewards -> store."""
+        the hydra scoring pass (and the trunk cache's fill) -> per-token
+        KL-penalized rewards -> store."""
         logger.info("Collecting rollouts")
         clock = Clock()
         elements: List[PPORLElement] = []
@@ -224,7 +253,8 @@ class PPOTrainer(TorchTrainer):
             batch = self._next_prompts()
             n_this = len(np.asarray(batch["input_ids"]))
             clock.tick()
-            out = self.generate(batch["input_ids"], batch["attention_mask"], gen_kwargs)
+            out = self.generate(batch["input_ids"], batch["attention_mask"], gen_kwargs,
+                                spec_k=self._spec_k_effective())
             samples = out["samples"].cpu().numpy()
             stats["time/rollout_generate"] = clock.tick()
             # throughput over the real generated tokens (padding after eos
@@ -232,16 +262,21 @@ class PPOTrainer(TorchTrainer):
             gen_s = max(stats["time/rollout_generate"] / 1000.0, 1e-9)
             stats["throughput/rollout_tokens_per_s"] = int(out["response_mask"].sum()) / gen_s
             stats["throughput/rollout_requests_per_s"] = n_this / gen_s
+            self._accum_spec_stats(out, stats)
 
             prompt_tensors, sample_outputs, outputs, scores, scores_mask = self._host_process_chunk(
                 batch, samples, stats, clock
             )
-            all_tokens = np.concatenate([prompt_tensors, sample_outputs], axis=1)
-            scored = self.score(torch.from_numpy(all_tokens).to(self.device).long())
+            all_tokens = torch.from_numpy(np.concatenate([prompt_tensors, sample_outputs], axis=1))
+            all_tokens = all_tokens.to(self.device).long()
+            scored = self.score(all_tokens)
+            # the trunk cache over the same retokenized tokens the scorer saw
+            h_cache = self.trunk_cache_fill(all_tokens) if self._trunk_cache_available() else None
             logprobs, values, log_ratio = (x.cpu().numpy() for x in scored[:3])
             mean_kl, mean_kl_per_token = float(scored[3]), float(scored[4])
             elements.extend(self._chunk_to_elements(
-                prompt_tensors, sample_outputs, outputs, scores, scores_mask, logprobs, values, log_ratio
+                prompt_tensors, sample_outputs, outputs, scores, scores_mask, logprobs, values, log_ratio,
+                h_cache,
             ))
             stats["time/rollout_time"] = clock.tick()
             stats["policy/sqrt_kl"] = float(np.sqrt(max(mean_kl, 0.0)))
@@ -310,10 +345,23 @@ class PPOTrainer(TorchTrainer):
             scores = np.where(scores_mask, scores / max(self.ref_std, 1e-8), scores)
         return prompt_tensors, sample_outputs, outputs, scores, scores_mask
 
+    @torch.no_grad()
+    def trunk_cache_fill(self, all_tokens: torch.Tensor) -> torch.Tensor:
+        """The frozen trunk (embeddings and blocks [0, split)) over a chunk
+        of query|response tokens [b, t]: the activation entering the split,
+        [b, t, d] in `method.trunk_cache_dtype`, on the device. One pass a
+        chunk, amortized over `ppo_epochs` inner epochs of suffix-only
+        steps."""
+        attention_mask = (all_tokens != self.tokenizer.pad_token_id).long()
+        h = self.model.forward_trunk(all_tokens, attention_mask, position_ids(attention_mask), self.split)
+        return h.to(getattr(torch, self.config.method.trunk_cache_dtype))
+
     def _chunk_to_elements(self, prompt_tensors, sample_outputs, outputs, scores, scores_mask,
-                           logprobs, values, log_ratio) -> List[PPORLElement]:
+                           logprobs, values, log_ratio, h_cache=None) -> List[PPORLElement]:
         """Slice each sample's response window into a PPORLElement:
-        logprobs[i] is the logprob with which all_tokens[i + 1] was drawn."""
+        logprobs[i] is the logprob with which all_tokens[i + 1] was drawn.
+        With the trunk cache, an element keeps the cache rows of exactly
+        its query and response tokens (the loader re-pads them)."""
         pad_id = self.tokenizer.pad_token_id
         start = prompt_tensors.shape[1] - 1
         kl_penalty = -self.kl_ctl.value * log_ratio
@@ -335,8 +383,81 @@ class PPOTrainer(TorchTrainer):
                 logprobs=logprobs[ix, start:end],
                 values=values[ix, start:end],
                 rewards=rewards,
+                h_split=None if h_cache is None else h_cache[ix, : prompt_tensors.shape[1] + n_resp],
             ))
         return elements
+
+    # ------------------------------------------------------------------
+    # Self-speculative decode, the int8 decode view, the trunk cache
+    # ------------------------------------------------------------------
+
+    def _spec_decode_available(self) -> bool:
+        """Whether sampling may run the draft/verify sampler: the JAX gate.
+        It needs a real hydra split (the frozen trunk is the draft model),
+        one beam and no repetition penalty (its seen set cannot be rolled
+        back); MoE, virtual tokens and seq2seq are refused at construction
+        in the port. A refusal while the flag is on counts in
+        `spec_decode_fallbacks`."""
+        if not self.config.method.speculative_decode:
+            return False
+        gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
+        ok = (
+            self.split > 0
+            and int(gen_kwargs.get("num_beams", 1) or 1) == 1
+            and float(gen_kwargs.get("repetition_penalty", 1.0) or 1.0) == 1.0
+        )
+        if not ok:
+            self.spec_decode_fallbacks += 1
+        return ok
+
+    def _spec_k_effective(self) -> int:
+        return int(self.config.method.spec_k) if self._spec_decode_available() else 0
+
+    def _accum_spec_stats(self, out, stats: Dict):
+        """Fold a sampling dict's speculative counters into the running
+        totals and a chunk's stats (read after the samples, so no extra
+        wait on the device)."""
+        if "spec_rounds" not in out:
+            return
+        rounds = int(out["spec_rounds"].sum())
+        accepted = int(out["spec_accepted"].sum())
+        self.spec_decode_rounds += rounds
+        self.spec_decode_accepted += accepted
+        if rounds > 0:
+            k = int(self.config.method.spec_k)
+            stats["rollout/spec_accept_rate"] = accepted / float(k * rounds)
+            stats["rollout/spec_tokens_per_round"] = 1.0 + accepted / float(rounds)
+
+    def _spec_draft_head(self):
+        """The rank-`spec_draft_rank` SVD of the dense unembedding, computed
+        once on the host. The tied embedding is frozen under any split, so
+        the factors never go stale; an untied head drifts, which costs
+        acceptance only (the correction keeps the output exact)."""
+        if self._spec_draft_head_cache is None:
+            from trlx_tpu_torch.ops.sampling import spec_draft_head_from_params
+
+            self._spec_draft_head_cache = spec_draft_head_from_params(
+                self.model.state_dict(), self.model_cfg, int(self.config.method.spec_draft_rank))
+        return self._spec_draft_head_cache
+
+    def _decode_params(self):
+        """The sampler's view under `method.quantize_frozen_trunk`: the
+        frozen trunk's int8 leaves, quantized once (they never train); the
+        sampler reads every other parameter live. None (the dense module)
+        otherwise."""
+        if not (self.config.method.quantize_frozen_trunk and self.split > 0):
+            return None
+        if self._quant_frozen is None:
+            self._quant_frozen = quant.quantize_frozen(self.model, self.split)
+        return self._quant_frozen
+
+    def _trunk_cache_available(self) -> bool:
+        """Whether steps may resume from cached trunk activations: the flag
+        and a real hydra split (blocks [0, split) entirely frozen, so the
+        cache cannot go stale within a collection). The JAX gate's other
+        conditions (seq2seq, MoE, a value branch below the split) are
+        refused at construction in the port."""
+        return bool(self.config.method.cache_trunk_activations) and self.split > 0
 
     # ------------------------------------------------------------------
     # Loop wiring
@@ -392,10 +513,13 @@ class PPOTrainer(TorchTrainer):
         self.total_steps = min(self.total_steps, self.config.train.total_steps)
 
     def _extra_resume_state(self):
-        """The host state of an exact resume: the rollout store, the KL
-        controller and mean KL, the reward statistics, the frozen reference
-        and how many prompt chunks were drawn."""
+        """The host state of an exact resume: the rollout store (with its
+        trunk cache rows, when on), the KL controller and mean KL, the
+        reward statistics, the frozen reference, how many prompt chunks
+        were drawn and the speculative draft head (an untied head moves in
+        training, so it is not recomputed)."""
         return {
+            "spec_draft_head": self._spec_draft_head_cache,
             "store_history": list(self.store.history),
             "kl_ctl_value": float(self.kl_ctl.value),
             "mean_kl": float(self.mean_kl),
@@ -415,6 +539,8 @@ class PPOTrainer(TorchTrainer):
             setattr(self.running_moments, k, v)
         self.ref_mean, self.ref_std = state["ref_mean"], state["ref_std"]
         self.ref_model.load_state_dict(state["ref_model"])
+        self._spec_draft_head_cache = state.get("spec_draft_head")
+        self._quant_frozen = None  # rebuilt from the loaded frozen weights
         if self.prompt_pipeline is not None:
             # a fresh prompt loader replays its shuffles; skip the chunks
             # the saved run already drew

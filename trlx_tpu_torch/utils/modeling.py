@@ -2,8 +2,10 @@
 package's `utils/modeling.py`): `logprobs_of_labels`, the masked
 statistics, `whiten`, `entropy_from_logits`, `get_tensor_stats` and the
 host-side `RunningMoments`. On one device the global statistics are the
-local ones."""
+local ones. `swapped_params` runs a module on other tensors in place of
+some of its parameters (the sampler's int8 decode view)."""
 
+from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -17,6 +19,28 @@ def logprobs_of_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     from trlx_tpu_torch.ops.fused_ce import fused_logprobs_of_labels
 
     return fused_logprobs_of_labels(logits, labels)
+
+
+@contextmanager
+def swapped_params(module: torch.nn.Module, tensors: Optional[Dict[str, torch.Tensor]]):
+    """Within the block, `module` reads `tensors[name]` in place of each
+    named parameter (the JAX package passes a parameter tree per call; a
+    torch module owns its parameters). The parameters themselves are not
+    touched and come back on exit; `None` swaps nothing. The swap is
+    visible to any other thread that runs the module meanwhile (a
+    background server on the trainer's module would read the swapped
+    tensors for the call's length)."""
+    saved = []
+    try:
+        for name, t in (tensors or {}).items():
+            path, _, leaf = name.rpartition(".")
+            owner = module.get_submodule(path)
+            saved.append((owner, leaf, owner._parameters[leaf]))
+            owner._parameters[leaf] = t
+        yield
+    finally:
+        for owner, leaf, p in reversed(saved):
+            owner._parameters[leaf] = p
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
