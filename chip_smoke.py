@@ -34,9 +34,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and GQA (32/8/128) at t 2048, b 1, and at phase 9's shapes (t 104, rows
    padded at both ends, one with a hole, one with no valid key: b 128 for
    K3, b 32 for K4-K6); the label logprob (K7) at [8184, 50257] bf16 with
-   out-of-range labels, at [128 x 104, 50257] on shifted labels and at
-   [32 x 40, 50257], and its backward kernel at [8184, 50257] (g = 0 on
-   the masked rows, which must come out all zeros) and [32 x 40, 50257];
+   out-of-range labels, at [128 x 104, 50257] on shifted labels, at
+   [32 x 40, 50257] and at [128 x 40, 50257] (phase 12's fast scorer),
+   and its backward kernel at [8184, 50257] (g = 0 on the masked rows,
+   which must come out all zeros) and [32 x 40, 50257];
    with kernel, plain-version, library (scaled_dot_product_attention
    forward / backward; logsumexp plus gather; the backward of
    cross_entropy) and bound times, and the share of causal tiles the bf16
@@ -81,11 +82,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    two warped scores lie within 1e-4) and at bf16 (the share of equal
    rows); one f32 PPO step from an f32 trunk cache equals the full path
    (loss within 1e-6 relative, gradients within phase 8's tolerance under
-   phase 10's ReLU gate, no K3), a bf16 cache within 2e-3 relative.
+   phase 10's ReLU gate, no K3), a bf16 cache within 2e-3 relative;
+12. the pipelined cycle, the JAX bench's timed schedule: phase 9's
+   configuration under `PPOTrainer.pipelined_cycle` (one warm-up and 3
+   timed cycles) as (a) the speculative scorer, options off, (b) (a) with
+   the capture fast path (`capture_rollout_stats`), (c) phase 11's options,
+   (d) (c) with the fast path: samples/s per cycle beside phases 9 and 11,
+   the blocking fetch's wait and the host stage's ms, then one cycle under
+   synchronizing probes for the sampling, scoring (by scorer), trunk-cache
+   attach and step ms; no speculative-scorer fallback, the fast scorer
+   taken in (b) and (d), launch counts exact (a chunk K3 x14 / x2 / x24 /
+   x2 and K7 x2 / x1 / x2 / x1; a step phase 9's or phase 11's), every
+   loss finite; at f32 the fast scorer against the batched scoring forward
+   within 5e-4 and the speculative merge against the classic in-graph
+   scorer within 1e-5.
 
 The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object (with `ppo_options`, phase 11's
-checks and numbers); the last line is
+checks and numbers, and `pipelined`, phase 12's); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
 """
@@ -539,7 +553,8 @@ FLASH_SHAPES = {
 CE_ROWS, CE_VOCAB = 8 * 1023, 50257
 # K7 at phase 9's shapes: scoring reads the full [128, 104, V] logits with
 # the labels shifted one column; a step reads the [32, 40, V] window
-CE_PPO = {"ppo-score": (128, PPO_T), "ppo-train": (32, 40)}
+# the fast scorer (phase 12) reads the reference's [128, 40, V] window
+CE_PPO = {"ppo-score": (128, PPO_T), "ppo-train": (32, 40), "ppo-fast-score": (128, 40)}
 # tolerances: bf16 outputs (out, dq): both sides round once to bf16 from
 # f32 values that differ only in summation order, so one bf16 ulp apart at
 # most: rtol 8e-3, atol 1e-3. That holds for the bf16 kernels on the
@@ -1514,6 +1529,238 @@ def phase_ppo_options(card, base):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the pipelined cycle (the JAX bench's timed schedule)
+# ---------------------------------------------------------------------------
+
+# phase 9's configuration under `pipelined_cycle`, four ways: (a) the
+# speculative scorer, options off; (b) (a) with the capture fast path
+# (`--fast-rollout` of the JAX bench); (c) the JAX bench's headline
+# options, fast path off; (d) (c) with the fast path
+PIPELINED = {
+    "a": dict(),
+    "b": dict(capture_rollout_stats=True),
+    "c": dict(PPO_OPTIONS),
+    "d": dict(PPO_OPTIONS, capture_rollout_stats=True),
+}
+PIPELINED_CYCLES = 3  # timed, after one warm-up cycle
+# launches a 128-row chunk, by the scorer's dispatch and the trunk cache's
+# attach: the speculative scorer is phase 9's scoring pass (12 policy and
+# 2 reference blocks K3, two K7); the fast scorer runs the reference's 2
+# suffix blocks (K3) and one K7 over the response window; the attach runs
+# the trunk's 10 blocks (K3) under (c) and reuses the capture under (d)
+PIPELINED_PER_CHUNK = {
+    "a": {"flash_fwd": 14, "label_logprobs": 2},
+    "b": {"flash_fwd": 2, "label_logprobs": 1},
+    "c": {"flash_fwd": 24, "label_logprobs": 2},
+    "d": {"flash_fwd": 2, "label_logprobs": 1},
+}
+PIPELINED_PER_STEP = {"a": PPO_KERNELS_PER_STEP, "b": PPO_KERNELS_PER_STEP,
+                      "c": PPO_OPT_KERNELS_PER_STEP, "d": PPO_OPT_KERNELS_PER_STEP}
+PIPELINED_STEPS = 4 * (PPO_ROLLOUTS // PPO_BATCH)  # ppo_epochs x steps an epoch
+FAST_TOL, MERGE_TOL = 5e-4, 1e-5  # fast scorer vs the batched forward; merge vs the classic scorer
+
+
+@contextmanager
+def pipelined_probes(record, sync):
+    """Wrap the pipelined cycle's parts (sampling, the scorers, the trunk
+    cache's attach, the optimizer step, the blocking fetch) to record each
+    call's kernel launches and, with `sync`, its wall time between two
+    device synchronizations: measurement of this script, the trainer is
+    unchanged."""
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    names = ("dispatch_rollout_generation", "_dispatch_spec_score", "_dispatch_fast_score", "_score_reward",
+             "_attach_trunk_cache", "optimizer_step", "_fetch")
+    originals = {name: getattr(PPOTrainer, name) for name in names}
+
+    def probe(name):
+        fn = originals[name]
+
+        def wrapped(self, *args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            before, t0 = dict(kernels.LAUNCHES), time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            launched = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items() if v - before.get(k, 0)}
+            record.append((name, (time.perf_counter() - t0) * 1e3, launched))
+            return out
+
+        return wrapped
+
+    try:
+        for name in names:
+            setattr(PPOTrainer, name, probe(name))
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(PPOTrainer, name, fn)
+
+
+def pipelined_run(card, tag):
+    """Configuration `tag`: one warm-up cycle, PIPELINED_CYCLES timed cycles
+    (samples/s per cycle; the launches of every scorer, attach and step
+    checked exact) and one cycle
+    under synchronizing probes (scoring, attach, fetch and step ms).
+    Returns its numbers and the timed cycles' launches."""
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    config = ppo_config(ROOT / "build" / f"chip_smoke_pipelined_{tag}").evolve(method=PIPELINED[tag])
+    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
+    fast = tag in ("b", "d")
+    if trainer._fast_rollout_available() != fast or trainer._trunk_cache_available() != (tag in ("c", "d")):
+        raise AssertionError(f"[pipelined-{tag}] gates: fast {trainer._fast_rollout_available()}, "
+                             f"trunk cache {trainer._trunk_cache_available()}")
+    losses, fetch_ms, host_ms, record = [], [], [], []
+    t0 = time.perf_counter()
+    loss, pending = trainer.pipelined_cycle()  # warm-up: two chunks sampled, one trained on
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    with pipelined_probes(record, sync=False):
+        # no synchronization between the cycles, so each cycle's fetch waits
+        # for what the previous one left queued, as in a training loop; a
+        # cycle's wall is the time between two returns (the last one ends in
+        # a synchronization)
+        ends = [time.perf_counter()]
+        for i in range(PIPELINED_CYCLES):
+            loss, pending = trainer.pipelined_cycle(pending)
+            if i == PIPELINED_CYCLES - 1:
+                torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            losses.append(loss)
+            fetch_ms.append(trainer.cycle_stats["fetch_wait_ms"])
+            host_ms.append(trainer.cycle_stats["host_ms"])
+        cycle_s = [b - a for a, b in zip(ends, ends[1:])]
+    launches = dict(kernels.LAUNCHES)
+    timed = []
+    with pipelined_probes(timed, sync=True):
+        loss, pending = trainer.pipelined_cycle(pending)
+    losses += [loss, float(pending[2][0])]
+
+    scorer = "_dispatch_fast_score" if fast else "_dispatch_spec_score"
+    calls = lambda rec, name: [c for c in rec if c[0] == name]
+    per_step, per_chunk = PIPELINED_PER_STEP[tag], PIPELINED_PER_CHUNK[tag]
+    checks = [("a sampling call", c[2], {}) for c in calls(record, "dispatch_rollout_generation")]
+    checks += [("an optimizer step", c[2], per_step) for c in calls(record, "optimizer_step")]
+    chunks = [dict(c[2]) for c in calls(record, scorer)]
+    for chunk, attach in zip(chunks, calls(record, "_attach_trunk_cache")):
+        for k, v in attach[2].items():
+            chunk[k] = chunk.get(k, 0) + v
+    checks += [("a chunk (scorer and attach)", c, per_chunk) for c in chunks]
+    for what, got, want in checks:
+        if got != want:
+            raise AssertionError(f"[pipelined-{tag}] {what} launched {got}, expected {want}")
+    counts = {name: len(calls(record, name)) for name in ("dispatch_rollout_generation", scorer, "optimizer_step",
+                                                          "_attach_trunk_cache", "_score_reward")}
+    want_counts = {"dispatch_rollout_generation": PIPELINED_CYCLES, scorer: PIPELINED_CYCLES,
+                   "optimizer_step": PIPELINED_CYCLES * PIPELINED_STEPS, "_attach_trunk_cache": PIPELINED_CYCLES,
+                   "_score_reward": 0}
+    if counts != want_counts or trainer.spec_fallbacks != 0:
+        raise AssertionError(f"[pipelined-{tag}] calls {counts} (expected {want_counts}), "
+                             f"spec_fallbacks {trainer.spec_fallbacks}")
+    names = set(per_step) | set(per_chunk)
+    want = {n: PIPELINED_CYCLES * (PIPELINED_STEPS * per_step.get(n, 0) + per_chunk.get(n, 0)) for n in names}
+    if {n: launches.get(n, 0) for n in want} != want or any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"[pipelined-{tag}] launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[pipelined-{tag}] non-finite loss: {losses}")
+
+    ms = lambda name: [round(c[1], 3) for c in calls(timed, name)]
+    step_ms = ms("optimizer_step")
+    m = dict(samples_per_s=[PPO_ROLLOUTS / s for s in cycle_s], cycle_s=cycle_s, warmup_s=warm_s,
+             fetch_wait_ms=fetch_ms, host_ms=host_ms, losses=losses, scorer=scorer.strip("_"),
+             score_ms=ms(scorer), sampling_ms=ms("dispatch_rollout_generation"),
+             trunk_fill_ms=ms("_attach_trunk_cache") if tag in ("c", "d") else [0.0],
+             fetch_ms_synced=ms("_fetch"), step_ms_median=statistics.median(step_ms),
+             spec_decode_rounds=trainer.spec_decode_rounds, spec_decode_accepted=trainer.spec_decode_accepted)
+    log(f"[pipelined-{tag}] {PIPELINED[tag] or 'options off'}: samples/s per cycle "
+        f"{[round(x, 2) for x in m['samples_per_s']]} (cycle s {[round(x, 4) for x in cycle_s]}, warm-up "
+        f"{warm_s:.2f} s); blocking fetch wait ms {[round(x, 3) for x in fetch_ms]}; host decode/reward ms "
+        f"{[round(x, 3) for x in host_ms]}; losses {[round(x, 6) for x in losses]}; spec_fallbacks 0; "
+        f"launches {launches} ({card})")
+    log(f"[pipelined-{tag}] synchronized cycle: sampling ms {m['sampling_ms']}, {m['scorer']} ms {m['score_ms']}, "
+        f"trunk cache attach ms {m['trunk_fill_ms']}, fetch ms {m['fetch_ms_synced']}, step ms median "
+        f"{m['step_ms_median']:.3f} ({len(step_ms)} steps)")
+    del trainer, pending
+    torch.cuda.empty_cache()
+    return m, launches
+
+
+def pipelined_f32_check():
+    """At f32 on the card (full width and depth, the reference perturbed so
+    the KL is not 0): a captured rollout's fast scorer against the batched
+    scoring forward (the speculative scorer on the same tokens) within
+    FAST_TOL, and the speculative merge against the classic in-graph
+    scorer within MERGE_TOL."""
+    import torch
+
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    config = ppo_config(ROOT / "build" / "chip_smoke_pipelined_f32", dtype="float32").evolve(
+        method=PIPELINED["b"])
+    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    with torch.no_grad():
+        gen = torch.Generator(device=trainer.device).manual_seed(3)
+        for p in trainer.ref_model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device=p.device))
+    trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
+    _, out = trainer.dispatch_rollout_generation()
+    samples = out["samples"]
+    q = samples.shape[1] - PPO_NEW
+    fast = trainer._dispatch_fast_score(out)
+    spec = trainer._dispatch_spec_score(out)
+    if not torch.equal(fast[0], samples[:, q:]):
+        raise AssertionError("the device trim of printable samples is not the raw response")
+    errs = {}
+    for name, a, b in zip(("logprobs", "values", "log_ratio"), fast[1:4], spec[1:4]):
+        torch.testing.assert_close(a, b, rtol=0, atol=FAST_TOL, msg=lambda s: f"fast scorer {name}: {s}")
+        errs[name] = float((a - b).abs().max())
+    scores = torch.rand((samples.shape[0], 1), generator=torch.Generator(device=trainer.device).manual_seed(5),
+                        device=trainer.device)
+    kl = trainer.kl_ctl.value
+    merged = trainer._spec_merge(samples[:, :q], spec[0], *spec[1:4], scores, kl, True)
+    classic, mean_kl, _ = trainer._score_reward(samples[:, :q], spec[0], scores, kl, True)
+    for f in ("logprobs", "values", "rewards"):
+        a, b = getattr(merged, f), getattr(classic, f)
+        torch.testing.assert_close(a, b, rtol=MERGE_TOL, atol=MERGE_TOL, msg=lambda s: f"merge {f}: {s}")
+        errs[f"merge {f}"] = float((a - b).abs().max())
+    if not float(spec[4]) > 0 or abs(float(spec[4]) - float(mean_kl)) > MERGE_TOL * float(mean_kl):
+        raise AssertionError(f"mean_kl speculative {float(spec[4])} vs classic {float(mean_kl)}")
+    log(f"[pipelined-f32] gpt2-small f32, {samples.shape[0]} captured rollouts x {PPO_NEW} tokens, perturbed "
+        f"reference: fast scorer vs the batched forward and the speculative merge vs the classic scorer, max|diff| "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol {FAST_TOL}, {MERGE_TOL}); mean_kl "
+        f"{float(mean_kl):.6f}, fast (window) {float(fast[4]):.6f}")
+    del trainer
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_pipelined(card, base, options):
+    """Phase 12: configurations (a)-(d) under `pipelined_cycle`, then the
+    f32 checks; samples/s per cycle printed beside phases 9 and 11."""
+    results, launches = {}, {}
+    for tag in PIPELINED:
+        results[tag], launches[tag] = pipelined_run(card, tag)
+    errs = pipelined_f32_check()
+    rnd = lambda xs: [round(x, 2) for x in xs]
+    log(f"[pipelined] samples/s per cycle in this call ({card}): phase 9 (make_experience + learn) "
+        f"{rnd(base['samples_per_s'])}, phase 11 (options) {rnd(options['samples_per_s'])}; pipelined "
+        + "; ".join(f"({t}) {rnd(r['samples_per_s'])}" for t, r in results.items()))
+    return results, launches, errs
+
+
 def build_report(ptxas_out):
     """One line per compiled kernel from `nvcc -Xptxas -v`: its name and
     template arguments (float, head dim, lse), registers and spills; and every
@@ -1568,6 +1815,7 @@ def main() -> int:
     ppo_launches, ppo_metrics = phase_ppo(card)
     phase_ppo_grad_check()
     options_launches, options = phase_ppo_options(card, ppo_metrics)
+    pipelined, pipelined_launches, pipelined_errs = phase_pipelined(card, ppo_metrics, options)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -1577,11 +1825,13 @@ def main() -> int:
              replaces="trlx_tpu/ops/paged_attention.py:50", launches=launches_bf16,
              launches_ppo=ppo_launches.get("paged_decode", 0),
              launches_ppo_options=options_launches.get("paged_decode", 0),
+             launches_pipelined={t: n.get("paged_decode", 0) for t, n in pipelined_launches.items()},
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
              launches_ppo=ppo_launches.get("paged_decode_int8", 0),
              launches_ppo_options=options_launches.get("paged_decode_int8", 0),
+             launches_pipelined={t: n.get("paged_decode_int8", 0) for t, n in pipelined_launches.items()},
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
     ]}
     train_rows = [
@@ -1595,11 +1845,12 @@ def main() -> int:
     ]
     for name, src, replaces in train_rows:
         # the times at phase 9's shapes: K3 when scoring, K4-K6 in a step,
-        # K7 at both, its backward in a step
-        ppo_shapes = [s for s in ("ppo-score", "ppo-train") if (name, s) in train_timings]
+        # K7 at both and at phase 12's fast-scorer window, its backward in a step
+        ppo_shapes = [s for s in CE_PPO if (name, s) in train_timings]
         report["kernels"].append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=train_launches[name],
             launches_ppo=ppo_launches.get(name, 0), launches_ppo_options=options_launches.get(name, 0),
+            launches_pipelined={t: n.get(name, 0) for t, n in pipelined_launches.items()},
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes}))
@@ -1610,6 +1861,12 @@ def main() -> int:
         kernels_per_step=PPO_OPT_KERNELS_PER_STEP, kernels_per_chunk=PPO_OPT_KERNELS_PER_CHUNK,
         tie_gap=TIE_GAP, cache_loss_tol={"f32": CACHE_F32_LOSS_TOL, "bf16": CACHE_BF16_LOSS_TOL},
         grad_tol=GRAD_TOL, **options)
+    # phase 12's checks (exact launches a chunk and a step, no fallback, the
+    # f32 agreement) and numbers, by configuration
+    report["pipelined"] = dict(
+        configs={t: PIPELINED[t] for t in PIPELINED}, kernels_per_chunk=PIPELINED_PER_CHUNK,
+        kernels_per_step=PIPELINED_PER_STEP, timed_cycles=PIPELINED_CYCLES, f32_max_abs_err=pipelined_errs,
+        f32_tol={"fast": FAST_TOL, "merge": MERGE_TOL}, **pipelined)
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,11 +17,19 @@ bench's headline options (the int8 frozen-trunk decode view, speculative
 decode, the trunk activation cache): sampling is speculative, and the
 trunk cache's fill is a phase of its own after scoring.
 
-    python3 scripts/profile_torch_ppo.py [--options]
+With `--pipelined` it profiles `PPOTrainer.pipelined_cycle`, the JAX
+bench's timed schedule (phase 12 of `chip_smoke.py`): two warm-up cycles,
+then one cycle whose parts are each traced on their own (sampling the
+next chunk, the speculative or fast scorer, the reward merge, the trunk
+cache's attach, the host stage, the blocking fetch, the inner epochs);
+each part ends in a device synchronization, so what eager torch overlaps
+between them is not overlapped here. `--fast` adds the capture fast path
+(`capture_rollout_stats`); `--options` the headline options either way.
+
+    python3 scripts/profile_torch_ppo.py [--options] [--pipelined [--fast]]
 """
 
 import argparse
-
 import json
 import subprocess
 import sys
@@ -63,6 +71,74 @@ def traced(fn):
     return out, wall_ms, rows
 
 
+# the pipelined cycle's parts, by the PPOTrainer method that runs each
+PIPELINED_PHASES = {
+    "dispatch_rollout_generation": "rollout_generate",
+    "_dispatch_spec_score": "score_spec",
+    "_dispatch_fast_score": "score_fast",
+    "_score_reward": "score_classic",
+    "_spec_merge": "reward_merge",
+    "_attach_trunk_cache": "trunk_cache",
+    "_host_process_chunk": "host_decode_reward",
+    "_fetch": "fetch",
+    "train_epochs_from_chunk": "train_epochs",
+}
+
+
+def traced_pipelined_cycle(trainer, pending):
+    """One `pipelined_cycle` with each of its parts traced on its own
+    (a part called inside another is traced with it). Returns (pending,
+    the cycle's wall ms without the profiler's own time, {phase: (wall
+    ms, rows)})."""
+    import torch
+
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    phases, depth, overhead = {}, [0], [0.0]
+    originals = {name: getattr(PPOTrainer, name) for name in PIPELINED_PHASES}
+
+    def probe(name):
+        fn = originals[name]
+
+        def wrapped(self, *args, **kwargs):
+            if depth[0]:
+                return fn(self, *args, **kwargs)
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                out, wall, rows = traced(lambda: fn(self, *args, **kwargs))
+            finally:
+                depth[0] -= 1
+            # the profiler's own start, stop and post-processing
+            overhead[0] += (time.perf_counter() - t0) * 1e3 - wall
+            w, r = phases.get(PIPELINED_PHASES[name], (0.0, []))
+            phases[PIPELINED_PHASES[name]] = (w + wall, r + rows)
+            return out
+
+        return wrapped
+
+    try:
+        for name in PIPELINED_PHASES:
+            setattr(PPOTrainer, name, probe(name))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, pending = trainer.pipelined_cycle(pending)
+        torch.cuda.synchronize()
+        cycle_ms = (time.perf_counter() - t0) * 1e3 - overhead[0]
+    finally:
+        for name, fn in originals.items():
+            setattr(PPOTrainer, name, fn)
+    # a phase called more than once (the fast schedule's two fetches) sums
+    # its kernels by name
+    for name, (wall, rows) in phases.items():
+        merged = {}
+        for k, ms, n in rows:
+            m0, n0 = merged.get(k, (0.0, 0))
+            merged[k] = (m0 + ms, n0 + n)
+        phases[name] = (wall, sorted(((k, ms, n) for k, (ms, n) in merged.items()), key=lambda r: -r[1]))
+    return pending, cycle_ms, phases
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -80,10 +156,16 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     parser = argparse.ArgumentParser()
     parser.add_argument("--options", action="store_true", help="phase 11's options on")
+    parser.add_argument("--pipelined", action="store_true", help="profile pipelined_cycle (phase 12)")
+    parser.add_argument("--fast", action="store_true", help="with --pipelined: the capture fast path on")
     args = parser.parse_args()
+    if args.fast and not args.pipelined:
+        parser.error("--fast needs --pipelined")
     config = ppo_config(ROOT / "build" / "profile_torch_ppo")
     if args.options:
         config = config.evolve(method=PPO_OPTIONS)
+    if args.fast:
+        config = config.evolve(method=dict(capture_rollout_stats=True))
     trainer = PPOTrainer(config, reward_fn=ppo_reward)
     trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
     method = config.method
@@ -97,6 +179,14 @@ def main() -> int:
                 trainer.iter_count += 1
                 steps += 1
         return steps
+
+    if args.pipelined:
+        _, pending = trainer.pipelined_cycle()  # warm-up: two cycles
+        _, pending = trainer.pipelined_cycle(pending)
+        pending, cycle_ms, phases = traced_pipelined_cycle(trainer, pending)
+        if trainer.spec_fallbacks:
+            raise AssertionError(f"the speculative scorer fell back {trainer.spec_fallbacks} times")
+        return report(card, args, phases, cycle_ms, PPO_ROLLOUTS, 4 * PPO_ROLLOUTS // config.train.batch_size)
 
     trainer.make_experience(PPO_ROLLOUTS)  # warm-up: one collection and one cycle of steps
     train_cycle()
@@ -118,11 +208,15 @@ def main() -> int:
         phases["trunk_cache_fill"] = (wall, rows)
     n_steps, wall, rows = traced(train_cycle)
     phases["train_steps"] = (wall, rows)
+    return report(card, args, phases, sum(w for w, _ in phases.values()), PPO_ROLLOUTS, n_steps)
 
+
+def report(card, args, phases, cycle_ms, rollouts, n_steps) -> int:
+    """Print each phase's wall and device time, busy share and top kernels,
+    then the JSON line."""
     print(f"card: {card}")
-    report = {"card": card, "options": args.options, "rollouts": PPO_ROLLOUTS, "train_steps": n_steps,
-              "phases": {}}
-    cycle_ms = sum(w for w, _ in phases.values())
+    out = {"card": card, "options": args.options, "pipelined": args.pipelined, "fast": args.fast,
+           "rollouts": rollouts, "train_steps": n_steps, "phases": {}}
     for name, (wall, rows) in phases.items():
         device_ms = sum(r[1] for r in rows)
         ours = {label: sum(ms for k, ms, _ in rows if frag in k) for frag, label in OURS.items()}
@@ -133,14 +227,16 @@ def main() -> int:
         for label, ms in ours.items():
             if ms:
                 print(f"  {label}: {ms:.4f} ms")
-        report["phases"][name] = {"wall_ms": wall, "device_ms": device_ms,
-                                  "busy_share": device_ms / wall if rows else 0.0,
-                                  "kernel_ms": {label: ms for label, ms in ours.items() if ms},
-                                  "top": [(k[:80], ms, n) for k, ms, n in rows[:8]]}
-    report["cycle_ms"] = cycle_ms
-    report["samples_per_s"] = PPO_ROLLOUTS / cycle_ms * 1e3
-    print(f"cycle: {cycle_ms:.3f} ms over the four phases, {report['samples_per_s']:.2f} samples/s")
-    print(json.dumps(report))
+        out["phases"][name] = {"wall_ms": wall, "device_ms": device_ms,
+                               "busy_share": device_ms / wall if rows else 0.0,
+                               "kernel_ms": {label: ms for label, ms in ours.items() if ms},
+                               "top": [(k[:80], ms, n) for k, ms, n in rows[:8]]}
+    out["cycle_ms"] = cycle_ms
+    out["samples_per_s"] = rollouts / cycle_ms * 1e3
+    what = "the pipelined cycle's wall" if args.pipelined else "the four phases"
+    print(f"cycle: {cycle_ms:.3f} ms over {what} ({sum(w for w, _ in phases.values()):.3f} in the traced "
+          f"phases), {out['samples_per_s']:.2f} samples/s")
+    print(json.dumps(out))
     return 0
 
 

@@ -220,7 +220,7 @@ def test_gc_checkpoints_matches_jax(keep_n, tmp_path):
 
 
 @pytest.mark.parametrize("section,key,value,item", [
-    ("method", "capture_rollout_stats", True, "item 1"),
+    ("train", "fuse_inner_epoch", True, "item 4"),
     ("method", "num_value_layers_unfrozen", 1, "item 1"),
     ("method", "multiturn_env", "calculator", "item 3"),
     ("train", "rollout_backend", "fleet", "item 3"),

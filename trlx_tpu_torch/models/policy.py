@@ -4,14 +4,14 @@ utilities.
 Port of the JAX package's `models/policy.py`: `CausalLMWithValueHead`
 with the MLP value head (the training forward, the windowed head of the
 PPO loss, the trunk cache's fill and the suffix resumed from it, the
-cached decode steps of the sampler, the speculative sampler's draft and
-verify, and the inference engine's), the frozen hydra reference
-(`HydraReference`, the JAX `ref_param_subtree` with `forward_ref_suffix` /
-`forward_ref_full`),
+cached decode steps of the sampler with the fast path's value and
+activation capture, the speculative sampler's draft and verify, and the
+inference engine's), the frozen hydra reference (`HydraReference`, the
+JAX `ref_param_subtree` with `forward_ref_suffix`,
+`forward_ref_suffix_window` and `forward_ref_full`),
 `forward_policy_and_ref`, `resolve_split` and `trainable_mask`. The
-deeper value branch (`ValueBranch`) and the capture decode are ROADMAP
-queue A, item 1; LoRA and prompt tuning are refused at model build until
-they port (item 4).
+deeper value branch (`ValueBranch`) is ROADMAP queue A, item 1; LoRA
+and prompt tuning are refused at model build until they port (item 4).
 """
 
 import copy
@@ -80,11 +80,16 @@ class CausalLMWithValueHead(nn.Module):
         values = self.v_head(h_final)[..., 0] if with_value else None
         return logits, values, layers
 
-    def decode_step(self, tokens, cache, token_mask, is_prefill: bool = False):
+    def decode_step(self, tokens, cache, token_mask, is_prefill: bool = False, with_value: bool = False,
+                    capture_split: Optional[int] = None):
         """Cached decode over the fixed-slot cache (the sampler's). Returns
-        (logits, new_cache)."""
-        logits, _, new_cache = self.lm.decode_step(tokens, cache, token_mask, is_prefill)
-        return logits, new_cache
+        (logits, values, new_cache, h_cap): the value head's output when
+        `with_value`, and the activation entering block `capture_split`
+        when it is given (the rollout fast path's capture), else None."""
+        out = self.lm.decode_step(tokens, cache, token_mask, is_prefill, capture_split)
+        logits, h_final, new_cache = out[:3]
+        values = self.v_head(h_final)[..., 0] if with_value else None
+        return logits, values, new_cache, out[3] if capture_split is not None else None
 
     def decode_step_rows(self, tokens, cache, token_mask, attn_kernel=None):
         """Per-row-offset cached decode (continuous-batching slot pool).
@@ -167,11 +172,25 @@ class HydraReference(nn.Module):
                 h = h + self.embed_pos(positions)
         else:
             h = h_split.detach()
-        bias = train_bias(cfg, attn_mask)
-        for i in range(self.split, cfg.n_layers):
+        return self._suffix(h, attn_mask, positions, 0, h.shape[1])
+
+    def forward_suffix_window(self, h_split, attn_mask, positions=None, start: int = 0, length: int = 1):
+        """Reference logits over positions [start, start + length) only,
+        resumed at block `split` from the activation there (the JAX
+        `forward_ref_suffix_window`): the reference's own blocks [split,
+        n_layers) over the full width, then its final norm and unembedding
+        over the window. The rollout fast path's scorer: the sampler
+        captured h_split, so the reference's suffix is all that is left."""
+        if positions is None:
+            positions = position_ids(attn_mask)
+        return self._suffix(h_split.detach(), attn_mask, positions, start, length)
+
+    def _suffix(self, h, attn_mask, positions, start: int, length: int):
+        bias = train_bias(self.cfg, attn_mask)
+        for i in range(self.split, self.cfg.n_layers):
             h, _ = getattr(self, f"block_{i}")(h, bias, positions, attn_mask=attn_mask)
-        h = self.ln_f(h)
-        return self.embed_tokens.attend(h) if cfg.tie_embeddings else self.lm_head(h)
+        h = self.ln_f(h[:, start:start + length])
+        return self.embed_tokens.attend(h) if self.cfg.tie_embeddings else self.lm_head(h)
 
 
 def forward_policy_and_ref(model: CausalLMWithValueHead, ref: HydraReference, tokens, attn_mask,

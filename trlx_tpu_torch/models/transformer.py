@@ -548,13 +548,16 @@ class TransformerLM(nn.Module):
             h, _ = blk(h, bias, positions, attn_mask=attn_mask)
         return h
 
-    def decode_step(self, tokens, cache: Dict[str, Any], token_mask, is_prefill: bool = False):
+    def decode_step(self, tokens, cache: Dict[str, Any], token_mask, is_prefill: bool = False,
+                    capture_split: Optional[int] = None):
         """One cached call over the fixed-slot dense cache (`init_kv_cache`):
         a prefill of the prompt block at the cache's write offset, or one
         decode step. The cache carries `index` (the write offset, a python
         int), `mask` [b, S], `pos` [b] (each row's next position id) and
         `layers`; its K/V tensors are written in place. Returns (logits,
-        h_final, new_cache)."""
+        h_final, new_cache); with `capture_split` (the rollout fast path)
+        also the activation entering that block, (logits, h_final,
+        new_cache, h_cap)."""
         b, t = tokens.shape
         index = int(cache["index"])
         if is_prefill:
@@ -574,9 +577,15 @@ class TransformerLM(nn.Module):
             within = (k_ids < index + t) & (k_ids >= index) & (k_ids - index > q_ids)
             bias = bias + torch.where(within[None, None], -1e9, 0.0).to(torch.float32)
         h = self.embed(tokens, positions)
-        h, new_layers = self.run_blocks(h, bias, positions, cache["layers"], index)
+        h, new_layers = self.run_blocks(h, bias, positions, cache["layers"], index, stop=capture_split)
+        if capture_split is not None:
+            h_cap = h
+            h, high = self.run_blocks(h, bias, positions, cache["layers"], index, start=capture_split)
+            new_layers = new_layers + high
         logits, h_final = self.unembed(h)
         new_cache = {"index": index + t, "mask": new_mask, "pos": next_pos, "layers": new_layers}
+        if capture_split is not None:
+            return logits, h_final, new_cache, h_cap
         return logits, h_final, new_cache
 
     def decode_step_rows(

@@ -22,8 +22,13 @@ mask bits. Greedy output is the plain sampler's; sampled output follows
 the same distribution. Either sampler may run on a decode view of the
 parameters (`params`, the int8 frozen trunk of `ops/quant.py`).
 
-ILQL, seq2seq and beams (ROADMAP queue A, item 4) and stat capture (item
-1) raise.
+With `capture` (the rollout fast path, `method.capture_rollout_stats`)
+either sampler also returns what PPO's scoring pass would otherwise
+recompute with a batched forward: each sampled token's policy logprob
+from the raw logits, the value at its input position, and the
+activations entering the hydra split over prompt and response.
+
+ILQL, seq2seq and beams (ROADMAP queue A, item 4) raise.
 """
 
 from dataclasses import dataclass
@@ -145,6 +150,7 @@ def make_generate_fn(
     mode: str = "lm",
     logit_mask: Optional[np.ndarray] = None,  # [V, V] True = forbidden transition
     capture: bool = False,
+    capture_split: int = 0,  # the hydra split whose entering activation `capture` keeps
     spec_k: int = 0,  # > 0: self-speculative decode, spec_k drafts a round
     spec_split: int = 0,  # the hydra split: the draft trunk's depth
     spec_draft_head: Optional[Tuple[np.ndarray, np.ndarray]] = None,  # (A [d, r], B [r, V])
@@ -157,7 +163,15 @@ def make_generate_fn(
     under speculative decode. `model` is a `CausalLMWithValueHead` whose
     parameters live on the device the inputs are moved to; `params`, a
     decode view `{name: tensor or (q, scale)}`, replaces those parameters
-    for the call (`ops/quant.dequantize_tree`)."""
+    for the call (`ops/quant.dequantize_tree`).
+
+    With `capture` the dict also holds "logprobs" [b, max_new] f32 (each
+    sampled token's logprob under the raw, unwarped logits, what
+    `logprobs_of_labels` reads off the batched forward), "values" [b,
+    max_new] f32 (the value head at each token's input position) and
+    "h_split" [b, p + max_new, d] (the activation entering block
+    `capture_split`; the last sampled token's row is never written and
+    stays 0, since it is only ever a masked key or a padding query)."""
     from trlx_tpu_torch.models.transformer import init_kv_cache
     from trlx_tpu_torch.ops.quant import dequantize_tree
     from trlx_tpu_torch.utils.modeling import swapped_params
@@ -168,10 +182,6 @@ def make_generate_fn(
         raise NotImplementedError("seq2seq generation is not ported yet (ROADMAP queue A, item 4)")
     if gen_cfg.num_beams > 1:
         raise NotImplementedError("beam search is not ported yet (ROADMAP queue A, item 4)")
-    if capture:
-        raise NotImplementedError(
-            "rollout stat capture (the capture_split decode) is not ported yet (ROADMAP queue A, item 1)"
-        )
     if spec_k > 0:
         # the JAX sampler's own refusals: a direct caller must not get a
         # sampler whose distribution differs from the plain one
@@ -184,6 +194,8 @@ def make_generate_fn(
             raise ValueError("speculative decode requires a hydra split > 0 (the frozen trunk is the draft model)")
         if spec_draft_head is None:
             raise ValueError("speculative decode requires a draft head (A, B); see spec_draft_head_from_params")
+        if capture and capture_split != spec_split:
+            raise ValueError("capture_split must equal spec_split under speculative decode (both are the hydra split)")
     max_new = gen_cfg.max_new_tokens
     track_seen = gen_cfg.repetition_penalty != 1.0
     greedy = not gen_cfg.do_sample or gen_cfg.temperature == 0.0
@@ -209,13 +221,29 @@ def make_generate_fn(
 
         return device, input_ids, attn_mask, shift
 
+    def step(tokens, cache, token_mask, is_prefill=False):
+        """One cached model call: (logits, values, new_cache, h_cap), the
+        last two None without capture."""
+        return model.decode_step(tokens, cache, token_mask, is_prefill, with_value=capture,
+                                 capture_split=capture_split if capture else None)
+
+    def capture_buffers(b, plen, width, h_cap):
+        """The capture's logprob and value columns and the split
+        activations, zeros, with the prefill's prompt rows written."""
+        lp = torch.zeros((b, width), dtype=torch.float32, device=h_cap.device)
+        hs = torch.zeros((b, plen + width, h_cap.shape[-1]), dtype=h_cap.dtype, device=h_cap.device)
+        hs[:, :plen] = h_cap
+        return lp, torch.zeros_like(lp), hs
+
     def generate_plain(input_ids, attn_mask, generator):
         device, input_ids, attn_mask, shift = setup(input_ids, attn_mask)
         b, plen = input_ids.shape
         V = model_cfg.vocab_size
         cache = init_kv_cache(model_cfg, b, plen + max_new, device=device)
-        logits, cache = model.decode_step(input_ids, cache, attn_mask, is_prefill=True)
+        logits, value, cache, h_cap = step(input_ids, cache, attn_mask, is_prefill=True)
         logits = logits[:, -1].float()
+        if capture:
+            lp_buf, v_buf, hs_buf = capture_buffers(b, plen, max_new, h_cap)
         seen = None
         if track_seen:  # HF semantics: the penalty covers prompt tokens too
             counts = torch.zeros((b, V), dtype=torch.int32, device=device)
@@ -228,25 +256,33 @@ def make_generate_fn(
         out_mask = torch.zeros((b, max_new), dtype=torch.int32, device=device)
         for i in range(max_new):
             if i > 0:
-                step_logits, cache = model.decode_step(prev[:, None], cache, out_mask[:, i - 1:i])
+                step_logits, value, cache, h_cap = step(prev[:, None], cache, out_mask[:, i - 1:i])
                 logits = step_logits[:, -1].float()
+                if capture:  # the split activation at prev's position plen + i - 1
+                    hs_buf[:, plen + i - 1] = h_cap[:, 0]
             scores = process_logits(shift(logits, prev), gen_cfg, i, seen)
             token = select_token(scores, generator, gen_cfg)
             token = torch.where(finished, torch.full_like(token, gen_cfg.pad_token_id), token)
             out_tokens[:, i] = token
             out_mask[:, i] = (~finished).to(torch.int32)
+            if capture:
+                lp_buf[:, i] = sampled_token_logprob(logits, token)
+                v_buf[:, i] = value[:, -1].float()
             finished = finished | (token == gen_cfg.eos_token_id)
             if track_seen:
                 seen[torch.arange(b, device=device), token] = True
             prev = token
             if bool(finished.all()):  # early exit, like the JAX while_loop's condition
                 break
-        return {
+        out = {
             "samples": torch.cat([input_ids, out_tokens], dim=1),
             "samples_mask": torch.cat([attn_mask, out_mask], dim=1),
             "response_tokens": out_tokens,
             "response_mask": out_mask,
         }
+        if capture:
+            out.update(logprobs=lp_buf, values=v_buf, h_split=hs_buf)
+        return out
 
     def generate_spec(input_ids, attn_mask, generator):
         """The draft/verify rounds. Each round feeds the pending token and k
@@ -266,15 +302,21 @@ def make_generate_fn(
         # k spare columns: a round may write k positions past the budget
         # before the rollback clears them
         cache = init_kv_cache(model_cfg, b, plen + max_new + k, device=device)
-        logits, cache = model.decode_step(input_ids, cache, attn_mask, is_prefill=True)
+        logits, value, cache, h_cap = step(input_ids, cache, attn_mask, is_prefill=True)
+        logits = logits[:, -1].float()
         # token 0: the plain sampler's preamble (same prefill, same draw)
-        token0 = select_token(warp(logits[:, -1].float(), input_ids[:, -1], 0), generator, gen_cfg)
+        token0 = select_token(warp(logits, input_ids[:, -1], 0), generator, gen_cfg)
         finished = (token0 == eos) | (max_new <= 1)
         # one spare output column takes the writes JAX drops (index max_new)
         out_tokens = torch.full((b, max_new + 1), pad, dtype=torch.long, device=device)
         out_mask = torch.zeros((b, max_new + 1), dtype=torch.int32, device=device)
         out_tokens[:, 0] = token0
         out_mask[:, 0] = 1
+        if capture:
+            # a spare column and row take the writes JAX drops, as above
+            lp_buf, v_buf, hs_buf = capture_buffers(b, plen, max_new + 1, h_cap)
+            lp_buf[:, 0] = sampled_token_logprob(logits, token0)
+            v_buf[:, 0] = value[:, -1].float()
         # the prefill's scalar index becomes per-row offsets: rows diverge
         # once they keep different numbers of drafts
         cache = {"row_index": torch.full((b,), cache["index"], dtype=torch.long, device=device),
@@ -302,8 +344,9 @@ def make_generate_fn(
                     drafts.append(f)
                     fed.append(f)
             positions = pos_start[:, None] + jidx
-            logits_v, _, _ = model.spec_verify_rows(torch.cat(h_rows, dim=1), cache, row_start, positions,
-                                                    spec_split)
+            h_block = torch.cat(h_rows, dim=1)  # [b, k + 1, d]
+            logits_v, values_v, _ = model.spec_verify_rows(h_block, cache, row_start, positions, spec_split,
+                                                           with_value=capture)
             logits_v = logits_v.float()
             p_scores = [warp(logits_v[:, j], fed[j], out_i + j) for j in range(k + 1)]
             # the longest accepted draft prefix, m tokens
@@ -364,12 +407,21 @@ def make_generate_fn(
             out_idx = torch.where(valid, out_i[:, None] + jidx, max_new)
             out_tokens[rows_b, out_idx] = emit
             out_mask[rows_b, out_idx] = valid.to(torch.int32)
+            if capture:
+                lp_emit = torch.log_softmax(logits_v, dim=-1).gather(2, emit[..., None])[..., 0]
+                lp_buf[rows_b, out_idx] = lp_emit
+                v_buf[rows_b, out_idx] = values_v.float()
+                # the rows of the fed tokens f_0..f_{e-1} at their positions
+                # plen + out_i - 1 + j; the last emitted token's row is never
+                # written (as in the plain capture)
+                h_idx = torch.where(jidx < e[:, None], plen + out_i[:, None] - 1 + jidx, plen + max_new)
+                hs_buf[rows_b, h_idx] = h_block.to(hs_buf.dtype)
             rounds += act_i
             accepted += m * act_i
             out_i, finished = new_out_i, new_finished
             i += 1
         out_tokens, out_mask = out_tokens[:, :max_new], out_mask[:, :max_new]
-        return {
+        out = {
             "samples": torch.cat([input_ids, out_tokens], dim=1),
             "samples_mask": torch.cat([attn_mask, out_mask], dim=1),
             "response_tokens": out_tokens,
@@ -377,6 +429,10 @@ def make_generate_fn(
             "spec_rounds": rounds,
             "spec_accepted": accepted,
         }
+        if capture:
+            out.update(logprobs=lp_buf[:, :max_new], values=v_buf[:, :max_new],
+                       h_split=hs_buf[:, :plen + max_new])
+        return out
 
     sample = generate_spec if spec_k > 0 else generate_plain
 

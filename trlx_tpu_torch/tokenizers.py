@@ -15,13 +15,14 @@ interface with three implementations:
 `tokenizer_path` dispatch: "byte" / "byte:" → ByteTokenizer,
 "char:<alphabet>" → CharTokenizer, anything else → HFTokenizer.
 
-A copy of the JAX package's module without its in-graph retokenize
-helper, which waits for the rollout slice.
+A copy of the JAX package's module; its in-graph retokenize
+(`BaseTokenizer.device_retokenize`) runs on torch tensors on the device.
 """
 
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 
 class BaseTokenizer:
@@ -110,6 +111,31 @@ class BaseTokenizer:
             "input_ids": seqs,
             "attention_mask": [[1] * len(s) for s in seqs],
         }
+
+    def device_retokenize(self, response_ids: torch.Tensor, max_new: int) -> torch.Tensor:
+        """The host decode -> encode round trip of PPO's experience stage
+        (`decode(append_eos_token=True)`, then `encode()[:max_new]`, right
+        padded) on the device, over raw response ids [b, r >= max_new]:
+        every id that decodes to nothing (ids >= `_n_plain_ids`: specials
+        and vocab-padding ids) is dropped, the survivors are compacted left
+        in order, and the eos comes back iff generation stopped early (the
+        last raw id is eos or pad). It lets the pipelined cycle score the
+        samples before the host's retokenization, which still arbitrates.
+        Only tokenizers whose round trip is id-local (byte, char) have it;
+        it is not valid under stop sequences, which trim by string."""
+        n_plain = getattr(self, "_n_plain_ids", None)
+        if n_plain is None:
+            raise NotImplementedError(f"{type(self).__name__} has no in-graph retokenize")
+        valid = response_ids < n_plain
+        # stable left-compaction of the surviving ids
+        order = torch.argsort((~valid).int(), dim=1, stable=True)
+        compact = torch.gather(response_ids, 1, order)[:, :max_new]
+        n_valid = valid.sum(dim=1, keepdim=True)
+        j = torch.arange(max_new, device=response_ids.device)[None, :]
+        out = torch.where(j < n_valid, compact, self.pad_token_id)
+        last = response_ids[:, -1:]
+        stopped_early = (last == self.eos_token_id) | (last == self.pad_token_id)
+        return torch.where(stopped_early & (j == n_valid), self.eos_token_id, out)
 
 
 class ByteTokenizer(BaseTokenizer):

@@ -262,18 +262,21 @@ class TorchTrainer:
         return self.model.state_dict()
 
     def get_generate_fn(self, batch_size: int, prompt_len: int, gen_kwargs: Dict, mode: str = "lm",
-                        spec_k: int = 0):
-        """Sampler per (shape, kwargs) bucket; spec_k > 0 builds the
+                        capture: bool = False, spec_k: int = 0):
+        """Sampler per (shape, kwargs) bucket; `capture` builds the rollout
+        fast path's sampler, which also returns per-token logprobs and
+        values and the hydra split's activations; spec_k > 0 builds the
         self-speculative sampler, drafting on the trunk below the split."""
         from trlx_tpu_torch.ops.sampling import GenerationConfig, make_generate_fn
 
-        key = (batch_size, prompt_len, repr(sorted(gen_kwargs.items())), mode, int(spec_k))
+        key = (batch_size, prompt_len, repr(sorted(gen_kwargs.items())), mode, bool(capture), int(spec_k))
         if key not in self._generate_cache:
             gen_cfg = GenerationConfig.from_gen_kwargs(
                 gen_kwargs, self.tokenizer.eos_token_id, self.tokenizer.pad_token_id
             )
             self._generate_cache[key] = make_generate_fn(
                 self.model, self.model_cfg, gen_cfg, mode=mode, logit_mask=self.logit_mask,
+                capture=capture, capture_split=self.split if capture else 0,
                 spec_k=spec_k, spec_split=self.split if spec_k > 0 else 0,
                 spec_draft_head=self._spec_draft_head() if spec_k > 0 else None,
             )
@@ -317,13 +320,13 @@ class TorchTrainer:
         for k, v in out.items():
             if hasattr(v, "ndim") and v.ndim >= 1 and v.shape[0] >= b:
                 v = v[:b]
-                if col_pad and k in ("samples", "samples_mask"):
+                if col_pad and k in ("samples", "samples_mask", "h_split"):
                     v = v[:, col_pad:]
             trimmed[k] = v
         return trimmed
 
     def generate(self, input_ids, attention_mask, gen_kwargs: Optional[Dict] = None, mode: str = "lm",
-                 spec_k: int = 0):
+                 capture: bool = False, spec_k: int = 0):
         """Sample continuations for a host prompt batch on the decode view
         (`_decode_params`); returns the sampler's dict of device tensors."""
         gen_kwargs = gen_kwargs if gen_kwargs is not None else self.generate_kwargs
@@ -333,7 +336,7 @@ class TorchTrainer:
             input_ids, attention_mask, orig = self._bucket_prompts(input_ids, attention_mask)
         else:
             orig = (input_ids.shape[0], 0)
-        fn = self.get_generate_fn(input_ids.shape[0], input_ids.shape[1], gen_kwargs, mode, spec_k)
+        fn = self.get_generate_fn(input_ids.shape[0], input_ids.shape[1], gen_kwargs, mode, capture, spec_k)
         out = fn(input_ids, attention_mask, self.generator, params=self._decode_params())
         return self._unbucket_output(out, orig)
 
@@ -385,28 +388,35 @@ class TorchTrainer:
                 out[k] = v
         return out
 
-    def train_minibatch(self, minibatch: List[Any]) -> Dict[str, float]:
-        """One optimizer step over the microbatches of `minibatch`: one
+    def optimizer_step(self, microbatches: List[Any]) -> List[Dict[str, torch.Tensor]]:
+        """One optimizer step over microbatches already on the device: one
         microbatch steps on its gradient; several sum their gradients and
-        divide by `num_mb` first. Returns the microbatch-mean stats, plus
-        the step's wall time and real tokens per second."""
+        divide by `num_mb` first. The scheduler steps once. Returns each
+        microbatch's stats as device tensors; nothing is fetched to the
+        host, so the caller decides when to wait for the device."""
         if not hasattr(self, "_loss_fn"):
             self._loss_fn = self.make_loss_fn()
-        t0 = time.perf_counter()
         self.optimizer.zero_grad(set_to_none=True)
         stats_list = []
-        tokens = 0
-        for mb in minibatch:
-            loss, stats = self._loss_fn(self.batch_to_device(mb))
+        for mb in microbatches:
+            loss, stats = self._loss_fn(mb)
             loss.backward()
             stats_list.append(stats)
-            tokens += self.count_tokens(mb)
-        if len(minibatch) > 1:
+        if len(microbatches) > 1:
             for p in self.trainable_params:
                 if p.grad is not None:
                     p.grad.div_(self.num_mb)
         self.optimizer.step()
         self.scheduler.step()
+        return stats_list
+
+    def train_minibatch(self, minibatch: List[Any]) -> Dict[str, float]:
+        """`optimizer_step` over the host microbatches of `minibatch`.
+        Returns the microbatch-mean stats, plus the step's wall time and
+        real tokens per second."""
+        t0 = time.perf_counter()
+        tokens = sum(self.count_tokens(mb) for mb in minibatch)
+        stats_list = self.optimizer_step([self.batch_to_device(mb) for mb in minibatch])
         # the host fetch of the stats also waits for the step on the device
         flat = [{k: float(v) for k, v in s.items()} for s in stats_list]
         stats = {k: sum(s[k] for s in flat) / len(flat) for k in flat[0]}

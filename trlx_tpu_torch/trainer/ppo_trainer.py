@@ -25,16 +25,32 @@ The method options of the JAX bench's headline PPO run:
   in `trunk_cache_dtype`), and every step resumes the trainable blocks
   from it (`forward_from_cache_window`) instead of running the trunk.
 
-The JAX trainer overlaps the next chunk's sampling with this one's host
-work; eager torch runs them one after the other, drawing prompts and
-sampling in the same order. Refused at construction, naming their ROADMAP
-items: the rollout fast path (`capture_rollout_stats`) and the deeper
-value branch (queue A item 1), multi-turn rollouts and the rollout fleet
-(item 3), and seq2seq (item 4). `pipelined_cycle` is not ported (item 1).
+`pipelined_cycle` is the JAX bench's timed schedule: one PPO iteration
+with one blocking host fetch, the rollouts, their stats and rewards kept
+on the device from sampling through training
+(`train_epochs_from_chunk`). Its scorers, chosen per chunk:
+- the speculative scorer: the hydra pass runs on the device's own
+  retokenization of the raw samples (`BaseTokenizer.device_retokenize`)
+  before the host has decoded them; the host's retokenization arbitrates
+  and a mismatch falls back to the in-graph classic scorer
+  (`_score_reward`), counted in `spec_fallbacks`;
+- the capture fast path (`capture_rollout_stats`): the sampler captures
+  the policy's logprobs and values and the activations entering the
+  split, so scoring is the reference's suffix alone, and the captured
+  activations become the trunk cache. The next cycle's rollouts are
+  sampled before this cycle's training, on one-step-stale parameters,
+  as in JAX.
+The JAX trainer only enqueues a sampling loop and overlaps it with host
+work; eager torch runs the loop (one host sync a step), so that overlap
+is absent here. Refused at construction, naming their ROADMAP items: the
+deeper value branch (queue A item 1), multi-turn rollouts and the
+rollout fleet (item 3), and seq2seq (item 4).
 """
 
+import dataclasses
 import json
 import os
+import time
 import uuid
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -99,7 +115,6 @@ class PPOConfig(MethodConfig):
 
 # method flags of features the port does not run yet -> the ROADMAP item
 _UNPORTED_METHOD_FLAGS = {
-    "capture_rollout_stats": "queue A, item 1 (the rollout fast path)",
     "num_value_layers_unfrozen": "queue A, item 1 (the value branch)",
     "multiturn_env": "queue A, item 3 (multi-turn rollouts over the fleet)",
 }
@@ -146,6 +161,13 @@ class PPOTrainer(TorchTrainer):
         self.spec_decode_accepted = 0
         self._spec_draft_head_cache = None
         self._quant_frozen = None
+        # the pipelined cycle: speculative-scorer misses, dense rewards seen
+        # (which turn that scorer off), the scorer of the pending chunks,
+        # and the last cycle's host timings
+        self.spec_fallbacks = 0
+        self._spec_disabled_dense = False
+        self._pending_fast = False
+        self.cycle_stats: Dict[str, float] = {}
         self.log_rollouts = config.train.rollout_logging_dir is not None
         if self.log_rollouts:
             self.setup_rollout_logging(config)
@@ -304,8 +326,7 @@ class PPOTrainer(TorchTrainer):
         sample_outputs, outputs, scores, scores_mask)."""
         method = self.config.method
         pad_id = self.tokenizer.pad_token_id
-        gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
-        max_new = int(gen_kwargs.get("max_new_tokens", 40))
+        max_new = self._max_new()
 
         prompt_tensors = np.asarray(batch["input_ids"])
         n_samples = len(samples)
@@ -413,17 +434,17 @@ class PPOTrainer(TorchTrainer):
     def _spec_k_effective(self) -> int:
         return int(self.config.method.spec_k) if self._spec_decode_available() else 0
 
-    def _accum_spec_stats(self, out, stats: Dict):
+    def _accum_spec_stats(self, out, stats: Optional[Dict] = None):
         """Fold a sampling dict's speculative counters into the running
-        totals and a chunk's stats (read after the samples, so no extra
-        wait on the device)."""
+        totals and, when given, a chunk's stats (read after the samples, so
+        no extra wait on the device)."""
         if "spec_rounds" not in out:
             return
         rounds = int(out["spec_rounds"].sum())
         accepted = int(out["spec_accepted"].sum())
         self.spec_decode_rounds += rounds
         self.spec_decode_accepted += accepted
-        if rounds > 0:
+        if stats is not None and rounds > 0:
             k = int(self.config.method.spec_k)
             stats["rollout/spec_accept_rate"] = accepted / float(k * rounds)
             stats["rollout/spec_tokens_per_round"] = 1.0 + accepted / float(rounds)
@@ -458,6 +479,344 @@ class PPOTrainer(TorchTrainer):
         conditions (seq2seq, MoE, a value branch below the split) are
         refused at construction in the port."""
         return bool(self.config.method.cache_trunk_activations) and self.split > 0
+
+    # ------------------------------------------------------------------
+    # The pipelined cycle: one blocking host fetch a PPO iteration
+    # ------------------------------------------------------------------
+
+    def _spec_path_available(self) -> bool:
+        """Whether the speculative rollout scorer may run. The device's
+        retokenization must be able to equal the host round trip: an
+        id-local tokenizer (`_n_plain_ids`) and no stop sequences (those
+        trim by string). Dense rewards turn it off once a chunk shows them:
+        its merge is scalar-only, so its forward would only double the
+        scoring. (The JAX gate's seq2seq condition is refused at
+        construction.)"""
+        return (
+            not self.stop_sequences
+            and not self._spec_disabled_dense
+            and getattr(self.tokenizer, "_n_plain_ids", None) is not None
+        )
+
+    def _fast_rollout_available(self) -> bool:
+        """Whether the rollout fast path (`method.capture_rollout_stats`)
+        runs: everything the speculative scorer needs (the host
+        retokenization stays the arbiter), a real hydra split (the
+        reference's suffix is what is left after the capture), values from
+        the plain value head (no deeper value branch) and one beam (the
+        sampler is where the capture lives)."""
+        method = self.config.method
+        if not method.capture_rollout_stats:
+            return False
+        gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
+        return (
+            self._spec_path_available()
+            and self.split > 0
+            and method.num_value_layers_unfrozen == 0
+            and int(gen_kwargs.get("num_beams", 1) or 1) == 1
+        )
+
+    def _max_new(self) -> int:
+        return int((self.generate_experience_kwargs or self.generate_kwargs).get("max_new_tokens", 40))
+
+    def dispatch_rollout_generation(self):
+        """Sample the next chunk of prompts on the current parameters,
+        capturing the fast path's stats where it runs. Returns (the prompt
+        batch, the sampler's dict of device tensors). Eager torch runs the
+        whole sampling loop here (one host sync a step) where the JAX
+        trainer only enqueues it."""
+        batch = self._next_prompts()
+        out = self.generate(batch["input_ids"], batch["attention_mask"],
+                            self.generate_experience_kwargs or self.generate_kwargs,
+                            capture=self._fast_rollout_available(), spec_k=self._spec_k_effective())
+        return batch, out
+
+    def _spec_merge(self, prompt_tensors, responses, lp_win, v_win, logratio_win, scores_eff, kl_coef: float,
+                    scalar: bool) -> PPORLBatch:
+        """Per-token rewards on the device from the scored response windows
+        and the host scores (the JAX `_build_spec_merge_fn`, whose formulas
+        the classic scorer shares): the KL penalty on each real response
+        token (an empty response keeps one slot), plus a scalar score on
+        the last of them or a dense score on each. A PPORLBatch of device
+        tensors, stats zero past each response."""
+        r = responses.shape[1]
+        j = torch.arange(r, device=responses.device)[None, :]
+        n_resp = (responses != self.tokenizer.pad_token_id).sum(1, keepdim=True).clamp(min=1)
+        valid = (j < n_resp).float()
+        rewards = (-float(np.float32(kl_coef))) * logratio_win * valid
+        if scalar:
+            rewards = rewards + (j == n_resp - 1) * scores_eff[:, :1]
+        else:
+            rewards = rewards + scores_eff * valid
+        return PPORLBatch(query_tensors=prompt_tensors, response_tensors=responses, logprobs=lp_win * valid,
+                          values=v_win * valid, rewards=rewards)
+
+    @torch.no_grad()
+    def _score_reward(self, prompt_tensors, sample_outputs, scores_eff, kl_coef: float, scalar: bool):
+        """The hydra score of query|response and the per-token rewards, all
+        on the device (the JAX `_build_score_reward_fn`, mirroring
+        `_chunk_to_elements`): the pipelined cycle's classic scorer and the
+        speculative one's fallback. Returns (PPORLBatch of device tensors,
+        mean_kl, mean_kl_per_token), the last two 0-d tensors."""
+        logprobs, values, log_ratio, mean_kl, mean_kl_per_token = self.score(
+            torch.cat([prompt_tensors, sample_outputs], dim=1))
+        start, r = prompt_tensors.shape[1] - 1, sample_outputs.shape[1]
+        win = lambda x: x[:, start:start + r]
+        chunk = self._spec_merge(prompt_tensors, sample_outputs, win(logprobs), win(values), win(log_ratio),
+                                 scores_eff, kl_coef, scalar)
+        return chunk, mean_kl, mean_kl_per_token
+
+    @torch.no_grad()
+    def _spec_fwd(self, samples, trimmed, q: int, max_new: int):
+        """The speculative half of `_score_reward` (the JAX
+        `_build_spec_fwd_fn`): the hydra score of the prompts and the
+        device-trimmed responses, before the host has retokenized them.
+        Returns the response windows of (logprobs, values, log-ratio) and
+        mean_kl."""
+        logprobs, values, log_ratio, mean_kl, _ = self.score(torch.cat([samples[:, :q], trimmed], dim=1))
+        win = lambda x: x[:, q - 1:q - 1 + max_new]
+        return win(logprobs), win(values), win(log_ratio), mean_kl
+
+    def _dispatch_spec_score(self, out):
+        """The speculative scorer over a sampling dict: (trimmed, lp_win,
+        v_win, logratio_win, mean_kl), device tensors; `trimmed` is the
+        device's retokenization of the raw responses (the JAX
+        `_build_spec_trim_fn`)."""
+        samples, max_new = out["samples"], self._max_new()
+        q = samples.shape[1] - out["response_tokens"].shape[1]
+        trimmed = self.tokenizer.device_retokenize(samples[:, q:], max_new)
+        return (trimmed, *self._spec_fwd(samples, trimmed, q, max_new))
+
+    @torch.no_grad()
+    def _fast_fwd(self, samples, h_split, lp_cap, v_cap, q: int, max_new: int):
+        """The fast path's score (the JAX `_build_fast_fwd_fn`): the
+        sampler captured the policy's logprobs and values and the
+        activations entering the split, so only the reference's suffix
+        runs, its head over the response window alone. Window semantics
+        are `_spec_fwd`'s, with one documented divergence: mean_kl sums
+        over the window's real labels only, where the classic sum also
+        counts prompt positions (zero there) and the pad label after an
+        early eos. It feeds only the KL controller and logs; the loss's
+        ratios are the same."""
+        pad_id = self.tokenizer.pad_token_id
+        attention_mask = (samples != pad_id).long()
+        ref_logits_w = self.ref_model.forward_suffix_window(h_split, attention_mask, position_ids(attention_mask),
+                                                            q - 1, max_new)
+        labels = samples[:, q:q + max_new]
+        ref_lp = logprobs_of_labels(ref_logits_w, labels)
+        log_ratio_w = (lp_cap - ref_lp) * (labels != pad_id).float()
+        kl = torch.exp(log_ratio_w) - 1 - log_ratio_w
+        return lp_cap, v_cap, log_ratio_w, kl.sum(1).mean()
+
+    def _dispatch_fast_score(self, out):
+        """The fast path's analogue of `_dispatch_spec_score`, with its
+        5-tuple, so the cycle's arbitration and merge are shared: the trim
+        still goes to the host's arbitration. Under the trunk cache the
+        captured activations ride on `out["trunk_cache"]`, for the cycle to
+        attach once the arbitration confirms raw == retokenized."""
+        samples, max_new = out["samples"], self._max_new()
+        q = samples.shape[1] - out["response_tokens"].shape[1]
+        trimmed = self.tokenizer.device_retokenize(samples[:, q:], max_new)
+        scored = self._fast_fwd(samples, out["h_split"], out["logprobs"], out["values"], q, max_new)
+        if self._trunk_cache_available():
+            out["trunk_cache"] = out["h_split"]
+        return (trimmed, *scored)
+
+    def _attach_trunk_cache(self, chunk: PPORLBatch, captured: Optional[torch.Tensor] = None) -> PPORLBatch:
+        """The trunk cache of a device chunk, when the gate is on: the
+        sampler's captured activations, cast to `trunk_cache_dtype`, where
+        their width is the chunk's query + response (a fast-path hit
+        guarantees it); else one trunk pass (`trunk_cache_fill`). Under the
+        int8 decode view the captured rows come from the dequantized trunk,
+        as in JAX."""
+        if not self._trunk_cache_available():
+            return chunk
+        if captured is not None and captured.shape[1] == chunk.query_tensors.shape[1] + chunk.response_tensors.shape[1]:
+            h = captured.to(getattr(torch, self.config.method.trunk_cache_dtype))
+        else:
+            h = self.trunk_cache_fill(torch.cat([chunk.query_tensors, chunk.response_tensors], dim=1))
+        return dataclasses.replace(chunk, h_split=h)
+
+    def train_epochs_from_chunk(self, chunk: PPORLBatch, n_epochs: int) -> Dict[str, torch.Tensor]:
+        """Every inner epoch's optimizer steps from a chunk on the device:
+        the epochs' shuffles are the JAX trainer's host permutations
+        (`np.random.default_rng(train.seed + iter_count)`), each batch is
+        gathered on the device by an index tensor, and each step is
+        `optimizer_step`'s, with no host fetch. Returns the mean of each
+        stat over the steps, as device tensors; `iter_count` advances by
+        the steps taken."""
+        n = int(chunk.query_tensors.shape[0])
+        bs = self.config.train.batch_size
+        if n % bs != 0:
+            raise ValueError(f"chunk of {n} rollouts not divisible by batch_size {bs}")
+        steps = n // bs
+        rng = np.random.default_rng(self.config.train.seed + self.iter_count)
+        idx = np.concatenate([rng.permutation(n) for _ in range(n_epochs)]).reshape(n_epochs * steps, bs)
+        fields = {f.name: getattr(chunk, f.name) for f in dataclasses.fields(chunk)}
+        step_stats = []
+        for rows in torch.from_numpy(idx).to(self.device):
+            batch = PPORLBatch(**{k: None if v is None else v.index_select(0, rows) for k, v in fields.items()})
+            step_stats.append(self.optimizer_step([batch])[0])
+        self.iter_count += n_epochs * steps
+        return {k: torch.stack([s[k] for s in step_stats]).mean() for k in step_stats[0]}
+
+    def _fetch(self, tensors: List[torch.Tensor]) -> List[np.ndarray]:
+        """The cycle's blocking device-to-host fetch; its wait goes into
+        `cycle_stats`."""
+        t0 = time.perf_counter()
+        host = [t.cpu().numpy() for t in tensors]
+        self.cycle_stats["fetch_wait_ms"] = self.cycle_stats.get("fetch_wait_ms", 0.0) + (time.perf_counter() - t0) * 1e3
+        return host
+
+    def pipelined_cycle(self, pending=None):
+        """One PPO iteration (the chunks' rollouts, their scoring, every
+        inner epoch, and the next chunks' rollouts) with one blocking host
+        fetch: this cycle's samples (and speculative trims) with, on the
+        classic and speculative schedules, the previous cycle's loss and
+        mean KL. The KL controller then updates `ppo_epochs` times, the
+        classic cadence of once an inner epoch.
+
+        Where `_spec_path_available`, the hydra score runs speculatively on
+        the device's retokenization; the host's arbitrates (an exact match
+        of trims, prompts and, under the fast path, raw responses), and a
+        miss falls back to `_score_reward`, counted in `spec_fallbacks`.
+        Under the fast path the sampler captured the policy's stats, the
+        score is the reference's suffix, and the next cycle's rollouts are
+        sampled before this cycle's training: on one-step-stale parameters,
+        whose captured logprobs are the behaviour policy's, as the PPO
+        ratio needs. The loss and KL then come in a second fetch, after the
+        host work.
+
+        num_rollouts = k * chunk_size: k chunks sampled on the same
+        parameters, trained on together. Returns (the previous cycle's
+        loss or None, pending); pass `pending` back in, and read the last
+        cycle's loss from pending[2][0]. The rollout store and logging are
+        `make_experience`'s and `learn`'s, not this cycle's."""
+        method = self.config.method
+        if method.num_rollouts % method.chunk_size != 0:
+            raise NotImplementedError(
+                f"pipelined_cycle requires num_rollouts to be a multiple of chunk_size (got "
+                f"{method.num_rollouts} vs {method.chunk_size}); use make_experience + learn for ragged collections"
+            )
+        k = method.num_rollouts // method.chunk_size
+        max_new = self._max_new()
+        self.cycle_stats = {"fetch_wait_ms": 0.0, "host_ms": 0.0}
+
+        def dispatch_chunks():
+            # the gates are read at every dispatch: once dense rewards turn
+            # the speculative scorer off, no more of its forwards run
+            fast_ok = self._fast_rollout_available()
+            spec_ok = fast_ok or self._spec_path_available()
+            gens = [self.dispatch_rollout_generation() for _ in range(k)]
+            if fast_ok:
+                specs = [self._dispatch_fast_score(o) for _, o in gens]
+            elif spec_ok:
+                specs = [self._dispatch_spec_score(o) for _, o in gens]
+            else:
+                specs = [None] * k
+            self._pending_fast = fast_ok  # which scorer the pending chunks had
+            return gens, specs
+
+        if pending is None:
+            pending = (*dispatch_chunks(), None)
+        gens, specs, prev = pending
+        use_spec = specs[0] is not None
+        use_fast = use_spec and self._pending_fast
+
+        fetch = [o["samples"] for _, o in gens]
+        if use_spec:
+            fetch += [s[0] for s in specs]
+        if prev is not None and not use_fast:
+            fetch += list(prev)
+        fetched = self._fetch(fetch)
+        samples_list = fetched[:k]
+        trimmed_list = fetched[k:2 * k] if use_spec else [None] * k
+        for _, o in gens:
+            self._accum_spec_stats(o)
+
+        def host_stage(batch, samples):
+            t0 = time.perf_counter()
+            result = self._host_process_chunk(batch, samples)
+            self.cycle_stats["host_ms"] += (time.perf_counter() - t0) * 1e3
+            return result
+
+        def kl_update(loss, kl):
+            self.mean_kl = float(kl)
+            for _ in range(method.ppo_epochs):
+                self.kl_ctl.update(self.mean_kl, n_steps=self.config.train.batch_size)
+            return float(loss)
+
+        processed = None
+        prev_loss = None
+        if use_fast:
+            # the host work first, then the previous training's handles
+            processed = [host_stage(batch, samples) for (batch, _), samples in zip(gens, samples_list)]
+            if prev is not None:
+                prev_loss = kl_update(*self._fetch(list(prev)))
+        elif prev is not None:
+            prev_loss = kl_update(fetched[-2], fetched[-1])
+
+        chunks, kl_handles = [], []
+        for ci, ((batch, out), spec, samples, spec_trimmed) in enumerate(zip(gens, specs, samples_list,
+                                                                             trimmed_list)):
+            if processed is not None:
+                prompt_tensors, sample_outputs, _, scores, scores_mask = processed[ci]
+            else:
+                prompt_tensors, sample_outputs, _, scores, scores_mask = host_stage(batch, samples)
+            scalar = scores.shape[1] == 1
+            if scalar:
+                scores_eff = np.where(scores_mask, scores, 0.0).astype(np.float32)
+            else:
+                scores_eff = np.zeros((len(sample_outputs), max_new), np.float32)
+                w = min(scores.shape[1], max_new)
+                scores_eff[:, :w] = np.where(scores_mask, scores, 0.0)[:, :w]
+                # reward density is the reward_fn's: no more speculative
+                # forwards from the next dispatch on
+                self._spec_disabled_dense = True
+            q = prompt_tensors.shape[1]
+            spec_hit = (
+                spec is not None
+                and scalar
+                and spec_trimmed.shape == sample_outputs.shape
+                and np.array_equal(spec_trimmed, sample_outputs)
+                and np.array_equal(np.asarray(batch["input_ids"]), samples[:, :q])
+                # the captured stats index the raw response tokens
+                and (not use_fast or np.array_equal(samples[:, q:], sample_outputs))
+            )
+            to_device = lambda a: torch.from_numpy(np.asarray(a)).to(self.device)
+            prompts_d, outputs_d = to_device(prompt_tensors).long(), to_device(sample_outputs).long()
+            if spec_hit:
+                _, lp_win, v_win, logratio_win, mean_kl = spec
+                chunk = self._spec_merge(prompts_d, outputs_d, lp_win, v_win, logratio_win, to_device(scores_eff),
+                                         self.kl_ctl.value, scalar)
+            else:
+                if spec is not None and scalar:
+                    # a real arbitration miss, not the chunk that showed dense rewards
+                    self.spec_fallbacks += 1
+                chunk, mean_kl, _ = self._score_reward(prompts_d, outputs_d, to_device(scores_eff),
+                                                       self.kl_ctl.value, scalar)
+            chunks.append(self._attach_trunk_cache(chunk, captured=out.get("trunk_cache") if spec_hit else None))
+            kl_handles.append(mean_kl)
+
+        if k == 1:
+            full, mean_kl = chunks[0], kl_handles[0]
+        else:
+            full = PPORLBatch(**{
+                f.name: None if getattr(chunks[0], f.name) is None
+                else torch.cat([getattr(c, f.name) for c in chunks], dim=0)
+                for f in dataclasses.fields(PPORLBatch)
+            })
+            mean_kl = torch.stack(kl_handles).mean()
+
+        if self._fast_rollout_available():
+            # one rollout ahead: the next cycle samples on the parameters
+            # before this cycle's training
+            nxt = dispatch_chunks()
+            stats = self.train_epochs_from_chunk(full, method.ppo_epochs)
+        else:
+            stats = self.train_epochs_from_chunk(full, method.ppo_epochs)
+            nxt = dispatch_chunks()
+        return prev_loss, (*nxt, (stats["losses/total_loss"], mean_kl))
 
     # ------------------------------------------------------------------
     # Loop wiring
