@@ -35,9 +35,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    padded at both ends, one with a hole, one with no valid key: b 128 for
    K3, b 32 for K4-K6); the label logprob (K7) at [8184, 50257] bf16 with
    out-of-range labels, at [128 x 104, 50257] on shifted labels, at
-   [32 x 40, 50257] and at [128 x 40, 50257] (phase 12's fast scorer),
+   [32 x 40, 50257], at [128 x 40, 50257] (phase 12's fast scorer) and at
+   [32 x 104, 50257] on shifted labels (phase 13's full-forward step),
    and its backward kernel at [8184, 50257] (g = 0 on the masked rows,
-   which must come out all zeros) and [32 x 40, 50257];
+   which must come out all zeros), [32 x 40, 50257] and [32 x 104, 50257]
+   (g = 0 outside the response window); K4-K6 at phase 14's step (b 128,
+   t 64, full rows);
    with kernel, plain-version, library (scaled_dot_product_attention
    forward / backward; logsumexp plus gather; the backward of
    cross_entropy) and bound times, and the share of causal tiles the bf16
@@ -95,11 +98,36 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    x2 and K7 x2 / x1 / x2 / x1; a step phase 9's or phase 11's), every
    loss finite; at f32 the fast scorer against the batched scoring forward
    within 5e-4 and the speculative merge against the classic in-graph
-   scorer within 1e-5.
+   scorer within 1e-5;
+13. PPO's value branch: phase 9's configuration with
+   `num_value_layers_unfrozen=2` (clones of the top 2 blocks and the final
+   norm, tapping at the split), one collection and 16 steps, then the same
+   with `cache_trunk_activations` (`build/chip_smoke_value_branch_*`):
+   the numbers of phase 9 printed beside phase 9's; launch counts exact (a
+   step K3 x10, K4-K6 x4, K7 and its backward x1 over the full logits; a
+   chunk K3 x16, K7 x2; with the cache a step K3 x0, a chunk K3 x26); the
+   checkpoint loads back; at f32 (4 layers) one scoring pass and step with
+   the kernels vs the plain versions under the plain run's ReLU gates, and
+   the cached step against the full one (loss within 1e-6 relative, no K3);
+14. ILQL, the port's fourth main path: `trlx_tpu_torch.train(samples=...,
+   rewards=..., config=cfg)` with `default_ilql_config` at gpt2-small
+   full width (vocab 50257, bf16, flash, every block trainable, seq 64,
+   batch 128, a target sync every 5 steps, 10 steps) on 1280 seeded
+   dialogues of a 32-byte prompt and a 32-byte output with a host reward
+   (`build/chip_smoke_ilql/`): per-step loss and terms, step time,
+   training tokens/s and peak device memory; two Q-guided evaluations of
+   128 prompts x 56 tokens (beta 1, top_k 20, printable ASCII), seconds
+   and tokens/s; launches exact (a step K4-K6 x12, K3 and K7 x0); the
+   target heads move at the syncs only, each exactly alpha * q + (1 -
+   alpha) * target; the `done` checkpoint loads into a fresh ILQLTrainer
+   with equal parameters, target heads included; one f32 step (4 layers,
+   b 32) with the kernels vs the plain versions under the plain run's ReLU
+   gates.
 
 The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object (with `ppo_options`, phase 11's
-checks and numbers, and `pipelined`, phase 12's); the last line is
+checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
+and `ilql`, phase 14's); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
 """
@@ -123,6 +151,19 @@ ROOT = Path(__file__).resolve().parent
 
 def log(msg):
     print(msg, flush=True)
+
+
+def release():
+    """Free what a finished trainer left on the card. A trainer that has
+    trained sits in a reference cycle (its loss closure holds it), which
+    `del` leaves to Python's cyclic collector: collect it, then empty the
+    allocator's cache, so a later phase's memory figures are its own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line():
@@ -450,7 +491,7 @@ def serve_and_check(config, n_requests, counter, card):
         f"dispatches={dispatches} launches={launches} ({card})"
     )
     del trainer, server
-    torch.cuda.empty_cache()
+    release()
     return launches.get(counter, 0)
 
 
@@ -507,7 +548,7 @@ def phase_greedy():
         if same < need:
             raise AssertionError(f"kv={kv}: kernel {kern} vs gather {gather}")
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
 
 # ---------------------------------------------------------------------------
@@ -541,7 +582,9 @@ def left_pad_rows(t, pads):
 
 # name: (b, t, nh, nkv, hd, key-validity rows [b, t] (a row of zeros has no
 # valid key), the kernels timed there). The PPO shapes time the kernels
-# phase 9 runs at them: K3 when scoring 128 rows, K4-K6 in a 32-row step.
+# phase 9 runs at them: K3 when scoring 128 rows, K4-K6 in a 32-row step;
+# the ILQL shape those of phase 14's step: K4-K6 over 128 full rows of 64
+# tokens (a 32-byte prompt and a 32-byte output).
 ALL_FLASH = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
 FLASH_SHAPES = {
     "gpt2-small": (8, 1024, 12, 12, 64, left_pad_rows(1024, [0, 0, 17, 100, 256, 511, 700, 1024]), ALL_FLASH),
@@ -549,12 +592,17 @@ FLASH_SHAPES = {
     "gqa": (1, 2048, 32, 8, 128, left_pad_rows(2048, [0]), ALL_FLASH),
     "ppo-score": (128, PPO_T, 12, 12, 64, ppo_mask_rows(128), ("flash_fwd",)),
     "ppo-train": (32, PPO_T, 12, 12, 64, ppo_mask_rows(32), ALL_FLASH[1:]),
+    "ilql-train": (128, 64, 12, 12, 64, left_pad_rows(64, [0] * 128), ALL_FLASH[1:]),
 }
 CE_ROWS, CE_VOCAB = 8 * 1023, 50257
 # K7 at phase 9's shapes: scoring reads the full [128, 104, V] logits with
 # the labels shifted one column; a step reads the [32, 40, V] window
-# the fast scorer (phase 12) reads the reference's [128, 40, V] window
-CE_PPO = {"ppo-score": (128, PPO_T), "ppo-train": (32, 40), "ppo-fast-score": (128, 40)}
+# the fast scorer (phase 12) reads the reference's [128, 40, V] window;
+# a step under the value branch (phase 13) reads the full [32, 104, V]
+# logits with shifted labels, its backward nonzero on the window's rows
+CE_PPO = {"ppo-score": (128, PPO_T), "ppo-train": (32, 40), "ppo-fast-score": (128, 40),
+          "ppo-branch-train": (32, PPO_T)}
+CE_BWD_PPO = ("ppo-train", "ppo-branch-train")  # the shapes a step's backward runs at
 # tolerances: bf16 outputs (out, dq): both sides round once to bf16 from
 # f32 values that differ only in summation order, so one bf16 ulp apart at
 # most: rtol 8e-3, atol 1e-3. That holds for the bf16 kernels on the
@@ -818,7 +866,7 @@ def phase_train_kernels(device):
         n = b * t
         logits = torch.randn(b, t, CE_VOCAB, generator=gen, device=device).mul_(3).to(torch.bfloat16)
         tokens = torch.randint(0, CE_VOCAB, (b, t), generator=gen, device=device)
-        if shape == "ppo-score":
+        if t == PPO_T:  # the full logits, labels shifted one column
             with torch.no_grad():
                 got = shifted_logprobs(logits, tokens)
             want = label_logprobs_plain(logits[:, :-1].reshape(-1, CE_VOCAB), tokens[:, 1:].reshape(-1))[0]
@@ -829,9 +877,16 @@ def phase_train_kernels(device):
         torch.cuda.synchronize()
         log(f"[train-kernels] label_logprobs {shape} [{n}, {CE_VOCAB}] bf16: max_abs_err logprob = {e:.3g}")
         results[("label_logprobs", shape)] = ce_times(logits.view(n, CE_VOCAB), tokens.view(n).to(torch.int32))
-        if shape == "ppo-train":  # a step's backward over the window
-            x, lab = logits.view(n, CE_VOCAB), tokens.view(n).to(torch.int32)
-            g = torch.randn(n, generator=gen, device=device)
+        if shape in CE_BWD_PPO:  # a step's backward
+            x = logits.view(n, CE_VOCAB)
+            if t == PPO_T:  # shifted labels; g is 0 outside the response window's rows
+                lab = torch.cat([tokens[:, 1:], tokens[:, :1]], 1).reshape(n).to(torch.int32)
+                g = torch.randn(b, t, generator=gen, device=device)
+                g[:, :PPO_QUERY - 1] = 0.0
+                g[:, PPO_T - 1:] = 0.0
+                g = g.reshape(n)
+            else:
+                lab, g = tokens.view(n).to(torch.int32), torch.randn(n, generator=gen, device=device)
             lse = check_ce_bwd(note, x, lab, g, shape)
             results[("label_logprobs_bwd", shape)] = ce_bwd_times(x, lab, lse, g)
             del x, lab, g, lse
@@ -943,7 +998,7 @@ def phase_train(card):
         raise AssertionError("the done checkpoint did not load back with equal parameters")
     log(f"[train] checkpoint {directory.name} loads into a fresh trainer: parameters equal, step {fresh.iter_count}")
     del trainer, fresh
-    torch.cuda.empty_cache()
+    release()
     return got, dict(losses=losses, step_s=step_s, train_tokens_per_s=tok_s, eval_ms=evals, wall_s=wall)
 
 
@@ -1039,7 +1094,7 @@ def phase_grad_check():
         f"{len(grads_k)} trainable grads, worst max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}); "
         f"kernel launches {launched}")
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
 
 # ---------------------------------------------------------------------------
@@ -1047,7 +1102,6 @@ def phase_grad_check():
 # ---------------------------------------------------------------------------
 
 PPO_EPOCHS, PPO_ROLLOUTS, PPO_BATCH = 2, 128, 32
-PPO_STEPS = PPO_EPOCHS * 4 * (PPO_ROLLOUTS // PPO_BATCH)  # epochs x ppo_epochs x loader length
 # per optimizer step: 10 frozen blocks K3, 2 trainable blocks K4-K6, the
 # windowed head's K7 and its backward; per 128-row scoring chunk: 12 policy and 2 reference
 # blocks K3, the policy's and the reference's K7
@@ -1138,10 +1192,11 @@ def ppo_probes(record):
             setattr(PPOTrainer, name, fn)
 
 
-def ppo_run(card, tag, work, config, per_step, per_chunk):
-    """Drive `trlx_tpu_torch.train(reward_fn=...)` once under the probes;
-    print each collection, step and evaluation; check every loss finite,
-    every response 40 tokens and the launch counts exact (`per_chunk` is a
+def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS):
+    """Drive `trlx_tpu_torch.train(reward_fn=...)` once under the probes
+    (`collections` collections, `config.train.epochs` of them); print each
+    collection, step and evaluation; check every loss finite, every
+    response 40 tokens and the launch counts exact (`per_chunk` is a
     collection's scoring pass and trunk fill together); check that the
     `done` checkpoint loads back. Returns (trainer, launches, metrics)."""
     import shutil
@@ -1152,6 +1207,7 @@ def ppo_run(card, tag, work, config, per_step, per_chunk):
     from trlx_tpu_torch import kernels
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
+    n_steps = collections * 4 * (PPO_ROLLOUTS // PPO_BATCH)  # ppo_epochs x loader length a collection
     if work.exists():
         shutil.rmtree(work)
     record = []
@@ -1163,7 +1219,7 @@ def ppo_run(card, tag, work, config, per_step, per_chunk):
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     rows = [json.loads(line) for line in next((work / "logs").glob("*.metrics.jsonl")).read_text().splitlines()]
-    collections = [r for r in rows if "time/rollout_generate" in r]
+    rounds = [r for r in rows if "time/rollout_generate" in r]
     steps = [r for r in rows if "losses/total_loss" in r]
     evals = [r for r in rows if "reward/mean" in r]
     calls = lambda name: [c for c in record if c[0] == name]
@@ -1171,7 +1227,7 @@ def ppo_run(card, tag, work, config, per_step, per_chunk):
     lengths = [c[4] for c in calls("make_experience")]
     fill_ms = [(c[2] - c[1]) * 1e3 for c in fills]
 
-    for i, (r, (_, s0, s1, *_), n) in enumerate(zip(collections, scores, lengths)):
+    for i, (r, (_, s0, s1, *_), n) in enumerate(zip(rounds, scores, lengths)):
         spec = (f" spec_accept_rate={r['rollout/spec_accept_rate']:.4f} "
                 f"spec_tokens_per_round={r['rollout/spec_tokens_per_round']:.4f}"
                 if "rollout/spec_accept_rate" in r else "")
@@ -1202,24 +1258,24 @@ def ppo_run(card, tag, work, config, per_step, per_chunk):
         wall_s=wall, samples_per_s=samples_per_s,
         step_s=statistics.median(r["time/train_step_s"] for r in steady),
         train_tokens_per_s=statistics.median(r["throughput/train_tokens_per_s"] for r in steady),
-        sampling_s=[r["time/rollout_generate"] / 1e3 for r in collections],
-        rollout_tokens_per_s=[r["throughput/rollout_tokens_per_s"] for r in collections],
-        spec_accept_rate=[r.get("rollout/spec_accept_rate") for r in collections],
-        spec_tokens_per_round=[r.get("rollout/spec_tokens_per_round") for r in collections],
+        sampling_s=[r["time/rollout_generate"] / 1e3 for r in rounds],
+        rollout_tokens_per_s=[r["throughput/rollout_tokens_per_s"] for r in rounds],
+        spec_accept_rate=[r.get("rollout/spec_accept_rate") for r in rounds],
+        spec_tokens_per_round=[r.get("rollout/spec_tokens_per_round") for r in rounds],
         trunk_fill_ms=fill_ms,
     )
-    log(f"[{tag}] gpt2-small PPO, {PPO_ROLLOUTS} rollouts x {len(collections)} collections, batch {PPO_BATCH}, "
+    log(f"[{tag}] gpt2-small PPO, {PPO_ROLLOUTS} rollouts x {len(rounds)} collections, batch {PPO_BATCH}, "
         f"ppo_epochs 4, {PPO_NEW} new tokens, bf16 flash, num_layers_unfrozen=2: {len(steps)} steps in {wall:.2f}s "
         f"wall; median step_s={metrics['step_s']:.4f} train_tokens_per_s={metrics['train_tokens_per_s']:.1f}; "
         f"samples_per_s per cycle={[round(x, 2) for x in samples_per_s]}; launches={launches} ({card})")
 
     losses = [r[k] for r in steps for k in ("losses/total_loss", "losses/policy_loss", "losses/value_loss")]
-    if len(steps) != PPO_STEPS or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"expected {PPO_STEPS} steps of finite losses, got {len(steps)}: {losses}")
-    if len(collections) != PPO_EPOCHS or len(scores) != PPO_EPOCHS or len(evals) != 3:
-        raise AssertionError(f"expected {PPO_EPOCHS} collections and 3 evaluations, got {len(collections)}, "
-                             f"{len(scores)} scoring passes, {len(evals)}")
-    if [len(n) for n in lengths] != [PPO_ROLLOUTS] * PPO_EPOCHS or any(set(n) != {PPO_NEW} for n in lengths):
+    if len(steps) != n_steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {n_steps} steps of finite losses, got {len(steps)}: {losses}")
+    if len(rounds) != collections or len(scores) != collections or len(evals) != collections + 1:
+        raise AssertionError(f"expected {collections} collections and {collections + 1} evaluations, got "
+                             f"{len(rounds)}, {len(scores)} scoring passes, {len(evals)}")
+    if [len(n) for n in lengths] != [PPO_ROLLOUTS] * collections or any(set(n) != {PPO_NEW} for n in lengths):
         raise AssertionError(f"expected {PPO_ROLLOUTS} stored responses of {PPO_NEW} tokens a collection, got "
                              f"{[(len(n), min(n), max(n)) for n in lengths]}")
     chunks = [dict(c[3]) for c in scores]
@@ -1231,13 +1287,13 @@ def ppo_run(card, tag, work, config, per_step, per_chunk):
         if got != want:
             raise AssertionError(f"{tag}: a {name} launched {got}, expected {want}")
     names = set(per_step) | set(per_chunk)
-    want = {n: PPO_STEPS * per_step.get(n, 0) + PPO_EPOCHS * per_chunk.get(n, 0) for n in names}
+    want = {n: n_steps * per_step.get(n, 0) + collections * per_chunk.get(n, 0) for n in names}
     got = {n: launches.get(n, 0) for n in want}
     if got != want or any(v for k, v in launches.items() if k not in want):
         raise AssertionError(f"{tag}: PPO launches {launches} != {want}")
 
     # the `done` checkpoint loads into a fresh trainer with the same state
-    directory = work / "ckpts" / f"checkpoint_{PPO_STEPS}"
+    directory = work / "ckpts" / f"checkpoint_{n_steps}"
     fresh = PPOTrainer(config, reward_fn=ppo_reward)
     fresh.load(str(directory))
     same = all(torch.equal(a, b) for m, f in ((trainer.model, fresh.model), (trainer.ref_model, fresh.ref_model))
@@ -1249,7 +1305,7 @@ def ppo_run(card, tag, work, config, per_step, per_chunk):
         (a.response_tensor == b.response_tensor).all() and (a.rewards == b.rewards).all()
         and (a.h_split is None) == (b.h_split is None) and (a.h_split is None or torch.equal(a.h_split, b.h_split))
         for a, b in zip(fresh.store.history, trainer.store.history))
-    if not same or fresh.iter_count != PPO_STEPS:
+    if not same or fresh.iter_count != n_steps:
         raise AssertionError(f"{tag}: the done checkpoint did not load back with the same state")
     kept = sorted(p.name for p in (work / "ckpts").iterdir())
     log(f"[{tag}] checkpoint {directory.name} loads into a fresh PPOTrainer: policy and reference parameters, "
@@ -1266,7 +1322,7 @@ def phase_ppo(card):
     trainer, launches, metrics = ppo_run(card, "ppo", work, ppo_config(work), PPO_KERNELS_PER_STEP,
                                          PPO_KERNELS_PER_CHUNK)
     del trainer
-    torch.cuda.empty_cache()
+    release()
     return launches, metrics
 
 
@@ -1297,25 +1353,31 @@ def ppo_injected_batch(n=PPO_BATCH, seed=2):
 # the runs' 1e-6 difference of 0 at some position would be on in one run
 # and off in the other, and its row of the first layer's gradient would
 # then differ by that position's whole share. So the kernel run takes the
-# plain run's gate (the ReLU's on/off pattern) as fixed: relu(x) = x * gate
+# plain run's gates (each MLP head's ReLU on/off pattern: the value head,
+# the value branch's, ILQL's Q and V heads) as fixed: relu(x) = x * gate
 # in value and in gradient at the plain run's gate, and every element of
 # every trainable gradient is held to GRAD_TOL.
 
 
-def ppo_step_grads(trainer, batch, gate=None):
-    """(loss, trainable gradients, the value head's ReLU gate) of one PPO
-    step's loss; with `gate` given, the head applies it in place of its
-    own ReLU's."""
-    head, used = trainer.model.v_head, []
+def step_grads(trainer, batch, gates=None):
+    """(loss, trainable gradients, {head: its ReLU gate}) of one training
+    step's loss; with `gates` given, each MLP head applies its gate in
+    place of its own ReLU's."""
+    from trlx_tpu_torch.models.heads import MLPHead
 
-    def stash(mod, args, out):
-        used.append((out, out > 0 if gate is None else gate))
+    used, hooks = {}, []
+    for name, head in trainer.model.named_modules():
+        if not isinstance(head, MLPHead):
+            continue
 
-    def gated(mod, args):
-        pre, g = used[-1]
-        return (pre * g,)
+        def stash(mod, args, out, name=name):
+            used[name] = (out, out > 0 if gates is None else gates[name])
 
-    hooks = [head.dense_in.register_forward_hook(stash), head.dense_out.register_forward_pre_hook(gated)]
+        def gated(mod, args, name=name):
+            pre, g = used[name]
+            return (pre * g,)
+
+        hooks += [head.dense_in.register_forward_hook(stash), head.dense_out.register_forward_pre_hook(gated)]
     try:
         trainer.model.zero_grad(set_to_none=True)
         loss, _ = trainer.make_loss_fn()(trainer.batch_to_device(batch))
@@ -1324,19 +1386,29 @@ def ppo_step_grads(trainer, batch, gate=None):
         for hook in hooks:
             hook.remove()
     grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters() if p.requires_grad}
-    return float(loss.detach()), grads, used[0][0].detach() > 0
+    return float(loss.detach()), grads, {n: out.detach() > 0 for n, (out, _) in used.items()}
 
 
-def phase_ppo_grad_check():
+def gate_flips(gates_k, gates_p):
+    """(gate entries the kernel run's own ReLUs set otherwise, all entries)."""
+    return sum(int((gates_k[n] != gates_p[n]).sum()) for n in gates_p), sum(g.numel() for g in gates_p.values())
+
+
+def ppo_f32_kernels_vs_plain(config):
+    """A PPOTrainer of `config` (f32) with its reference perturbed, so the
+    KL is not 0; one scoring pass and one step on phase 10's injected batch
+    with the plain versions, then with the kernels under the plain run's
+    ReLU gates: scoring within SCORE_TOL, the loss within 1e-5 relative,
+    every gradient within GRAD_TOL. Returns the trainer, the batch and its
+    tokens, and a dict of the numbers."""
     import numpy as np
     import torch
 
     from trlx_tpu_torch import kernels
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
-    config = ppo_config(ROOT / "build" / "chip_smoke_ppo_grad", dtype="float32", n_layers=4)
     trainer = PPOTrainer(config, reward_fn=ppo_reward)
-    with torch.no_grad():  # a reference apart from the policy, so the KL is not 0
+    with torch.no_grad():
         gen = torch.Generator(device=trainer.device).manual_seed(3)
         for p in trainer.ref_model.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=gen, device=p.device))
@@ -1344,28 +1416,38 @@ def phase_ppo_grad_check():
     tokens = torch.from_numpy(np.concatenate([batch.query_tensors, batch.response_tensors], 1)).to(trainer.device).long()
     with plain_versions():
         scored_p = trainer.score(tokens)
-        loss_p, grads_p, gate_p = ppo_step_grads(trainer, batch)
+        loss_p, grads_p, gates_p = step_grads(trainer, batch)
     kernels.reset_launches()
     scored_k = trainer.score(tokens)
-    loss_k, grads_k, gate_k = ppo_step_grads(trainer, batch, gate=gate_p)
+    loss_k, grads_k, gates_k = step_grads(trainer, batch, gates=gates_p)
     launched = dict(kernels.LAUNCHES)
-    errs = []
+    errs = {}
     for name, a, b in zip(("logprobs", "values", "log_ratio", "mean_kl", "mean_kl_per_token"), scored_k, scored_p):
         torch.testing.assert_close(a, b, **SCORE_TOL, msg=lambda m: f"scoring {name}: {m}")
-        errs.append(f"{name} {float((a - b).abs().max()):.3g}")
+        errs[name] = float((a - b).abs().max())
     if float(scored_k[3]) <= 0:
         raise AssertionError("the perturbed reference gave no KL")
-    flips = int((gate_k != gate_p).sum())  # gate entries the kernel run's own ReLU would have set otherwise
     worst = check_grads(grads_k, grads_p)
     if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
         raise AssertionError(f"f32 PPO loss kernels {loss_k} vs plain {loss_p}")
-    log(f"[ppo-grad] gpt2-small width, 4 layers, f32, split 2, 32 injected rows t {PPO_T}: scoring max|diff| "
-        f"{', '.join(errs)} (tol {SCORE_TOL}); loss kernels={loss_k:.7f} plain={loss_p:.7f}; {len(grads_k)} "
-        f"trainable grads, every element held, worst max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}); the "
-        f"value head ran the plain run's ReLU gate ({flips} of {gate_p.numel()} entries differ from the kernel "
-        f"run's own); kernel launches {launched}")
+    flips, entries = gate_flips(gates_k, gates_p)
+    summary = (f"scoring max|diff| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} (tol {SCORE_TOL}); "
+               f"loss kernels={loss_k:.7f} plain={loss_p:.7f}; {len(grads_k)} trainable grads, every element held, "
+               f"worst max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}); the heads ran the plain run's ReLU gates "
+               f"({flips} of {entries} entries differ from the kernel run's own); kernel launches {launched}")
+    numbers = dict(errs=errs, loss_k=loss_k, loss_p=loss_p, grads_k=grads_k, gates_p=gates_p, worst=worst,
+                   summary=summary)
+    return trainer, batch, tokens, numbers
+
+
+def phase_ppo_grad_check():
+    import torch
+
+    config = ppo_config(ROOT / "build" / "chip_smoke_ppo_grad", dtype="float32", n_layers=4)
+    trainer, _, _, n = ppo_f32_kernels_vs_plain(config)
+    log(f"[ppo-grad] gpt2-small width, 4 layers, f32, split 2, 32 injected rows t {PPO_T}: {n['summary']}")
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
 
 # ---------------------------------------------------------------------------
@@ -1481,7 +1563,7 @@ def phase_ppo_options(card, base):
         f"(accepted {accepted} drafts in {rounds} row-rounds)")
     bf16_equal = equal / n
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
     # at f32: greedy speculative vs plain under the tie rule, and the trunk cache
     f32_config = ppo_config(ROOT / "build" / "chip_smoke_ppo_options_f32", dtype="float32").evolve(
@@ -1499,11 +1581,11 @@ def phase_ppo_options(card, base):
     batch = ppo_injected_batch()
     tokens = torch.from_numpy(np.concatenate([batch.query_tensors, batch.response_tensors], 1))
     h32 = trainer.trunk_cache_fill(tokens.to(trainer.device).long())
-    loss_f, grads_f, gate = ppo_step_grads(trainer, batch)
+    loss_f, grads_f, gates = step_grads(trainer, batch)
     kernels.reset_launches()
-    loss_c, grads_c, _ = ppo_step_grads(trainer, dataclasses.replace(batch, h_split=h32), gate=gate)
+    loss_c, grads_c, _ = step_grads(trainer, dataclasses.replace(batch, h_split=h32), gates=gates)
     cached_launches = dict(kernels.LAUNCHES)
-    loss_b, _, _ = ppo_step_grads(trainer, dataclasses.replace(batch, h_split=h32.to(torch.bfloat16)), gate=gate)
+    loss_b, _, _ = step_grads(trainer, dataclasses.replace(batch, h_split=h32.to(torch.bfloat16)), gates=gates)
     worst = check_grads(grads_c, grads_f)
     rel_f32, rel_bf16 = abs(loss_c - loss_f) / abs(loss_f), abs(loss_b - loss_f) / abs(loss_f)
     log(f"[ppo-options] trunk cache, f32, 32 injected rows t {PPO_T}: loss full={loss_f:.9f} f32 cache={loss_c:.9f} "
@@ -1513,7 +1595,7 @@ def phase_ppo_options(card, base):
     if rel_f32 > CACHE_F32_LOSS_TOL or rel_bf16 > CACHE_BF16_LOSS_TOL or cached_launches.get("flash_fwd", 0):
         raise AssertionError("the trunk cache's step disagrees with the full path or ran the trunk")
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
     pair = lambda key, fmt: f"{key} {fmt(m[key])} (phase 9: {fmt(base[key])})"
     rnd = lambda xs: [round(x, 4) for x in xs]
@@ -1693,7 +1775,7 @@ def pipelined_run(card, tag):
         f"trunk cache attach ms {m['trunk_fill_ms']}, fetch ms {m['fetch_ms_synced']}, step ms median "
         f"{m['step_ms_median']:.3f} ({len(step_ms)} steps)")
     del trainer, pending
-    torch.cuda.empty_cache()
+    release()
     return m, launches
 
 
@@ -1743,7 +1825,7 @@ def pipelined_f32_check():
         f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol {FAST_TOL}, {MERGE_TOL}); mean_kl "
         f"{float(mean_kl):.6f}, fast (window) {float(fast[4]):.6f}")
     del trainer
-    torch.cuda.empty_cache()
+    release()
     return errs
 
 
@@ -1759,6 +1841,301 @@ def phase_pipelined(card, base, options):
         f"{rnd(base['samples_per_s'])}, phase 11 (options) {rnd(options['samples_per_s'])}; pipelined "
         + "; ".join(f"({t}) {rnd(r['samples_per_s'])}" for t, r in results.items()))
     return results, launches, errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: PPO's value branch
+# ---------------------------------------------------------------------------
+
+# phase 9's configuration with the deeper value branch: clones of the top 2
+# blocks and the final norm, tapping at block 10, the hydra split
+VALUE_BRANCH = dict(num_value_layers_unfrozen=2)
+# per optimizer step: phase 9's 10 frozen blocks K3, K4-K6 in the 2
+# trainable blocks and the branch's 2, K7 and its backward over the full
+# [32 x 104, V] logits (the branch's blocks attend over the full sequence,
+# so the loss reads no windowed head); per 128-row chunk: phase 9's 14 K3
+# and the branch's 2, the policy's and the reference's K7
+BRANCH_KERNELS_PER_STEP = {"flash_fwd": 10, "flash_fwd_lse": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
+                           "label_logprobs": 1, "label_logprobs_bwd": 1}
+BRANCH_KERNELS_PER_CHUNK = {"flash_fwd": 16, "label_logprobs": 2}
+# with the trunk cache: no K3 a step (the branch is fed from the cache);
+# a chunk adds the trunk fill's 10
+BRANCH_CACHE_KERNELS_PER_STEP = {k: v for k, v in BRANCH_KERNELS_PER_STEP.items() if k != "flash_fwd"}
+BRANCH_CACHE_KERNELS_PER_CHUNK = {"flash_fwd": 26, "label_logprobs": 2}
+
+
+def phase_value_branch(card, base):
+    """Phase 9's configuration with the value branch: one collection and
+    16 steps, then the same with the trunk cache (exact launches, the
+    cache on for every rollout); then at f32 (4 layers, split 2, the branch
+    tapping at 2) one scoring pass and step with the kernels against the
+    plain versions under the plain run's ReLU gates, and the cached step
+    against the full one. `base` holds phase 9's numbers."""
+    import dataclasses
+
+    import torch
+
+    from trlx_tpu_torch import kernels
+
+    runs, launches = {}, {}
+    for tag, method, per_step, per_chunk in (
+            ("full", VALUE_BRANCH, BRANCH_KERNELS_PER_STEP, BRANCH_KERNELS_PER_CHUNK),
+            ("cached", dict(VALUE_BRANCH, cache_trunk_activations=True), BRANCH_CACHE_KERNELS_PER_STEP,
+             BRANCH_CACHE_KERNELS_PER_CHUNK)):
+        work = ROOT / "build" / f"chip_smoke_value_branch_{tag}"
+        config = ppo_config(work).evolve(train=dict(epochs=1), method=method)
+        trainer, launches[tag], runs[tag] = ppo_run(card, f"value-branch-{tag}", work, config, per_step, per_chunk,
+                                                    collections=1)
+        cached = tag == "cached"
+        if (trainer.model.num_value_layers != 2 or trainer._window_loss_ok()
+                or trainer._trunk_cache_available() != cached
+                or any((e.h_split is None) == cached for e in trainer.store.history)):
+            raise AssertionError(f"[value-branch-{tag}] the branch or the trunk cache fell back")
+        del trainer
+        release()
+
+    config = ppo_config(ROOT / "build" / "chip_smoke_value_branch_f32", dtype="float32", n_layers=4).evolve(
+        method=dict(VALUE_BRANCH, trunk_cache_dtype="float32"))
+    trainer, batch, tokens, n = ppo_f32_kernels_vs_plain(config)
+    h32 = trainer.trunk_cache_fill(tokens)
+    kernels.reset_launches()
+    loss_c, grads_c, _ = step_grads(trainer, dataclasses.replace(batch, h_split=h32), gates=n["gates_p"])
+    cached_launches = dict(kernels.LAUNCHES)
+    worst_c = check_grads(grads_c, n["grads_k"])
+    rel_c = abs(loss_c - n["loss_k"]) / abs(n["loss_k"])
+    if rel_c > CACHE_F32_LOSS_TOL or cached_launches.get("flash_fwd", 0):
+        raise AssertionError(f"the value branch's cached step {loss_c} vs full {n['loss_k']}, "
+                             f"launches {cached_launches}")
+    log(f"[value-branch-f32] gpt2-small width, 4 layers, f32, split 2, a 2-block branch tapping at 2, 32 injected "
+        f"rows t {PPO_T}: {n['summary']}; the f32 trunk-cache step: loss {loss_c:.9f} vs full {n['loss_k']:.9f} "
+        f"(rel {rel_c:.3g}, tol {CACHE_F32_LOSS_TOL}), grads worst {worst_c:.3g}, launches {cached_launches}")
+    del trainer
+    release()
+
+    pair = lambda key, fmt: (f"{key} full {fmt(runs['full'][key])}, cached {fmt(runs['cached'][key])} "
+                             f"(phase 9: {fmt(base[key])})")
+    rnd = lambda xs: [round(x, 4) for x in xs]
+    log(f"[value-branch] vs phase 9 in this call ({card}): " + "; ".join([
+        pair("samples_per_s", rnd), pair("sampling_s", rnd), pair("step_s", lambda x: f"{x:.4f}"),
+        pair("train_tokens_per_s", lambda x: f"{x:.1f}"), f"trunk_fill_ms a chunk {rnd(runs['cached']['trunk_fill_ms'])}"]))
+    summary = dict(runs=runs, kernels_per_step={"full": BRANCH_KERNELS_PER_STEP, "cached": BRANCH_CACHE_KERNELS_PER_STEP},
+                   kernels_per_chunk={"full": BRANCH_KERNELS_PER_CHUNK, "cached": BRANCH_CACHE_KERNELS_PER_CHUNK},
+                   f32_scoring_max_abs_err=n["errs"], f32_loss=[n["loss_k"], n["loss_p"]], f32_grad_worst=n["worst"],
+                   f32_cache_loss_rel=rel_c, f32_cache_grad_worst=worst_c)
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: ILQL (the fourth main path)
+# ---------------------------------------------------------------------------
+
+ILQL_SAMPLES, ILQL_BATCH, ILQL_STEPS, ILQL_SYNC, ILQL_NEW = 1280, 128, 10, 5, 56
+# per optimizer step: every block trainable (num_layers_unfrozen=-1), so
+# K4-K6 in each of the 12; the ILQL loss's cross-entropies are plain
+# log-softmax, as in the JAX package, and sampling runs no flash kernel
+ILQL_KERNELS_PER_STEP = {"flash_fwd_lse": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+
+
+def ilql_samples(n=ILQL_SAMPLES, seed=0):
+    """Dialogues of a 32-byte prompt and a 32-byte output of printable
+    ASCII from a seed, and each output's host reward (`ppo_reward`: its
+    share of lowercase letters and spaces)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    text = lambda: "".join(chr(c) for c in rng.randint(32, 127, 32))
+    samples = [[text(), text()] for _ in range(n)]
+    return samples, ppo_reward(None, None, [o for _, o in samples])
+
+
+def ilql_config(work, **model_extra):
+    """`default_ilql_config` at random:gpt2-small full width (vocab 50257,
+    bf16, flash), seq 64, batch 128, every block trainable, a target sync
+    every 5 steps, 10 steps; Q-guided sampling held to printable ASCII."""
+    from trlx_tpu_torch.data.default_configs import default_ilql_config
+
+    return default_ilql_config().evolve(
+        train=dict(seq_length=64, batch_size=ILQL_BATCH, epochs=1, total_steps=ILQL_STEPS, eval_interval=100,
+                   checkpoint_interval=100, save_optimizer=False, checkpoint_dir=str(work / "ckpts"),
+                   logging_dir=str(work / "logs")),
+        model=dict(model_path="random:gpt2-small", num_layers_unfrozen=-1,
+                   model_extra_configs={"vocab_size": 50257, "attn_impl": "flash", **model_extra}),
+        method=dict(steps_for_target_q_sync=ILQL_SYNC,
+                    gen_kwargs=dict(max_new_tokens=ILQL_NEW, top_k=20, beta=1, temperature=1.0,
+                                    suppress_tokens=PPO_SUPPRESS)),
+    )
+
+
+@contextmanager
+def ilql_probes(record):
+    """Wrap ILQLTrainer's optimizer step (wall time, launches, peak device
+    memory, the target heads before and after), evaluation and sampling,
+    and the Polyak sync (held against alpha * q + (1 - alpha) * target of
+    copies taken before it): measurement of this script, the trainer is
+    unchanged."""
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer import ilql_trainer
+    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
+
+    targets = lambda model: {n: p.detach().clone() for n, p in model.named_parameters() if "target_q_head" in n}
+    step, evaluate, generate, sync = (ILQLTrainer.train_minibatch, ILQLTrainer.evaluate, ILQLTrainer.generate,
+                                      ilql_trainer.sync_target_q_heads)
+
+    def probed_step(self, minibatch):
+        before_heads = targets(self.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        before, t0 = dict(kernels.LAUNCHES), time.perf_counter()
+        out = step(self, minibatch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items() if v - before.get(k, 0)}
+        moved = [n for n, p in targets(self.model).items() if not torch.equal(p, before_heads[n])]
+        record.append(("step", t0, t1, launched, peak, moved, held))
+        return out
+
+    def probed_sync(heads, alpha):
+        pairs = [(getattr(heads, f"q_head_{i}"), getattr(heads, f"target_q_head_{i}")) for i in range(heads.n_qs)]
+        want = [[alpha * q + (1.0 - alpha) * t for q, t in zip(qh.parameters(), th.parameters())] for qh, th in pairs]
+        sync(heads, alpha)
+        exact = all(torch.equal(t, w) for (_, th), ws in zip(pairs, want) for t, w in zip(th.parameters(), ws))
+        record.append(("sync", exact))
+
+    def probed_evaluate(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(self)
+        record.append(("evaluate", t0, time.perf_counter()))
+        return out
+
+    def probed_generate(self, *args, **kwargs):
+        out = generate(self, *args, **kwargs)
+        record.append(("generate", int(out["response_mask"].sum()), kwargs.get("mode", "ilql")))
+        return out
+
+    try:
+        ILQLTrainer.train_minibatch, ILQLTrainer.evaluate, ILQLTrainer.generate = (probed_step, probed_evaluate,
+                                                                                    probed_generate)
+        ilql_trainer.sync_target_q_heads = probed_sync
+        yield
+    finally:
+        ILQLTrainer.train_minibatch, ILQLTrainer.evaluate, ILQLTrainer.generate = step, evaluate, generate
+        ilql_trainer.sync_target_q_heads = sync
+
+
+def phase_ilql(card):
+    """`trlx_tpu_torch.train(samples=..., rewards=...)` with ILQL (the
+    fourth main path) under the probes: per-step loss and terms, step time,
+    training tokens/s, peak memory and exact launches; the target heads
+    moved at every sync, exactly by the Polyak formula, and nowhere else;
+    the evaluations' seconds and tokens/s; the `done` checkpoint loads into
+    a fresh ILQLTrainer with equal parameters, target heads included. Then
+    one f32 step (4 layers, b 32) with the kernels against the plain
+    versions under the plain run's ReLU gates."""
+    import shutil
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
+
+    work = ROOT / "build" / "chip_smoke_ilql"
+    if work.exists():
+        shutil.rmtree(work)
+    config = ilql_config(work)
+    samples, rewards = ilql_samples()
+    eval_prompts = [p for p, _ in samples[:ILQL_BATCH]]
+    record = []
+    at_start = torch.cuda.memory_allocated()
+    log(f"[ilql] {at_start / 1e9:.3f} GB allocated when the phase begins")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ilql_probes(record):
+        trainer = trlx_tpu_torch.train(samples=samples, rewards=rewards, eval_prompts=eval_prompts, config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rows = [json.loads(line) for line in next((work / "logs").glob("*.metrics.jsonl")).read_text().splitlines()]
+    steps = [r for r in rows if "losses/loss" in r]
+    kinds = lambda k: [c for c in record if c[0] == k]
+    step_calls, syncs, evals, gens = kinds("step"), kinds("sync"), kinds("evaluate"), kinds("generate")
+    terms = ("loss", "loss_q", "loss_v", "loss_cql", "loss_awac")
+    for r, c in zip(steps, step_calls):
+        log(f"[ilql] step {r['_step']}: " + " ".join(f"{k}={r[f'losses/{k}']:.6f}" for k in terms)
+            + f" step_s={r['time/train_step_s']:.4f} train_tokens_per_s={r['throughput/train_tokens_per_s']:.1f} "
+            f"peak_mem_gb={c[4] / 1e9:.3f} (held before the step {c[6] / 1e9:.3f}) target heads moved: {bool(c[5])}")
+    eval_tokens = [g[1] for g in gens]
+    eval_s = [e[2] - e[1] for e in evals]
+    for s_, n in zip(eval_s, eval_tokens):
+        log(f"[ilql] evaluation: {ILQL_BATCH} prompts x {ILQL_NEW} Q-guided tokens (beta 1, top_k 20): {s_:.3f} s, "
+            f"{n} tokens, {n / s_:.1f} tokens/s")
+    steady = steps[1:]  # step 1 pays the first-call warm-up
+    peak = max(c[4] for c in step_calls)
+    step_peak = max(c[4] - c[6] for c in step_calls)  # above what was allocated when the step began
+    metrics = dict(wall_s=wall, step_s=statistics.median(r["time/train_step_s"] for r in steady),
+                   train_tokens_per_s=statistics.median(r["throughput/train_tokens_per_s"] for r in steady),
+                   losses=[r["losses/loss"] for r in steps], eval_s=eval_s, eval_tokens=eval_tokens,
+                   eval_tokens_per_s=[n / s_ for n, s_ in zip(eval_tokens, eval_s)], peak_step_memory_bytes=peak,
+                   step_memory_above_held_bytes=step_peak, allocated_at_phase_start_bytes=at_start)
+    log(f"[ilql] gpt2-small ILQL, {ILQL_SAMPLES} dialogues (32 + 32 bytes), seq 64, batch {ILQL_BATCH}, bf16 flash, "
+        f"all 12 blocks trainable, target sync every {ILQL_SYNC} steps: {len(steps)} steps in {wall:.2f}s wall "
+        f"(two evaluations and the checkpoint included); median step_s={metrics['step_s']:.4f} "
+        f"train_tokens_per_s={metrics['train_tokens_per_s']:.1f}; peak device memory of a step "
+        f"{peak / 1e9:.3f} GB, {step_peak / 1e9:.3f} GB above what was allocated when it began; "
+        f"launches={launches} ({card})")
+
+    losses = [r[f"losses/{k}"] for r in steps for k in terms]
+    if len(steps) != ILQL_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {ILQL_STEPS} steps of finite losses, got {len(steps)}: {losses}")
+    for c in step_calls:
+        if c[3] != ILQL_KERNELS_PER_STEP:
+            raise AssertionError(f"an ILQL step launched {c[3]}, expected {ILQL_KERNELS_PER_STEP}")
+    want = {n: ILQL_STEPS * v for n, v in ILQL_KERNELS_PER_STEP.items()}
+    if {n: launches.get(n, 0) for n in want} != want or any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"ILQL launches {launches} != {want}")
+    synced = [bool(c[5]) for c in step_calls]
+    if synced != [(i + 1) % ILQL_SYNC == 0 for i in range(ILQL_STEPS)] or not all(s[1] for s in syncs) \
+            or len(syncs) != ILQL_STEPS // ILQL_SYNC:
+        raise AssertionError(f"target heads moved at steps {synced}, syncs exact {[s[1] for s in syncs]}")
+    if len(evals) != 2 or any(g[2] != "ilql" for g in gens) or min(eval_tokens) != ILQL_BATCH * ILQL_NEW:
+        raise AssertionError(f"evaluations {len(evals)}, sampling {gens}")
+    directory = work / "ckpts" / f"checkpoint_{ILQL_STEPS}"
+    fresh = ILQLTrainer(config)
+    fresh.load(str(directory))
+    if fresh.iter_count != ILQL_STEPS or not all(
+            torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(), fresh.model.state_dict().values())):
+        raise AssertionError("the ILQL done checkpoint did not load back with the same parameters")
+    log(f"[ilql] checkpoint {directory.name} loads into a fresh ILQLTrainer: parameters equal, target heads "
+        f"included; the target heads moved at steps {[i + 1 for i, s in enumerate(synced) if s]} only, each "
+        f"sync exactly alpha * q + (1 - alpha) * target")
+    del trainer, fresh
+    release()
+
+    config = ilql_config(ROOT / "build" / "chip_smoke_ilql_f32", dtype="float32", n_layers=4)
+    trainer = ILQLTrainer(config)
+    trainer.make_experience(samples[:32], rewards[:32], 64)
+    batch = next(iter(trainer.store.create_loader(32, shuffle=False)))
+    with plain_versions():
+        loss_p, grads_p, gates_p = step_grads(trainer, batch)
+    kernels.reset_launches()
+    loss_k, grads_k, gates_k = step_grads(trainer, batch, gates=gates_p)
+    launched = dict(kernels.LAUNCHES)
+    worst = check_grads(grads_k, grads_p)
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        raise AssertionError(f"f32 ILQL loss kernels {loss_k} vs plain {loss_p}")
+    flips, entries = gate_flips(gates_k, gates_p)
+    log(f"[ilql-f32] gpt2-small width, 4 layers, f32, b 32 t 64: loss kernels={loss_k:.7f} plain={loss_p:.7f}; "
+        f"{len(grads_k)} trainable grads, worst max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}; the plain run's "
+        f"ReLU gates, {flips} of {entries} entries differ from the kernel run's own); kernel launches {launched}")
+    del trainer
+    release()
+    metrics.update(f32_loss=[loss_k, loss_p], f32_grad_worst=worst)
+    return launches, metrics
 
 
 def build_report(ptxas_out):
@@ -1816,6 +2193,8 @@ def main() -> int:
     phase_ppo_grad_check()
     options_launches, options = phase_ppo_options(card, ppo_metrics)
     pipelined, pipelined_launches, pipelined_errs = phase_pipelined(card, ppo_metrics, options)
+    branch_launches, branch = phase_value_branch(card, ppo_metrics)
+    ilql_launches, ilql = phase_ilql(card)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -1826,12 +2205,16 @@ def main() -> int:
              launches_ppo=ppo_launches.get("paged_decode", 0),
              launches_ppo_options=options_launches.get("paged_decode", 0),
              launches_pipelined={t: n.get("paged_decode", 0) for t, n in pipelined_launches.items()},
+             launches_value_branch={t: n.get("paged_decode", 0) for t, n in branch_launches.items()},
+             launches_ilql=ilql_launches.get("paged_decode", 0),
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
              launches_ppo=ppo_launches.get("paged_decode_int8", 0),
              launches_ppo_options=options_launches.get("paged_decode_int8", 0),
              launches_pipelined={t: n.get("paged_decode_int8", 0) for t, n in pipelined_launches.items()},
+             launches_value_branch={t: n.get("paged_decode_int8", 0) for t, n in branch_launches.items()},
+             launches_ilql=ilql_launches.get("paged_decode_int8", 0),
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
     ]}
     train_rows = [
@@ -1845,15 +2228,19 @@ def main() -> int:
     ]
     for name, src, replaces in train_rows:
         # the times at phase 9's shapes: K3 when scoring, K4-K6 in a step,
-        # K7 at both and at phase 12's fast-scorer window, its backward in a step
+        # K7 at both, at phase 12's fast-scorer window and at phase 13's
+        # full-forward step, its backward in a step; K4-K6 at phase 14's
         ppo_shapes = [s for s in CE_PPO if (name, s) in train_timings]
         report["kernels"].append(dict(
             name=name, route="cuda", source=src, replaces=replaces, launches=train_launches[name],
             launches_ppo=ppo_launches.get(name, 0), launches_ppo_options=options_launches.get(name, 0),
             launches_pipelined={t: n.get(name, 0) for t, n in pipelined_launches.items()},
+            launches_value_branch={t: n.get(name, 0) for t, n in branch_launches.items()},
+            launches_ilql=ilql_launches.get(name, 0),
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
-            **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes}))
+            **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
+            ilql=train_timings.get((name, "ilql-train"))))
     # phase 11's checks: the exact launch counts (K3 none a step, 24 a
     # chunk), no fallback, greedy speculative vs plain under the tie rule,
     # the trunk cache against the full path; and its numbers
@@ -1867,6 +2254,9 @@ def main() -> int:
         configs={t: PIPELINED[t] for t in PIPELINED}, kernels_per_chunk=PIPELINED_PER_CHUNK,
         kernels_per_step=PIPELINED_PER_STEP, timed_cycles=PIPELINED_CYCLES, f32_max_abs_err=pipelined_errs,
         f32_tol={"fast": FAST_TOL, "merge": MERGE_TOL}, **pipelined)
+    # phase 13's and 14's checks and numbers
+    report["value_branch"] = branch
+    report["ilql"] = dict(kernels_per_step=ILQL_KERNELS_PER_STEP, steps=ILQL_STEPS, target_sync=ILQL_SYNC, **ilql)
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,11 @@ each part ends in a device synchronization, so what eager torch overlaps
 between them is not overlapped here. `--fast` adds the capture fast path
 (`capture_rollout_stats`); `--options` the headline options either way.
 
-    python3 scripts/profile_torch_ppo.py [--options] [--pipelined [--fast]]
+With `--value-branch` the policy's value head is phase 13's deeper
+branch (`num_value_layers_unfrozen=2`): scoring runs its 2 blocks, and
+each step runs the full forward and K7 over the full logits.
+
+    python3 scripts/profile_torch_ppo.py [--options] [--pipelined [--fast]] [--value-branch]
 """
 
 import argparse
@@ -143,7 +147,7 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from chip_smoke import PPO_OPTIONS, PPO_ROLLOUTS, ppo_config, ppo_prompts, ppo_reward
+    from chip_smoke import PPO_OPTIONS, PPO_ROLLOUTS, VALUE_BRANCH, ppo_config, ppo_prompts, ppo_reward
     from trlx_tpu_torch.pipeline import MiniBatchIterator
     from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
@@ -158,6 +162,7 @@ def main() -> int:
     parser.add_argument("--options", action="store_true", help="phase 11's options on")
     parser.add_argument("--pipelined", action="store_true", help="profile pipelined_cycle (phase 12)")
     parser.add_argument("--fast", action="store_true", help="with --pipelined: the capture fast path on")
+    parser.add_argument("--value-branch", action="store_true", help="phase 13's value branch")
     args = parser.parse_args()
     if args.fast and not args.pipelined:
         parser.error("--fast needs --pipelined")
@@ -166,6 +171,8 @@ def main() -> int:
         config = config.evolve(method=PPO_OPTIONS)
     if args.fast:
         config = config.evolve(method=dict(capture_rollout_stats=True))
+    if args.value_branch:
+        config = config.evolve(method=VALUE_BRANCH)
     trainer = PPOTrainer(config, reward_fn=ppo_reward)
     trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
     method = config.method
@@ -216,7 +223,7 @@ def report(card, args, phases, cycle_ms, rollouts, n_steps) -> int:
     then the JSON line."""
     print(f"card: {card}")
     out = {"card": card, "options": args.options, "pipelined": args.pipelined, "fast": args.fast,
-           "rollouts": rollouts, "train_steps": n_steps, "phases": {}}
+           "value_branch": args.value_branch, "rollouts": rollouts, "train_steps": n_steps, "phases": {}}
     for name, (wall, rows) in phases.items():
         device_ms = sum(r[1] for r in rows)
         ours = {label: sum(ms for k, ms, _ in rows if frag in k) for frag, label in OURS.items()}

@@ -17,7 +17,11 @@ Slices ported so far (ROADMAP.md, queue A):
 - PPO: `trlx_tpu_torch.train(reward_fn=..., prompts=..., config=...)` ->
   `PPOTrainer.learn()`: rollouts from the sampler, one no-grad hydra
   scoring pass a chunk (policy, values and the frozen reference), the
-  clipped PPO step over the windowed head, on the same kernels.
+  clipped PPO step over the windowed head, on the same kernels; with the
+  JAX bench's options, its pipelined cycle and the deeper value branch;
+- ILQL: `trlx_tpu_torch.train(samples=..., rewards=..., config=...)` ->
+  `ILQLTrainer.learn()`: Q, target Q and V heads over the LM, the ILQL
+  loss, Polyak target syncs and Q-guided sampling, on the same kernels.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 asking for `cuda` where there is none raises.

@@ -1,6 +1,6 @@
 """Config dataclasses (`configs`, `method_configs`, `default_configs`) and
-the PPO data containers (port of the JAX package's `data/__init__.py`:
-`PPORLElement` and `PPORLBatch`).
+the RL data containers (port of the JAX package's `data/__init__.py`:
+`PPORLElement` and `PPORLBatch`, `ILQLElement` and `ILQLBatch`).
 
 Elements and batches are plain dataclasses of numpy arrays on the host;
 the trainer moves a batch's arrays to its device (`batch_to_device`). The
@@ -50,3 +50,21 @@ class PPORLBatch:
     h_split: Any = None
     group_ids: Any = None
     loss_masks: Any = None
+
+
+@dataclass
+class ILQLElement:
+    """One offline RL sample: its tokens and the index maps of its states
+    and actions (positions of the shifted sequence: position p predicts
+    token p + 1)."""
+
+    input_ids: Any  # int32 [t]
+    attention_mask: Any  # int32 [t]
+    rewards: Any  # f32 [n_actions]: the normalized return on the last action
+    states_ixs: Any  # int32 [n_actions + 1]
+    actions_ixs: Any  # int32 [n_actions]
+    dones: Any  # int32 [n_actions + 1]: 1, then 0 at the terminal state
+
+
+# a batch has an element's fields with a leading batch axis, right padded
+ILQLBatch = ILQLElement

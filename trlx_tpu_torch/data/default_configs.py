@@ -1,6 +1,6 @@
-"""Canonical default configs (the JAX package's `default_ppo_config` and
-`default_sft_config`; the other methods' defaults come with their
-trainers)."""
+"""Canonical default configs (the JAX package's `default_ppo_config`,
+`default_ilql_config` and `default_sft_config`; the other methods'
+defaults come with their trainers)."""
 
 from trlx_tpu_torch.data.configs import (
     ModelConfig,
@@ -11,6 +11,7 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
+from trlx_tpu_torch.trainer.ilql_trainer import ILQLConfig
 from trlx_tpu_torch.trainer.ppo_trainer import PPOConfig
 from trlx_tpu_torch.trainer.sft_trainer import SFTConfig
 
@@ -60,6 +61,42 @@ def default_ppo_config():
                 top_p=1.0,
                 do_sample=True,
             ),
+        ),
+        parallel=ParallelConfig(),
+    )
+
+
+def default_ilql_config():
+    """Mirrors reference default_ilql_config (default_configs.py:62-94)."""
+    return TRLConfig(
+        train=TrainConfig(
+            seq_length=64,
+            batch_size=128,
+            epochs=100,
+            total_steps=1000,
+            checkpoint_interval=1000,
+            eval_interval=100,
+            pipeline="PromptPipeline",
+            trainer="ILQLTrainer",
+            tracker=None,
+        ),
+        model=ModelConfig(model_path="random:gpt2-small", num_layers_unfrozen=-1),
+        tokenizer=TokenizerConfig(tokenizer_path="byte", truncation_side="right"),
+        optimizer=OptimizerConfig(
+            name="adamw", kwargs=dict(lr=5.0e-5, betas=(0.9, 0.95), eps=1.0e-8, weight_decay=1.0e-6)
+        ),
+        scheduler=SchedulerConfig(name="cosine_annealing", kwargs=dict(T_max=1e12, eta_min=5.0e-5)),
+        method=ILQLConfig(
+            name="ilqlconfig",
+            tau=0.7,
+            gamma=0.99,
+            cql_scale=0.1,
+            awac_scale=1,
+            alpha=0.001,
+            beta=0,
+            steps_for_target_q_sync=5,
+            two_qs=True,
+            gen_kwargs=dict(max_new_tokens=56, top_k=20, beta=1, temperature=1.0),
         ),
         parallel=ParallelConfig(),
     )

@@ -1,17 +1,21 @@
-"""Model construction from a ModelConfig: causal value-head policies from
+"""Model construction from a ModelConfig: causal value-head policies (with
+the deeper value branch under `num_value_layers`) and ILQL policies from
 `random:` presets (loading an HF checkpoint directory is ROADMAP queue A,
 item 4)."""
 
-from typing import Optional, Tuple
+from typing import Tuple, Union
 
 import torch
 
-from trlx_tpu_torch.models.heads import MLPHead  # noqa: F401
+from trlx_tpu_torch.models.heads import ILQLHeads, MLPHead, sync_target_q_heads  # noqa: F401
 from trlx_tpu_torch.models.policy import (  # noqa: F401
+    CausalLMWithILQLHeads,
     CausalLMWithValueHead,
     HydraReference,
+    ValueBranch,
     forward_policy_and_ref,
     resolve_split,
+    target_q_mask,
     trainable_mask,
 )
 from trlx_tpu_torch.models.transformer import (  # noqa: F401
@@ -57,14 +61,25 @@ def resolve_transformer_config(model_config, vocab_size: int) -> TransformerConf
     return config_from_preset(path[len("random:"):], vocab_size=vocab_size, **extra)
 
 
-def build_model(model_config, vocab_size: int, seed: int = 0,
-                device="cuda") -> Tuple[CausalLMWithValueHead, TransformerConfig, dict]:
-    """Returns (module, model config, state dict) for a causal value-head
-    policy with random weights drawn from `seed` on `device`."""
+def build_model(model_config, vocab_size: int, seed: int = 0, device="cuda", with_ilql_heads: bool = False,
+                two_qs: bool = True, num_value_layers: int = 0,
+                ) -> Tuple[Union[CausalLMWithValueHead, CausalLMWithILQLHeads], TransformerConfig, dict]:
+    """Returns (module, model config, state dict) with random weights drawn
+    from `seed` on `device`: a causal value-head policy, its value head the
+    deeper branch when `num_value_layers > 0` (clones of the top blocks and
+    the final norm, taken after init; its MLP head keeps its own init), or
+    with `with_ilql_heads` an LM with ILQL's heads."""
     cfg = resolve_transformer_config(model_config, vocab_size)
+    if num_value_layers > 0 and with_ilql_heads:
+        raise NotImplementedError("the value branch is a PPO-value-head feature")
     device = torch.device(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(int(seed))
-    model = CausalLMWithValueHead(cfg, device=device, generator=generator)
+    if with_ilql_heads:
+        model = CausalLMWithILQLHeads(cfg, device=device, generator=generator, two_qs=two_qs)
+    else:
+        model = CausalLMWithValueHead(cfg, device=device, generator=generator, num_value_layers=num_value_layers)
+        if num_value_layers > 0:
+            model.value_branch.clone_from(model.lm)
     model.eval()
     return model, cfg, model.state_dict()

@@ -1,17 +1,21 @@
-"""Policy wrapper: LM + value head, the hydra reference, and the freezing
-utilities.
+"""Policy wrappers: LM + value head, LM + ILQL heads, the hydra reference,
+and the freezing utilities.
 
 Port of the JAX package's `models/policy.py`: `CausalLMWithValueHead`
-with the MLP value head (the training forward, the windowed head of the
-PPO loss, the trunk cache's fill and the suffix resumed from it, the
-cached decode steps of the sampler with the fast path's value and
-activation capture, the speculative sampler's draft and verify, and the
-inference engine's), the frozen hydra reference (`HydraReference`, the
-JAX `ref_param_subtree` with `forward_ref_suffix`,
+with the MLP value head or, under `num_value_layers > 0`, the deeper
+value branch (`ValueBranch`: clones of the top blocks and the final norm
+ending in the MLP head, fed the trunk activation entering block
+`n_layers - num_value_layers`), with the training forward, the windowed
+head of the PPO loss, the trunk cache's fill and the suffix resumed from
+it, the cached decode steps of the sampler with the fast path's value
+and activation capture, the speculative sampler's draft and verify, and
+the inference engine's; `CausalLMWithILQLHeads` (the LM with ILQL's V,
+Q and target Q heads, `models/heads.py`); the frozen hydra reference
+(`HydraReference`, the JAX `ref_param_subtree` with `forward_ref_suffix`,
 `forward_ref_suffix_window` and `forward_ref_full`),
-`forward_policy_and_ref`, `resolve_split` and `trainable_mask`. The
-deeper value branch (`ValueBranch`) is ROADMAP queue A, item 1; LoRA
-and prompt tuning are refused at model build until they port (item 4).
+`forward_policy_and_ref`, `resolve_split`, `trainable_mask` and
+`target_q_mask`. LoRA and prompt tuning are refused at model build until
+they port (ROADMAP queue A, item 4).
 """
 
 import copy
@@ -20,28 +24,93 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from trlx_tpu_torch.models.heads import MLPHead
-from trlx_tpu_torch.models.transformer import TransformerConfig, TransformerLM, position_ids, train_bias
+from trlx_tpu_torch.models.heads import ILQLHeads, MLPHead
+from trlx_tpu_torch.models.transformer import (
+    Block,
+    TransformerConfig,
+    TransformerLM,
+    make_norm,
+    position_ids,
+    train_bias,
+)
+
+_NO_STEP_VALUES = ("per-step values during decode are not supported with a value branch (values are "
+                   "computed in the scoring pass)")
+
+
+class ValueBranch(nn.Module):
+    """The deeper value head: `n` trainable blocks and a final norm, cloned
+    from the trunk's top blocks after init or load (`build_model`), ending
+    in the scalar MLP head (which keeps its fresh init). Fed the trunk
+    activation entering block `n_layers - n`."""
+
+    def __init__(self, cfg: TransformerConfig, n: int, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.blocks = []
+        for i in range(n):
+            blk = Block(cfg, device, generator)
+            self.add_module(f"block_{i}", blk)
+            self.blocks.append(blk)
+        self.ln_f = make_norm(cfg, device)
+        self.v_head = MLPHead(cfg.d_model, 1, cfg.dtype, cfg.param_dtype, device, generator)
+
+    def forward(self, h, attn_mask, positions):
+        bias = train_bias(self.cfg, attn_mask)
+        for blk in self.blocks:
+            h, _ = blk(h, bias, positions, attn_mask=attn_mask)
+        return self.v_head(self.ln_f(h))[..., 0]
+
+    def clone_from(self, lm: TransformerLM) -> None:
+        """Copy the trunk's top blocks and final norm into the branch: the
+        branch owns its storage, so training either side leaves the other."""
+        top = lm.cfg.n_layers - len(self.blocks)
+        with torch.no_grad():
+            for i, blk in enumerate(self.blocks):
+                for dst, src in zip(blk.parameters(), getattr(lm, f"block_{top + i}").parameters()):
+                    dst.copy_(src)
+            for dst, src in zip(self.ln_f.parameters(), lm.ln_f.parameters()):
+                dst.copy_(src)
 
 
 class CausalLMWithValueHead(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None, num_value_layers: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.num_value_layers = num_value_layers
+        self.value_split = cfg.n_layers - num_value_layers  # the branch's tap
         self.lm = TransformerLM(cfg, device, generator)
-        self.v_head = MLPHead(cfg.d_model, 1, cfg.dtype, cfg.param_dtype, device, generator)
+        if num_value_layers > 0:
+            self.value_branch = ValueBranch(cfg, num_value_layers, device, generator)
+        else:
+            self.v_head = MLPHead(cfg.d_model, 1, cfg.dtype, cfg.param_dtype, device, generator)
 
     def forward(self, tokens, attn_mask, positions=None, split: int = 0):
         """Returns (logits, values, h_split). `split` is the hydra branch
         point (0: h_split is the embedding output)."""
-        logits, h_split, h_final = self.lm(tokens, attn_mask, positions, split)
-        values = self.v_head(h_final)[..., 0]
-        return logits, values, h_split
+        if positions is None:
+            positions = position_ids(attn_mask)
+        branch = self.num_value_layers > 0
+        logits, h_split, h_final, h_value = self.lm.forward_captures(
+            tokens, attn_mask, positions, split, self.value_split if branch else split)
+        if branch:
+            # the branch's blocks see the trunk's positions: the rotary
+            # phases of the blocks they were cloned from
+            return logits, self.value_branch(h_value, attn_mask, positions), h_split
+        return logits, self.v_head(h_final)[..., 0], h_split
+
+    def _no_window_under_a_branch(self, what: str) -> None:
+        if self.num_value_layers > 0:
+            raise NotImplementedError(f"{what} with a value branch is unsupported (branch blocks attend over "
+                                      "the full sequence)")
 
     def forward_window(self, tokens, attn_mask, positions=None, start: int = 0, length: int = 1):
         """(logits_win, values_win) over positions [start, start + length)
         only: the slice the PPO loss reads. The MLP value head reads each
-        position's hidden state on its own, so windowing it is exact."""
+        position's hidden state on its own, so windowing it is exact; the
+        value branch attends over the full sequence and cannot be
+        windowed."""
+        self._no_window_under_a_branch("forward_window")
         logits, h_final = self.lm.forward_window(tokens, attn_mask, positions, start, length)
         return logits, self.v_head(h_final)[..., 0]
 
@@ -52,16 +121,25 @@ class CausalLMWithValueHead(nn.Module):
 
     def forward_from_cache(self, h_split, attn_mask, positions=None, start_layer: int = 0):
         """(logits, values) resuming blocks [start_layer, n_layers), the
-        head and the value head from a cached trunk activation. Exact when
+        head and the value head (or the value branch, whose tap must lie at
+        or above start_layer) from a cached trunk activation. Exact when
         the trunk is frozen, as it is under any split > 0."""
-        logits, h_final = self.lm.forward_from_captures(h_split, attn_mask, positions, start_layer)
+        if self.num_value_layers > 0:
+            if positions is None:
+                positions = position_ids(attn_mask)
+            logits, _, h_value = self.lm.forward_from_captures(h_split, attn_mask, positions, start_layer,
+                                                               self.value_split)
+            return logits, self.value_branch(h_value, attn_mask, positions)
+        logits, h_final, _ = self.lm.forward_from_captures(h_split, attn_mask, positions, start_layer)
         return logits, self.v_head(h_final)[..., 0]
 
     def forward_from_cache_window(self, h_split, attn_mask, positions=None, start_layer: int = 0,
                                   start: int = 0, length: int = 1):
         """`forward_from_cache` with the windowed head: (logits_win,
         values_win) over positions [start, start + length) only (the
-        trunk-cache step's forward)."""
+        trunk-cache step's forward). Not under a value branch, as
+        `forward_window`."""
+        self._no_window_under_a_branch("forward_from_cache_window")
         logits, h_final = self.lm.forward_from_window(h_split, attn_mask, positions, start_layer, start, length)
         return logits, self.v_head(h_final)[..., 0]
 
@@ -74,8 +152,10 @@ class CausalLMWithValueHead(nn.Module):
                          token_mask=None):
         """Batched suffix verify from the trunk's own rows. Returns (logits,
         values or None, layers); values come from the MLP value head on
-        h_final (the capture path asks for them; the deeper value branch,
-        which the JAX package refuses here, is not ported)."""
+        h_final (the capture path asks for them; under a value branch the
+        values come from the scoring pass, and asking raises)."""
+        if with_value and self.num_value_layers > 0:
+            raise NotImplementedError(_NO_STEP_VALUES)
         logits, h_final, layers = self.lm.spec_verify_rows(h, cache, row_start, positions, split, token_mask)
         values = self.v_head(h_final)[..., 0] if with_value else None
         return logits, values, layers
@@ -84,8 +164,11 @@ class CausalLMWithValueHead(nn.Module):
                     capture_split: Optional[int] = None):
         """Cached decode over the fixed-slot cache (the sampler's). Returns
         (logits, values, new_cache, h_cap): the value head's output when
-        `with_value`, and the activation entering block `capture_split`
-        when it is given (the rollout fast path's capture), else None."""
+        `with_value` (refused under a value branch), and the activation
+        entering block `capture_split` when it is given (the rollout fast
+        path's capture), else None."""
+        if with_value and self.num_value_layers > 0:
+            raise NotImplementedError(_NO_STEP_VALUES)
         out = self.lm.decode_step(tokens, cache, token_mask, is_prefill, capture_split)
         logits, h_final, new_cache = out[:3]
         values = self.v_head(h_final)[..., 0] if with_value else None
@@ -94,6 +177,44 @@ class CausalLMWithValueHead(nn.Module):
     def decode_step_rows(self, tokens, cache, token_mask, attn_kernel=None):
         """Per-row-offset cached decode (continuous-batching slot pool).
         Returns (logits, new_cache)."""
+        return self.lm.decode_step_rows(tokens, cache, token_mask, attn_kernel)
+
+    def prefill_rows(self, tokens, cache, token_mask):
+        """Per-row-offset multi-token prefill (the paged engine's insert
+        path). Returns (logits, new_cache)."""
+        return self.lm.prefill_rows(tokens, cache, token_mask)
+
+
+class CausalLMWithILQLHeads(nn.Module):
+    """The LM with ILQL's heads (`ILQLHeads`: V, one or two Q heads and
+    their target heads) on the final hidden state."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None, two_qs: bool = True):
+        super().__init__()
+        self.cfg = cfg
+        self.lm = TransformerLM(cfg, device, generator)
+        self.ilql_heads = ILQLHeads(cfg.d_model, cfg.vocab_size, two_qs, cfg.dtype, cfg.param_dtype, device,
+                                    generator)
+
+    def forward(self, tokens, attn_mask, positions=None, states_ixs=None, actions_ixs=None):
+        """Returns (logits, qs, target_qs, vs, h_final); the Q heads run on
+        the action positions and the V head on the state positions when
+        their index arrays are given."""
+        logits, _, h_final = self.lm(tokens, attn_mask, positions, 0)
+        qs, target_qs, vs = self.ilql_heads(h_final, states_ixs, actions_ixs)
+        return logits, qs, target_qs, vs, h_final
+
+    def decode_step(self, tokens, cache, token_mask, is_prefill: bool = False):
+        """Cached decode returning (logits, qs, target_qs, vs, new_cache) at
+        the new positions: what the sampler's beta * (Q - V) shift reads."""
+        logits, h, new_cache = self.lm.decode_step(tokens, cache, token_mask, is_prefill)
+        qs, target_qs, vs = self.ilql_heads(h)
+        return logits, qs, target_qs, vs, new_cache
+
+    def decode_step_rows(self, tokens, cache, token_mask, attn_kernel=None):
+        """Per-row-offset cached decode (continuous-batching slot pool):
+        plain-LM logits only, the advantage shift is a training-time
+        sampler feature. Returns (logits, new_cache)."""
         return self.lm.decode_step_rows(tokens, cache, token_mask, attn_kernel)
 
     def prefill_rows(self, tokens, cache, token_mask):
@@ -133,6 +254,13 @@ def trainable_mask(model: nn.Module, cfg: TransformerConfig, num_layers_unfrozen
         return parts[1] in ("ln_f", "lm_head")
 
     return {name: _trainable(name) for name, _ in model.named_parameters()}
+
+
+def target_q_mask(model: nn.Module) -> Dict[str, bool]:
+    """{parameter name: is a target Q head's}: those stay out of the
+    optimizer and move only by the Polyak sync."""
+    return {name: any(p.startswith("target_q_head") for p in name.split("."))
+            for name, _ in model.named_parameters()}
 
 
 class HydraReference(nn.Module):

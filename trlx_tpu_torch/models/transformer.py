@@ -6,7 +6,8 @@ forward (`forward`, dense causal bias or the flash kernels under
 `attn_impl="flash"`; `forward_window`, the head over a window only), the
 trunk-cache pair (`forward_trunk`, the embeddings and the frozen blocks;
 `forward_from_captures` / `forward_from_window`, the rest resumed from
-their output), the fixed-slot dense KV cache (`init_kv_cache`,
+their output; `forward_captures` and `forward_from_captures` also keep
+the deeper value branch's input), the fixed-slot dense KV cache (`init_kv_cache`,
 `decode_step`) that the sampler uses, with per-row offsets for the
 speculative sampler's `spec_draft_step` (the trunk alone) and
 `spec_verify_rows` (the suffix over all drafted positions at once), and
@@ -490,19 +491,26 @@ class TransformerLM(nn.Module):
         """Training/scoring forward (no cache). tokens, attn_mask [b, t].
         Returns (logits, h_split, h_final): h_split is the activation
         entering block `split` (the embedding output for split 0)."""
+        return self.forward_captures(tokens, attn_mask, positions, split, split)[:3]
+
+    def forward_captures(self, tokens, attn_mask, positions=None, split: int = 0, value_split: int = 0):
+        """`forward` that also keeps the activation entering block
+        `value_split`, the deeper value branch's input. Returns (logits,
+        h_split, h_final, h_value); a split at or past the last block
+        captures the last block's output."""
         if positions is None:
             positions = position_ids(attn_mask)
+        n = self.cfg.n_layers
+        split, value_split = min(split, n), min(value_split, n)
         h = self.embed(tokens, positions)
-        bias = train_bias(self.cfg, attn_mask)
-        h_split = h
-        for i, blk in enumerate(self.blocks):
-            if i == split:
-                h_split = h
-            h, _ = blk(h, bias, positions, attn_mask=attn_mask)
-        if split >= self.cfg.n_layers:
-            h_split = h
+        caps = {}
+        bounds = sorted({0, split, value_split, n})
+        for s, e in zip(bounds, bounds[1:]):
+            caps[s] = h
+            h = self._run_from(h, attn_mask, positions, s, e)
+        caps[n] = h
         logits, h_final = self.unembed(h)
-        return logits, h_split, h_final
+        return logits, caps[split], h_final, caps[value_split]
 
     def forward_window(self, tokens, attn_mask, positions=None, start: int = 0, length: int = 1):
         """The trunk over the full sequence, the final norm and unembedding
@@ -521,14 +529,23 @@ class TransformerLM(nn.Module):
             positions = position_ids(attn_mask)
         return self._run_from(self.embed(tokens, positions), attn_mask, positions, 0, split)
 
-    def forward_from_captures(self, h, attn_mask, positions=None, start_layer: int = 0):
+    def forward_from_captures(self, h, attn_mask, positions=None, start_layer: int = 0,
+                              value_split: Optional[int] = None):
         """Resume blocks [start_layer, n_layers) from a cached activation
         `h` entering `start_layer`, full-width head. Returns (logits,
-        h_final). (The JAX method also returns the deeper value branch's
-        input; the branch is not ported.)"""
+        h_final, h_value): h_value is the activation entering block
+        `value_split` (the deeper value branch's input; start_layer <=
+        value_split), or `h` itself when it is None."""
         if positions is None:
             positions = position_ids(attn_mask)
-        return self.unembed(self._run_from(h, attn_mask, positions, start_layer))
+        vs = start_layer if value_split is None else value_split
+        if vs < start_layer:
+            raise ValueError(f"value_split {vs} lies below start_layer {start_layer}: its input is not derivable")
+        h_value = h
+        if vs > start_layer:
+            h = h_value = self._run_from(h, attn_mask, positions, start_layer, vs)
+        logits, h_final = self.unembed(self._run_from(h, attn_mask, positions, vs))
+        return logits, h_final, h_value
 
     def forward_from_window(self, h, attn_mask, positions=None, start_layer: int = 0, start: int = 0,
                             length: int = 1):

@@ -2,8 +2,8 @@
 
 Port of the JAX package's `ops/sampling.py`: `GenerationConfig`,
 `process_logits`, `select_token`, `sampled_token_logprob`, `topp_mask`
-(and `topk_mask` from its `ops/ilql.py`), and the sampler
-`make_generate_fn` / `generate` for a causal LM with one beam: prefill
+(`topk_mask` lives in `ops/ilql.py`, as in the JAX package), and the
+sampler `make_generate_fn` / `generate` for a causal LM with one beam: prefill
 the (left-padded) prompt batch into a fixed-slot KV cache, then decode
 token by token with logit processing, a transition logit mask,
 `suppress_tokens` and eos stop, until every row is finished or the
@@ -28,7 +28,13 @@ recompute with a batched forward: each sampled token's policy logprob
 from the raw logits, the value at its input position, and the
 activations entering the hydra split over prompt and response.
 
-ILQL, seq2seq and beams (ROADMAP queue A, item 4) raise.
+With `mode="ilql"` (a `CausalLMWithILQLHeads`) the plain sampler shifts
+each step's scores to `log_softmax(logits) + beta * (Q - V)` before the
+warps, Q the target Q head (the smaller of the two under `two_qs`) and V
+the value head at the new position: ILQL's Q-guided sampling.
+
+Seq2seq and beams (ROADMAP queue A, item 4) raise, and so do ILQL under
+`capture` or `spec_k`, as in the JAX package.
 """
 
 from dataclasses import dataclass
@@ -36,6 +42,8 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from trlx_tpu_torch.ops.ilql import topk_mask
 
 
 @dataclass(frozen=True)
@@ -75,14 +83,6 @@ class GenerationConfig:
             eos_token_id=eos_token_id,
             pad_token_id=pad_token_id,
         )
-
-
-def topk_mask(xs: torch.Tensor, k: int) -> torch.Tensor:
-    """Keep the top-k entries of the last axis, set the rest to -inf."""
-    if k >= xs.shape[-1]:
-        return xs
-    mintop = torch.topk(xs, k, dim=-1).values[..., -1:]
-    return torch.where(xs < mintop, torch.full_like(xs, -float("inf")), xs)
 
 
 def topp_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
@@ -154,14 +154,16 @@ def make_generate_fn(
     spec_k: int = 0,  # > 0: self-speculative decode, spec_k drafts a round
     spec_split: int = 0,  # the hydra split: the draft trunk's depth
     spec_draft_head: Optional[Tuple[np.ndarray, np.ndarray]] = None,  # (A [d, r], B [r, V])
+    two_qs: bool = True,  # ILQL: Q is the smaller of the two target heads
 ) -> Callable:
     """Build generate(input_ids [b, p], attn_mask [b, p], generator,
     params=None) -> dict(samples, samples_mask, response_tokens,
     response_mask), with outputs [b, p + max_new_tokens] / [b,
     max_new_tokens] like the JAX sampler's, plus `spec_rounds` and
     `spec_accepted` ([b]: rounds each row took part in, drafts it kept)
-    under speculative decode. `model` is a `CausalLMWithValueHead` whose
-    parameters live on the device the inputs are moved to; `params`, a
+    under speculative decode. `model` is a `CausalLMWithValueHead` (a
+    `CausalLMWithILQLHeads` under mode="ilql") whose parameters live on
+    the device the inputs are moved to; `params`, a
     decode view `{name: tensor or (q, scale)}`, replaces those parameters
     for the call (`ops/quant.dequantize_tree`).
 
@@ -176,8 +178,10 @@ def make_generate_fn(
     from trlx_tpu_torch.ops.quant import dequantize_tree
     from trlx_tpu_torch.utils.modeling import swapped_params
 
-    if mode != "lm":
-        raise NotImplementedError(f"mode={mode!r} (ILQL sampling) is not ported yet (ROADMAP queue A, item 4)")
+    if mode not in ("lm", "ilql"):
+        raise ValueError(f"mode={mode!r}: expected 'lm' or 'ilql'")
+    if mode == "ilql" and (capture or spec_k > 0):
+        raise NotImplementedError("capture and speculative decode sample a plain LM (mode='lm') only")
     if getattr(model_cfg, "is_seq2seq", False):
         raise NotImplementedError("seq2seq generation is not ported yet (ROADMAP queue A, item 4)")
     if gen_cfg.num_beams > 1:
@@ -211,19 +215,27 @@ def make_generate_fn(
         if logit_mask is not None:
             forbid = torch.as_tensor(np.asarray(logit_mask), device=device).bool()
 
-        def shift(logits, prev):
-            """suppress_tokens, then the transitions from the previous token."""
+        def shift(logits, prev, adv=None):
+            """suppress_tokens, then the transitions from the previous token,
+            then ILQL's advantage shift when `adv` ([b, V]) is given."""
             if suppress is not None:
                 logits = logits + suppress
             if forbid is not None:
                 logits = torch.where(forbid[prev], -float("inf"), logits)
+            if adv is not None:
+                logits = torch.log_softmax(logits, dim=-1) + gen_cfg.beta * adv
             return logits
 
         return device, input_ids, attn_mask, shift
 
     def step(tokens, cache, token_mask, is_prefill=False):
         """One cached model call: (logits, values, new_cache, h_cap), the
-        last two None without capture."""
+        last two None without capture; under ILQL the values slot holds the
+        advantage Q - V [b, t, V]."""
+        if mode == "ilql":
+            logits, _, target_qs, vs, new_cache = model.decode_step(tokens, cache, token_mask, is_prefill)
+            q = torch.minimum(target_qs[0], target_qs[1]) if two_qs else target_qs[0]
+            return logits, q - vs, new_cache, None
         return model.decode_step(tokens, cache, token_mask, is_prefill, with_value=capture,
                                  capture_split=capture_split if capture else None)
 
@@ -260,7 +272,8 @@ def make_generate_fn(
                 logits = step_logits[:, -1].float()
                 if capture:  # the split activation at prev's position plen + i - 1
                     hs_buf[:, plen + i - 1] = h_cap[:, 0]
-            scores = process_logits(shift(logits, prev), gen_cfg, i, seen)
+            adv = value[:, -1] if mode == "ilql" else None
+            scores = process_logits(shift(logits, prev, adv), gen_cfg, i, seen)
             token = select_token(scores, generator, gen_cfg)
             token = torch.where(finished, torch.full_like(token, gen_cfg.pad_token_id), token)
             out_tokens[:, i] = token
@@ -463,6 +476,7 @@ def spec_draft_head_from_params(state: Dict, model_cfg, rank: int) -> Tuple[np.n
 
 
 def generate(model, model_cfg, input_ids, attn_mask, gen_cfg: GenerationConfig,
-             generator: Optional[torch.Generator] = None, mode: str = "lm", logit_mask=None):
+             generator: Optional[torch.Generator] = None, mode: str = "lm", logit_mask=None, two_qs: bool = True):
     """One-shot convenience wrapper over `make_generate_fn`."""
-    return make_generate_fn(model, model_cfg, gen_cfg, mode, logit_mask)(input_ids, attn_mask, generator)
+    return make_generate_fn(model, model_cfg, gen_cfg, mode, logit_mask, two_qs=two_qs)(input_ids, attn_mask,
+                                                                                        generator)

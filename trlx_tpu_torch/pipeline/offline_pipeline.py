@@ -1,10 +1,10 @@
-"""Offline pipelines: prompt datasets, dialogue tokenization and the SFT
-dialog store.
+"""Offline pipelines: prompt datasets, dialogue tokenization, the SFT
+dialog store and ILQL's rollout storage.
 
-Port of the JAX package's `pipeline/offline_pipeline.py` (the ILQL
-storages are not ported yet: ROADMAP queue A, item 4). Batches are numpy
-and padded to a pipeline-wide length, as in the JAX package, so every
-step of a run sees one shape.
+Port of the JAX package's `pipeline/offline_pipeline.py` (the seq2seq
+ILQL storage waits with seq2seq: ROADMAP queue A, item 4). Batches are
+numpy and padded to a pipeline-wide length, as in the JAX package, so
+every step of a run sees one shape.
 """
 
 from dataclasses import dataclass
@@ -12,7 +12,9 @@ from typing import Any, Dict, Iterable, List, Tuple, Union
 
 import numpy as np
 
+from trlx_tpu_torch.data import ILQLElement
 from trlx_tpu_torch.pipeline import BasePipeline, BaseRolloutStore, DataLoader, register_datapipeline
+from trlx_tpu_torch.pipeline.ppo_pipeline import pad_stack
 from trlx_tpu_torch.tokenizers import BaseTokenizer
 
 
@@ -173,4 +175,38 @@ class PromptPipeline(BasePipeline):
             return out
 
         return DataLoader(self.prompts, batch_size, shuffle=shuffle, collate_fn=collate,
+                          drop_last=drop_last, seed=seed)
+
+
+class ILQLRolloutStorage(BaseRolloutStore):
+    """ILQL's fixed offline dataset: one `ILQLElement` a sample, collated
+    into an `ILQLBatch` with each field right padded with zeros to its
+    longest row in the whole store (rewards f32, the rest int32)."""
+
+    fields = ("input_ids", "attention_mask", "rewards", "states_ixs", "actions_ixs", "dones")
+
+    def __init__(self, *columns):
+        super().__init__()
+        if len(columns) != len(self.fields):
+            raise ValueError(f"expected {len(self.fields)} columns ({', '.join(self.fields)}), got {len(columns)}")
+        self.columns = [list(c) for c in columns]
+
+    def __getitem__(self, ix: int) -> ILQLElement:
+        return ILQLElement(*(c[ix] for c in self.columns))
+
+    def __len__(self) -> int:
+        return len(self.columns[0])
+
+    def create_loader(self, batch_size: int, shuffle: bool = True, drop_last: bool = True,
+                      seed: int = 0) -> DataLoader:
+        maxes = [max(len(np.atleast_1d(x)) for x in col) for col in self.columns]
+
+        def collate(items):
+            arrays = []
+            for field, mx in zip(self.fields, maxes):
+                dtype = np.float32 if field == "rewards" else np.int32
+                arrays.append(pad_stack([np.atleast_1d(getattr(it, field)) for it in items], 0, mx, dtype))
+            return ILQLElement(*arrays)
+
+        return DataLoader([self[i] for i in range(len(self))], batch_size, shuffle=shuffle, collate_fn=collate,
                           drop_last=drop_last, seed=seed)

@@ -279,8 +279,14 @@ class TorchTrainer:
                 capture=capture, capture_split=self.split if capture else 0,
                 spec_k=spec_k, spec_split=self.split if spec_k > 0 else 0,
                 spec_draft_head=self._spec_draft_head() if spec_k > 0 else None,
+                **self._method_sampler_options(),
             )
         return self._generate_cache[key]
+
+    def _method_sampler_options(self) -> Dict:
+        """Method-specific `make_generate_fn` options; ILQL passes its
+        `two_qs`."""
+        return {}
 
     def _spec_draft_head(self):
         """The draft readout of speculative decode; trainers that run it

@@ -8,7 +8,10 @@ One cycle: sample rollouts for a chunk of prompts with the port's sampler
 from its copy of the top blocks), per-token KL-penalized rewards into the
 rollout store, and `ppo_epochs` inner epochs of clipped PPO steps with
 GAE over the store. A step runs the trunk over the full sequence and the
-head over the response window only (`forward_window`).
+head over the response window only (`forward_window`); under the deeper
+value branch (`method.num_value_layers_unfrozen > 0`), whose blocks attend
+over the full sequence, it runs the full forward and takes the window
+from it (`window_from_full`).
 
 The method options of the JAX bench's headline PPO run:
 - `quantize_frozen_trunk`: the sampler reads an int8 view of the frozen
@@ -42,9 +45,9 @@ on the device from sampling through training
   as in JAX.
 The JAX trainer only enqueues a sampling loop and overlaps it with host
 work; eager torch runs the loop (one host sync a step), so that overlap
-is absent here. Refused at construction, naming their ROADMAP items: the
-deeper value branch (queue A item 1), multi-turn rollouts and the
-rollout fleet (item 3), and seq2seq (item 4).
+is absent here. Refused at construction, naming their ROADMAP items:
+multi-turn rollouts and the rollout fleet (queue A item 3), and seq2seq
+(item 4).
 """
 
 import dataclasses
@@ -115,7 +118,6 @@ class PPOConfig(MethodConfig):
 
 # method flags of features the port does not run yet -> the ROADMAP item
 _UNPORTED_METHOD_FLAGS = {
-    "num_value_layers_unfrozen": "queue A, item 1 (the value branch)",
     "multiturn_env": "queue A, item 3 (multi-turn rollouts over the fleet)",
 }
 
@@ -174,7 +176,7 @@ class PPOTrainer(TorchTrainer):
 
     def get_arch(self, config: TRLConfig):
         return build_model(config.model, vocab_size=self.tokenizer.vocab_size, seed=config.train.seed,
-                           device=self.device)
+                           device=self.device, num_value_layers=config.method.num_value_layers_unfrozen)
 
     def setup_rollout_logging(self, config):
         if not os.path.isdir(config.train.rollout_logging_dir):
@@ -195,10 +197,17 @@ class PPOTrainer(TorchTrainer):
         return int((np.asarray(minibatch.query_tensors) != pad_id).sum()
                    + (np.asarray(minibatch.response_tensors) != pad_id).sum())
 
+    def _window_loss_ok(self) -> bool:
+        """Whether the loss may read the windowed head: only the plain MLP
+        value head (the branch's blocks attend over the full sequence). The
+        JAX gate's soft-prompt condition is refused at construction."""
+        return self.config.method.num_value_layers_unfrozen == 0
+
     def make_loss_fn(self) -> Callable:
         model = self.model
         method = self.config.method
         pad_id = self.tokenizer.pad_token_id
+        window_ok = self._window_loss_ok()
 
         def loss_fn(batch: PPORLBatch):
             query_tensors = batch.query_tensors
@@ -216,20 +225,29 @@ class PPOTrainer(TorchTrainer):
                 old_values, old_rewards, method.gamma, method.lam,
                 mask=mask if method.whiten_with_mask else None,
             )
-            # the head over the response window only: the value branch and
-            # soft prompts, which would need the full forward, are refused
+
+            # the windowed head reads exactly the response window of the
+            # [b, t, V] logits; under the value branch the full forward runs
             if batch.h_split is not None:
                 # the trunk cache: resume the trainable blocks from the
                 # activation entering the split. Exact: the trunk is frozen
                 # (split > 0), and the zero rows of collation padding sit
                 # at masked columns, whose exp(-1e9) is exactly 0
                 h0 = batch.h_split.detach().to(self.model_cfg.dtype)
-                logits_w, values_pred = model.forward_from_cache_window(
-                    h0, attention_mask, positions, self.split, start, response_length)
+                if window_ok:
+                    out = model.forward_from_cache_window(h0, attention_mask, positions, self.split, start,
+                                                          response_length)
+                else:
+                    out = model.forward_from_cache(h0, attention_mask, positions, self.split)
+            elif window_ok:
+                out = model.forward_window(tokens, attention_mask, positions, start, response_length)
             else:
-                logits_w, values_pred = model.forward_window(tokens, attention_mask, positions, start,
-                                                             response_length)
-            logprobs = logprobs_of_labels(logits_w, tokens[:, start + 1:end + 1])
+                out = model(tokens, attention_mask, positions)[:2]
+            if window_ok:
+                logprobs = logprobs_of_labels(out[0], tokens[:, start + 1:end + 1])
+                values_pred = out[1]
+            else:  # window_from_full: the full logits with labels shifted one column (no slice copy)
+                logprobs, values_pred = shifted_logprobs(out[0], tokens)[:, start:end], out[1][:, start:end]
 
             loss, stats = ppo_loss(
                 logprobs=logprobs, values=values_pred, old_logprobs=old_logprobs, old_values=old_values,
@@ -473,12 +491,18 @@ class PPOTrainer(TorchTrainer):
         return self._quant_frozen
 
     def _trunk_cache_available(self) -> bool:
-        """Whether steps may resume from cached trunk activations: the flag
-        and a real hydra split (blocks [0, split) entirely frozen, so the
-        cache cannot go stale within a collection). The JAX gate's other
-        conditions (seq2seq, MoE, a value branch below the split) are
-        refused at construction in the port."""
-        return bool(self.config.method.cache_trunk_activations) and self.split > 0
+        """Whether steps may resume from cached trunk activations: the flag,
+        a real hydra split (blocks [0, split) entirely frozen, so the cache
+        cannot go stale within a collection) and a value branch tapping at
+        or above the split (its input must be derivable from the cache).
+        The JAX gate's other conditions (seq2seq, MoE) are refused at
+        construction in the port."""
+        method = self.config.method
+        return (
+            bool(method.cache_trunk_activations)
+            and self.split > 0
+            and self.model_cfg.n_layers - method.num_value_layers_unfrozen >= self.split
+        )
 
     # ------------------------------------------------------------------
     # The pipelined cycle: one blocking host fetch a PPO iteration

@@ -1,15 +1,17 @@
 """The `train()` entry point (port of the JAX package's `trlx.py`).
 
-Samples without rewards run supervised fine-tuning; a `reward_fn` runs
-online RL with PPO. RFT and the other `reward_fn` trainers, and offline
-RL (`rewards`: ILQL), are not ported yet (ROADMAP queue A, item 4).
+Samples without rewards run supervised fine-tuning; samples with
+`rewards` run offline RL with ILQL; a `reward_fn` runs online RL with
+PPO. RFT and the other `reward_fn` trainers are not ported yet (ROADMAP
+queue A, item 4).
 """
 
 import warnings
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.data.default_configs import default_ppo_config, default_sft_config
+from trlx_tpu_torch.data.default_configs import default_ilql_config, default_ppo_config, default_sft_config
+from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
 from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 from trlx_tpu_torch.utils import set_seed
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
@@ -29,33 +31,42 @@ def train(
     logit_mask=None,
     device=None,
 ):
-    """Train with PPO against `reward_fn` over `prompts`, or fine-tune on
-    `samples` (strings, or alternating prompt/output dialogues), and
-    return the trainer. Same signature as the JAX package's `train`, plus
-    `device` (`cuda` unless the caller passes another; "cpu" runs the
-    kernels' plain versions)."""
+    """Train with PPO against `reward_fn` over `prompts`, with ILQL on
+    `samples` labelled by `rewards`, or fine-tune on `samples` (strings,
+    or alternating prompt/output dialogues), and return the trainer.
+    Same signature as the JAX package's `train`, plus `device` (`cuda`
+    unless the caller passes another; "cpu" runs the kernels' plain
+    versions)."""
     if dataset:
         warnings.warn("the `dataset` argument is deprecated, split it into `samples` and `rewards`")
         samples, rewards = dataset
-    if rewards is not None:
-        raise NotImplementedError("offline RL (rewards: ILQL) is not ported yet (ROADMAP queue A, item 4)")
     if not reward_fn and not samples:
         raise ValueError("Either `samples` or `reward_fn` should be given for training")
+    if not reward_fn and rewards is not None and len(samples) != len(rewards):
+        raise ValueError(f"Number of samples {len(samples)} should match the number of rewards {len(rewards)}")
     if config is None:
         warnings.warn(
             "Passing the `config` argument implicitly is deprecated, adapt one "
             "from `trlx_tpu_torch/data/default_configs.py` instead"
         )
-        config = default_ppo_config() if reward_fn else default_sft_config()
-    if reward_fn:
+        if reward_fn:
+            config = default_ppo_config()
+        elif rewards:
+            config = default_ilql_config()
+        else:
+            config = default_sft_config()
+    online = bool(reward_fn)
+    if online or rewards is not None:
+        # the trainers of the branch that are not ported yet are refused
+        want, others = (PPOTrainer, "RFT, GRPO, RLOO, ...") if online else (ILQLTrainer, "seq2seq, 1F1B, ...")
         try:
             trainer_cls = get_trainer(config.train.trainer)
-        except ValueError:  # RFT, GRPO, ...: not registered in the port
+        except ValueError:  # not registered in the port
             trainer_cls = None
-        if trainer_cls is None or not issubclass(trainer_cls, PPOTrainer):
+        if trainer_cls is None or not issubclass(trainer_cls, want):
             raise NotImplementedError(
-                f"online RL with {config.train.trainer} (RFT, GRPO, RLOO, ...) is not ported yet; "
-                "PPOTrainer is (ROADMAP queue A, item 4)"
+                f"{'online' if online else 'offline'} RL with {config.train.trainer} ({others}) is not ported "
+                f"yet; {want.__name__} is (ROADMAP queue A, item 4)"
             )
     else:
         trainer_cls = get_trainer(config.train.trainer)
@@ -86,7 +97,10 @@ def train(
     else:
         if eval_prompts is None:
             eval_prompts = [trainer.tokenizer.bos_token] * batch_size
-        trainer.make_experience(samples, config.train.seq_length)
+        if rewards is not None:
+            trainer.make_experience(samples, rewards, config.train.seq_length)
+        else:
+            trainer.make_experience(samples, config.train.seq_length)
     eval_pipeline = pipeline_cls(eval_prompts, max_prompt_length, trainer.tokenizer,
                                  add_special_tokens=add_special_tokens)
     trainer.add_eval_pipeline(eval_pipeline)
