@@ -122,12 +122,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    alpha) * target; the `done` checkpoint loads into a fresh ILQLTrainer
    with equal parameters, target heads included; one f32 step (4 layers,
    b 32) with the kernels vs the plain versions under the plain run's ReLU
-   gates.
+   gates;
+15. GRPO and RLOO, the port's fifth main path: `trlx_tpu_torch.train(
+   reward_fn=..., config=...)` with `default_grpo_config` at phase 9's
+   configuration (16 prompts x G 8 a 128-row chunk, 2 collections and 32
+   steps, `build/chip_smoke_grpo/`), then one collection under
+   `advantage_mode="rloo"`: phase 9's numbers beside phase 9's (samples/s
+   per cycle, sampling and scoring s, step s), launches exact (a step and
+   a chunk as phase 9's), no value-head key in the state dict, every
+   group's advantages summing to 0 within 1e-5, the checkpoint reloaded;
+   one f32 scoring pass and step (4 layers) kernels vs plain versions,
+   every gradient element held (no MLP head);
+16. loading by path and RFT, the sixth: a gpt2-small trainer's
+   `save_pretrained` export loaded by `model_path` gives bitwise its
+   parameters and logits; `default_rft_config` from that directory cut to
+   4 generations per prompt, one batch of 8 prompts and 2 epochs
+   (`build/chip_smoke_rft/`): the growth step's generation seconds, the
+   samples selected, step time and training tokens/s, launches exact (a
+   step K4-K6 x12, K7 and its backward, no K3); one f32 step (4 layers)
+   kernels vs plain versions.
+Phase 6 also holds K7 and its backward at the randomwalks curves' rows (a
+24-token vocabulary, f32 and bf16, shifted labels, padded rows).
 
 The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object (with `ppo_options`, phase 11's
 checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
-and `ilql`, phase 14's); the last line is
+`ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
 """
@@ -624,6 +644,16 @@ CE_TOL = dict(rtol=1e-5, atol=1e-4)
 # bf16 ulp apart at most: 2^-7 relative bounds an ulp (atol for denormals
 # the kernel's exponential flushes to 0)
 CE_BWD_TOL = dict(rtol=2**-7, atol=1e-20)
+# at f32 both sides compute exp(x - lse) in f32 (ex2.approx on the card,
+# about 2 ulp): 1e-5 relative, 1e-6 absolute where (1 - p) at the label
+# cancels (tests/test_torch_kernels_cuda.py's bound)
+CE_BWD_F32_TOL = dict(rtol=1e-5, atol=1e-6)
+# K7 at the randomwalks curves' shapes (scripts/parity_randomwalks_torch.py):
+# a 24-token vocabulary, rows of 48 bytes at bf16 and 96 at f32 (shorter
+# than one tile, near the 16-byte peel), batch 100 of 10 positions read
+# with the labels shifted one column; row 3 is all padding and the rows
+# from 50 on are padded after 4 tokens (g = 0 there in the backward)
+CE_WALK = (100, 10, 24)
 
 
 def flash_case(b, t, nh, nkv, hd, rows, gen, device):
@@ -752,7 +782,7 @@ def ce_bwd_times(logits, labels, lse, g):
     return r
 
 
-def check_ce_bwd(note, logits, labels, g, shape):
+def check_ce_bwd(note, logits, labels, g, shape, tol=CE_BWD_TOL):
     """K7's backward against its plain version on the kernel's own lse;
     returns (max abs err, lse)."""
     import torch
@@ -764,8 +794,9 @@ def check_ce_bwd(note, logits, labels, g, shape):
     torch.cuda.synchronize()
     if not bool((got[g == 0] == 0).all()):
         raise AssertionError(f"label_logprobs_bwd {shape}: a row with g = 0 is not all zeros")
-    e = note("label_logprobs_bwd", got, label_logprobs_bwd_plain(logits, labels, lse, g), CE_BWD_TOL)
-    log(f"[train-kernels] label_logprobs_bwd {shape} {list(logits.shape)} bf16: max_abs_err dlogits = {e:.3g}")
+    e = note("label_logprobs_bwd", got, label_logprobs_bwd_plain(logits, labels, lse, g), tol)
+    log(f"[train-kernels] label_logprobs_bwd {shape} {list(logits.shape)} {str(logits.dtype)[6:]}: "
+        f"max_abs_err dlogits = {e:.3g}")
     return lse
 
 
@@ -892,6 +923,27 @@ def phase_train_kernels(device):
             del x, lab, g, lse
         del logits, tokens, got
         torch.cuda.empty_cache()
+    # K7 and its backward at the randomwalks curves' 24-token rows, f32 and bf16
+    b, t, v = CE_WALK
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = torch.randn(b, t, v, generator=gen, device=device).mul_(3).to(dtype)
+        tokens = torch.randint(0, v, (b, t), generator=gen, device=device)
+        g = torch.randn(b, t, generator=gen, device=device)
+        g[3], g[50:, 4:], g[:, -1] = 0.0, 0.0, 0.0
+        with torch.no_grad():
+            got = shifted_logprobs(logits, tokens)
+        want = label_logprobs_plain(logits[:, :-1].reshape(-1, v), tokens[:, 1:].reshape(-1))[0]
+        e = note("label_logprobs", got.reshape(-1), want, CE_TOL)
+        lab = torch.cat([tokens[:, 1:], tokens[:, :1]], 1).reshape(-1).to(torch.int32)
+        x = logits.view(b * t, v)
+        lse = check_ce_bwd(note, x, lab, g.reshape(-1), "randomwalks",
+                           CE_BWD_TOL if dtype == torch.bfloat16 else CE_BWD_F32_TOL)
+        log(f"[train-kernels] label_logprobs randomwalks {[b, t, v]} {str(dtype)[6:]} shifted labels: "
+            f"max_abs_err logprob = {e:.3g}")
+        if dtype == torch.bfloat16:  # the curves' dtype
+            results[("label_logprobs", "randomwalks")] = ce_times(x, lab)
+            results[("label_logprobs_bwd", "randomwalks")] = ce_bwd_times(x, lab, lse, g.reshape(-1))
+        del logits, tokens, g, got, want, lab, x, lse
     kernels.reset_launches()  # the comparison launches above do not count
     return results, err
 
@@ -1139,10 +1191,12 @@ def ppo_reward(samples, prompts, outputs, **kwargs):
     return [sum(c.islower() or c == " " for c in o) / max(len(o), 1) for o in outputs]
 
 
-def ppo_config(work, **model_extra):
+def ppo_config(work, make=None, **model_extra):
+    """Phase 9's configuration from `default_ppo_config` or another online
+    default (`make`: `default_grpo_config` in phase 15)."""
     from trlx_tpu_torch.data.default_configs import default_ppo_config
 
-    return default_ppo_config().evolve(
+    return (make or default_ppo_config)().evolve(
         train=dict(seq_length=1024, batch_size=PPO_BATCH, epochs=PPO_EPOCHS, eval_interval=16,
                    checkpoint_dir=str(work / "ckpts"), logging_dir=str(work / "logs")),
         model=dict(model_path="random:gpt2-small", num_layers_unfrozen=2,
@@ -1154,18 +1208,21 @@ def ppo_config(work, **model_extra):
 
 
 @contextmanager
-def ppo_probes(record):
-    """Wrap PPOTrainer's collection, scoring, trunk-cache fill, evaluation
-    and optimizer step to record each call's wall time and its kernel
-    launches, and after a collection the response lengths in the store:
-    measurement of this script, the trainer is unchanged."""
+def ppo_probes(record, cls=None, names=("make_experience", "score", "trunk_cache_fill", "evaluate",
+                                        "train_minibatch")):
+    """Wrap a trainer class's (PPOTrainer's, which GRPOTrainer inherits,
+    unless `cls` names another) collection, scoring, trunk-cache fill,
+    evaluation and optimizer step to record each call's wall time and its
+    kernel launches, and after a collection the response lengths in the
+    store: measurement of this script, the trainer is unchanged."""
     import torch
 
     from trlx_tpu_torch import kernels
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
-    originals = {name: getattr(PPOTrainer, name) for name in ("make_experience", "score", "trunk_cache_fill",
-                                                              "evaluate", "train_minibatch")}
+    cls = cls or PPOTrainer
+    originals = {name: getattr(cls, name) for name in names}
+    owned = {name for name in names if name in cls.__dict__}
 
     def probe(name):
         fn = originals[name]
@@ -1177,7 +1234,8 @@ def ppo_probes(record):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             launched = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items() if v - before.get(k, 0)}
-            lengths = [len(e.response_tensor) for e in self.store.history] if name == "make_experience" else None
+            history = getattr(self.store, "history", None)
+            lengths = [len(e.response_tensor) for e in history] if name == "make_experience" and history else None
             record.append((name, t0, t1, launched, lengths))
             return out
 
@@ -1185,11 +1243,14 @@ def ppo_probes(record):
 
     try:
         for name in originals:
-            setattr(PPOTrainer, name, probe(name))
+            setattr(cls, name, probe(name))
         yield
     finally:
         for name, fn in originals.items():
-            setattr(PPOTrainer, name, fn)
+            if name in owned:
+                setattr(cls, name, fn)
+            else:
+                delattr(cls, name)
 
 
 def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS):
@@ -1198,14 +1259,16 @@ def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS
     collection, step and evaluation; check every loss finite, every
     response 40 tokens and the launch counts exact (`per_chunk` is a
     collection's scoring pass and trunk fill together); check that the
-    `done` checkpoint loads back. Returns (trainer, launches, metrics)."""
+    `done` checkpoint loads back into a fresh trainer of the config's
+    class (PPOTrainer, or GRPOTrainer in phase 15). Returns (trainer,
+    launches, metrics)."""
     import shutil
 
     import torch
 
     import trlx_tpu_torch
     from trlx_tpu_torch import kernels
-    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.loading import get_trainer
 
     n_steps = collections * 4 * (PPO_ROLLOUTS // PPO_BATCH)  # ppo_epochs x loader length a collection
     if work.exists():
@@ -1236,10 +1299,10 @@ def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS
             f"rollout_tokens_per_s={r['throughput/rollout_tokens_per_s']:.1f} score_s={s1 - s0:.4f}{fill}{spec} "
             f"stored responses {len(n)}, tokens min/mean/max {min(n)}/{statistics.mean(n):.2f}/{max(n)} "
             f"reward_fn_s={r['time/rollout_score'] / 1e3:.4f} policy/sqrt_kl={r['policy/sqrt_kl']:.6f}")
+    loss_keys = sorted(k for k in steps[0] if k.startswith("losses/"))
     for r in steps:
-        log(f"[{tag}] step {r['_step']}: total_loss={r['losses/total_loss']:.6f} "
-            f"policy_loss={r['losses/policy_loss']:.6f} value_loss={r['losses/value_loss']:.6f} "
-            f"approx_kl={r['policy/approx_kl']:.3g} step_s={r['time/train_step_s']:.4f} "
+        log(f"[{tag}] step {r['_step']}: " + " ".join(f"{k[7:]}={r[k]:.6f}" for k in loss_keys)
+            + f" approx_kl={r['policy/approx_kl']:.3g} step_s={r['time/train_step_s']:.4f} "
             f"train_tokens_per_s={r['throughput/train_tokens_per_s']:.1f}")
     for r in evals:
         log(f"[{tag}] eval at step {r['_step']}: reward/mean={r['reward/mean']:.5f} "
@@ -1259,17 +1322,18 @@ def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS
         step_s=statistics.median(r["time/train_step_s"] for r in steady),
         train_tokens_per_s=statistics.median(r["throughput/train_tokens_per_s"] for r in steady),
         sampling_s=[r["time/rollout_generate"] / 1e3 for r in rounds],
+        scoring_s=[c[2] - c[1] for c in scores],
         rollout_tokens_per_s=[r["throughput/rollout_tokens_per_s"] for r in rounds],
         spec_accept_rate=[r.get("rollout/spec_accept_rate") for r in rounds],
         spec_tokens_per_round=[r.get("rollout/spec_tokens_per_round") for r in rounds],
         trunk_fill_ms=fill_ms,
     )
-    log(f"[{tag}] gpt2-small PPO, {PPO_ROLLOUTS} rollouts x {len(rounds)} collections, batch {PPO_BATCH}, "
+    log(f"[{tag}] gpt2-small {type(trainer).__name__}, {PPO_ROLLOUTS} rollouts x {len(rounds)} collections, batch {PPO_BATCH}, "
         f"ppo_epochs 4, {PPO_NEW} new tokens, bf16 flash, num_layers_unfrozen=2: {len(steps)} steps in {wall:.2f}s "
         f"wall; median step_s={metrics['step_s']:.4f} train_tokens_per_s={metrics['train_tokens_per_s']:.1f}; "
         f"samples_per_s per cycle={[round(x, 2) for x in samples_per_s]}; launches={launches} ({card})")
 
-    losses = [r[k] for r in steps for k in ("losses/total_loss", "losses/policy_loss", "losses/value_loss")]
+    losses = [r[k] for r in steps for k in loss_keys]
     if len(steps) != n_steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"expected {n_steps} steps of finite losses, got {len(steps)}: {losses}")
     if len(rounds) != collections or len(scores) != collections or len(evals) != collections + 1:
@@ -1294,7 +1358,7 @@ def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS
 
     # the `done` checkpoint loads into a fresh trainer with the same state
     directory = work / "ckpts" / f"checkpoint_{n_steps}"
-    fresh = PPOTrainer(config, reward_fn=ppo_reward)
+    fresh = get_trainer(config.train.trainer)(config, reward_fn=ppo_reward)
     fresh.load(str(directory))
     same = all(torch.equal(a, b) for m, f in ((trainer.model, fresh.model), (trainer.ref_model, fresh.ref_model))
                for a, b in zip(m.state_dict().values(), f.state_dict().values()))
@@ -1308,7 +1372,7 @@ def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS
     if not same or fresh.iter_count != n_steps:
         raise AssertionError(f"{tag}: the done checkpoint did not load back with the same state")
     kept = sorted(p.name for p in (work / "ckpts").iterdir())
-    log(f"[{tag}] checkpoint {directory.name} loads into a fresh PPOTrainer: policy and reference parameters, "
+    log(f"[{tag}] checkpoint {directory.name} loads into a fresh {type(fresh).__name__}: policy and reference parameters, "
         f"KL value, running moments and store{' (with its trunk cache rows)' if fills else ''} equal; "
         f"checkpoint dir holds {kept}")
     del fresh
@@ -1395,7 +1459,8 @@ def gate_flips(gates_k, gates_p):
 
 
 def ppo_f32_kernels_vs_plain(config):
-    """A PPOTrainer of `config` (f32) with its reference perturbed, so the
+    """A trainer of `config` (f32; PPOTrainer or GRPOTrainer, whose values
+    slot holds the reference's logprobs) with its reference perturbed, so the
     KL is not 0; one scoring pass and one step on phase 10's injected batch
     with the plain versions, then with the kernels under the plain run's
     ReLU gates: scoring within SCORE_TOL, the loss within 1e-5 relative,
@@ -1405,9 +1470,9 @@ def ppo_f32_kernels_vs_plain(config):
     import torch
 
     from trlx_tpu_torch import kernels
-    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.loading import get_trainer
 
-    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    trainer = get_trainer(config.train.trainer)(config, reward_fn=ppo_reward)
     with torch.no_grad():
         gen = torch.Generator(device=trainer.device).manual_seed(3)
         for p in trainer.ref_model.parameters():
@@ -2138,6 +2203,236 @@ def phase_ilql(card):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: GRPO and RLOO (the fifth main path)
+# ---------------------------------------------------------------------------
+
+# `default_grpo_config` at phase 9's configuration: 16 prompts x G 8 a
+# 128-row chunk. The critic-free policy drops only the value head's MLP, so
+# a step and a scoring chunk launch phase 9's kernels: a step K3 x10,
+# K4-K6 x2, K7 and its backward over the window; a chunk K3 x14 (12 policy
+# blocks, the reference's 2), K7 x2 (the policy's and the reference's)
+GRPO_GROUP = 8
+GRPO_KERNELS_PER_STEP = PPO_KERNELS_PER_STEP
+GRPO_KERNELS_PER_CHUNK = PPO_KERNELS_PER_CHUNK
+GROUP_SUM_TOL = 1e-5
+
+
+def check_groups(trainer, tag):
+    """Every stored rollout is one of G adjacent rows of its prompt group,
+    its rewards slot the group's advantage on every token (init_kl_coef
+    0), and each group's advantages sum to 0 within GROUP_SUM_TOL. Returns
+    the largest |sum| and the share of groups that are not degenerate."""
+    import numpy as np
+
+    history = trainer.store.history
+    ids = [e.group_id for e in history]
+    queries = [tuple(e.query_tensor) for e in history]
+    adv = np.array([e.rewards[0] for e in history], np.float64)
+    if any(not np.all(e.rewards == e.rewards[0]) for e in history):
+        raise AssertionError(f"[{tag}] a rollout's advantage is not the same on every token")
+    # the f32 mean's rounding, divided by a narrow group's std, is what is
+    # left of the sum: about 1e-6 at these rewards' spread
+    worst, live = 0.0, 0
+    for g in range(0, len(history), GRPO_GROUP):
+        if len(set(ids[g:g + GRPO_GROUP])) != 1 or len(set(queries[g:g + GRPO_GROUP])) != 1:
+            raise AssertionError(f"[{tag}] rows {g}..{g + GRPO_GROUP - 1} are not one prompt group")
+        worst = max(worst, abs(float(adv[g:g + GRPO_GROUP].sum())))
+        live += int(np.abs(adv[g:g + GRPO_GROUP]).max() > 0)
+    if worst > GROUP_SUM_TOL or not live:
+        raise AssertionError(f"[{tag}] group advantages sum to {worst} (tol {GROUP_SUM_TOL}); {live} live groups")
+    return worst, live / (len(history) // GRPO_GROUP)
+
+
+def phase_grpo(card, base):
+    """GRPO through `trlx_tpu_torch.train(reward_fn=...)` at phase 9's
+    configuration with `default_grpo_config` (2 collections, 32 steps),
+    then one collection under RLOO; exact launches, no value parameters,
+    the groups' advantages; then one f32 scoring pass and step (4 layers)
+    with the kernels against the plain versions (no MLP head, so every
+    gradient element is held with no gate replay). `base` holds phase 9's
+    numbers."""
+    from trlx_tpu_torch.data.default_configs import default_grpo_config
+    from trlx_tpu_torch.trainer.grpo_trainer import GRPOTrainer
+
+    runs, launches, groups = {}, {}, {}
+    for tag, mode, collections in (("grpo", "grpo", PPO_EPOCHS), ("rloo", "rloo", 1)):
+        work = ROOT / "build" / f"chip_smoke_{tag}"
+        config = ppo_config(work, default_grpo_config).evolve(train=dict(epochs=collections),
+                                                              method=dict(advantage_mode=mode))
+        trainer, launches[tag], runs[tag] = ppo_run(card, tag, work, config, GRPO_KERNELS_PER_STEP,
+                                                    GRPO_KERNELS_PER_CHUNK, collections=collections)
+        value_keys = [k for k in trainer.model.state_dict() if "v_head" in k or "value" in k]
+        if not isinstance(trainer, GRPOTrainer) or value_keys or trainer.config.method.group_size != GRPO_GROUP:
+            raise AssertionError(f"[{tag}] not a critic-free GRPOTrainer of G {GRPO_GROUP}: {value_keys}")
+        groups[tag] = check_groups(trainer, tag)
+        log(f"[{tag}] {len(trainer.store)} rollouts in {len(trainer.store) // GRPO_GROUP} groups of {GRPO_GROUP}: "
+            f"max |sum of a group's advantages| {groups[tag][0]:.3g} (tol {GROUP_SUM_TOL}), share of groups with "
+            f"a nonzero advantage {groups[tag][1]:.3f}; state dict holds no value-head key")
+        del trainer
+        release()
+
+    config = ppo_config(ROOT / "build" / "chip_smoke_grpo_f32", default_grpo_config, dtype="float32", n_layers=4)
+    trainer, _, _, n = ppo_f32_kernels_vs_plain(config)
+    if n["gates_p"]:
+        raise AssertionError(f"the critic-free policy ran MLP heads: {list(n['gates_p'])}")
+    log(f"[grpo-f32] gpt2-small width, 4 layers, f32, split 2, 32 injected rows t {PPO_T} (values slot: the "
+        f"reference's logprobs): {n['summary']}")
+    del trainer
+    release()
+
+    pair = lambda key, fmt: (f"{key} grpo {fmt(runs['grpo'][key])}, rloo {fmt(runs['rloo'][key])} "
+                             f"(phase 9: {fmt(base[key])})")
+    rnd = lambda xs: [round(x, 4) for x in xs]
+    log(f"[grpo] vs phase 9 in this call ({card}): " + "; ".join([
+        pair("samples_per_s", rnd), pair("sampling_s", rnd), pair("scoring_s", rnd),
+        pair("step_s", lambda x: f"{x:.4f}"), pair("train_tokens_per_s", lambda x: f"{x:.1f}")]))
+    summary = dict(runs=runs, kernels_per_step=GRPO_KERNELS_PER_STEP, kernels_per_chunk=GRPO_KERNELS_PER_CHUNK,
+                   group_size=GRPO_GROUP, group_sum_max={t: g[0] for t, g in groups.items()},
+                   live_group_share={t: g[1] for t, g in groups.items()}, f32_scoring_max_abs_err=n["errs"],
+                   f32_loss=[n["loss_k"], n["loss_p"]], f32_grad_worst=n["worst"])
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: loading by path, then RFT (the sixth main path)
+# ---------------------------------------------------------------------------
+
+# `default_rft_config` cut to size: n_generations_per_prompt 32 -> 4, one
+# prompt batch of 8 (64-byte prompts, 40 sampled printable tokens), 2
+# epochs (the growth step's sampling, then two selections trained on). A
+# step: every block trainable (num_layers_unfrozen=-1), so K4-K6 x12, no
+# K3, and K7 and its backward over the rows of prompt and output
+RFT_GENERATIONS, RFT_PROMPTS, RFT_EPOCHS = 4, 8, 2
+RFT_KERNELS_PER_STEP = {"flash_fwd_lse": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12, "label_logprobs": 1,
+                        "label_logprobs_bwd": 1}
+RFT_F32_PER_STEP = {"flash_fwd_lse": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4, "label_logprobs": 1,
+                    "label_logprobs_bwd": 1}
+
+
+def rft_config(work, model_path, **model_extra):
+    from trlx_tpu_torch.data.default_configs import default_rft_config
+
+    return default_rft_config().evolve(
+        train=dict(seq_length=1024, batch_size=RFT_PROMPTS, epochs=RFT_EPOCHS, eval_interval=10000,
+                   checkpoint_dir=str(work / "ckpts"), logging_dir=str(work / "logs")),
+        model=dict(model_path=model_path, model_extra_configs={"attn_impl": "flash", **model_extra}),
+        method=dict(n_generations_per_prompt=RFT_GENERATIONS,
+                    gen_kwargs=dict(max_new_tokens=PPO_NEW, top_k=0, top_p=1.0, do_sample=True,
+                                    suppress_tokens=PPO_SUPPRESS)),
+    )
+
+
+def phase_rft(card):
+    """A gpt2-small SFT trainer's `save_pretrained` export loaded back by
+    `model_path`: its logits bitwise the exporter's on the card. Then
+    `trlx_tpu_torch.train(reward_fn=..., config=default_rft_config())` from
+    that directory (cut as RFT_* says): exact launches a step, the
+    selection, generation seconds, step ms, training tokens/s. Then one f32
+    step (4 layers, random weights) with the kernels vs the plain
+    versions."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.data.configs import ModelConfig
+    from trlx_tpu_torch.models import build_model
+    from trlx_tpu_torch.trainer.rft_trainer import RFTTrainer
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    work = ROOT / "build" / "chip_smoke_rft"
+    if work.exists():
+        shutil.rmtree(work)
+    exporter = SFTTrainer(training_config(work / "exporter"))
+    export = work / "hf_model"
+    exporter.save_pretrained(str(export))
+    loaded, cfg, _ = build_model(ModelConfig(model_path=str(export), model_extra_configs={"attn_impl": "flash"}),
+                                 0, seed=exporter.config.train.seed, device=exporter.device)
+    batch = ppo_injected_batch(RFT_PROMPTS)
+    tokens = torch.from_numpy(np.concatenate([batch.query_tensors, batch.response_tensors], 1)).long()
+    tokens = tokens.to(exporter.device)
+    mask = (tokens != exporter.tokenizer.pad_token_id).long()
+    with torch.no_grad():
+        want, got = exporter.model(tokens, mask)[0], loaded(tokens, mask)[0]
+    same_params = all(torch.equal(w, loaded.state_dict()[k]) for k, w in exporter.model.state_dict().items())
+    if not (torch.equal(got, want) and same_params and cfg.hf_family == "gpt2" and cfg.vocab_size == 50257):
+        raise AssertionError(f"the export at {export} did not load back bitwise (params equal: {same_params})")
+    log(f"[rft] gpt2-small export ({sorted(p.name for p in export.iterdir())}) loaded by model_path: every "
+        f"parameter and the bf16 logits [{RFT_PROMPTS}, {PPO_T}, 50257] bitwise equal to the exporter's")
+    del exporter, loaded, want, got
+    release()
+
+    config = rft_config(work, str(export))
+    record = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ppo_probes(record, RFTTrainer, ("make_experience", "evaluate", "train_minibatch")):
+        trainer = trlx_tpu_torch.train(reward_fn=ppo_reward, prompts=ppo_prompts(RFT_PROMPTS), config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    rows = [json.loads(line) for line in next((work / "logs").glob("*.metrics.jsonl")).read_text().splitlines()]
+    steps = [r for r in rows if "time/train_step_s" in r]
+    selected = [int(r["rft/len_samples_selected"]) for r in rows if "rft/len_samples_selected" in r]
+    growth = [c for c in record if c[0] == "make_experience"]
+    step_calls = [c for c in record if c[0] == "train_minibatch"]
+    for c in step_calls:
+        if c[3] != RFT_KERNELS_PER_STEP:
+            raise AssertionError(f"[rft] a step launched {c[3]}, expected {RFT_KERNELS_PER_STEP}")
+    want_total = {k: v * len(step_calls) for k, v in RFT_KERNELS_PER_STEP.items()}
+    if launches != want_total or not steps or len(steps) != len(step_calls):
+        raise AssertionError(f"[rft] launches {launches} != {want_total} over {len(step_calls)} steps")
+    if not isinstance(trainer, RFTTrainer) or len(growth) != RFT_EPOCHS + 1 or not all(selected):
+        raise AssertionError(f"[rft] {len(growth)} growth steps, selected {selected}")
+    lengths = sorted({len(p["input_ids"]) for p in trainer.store.prompts})
+    losses = [r["loss"] for r in steps]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[rft] losses {losses}")
+    generations = len(trainer.generations_per_prompt) * RFT_GENERATIONS
+    # step 1 pays the first-call warm-up; an epoch's last batch may hold
+    # fewer rows, so the rate is the steady steps' tokens over their time
+    steady = steps[1:] or steps
+    step_s = [r["time/train_step_s"] for r in steady]
+    steady_tokens = sum(r["throughput/train_tokens_per_s"] * r["time/train_step_s"] for r in steady)
+    metrics = dict(wall_s=wall, generation_s=growth[0][2] - growth[0][1], samples_selected=selected,
+                   steps=len(steps), row_tokens=lengths, step_s=statistics.median(step_s),
+                   train_tokens_per_s=steady_tokens / sum(step_s))
+    for r in steps:
+        log(f"[rft] step {r['_step']}: loss={r['loss']:.6f} step_s={r['time/train_step_s']:.4f} "
+            f"train_tokens_per_s={r['throughput/train_tokens_per_s']:.1f}")
+    log(f"[rft] gpt2-small RFT from the export, {RFT_PROMPTS} prompts x {RFT_GENERATIONS} generations of {PPO_NEW} "
+        f"tokens ({generations} scored), batch {RFT_PROMPTS}, bf16 flash, every block trainable: growth step's "
+        f"generation_s={metrics['generation_s']:.4f}; samples selected by growth step {selected} (rows of "
+        f"{lengths} tokens); {len(steps)} steps, median step_s={metrics['step_s']:.4f} "
+        f"train_tokens_per_s={metrics['train_tokens_per_s']:.1f}; {wall:.2f}s wall; launches={launches} ({card})")
+    del trainer
+    release()
+
+    f32 = rft_config(work / "f32", "random:gpt2-small", dtype="float32", n_layers=4, vocab_size=50257)
+    trainer = RFTTrainer(f32, reward_fn=ppo_reward)
+    ids = tokens.cpu().numpy()
+    step_batch = {"input_ids": ids, "attention_mask": (ids != trainer.tokenizer.pad_token_id).astype(np.int32)}
+    with plain_versions():
+        loss_p, grads_p, _ = step_grads(trainer, step_batch)
+    kernels.reset_launches()
+    loss_k, grads_k, _ = step_grads(trainer, step_batch)
+    f32_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    worst = check_grads(grads_k, grads_p)
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) or f32_launches != RFT_F32_PER_STEP:
+        raise AssertionError(f"f32 RFT loss kernels {loss_k} vs plain {loss_p}; launches {f32_launches}")
+    log(f"[rft-f32] gpt2-small width, 4 layers, f32, every block trainable, {RFT_PROMPTS} rows t {PPO_T}: loss "
+        f"kernels={loss_k:.7f} plain={loss_p:.7f}; {len(grads_k)} trainable grads, every element held, worst "
+        f"max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}); launches {f32_launches}")
+    del trainer
+    release()
+    return launches, dict(metrics, kernels_per_step=RFT_KERNELS_PER_STEP, f32_loss=[loss_k, loss_p],
+                          f32_grad_worst=worst, cut=dict(n_generations_per_prompt=RFT_GENERATIONS,
+                                                         prompts=RFT_PROMPTS, epochs=RFT_EPOCHS))
+
+
 def build_report(ptxas_out):
     """One line per compiled kernel from `nvcc -Xptxas -v`: its name and
     template arguments (float, head dim, lse), registers and spills; and every
@@ -2195,6 +2490,8 @@ def main() -> int:
     pipelined, pipelined_launches, pipelined_errs = phase_pipelined(card, ppo_metrics, options)
     branch_launches, branch = phase_value_branch(card, ppo_metrics)
     ilql_launches, ilql = phase_ilql(card)
+    grpo_launches, grpo = phase_grpo(card, ppo_metrics)
+    rft_launches, rft = phase_rft(card)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -2207,6 +2504,8 @@ def main() -> int:
              launches_pipelined={t: n.get("paged_decode", 0) for t, n in pipelined_launches.items()},
              launches_value_branch={t: n.get("paged_decode", 0) for t, n in branch_launches.items()},
              launches_ilql=ilql_launches.get("paged_decode", 0),
+             launches_grpo={t: n.get("paged_decode", 0) for t, n in grpo_launches.items()},
+             launches_rft=rft_launches.get("paged_decode", 0),
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
@@ -2215,6 +2514,8 @@ def main() -> int:
              launches_pipelined={t: n.get("paged_decode_int8", 0) for t, n in pipelined_launches.items()},
              launches_value_branch={t: n.get("paged_decode_int8", 0) for t, n in branch_launches.items()},
              launches_ilql=ilql_launches.get("paged_decode_int8", 0),
+             launches_grpo={t: n.get("paged_decode_int8", 0) for t, n in grpo_launches.items()},
+             launches_rft=rft_launches.get("paged_decode_int8", 0),
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
     ]}
     train_rows = [
@@ -2237,10 +2538,12 @@ def main() -> int:
             launches_pipelined={t: n.get(name, 0) for t, n in pipelined_launches.items()},
             launches_value_branch={t: n.get(name, 0) for t, n in branch_launches.items()},
             launches_ilql=ilql_launches.get(name, 0),
+            launches_grpo={t: n.get(name, 0) for t, n in grpo_launches.items()},
+            launches_rft=rft_launches.get(name, 0),
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
-            ilql=train_timings.get((name, "ilql-train"))))
+            ilql=train_timings.get((name, "ilql-train")), randomwalks=train_timings.get((name, "randomwalks"))))
     # phase 11's checks: the exact launch counts (K3 none a step, 24 a
     # chunk), no fallback, greedy speculative vs plain under the tie rule,
     # the trunk cache against the full path; and its numbers
@@ -2257,6 +2560,9 @@ def main() -> int:
     # phase 13's and 14's checks and numbers
     report["value_branch"] = branch
     report["ilql"] = dict(kernels_per_step=ILQL_KERNELS_PER_STEP, steps=ILQL_STEPS, target_sync=ILQL_SYNC, **ilql)
+    # phase 15's and 16's
+    report["grpo"] = grpo
+    report["rft"] = rft
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

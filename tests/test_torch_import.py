@@ -51,3 +51,23 @@ def test_no_forbidden_import_statement(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_port_scripts_import_without_jax():
+    """chip_smoke.py and the port's curve script (which loads the JAX
+    curve script by path for its task and probes) pull in no JAX."""
+    code = (
+        "import importlib.util, json, sys\n"
+        "mods = {}\n"
+        "for name, path in (('chip_smoke', 'chip_smoke.py'),\n"
+        "                   ('parity_torch', 'scripts/parity_randomwalks_torch.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    mods[name] = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mods[name])\n"
+        "metric_fn, prompts, walks = mods['parity_torch']._task()\n"
+        "assert len(prompts) == 21 and len(walks) == 1000\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

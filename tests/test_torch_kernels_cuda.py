@@ -282,9 +282,11 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
 
 # K7's shapes: odd V (consecutive bf16 rows start at every 2-byte
 # alignment, so every head and tail length of the peel), V < 8 (no whole
-# vector), one row, and rows few enough that the plan splits each row over
-# a cluster of blocks (4 at bf16 and V 50257, 8 for one f32 row)
-CE_SHAPES = [(300, 1001), (37, 50257), (1, 50257), (9, 5), (1, 7)]
+# vector), one row, rows few enough that the plan splits each row over a
+# cluster of blocks (4 at bf16 and V 50257, 8 for one f32 row), and the
+# randomwalks curves' 24-token vocabulary (rows of 48 / 96 bytes, shorter
+# than a tile) over a batch of 100 rows of 19 positions
+CE_SHAPES = [(300, 1001), (37, 50257), (1, 50257), (9, 5), (1, 7), (1900, 24)]
 # the backward, f32: both sides compute exp(x - lse) in f32 (ex2.approx on
 # the card, about 2 ulp), the one-hot difference and the scale: 1e-5
 # relative, 1e-6 absolute where (1 - p) at the label cancels. bf16: both

@@ -487,7 +487,9 @@ def test_train_entry_point_runs_ppo_retention_and_exact_resume(tmp_path):
 def test_train_entry_point_refuses_other_online_trainers(tmp_path):
     import trlx_tpu_torch
 
-    for trainer in ("RFTTrainer", "GRPOTrainer", "SFTTrainer"):
+    # RFT and GRPO/RLOO are ported (tests/test_torch_rft.py, test_torch_grpo.py);
+    # best-of-n is not, and SFT and ILQL are not online trainers
+    for trainer in ("BestOfNTrainer", "SFTTrainer", "ILQLTrainer"):
         cfg = _ppo_config(default_ppo_config, "gpt2-tiny", tmp_path, "t").evolve(train=dict(trainer=trainer))
         with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
             trlx_tpu_torch.train(reward_fn=reward_fn, prompts=["a"], config=cfg, device="cpu")

@@ -29,9 +29,10 @@ class PPORLElement:
     # query and response tokens, [query_size + response_size, d] on the
     # device, when method.cache_trunk_activations is on
     h_split: Optional[torch.Tensor] = None
-    # GRPO group ids and multi-turn loss masks of the JAX package; their
-    # features are not ported yet, so they stay None here
+    # the GRPO prompt group the rollout belongs to (None under PPO)
     group_id: Optional[int] = None
+    # the multi-turn loss mask of the JAX package; multi-turn rollouts are
+    # not ported yet (ROADMAP queue A, item 3), so it stays None
     loss_mask: Optional[np.ndarray] = None
 
 

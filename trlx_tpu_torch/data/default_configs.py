@@ -1,6 +1,6 @@
 """Canonical default configs (the JAX package's `default_ppo_config`,
-`default_ilql_config` and `default_sft_config`; the other methods'
-defaults come with their trainers)."""
+`default_ilql_config`, `default_sft_config`, `default_rft_config` and
+`default_grpo_config`; best-of-n's comes with its trainer)."""
 
 from trlx_tpu_torch.data.configs import (
     ModelConfig,
@@ -11,6 +11,7 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
+from trlx_tpu_torch.trainer.grpo_trainer import GRPOConfig
 from trlx_tpu_torch.trainer.ilql_trainer import ILQLConfig
 from trlx_tpu_torch.trainer.ppo_trainer import PPOConfig
 from trlx_tpu_torch.trainer.sft_trainer import SFTConfig
@@ -128,3 +129,48 @@ def default_sft_config():
         ),
         parallel=ParallelConfig(),
     )
+
+
+def default_rft_config():
+    """Mirrors the JAX package's default_rft_config: SFT's defaults with
+    RFTTrainer and trlX's RFTConfig."""
+    return default_sft_config().evolve(
+        train=dict(trainer="RFTTrainer"),
+        method=dict(
+            name="rftconfig",
+            gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+            start_percentile=0.7,
+            end_percentile=0.95,
+            n_improve_steps=4,
+            n_generations_per_prompt=32,
+        ),
+    )
+
+
+def default_grpo_config():
+    """Critic-free GRPO defaults (the JAX package's default_grpo_config):
+    the PPO stack minus the value function, plus the group knobs.
+    `advantage_mode="rloo"` switches to the leave-one-out baseline. The
+    method section is swapped whole, not merged, so no value-function
+    field survives."""
+    cfg = default_ppo_config().to_dict()
+    cfg["train"]["trainer"] = "GRPOTrainer"
+    cfg["method"] = GRPOConfig(
+        name="GRPOConfig",
+        num_rollouts=128,
+        chunk_size=128,
+        ppo_epochs=4,
+        group_size=8,
+        advantage_mode="grpo",
+        grpo_kl_coef=0.02,
+        init_kl_coef=0.0,
+        target=None,
+        horizon=10000,
+        cliprange=0.2,
+        scale_reward=None,
+        ref_mean=None,
+        ref_std=None,
+        cliprange_reward=10,
+        gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+    ).to_dict()
+    return TRLConfig.from_dict(cfg)

@@ -1,7 +1,8 @@
 """Model construction from a ModelConfig: causal value-head policies (with
-the deeper value branch under `num_value_layers`) and ILQL policies from
-`random:` presets (loading an HF checkpoint directory is ROADMAP queue A,
-item 4)."""
+the deeper value branch under `num_value_layers`), the critic-free policy
+of GRPO/RLOO (`value_head=False`) and ILQL policies, from `random:`
+presets or from a local HF checkpoint directory (gpt2 and llama,
+`models/hf_interop.py`)."""
 
 from typing import Tuple, Union
 
@@ -9,6 +10,7 @@ import torch
 
 from trlx_tpu_torch.models.heads import ILQLHeads, MLPHead, sync_target_q_heads  # noqa: F401
 from trlx_tpu_torch.models.policy import (  # noqa: F401
+    CausalLMPolicy,
     CausalLMWithILQLHeads,
     CausalLMWithValueHead,
     HydraReference,
@@ -37,10 +39,12 @@ DTYPES = {
 
 
 def resolve_transformer_config(model_config, vocab_size: int) -> TransformerConfig:
-    """Build a TransformerConfig from a ModelConfig. `model_extra_configs`
-    may override preset fields, `dtype` (the activation dtype, as a
-    string) and `vocab_size` (e.g. the real 50257-token softmax with a byte
-    tokenizer)."""
+    """Build a TransformerConfig from a ModelConfig: a `random:<preset>` or
+    a local HF checkpoint directory (its `config.json`). `model_extra_configs`
+    may override config fields and `dtype` (the activation dtype, as a
+    string); for a preset also `vocab_size` (e.g. the real 50257-token
+    softmax with a byte tokenizer), which a checkpoint takes as a plain
+    override."""
     path = model_config.model_path
     extra = dict(model_config.model_extra_configs or {})
     if getattr(model_config, "model_arch_type", "causal") != "causal":
@@ -53,23 +57,31 @@ def resolve_transformer_config(model_config, vocab_size: int) -> TransformerConf
             raise ValueError(f"dtype {name!r} not in {sorted(DTYPES)}")
         extra["dtype"] = DTYPES[name]
     if not path.startswith("random:"):
-        raise NotImplementedError(
-            f"loading '{path}' from an HF checkpoint is not ported yet; use a "
-            "random:<preset> model (ROADMAP queue A, item 4: HF loading)"
-        )
+        from trlx_tpu_torch.models import hf_interop
+
+        return hf_interop.config_from_hf(path, **extra)
     vocab_size = extra.pop("vocab_size", vocab_size)
     return config_from_preset(path[len("random:"):], vocab_size=vocab_size, **extra)
 
 
 def build_model(model_config, vocab_size: int, seed: int = 0, device="cuda", with_ilql_heads: bool = False,
-                two_qs: bool = True, num_value_layers: int = 0,
+                two_qs: bool = True, num_value_layers: int = 0, value_head: bool = True,
                 ) -> Tuple[Union[CausalLMWithValueHead, CausalLMWithILQLHeads], TransformerConfig, dict]:
-    """Returns (module, model config, state dict) with random weights drawn
-    from `seed` on `device`: a causal value-head policy, its value head the
-    deeper branch when `num_value_layers > 0` (clones of the top blocks and
-    the final norm, taken after init; its MLP head keeps its own init), or
+    """Returns (module, model config, state dict) on `device`, its weights
+    drawn from `seed` and, when `model_path` is a local HF directory, its
+    LM's weights loaded from there (the heads keep their fresh init): a
+    causal value-head policy, its value head the deeper branch when
+    `num_value_layers > 0` (clones of the top blocks and the final norm,
+    taken after init and load; its MLP head keeps its own init); with
+    `value_head=False` the critic-free `CausalLMPolicy` (GRPO/RLOO); or
     with `with_ilql_heads` an LM with ILQL's heads."""
     cfg = resolve_transformer_config(model_config, vocab_size)
+    if not value_head:
+        if with_ilql_heads:
+            raise ValueError("value_head=False conflicts with with_ilql_heads (ILQL needs its heads)")
+        if num_value_layers > 0:
+            raise ValueError("value_head=False conflicts with num_value_layers > 0: a critic-free policy has no "
+                             "value branch to deepen")
     if num_value_layers > 0 and with_ilql_heads:
         raise NotImplementedError("the value branch is a PPO-value-head feature")
     device = torch.device(device)
@@ -77,9 +89,15 @@ def build_model(model_config, vocab_size: int, seed: int = 0, device="cuda", wit
     generator.manual_seed(int(seed))
     if with_ilql_heads:
         model = CausalLMWithILQLHeads(cfg, device=device, generator=generator, two_qs=two_qs)
+    elif not value_head:
+        model = CausalLMPolicy(cfg, device=device, generator=generator)
     else:
         model = CausalLMWithValueHead(cfg, device=device, generator=generator, num_value_layers=num_value_layers)
-        if num_value_layers > 0:
-            model.value_branch.clone_from(model.lm)
+    if not model_config.model_path.startswith("random:"):
+        from trlx_tpu_torch.models import hf_interop
+
+        model.load_state_dict(hf_interop.load_params_from_hf(model_config.model_path, cfg, model.state_dict()))
+    if num_value_layers > 0:
+        model.value_branch.clone_from(model.lm)
     model.eval()
     return model, cfg, model.state_dict()

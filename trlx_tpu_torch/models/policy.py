@@ -9,7 +9,9 @@ ending in the MLP head, fed the trunk activation entering block
 head of the PPO loss, the trunk cache's fill and the suffix resumed from
 it, the cached decode steps of the sampler with the fast path's value
 and activation capture, the speculative sampler's draft and verify, and
-the inference engine's; `CausalLMWithILQLHeads` (the LM with ILQL's V,
+the inference engine's; `CausalLMPolicy`, the critic-free policy of
+GRPO/RLOO (the LM alone, no value parameters anywhere in its state dict);
+`CausalLMWithILQLHeads` (the LM with ILQL's V,
 Q and target Q heads, `models/heads.py`); the frozen hydra reference
 (`HydraReference`, the JAX `ref_param_subtree` with `forward_ref_suffix`,
 `forward_ref_suffix_window` and `forward_ref_full`),
@@ -34,6 +36,7 @@ from trlx_tpu_torch.models.transformer import (
     train_bias,
 )
 
+_NO_VALUE_HEAD = "CausalLMPolicy has no value head; call it with with_value=False"
 _NO_STEP_VALUES = ("per-step values during decode are not supported with a value branch (values are "
                    "computed in the scoring pass)")
 
@@ -183,6 +186,44 @@ class CausalLMWithValueHead(nn.Module):
         """Per-row-offset multi-token prefill (the paged engine's insert
         path). Returns (logits, new_cache)."""
         return self.lm.prefill_rows(tokens, cache, token_mask)
+
+
+class CausalLMPolicy(CausalLMWithValueHead):
+    """The critic-free policy of GRPO/RLOO: the LM alone, with no value
+    head anywhere in its state dict (a zero-initialized head would still
+    hold and train parameters). It subclasses `CausalLMWithValueHead`, so
+    the delegates that read only `self.lm` (the cached and row decode, the
+    speculative draft), `HydraReference` and `forward_policy_and_ref` work
+    unchanged; the values slot is None, and asking for a per-step value
+    raises. The trunk cache's resume is not offered: GRPO's gates keep the
+    cache off."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+        nn.Module.__init__(self)
+        self.cfg = cfg
+        self.num_value_layers = 0
+        self.value_split = cfg.n_layers
+        self.lm = TransformerLM(cfg, device, generator)
+
+    def forward(self, tokens, attn_mask, positions=None, split: int = 0):
+        """Returns (logits, None, h_split)."""
+        logits, h_split, _ = self.lm(tokens, attn_mask, positions, split)
+        return logits, None, h_split
+
+    def forward_window(self, tokens, attn_mask, positions=None, start: int = 0, length: int = 1):
+        return self.lm.forward_window(tokens, attn_mask, positions, start, length)[0], None
+
+    def spec_verify_rows(self, h, cache, row_start, positions, split: int, with_value: bool = False,
+                         token_mask=None):
+        if with_value:
+            raise NotImplementedError(_NO_VALUE_HEAD)
+        return super().spec_verify_rows(h, cache, row_start, positions, split, False, token_mask)
+
+    def decode_step(self, tokens, cache, token_mask, is_prefill: bool = False, with_value: bool = False,
+                    capture_split: Optional[int] = None):
+        if with_value:
+            raise NotImplementedError(_NO_VALUE_HEAD)
+        return super().decode_step(tokens, cache, token_mask, is_prefill, False, capture_split)
 
 
 class CausalLMWithILQLHeads(nn.Module):

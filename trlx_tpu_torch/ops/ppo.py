@@ -1,12 +1,13 @@
-"""PPO math: the KL coefficient controllers, generalized advantage
-estimation and the clipped PPO loss.
+"""PPO and GRPO/RLOO math: the KL coefficient controllers, generalized
+advantage estimation, the clipped PPO loss, the critic-free group-relative
+advantages and the GRPO loss.
 
-Port of the JAX package's `ops/ppo.py` (its PPO part; the group-relative
-advantages of GRPO/RLOO are ROADMAP queue A, item 4). The loss math is
-the same expression for expression: clipped value loss, clipped-ratio
-policy loss, the k3 approximate KL as a diagnostic, clip fractions and
-per-tensor stats. The JAX reversed `lax.scan` of GAE is a reversed loop
-over the response columns.
+Port of the JAX package's `ops/ppo.py`. The loss math is the same
+expression for expression: clipped value loss, clipped-ratio policy loss,
+the k3 approximate KL as a diagnostic, clip fractions and per-tensor
+stats; GRPO's loss keeps the clipped ratio, drops the value loss and adds
+the k3 KL to the frozen reference. The JAX reversed `lax.scan` of GAE is
+a reversed loop over the response columns.
 """
 
 from typing import Dict, Optional, Tuple
@@ -115,6 +116,75 @@ def ppo_loss(
         old_values=get_tensor_stats(old_values, mask, n),
         returns=get_tensor_stats(returns, mask, n),
         policy=dict(approx_kl=approx_kl, clipfrac=pg_clipfrac),
+        ratio=(ratio * mask).sum() / n,
+        padding_percentage=1.0 - n / mask.numel(),
+    )
+    return loss, stats
+
+
+def group_relative_advantages(rewards: torch.Tensor, mode: str = "grpo", eps: float = 1e-4) -> torch.Tensor:
+    """Critic-free advantages over G completions per prompt, rewards
+    [n_groups, G] -> [n_groups, G] f32, detached.
+
+    "grpo" (Shao et al. 2024): A_i = (r_i - mean(r)) / (std(r) + eps), the
+    population std; the eps keeps a degenerate group (all rewards equal) at
+    exactly zero instead of 0/0.
+    "rloo" (Ahmadian et al. 2024): A_i = r_i - mean(r_{j != i})
+    = (G r_i - sum(r)) / (G - 1); G = 1 has no leave-one-out set, so the
+    advantage is the raw reward."""
+    rewards = rewards.to(torch.float32)
+    if mode == "grpo":
+        mean = rewards.mean(dim=-1, keepdim=True)
+        std = rewards.std(dim=-1, keepdim=True, unbiased=False)
+        adv = (rewards - mean) / (std + eps)
+    elif mode == "rloo":
+        g = rewards.shape[-1]
+        if g <= 1:
+            adv = rewards
+        else:
+            adv = (g * rewards - rewards.sum(dim=-1, keepdim=True)) / (g - 1)
+    else:
+        raise ValueError(f"unknown advantage_mode '{mode}' (grpo | rloo)")
+    return adv.detach()
+
+
+def grpo_loss(
+    logprobs: torch.Tensor,  # [b, response]
+    old_logprobs: torch.Tensor,
+    ref_logprobs: torch.Tensor,
+    advantages: torch.Tensor,
+    mask: torch.Tensor,
+    cliprange: float,
+    kl_coef: float,
+) -> Tuple[torch.Tensor, Dict]:
+    """The critic-free clipped objective (GRPO eq. 3): PPO's clipped ratio
+    against a group-relative advantage plus `kl_coef` times the
+    differentiable k3 KL to the frozen reference,
+    exp(ref - pi) - (ref - pi) - 1. RLOO uses it with its own advantages.
+    Returns (loss, nested stats)."""
+    mask = mask.to(torch.float32)
+    n = mask.sum().clamp(min=1.0)
+
+    log_ratio = (logprobs - old_logprobs) * mask
+    ratio = torch.exp(log_ratio)
+    # k3 unbiased KL estimator, diagnostic only
+    approx_kl = torch.mean((ratio - 1) - log_ratio).detach()
+
+    pg_loss1 = -advantages * ratio
+    pg_loss2 = -advantages * torch.clamp(ratio, 1.0 - cliprange, 1.0 + cliprange)
+    pg_loss = (torch.maximum(pg_loss1, pg_loss2) * mask).sum() / n
+    pg_clipfrac = ((pg_loss2 > pg_loss1).to(torch.float32) * mask).sum() / n
+
+    ref_log_ratio = (ref_logprobs - logprobs) * mask
+    kl_to_ref = ((torch.exp(ref_log_ratio) - ref_log_ratio - 1.0) * mask).sum() / n
+
+    loss = pg_loss + kl_coef * kl_to_ref
+
+    stats = dict(
+        losses=dict(total_loss=loss, policy_loss=pg_loss, kl_loss=kl_to_ref),
+        policy=dict(approx_kl=approx_kl, clipfrac=pg_clipfrac),
+        advantages=get_tensor_stats(advantages, mask, n),
+        ref_kl=kl_to_ref,
         ratio=(ratio * mask).sum() / n,
         padding_percentage=1.0 - n / mask.numel(),
     )

@@ -5,8 +5,9 @@ per-token stats, so the query|response seam sits at one fixed column.
 
 The collation is the numpy branch of the JAX package's `native.ppo_collate`
 (`pad_stack` per field), and its trunk-cache collation (`collate_h_split`,
-on the device). GRPO group ids and multi-turn loss masks are not ported
-yet (ROADMAP queue A, item 3): their batch fields stay None.
+on the device), and GRPO's group ids (int32, when every element has
+one). Multi-turn loss masks are not ported yet (ROADMAP queue A, item 3):
+that batch field stays None.
 """
 
 import json
@@ -63,6 +64,8 @@ def ppo_collate(elems: List[PPORLElement], max_q: int, max_r: int, max_p: int, p
         values=pad_stack([e.values for e in elems], 0.0, max_p, np.float32),
         rewards=pad_stack([e.rewards for e in elems], 0.0, max_p, np.float32),
         h_split=collate_h_split(elems, max_q, max_r, left_queries),
+        group_ids=(np.asarray([e.group_id for e in elems], dtype=np.int32)
+                   if elems and all(e.group_id is not None for e in elems) else None),
     )
 
 

@@ -201,7 +201,7 @@ class PPOTrainer(TorchTrainer):
         """Whether the loss may read the windowed head: only the plain MLP
         value head (the branch's blocks attend over the full sequence). The
         JAX gate's soft-prompt condition is refused at construction."""
-        return self.config.method.num_value_layers_unfrozen == 0
+        return getattr(self.config.method, "num_value_layers_unfrozen", 0) == 0
 
     def make_loss_fn(self) -> Callable:
         model = self.model
@@ -267,7 +267,9 @@ class PPOTrainer(TorchTrainer):
         """The no-grad hydra pass over a chunk of query|response tokens
         [b, t] on the device: (logprobs [b, t-1], values [b, t-1], masked
         log_ratio against the reference [b, t-1], mean_kl, mean_kl_per_token),
-        the last two as 0-d tensors."""
+        the last two as 0-d tensors. A critic-free policy (GRPO/RLOO) has no
+        values: that slot carries the reference's logprobs, its loss's KL
+        anchor."""
         attention_mask = (all_tokens != self.tokenizer.pad_token_id).long()
         positions = position_ids(attention_mask)
         logits, values, ref_logits = forward_policy_and_ref(
@@ -277,7 +279,8 @@ class PPOTrainer(TorchTrainer):
         ref_logprobs = shifted_logprobs(ref_logits, all_tokens)
         log_ratio = (logprobs - ref_logprobs) * attention_mask[:, :-1]
         kl = torch.exp(log_ratio) - 1 - log_ratio
-        return logprobs, values[:, :-1], log_ratio, kl.sum(1).mean(), kl.mean()
+        second = ref_logprobs if values is None else values[:, :-1]
+        return logprobs, second, log_ratio, kl.sum(1).mean(), kl.mean()
 
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
         """Collect rollouts: generate -> decode and reward on the host ->
@@ -437,7 +440,7 @@ class PPOTrainer(TorchTrainer):
         back); MoE, virtual tokens and seq2seq are refused at construction
         in the port. A refusal while the flag is on counts in
         `spec_decode_fallbacks`."""
-        if not self.config.method.speculative_decode:
+        if not getattr(self.config.method, "speculative_decode", False):
             return False
         gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
         ok = (
@@ -484,7 +487,7 @@ class PPOTrainer(TorchTrainer):
         frozen trunk's int8 leaves, quantized once (they never train); the
         sampler reads every other parameter live. None (the dense module)
         otherwise."""
-        if not (self.config.method.quantize_frozen_trunk and self.split > 0):
+        if not (getattr(self.config.method, "quantize_frozen_trunk", False) and self.split > 0):
             return None
         if self._quant_frozen is None:
             self._quant_frozen = quant.quantize_frozen(self.model, self.split)
@@ -499,9 +502,9 @@ class PPOTrainer(TorchTrainer):
         construction in the port."""
         method = self.config.method
         return (
-            bool(method.cache_trunk_activations)
+            bool(getattr(method, "cache_trunk_activations", False))
             and self.split > 0
-            and self.model_cfg.n_layers - method.num_value_layers_unfrozen >= self.split
+            and self.model_cfg.n_layers - getattr(method, "num_value_layers_unfrozen", 0) >= self.split
         )
 
     # ------------------------------------------------------------------
@@ -530,13 +533,13 @@ class PPOTrainer(TorchTrainer):
         the plain value head (no deeper value branch) and one beam (the
         sampler is where the capture lives)."""
         method = self.config.method
-        if not method.capture_rollout_stats:
+        if not getattr(method, "capture_rollout_stats", False):
             return False
         gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
         return (
             self._spec_path_available()
             and self.split > 0
-            and method.num_value_layers_unfrozen == 0
+            and getattr(method, "num_value_layers_unfrozen", 0) == 0
             and int(gen_kwargs.get("num_beams", 1) or 1) == 1
         )
 

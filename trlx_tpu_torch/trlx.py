@@ -2,8 +2,10 @@
 
 Samples without rewards run supervised fine-tuning; samples with
 `rewards` run offline RL with ILQL; a `reward_fn` runs online RL with
-PPO. RFT and the other `reward_fn` trainers are not ported yet (ROADMAP
-queue A, item 4).
+PPO, GRPO/RLOO (`default_grpo_config`) or RFT (`default_rft_config`).
+Best-of-n, the last `reward_fn` trainer, is not ported yet (ROADMAP
+queue A, item 4). `model_path` (or `config.model.model_path`) is a
+`random:<preset>` or a local gpt2 or llama HF checkpoint directory.
 """
 
 import warnings
@@ -13,6 +15,7 @@ from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.default_configs import default_ilql_config, default_ppo_config, default_sft_config
 from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
 from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+from trlx_tpu_torch.trainer.rft_trainer import RFTTrainer
 from trlx_tpu_torch.utils import set_seed
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
 
@@ -31,7 +34,8 @@ def train(
     logit_mask=None,
     device=None,
 ):
-    """Train with PPO against `reward_fn` over `prompts`, with ILQL on
+    """Train with PPO, GRPO/RLOO or RFT (by `config.train.trainer`)
+    against `reward_fn` over `prompts`, with ILQL on
     `samples` labelled by `rewards`, or fine-tune on `samples` (strings,
     or alternating prompt/output dialogues), and return the trainer.
     Same signature as the JAX package's `train`, plus `device` (`cuda`
@@ -58,7 +62,7 @@ def train(
     online = bool(reward_fn)
     if online or rewards is not None:
         # the trainers of the branch that are not ported yet are refused
-        want, others = (PPOTrainer, "RFT, GRPO, RLOO, ...") if online else (ILQLTrainer, "seq2seq, 1F1B, ...")
+        want, others = ((PPOTrainer, RFTTrainer), "best-of-n, ...") if online else ((ILQLTrainer,), "seq2seq, 1F1B, ...")
         try:
             trainer_cls = get_trainer(config.train.trainer)
         except ValueError:  # not registered in the port
@@ -66,7 +70,7 @@ def train(
         if trainer_cls is None or not issubclass(trainer_cls, want):
             raise NotImplementedError(
                 f"{'online' if online else 'offline'} RL with {config.train.trainer} ({others}) is not ported "
-                f"yet; {want.__name__} is (ROADMAP queue A, item 4)"
+                f"yet; {' and '.join(c.__name__ for c in want)} (and their subclasses) are (ROADMAP queue A, item 4)"
             )
     else:
         trainer_cls = get_trainer(config.train.trainer)

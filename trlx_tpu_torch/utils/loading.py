@@ -5,14 +5,17 @@ ported trainer and pipeline."""
 from trlx_tpu_torch.pipeline import _DATAPIPELINE
 from trlx_tpu_torch.pipeline import offline_pipeline  # noqa: F401  (registers PromptPipeline)
 from trlx_tpu_torch.trainer import _TRAINERS
+from trlx_tpu_torch.trainer import grpo_trainer  # noqa: F401  (registers GRPOTrainer)
 from trlx_tpu_torch.trainer import ilql_trainer  # noqa: F401  (registers ILQLTrainer)
 from trlx_tpu_torch.trainer import ppo_trainer  # noqa: F401  (registers PPOTrainer)
+from trlx_tpu_torch.trainer import rft_trainer  # noqa: F401  (registers RFTTrainer)
 from trlx_tpu_torch.trainer import sft_trainer  # noqa: F401  (registers SFTTrainer)
 
 # the reference's trainer names, so user configs carry over
 _ALIASES = {"acceleratesfttrainer": "sfttrainer", "nemosfttrainer": "sfttrainer",
             "accelerateppotrainer": "ppotrainer", "nemoppotrainer": "ppotrainer",
-            "accelerateilqltrainer": "ilqltrainer", "nemoilqltrainer": "ilqltrainer"}
+            "accelerateilqltrainer": "ilqltrainer", "nemoilqltrainer": "ilqltrainer",
+            "acceleraterfttrainer": "rfttrainer"}
 
 
 def get_trainer(name: str):
