@@ -141,13 +141,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    samples selected, step time and training tokens/s, launches exact (a
    step K4-K6 x12, K7 and its backward, no K3); one f32 step (4 layers)
    kernels vs plain versions.
+17. the single-replica serving surface at gpt2-small full width: (a) the
+   default `inference` section (the fixed-slot pool) answers phase 4's 16
+   requests, every decode dispatch a `kv_paging_off` fallback and no
+   paged-kernel launch, its f32 greedy streams equal to the paged engine's
+   with the kernel on phase 5's prompts, tokens/s and median TTFT beside
+   phase 4's and beside the same burst on the paged pool run just after;
+   (b) an SFT run through `trlx_tpu_torch.train` writes its
+   checkpoint under the server's `watch_dir`, /healthz's checkpoint_step
+   advances, a greedy reply afterwards equals a fresh engine's on the
+   run's weights, `/admin/drain` answers 503 until `/admin/undrain`; (c) SSE
+   token deltas concatenate to the non-streaming reply; (d) four-turn
+   /chat over bf16 and int8 arenas, K1 (K2) launches = decode dispatches x
+   12, retained blocks reused, a turn's TTFT beside a fresh prompt's of the
+   same length, and at f32 every turn equal to /generate over the whole
+   transcript; (e) the engine's speculative decode (spec_k 4, split 10) at
+   f32: greedy equal to the plain engine under phase 11's tie rule, K1
+   launches = (spec_k + 1) x split a dispatch, tokens/s beside the plain
+   engine's.
 Phase 6 also holds K7 and its backward at the randomwalks curves' rows (a
 24-token vocabulary, f32 and bf16, shifted labels, padded rows).
 
 The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object (with `ppo_options`, phase 11's
 checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
-`ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16); the last line is
+`ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16, `serving`, phase
+17's); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
 """
@@ -158,6 +177,7 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -443,21 +463,34 @@ def serving_config(**inference):
     return default_sft_config().evolve(
         model=dict(model_path="random:gpt2-small", model_extra_configs={"vocab_size": 50257}),
         tokenizer=dict(tokenizer_path="byte"),
-        inference=dict(
+        inference=dict(dict(
             kv_paging=True, kv_block_size=32, num_slots=8, max_new_tokens=64,
-            decode_kernel="auto", gen_kwargs=dict(max_new_tokens=64), **inference,
+            decode_kernel="auto", gen_kwargs=dict(max_new_tokens=64)), **inference,
         ),
     )
 
 
-def post(url, payload):
-    req = urllib.request.Request(url + "/generate", data=json.dumps(payload).encode(),
-                                 headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=300) as r:
-        return r.status, json.loads(r.read())
+def http(url, path, payload=None, timeout=300):
+    """(status, JSON body) of a GET (no payload) or a POST; an HTTP error
+    status is returned, not raised."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+PAGED_KERNELS = ("paged_decode", "paged_decode_int8")
 
 
 def serve_and_check(config, n_requests, counter, card):
+    """Phase 4's burst of `n_requests` concurrent /generate requests
+    against `SFTTrainer(config).serve()`; `counter` names the paged kernel
+    the decode must launch once a layer a dispatch, or None for the
+    fixed-slot pool, which launches none. Returns (its launches, the
+    burst's numbers)."""
     import numpy as np
     import torch
 
@@ -478,7 +511,7 @@ def serve_and_check(config, n_requests, counter, card):
         kernels.reset_launches()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(n_requests) as pool:
-            replies = list(pool.map(lambda j: post(server.url, j), jobs))
+            replies = list(pool.map(lambda j: http(server.url, "/generate", j), jobs))
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         stats = server.engine.kv_stats()
@@ -495,24 +528,35 @@ def serve_and_check(config, n_requests, counter, card):
         if not all(math.isfinite(x) for x in out["token_logprobs"]):
             raise AssertionError("non-finite token logprob")
     dispatches = stats["kv_kernel_dispatches"]
-    if dispatches <= 0 or stats["kv_kernel_fallbacks"] != {}:
-        raise AssertionError(f"kernel not on the decode path: {stats}")
-    if launches.get(counter, 0) != dispatches * n_layers:
-        raise AssertionError(f"{counter} launches {launches} != {dispatches} dispatches x {n_layers} layers")
+    if counter is None:
+        # the fixed-slot pool has no kernel, as in JAX: every decode
+        # dispatch is a counted kv_paging_off fallback, no paged launch
+        dispatches = stats["kv_kernel_fallbacks"].get("kv_paging_off", 0)
+        want = {"kv_kernel_dispatches": 0, "kv_kernel_fallbacks": {"kv_paging_off": dispatches}}
+        if dispatches <= 0 or stats != want or any(launches.get(k, 0) for k in PAGED_KERNELS):
+            raise AssertionError(f"fixed-slot pool: {stats}, launches {launches}")
+    else:
+        if dispatches <= 0 or stats["kv_kernel_fallbacks"] != {}:
+            raise AssertionError(f"kernel not on the decode path: {stats}")
+        if launches.get(counter, 0) != dispatches * n_layers:
+            raise AssertionError(f"{counter} launches {launches} != {dispatches} dispatches x {n_layers} layers")
     # every token is emitted by a decode step (the first one was sampled at
     # prefill): tokens_per_s is end to end over the burst's wall time,
     # decode_tok_per_s over the decode steps' time alone
     tokens = sum(len(o["token_ids"]) for _, o in replies)
     ttft = statistics.median(o["ttft_s"] for _, o in replies)
+    pool = "paged" if config.inference.kv_paging else "fixed-slot"
     log(
-        f"[serve] kv={config.inference.kv_cache_dtype} requests={n_requests} tokens={tokens} "
+        f"[serve] {pool} kv={config.inference.kv_cache_dtype} requests={n_requests} tokens={tokens} "
         f"wall_s={wall:.3f} tokens_per_s={tokens / wall:.1f} decode_s={decode_s:.3f} "
         f"decode_tok_per_s={tokens / decode_s:.1f} median_ttft_s={ttft:.4f} "
         f"dispatches={dispatches} launches={launches} ({card})"
     )
     del trainer, server
     release()
-    return launches.get(counter, 0)
+    numbers = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall, decode_tok_per_s=tokens / decode_s,
+                   median_ttft_s=ttft, dispatches=dispatches, launches=launches)
+    return (launches.get(counter, 0) if counter else 0), numbers
 
 
 # ---------------------------------------------------------------------------
@@ -520,6 +564,9 @@ def serve_and_check(config, n_requests, counter, card):
 # ---------------------------------------------------------------------------
 
 def run_serial(engine, prompts, max_new, slot=0):
+    """Each prompt to its end in the same slot (slot reuse with block
+    reclaim between requests). A speculative engine emits up to spec_k + 1
+    tokens a step."""
     import numpy as np
 
     outs = []
@@ -528,13 +575,21 @@ def run_serial(engine, prompts, max_new, slot=0):
         toks = []
         for _ in range(max_new):
             t, _, v, f = engine.step()
-            if v[slot]:
-                toks.append(int(t[slot]))
+            t, v = t.reshape(len(t), -1), v.reshape(len(t), -1)
+            toks += [int(x) for x in t[slot][v[slot]]]
             if f[slot]:
                 break
         engine.reclaim_slots([slot])
         outs.append(toks)
     return outs
+
+
+def greedy_prompts():
+    """Phase 5's prompts: lengths around the 32-token block edges."""
+    import numpy as np
+
+    rng = np.random.RandomState(2)
+    return [rng.randint(0, 256, n).tolist() for n in (7, 31, 32, 33, 64, 100)]
 
 
 def phase_greedy():
@@ -551,8 +606,7 @@ def phase_greedy():
     trainer = SFTTrainer(config)
     gen = GenerationConfig(max_new_tokens=16, do_sample=False, eos_token_id=10**6,
                            pad_token_id=trainer.tokenizer.pad_token_id)
-    rng = np.random.RandomState(2)
-    prompts = [rng.randint(0, 256, n).tolist() for n in (7, 31, 32, 33, 64, 100)]
+    prompts = greedy_prompts()
 
     def engine(kernel, kv):
         return InferenceEngine(trainer.model, trainer.model_cfg, None, gen, num_slots=8,
@@ -2455,6 +2509,375 @@ def build_report(ptxas_out):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the single-replica serving surface (the seventh main path)
+# ---------------------------------------------------------------------------
+
+SPEC_K, SPEC_SPLIT = 4, 10  # the engine's speculative decode: 4 drafts a round, trunk = 10 of 12 blocks
+SPEC_RANK = 64
+GREEDY_NEW = 16
+# a four-turn conversation: each turn's new tokens, then a 16-token reply
+CHAT_TURNS = (100, 20, 30, 40)
+CHAT_NEW = 16
+RELOAD_WAIT_S = 120.0
+
+
+def greedy_serving_config(**inference):
+    return serving_config(gen_kwargs=dict(max_new_tokens=64, do_sample=False), **inference)
+
+
+def f32_serving_config(**inference):
+    return greedy_serving_config(**inference).evolve(
+        model=dict(model_extra_configs={"vocab_size": 50257, "dtype": "float32"}))
+
+
+def engine_like(server_engine, trainer, **kw):
+    """A fresh engine with the server engine's shapes and sampling on
+    `trainer`'s weights."""
+    from trlx_tpu_torch.inference import InferenceEngine
+
+    e = server_engine
+    return InferenceEngine(trainer.model, trainer.model_cfg, None, e.gen_cfg, num_slots=e.num_slots,
+                           max_prompt_len=e.max_prompt_len, max_prefill_batch=e.max_prefill_batch,
+                           prompt_bucket=e.prompt_bucket, kv_paging=e.kv_paging, kv_block_size=e.kv_block_size,
+                           decode_kernel=e.decode_kernel, **kw)
+
+
+def serial_with_gaps(engine, prompts, max_new):
+    """`run_serial` of a plain engine, also returning for each request the
+    top-two gap of the warped scores each of its tokens was drawn from
+    (the insert's for token 0, the decode steps' after it)."""
+    import torch
+
+    import trlx_tpu_torch.inference.engine as engine_module
+
+    process, calls = engine_module.process_logits, []
+
+    def recording(scores, cfg, step, *args):
+        out = process(scores, cfg, step, *args)
+        top = torch.topk(out[:1], 2, dim=-1).values  # row 0: the one prompt row, or slot 0
+        calls.append(float(top[0, 0] - top[0, 1]))
+        return out
+
+    engine_module.process_logits = recording  # read at call time by the engine's sampling
+    try:
+        outs = run_serial(engine, prompts, max_new)
+    finally:
+        engine_module.process_logits = process
+    gaps, i = [], 0
+    for toks in outs:
+        gaps.append(calls[i:i + 1 + len(toks)])
+        i += 1 + len(toks)
+    return outs, gaps
+
+
+def timed_batch(engine, prompts, max_new):
+    """All prompts in their own slots at once, stepped to the end: (tokens
+    emitted, seconds, decode dispatches)."""
+    import numpy as np
+    import torch
+
+    slots = list(range(len(prompts)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.insert_requests([(np.asarray(p, np.int32), max_new) for p in prompts], slots)
+    tokens, steps, done = 0, 0, np.zeros(len(slots), bool)
+    while not done.all():
+        _, _, v, f = engine.step()
+        tokens += int(v.reshape(len(v), -1)[slots].sum())
+        done |= f[slots]
+        steps += 1
+    wall = time.perf_counter() - t0
+    engine.reclaim_slots(slots)
+    return tokens, wall, steps
+
+
+def phase_fixed_slot_greedy(trainer):
+    """(a) at f32: the fixed-slot pool's greedy streams against the paged
+    engine's with the kernel, on phase 5's prompts."""
+    from trlx_tpu_torch.inference import InferenceEngine
+    from trlx_tpu_torch.ops.sampling import GenerationConfig
+
+    gen = GenerationConfig(max_new_tokens=GREEDY_NEW, do_sample=False, eos_token_id=10**6,
+                           pad_token_id=trainer.tokenizer.pad_token_id)
+
+    def engine(paged):
+        return InferenceEngine(trainer.model, trainer.model_cfg, None, gen, num_slots=8, max_prompt_len=256,
+                               kv_paging=paged, kv_block_size=32, decode_kernel="auto")
+
+    prompts = greedy_prompts()
+    fixed, paged = run_serial(engine(False), prompts, GREEDY_NEW), run_serial(engine(True), prompts, GREEDY_NEW)
+    same = sum(a == b for a, b in zip(fixed, paged))
+    log(f"[serving] (a) f32 greedy: {same}/{len(prompts)} streams equal, fixed-slot pool vs paged kernel")
+    if same != len(prompts):
+        raise AssertionError(f"fixed-slot {fixed} vs paged {paged}")
+    return same
+
+
+def phase_spec_engine(trainer, card):
+    """(e) the engine's speculative decode at f32 against the plain
+    engine: greedy equal under the tie rule, K1 launches exact; once at
+    phase 17's split, whose rank-64 draft the random weights reject, and
+    once drafting through every block with the full-rank readout, whose
+    drafts the target accepts (tokens a request a dispatch above 1); then
+    tokens/s of the plain engine and phase 17's split on one batch of 8
+    requests. Returns ({config: launches}, numbers)."""
+    import numpy as np
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.inference import InferenceEngine
+    from trlx_tpu_torch.ops.sampling import GenerationConfig
+
+    gen = GenerationConfig(max_new_tokens=64, do_sample=False, eos_token_id=10**6,
+                           pad_token_id=trainer.tokenizer.pad_token_id)
+    cfg = trainer.model_cfg
+
+    def engine(**kw):
+        return InferenceEngine(trainer.model, cfg, None, gen, num_slots=8, max_prompt_len=256,
+                               kv_paging=True, kv_block_size=32, decode_kernel="auto", **kw)
+
+    prompts = greedy_prompts()
+    plain, gaps = serial_with_gaps(engine(), prompts, GREEDY_NEW)
+    launches, checks, spec_engine = {}, {}, None
+    for name, split, rank in (("split", SPEC_SPLIT, SPEC_RANK), ("accepting", cfg.n_layers, cfg.d_model)):
+        eng = engine(spec_k=SPEC_K, spec_split=split, spec_draft_rank=rank)
+        kernels.reset_launches()
+        spec = run_serial(eng, prompts, GREEDY_NEW)
+        got = dict(kernels.LAUNCHES)
+        stats = eng.kv_stats()
+        dispatches = stats["kv_kernel_dispatches"]
+        differ = []
+        for r, (a, b) in enumerate(zip(plain, spec)):
+            if a != b:
+                d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+                differ.append((r, d, gaps[r][d] if d < len(gaps[r]) else None))
+        per_dispatch = (SPEC_K + 1) * split
+        # every token is emitted by a dispatch (the insert only samples the
+        # first), and the requests run one at a time here
+        per_request = sum(len(t) for t in spec) / dispatches
+        log(f"[serving] (e) spec engine (spec_k {SPEC_K}, split {split} of {cfg.n_layers}, draft rank {rank}) vs "
+            f"plain, f32 greedy, {len(prompts)} requests x {GREEDY_NEW} tokens: {len(prompts) - len(differ)} equal; "
+            f"differ (request, first position, plain top-two gap) {differ} (tie rule: gap <= {TIE_GAP}); "
+            f"{dispatches} dispatches, {per_request:.3f} tokens a request a dispatch, launches {got}, "
+            f"fallbacks {stats['kv_kernel_fallbacks']}")
+        if any(g is None or g > TIE_GAP for _, _, g in differ):
+            raise AssertionError(f"greedy speculative engine left the plain engine away from a tie: {differ}")
+        if dispatches <= 0 or stats["kv_kernel_fallbacks"] != {"spec_verify_rows": dispatches}:
+            raise AssertionError(f"spec engine accounting {stats}")
+        if got.get("paged_decode", 0) != dispatches * per_dispatch:
+            raise AssertionError(f"paged_decode launches {got} != {dispatches} dispatches x {per_dispatch}")
+        if name == "accepting" and per_request <= 1.5:
+            raise AssertionError(f"full-depth drafts were not accepted: {per_request} tokens a dispatch")
+        launches[name] = got
+        checks[name] = dict(split=split, draft_rank=rank, equal=len(prompts) - len(differ), differ=differ,
+                            dispatches=dispatches, launches_per_dispatch=per_dispatch,
+                            tokens_per_dispatch_per_request=per_request)
+        if name == "split":
+            spec_engine = eng
+    # tokens/s: one batch of 8 requests x 64 tokens, each engine warmed by one run first
+    rng = np.random.RandomState(5)
+    batch = [rng.randint(0, 256, n).tolist() for n in (17, 48, 96, 128, 63, 65, 200, 250)]
+    rates = {}
+    for name, eng in (("plain", engine()), ("spec", spec_engine)):
+        timed_batch(eng, batch, 64)
+        tokens, wall, steps = timed_batch(eng, batch, 64)
+        rates[name] = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall, dispatches=steps,
+                           tokens_per_dispatch_per_request=tokens / steps / len(batch))
+    log(f"[serving] (e) one batch of 8 requests x 64 tokens at f32: plain {rates['plain']['tokens_per_s']:.1f} "
+        f"tokens/s ({rates['plain']['dispatches']} dispatches), speculative {rates['spec']['tokens_per_s']:.1f} "
+        f"tokens/s ({rates['spec']['dispatches']} dispatches, "
+        f"{rates['spec']['tokens_per_dispatch_per_request']:.3f} tokens a request a dispatch) ({card})")
+    return launches, dict(checks, requests=len(prompts), rates=rates)
+
+
+def phase_reload(card, work):
+    """(b) hot-reload from a training run and /admin/*, (c) SSE, on a
+    bf16 paged server watching the run's checkpoint directory."""
+    import shutil
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.inference import sse_stream
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    watch = work / "watch"
+    trainer = SFTTrainer(greedy_serving_config(reload_interval_s=0.5))
+    server = trainer.serve(port=0, background=True, watch_dir=str(watch))
+    out = {}
+    try:
+        code, health = http(server.url, "/healthz")
+        if code != 200 or health["checkpoint_step"] is not None:
+            raise AssertionError(f"/healthz before the run: {code} {health}")
+        steps = 2
+        sft_config = training_config(work).evolve(train=dict(
+            seq_length=128, batch_size=4, total_steps=steps, checkpoint_dir=str(watch),
+            logging_dir=str(work / "logs")))
+        t0 = time.perf_counter()
+        sft = trlx_tpu_torch.train(samples=sft_samples(), config=sft_config)
+        torch.cuda.synchronize()
+        t_trained = time.perf_counter()
+        while time.perf_counter() - t_trained < RELOAD_WAIT_S:
+            health = http(server.url, "/healthz")[1]
+            if health["checkpoint_step"] == steps:
+                break
+            time.sleep(0.25)
+        seen = time.perf_counter() - t_trained
+        log(f"[serving] (b) SFT run of {steps} steps in {t_trained - t0:.2f}s; /healthz checkpoint_step "
+            f"{health['checkpoint_step']} after {seen:.2f}s (watcher poll 0.5 s), reloads {health['reloads']}, "
+            f"param_version {health['param_version']}")
+        if health["checkpoint_step"] != steps or health["reloads"] != 1 or not health["ready"]:
+            raise AssertionError(f"the watcher did not serve the run's checkpoint: {health}")
+        prompt = greedy_prompts()[-1]
+        code, reply = http(server.url, "/generate", {"prompt_ids": prompt, "max_new_tokens": 32})
+        fresh = run_serial(engine_like(server.engine, sft), [prompt], 32)[0]
+        log(f"[serving] (b) greedy reply after the reload equals a fresh engine's on the run's weights: "
+            f"{reply['token_ids'] == fresh} (checkpoint_step {reply['checkpoint_step']})")
+        if code != 200 or reply["token_ids"] != fresh or reply["checkpoint_step"] != steps:
+            raise AssertionError(f"after the reload: {code} {reply} vs fresh {fresh}")
+        del sft
+        # /admin/drain answers 503 until /admin/undrain
+        drained = http(server.url, "/admin/drain", {})
+        refused = http(server.url, "/generate", {"prompt_ids": prompt, "max_new_tokens": 4})
+        not_ready = not http(server.url, "/healthz")[1]["ready"]
+        undrained = http(server.url, "/admin/undrain", {})
+        again = http(server.url, "/generate", {"prompt_ids": prompt, "max_new_tokens": 4})
+        log(f"[serving] (b) /admin/drain {drained[0]}, /generate while draining {refused[0]}, ready off "
+            f"{not_ready}, /admin/undrain {undrained[0]}, /generate after {again[0]}")
+        if (drained[0], refused[0], undrained[0], again[0]) != (200, 503, 200, 200) or not not_ready:
+            raise AssertionError("drain/undrain")
+        # (c) SSE deltas against the non-streaming reply
+        payload = {"prompt_ids": greedy_prompts()[2], "max_new_tokens": 48}
+        events = list(sse_stream(server.url + "/generate", payload, timeout=300))
+        streamed = [t for e in events[:-1] for t in e["token_ids"]]
+        plain = http(server.url, "/generate", payload)[1]["token_ids"]
+        log(f"[serving] (c) SSE: {len(events) - 1} delta events, {len(streamed)} tokens, equal to the "
+            f"non-streaming reply: {streamed == plain == events[-1]['token_ids']}")
+        if not (streamed == plain == events[-1]["token_ids"]) or events[-1].get("event") != "done":
+            raise AssertionError(f"SSE {streamed} vs {plain}")
+        out = dict(reload_seen_s=seen, train_s=t_trained - t0, checkpoint_step=steps, sse_events=len(events) - 1)
+    finally:
+        server.shutdown()
+        shutil.rmtree(watch, ignore_errors=True)
+    del trainer, server
+    release()
+    return out
+
+
+def chat(url, turns, rng):
+    """Four /chat turns of fresh random tokens; returns the replies and
+    the whole transcript before each turn's reply."""
+    replies, transcripts, history, sid = [], [], [], None
+    for n in turns:
+        turn = rng.randint(0, 256, n).tolist()
+        code, out = http(url, "/chat", {"prompt_ids": turn, "max_new_tokens": CHAT_NEW,
+                                        **({"session_id": sid} if sid else {})})
+        if code != 200:
+            raise AssertionError(f"/chat answered {code}: {out}")
+        sid = out["session_id"]
+        history += turn
+        transcripts.append(list(history))
+        history += out["token_ids"]
+        replies.append(out)
+    return replies, transcripts
+
+
+def phase_chat(card):
+    """(d) four-turn /chat over bf16 and int8 arenas (launches, reuse,
+    TTFT), then at f32 every turn against /generate over the transcript."""
+    import numpy as np
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    launches, out = {}, {}
+    for kv, counter in (("auto", "paged_decode"), ("int8", "paged_decode_int8")):
+        trainer = SFTTrainer(greedy_serving_config(kv_cache_dtype=kv, sessions=True))
+        n_layers = trainer.model_cfg.n_layers
+        server = trainer.serve(port=0, background=True)
+        try:
+            http(server.url, "/chat", {"prompt_ids": [1, 2, 3], "max_new_tokens": 2})  # warm-up
+            d0 = server.engine.kv_stats()["kv_kernel_dispatches"]
+            kernels.reset_launches()
+            replies, transcripts = chat(server.url, CHAT_TURNS, np.random.RandomState(7))
+            got = dict(kernels.LAUNCHES)
+            dispatches = server.engine.kv_stats()["kv_kernel_dispatches"] - d0
+            fresh = http(server.url, "/generate", {
+                "prompt_ids": np.random.RandomState(8).randint(0, 256, len(transcripts[-1])).tolist(),
+                "max_new_tokens": CHAT_NEW})[1]
+        finally:
+            server.shutdown()
+        reused = [r["retained_blocks"] for r in replies]
+        prefill = [r["prefill_tokens"] for r in replies]
+        ttft = [r["ttft_s"] for r in replies]
+        log(f"[serving] (d) /chat kv={kv}: {len(replies)} turns, retained blocks reused {reused}, prefill tokens "
+            f"{prefill} of transcripts {[len(t) for t in transcripts]}; TTFT by turn {[round(x, 4) for x in ttft]} "
+            f"s, a fresh prompt of turn 4's length {fresh['ttft_s']:.4f} s; {dispatches} decode dispatches, "
+            f"launches {got} ({card})")
+        if got.get(counter, 0) != dispatches * n_layers or dispatches <= 0:
+            raise AssertionError(f"{counter} launches {got} != {dispatches} dispatches x {n_layers}")
+        if not all(r > 0 for r in reused[1:]) or not all(r["retained_hit"] for r in replies[1:]):
+            raise AssertionError(f"retained blocks not reused: {reused}")
+        launches[f"chat_{kv}"] = got
+        out[kv] = dict(retained_blocks=reused, prefill_tokens=prefill, transcript_tokens=[len(t) for t in transcripts],
+                       ttft_s=ttft, fresh_ttft_s=fresh["ttft_s"], dispatches=dispatches)
+        del trainer, server
+        release()
+    return launches, out
+
+
+def phase_chat_f32(trainer):
+    """(d) at f32: every chat turn equals /generate over its transcript."""
+    import numpy as np
+
+    server = trainer.serve(port=0, background=True)
+    try:
+        replies, transcripts = chat(server.url, CHAT_TURNS, np.random.RandomState(9))
+        fresh = [http(server.url, "/generate", {"prompt_ids": t, "max_new_tokens": CHAT_NEW})[1]["token_ids"]
+                 for t in transcripts]
+    finally:
+        server.shutdown()
+    same = sum(r["token_ids"] == f for r, f in zip(replies, fresh))
+    log(f"[serving] (d) f32 /chat: {same}/{len(replies)} turns equal to /generate over the whole transcript "
+        f"(retained blocks {[r['retained_blocks'] for r in replies]})")
+    if same != len(replies):
+        raise AssertionError(f"chat {[r['token_ids'] for r in replies]} vs generate {fresh}")
+    return same
+
+
+def phase_serving_features(card, paged4):
+    """Phase 17. `paged4` holds phase 4's bf16 numbers. Returns ({part:
+    launches}, numbers)."""
+    import shutil
+
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    work = ROOT / "build" / "chip_smoke_serving"
+    shutil.rmtree(work, ignore_errors=True)
+    _, fixed = serve_and_check(serving_config(kv_paging=False), 16, None, card)
+    # phase 4's burst was the process's first: its prefills met each GEMM
+    # shape cold. The same burst on the paged pool now, every shape warm
+    _, paged = serve_and_check(serving_config(), 16, "paged_decode", card)
+    for name, other in (("phase 4's paged pool (the first burst of the process)", paged4),
+                        ("the paged pool just after, warm", paged)):
+        log(f"[serving] (a) default inference section (fixed-slot pool) vs {name}, 16 requests: "
+            f"tokens_per_s {fixed['tokens_per_s']:.1f} vs {other['tokens_per_s']:.1f} "
+            f"({fixed['tokens_per_s'] / other['tokens_per_s']:.3f}x), median TTFT {fixed['median_ttft_s']:.4f} vs "
+            f"{other['median_ttft_s']:.4f} s ({card})")
+    reload = phase_reload(card, work)
+    chat_launches, chats = phase_chat(card)
+    f32 = SFTTrainer(f32_serving_config(sessions=True))
+    fixed_equal = phase_fixed_slot_greedy(f32)
+    chat_equal = phase_chat_f32(f32)
+    spec_launches, spec = phase_spec_engine(f32, card)
+    del f32
+    release()
+    launches = {"fixed_slot": fixed["launches"], **chat_launches,
+                **{f"spec_{name}": n for name, n in spec_launches.items()}}
+    return launches, dict(fixed_slot=dict(fixed, paged_phase4=paged4, paged_warm=paged, f32_streams_equal=fixed_equal),
+                          reload=reload, chat=dict(chats, f32_turns_equal=chat_equal), spec=spec)
+
+
 def main() -> int:
     import torch
 
@@ -2478,8 +2901,8 @@ def main() -> int:
             log(f"[build] {name}: {line}")
 
     timings, errs = phase_kernels(device)
-    launches_bf16 = serve_and_check(serving_config(), 16, "paged_decode", card)
-    launches_int8 = serve_and_check(serving_config(kv_cache_dtype="int8"), 8, "paged_decode_int8", card)
+    launches_bf16, serve_bf16 = serve_and_check(serving_config(), 16, "paged_decode", card)
+    launches_int8, _ = serve_and_check(serving_config(kv_cache_dtype="int8"), 8, "paged_decode_int8", card)
     phase_greedy()
     train_timings, train_errs = phase_train_kernels(device)
     train_launches, _ = phase_train(card)
@@ -2492,6 +2915,7 @@ def main() -> int:
     ilql_launches, ilql = phase_ilql(card)
     grpo_launches, grpo = phase_grpo(card, ppo_metrics)
     rft_launches, rft = phase_rft(card)
+    serving_launches, serving = phase_serving_features(card, serve_bf16)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -2506,6 +2930,7 @@ def main() -> int:
              launches_ilql=ilql_launches.get("paged_decode", 0),
              launches_grpo={t: n.get("paged_decode", 0) for t, n in grpo_launches.items()},
              launches_rft=rft_launches.get("paged_decode", 0),
+             launches_serving={t: n.get("paged_decode", 0) for t, n in serving_launches.items()},
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
@@ -2516,6 +2941,7 @@ def main() -> int:
              launches_ilql=ilql_launches.get("paged_decode_int8", 0),
              launches_grpo={t: n.get("paged_decode_int8", 0) for t, n in grpo_launches.items()},
              launches_rft=rft_launches.get("paged_decode_int8", 0),
+             launches_serving={t: n.get("paged_decode_int8", 0) for t, n in serving_launches.items()},
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
     ]}
     train_rows = [
@@ -2563,6 +2989,8 @@ def main() -> int:
     # phase 15's and 16's
     report["grpo"] = grpo
     report["rft"] = rft
+    # phase 17's checks and numbers
+    report["serving"] = serving
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

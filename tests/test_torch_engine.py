@@ -178,7 +178,7 @@ def test_topk_and_topp_masks_match_jax(k):
 def test_not_ported_options_raise(trainers):
     _, ttr = trainers["gpt2-tiny"]
     gen = _gen(GenerationConfig, ttr)
-    with pytest.raises(NotImplementedError, match="fixed-slot"):
-        InferenceEngine(ttr.model, ttr.model_cfg, None, gen, kv_paging=False)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        InferenceEngine(ttr.model, ttr.model_cfg, None, gen, kv_paging=True, spec_k=2)
+    with pytest.raises(NotImplementedError, match="multi-tenant adapters"):
+        InferenceEngine(ttr.model, ttr.model_cfg, None, gen, kv_paging=True, multi_tenant=True)
+    with pytest.raises(NotImplementedError, match="compile and HBM ledgers"):
+        InferenceEngine(ttr.model, ttr.model_cfg, None, gen, kv_paging=True, hbm_ledger=object())

@@ -87,9 +87,12 @@ def test_greedy_generate_matches_jax_server(servers, prompt, max_new):
 
 def test_not_ported_surface_answers_501(servers):
     _, tsrv = servers
+    req = urllib.request.Request(tsrv.url + "/admin/adapters", data=json.dumps({"load": "a"}).encode(),
+                                 headers={"Content-Type": "application/json"})
     with pytest.raises(urllib.error.HTTPError) as err:
-        _post(tsrv.url, {"prompt": "hi", "stream": True})
+        urllib.request.urlopen(req, timeout=60)
     assert err.value.code == 501
+    assert "ROADMAP queue A, item 4" in json.loads(err.value.read())["error"]
 
 
 def test_kernel_failure_answers_500_and_stops_serving(monkeypatch):

@@ -236,7 +236,8 @@ def test_sft_checkpoint_round_trip(trained):
     into a fresh trainer with equal parameters, optimizer state and step."""
     tt = trained["tt"]
     directory = os.path.join(tt.config.train.checkpoint_dir, f"checkpoint_{STEPS}")
-    assert sorted(os.listdir(directory)) == ["hf_model", "manifest.json", "state.pt", "trainer_state.json"]
+    assert sorted(os.listdir(directory)) == ["hf_model", "manifest.json", "model.pt", "state.pt",
+                                             "trainer_state.json"]
     assert os.path.exists(os.path.join(directory, "hf_model", "pytorch_model.bin"))
     fresh = SFTTrainer(tt.config, device="cpu")
     fresh.load(directory)

@@ -1,7 +1,8 @@
-"""Exception classes the scheduler and server name for features this
-package has not ported yet (multi-tenant adapters, chat sessions). They
-are plain copies so the copied control flow stays intact; nothing in
-this package raises them until those features land (ROADMAP queue A)."""
+"""Exception classes the scheduler names for multi-tenant adapters, a
+feature this package has not ported yet (ROADMAP queue A, item 4, with
+LoRA). They are plain copies so the copied control flow stays intact;
+nothing in this package raises them until adapters land. The session
+errors live with the session store (`inference/sessions.py`)."""
 
 
 class AdapterError(RuntimeError):
@@ -10,7 +11,3 @@ class AdapterError(RuntimeError):
 
 class AdapterCapacityError(AdapterError):
     """The request set needs more adapter slots than are free."""
-
-
-class SessionError(RuntimeError):
-    """Base class for session-layer refusals."""

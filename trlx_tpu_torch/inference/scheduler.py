@@ -980,15 +980,17 @@ class Scheduler:
         stats = self.engine.kv_stats() if hasattr(self.engine, "kv_stats") else {}
         if not stats:
             return
-        for name in (
-            "kv_blocks_total", "kv_blocks_free", "kv_blocks_used",
-            "kv_pool_bytes", "prefix_cache_idle_blocks",
-        ):
-            self.metrics.set_gauge(name, stats[name])
-        for name in (
-            "prefix_cache_hits", "prefix_cache_misses", "prefix_cache_evictions",
-        ):
-            self.metrics.set_counter(name, stats[name])
+        # the fixed-slot pool reports the kernel accounting alone
+        if "kv_blocks_total" in stats:
+            for name in (
+                "kv_blocks_total", "kv_blocks_free", "kv_blocks_used",
+                "kv_pool_bytes", "prefix_cache_idle_blocks",
+            ):
+                self.metrics.set_gauge(name, stats[name])
+            for name in (
+                "prefix_cache_hits", "prefix_cache_misses", "prefix_cache_evictions",
+            ):
+                self.metrics.set_counter(name, stats[name])
         # paged decode kernel dispatch accounting (absolute-synced like
         # the prefix-cache counters; fallbacks keyed by reason label)
         if "kv_kernel_dispatches" in stats:

@@ -1,0 +1,409 @@
+"""Multi-turn chat sessions over the paged KV pool.
+
+Port of the JAX package's `inference/sessions.py` (plain Python, copied
+so the port imports nothing of that package).
+
+A session is a conversation whose leading KV blocks stay resident
+between requests: turn N+1 prefills only its delta tokens against the
+blocks turn N already wrote — the shared-prefix mechanism of
+`paging.BlockPool`, with the references held by the conversation
+instead of an in-flight request.
+
+Retention follows the prefix store's boundary rule: only the leading
+FULL blocks of the conversation are pinned, and the last block is
+excluded when the history ends exactly on a boundary — at least one
+suffix token always prefills on the next turn (the engine never stores
+last-position logits), and the final sampled token of a turn (whose KV
+was never written — it was sampled but not fed back) can never sit
+inside a retained block. Speculative-decode slack writes land past the
+slot's live length, also outside the retained prefix.
+
+Consistency: retained KV is only valid under the weights that wrote
+it. A checkpoint hot-swap (`engine.set_params`) or a per-adapter
+reload invalidates the affected sessions — their pins release
+immediately and the NEXT turn is refused with `SessionResetError`
+(HTTP 409 `session_reset`), never silently served from stale KV.
+
+Eviction is two-tier and always metadata-preserving where possible:
+
+- **block pressure / byte budget** — idle sessions lose their pinned
+  blocks LRU-first (`evict_for_blocks`), but keep their token history;
+  the next turn transparently re-prefills the full conversation.
+- **TTL / session-count pressure** — whole sessions (metadata
+  included) are dropped; the next turn gets a 409 and the client
+  re-creates the session from its own copy of the history.
+
+Thread safety: every method takes `lock` — the ENGINE's `_kv_lock`
+(re-entrant), shared so session pins and block-pool mutations can
+never interleave, and so the engine's insert path may call back into
+the store while already holding it.
+"""
+
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+class SessionError(RuntimeError):
+    """Base class for session-layer refusals."""
+
+
+class SessionResetError(SessionError):
+    """The session's retained state is gone (weights updated, adapter
+    reloaded, TTL expiry, or an unknown id). The server maps this to
+    HTTP 409 `session_reset`; the client re-creates the session by
+    resending the full conversation."""
+
+    def __init__(self, session_id: str, reason: str):
+        self.session_id = session_id
+        self.reason = reason
+        super().__init__(f"session '{session_id}' reset: {reason}")
+
+
+class SessionBusyError(SessionError):
+    """A turn is already in flight for this session (one turn at a
+    time — interleaved turns would race the retained block table)."""
+
+    def __init__(self, session_id: str):
+        self.session_id = session_id
+        super().__init__(f"session '{session_id}' has a turn in flight")
+
+
+class SessionLimitError(SessionError):
+    """The store is at `max_sessions` and every session is busy — the
+    server maps this to 503 + Retry-After like queue backpressure."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        super().__init__(f"session store full ({limit} sessions, all busy)")
+
+
+@dataclass
+class Session:
+    id: str
+    adapter_id: Optional[str]
+    created: float
+    last_used: float
+    # full conversation token history the retained blocks were written
+    # under: the next turn's prompt must extend tokens[:covered_tokens]
+    tokens: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
+    blocks: List[int] = field(default_factory=list)
+    turns: int = 0
+    busy: bool = False
+    reset_reason: Optional[str] = None
+    # per-turn insert stats, filled by the engine while the turn is in
+    # flight (one turn at a time, so no race) and echoed in the reply
+    last_reused_blocks: int = 0
+    last_prefill_tokens: int = 0
+
+    def covered_tokens(self, block_size: int) -> int:
+        return len(self.blocks) * block_size
+
+
+class SessionStore:
+    """Per-conversation retained-block registry over one `BlockPool`.
+
+    :param pool: the engine's BlockPool (pins are plain refcounts).
+    :param block_size: tokens per block.
+    :param lock: the engine's re-entrant KV lock, shared.
+    :param ttl_s: idle seconds before `sweep` drops a session.
+    :param max_sessions: live-session cap; creating past it evicts the
+        oldest idle session, or raises SessionLimitError if all busy.
+    :param bytes_budget: total retained-KV byte budget (0 = unbounded);
+        enforced after each retention by un-pinning idle sessions
+        LRU-first (history kept — next turn re-prefills).
+    :param block_bytes: device bytes per block (engine-computed), the
+        unit of the byte budget and of per-session accounting.
+    """
+
+    def __init__(
+        self,
+        pool,
+        block_size: int,
+        lock: Optional[threading.RLock] = None,
+        ttl_s: float = 600.0,
+        max_sessions: int = 256,
+        bytes_budget: int = 0,
+        block_bytes: int = 0,
+    ):
+        self.pool = pool
+        self.block_size = int(block_size)
+        self.lock = lock if lock is not None else threading.RLock()
+        self.ttl_s = float(ttl_s)
+        self.max_sessions = int(max_sessions)
+        self.bytes_budget = int(bytes_budget)
+        self.block_bytes = int(block_bytes)
+        self._sessions: Dict[str, Session] = {}
+        # lifetime counters (metrics/healthz)
+        self.created = 0
+        self.retained_hits = 0  # follow-up turns that reused >= 1 block
+        self.retained_blocks_reused = 0
+        self.evictions_ttl = 0
+        self.evictions_lru = 0  # whole sessions dropped for count pressure
+        self.evictions_blocks = 0  # sessions un-pinned for block pressure
+        self.resets = 0  # weight/adapter invalidations
+
+    # ------------------------------------------------------------------
+    # Turn lifecycle (HTTP threads begin/end, the loop thread retains)
+    # ------------------------------------------------------------------
+
+    def create(self, adapter_id: Optional[str] = None) -> Session:
+        """Open a fresh session (no retained blocks yet)."""
+        now = time.monotonic()
+        with self.lock:
+            self._sweep_locked(now)
+            if len(self._sessions) >= self.max_sessions:
+                if not self._evict_one_idle_locked():
+                    raise SessionLimitError(self.max_sessions)
+            sess = Session(
+                id=uuid.uuid4().hex[:16], adapter_id=adapter_id,
+                created=now, last_used=now, busy=True,
+            )
+            self._sessions[sess.id] = sess
+            self.created += 1
+            return sess
+
+    def begin_turn(self, session_id: str, adapter_id: Optional[str] = None) -> Session:
+        """Claim an existing session for one turn. Raises
+        SessionResetError for unknown/reset/expired ids (removing the
+        session — the 409 is its delivery), SessionBusyError when a turn
+        is already in flight, ValueError on adapter mismatch."""
+        now = time.monotonic()
+        with self.lock:
+            self._sweep_locked(now)
+            sess = self._sessions.get(session_id)
+            if sess is None:
+                raise SessionResetError(session_id, "unknown_session")
+            if sess.reset_reason is not None:
+                reason = sess.reset_reason
+                self._drop_locked(sess)
+                raise SessionResetError(session_id, reason)
+            if sess.busy:
+                raise SessionBusyError(session_id)
+            if sess.adapter_id != adapter_id:
+                raise ValueError(
+                    f"session '{session_id}' belongs to adapter "
+                    f"{sess.adapter_id!r}, request asked for {adapter_id!r}"
+                )
+            sess.busy = True
+            sess.last_used = now
+            return sess
+
+    def end_turn(self, sess: Session) -> None:
+        """Release the busy claim (every finish path, including failures
+        and resets delivered mid-flight)."""
+        with self.lock:
+            sess.busy = False
+            sess.last_used = time.monotonic()
+
+    def retain_turn(self, sess: Session, slot_blocks: List[int], full_ids) -> int:
+        """Pin the finished turn's leading full blocks for the next one.
+
+        Called on the loop thread BEFORE the slot's blocks are
+        reclaimed, so every block still holds the in-flight request's
+        reference. `full_ids` is the whole conversation (prompt + this
+        turn's emitted tokens). Skipped (returns 0) when the session was
+        invalidated mid-flight. Returns the number of blocks now pinned."""
+        full_ids = np.asarray(full_ids, np.int32).reshape(-1)
+        with self.lock:
+            if sess.reset_reason is not None or sess.id not in self._sessions:
+                return 0
+            n_keep = (full_ids.size - 1) // self.block_size
+            n_keep = min(n_keep, len(slot_blocks))
+            new_blocks = list(slot_blocks[:n_keep])
+            old_blocks = sess.blocks
+            # retain-then-release: the old pins are a prefix of the new
+            # set, so no refcount ever touches zero in between
+            self.pool.retain(new_blocks)
+            self.pool.release(old_blocks)
+            sess.blocks = new_blocks
+            sess.tokens = full_ids
+            sess.turns += 1
+            sess.last_used = time.monotonic()
+            self._enforce_bytes_budget_locked(keep=sess)
+            return n_keep
+
+    # ------------------------------------------------------------------
+    # Engine insert-path hooks (loop thread, engine lock already held)
+    # ------------------------------------------------------------------
+
+    def acquire_blocks(self, sess: Session, full_ids) -> List[int]:
+        """Take per-request references on the session's retained blocks
+        if they cover a prefix of `full_ids`; [] otherwise (fresh
+        session, evicted blocks, or a history mismatch — all of which
+        fall back to a clean full prefill). The request's own refs make
+        the blocks release-safe through the normal slot reclaim path."""
+        with self.lock:
+            if sess.reset_reason is not None or not sess.blocks:
+                return []
+            full_ids = np.asarray(full_ids, np.int32).reshape(-1)
+            cov = sess.covered_tokens(self.block_size)
+            if full_ids.size <= cov or not np.array_equal(
+                full_ids[:cov], sess.tokens[:cov]
+            ):
+                return []
+            self.pool.retain(sess.blocks)
+            return list(sess.blocks)
+
+    def evict_for_blocks(self, needed: int) -> int:
+        """Release idle sessions' pins LRU-first until the pool can
+        serve `needed` blocks (engine insert under pressure). Sessions
+        keep their token history — the next turn re-prefills. Returns
+        blocks freed."""
+        freed = 0
+        with self.lock:
+            while self.pool.available() < needed:
+                victim = self._oldest_idle_locked(with_blocks=True)
+                if victim is None:
+                    break
+                freed += self._unpin_locked(victim)
+                self.evictions_blocks += 1
+        return freed
+
+    def evictable_blocks(self) -> int:
+        """Blocks reclaimable from idle sessions (admission budgets).
+        Exact: session blocks carry no prefix-store keys, so an idle
+        session's pins are the only references and releasing them frees
+        the blocks."""
+        with self.lock:
+            return sum(
+                len(s.blocks) for s in self._sessions.values() if not s.busy
+            )
+
+    # ------------------------------------------------------------------
+    # Invalidation (weight swaps) + expiry
+    # ------------------------------------------------------------------
+
+    def invalidate_all(self, reason: str) -> int:
+        """Every retained block was written under superseded weights:
+        release all pins now and mark every session reset — the next
+        turn on each gets the 409. In-flight turns keep their own block
+        references (same contract as in-flight requests across a
+        hot-swap) but skip retention at finish."""
+        with self.lock:
+            n = 0
+            for sess in self._sessions.values():
+                if sess.reset_reason is None:
+                    self._unpin_locked(sess)
+                    sess.reset_reason = reason
+                    n += 1
+                    self.resets += 1
+            return n
+
+    def invalidate_adapter(self, adapter_id: Optional[str], reason: str = "adapter_reload") -> int:
+        """Per-adapter hot-reload: only that adapter's sessions go stale."""
+        with self.lock:
+            n = 0
+            for sess in self._sessions.values():
+                if sess.adapter_id == adapter_id and sess.reset_reason is None:
+                    self._unpin_locked(sess)
+                    sess.reset_reason = reason
+                    n += 1
+                    self.resets += 1
+            return n
+
+    def sweep(self, now: Optional[float] = None) -> int:
+        """Drop sessions idle past the TTL (periodic, from the scheduler
+        loop and lazily from the turn entry points)."""
+        with self.lock:
+            return self._sweep_locked(now if now is not None else time.monotonic())
+
+    def _sweep_locked(self, now: float) -> int:
+        if self.ttl_s <= 0:
+            return 0
+        doomed = [
+            s for s in self._sessions.values()
+            if not s.busy and now - s.last_used > self.ttl_s
+        ]
+        for sess in doomed:
+            self._drop_locked(sess)
+            self.evictions_ttl += 1
+        return len(doomed)
+
+    # ------------------------------------------------------------------
+    # Internals (lock held)
+    # ------------------------------------------------------------------
+
+    def _oldest_idle_locked(self, with_blocks: bool = False) -> Optional[Session]:
+        best = None
+        for sess in self._sessions.values():
+            if sess.busy or (with_blocks and not sess.blocks):
+                continue
+            if best is None or sess.last_used < best.last_used:
+                best = sess
+        return best
+
+    def _unpin_locked(self, sess: Session) -> int:
+        n = len(sess.blocks)
+        if n:
+            self.pool.release(sess.blocks)
+            sess.blocks = []
+        return n
+
+    def _drop_locked(self, sess: Session) -> None:
+        self._unpin_locked(sess)
+        self._sessions.pop(sess.id, None)
+
+    def _evict_one_idle_locked(self) -> bool:
+        victim = self._oldest_idle_locked()
+        if victim is None:
+            return False
+        self._drop_locked(victim)
+        self.evictions_lru += 1
+        return True
+
+    def _enforce_bytes_budget_locked(self, keep: Session) -> None:
+        if not self.bytes_budget or not self.block_bytes:
+            return
+        def total() -> int:
+            return self.block_bytes * sum(
+                len(s.blocks) for s in self._sessions.values()
+            )
+        while total() > self.bytes_budget:
+            victim = None
+            for sess in self._sessions.values():
+                if sess is keep or sess.busy or not sess.blocks:
+                    continue
+                if victim is None or sess.last_used < victim.last_used:
+                    victim = sess
+            if victim is None:
+                break
+            self._unpin_locked(victim)
+            self.evictions_blocks += 1
+
+    # ------------------------------------------------------------------
+    # Introspection
+    # ------------------------------------------------------------------
+
+    def get(self, session_id: str) -> Optional[Session]:
+        with self.lock:
+            return self._sessions.get(session_id)
+
+    def __len__(self) -> int:
+        with self.lock:
+            return len(self._sessions)
+
+    def retained_blocks(self) -> int:
+        with self.lock:
+            return sum(len(s.blocks) for s in self._sessions.values())
+
+    def stats(self) -> Dict[str, float]:
+        with self.lock:
+            retained = sum(len(s.blocks) for s in self._sessions.values())
+            return {
+                "sessions_active": len(self._sessions),
+                "sessions_max": self.max_sessions,
+                "session_retained_blocks": retained,
+                "session_retained_bytes": retained * self.block_bytes,
+                "session_created_total": self.created,
+                "session_retained_hits_total": self.retained_hits,
+                "session_retained_blocks_reused_total": self.retained_blocks_reused,
+                "session_evictions_ttl_total": self.evictions_ttl,
+                "session_evictions_lru_total": self.evictions_lru,
+                "session_evictions_blocks_total": self.evictions_blocks,
+                "session_resets_total": self.resets,
+            }

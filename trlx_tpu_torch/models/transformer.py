@@ -648,12 +648,15 @@ class TransformerLM(nn.Module):
         cache: Dict[str, Any],
         token_mask: torch.Tensor,  # [b, 1] validity (0 = finished row)
         split: int,
+        attn_kernel: Optional[str] = None,  # paged read path: None (gather) | "kernel"
     ):
         """One per-row cached step of the trunk only (blocks [0, split)) for
-        self-speculative drafting, over the fixed-slot dense cache with
-        per-row offsets (`cache["row_index"]`, [b]). Writes the trunk's K/V
-        at each row's own column and the row's mask bit, leaves the suffix
-        layers' caches to the verify pass. A drafted position becomes a
+        self-speculative drafting, over the fixed-slot dense cache or the
+        paged arena, with per-row offsets (`cache["row_index"]`, [b]). Writes
+        the trunk's K/V at each row's own column and the row's mask bit,
+        leaves the suffix layers' caches to the verify pass. The step is
+        decode-shaped (t = 1), so over the arena it reads through the paged
+        decode kernel when `attn_kernel` asks for it. A drafted position becomes a
         visible key only once its mask bit is set, so a rejected draft rolls
         back by clearing bits, and stale K/V past the frontier contributes
         exactly 0 (exp(-1e9) is 0.0 in f32). Returns (h_split [b, 1, d],
@@ -670,7 +673,8 @@ class TransformerLM(nn.Module):
         new_mask = mask.scatter(1, col, val)
         bias = decode_bias(new_mask, 1)
         h = self.embed(tokens, positions)
-        h, _ = self.run_blocks(h, bias, positions, cache["layers"], row_index, attn_mask=token_mask, stop=split)
+        h, _ = self.run_blocks(h, bias, positions, cache["layers"], row_index, attn_mask=token_mask,
+                               attn_kernel=attn_kernel, stop=split)
         new_cache = {
             "row_index": row_index + step_valid,
             "mask": new_mask,

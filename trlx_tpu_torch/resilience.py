@@ -1,6 +1,6 @@
 """Preemption handling and checkpoint retention for the learn loop.
 
-Port of two parts of the JAX package's `resilience.py`:
+Port of the JAX package's `resilience.py`, but for its fault injector:
 
 - `PreemptionGuard` turns SIGTERM/SIGINT into a flag that the trainer
   polls at step boundaries; the trainer then writes a manifest-complete
@@ -8,7 +8,12 @@ Port of two parts of the JAX package's `resilience.py`:
   scheduler can tell "preempted, resume me" from a crash;
 - `list_checkpoints` and `gc_checkpoints` (`train.checkpoint_keep_n`):
   after each step checkpoint the trainer keeps the newest N and never
-  deletes `best_checkpoint`, `last_good` or the latest.
+  deletes `best_checkpoint`, `last_good` or the latest;
+- `is_valid_checkpoint` and `find_latest_valid_checkpoint`: the
+  inference server's hot-reload loads only manifest-complete checkpoints;
+- `retry`, `compute_backoff` and `CircuitBreaker` (with
+  `TransientError` and `CircuitOpenError`): the retrying HTTP client
+  (`utils/http.py`) under the inference client.
 
 `auto_resume` and the fault injector are not ported yet (ROADMAP queue
 A, item 4).
@@ -16,9 +21,12 @@ A, item 4).
 
 import json
 import os
+import random
 import shutil
 import signal
-from typing import List, Optional, Tuple
+import threading
+import time
+from typing import Callable, List, Optional, Tuple, Type
 
 from trlx_tpu_torch.utils import logging
 
@@ -29,6 +37,8 @@ logger = logging.get_logger(__name__)
 PREEMPTION_EXIT_CODE = 75
 
 MANIFEST_NAME = "manifest.json"
+# the policy's state dict alone, tensors only: what a server reloads
+MODEL_FILE = "model.pt"
 # never removed by retention: the best evaluation's checkpoint and the
 # sentinel's rewind target
 PROTECTED_CHECKPOINT_NAMES = ("best_checkpoint", "last_good")
@@ -42,6 +52,15 @@ class PreemptionInterrupt(BaseException):
     def __init__(self, signum: int):
         self.signum = signum
         super().__init__(f"preempted by signal {signum}")
+
+
+class CircuitOpenError(RuntimeError):
+    """The circuit breaker is open: the dependency is considered down and
+    calls fail fast without touching it."""
+
+
+class TransientError(RuntimeError):
+    """A retryable failure (connection drop, timeout, HTTP 5xx)."""
 
 
 class PreemptionGuard:
@@ -101,6 +120,12 @@ def read_manifest(directory: str) -> Optional[dict]:
         return None
 
 
+def is_valid_checkpoint(directory: str) -> bool:
+    """A checkpoint is valid iff its manifest exists and parses."""
+    manifest = read_manifest(directory)
+    return manifest is not None and "step" in manifest
+
+
 def list_checkpoints(checkpoint_dir: str) -> List[Tuple[int, float, str]]:
     """Every manifest-complete checkpoint under `checkpoint_dir`, as
     (step, wall_time, path), oldest first."""
@@ -118,6 +143,18 @@ def list_checkpoints(checkpoint_dir: str) -> List[Tuple[int, float, str]]:
             continue
         out.append((int(manifest["step"]), float(manifest.get("wall_time", 0.0)), path))
     return sorted(out)
+
+
+def find_latest_valid_checkpoint(checkpoint_dir: str) -> Optional[str]:
+    """Newest manifest-complete checkpoint (highest step, then newest
+    wall time); incomplete ones are skipped in favour of the previous
+    valid one. `best_checkpoint` is left out: it tracks the best
+    evaluation, not the training frontier."""
+    candidates = [
+        path for _, _, path in list_checkpoints(checkpoint_dir)
+        if os.path.basename(path) != "best_checkpoint"
+    ]
+    return candidates[-1] if candidates else None
 
 
 def gc_checkpoints(checkpoint_dir: str, keep_n: int) -> List[str]:
@@ -138,3 +175,146 @@ def gc_checkpoints(checkpoint_dir: str, keep_n: int) -> List[str]:
     if deleted:
         logger.info(f"Checkpoint GC: removed {len(deleted)} old checkpoint(s), keeping newest {keep_n} + protected")
     return deleted
+
+
+# ----------------------------------------------------------------------
+# Retry and circuit breaker (the HTTP client's)
+# ----------------------------------------------------------------------
+
+
+def compute_backoff(
+    attempt: int,
+    base_delay: float,
+    max_delay: float,
+    jitter: float,
+    rng: Optional[random.Random] = None,
+) -> float:
+    """Exponential backoff with multiplicative jitter: delay for retry
+    `attempt` (0-based) is `base * 2**attempt`, capped at `max_delay`,
+    scaled by a uniform factor in [1-jitter, 1+jitter]."""
+    delay = min(max_delay, base_delay * (2.0 ** attempt))
+    if jitter > 0:
+        u = (rng or random).uniform(1.0 - jitter, 1.0 + jitter)
+        delay *= max(0.0, u)
+    return delay
+
+
+def retry(
+    retries: int = 5,
+    base_delay: float = 0.25,
+    max_delay: float = 30.0,
+    jitter: float = 0.5,
+    max_elapsed: Optional[float] = None,
+    retry_on: Tuple[Type[BaseException], ...] = (TransientError,),
+    on_retry: Optional[Callable[[int, BaseException, float], None]] = None,
+    sleep: Callable[[float], None] = time.sleep,
+    clock: Callable[[], float] = time.monotonic,
+    rng: Optional[random.Random] = None,
+):
+    """Decorator: retry transient failures with exponential backoff.
+
+    :param retries: retry attempts after the first call (0 = no retries).
+    :param max_elapsed: total budget in seconds across all attempts; once
+        spent, the last exception is raised even if retries remain.
+    :param retry_on: exception types considered transient; anything else
+        propagates at once.
+    :param on_retry: callback(attempt, exception, delay) before each sleep.
+    :param sleep/clock/rng: injectable for deterministic tests.
+    """
+
+    def decorate(fn):
+        def wrapped(*args, **kwargs):
+            start = clock()
+            attempt = 0
+            while True:
+                try:
+                    return fn(*args, **kwargs)
+                except retry_on as e:
+                    elapsed = clock() - start
+                    if attempt >= retries or (max_elapsed is not None and elapsed >= max_elapsed):
+                        raise
+                    delay = compute_backoff(attempt, base_delay, max_delay, jitter, rng)
+                    # the dependency's own backoff hint (a 503's Retry-After)
+                    # overrides a shorter local schedule, capped at max_delay
+                    hint = getattr(e, "retry_after", None)
+                    if hint is not None:
+                        delay = min(max(delay, float(hint)), max_delay)
+                    if max_elapsed is not None:
+                        delay = min(delay, max(0.0, max_elapsed - elapsed))
+                    if on_retry is not None:
+                        on_retry(attempt, e, delay)
+                    else:
+                        logger.warning(
+                            f"Transient failure in {getattr(fn, '__name__', fn)} "
+                            f"(attempt {attempt + 1}/{retries + 1}): {e}; retrying in {delay:.2f}s"
+                        )
+                    sleep(delay)
+                    attempt += 1
+
+        wrapped.__name__ = getattr(fn, "__name__", "retry_wrapped")
+        wrapped.__doc__ = fn.__doc__
+        return wrapped
+
+    return decorate
+
+
+class CircuitBreaker:
+    """Consecutive-failure circuit breaker.
+
+    Closed: calls flow. After `failure_threshold` consecutive failures the
+    breaker opens and `check()` raises `CircuitOpenError` without touching
+    the dependency. After `recovery_time` seconds it half-opens: one probe
+    call is allowed; success closes it, failure re-opens it. Thread-safe:
+    half-open admits exactly one probe under concurrent callers.
+    """
+
+    def __init__(
+        self,
+        failure_threshold: int = 5,
+        recovery_time: float = 30.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.failure_threshold = failure_threshold
+        self.recovery_time = recovery_time
+        self._clock = clock
+        self.failures = 0
+        self.opened_at: Optional[float] = None
+        self._half_open = False
+        self._lock = threading.Lock()
+
+    @property
+    def state(self) -> str:
+        if self.opened_at is None:
+            return "closed"
+        if self._clock() - self.opened_at >= self.recovery_time:
+            return "half-open"
+        return "open"
+
+    def check(self) -> None:
+        """Raise CircuitOpenError if calls must fail fast."""
+        with self._lock:
+            state = self.state
+            if state == "closed":
+                return
+            if state == "half-open" and not self._half_open:
+                self._half_open = True  # admit exactly one probe
+                return
+            raise CircuitOpenError(
+                f"circuit open after {self.failures} consecutive failures; retrying dependency in "
+                f"{max(0.0, self.recovery_time - (self._clock() - self.opened_at)):.1f}s"
+            )
+
+    def record_success(self) -> None:
+        with self._lock:
+            self.failures = 0
+            self.opened_at = None
+            self._half_open = False
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self.failures += 1
+            self._half_open = False
+            if self.failures >= self.failure_threshold:
+                if self.opened_at is None:
+                    logger.warning(f"Circuit breaker OPEN after {self.failures} consecutive failures")
+                self.opened_at = self._clock()

@@ -8,8 +8,10 @@ the frozen blocks run the forward-only attention kernel. Gradient
 accumulation over microbatches sums the microbatch gradients and divides
 by their number before the update, as the JAX trainer's accumulate/apply
 pair does. Checkpoints keep the JAX layout's atomic stage-and-promote:
-everything goes into a sibling `.tmp` directory (`state.pt` from
-`torch.save`, `trainer_state.json`), `manifest.json` is written last and
+everything goes into a sibling `.tmp` directory (the policy's state
+dict alone in `model.pt`, which a server reloads with
+`weights_only=True`; the rest of the state in `state.pt`;
+`trainer_state.json`), `manifest.json` is written last and
 one `os.replace` promotes the stage. With `train.checkpoint_keep_n` the
 newest N step checkpoints are kept (`resilience.gc_checkpoints`).
 
@@ -40,7 +42,7 @@ from trlx_tpu_torch import resilience
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models.policy import resolve_split, trainable_mask
 from trlx_tpu_torch.pipeline import MiniBatchIterator
-from trlx_tpu_torch.resilience import MANIFEST_NAME
+from trlx_tpu_torch.resilience import MANIFEST_NAME, MODEL_FILE, is_valid_checkpoint
 from trlx_tpu_torch.tokenizers import get_tokenizer
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.utils import Clock, get_optimizer, get_scheduler, logging, resolve_device, set_seed, significant
@@ -70,6 +72,8 @@ def atomic_write_json(path: str, obj: dict) -> None:
 
 
 def _dir_files_hash(directory: str) -> str:
+    """sha256 over every (relative path, size) pair but the manifest's:
+    detects truncated or missing files without reading the weights."""
     entries = []
     for root, _, files in os.walk(directory):
         for name in files:
@@ -86,14 +90,6 @@ def write_manifest(directory: str, step: int) -> dict:
                 "files_hash": _dir_files_hash(directory)}
     atomic_write_json(os.path.join(directory, MANIFEST_NAME), manifest)
     return manifest
-
-
-def is_valid_checkpoint(directory: str) -> bool:
-    try:
-        with open(os.path.join(directory, MANIFEST_NAME)) as f:
-            return "step" in json.load(f)
-    except (OSError, ValueError):
-        return False
 
 
 # train-config flags of JAX trainer features the port does not run yet
@@ -651,7 +647,8 @@ class TorchTrainer:
             if os.path.isdir(stale):
                 shutil.rmtree(stale, ignore_errors=True)
         os.makedirs(tmp)
-        state = {"model": self.model.state_dict(), "generator": self.generator.get_state()}
+        torch.save(self.model.state_dict(), os.path.join(tmp, MODEL_FILE))
+        state = {"generator": self.generator.get_state()}
         if self.config.train.save_optimizer:
             state["optimizer"] = self.optimizer.state_dict()
             state["scheduler"] = self.scheduler.state_dict()
@@ -677,8 +674,9 @@ class TorchTrainer:
         if os.path.exists(path):
             with open(path) as f:
                 meta = json.load(f)
+        self.model.load_state_dict(torch.load(os.path.join(directory, MODEL_FILE), map_location=self.device,
+                                              weights_only=True))
         state = torch.load(os.path.join(directory, "state.pt"), map_location=self.device, weights_only=False)
-        self.model.load_state_dict(state["model"])
         if bool(meta.get("has_optimizer", True)) and "optimizer" in state:
             self.optimizer.load_state_dict(state["optimizer"])
             self.scheduler.load_state_dict(state["scheduler"])
@@ -734,15 +732,18 @@ class TorchTrainer:
         inference server (config section: `inference`). Generation knobs
         come from the method's gen_kwargs overlaid with
         `inference.gen_kwargs`; `inference.max_new_tokens` caps the
-        per-request budget and sizes the KV pool. `background=True`
-        starts a daemon thread and returns the `InferenceServer` (its
-        `.url` is the base endpoint); otherwise this blocks serving."""
+        per-request budget and sizes the KV pool.
+
+        With `watch_dir` (or `inference.watch_dir`) the server hot-reloads
+        the newest manifest-complete checkpoint of a training run every
+        `inference.reload_interval_s`; `inference.sessions` turns on
+        `/chat` (paged pool only). `background=True` starts a daemon
+        thread and returns the `InferenceServer` (its `.url` is the base
+        endpoint); otherwise this blocks serving."""
         from trlx_tpu_torch.inference import InferenceEngine, InferenceServer, Scheduler
         from trlx_tpu_torch.ops.sampling import GenerationConfig
 
         icfg = self.config.inference
-        if icfg.sessions:
-            raise NotImplementedError("chat sessions are not ported yet (ROADMAP queue A, item 3)")
         gen_kwargs = {**self.generate_kwargs, **(icfg.gen_kwargs or {})}
         gen_kwargs.setdefault("max_new_tokens", icfg.max_new_tokens)
         gen_kwargs["max_new_tokens"] = min(int(gen_kwargs["max_new_tokens"]), icfg.max_new_tokens)
@@ -765,6 +766,12 @@ class TorchTrainer:
             multi_tenant=icfg.multi_tenant,
             decode_kernel=icfg.decode_kernel,
         )
+        if icfg.sessions:
+            engine.enable_sessions(
+                ttl_s=icfg.session_ttl_s,
+                max_sessions=icfg.session_max,
+                bytes_budget_mb=icfg.session_bytes_budget_mb,
+            )
         tracer = None
         if icfg.tracing:
             from trlx_tpu_torch.observability.tracing import Tracer
@@ -783,6 +790,7 @@ class TorchTrainer:
             host=host if host is not None else icfg.host,
             port=port if port is not None else icfg.port,
             watch_dir=watch_dir if watch_dir is not None else icfg.watch_dir,
+            reload_interval_s=icfg.reload_interval_s,
         )
         if background:
             server.start_background()
