@@ -159,6 +159,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    f32: greedy equal to the plain engine under phase 11's tie rule, K1
    launches = (spec_k + 1) x split a dispatch, tokens/s beside the plain
    engine's.
+18. the rollout fleet at phase 9's configuration (random:gpt2-small full
+   width, bf16, flash), collecting through the trainer's own supervised
+   fleet (`train.rollout_backend="fleet"`, `rollout_fleet_supervised`, 2
+   thread replicas of 64 paged slots): (a) PPO through
+   `trlx_tpu_torch.train`, 2 collections and 32 steps: 128 rows a
+   collection, no degraded chunk, K1 = the replicas' decode dispatches x
+   12, phase 9's launches a chunk and a step, every row with the
+   replicas' behaviour logprobs, samples/s per cycle beside phase 9's, the
+   checkpoint reloaded; then on one trainer the rollout seconds and the
+   device's busy share of a fleet and a local collection, each seat's
+   device memory and what a kill gives back (shutdown alone, release), and
+   (b) seat 0 killed from inside the first chunk's reward_fn: 128 rows
+   still, the death counted, capacity restored, device memory back within
+   one replica's footprint; (c) at f32 (4 layers) greedy fleet rollouts
+   equal the local sampler's under phase 11's tie rule and the behaviour
+   logprobs are within 1e-4 of the scorer's; (f) every replica killed and
+   supervision stopped: the chunk is collected locally, one degraded
+   chunk; (g) `python -m trlx_tpu_torch.inference.serve_policy` as a
+   SubprocessReplica on the card: /healthz, f32 greedy replies equal an
+   in-process replica's, respawned after a kill; (d) GRPO's `n` fan-out
+   at phase 15's configuration (1 collection): 16 requests for 128 rows,
+   prefix blocks shared, K1 exact; (e) 32 CalculatorEnv episodes (up to
+   4 turns of 8 tokens) over /chat, PPO and GRPO (same-seed groups of 4):
+   retained-KV turns, K1 exact, one step with the loss masks; at f32
+   every policy turn equals /generate over its transcript.
 Phase 6 also holds K7 and its backward at the randomwalks curves' rows (a
 24-token vocabulary, f32 and bf16, shifted labels, padded rows).
 
@@ -166,7 +191,7 @@ The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object (with `ppo_options`, phase 11's
 checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
 `ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16, `serving`, phase
-17's); the last line is
+17's, `fleet`, phase 18's); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
 """
@@ -1307,15 +1332,17 @@ def ppo_probes(record, cls=None, names=("make_experience", "score", "trunk_cache
                 delattr(cls, name)
 
 
-def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS):
+def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS, elsewhere=(), rows_out=None):
     """Drive `trlx_tpu_torch.train(reward_fn=...)` once under the probes
     (`collections` collections, `config.train.epochs` of them); print each
     collection, step and evaluation; check every loss finite, every
     response 40 tokens and the launch counts exact (`per_chunk` is a
-    collection's scoring pass and trunk fill together); check that the
-    `done` checkpoint loads back into a fresh trainer of the config's
-    class (PPOTrainer, or GRPOTrainer in phase 15). Returns (trainer,
-    launches, metrics)."""
+    collection's scoring pass and trunk fill together; the kernels named in
+    `elsewhere`, the fleet replicas' K1 in phase 18, are counted by their
+    caller); check that the `done` checkpoint loads back into a fresh
+    trainer of the config's class (PPOTrainer, or GRPOTrainer in phase 15),
+    whose tracker starts the run's metrics file anew (`rows_out`, a list,
+    gets the run's rows first). Returns (trainer, launches, metrics)."""
     import shutil
 
     import torch
@@ -1336,6 +1363,8 @@ def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     rows = [json.loads(line) for line in next((work / "logs").glob("*.metrics.jsonl")).read_text().splitlines()]
+    if rows_out is not None:
+        rows_out.extend(rows)
     rounds = [r for r in rows if "time/rollout_generate" in r]
     steps = [r for r in rows if "losses/total_loss" in r]
     evals = [r for r in rows if "reward/mean" in r]
@@ -1407,7 +1436,7 @@ def ppo_run(card, tag, work, config, per_step, per_chunk, collections=PPO_EPOCHS
     names = set(per_step) | set(per_chunk)
     want = {n: n_steps * per_step.get(n, 0) + collections * per_chunk.get(n, 0) for n in names}
     got = {n: launches.get(n, 0) for n in want}
-    if got != want or any(v for k, v in launches.items() if k not in want):
+    if got != want or any(v for k, v in launches.items() if k not in want and k not in elsewhere):
         raise AssertionError(f"{tag}: PPO launches {launches} != {want}")
 
     # the `done` checkpoint loads into a fresh trainer with the same state
@@ -2878,6 +2907,561 @@ def phase_serving_features(card, paged4):
                           reload=reload, chat=dict(chats, f32_turns_equal=chat_equal), spec=spec)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the rollout fleet (the eighth main path)
+# ---------------------------------------------------------------------------
+
+# phase 9's configuration collecting through the trainer's own supervised
+# fleet: 2 thread replicas of its serve() on the paged arena (K1), 64 slots
+# each so a 128-row chunk spreads over both, sessions on for /chat, the
+# prefix store on for GRPO's `n` fan-out; the router posts a whole chunk at
+# once (concurrency 128) and does not hedge, so every decode is one the
+# chunk asked for
+FLEET_SIZE = 2
+FLEET_INFERENCE = dict(kv_paging=True, kv_block_size=32, num_slots=64, max_queue_depth=256, max_prompt_len=64, sessions=True,
+                       prefix_cache=True)
+FLEET_TRAIN = dict(rollout_backend="fleet", rollout_fleet_supervised=True, rollout_fleet_size=FLEET_SIZE,
+                   rollout_fleet_kwargs=dict(concurrency=128, hedge=False),
+                   rollout_fleet_supervisor_kwargs=dict(start_timeout_s=300.0))
+FLEET_KERNEL = "paged_decode"
+# (e): CalculatorEnv episodes of up to 4 turns of 8 sampled tokens (a reply
+# holds no digit, so the episode goes on, 41 % of the time at 10 of 95
+# printable characters); a transcript stays under 160 tokens
+MT_ENV = dict(multiturn_env="calculator", multiturn_max_turns=4, multiturn_env_kwargs=dict(max_turns=4))
+MT_NEW, MT_EPISODES, MT_GROUP = 8, 32, 4
+BEHAVIOR_TOL = 1e-4  # replica vs scorer logprobs at f32 (decode vs batched forward)
+SUBPROCESS_DEVICE = "cuda"  # where the policy server process runs (g)
+WAIT_S = 180.0  # a deadline for the supervisor's respawns (a subprocess replica imports torch)
+
+
+def fleet_config(config, **inference):
+    return config.evolve(train=FLEET_TRAIN, inference=dict(FLEET_INFERENCE, **inference))
+
+
+@contextmanager
+def recording_servers(servers):
+    """Record every server a trainer's `serve()` starts (the fleet's
+    replicas, respawns included), for their decode dispatches."""
+    from trlx_tpu_torch.trainer.base_trainer import TorchTrainer
+
+    serve = TorchTrainer.serve
+
+    def wrapped(self, *args, **kwargs):
+        server = serve(self, *args, **kwargs)
+        servers.append(server)
+        return server
+
+    TorchTrainer.serve = wrapped
+    try:
+        yield
+    finally:
+        TorchTrainer.serve = serve
+
+
+def check_k1(tag, launches, servers, n_layers=12):
+    """The replicas' K1 launches equal their decode dispatches x layers
+    (the trainer itself never launches K1). Returns the dispatches."""
+    dispatches = sum(s.engine._kv_kernel_dispatches for s in servers)
+    fallbacks = [s.engine._kv_kernel_fallbacks for s in servers if s.engine._kv_kernel_fallbacks]
+    if dispatches <= 0 or fallbacks or launches.get(FLEET_KERNEL, 0) != dispatches * n_layers:
+        raise AssertionError(f"[{tag}] K1 launches {launches.get(FLEET_KERNEL, 0)} != {dispatches} decode "
+                             f"dispatches x {n_layers} (fallbacks {fallbacks})")
+    return dispatches
+
+
+def metric_rows(work, key):
+    rows = [json.loads(line) for line in next((work / "logs").glob("*.metrics.jsonl")).read_text().splitlines()]
+    return [r for r in rows if key in r]
+
+
+def wait_for(predicate, what, timeout_s=WAIT_S):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if predicate():
+            return time.monotonic() - (deadline - timeout_s)
+        time.sleep(0.05)
+    raise AssertionError(f"timed out after {timeout_s} s waiting for {what}")
+
+
+def fleet_trainer(config, prompts=None):
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    trainer = get_trainer(config.train.trainer)(config, reward_fn=ppo_reward)
+    max_prompt = config.train.seq_length - config.method.gen_kwargs.get("max_new_tokens", 40)
+    trainer.add_prompt_pipeline(PromptPipeline(prompts or ppo_prompts(), max_prompt, trainer.tokenizer))
+    return trainer
+
+
+def phase_fleet_ppo(card, base):
+    """(a) PPO through the supervised fleet via `trlx_tpu_torch.train`, phase
+    9's run otherwise: 2 collections, 32 steps, launches exact (K1 =
+    the replicas' decode dispatches x 12), no degraded chunk, every row
+    with the replicas' behaviour logprobs, the checkpoint loads back."""
+    work = ROOT / "build" / "chip_smoke_fleet_ppo"
+    servers, rows = [], []
+    with recording_servers(servers):
+        trainer, launches, metrics = ppo_run(card, "fleet-ppo", work, fleet_config(ppo_config(work)),
+                                             PPO_KERNELS_PER_STEP, PPO_KERNELS_PER_CHUNK, elsewhere=(FLEET_KERNEL,),
+                                             rows_out=rows)
+    dispatches = check_k1("fleet-ppo", launches, servers)
+    rows = [r for r in rows if "fleet/degraded_chunks" in r]
+    behavior = [r["fleet/behavior_logprob_rows"] for r in rows]
+    degraded = [r["fleet/degraded_chunks"] for r in rows]
+    requests = [r["fleet/requests"] for r in rows]
+    if behavior != [float(PPO_ROLLOUTS)] * PPO_EPOCHS or any(degraded) or trainer._rollout_supervisor is not None:
+        raise AssertionError(f"[fleet-ppo] behaviour logprob rows {behavior}, degraded {degraded}")
+    rnd = lambda xs: [round(x, 4) for x in xs]
+    log(f"[fleet-ppo] {FLEET_SIZE} thread replicas x {FLEET_INFERENCE['num_slots']} paged slots, {len(servers)} "
+        f"started; {dispatches} decode dispatches, K1 {launches.get(FLEET_KERNEL, 0)} = {dispatches} x 12; router "
+        f"requests {requests}; fleet/behavior_logprob_rows {behavior}, degraded chunks {degraded}; the fleet torn "
+        f"down by learn()")
+    log(f"[fleet-ppo] vs phase 9 in this call ({card}): samples_per_s {rnd(metrics['samples_per_s'])} (phase 9: "
+        f"{rnd(base['samples_per_s'])}); sampling_s {rnd(metrics['sampling_s'])} (phase 9: "
+        f"{rnd(base['sampling_s'])}); step_s {metrics['step_s']:.4f} (phase 9: {base['step_s']:.4f})")
+    del trainer
+    release()
+    return launches, dict(metrics, dispatches=dispatches, behavior_logprob_rows=behavior, requests=requests,
+                          replicas_started=len(servers))
+
+
+def collection_busy(trainer):
+    """One collection of 128 rollouts under torch.profiler (the card's
+    kernels only): (wall s, device busy s, busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.make_experience(PPO_ROLLOUTS, trainer.iter_count)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return wall, busy_us / 1e6, busy_us / 1e6 / wall
+
+
+def replica_host_times(servers):
+    """Per series, (seconds, calls) summed over the replicas' scheduler
+    histograms: the decode dispatches' and the prefill calls' wall time."""
+    out = {}
+    for name in ("decode_step_latency_seconds", "prefill_latency_seconds"):
+        snaps = [s.metrics.histograms_snapshot().get(name) for s in servers]
+        out[name] = (sum(h[2] for h in snaps if h), sum(h[3] for h in snaps if h))
+    return out
+
+
+def seat_bytes(server):
+    """(the engine's module bytes, its KV arena bytes)."""
+    module = sum(t.numel() * t.element_size() for t in server.engine.model.state_dict().values())
+    return module, server.engine.kv_stats()["kv_pool_bytes"]
+
+
+def allocated():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def phase_fleet_chaos(card):
+    """A PPO trainer at phase 9's configuration with its supervised fleet:
+    a warm collection, then the rollout seconds and the device's busy share
+    of one fleet collection beside one local collection of the same
+    trainer; each seat's device memory, and what a kill gives back with
+    the server's shutdown alone and with its release; then (b) chaos: with
+    4 chunks of 32, seat 0 is killed from inside the first chunk's
+    reward_fn, the collection still holds 128 rows, the supervisor counts
+    the death and respawns to capacity, and device memory comes back to
+    within one replica's footprint."""
+    from trlx_tpu_torch import resilience
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+
+    work = fresh_work("chaos")
+    trainer = fleet_trainer(fleet_config(ppo_config(work)))
+    out = {}
+    try:
+        trainer.make_experience(PPO_ROLLOUTS)  # starts the fleet; the replicas' first decode
+        seats = [seat.handle.server for seat in trainer._rollout_supervisor.seats]
+        before = replica_host_times(seats)
+        busy = {"fleet": collection_busy(trainer)}
+        host = {k: (v[0] - before[k][0], v[1] - before[k][1]) for k, v in replica_host_times(seats).items()}
+        log(f"[fleet-chaos] the fleet collection's replicas: {host['decode_step_latency_seconds'][1]} decode "
+            f"dispatches, {host['decode_step_latency_seconds'][0]:.4f} s in them (engine.step), "
+            f"{host['prefill_latency_seconds'][1]} prefill calls, {host['prefill_latency_seconds'][0]:.4f} s")
+        trainer.config.train.rollout_backend = "local"
+        trainer.make_experience(PPO_ROLLOUTS)  # the local sampler's first call
+        busy["local"] = collection_busy(trainer)
+        trainer.config.train.rollout_backend = "fleet"
+        for name, (wall, dev, share) in busy.items():
+            log(f"[fleet-chaos] one {name} collection of {PPO_ROLLOUTS} after a warm one: {wall:.4f} s wall, "
+                f"device busy {dev:.4f} s, busy share {share:.4f} ({card})")
+        out["busy"] = {k: dict(wall_s=v[0], device_s=v[1], busy_share=v[2]) for k, v in busy.items()}
+        out["busy"]["fleet"]["replica_host"] = host
+
+        sup = trainer._rollout_supervisor
+        seat = sup.seats[1]
+        module, arena = seat_bytes(seat.handle.server)
+        # the supervisor's lock holds its loop off this seat meanwhile
+        deaths0 = sup.counters["deaths"]
+        with sup._lock:
+            m_a = allocated()
+            seat.handle.server.shutdown()  # what killing a thread replica freed before the repair
+            m_b = allocated()
+            seat.handle.server.release()  # ThreadReplica.kill now
+            m_c = allocated()
+        wait_for(lambda: sup.counters["deaths"] > deaths0 and sup.healthy_active() == FLEET_SIZE, "seat 1's respawn")
+        m_d = allocated()
+        footprint = m_a - m_c
+        log(f"[fleet-chaos] a seat's device memory: module copy {module} B + KV arena {arena} B = {module + arena} B; "
+            f"a kill frees {m_a - m_b} B with the server's shutdown alone (before the repair), {footprint} B with its "
+            f"release; after the respawn {m_d - m_a:+d} B against before the kill ({card})")
+        if footprint < 0.95 * (module + arena) or m_a - m_b > 0.05 * footprint:
+            raise AssertionError(f"a killed replica's memory: shutdown frees {m_a - m_b}, release {footprint}, "
+                                 f"its module and arena {module + arena}")
+        out["memory"] = dict(module_bytes=module, arena_bytes=arena, freed_by_shutdown=m_a - m_b,
+                             freed_by_release=footprint, respawn_delta=m_d - m_a)
+
+        # (b) the chaos collection: 4 chunks of 32, seat 0 killed in the first
+        trainer.config.method.chunk_size = 32
+        trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 64, trainer.tokenizer))
+        killed, deaths0 = [], sup.counters["deaths"]
+        victim = sup.seats[0].handle.server
+
+        def killing_reward(samples, prompts, outputs, **kwargs):
+            if not killed:
+                killed.append(allocated())
+                resilience.FaultInjector.kill_replica(victim)
+            return ppo_reward(samples, prompts, outputs)
+
+        trainer.reward_fn = killing_reward
+        m0 = allocated()
+        n0 = len(trainer.store)
+        trainer.make_experience(PPO_ROLLOUTS, trainer.iter_count)
+        n_rows = len(trainer.store) - n0
+        trainer.reward_fn = ppo_reward
+        respawn_s = wait_for(lambda: sup.counters["deaths"] > deaths0 and sup.healthy_active() == FLEET_SIZE,
+                             "the killed seat's respawn")
+        m1 = allocated()
+        row = metric_rows(work, "fleet/degraded_chunks")[-1]
+        log(f"[fleet-chaos] (b) seat 0 killed in chunk 1's reward_fn: {n_rows} rows collected in 4 chunks, "
+            f"degraded chunks {row['fleet/degraded_chunks'] * 4:.0f}, failovers {row.get('fleet/failovers')}; deaths "
+            f"{sup.counters['deaths'] - deaths0}, capacity {sup.healthy_active()} {respawn_s:.2f} s after the "
+            f"collection; device memory {m1 - m0:+d} B against before the collection (footprint {footprint} B)")
+        if not killed or n_rows != PPO_ROLLOUTS or row["fleet/degraded_chunks"] != 0.0:
+            raise AssertionError(f"chaos: killed {bool(killed)}, rows {n_rows}, {row}")
+        if abs(m1 - m0) > footprint:
+            raise AssertionError(f"device memory after the respawn moved {m1 - m0} B, above one replica's {footprint}")
+        out["chaos"] = dict(rows=n_rows, deaths=sup.counters["deaths"] - deaths0, respawn_s=respawn_s,
+                            memory_delta=m1 - m0, failovers=row.get("fleet/failovers"))
+    finally:
+        trainer.shutdown_rollout_fleet()
+    del trainer
+    release()
+    return out
+
+
+def f32_fleet_config(work, make=None, **method):
+    config = fleet_config(ppo_config(work, make, dtype="float32", n_layers=4))
+    return config.evolve(method=dict(dict(num_rollouts=32, chunk_size=32, gen_kwargs=dict(
+        max_new_tokens=PPO_NEW, do_sample=False, suppress_tokens=PPO_SUPPRESS)), **method))
+
+
+def phase_fleet_f32(card):
+    """(c) at f32 (gpt2-small width, 4 layers): the fleet's greedy rollouts
+    of 32 prompts against the local sampler's token for token under phase
+    11's tie rule, and the replicas' behaviour logprobs against the
+    scorer's on the rows that round-trip; (f) then, with supervision
+    stopped and every replica killed, a collection degrades to local
+    generation; (g) one SubprocessReplica of `serve_policy_command` on the
+    card against an in-process replica of the same export."""
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.ops import sampling
+
+    work = fresh_work("f32")
+    trainer = fleet_trainer(f32_fleet_config(work))
+    out = {}
+    try:
+        batch = trainer._next_prompts()
+        gen = trainer.generate_kwargs
+        fleet = trainer._fleet_generate(batch, gen)
+        gaps, process = [], sampling.process_logits
+
+        def recording(logits, cfg, step, seen=None):
+            res = process(logits, cfg, step, seen)
+            top = torch.topk(res, 2, dim=-1).values
+            gaps.append(top[:, 0] - top[:, 1])
+            return res
+
+        sampling.process_logits = recording
+        try:
+            local = trainer.generate(batch["input_ids"], batch["attention_mask"], gen)
+        finally:
+            sampling.process_logits = process
+        local_tokens = local["response_tokens"].cpu().numpy()
+        diff = local_tokens != fleet["response_tokens"]
+        gap = torch.stack(gaps, dim=1).cpu().numpy()
+        differ = [(r, int(diff[r].argmax()), float(gap[r, diff[r].argmax()])) for r in np.nonzero(diff.any(1))[0]]
+        # the behaviour logprobs against the scorer's on the rows that round-trip
+        prompts, outputs, _, _, _ = trainer._host_process_chunk(batch, fleet["samples"])
+        all_tokens = torch.from_numpy(np.concatenate([prompts, outputs], axis=1)).to(trainer.device).long()
+        scorer = trainer.score(all_tokens)[0].cpu().numpy()
+        mine = scorer.copy()
+        hits = trainer._apply_behavior_logprobs(mine, fleet, prompts, outputs)
+        start = prompts.shape[1] - 1
+        err = float(np.abs(mine[:, start:] - scorer[:, start:]).max())
+        log(f"[fleet-f32] (c) 32 greedy rollouts x {PPO_NEW} tokens, fleet vs local sampler: {32 - len(differ)}/32 "
+            f"rows equal, differing rows (row, position, local top-two gap) {differ}; behaviour logprobs on "
+            f"{hits}/32 round-trip rows within {err:.3g} of the scorer's (tol {BEHAVIOR_TOL})")
+        if any(g >= TIE_GAP for _, _, g in differ) or hits != 32 or err > BEHAVIOR_TOL:
+            raise AssertionError(f"fleet vs local at f32: {differ}, {hits} rows, err {err}")
+        out["c"] = dict(rows_equal=32 - len(differ), differ=differ, behavior_rows=hits, behavior_max_abs_err=err)
+
+        # (f) the whole fleet down: supervision stopped, every replica killed
+        sup = trainer._rollout_supervisor
+        sup._stop.set()
+        sup._thread.join(timeout=60)
+        sup._thread = None
+        for seat in sup.seats:
+            seat.handle.kill()
+        n0 = len(trainer.store)
+        trainer.make_experience(32, trainer.iter_count)
+        row = metric_rows(work, "fleet/degraded_chunks")[-1]
+        log(f"[fleet-f32] (f) every replica killed, supervision stopped: {len(trainer.store) - n0} rows collected "
+            f"locally, fleet/degraded_chunks {row['fleet/degraded_chunks']}, fleet/behavior_logprob_rows "
+            f"{row['fleet/behavior_logprob_rows']}, router capacity {trainer._rollout_router.capacity()}")
+        if len(trainer.store) - n0 != 32 or row["fleet/degraded_chunks"] != 1.0:
+            raise AssertionError(f"whole fleet down: {row}")
+        out["f"] = dict(rows=len(trainer.store) - n0, degraded_chunks=row["fleet/degraded_chunks"])
+        trainer.shutdown_rollout_fleet()
+        export = work / "export"
+        trainer.save_pretrained(str(export))
+    finally:
+        trainer.shutdown_rollout_fleet()
+    del trainer
+    release()
+    out["g"] = subprocess_replica(card, export, work)
+    return out
+
+
+def subprocess_replica(card, export, work):
+    """(g) `python -m trlx_tpu_torch.inference.serve_policy` under a
+    FleetSupervisor (a SubprocessReplica): it serves on the card, answers
+    /healthz and /generate, its f32 greedy replies equal an in-process
+    replica's of the same export, and killed it is respawned."""
+    from trlx_tpu_torch.inference import serve_policy
+    from trlx_tpu_torch.inference.supervisor import FleetSupervisor, SubprocessReplica, serve_policy_command
+
+    hparams = {"device": SUBPROCESS_DEVICE, "model.model_extra_configs": {"dtype": "float32"},
+               "inference.gen_kwargs": {"do_sample": False, "max_new_tokens": 16}, "inference.max_new_tokens": 16,
+               "inference.max_prompt_len": 64, "inference.kv_paging": True}
+    prompts = [list(p.encode()) for p in ppo_prompts(4, seed=5)]
+    thread = serve_policy.main({"checkpoint": str(export), "port": 0, "background": True, **hparams})
+    try:
+        want = [http(thread.url, "/generate", {"prompt_ids": p, "max_new_tokens": 16})[1]["token_ids"]
+                for p in prompts]
+    finally:
+        thread.shutdown()
+    del thread
+    release()
+    log_path = work / "replica.log"  # every spawn appends its output here
+
+    def factory(seat):
+        return SubprocessReplica(serve_policy_command(str(export), **hparams), log_path=str(log_path),
+                                 cwd=str(ROOT), stop_grace_s=10.0)
+
+    t0 = time.perf_counter()
+    sup = FleetSupervisor(factory, num_replicas=1, start_timeout_s=WAIT_S, probe_interval_s=0.5).start()
+    try:
+        if not sup.wait_ready(timeout_s=WAIT_S):
+            raise AssertionError(f"the subprocess replica never became ready: {log_path.read_text()[-2000:]}")
+        up_s = time.perf_counter() - t0
+        url = sup.seats[0].url
+        code, health = http(url, "/healthz")
+        got = [http(url, "/generate", {"prompt_ids": p, "max_new_tokens": 16})[1]["token_ids"] for p in prompts]
+        pid = sup.seats[0].handle.proc.pid
+        sup.seats[0].handle.kill()
+        respawn_s = wait_for(lambda: sup.counters["deaths"] >= 1 and sup.healthy_active() == 1, "the respawn")
+        again = [http(sup.seats[0].url, "/generate", {"prompt_ids": p, "max_new_tokens": 16})[1]["token_ids"]
+                 for p in prompts]
+        new_pid = sup.seats[0].handle.proc.pid
+    finally:
+        sup.stop()
+    on_card = log_path.read_text().count(f"serve_policy: policy on {SUBPROCESS_DEVICE}")
+    log(f"[fleet-subprocess] (g) serve_policy as a SubprocessReplica: ready {up_s:.2f} s after the spawn, /healthz "
+        f"{code} ready={health.get('ready')}, policy on the card in {on_card} process logs; f32 greedy replies equal "
+        f"an in-process replica's: {sum(a == b for a, b in zip(got, want))}/{len(want)}; killed (pid {pid}), "
+        f"respawned as pid {new_pid} within {respawn_s:.2f} s, replies equal again "
+        f"{sum(a == b for a, b in zip(again, want))}/{len(want)} ({card})")
+    if code != 200 or not health.get("ready") or got != want or again != want or new_pid == pid or on_card < 2:
+        raise AssertionError(f"subprocess replica: {code} {health}, {got} vs {want}, again {again}, on card {on_card}")
+    return dict(ready_s=up_s, respawn_s=respawn_s, replies_equal=len(want), processes_on_card=on_card)
+
+
+def phase_fleet_grpo(card, grpo_base):
+    """(d) GRPO's `n` fan-out at phase 15's configuration (16 prompts x G
+    8, one collection and 16 steps): only the 16 unique prompts travel,
+    K1 exact, the group's prefix blocks shared."""
+    from trlx_tpu_torch.data.default_configs import default_grpo_config
+
+    work = ROOT / "build" / "chip_smoke_fleet_grpo"
+    config = fleet_config(ppo_config(work, default_grpo_config)).evolve(train=dict(epochs=1))
+    servers, rows = [], []
+    with recording_servers(servers):
+        trainer, launches, metrics = ppo_run(card, "fleet-grpo", work, config, GRPO_KERNELS_PER_STEP,
+                                             GRPO_KERNELS_PER_CHUNK, collections=1, elsewhere=(FLEET_KERNEL,),
+                                             rows_out=rows)
+    dispatches = check_k1("fleet-grpo", launches, servers)
+    groups = check_groups(trainer, "fleet-grpo")
+    row = [r for r in rows if "fleet/requests" in r][0]
+    hits = sum(s.engine.kv_stats()["prefix_cache_hits"] for s in servers)
+    prompts = PPO_ROLLOUTS // GRPO_GROUP
+    rnd = lambda xs: [round(x, 4) for x in xs]
+    log(f"[fleet-grpo] (d) {row['fleet/requests']:.0f} requests for {PPO_ROLLOUTS} rows ({prompts} prompts x n "
+        f"{GRPO_GROUP}); prefix blocks shared {hits}; {dispatches} decode dispatches, K1 {launches.get(FLEET_KERNEL, 0)}; "
+        f"group sums within {groups[0]:.3g}; samples_per_s {rnd(metrics['samples_per_s'])} (phase 15: "
+        f"{rnd(grpo_base['samples_per_s'])}), sampling_s {rnd(metrics['sampling_s'])} (phase 15: "
+        f"{rnd(grpo_base['sampling_s'])}) ({card})")
+    if row["fleet/requests"] != prompts or hits < prompts * (GRPO_GROUP - 1) or row["fleet/degraded_chunks"]:
+        raise AssertionError(f"GRPO fan-out: {row}, prefix hits {hits}")
+    del trainer
+    release()
+    return launches, dict(metrics, requests=row["fleet/requests"], prefix_hits=hits, dispatches=dispatches)
+
+
+def multiturn_config(work, make=None, f32=False, **method):
+    base = f32_fleet_config(work, make) if f32 else fleet_config(ppo_config(work, make))
+    gen = dict(max_new_tokens=MT_NEW, suppress_tokens=PPO_SUPPRESS, **(
+        dict(do_sample=False) if f32 else dict(do_sample=True, top_k=0, top_p=1.0)))
+    return base.evolve(method=dict(dict(num_rollouts=MT_EPISODES, chunk_size=MT_EPISODES, gen_kwargs=gen), **MT_ENV,
+                                   **method),
+                       inference=dict(max_prompt_len=160))
+
+
+def fresh_work(tag):
+    import shutil
+
+    work = ROOT / "build" / f"chip_smoke_fleet_{tag}"
+    shutil.rmtree(work, ignore_errors=True)
+    return work
+
+
+def multiturn_run(card, tag, make=None, **method):
+    """One multi-turn collection of 32 episodes, then one PPO (GRPO) step
+    on its first batch with the loss masks: K1 = the replicas' decode
+    dispatches x 12, the scoring chunk's and the step's launches exact,
+    retained turns > 0, the step's loss finite."""
+    import numpy as np
+
+    from trlx_tpu_torch import kernels
+
+    work = fresh_work(tag)
+    record, servers = [], []
+    with recording_servers(servers), ppo_probes(record, names=("score", "train_minibatch")):
+        trainer = fleet_trainer(multiturn_config(work, make, **method))
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            trainer.make_experience(MT_EPISODES)
+            collect_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            batch = next(iter(trainer.create_train_dataloader()))
+            stats = trainer.train_minibatch([batch])
+        finally:
+            trainer.shutdown_rollout_fleet()
+    dispatches = check_k1(tag, launches, servers)
+    row = metric_rows(work, "rollout/retained_hit_turns")[0]
+    scores = [c[3] for c in record if c[0] == "score"]
+    steps = [c[3] for c in record if c[0] == "train_minibatch"]
+    masks = np.concatenate([e.loss_mask for e in trainer.store.history])
+    G = int(getattr(trainer.config.method, "group_size", 1))
+    seeds_ok = all(len({tuple(e.query_tensor) for e in trainer.store.history[g:g + G]}) == 1
+                   for g in range(0, MT_EPISODES, G))
+    log(f"[{tag}] (e) {MT_EPISODES} CalculatorEnv episodes over /chat in {collect_s:.3f} s: mean turns "
+        f"{row['rollout/mean_turns']:.3f}, retained-KV turns {row['rollout/retained_hit_turns']:.0f}, mean env reward "
+        f"{row['rollout/mean_env_reward']:.4f}, loss-masked share {1 - masks.mean():.4f}; {dispatches} decode "
+        f"dispatches, K1 {launches.get(FLEET_KERNEL)}; scoring {scores}, step {steps}; loss "
+        f"{stats['losses/total_loss']:.6f} with loss masks {batch.loss_masks is not None}; same-seed groups of "
+        f"{G}: {seeds_ok} ({card})")
+    if row["rollout/retained_hit_turns"] <= 0 or scores != [PPO_KERNELS_PER_CHUNK] or steps != [PPO_KERNELS_PER_STEP]:
+        raise AssertionError(f"[{tag}] retained {row['rollout/retained_hit_turns']}, scoring {scores}, step {steps}")
+    if batch.loss_masks is None or not math.isfinite(stats["losses/total_loss"]) or not seeds_ok:
+        raise AssertionError(f"[{tag}] loss masks {batch.loss_masks is not None}, loss {stats['losses/total_loss']}")
+    launches = {k: v + (steps[0].get(k, 0) if k != FLEET_KERNEL else 0) for k, v in launches.items()}
+    del trainer
+    release()
+    return launches, dict(collect_s=collect_s, mean_turns=row["rollout/mean_turns"], dispatches=dispatches,
+                          retained_hit_turns=row["rollout/retained_hit_turns"], loss=stats["losses/total_loss"])
+
+
+def multiturn_f32(card, tag, make=None, **method):
+    """(e) at f32 (4 layers, greedy): each recorded episode's policy turns
+    equal /generate over the transcript before them, on a replica of the
+    same fleet."""
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    work = fresh_work(tag)
+    episodes, run = [], PPOTrainer._run_episode
+
+    def recording(self, *args, **kwargs):
+        episode = run(self, *args, **kwargs)
+        episodes.append(episode)
+        return episode
+
+    PPOTrainer._run_episode = recording
+    trainer = fleet_trainer(multiturn_config(work, make, f32=True, **method))
+    try:
+        trainer.make_experience(8)
+        url = trainer._rollout_supervisor.seats[0].url
+        turns = equal = 0
+        for prompt_ids, segments, _ in episodes:
+            transcript = list(prompt_ids)
+            for kind, ids, _, _ in segments:
+                if kind == "policy":
+                    reply = http(url, "/generate", {"prompt_ids": transcript, "max_new_tokens": MT_NEW})[1]
+                    turns += 1
+                    equal += reply["token_ids"] == ids
+                transcript += ids
+    finally:
+        PPOTrainer._run_episode = run
+        trainer.shutdown_rollout_fleet()
+    log(f"[{tag}] (e) f32: {equal}/{turns} policy turns of {len(episodes)} episodes equal /generate over the "
+        f"transcript before them")
+    if equal != turns or not turns:
+        raise AssertionError(f"[{tag}] f32 turns {equal}/{turns}")
+    del trainer
+    release()
+    return dict(turns=turns, equal=equal)
+
+
+def phase_fleet(card, ppo_base, grpo_base):
+    """Phase 18. Returns ({part: launches}, numbers)."""
+    from trlx_tpu_torch.data.default_configs import default_grpo_config
+
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    launches["ppo"], out["ppo"] = phase_fleet_ppo(card, ppo_base)
+    out["chaos"] = phase_fleet_chaos(card)
+    out["f32"] = phase_fleet_f32(card)
+    launches["grpo_n"], out["grpo_n"] = phase_fleet_grpo(card, grpo_base)
+    mt = {}
+    for tag, make, method in (("multiturn", None, {}), ("multiturn_grpo", default_grpo_config,
+                                                         dict(group_size=MT_GROUP))):
+        launches[tag], mt[tag] = multiturn_run(card, tag, make, **method)
+        mt[f"{tag}_f32"] = multiturn_f32(card, f"{tag}_f32", make, **method)
+    out["multiturn"] = mt
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[fleet] phase 18 took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -2916,6 +3500,7 @@ def main() -> int:
     grpo_launches, grpo = phase_grpo(card, ppo_metrics)
     rft_launches, rft = phase_rft(card)
     serving_launches, serving = phase_serving_features(card, serve_bf16)
+    fleet_launches, fleet = phase_fleet(card, ppo_metrics, grpo["runs"]["grpo"])
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -2931,6 +3516,7 @@ def main() -> int:
              launches_grpo={t: n.get("paged_decode", 0) for t, n in grpo_launches.items()},
              launches_rft=rft_launches.get("paged_decode", 0),
              launches_serving={t: n.get("paged_decode", 0) for t, n in serving_launches.items()},
+             launches_fleet={t: n.get("paged_decode", 0) for t, n in fleet_launches.items()},
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
@@ -2942,6 +3528,7 @@ def main() -> int:
              launches_grpo={t: n.get("paged_decode_int8", 0) for t, n in grpo_launches.items()},
              launches_rft=rft_launches.get("paged_decode_int8", 0),
              launches_serving={t: n.get("paged_decode_int8", 0) for t, n in serving_launches.items()},
+             launches_fleet={t: n.get("paged_decode_int8", 0) for t, n in fleet_launches.items()},
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
     ]}
     train_rows = [
@@ -2966,6 +3553,7 @@ def main() -> int:
             launches_ilql=ilql_launches.get(name, 0),
             launches_grpo={t: n.get(name, 0) for t, n in grpo_launches.items()},
             launches_rft=rft_launches.get(name, 0),
+            launches_fleet={t: n.get(name, 0) for t, n in fleet_launches.items()},
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
@@ -2991,6 +3579,8 @@ def main() -> int:
     report["rft"] = rft
     # phase 17's checks and numbers
     report["serving"] = serving
+    # phase 18's
+    report["fleet"] = fleet
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

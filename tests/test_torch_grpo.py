@@ -397,9 +397,8 @@ def test_pipelined_cycle_is_refused_where_jax_fails(tmp_path):
         jt.pipelined_cycle()
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
         tt.pipelined_cycle()
-    for call in (lambda: tt._fleet_generate({}, {}), tt._multiturn_group_size, tt._multiturn_elements):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 3"):
-            call()
+    # the fleet's same-seed multi-turn groups are G episodes, as in JAX
+    assert tt._multiturn_group_size() == jt._multiturn_group_size() == tt.config.method.group_size
 
 
 def test_train_entry_point_runs_grpo_and_rloo(tmp_path):

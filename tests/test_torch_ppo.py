@@ -222,8 +222,8 @@ def test_gc_checkpoints_matches_jax(keep_n, tmp_path):
 @pytest.mark.parametrize("section,key,value,item", [
     ("train", "fuse_inner_epoch", True, "item 4"),
     ("model", "peft_config", {"peft_type": "LORA", "r": 8}, "item 4"),
-    ("method", "multiturn_env", "calculator", "item 3"),
-    ("train", "rollout_backend", "fleet", "item 3"),
+    ("train", "tracing", True, "item 4"),
+    ("train", "auto_resume", True, "item 4"),
     ("model", "model_arch_type", "seq2seq", "item 4"),
 ])
 def test_unported_ppo_features_are_refused(section, key, value, item):

@@ -1,9 +1,9 @@
 """Policy inference: the continuous-batching engine (fixed-slot or paged
 KV pool, speculative decode), scheduler, HTTP server with checkpoint
-hot-reload, chat sessions and token streaming, and the HTTP client (the
-serving slice of the port). The rollout fleet and its supervisor are not
-ported yet (ROADMAP queue A, item 3), nor multi-tenant adapters (item 4,
-with LoRA)."""
+hot-reload, chat sessions and token streaming, the HTTP client, and the
+rollout fleet: the replica router, the fleet supervisor and the policy
+server process (`serve_policy`). Multi-tenant adapters are not ported yet
+(ROADMAP queue A, item 4, with LoRA)."""
 
 from trlx_tpu_torch.inference.client import (
     ChatSession,
@@ -12,6 +12,7 @@ from trlx_tpu_torch.inference.client import (
     stream_generate,
 )
 from trlx_tpu_torch.inference.engine import InferenceEngine
+from trlx_tpu_torch.inference.fleet import FleetUnavailableError, Replica, ReplicaRouter
 from trlx_tpu_torch.inference.metrics import InferenceMetrics
 from trlx_tpu_torch.inference.paging import BlockPool, KVPoolExhaustedError, prefix_keys
 from trlx_tpu_torch.inference.scheduler import (
@@ -31,26 +32,41 @@ from trlx_tpu_torch.inference.sessions import (
     SessionResetError,
     SessionStore,
 )
+from trlx_tpu_torch.inference.supervisor import (
+    FleetSupervisor,
+    ReplicaHandle,
+    SubprocessReplica,
+    ThreadReplica,
+    serve_policy_command,
+)
 
 __all__ = [
     "BlockPool",
     "ChatSession",
     "CheckpointWatcher",
     "DrainingError",
+    "FleetSupervisor",
+    "FleetUnavailableError",
     "InferenceEngine",
     "InferenceMetrics",
     "InferenceRequest",
     "InferenceServer",
     "KVPoolExhaustedError",
     "QueueFullError",
+    "Replica",
+    "ReplicaHandle",
+    "ReplicaRouter",
     "Scheduler",
     "SessionBusyError",
     "SessionLimitError",
     "SessionResetError",
     "SessionStore",
+    "SubprocessReplica",
+    "ThreadReplica",
     "load_checkpoint_params",
     "prefix_keys",
     "remote_generate",
+    "serve_policy_command",
     "sse_stream",
     "stream_generate",
 ]

@@ -338,8 +338,19 @@ class InferenceEngine:
 
     @property
     def has_params(self) -> bool:
-        """The module always holds weights (readiness)."""
-        return True
+        """Whether the engine holds weights (readiness): until `release`."""
+        return self.model is not None
+
+    def release(self) -> None:
+        """Drop the engine's device state: the KV pool, the module (its own
+        copy after a `set_params`, else its reference to the module it was
+        built on), the draft head and the suppression mask. Called once
+        its scheduler has stopped; the engine serves nothing afterwards."""
+        with self._param_lock:
+            self._pool = None
+            self.model = self._lm = None
+            self._decode_fn = None
+            self._spec_head = self._suppress = None
 
     # ------------------------------------------------------------------
     # Fused sampling

@@ -23,9 +23,13 @@ checkpoint's tensor-only `model.pt` is read (`torch.load(...,
 weights_only=True)`: unpickling runs no code from the file), and with a
 `watch_dir` an ``/admin/reload`` path must lie under it.
 
+A `resilience.FaultInjector` set on `fault_injector` (swappable while
+the server runs) injects its HTTP faults at the top of every /generate
+and /chat request, wedges /healthz for `healthz_hang_s`, and overrides
+the reported checkpoint step with `stale_checkpoint_step`.
+
 Not ported yet: ``/admin/adapters`` answers 501 (multi-tenant adapters,
-ROADMAP queue A, item 4, with LoRA); the fault injector (item 4,
-resilience).
+ROADMAP queue A, item 4, with LoRA).
 """
 
 import json
@@ -58,6 +62,12 @@ _GENERATE_KEYS = {
     "prompt", "prompt_ids", "max_new_tokens", "deadline_s", "n",
     "adapter_id", "trace_id", "stop", "stream",
 }
+
+
+class _Listener(ThreadingHTTPServer):
+    # a rollout fleet posts a whole chunk at once (128 connections at the
+    # chip smoke's): socketserver's listen backlog of 5 would reset some
+    request_queue_size = 256
 
 
 def load_checkpoint_params(directory: str) -> Dict[str, torch.Tensor]:
@@ -186,8 +196,11 @@ class InferenceServer:
         reload_interval_s: float = 5.0,
         tracer=None,
         slos=None,
+        fault_injector: Optional["resilience.FaultInjector"] = None,
     ):
         self.scheduler = scheduler
+        # read per request, so a test (or a chaos run) may swap it live
+        self.fault_injector = fault_injector
         self.engine = scheduler.engine
         self.metrics = scheduler.metrics
         self.slo = SLOEngine(slos=slos, recorder=getattr(scheduler, "recorder", None))
@@ -216,7 +229,13 @@ class InferenceServer:
         return self.engine.has_params and not self.watcher.reloading and self.scheduler.accepting
 
     def _effective_checkpoint_step(self) -> Optional[int]:
-        """The checkpoint step reported to routers (None until a reload)."""
+        """The checkpoint step reported to routers (None until a reload).
+        The stale-checkpoint fault overrides it, so a router's staleness
+        bound is testable without real stale checkpoints."""
+        injector = self.fault_injector
+        override = getattr(injector, "stale_checkpoint_step", None) if injector else None
+        if override is not None:
+            return int(override)
         return self.watcher.loaded_step
 
     # ------------------------------------------------------------------
@@ -576,6 +595,8 @@ class InferenceServer:
                 rid = self.headers.get("X-Request-Id") or new_id()
                 self._rid = rid
                 logging.set_trace_context(request_id=rid)
+                if self._inject_fault(rid):
+                    return
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                     payload = json.loads(self.rfile.read(length) or b"{}")
@@ -642,6 +663,38 @@ class InferenceServer:
                 else:
                     self._reply_json(200, result)
 
+            def _drop(self):
+                self.close_connection = True
+                try:
+                    self.connection.close()
+                except OSError:
+                    pass
+
+            def _inject_fault(self, rid) -> bool:
+                """The injector's HTTP fault for this request, if it is
+                scheduled one; True when the request was answered (or
+                dropped) here. "slow" answers correctly, late."""
+                injector = server.fault_injector
+                if injector is None or not injector.should_fail():
+                    return False
+                mode = injector.mode
+                if mode == "mixed":
+                    mode = "drop" if injector.injected % 2 else "http_500"
+                if mode == "drop":
+                    self._drop()
+                    return True
+                if mode == "hang":
+                    # an unresponsive replica: hold the socket, then drop
+                    # it; clients escape only through a timeout or a hedge
+                    time.sleep(injector.hang_s)
+                    self._drop()
+                    return True
+                if mode == "slow":
+                    time.sleep(injector.slow_s)
+                    return False
+                self._reply_json(503, {"error": "injected transient failure", "request_id": rid})
+                return True
+
             def do_GET(self):  # noqa: N802
                 path = self.path.rstrip("/")
                 if path.split("?")[0] == "/debug/trace":
@@ -671,6 +724,14 @@ class InferenceServer:
                     self._reply(200, text.encode(), content_type="text/plain; version=0.0.4")
                     return
                 if path in ("", "/healthz"):
+                    injector = server.fault_injector
+                    if injector is not None and getattr(injector, "healthz_hang_s", 0):
+                        # a wedged replica: the process is up, its health
+                        # endpoint never answers (supervisors must see
+                        # this through probe deadlines)
+                        time.sleep(injector.healthz_hang_s)
+                        self._drop()
+                        return
                     watcher = server.watcher
                     ready = server.ready
                     kv = server.engine.kv_stats()
@@ -707,7 +768,7 @@ class InferenceServer:
     # ------------------------------------------------------------------
 
     def _bind(self) -> None:
-        self._httpd = ThreadingHTTPServer((self.host, self.port), self._make_handler())
+        self._httpd = _Listener((self.host, self.port), self._make_handler())
         self.port = self._httpd.server_address[1]  # resolve port 0
         self._shutdown_done = False
         self.scheduler.start()
@@ -756,3 +817,10 @@ class InferenceServer:
             self._httpd.server_close()
             self._httpd = None
         self.scheduler.stop()
+
+    def release(self) -> None:
+        """Shut down, then drop the engine's device state (its KV pool and
+        its module): what a killed in-process replica must give back, since
+        its handle keeps the server object reachable."""
+        self.shutdown()
+        self.engine.release()

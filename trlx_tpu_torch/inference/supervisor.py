@@ -1,0 +1,791 @@
+"""Self-healing rollout fleet: replica lifecycle supervision and rolling
+weight sync.
+
+Port of the JAX package's `inference/supervisor.py` (the port's own
+copy). The `ReplicaRouter` lets a rollout cycle survive a replica's
+failure; `FleetSupervisor` recovers the fleet. It owns replica processes,
+not just URLs:
+
+- **spawn and watch**: N replicas are spawned through a `ReplicaHandle`
+  (an in-process `ThreadReplica` for trainer-launched fleets and tests, a
+  `SubprocessReplica` for deployments) and their ``/healthz`` is probed
+  on an interval. A replica is dead when its process exits or when
+  `unhealthy_after` consecutive probes fail (a hung replica is killed,
+  not waited on).
+- **respawn with exponential backoff, flap quarantine**: a dead replica
+  respawns after a per-seat backoff that doubles with each death (capped);
+  a seat that dies more than `flap_budget` times inside `flap_window_s`
+  is quarantined (no more respawns) and the fleet runs on the survivors.
+  A seat that stays healthy a whole flap window earns its base backoff
+  and a clean death history back.
+- **warm spares**: `spares` extra replicas run warm but take no traffic.
+  When an active replica dies, a ready spare is promoted at once and the
+  dead seat respawns into the spare pool.
+- **rolling weight sync**: with `watch_dir`, the supervisor scans for new
+  manifest-complete checkpoints (a truncated one is invisible) and rolls
+  them out one replica at a time: router ``drain`` (stop dispatch, wait
+  out the requests in flight), ``POST /admin/reload`` (the server's own
+  drain-swap), re-probe until the replica is ready at the new step,
+  ``undrain``. One replica at most is out of rotation at any moment, so
+  capacity stays at N-1 or more; spares reload first.
+- **observability**: lifecycle events in a ring buffer (mirrored into a
+  `recorder`, any object with ``record(kind, **detail)``), numeric
+  counters merged into the trainer's ``fleet/*`` stats, and an optional
+  Prometheus ``/metrics`` endpoint over the supervisor, the router and
+  every replica. Postmortem bundles are not ported yet (ROADMAP queue A,
+  item 4, observability): with `postmortem_dir` a quarantine logs that.
+
+Deterministic chaos: `resilience.FaultInjector.crash_loop_replicas` kills
+a seat shortly after every (re)spawn (the supervisor must quarantine it);
+`healthz_hang_s` wedges a replica's health endpoint (the supervisor must
+kill and respawn it through probe deadlines).
+"""
+
+import json
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+from trlx_tpu_torch import resilience
+from trlx_tpu_torch.inference.fleet import ReplicaRouter
+from trlx_tpu_torch.inference.metrics import dedupe_metadata
+from trlx_tpu_torch.utils import logging
+
+logger = logging.get_logger(__name__)
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+# ----------------------------------------------------------------------
+# Replica handles: the process-shaped thing a supervisor owns
+# ----------------------------------------------------------------------
+
+
+class ReplicaHandle:
+    """One spawnable replica. `spawn()` starts it and returns its base
+    URL (readiness is the supervisor's job, via /healthz probes);
+    `alive` answers "is the process/thread still up" WITHOUT a network
+    round trip; `kill()` takes it down hard (a preemption, not a
+    graceful drain — graceful paths go through the admin endpoints)."""
+
+    url: Optional[str] = None
+
+    def spawn(self) -> str:
+        raise NotImplementedError
+
+    @property
+    def alive(self) -> bool:
+        raise NotImplementedError
+
+    def kill(self) -> None:
+        raise NotImplementedError
+
+
+class ThreadReplica(ReplicaHandle):
+    """In-process replica: `server_factory()` returns a STARTED
+    `InferenceServer`-shaped object (``.url``, ``.shutdown()``,
+    ``._httpd``). Used by tests and by trainer-launched fleets
+    (`train.rollout_fleet_supervised`), where replicas share the
+    trainer's process and card, and the kernels it built.
+
+    `kill` also drops the server's device state (its `release()`, when it
+    has one: the engine's KV pool and module). The handle and its seat
+    keep the dead server reachable, so without it every respawn or crash
+    loop would leave one replica's memory on the card."""
+
+    def __init__(self, server_factory: Callable[[], Any]):
+        self._factory = server_factory
+        self.server = None
+        self.url: Optional[str] = None
+
+    def spawn(self) -> str:
+        self.server = self._factory()
+        self.url = self.server.url
+        return self.url
+
+    @property
+    def alive(self) -> bool:
+        # a server whose listener is gone (shutdown / FaultInjector
+        # kill_replica) is dead even though the hosting process lives
+        return self.server is not None and getattr(self.server, "_httpd", None) is not None
+
+    def kill(self) -> None:
+        if self.server is not None:
+            try:
+                getattr(self.server, "release", self.server.shutdown)()
+            except Exception:  # teardown is best-effort
+                logger.exception("thread replica shutdown failed")
+
+
+class SubprocessReplica(ReplicaHandle):
+    """Subprocess replica: `command` is an argv template whose elements
+    may contain ``{port}``; each spawn picks a fresh port and launches it
+    (`serve_policy_command` builds one for
+    ``python -m trlx_tpu_torch.inference.serve_policy``) in `cwd` (default:
+    the caller's). Output goes to `log_path` (appended) or is
+    discarded."""
+
+    def __init__(self, command: Sequence[str], log_path: Optional[str] = None,
+                 stop_grace_s: float = 5.0, cwd: Optional[str] = None):
+        self.command = [str(c) for c in command]
+        self.log_path = log_path
+        self.stop_grace_s = float(stop_grace_s)
+        self.cwd = cwd
+        self.proc: Optional[subprocess.Popen] = None
+        self.url: Optional[str] = None
+
+    def spawn(self) -> str:
+        port = _free_port()
+        argv = [c.format(port=port) for c in self.command]
+        out = open(self.log_path, "ab") if self.log_path else subprocess.DEVNULL
+        self.proc = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT, cwd=self.cwd)
+        if self.log_path:
+            out.close()
+        self.url = f"http://127.0.0.1:{port}"
+        return self.url
+
+    @property
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def kill(self) -> None:
+        if self.proc is None or self.proc.poll() is not None:
+            return
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=self.stop_grace_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=self.stop_grace_s)
+
+
+def serve_policy_command(checkpoint: str, **hparams) -> List[str]:
+    """argv template for a `SubprocessReplica` running
+    ``python -m trlx_tpu_torch.inference.serve_policy`` on `{port}`; the
+    hparams are its JSON keys (``device`` defaults to cuda there). Run it
+    from a directory where the package imports (`SubprocessReplica`'s
+    `cwd`)."""
+    payload = {"checkpoint": checkpoint, "port": "__PORT__", **hparams}
+    # the port placeholder must survive json.dumps, then become {port};
+    # the JSON's own braces are doubled so str.format keeps them
+    text = json.dumps(payload).replace("{", "{{").replace("}", "}}").replace('"__PORT__"', "{port}")
+    return [sys.executable, "-m", "trlx_tpu_torch.inference.serve_policy", text]
+
+
+# ----------------------------------------------------------------------
+# Seats: the supervisor's per-replica bookkeeping
+# ----------------------------------------------------------------------
+
+# seat states
+STARTING = "starting"       # spawned, waiting for a ready probe
+SERVING = "serving"         # healthy, probed on an interval
+BACKOFF = "backoff"         # dead, waiting out the respawn backoff
+QUARANTINED = "quarantined"  # flap budget spent: no more respawns
+
+
+class _Seat:
+    def __init__(self, index: int, role: str):
+        self.index = index
+        self.role = role  # "active" | "spare"
+        self.state = BACKOFF
+        self.handle: Optional[ReplicaHandle] = None
+        self.url: Optional[str] = None
+        self.fail_streak = 0          # consecutive failed probes
+        self.last_probe = 0.0
+        self.serving_since: Optional[float] = None
+        self.checkpoint_step: Optional[int] = None
+        self.ready = False
+        self.death_times: deque = deque(maxlen=32)
+        self.backoff_s = 0.0          # set by the supervisor
+        self.next_spawn_at = 0.0      # monotonic; 0 = spawn immediately
+        self.start_deadline = 0.0
+        self.crash_at: Optional[float] = None  # fault injection
+        self.respawns = 0
+        self.last_reason: Optional[str] = None
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "index": self.index,
+            "role": self.role,
+            "state": self.state,
+            "url": self.url,
+            "checkpoint_step": self.checkpoint_step,
+            "respawns": self.respawns,
+            "deaths": len(self.death_times),
+            "last_reason": self.last_reason,
+        }
+
+
+# ----------------------------------------------------------------------
+# The supervisor
+# ----------------------------------------------------------------------
+
+
+class FleetSupervisor:
+    """Own a fleet of replica processes: spawn, watch, respawn,
+    quarantine, promote spares, and roll new checkpoints through without
+    dropping below N-1 serving capacity.
+
+    :param replica_factory: ``factory(seat_index) -> ReplicaHandle``; a
+        FRESH handle is requested for every (re)spawn.
+    :param num_replicas: serving seats (registered in the router).
+    :param spares: warm seats kept out of the router until a promotion.
+    :param router_kwargs: forwarded to the `ReplicaRouter` the supervisor
+        builds over the active seats (or pass `router` to bring one).
+    :param watch_dir: checkpoint directory to scan for rolling sync
+        (None disables the sync loop; `sync_once(path)` still works).
+    :param flap_budget: deaths tolerated inside `flap_window_s` before a
+        seat is quarantined (the N+1-th death quarantines).
+    :param metrics_port: serve Prometheus `/metrics` (+ `/healthz` fleet
+        summary) on this port (0 = ephemeral); None disables.
+    """
+
+    def __init__(
+        self,
+        replica_factory: Callable[[int], ReplicaHandle],
+        num_replicas: int,
+        spares: int = 0,
+        router: Optional[ReplicaRouter] = None,
+        router_kwargs: Optional[Dict[str, Any]] = None,
+        probe_interval_s: float = 0.5,
+        probe_timeout_s: float = 5.0,
+        unhealthy_after: int = 3,
+        start_timeout_s: float = 120.0,
+        respawn_backoff_s: float = 0.5,
+        respawn_backoff_max_s: float = 30.0,
+        flap_window_s: float = 30.0,
+        flap_budget: int = 3,
+        watch_dir: Optional[str] = None,
+        sync_interval_s: float = 5.0,
+        drain_timeout_s: float = 30.0,
+        reload_timeout_s: float = 120.0,
+        metrics_port: Optional[int] = None,
+        fault_injector: Optional["resilience.FaultInjector"] = None,
+        tick_s: float = 0.05,
+        recorder=None,
+        postmortem_dir: Optional[str] = None,
+    ):
+        if num_replicas < 1:
+            raise ValueError("FleetSupervisor needs at least one replica")
+        # observability: every `_event` mirrors into the flight recorder
+        # (when one is wired), and a seat quarantine triggers a one-shot
+        # postmortem bundle into `postmortem_dir` (when set)
+        self.recorder = recorder
+        self.postmortem_dir = postmortem_dir
+        self.replica_factory = replica_factory
+        self.num_replicas = int(num_replicas)
+        self.probe_interval_s = float(probe_interval_s)
+        self.probe_timeout_s = float(probe_timeout_s)
+        self.unhealthy_after = int(unhealthy_after)
+        self.start_timeout_s = float(start_timeout_s)
+        self.respawn_backoff_s = float(respawn_backoff_s)
+        self.respawn_backoff_max_s = float(respawn_backoff_max_s)
+        self.flap_window_s = float(flap_window_s)
+        self.flap_budget = int(flap_budget)
+        self.watch_dir = watch_dir
+        self.sync_interval_s = float(sync_interval_s)
+        self.drain_timeout_s = float(drain_timeout_s)
+        self.reload_timeout_s = float(reload_timeout_s)
+        self.fault_injector = fault_injector
+        self.tick_s = float(tick_s)
+
+        self.seats: List[_Seat] = (
+            [_Seat(i, "active") for i in range(self.num_replicas)]
+            + [_Seat(self.num_replicas + j, "spare") for j in range(int(spares))]
+        )
+        for seat in self.seats:
+            seat.backoff_s = self.respawn_backoff_s
+
+        self._router = router
+        self._router_kwargs = dict(router_kwargs or {})
+        self._owns_router = router is None
+
+        self.counters: Dict[str, float] = {
+            "respawns": 0, "deaths": 0, "quarantines": 0, "promotions": 0,
+            "rolling_syncs": 0, "sync_replicas_synced": 0, "sync_failures": 0,
+            "sync_min_capacity": -1.0,  # -1 until the first rolling sync
+        }
+        self.events: deque = deque(maxlen=256)
+        self.syncing = False
+        self.synced_step: Optional[int] = None
+        self._synced_key = None
+        self._last_sync_scan = 0.0
+        self._lock = threading.RLock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._metrics_port = metrics_port
+        self._metrics_httpd: Optional[ThreadingHTTPServer] = None
+        self._metrics_thread: Optional[threading.Thread] = None
+        self._t0 = time.monotonic()
+
+    # ------------------------------------------------------------------
+    # Lifecycle
+    # ------------------------------------------------------------------
+
+    @property
+    def router(self) -> ReplicaRouter:
+        if self._router is None:
+            raise RuntimeError("supervisor not started (router not built)")
+        return self._router
+
+    def start(self) -> "FleetSupervisor":
+        """Spawn every seat, build the router over the active URLs, and
+        start the supervision loop (+ the metrics endpoint)."""
+        with self._lock:
+            for seat in self.seats:
+                self._spawn(seat)
+            active_urls = [s.url for s in self.seats
+                           if s.role == "active" and s.url]
+            if self._router is None:
+                kwargs = dict(self._router_kwargs)
+                # the router's SLO engine dumps its error-budget
+                # postmortems next to the supervisor's crash bundles
+                kwargs.setdefault("slo_postmortem_dir", self.postmortem_dir)
+                self._router = ReplicaRouter(active_urls, **kwargs)
+        self._thread = threading.Thread(
+            target=self._run, name="trlx-tpu-torch-fleet-supervisor", daemon=True
+        )
+        self._thread.start()
+        if self._metrics_port is not None:
+            self._start_metrics_server(self._metrics_port)
+        return self
+
+    def stop(self, kill_replicas: bool = True) -> None:
+        """Stop supervising; by default also takes every replica down
+        and closes the router (when the supervisor built it)."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30.0)
+            self._thread = None
+        if self._metrics_httpd is not None:
+            self._metrics_httpd.shutdown()
+            self._metrics_httpd.server_close()
+            self._metrics_httpd = None
+        if kill_replicas:
+            with self._lock:
+                for seat in self.seats:
+                    if seat.handle is not None:
+                        seat.handle.kill()
+        if self._owns_router and self._router is not None:
+            self._router.close()
+
+    def wait_ready(self, timeout_s: float = 120.0, n: Optional[int] = None) -> bool:
+        """Block until `n` (default: every non-quarantined) active seats
+        are serving. A seat that crash-loops into quarantine during
+        startup LOWERS the bar instead of hanging the caller — the fleet
+        comes up degraded rather than not at all."""
+
+        def want() -> int:
+            if n is not None:
+                return int(n)
+            with self._lock:
+                quarantined = sum(1 for s in self.seats
+                                  if s.role == "active" and s.state == QUARANTINED)
+            return self.num_replicas - quarantined
+
+        deadline = time.monotonic() + float(timeout_s)
+        while time.monotonic() < deadline:
+            if self.healthy_active() >= want():
+                return True
+            time.sleep(0.02)
+        return self.healthy_active() >= want()
+
+    def healthy_active(self) -> int:
+        """Serving capacity: active seats currently in SERVING state."""
+        with self._lock:
+            return sum(1 for s in self.seats
+                       if s.role == "active" and s.state == SERVING)
+
+    def spares_ready(self) -> int:
+        with self._lock:
+            return sum(1 for s in self.seats
+                       if s.role == "spare" and s.state == SERVING)
+
+    # ------------------------------------------------------------------
+    # Spawn / death / quarantine / promotion
+    # ------------------------------------------------------------------
+
+    def _event(self, kind: str, seat: Optional[_Seat] = None, **detail) -> None:
+        ev = {"t": round(time.monotonic() - self._t0, 3), "kind": kind,
+              "seat": seat.index if seat is not None else None, **detail}
+        self.events.append(ev)
+        if self.recorder is not None:
+            self.recorder.record(kind, seat=ev["seat"], **detail)
+        logger.info(f"fleet-supervisor: {kind} " + json.dumps(ev))
+
+    def _spawn(self, seat: _Seat) -> None:
+        try:
+            seat.handle = self.replica_factory(seat.index)
+            seat.url = seat.handle.spawn()
+        except Exception as e:
+            seat.last_reason = f"spawn: {e}"
+            seat.state = BACKOFF
+            seat.next_spawn_at = time.monotonic() + seat.backoff_s
+            seat.backoff_s = min(seat.backoff_s * 2, self.respawn_backoff_max_s)
+            self._event("spawn_failed", seat, error=str(e))
+            return
+        now = time.monotonic()
+        seat.state = STARTING
+        seat.ready = False
+        seat.fail_streak = 0
+        seat.start_deadline = now + self.start_timeout_s
+        seat.serving_since = None
+        seat.respawns += 1
+        self.counters["respawns"] += 1
+        injector = self.fault_injector
+        if injector is not None and seat.index in getattr(
+            injector, "crash_loop_replicas", ()
+        ):
+            # deterministic crash loop: this seat dies shortly after
+            # every spawn until the flap budget quarantines it
+            seat.crash_at = now + injector.crash_loop_after_s
+        self._event("spawned", seat, url=seat.url)
+
+    def _mark_serving(self, seat: _Seat) -> None:
+        seat.state = SERVING
+        seat.serving_since = time.monotonic()
+        seat.fail_streak = 0
+        if seat.role == "active":
+            self.router.add_replica(seat.url)
+        self._event("serving", seat, url=seat.url, role=seat.role)
+
+    def _mark_dead(self, seat: _Seat, reason: str) -> None:
+        now = time.monotonic()
+        seat.last_reason = reason
+        self.counters["deaths"] += 1
+        seat.death_times.append(now)
+        if seat.url is not None and seat.role == "active" and self._router is not None:
+            self._router.remove_replica(seat.url)
+        if seat.handle is not None:
+            seat.handle.kill()
+        was_active = seat.role == "active"
+        self._event("died", seat, reason=reason, role=seat.role)
+
+        recent = sum(1 for t in seat.death_times if now - t <= self.flap_window_s)
+        if recent > self.flap_budget:
+            seat.state = QUARANTINED
+            self.counters["quarantines"] += 1
+            self._event("quarantined", seat, deaths_in_window=recent)
+            if self.postmortem_dir is not None:
+                logger.warning(
+                    f"fleet-supervisor: seat {seat.index} quarantined; postmortem bundles are not "
+                    "ported yet (ROADMAP queue A, item 4, observability)"
+                )
+        else:
+            seat.state = BACKOFF
+            seat.next_spawn_at = now + seat.backoff_s
+            seat.backoff_s = min(seat.backoff_s * 2, self.respawn_backoff_max_s)
+
+        if was_active:
+            self._promote_spare(seat)
+
+    def _promote_spare(self, dead_seat: _Seat) -> None:
+        """Swap a ready warm spare into the dead seat's serving role —
+        the fleet is back at full capacity immediately, and the dead
+        seat (if respawnable) becomes the new spare."""
+        for spare in self.seats:
+            if spare.role == "spare" and spare.state == SERVING:
+                spare.role = "active"
+                dead_seat.role = "spare"
+                self.router.add_replica(spare.url)
+                self.counters["promotions"] += 1
+                self._event("promoted", spare, replacing=dead_seat.index)
+                return
+
+    # ------------------------------------------------------------------
+    # Probing
+    # ------------------------------------------------------------------
+
+    def _probe(self, seat: _Seat) -> Optional[Dict]:
+        """One /healthz round trip; None on any failure."""
+        try:
+            with urllib.request.urlopen(
+                seat.url + "/healthz", timeout=self.probe_timeout_s
+            ) as resp:
+                info = json.loads(resp.read())
+        except Exception:
+            return None
+        seat.last_probe = time.monotonic()
+        step = info.get("checkpoint_step")
+        seat.checkpoint_step = int(step) if step is not None else None
+        seat.ready = bool(info.get("ready", info.get("status") == "ok"))
+        return info
+
+    # ------------------------------------------------------------------
+    # The supervision loop
+    # ------------------------------------------------------------------
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.tick_s):
+            try:
+                with self._lock:
+                    self._tick()
+            except Exception:  # pragma: no cover - keep supervising
+                logger.exception("fleet supervisor tick failed")
+
+    def _tick(self) -> None:
+        now = time.monotonic()
+        for seat in self.seats:
+            if seat.state == QUARANTINED:
+                continue
+            # scheduled fault injection: kill shortly after spawn
+            if seat.crash_at is not None and now >= seat.crash_at:
+                seat.crash_at = None
+                if seat.handle is not None:
+                    seat.handle.kill()
+            if seat.state in (STARTING, SERVING):
+                if seat.handle is not None and not seat.handle.alive:
+                    self._mark_dead(seat, "process exited")
+                    continue
+                due = (seat.state == STARTING
+                       or now - seat.last_probe >= self.probe_interval_s)
+                if due:
+                    info = self._probe(seat)
+                    if info is None:
+                        seat.fail_streak += 1
+                        if seat.state == SERVING and (
+                            seat.fail_streak >= self.unhealthy_after
+                        ):
+                            self._mark_dead(
+                                seat, f"{seat.fail_streak} failed probes (hung?)"
+                            )
+                        elif seat.state == STARTING and now > seat.start_deadline:
+                            self._mark_dead(seat, "never became ready")
+                    else:
+                        seat.fail_streak = 0
+                        if seat.state == STARTING and seat.ready:
+                            self._mark_serving(seat)
+            elif seat.state == BACKOFF and now >= seat.next_spawn_at:
+                self._spawn(seat)
+            # a seat that held a full flap window clean earns back its
+            # backoff and death history
+            if (seat.state == SERVING and seat.serving_since is not None
+                    and now - seat.serving_since >= self.flap_window_s
+                    and (seat.backoff_s != self.respawn_backoff_s or seat.death_times)):
+                seat.backoff_s = self.respawn_backoff_s
+                seat.death_times.clear()
+        # rolling weight sync scan
+        if (self.watch_dir and not self.syncing
+                and now - self._last_sync_scan >= self.sync_interval_s):
+            self._last_sync_scan = now
+            self.sync_once()
+
+    # ------------------------------------------------------------------
+    # Rolling weight sync
+    # ------------------------------------------------------------------
+
+    def sync_once(self, path: Optional[str] = None) -> bool:
+        """Scan `watch_dir` (or take an explicit checkpoint `path`) and,
+        if it holds a checkpoint the fleet is not serving yet, roll it
+        out one replica at a time. Returns True when a rollout ran."""
+        if path is None:
+            if not self.watch_dir:
+                return False
+            path = resilience.find_latest_valid_checkpoint(self.watch_dir)
+            if path is None:
+                return False
+        manifest = resilience.read_manifest(path)
+        if manifest is None:
+            return False
+        step = int(manifest.get("step", -1))
+        key = (path, step, manifest.get("wall_time"))
+        if key == self._synced_key:
+            return False
+        self._rolling_sync(path, step)
+        self._synced_key = key
+        return True
+
+    def _admin_post(self, url: str, endpoint: str, payload: Dict,
+                    timeout: float) -> Optional[Dict]:
+        req = urllib.request.Request(
+            url + endpoint, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                return json.loads(resp.read())
+        except Exception as e:
+            logger.warning(f"fleet-supervisor: POST {url}{endpoint} failed: {e}")
+            return None
+
+    def _note_sync_capacity(self) -> None:
+        cap = float(self.router.capacity())
+        prev = self.counters["sync_min_capacity"]
+        self.counters["sync_min_capacity"] = cap if prev < 0 else min(prev, cap)
+
+    def _rolling_sync(self, path: str, step: int) -> None:
+        """Drain → reload → re-probe → undrain, one replica at a time.
+        At most ONE active replica is out of rotation at any moment, so
+        serving capacity stays >= N-1 for the whole rollout, and the
+        server-side drain-swap guarantees no request mixes two
+        checkpoints. Spares reload first (a promotion mid-sync must
+        serve fresh weights). A replica that fails its reload or never
+        re-probes ready is declared dead (respawn path takes over — the
+        respawned replica reloads on the next scan)."""
+        self.syncing = True
+        self.counters["rolling_syncs"] += 1
+        self._event("sync_start", None, path=path, step=step)
+        try:
+            ordered = sorted(
+                (s for s in self.seats if s.state == SERVING),
+                key=lambda s: (s.role != "spare", s.index),
+            )
+            for seat in ordered:
+                if seat.state != SERVING:
+                    continue  # died earlier in this same rollout
+                if seat.checkpoint_step == step:
+                    continue  # already serving the target (respawned late)
+                active = seat.role == "active"
+                if active:
+                    drained = self.router.drain(
+                        seat.url, timeout_s=self.drain_timeout_s
+                    )
+                    if not drained:
+                        logger.warning(
+                            f"fleet-supervisor: drain of {seat.url} timed out; "
+                            "reloading anyway (server-side drain still applies)"
+                        )
+                    self._note_sync_capacity()
+                try:
+                    out = self._admin_post(
+                        seat.url, "/admin/reload", {"path": path},
+                        timeout=self.reload_timeout_s,
+                    )
+                    ok = bool(out) and (
+                        out.get("reloaded") or out.get("checkpoint_step") == step
+                    )
+                    if ok:
+                        # re-probe: the seat must answer ready AT the new
+                        # step before it takes traffic again
+                        deadline = time.monotonic() + self.reload_timeout_s
+                        ok = False
+                        while time.monotonic() < deadline:
+                            info = self._probe(seat)
+                            if (info is not None and seat.ready
+                                    and seat.checkpoint_step == step):
+                                ok = True
+                                break
+                            time.sleep(0.02)
+                    if not ok:
+                        self.counters["sync_failures"] += 1
+                        self._mark_dead(seat, f"reload to step {step} failed")
+                        continue
+                finally:
+                    if active and seat.state == SERVING:
+                        self.router.undrain(seat.url)
+                self.counters["sync_replicas_synced"] += 1
+                self._event("sync_replica", seat, step=step)
+            self.synced_step = step
+            self._event("sync_done", None, step=step,
+                        min_capacity=self.counters["sync_min_capacity"])
+        finally:
+            self.syncing = False
+
+    # ------------------------------------------------------------------
+    # Introspection + metrics
+    # ------------------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        """Numeric lifecycle counters (merged into the trainer's
+        ``fleet/*`` stats) + per-seat snapshots."""
+        with self._lock:
+            out: Dict[str, Any] = dict(self.counters)
+            out["capacity"] = float(self.healthy_active())
+            out["spares_ready"] = float(self.spares_ready())
+            out["sync_in_progress"] = float(self.syncing)
+            if self.synced_step is not None:
+                out["synced_checkpoint_step"] = float(self.synced_step)
+            out["seats"] = [s.snapshot() for s in self.seats]
+        return out
+
+    def render_metrics(self) -> str:
+        """Prometheus text for the whole fleet: supervisor lifecycle
+        counters/gauges + the router's counters and per-replica series."""
+        ns = "trlx_tpu_fleet_supervisor"
+        lines: List[str] = []
+        with self._lock:
+            counters = dict(self.counters)
+            capacity = self.healthy_active()
+            spares = self.spares_ready()
+            syncing = int(self.syncing)
+            synced = self.synced_step
+        for name in ("respawns", "deaths", "quarantines", "promotions",
+                     "rolling_syncs", "sync_replicas_synced", "sync_failures"):
+            lines.append(f"# TYPE {ns}_{name}_total counter")
+            lines.append(f"{ns}_{name}_total {counters[name]}")
+        for name, value in (
+            ("capacity", capacity),
+            ("spares_ready", spares),
+            ("sync_in_progress", syncing),
+            ("sync_min_capacity", counters["sync_min_capacity"]),
+            ("synced_checkpoint_step", -1 if synced is None else synced),
+        ):
+            lines.append(f"# TYPE {ns}_{name} gauge")
+            lines.append(f"{ns}_{name} {value}")
+        text = "\n".join(lines) + "\n"
+        if self._router is not None:
+            text += self._router.render_metrics()
+        # concatenated registries can repeat HELP/TYPE for shared series
+        return dedupe_metadata(text)
+
+    # -- /metrics HTTP endpoint ----------------------------------------
+
+    def _start_metrics_server(self, port: int) -> None:
+        sup = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802
+                path = self.path.rstrip("/")
+                if path == "/metrics":
+                    body = sup.render_metrics().encode()
+                    ctype = "text/plain; version=0.0.4"
+                elif path == "/debug/slo":
+                    # fleet-level SLO state, fed from router dispatch
+                    # latencies (visible even when a replica's own
+                    # scheduler never saw the slow request)
+                    try:
+                        body = json.dumps(sup.router.slo.evaluate()).encode()
+                    except RuntimeError:
+                        body = json.dumps({"error": "router not built"}).encode()
+                    ctype = "application/json"
+                elif path in ("", "/healthz"):
+                    stats = sup.stats()
+                    stats["status"] = (
+                        "ok" if stats["capacity"] >= sup.num_replicas - 1
+                        else "degraded"
+                    )
+                    body = json.dumps(stats).encode()
+                    ctype = "application/json"
+                else:
+                    self.send_error(404)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, fmt, *args):
+                logger.debug("fleet-metrics: " + fmt % args)
+
+        self._metrics_httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+        self.metrics_port = self._metrics_httpd.server_address[1]
+        self._metrics_thread = threading.Thread(
+            target=self._metrics_httpd.serve_forever,
+            name="trlx-tpu-torch-fleet-metrics", daemon=True,
+        )
+        self._metrics_thread.start()
+        logger.info(f"fleet supervisor /metrics on :{self.metrics_port}")

@@ -11,6 +11,8 @@ library is never loaded.
 `LAUNCHES` counts launches per kernel: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (`reset_launches()` before, read after).
+The count is taken under a lock: the replicas of a thread fleet launch
+from their own scheduler threads at the same time as the trainer.
 
 Nothing here runs at import: this module imports on machines without a
 card or a CUDA toolkit, where only the plain versions of the kernels run.
@@ -36,15 +38,18 @@ LAUNCHES: Dict[str, int] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in list(LAUNCHES):
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in list(LAUNCHES):
+            LAUNCHES[name] = 0
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    with _count_lock:
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def build_dir() -> Path:

@@ -4,10 +4,10 @@ whose collation left-pads queries and right-pads responses and the
 per-token stats, so the query|response seam sits at one fixed column.
 
 The collation is the numpy branch of the JAX package's `native.ppo_collate`
-(`pad_stack` per field), and its trunk-cache collation (`collate_h_split`,
-on the device), and GRPO's group ids (int32, when every element has
-one). Multi-turn loss masks are not ported yet (ROADMAP queue A, item 3):
-that batch field stays None.
+(`pad_stack` per field), its trunk-cache collation (`collate_h_split`,
+on the device), GRPO's group ids (int32) and multi-turn rollouts' loss
+masks (f32, right-padded like the per-token stats with 0.0), each when
+every element of the batch has one.
 """
 
 import json
@@ -66,6 +66,8 @@ def ppo_collate(elems: List[PPORLElement], max_q: int, max_r: int, max_p: int, p
         h_split=collate_h_split(elems, max_q, max_r, left_queries),
         group_ids=(np.asarray([e.group_id for e in elems], dtype=np.int32)
                    if elems and all(e.group_id is not None for e in elems) else None),
+        loss_masks=(pad_stack([e.loss_mask for e in elems], 0.0, max_p, np.float32)
+                    if elems and all(e.loss_mask is not None for e in elems) else None),
     )
 
 

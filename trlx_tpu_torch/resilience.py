@@ -1,6 +1,7 @@
-"""Preemption handling and checkpoint retention for the learn loop.
+"""Preemption handling, checkpoint retention and serving-side fault
+injection.
 
-Port of the JAX package's `resilience.py`, but for its fault injector:
+Port of the JAX package's `resilience.py`:
 
 - `PreemptionGuard` turns SIGTERM/SIGINT into a flag that the trainer
   polls at step boundaries; the trainer then writes a manifest-complete
@@ -13,10 +14,15 @@ Port of the JAX package's `resilience.py`, but for its fault injector:
   inference server's hot-reload loads only manifest-complete checkpoints;
 - `retry`, `compute_backoff` and `CircuitBreaker` (with
   `TransientError` and `CircuitOpenError`): the retrying HTTP client
-  (`utils/http.py`) under the inference client.
+  (`utils/http.py`) under the inference client and the rollout fleet;
+- `FaultInjector`, its serving side: the HTTP faults a server answers
+  with, a stale checkpoint step, crash-looping and wedged replicas for
+  the fleet supervisor, killing an in-process replica and truncating a
+  checkpoint.
 
-`auto_resume` and the fault injector are not ported yet (ROADMAP queue
-A, item 4).
+`auto_resume` and the injector's train-side faults (they feed the health
+sentinel and the step watchdog) are not ported yet (ROADMAP queue A,
+item 4).
 """
 
 import json
@@ -26,7 +32,7 @@ import shutil
 import signal
 import threading
 import time
-from typing import Callable, List, Optional, Tuple, Type
+from typing import Callable, Iterable, List, Optional, Tuple, Type
 
 from trlx_tpu_torch.utils import logging
 
@@ -318,3 +324,103 @@ class CircuitBreaker:
                 if self.opened_at is None:
                     logger.warning(f"Circuit breaker OPEN after {self.failures} consecutive failures")
                 self.opened_at = self._clock()
+
+
+# ----------------------------------------------------------------------
+# Deterministic fault injection (tests and the chip smoke's chaos runs)
+# ----------------------------------------------------------------------
+
+# the JAX injector's train-side arguments: they feed the health sentinel
+# and the step watchdog, which are not ported yet
+_TRAIN_FAULT_ARGS = ("nan_grad_steps", "loss_spike_steps", "hang_steps", "spike_scale", "hang_step_s")
+
+
+class FaultInjector:
+    """Deterministic fault schedules for servers and fleets.
+
+    Either an explicit `schedule` (list of truthy = inject) consumed in
+    order (round-robin with `cycle`), or a seeded Bernoulli `rate`. `mode`
+    picks the injected failure of an HTTP server: "http_500" answers a
+    transient 503, "drop" closes the connection without a response,
+    "hang" holds the socket for `hang_s` then drops it (a client escapes
+    only through its own timeout or a hedge), "slow" delays the correct
+    answer by `slow_s` (hedging, not failover), "mixed" alternates drop
+    and http_500 by injection count.
+
+    Replica-level faults: `stale_checkpoint_step` overrides the checkpoint
+    step a server reports (a replica stuck behind the weight sync), and
+    `kill_replica` takes an in-process server down mid-rollout.
+    Supervisor-level faults: seats in `crash_loop_replicas` are killed
+    `crash_loop_after_s` after every (re)spawn, and `healthz_hang_s > 0`
+    wedges a server's /healthz (held socket, no answer).
+
+    The JAX injector's train-side faults (`nan_grad_steps`,
+    `loss_spike_steps`, `hang_steps` and their knobs) are refused: they
+    wait for the sentinel and the watchdog.
+    """
+
+    def __init__(
+        self,
+        rate: float = 0.0,
+        seed: int = 0,
+        schedule: Optional[List[bool]] = None,
+        mode: str = "http_500",
+        cycle: bool = False,
+        hang_s: float = 30.0,
+        slow_s: float = 0.25,
+        stale_checkpoint_step: Optional[int] = None,
+        crash_loop_replicas: Iterable[int] = (),
+        crash_loop_after_s: float = 0.25,
+        healthz_hang_s: float = 0.0,
+        **train_faults,
+    ):
+        for name in train_faults:
+            if name not in _TRAIN_FAULT_ARGS:
+                raise TypeError(f"FaultInjector got an unexpected argument {name!r}")
+            raise NotImplementedError(
+                f"FaultInjector({name}=...): train-side faults feed the health sentinel and the step "
+                "watchdog, not ported yet (ROADMAP queue A, item 4, resilience)"
+            )
+        self.rate = rate
+        self.mode = mode
+        self.schedule = list(schedule) if schedule is not None else None
+        self.cycle = cycle
+        self.hang_s = float(hang_s)
+        self.slow_s = float(slow_s)
+        self.stale_checkpoint_step = stale_checkpoint_step
+        self.crash_loop_replicas = set(int(s) for s in crash_loop_replicas)
+        self.crash_loop_after_s = float(crash_loop_after_s)
+        self.healthz_hang_s = float(healthz_hang_s)
+        self._rng = random.Random(seed)
+        self._calls = 0
+        self.injected = 0
+
+    def should_fail(self) -> bool:
+        i = self._calls
+        self._calls += 1
+        if self.schedule is not None:
+            if i >= len(self.schedule):
+                if not self.cycle:
+                    return False
+                i %= len(self.schedule)
+            fail = bool(self.schedule[i])
+        else:
+            fail = self._rng.random() < self.rate
+        if fail:
+            self.injected += 1
+        return fail
+
+    @staticmethod
+    def kill_replica(server) -> None:
+        """Take an in-process `InferenceServer` down as a preemption
+        would: the listener closes (new connections are refused) and
+        in-flight requests finish as "shutdown"."""
+        server.shutdown()
+
+    @staticmethod
+    def truncate_checkpoint(directory: str) -> None:
+        """A preemption mid-save: delete the manifest, turning a complete
+        checkpoint back into an uncommitted one."""
+        path = os.path.join(directory, MANIFEST_NAME)
+        if os.path.exists(path):
+            os.unlink(path)

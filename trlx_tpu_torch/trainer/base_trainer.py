@@ -19,11 +19,16 @@ With `train.handle_preemption` (the default) `learn` installs a
 `PreemptionGuard`: after SIGTERM or SIGINT the loop finishes its step,
 writes `checkpoint_<step>_preempt` and exits with code 75.
 
+A trainer that collects through a rollout fleet (PPO and GRPO with
+`train.rollout_backend="fleet"`) tears it down on the way out of `learn`,
+so no replica outlives the trainer. `fault_injector` (a
+`resilience.FaultInjector`, None by default) follows into the replicas
+of a trainer-launched fleet.
+
 Not ported yet, and refused when their flags are set: the fused-epoch
 dispatch, the health sentinel, the step watchdog, tracing (timeline,
-goodput and the ledgers), `auto_resume`, the rollout fleet and
-parallelism (any `parallel` axis above one device; ROADMAP queue A,
-item 4).
+goodput and the ledgers), `auto_resume` and parallelism (any `parallel`
+axis above one device; ROADMAP queue A, item 4).
 """
 
 import dataclasses
@@ -138,9 +143,8 @@ class TorchTrainer:
                 raise NotImplementedError(
                     f"train.{flag} ({what}) is not ported yet (ROADMAP queue A, item 4)"
                 )
-        if getattr(config.train, "rollout_backend", "local") != "local":
-            raise NotImplementedError("train.rollout_backend='fleet' is not ported yet (ROADMAP queue A, item 3)")
         check_single_device(config.parallel)
+        self.fault_injector: Optional[resilience.FaultInjector] = None
         set_seed(config.train.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(config.train.seed))
@@ -472,6 +476,10 @@ class TorchTrainer:
             if self._preemption_guard is not None:
                 self._preemption_guard.uninstall()
                 self._preemption_guard = None
+            # a trainer-launched rollout fleet must not outlive learn()
+            shutdown_fleet = getattr(self, "shutdown_rollout_fleet", None)
+            if shutdown_fleet is not None:
+                shutdown_fleet()
 
     def _learn_loop(self, best_reward, clock):
         results = {}

@@ -24,8 +24,13 @@ the JAX gates give a GRPO trainer: no trunk cache, no speculative decode,
 no int8 decode view, no capture fast path. `pipelined_cycle` is refused:
 its in-graph scorer builds PPO's per-token rewards from the values, which
 a critic-free policy does not have (the JAX package's cycle fails there
-too). Refused, naming their ROADMAP items: the rollout fleet's `n`
-fan-out and multi-turn rollouts (queue A, item 3).
+too).
+
+Over the rollout fleet (`train.rollout_backend="fleet"`) only the chunk's
+unique prompts travel, each with `n=G`: the server turns that into
+`Scheduler.submit_n`, so a paged replica shares the prompt's KV blocks
+across the group. Multi-turn episodes run in same-seed groups of G, and
+each episode's total reward is group-standardized against its siblings'.
 """
 
 from dataclasses import dataclass, field
@@ -46,7 +51,6 @@ from trlx_tpu_torch.utils import flatten_dict, infinite_dataloader
 from trlx_tpu_torch.utils.modeling import logprobs_of_labels
 
 ADVANTAGE_MODES = ("grpo", "rloo")
-_FLEET_AND_MULTITURN = "is not ported yet (ROADMAP queue A, item 3: the rollout fleet and multi-turn rollouts)"
 
 
 @dataclass
@@ -127,6 +131,9 @@ class GRPOTrainer(PPOTrainer):
             start = query_tensors.shape[1] - 1
             end = start + response_length
             mask = attention_mask[:, start + 1:end + 1]
+            if batch.loss_masks is not None:
+                # multi-turn rollouts: the environment's tokens carry no loss weight
+                mask = mask * batch.loss_masks.to(mask.dtype)
             if window_ok:
                 logits_w, _ = model.forward_window(tokens, attention_mask, positions, start, response_length)
                 logprobs = logprobs_of_labels(logits_w, tokens[:, start + 1:end + 1])
@@ -199,14 +206,43 @@ class GRPOTrainer(PPOTrainer):
             "make_experience + learn"
         )
 
-    def _fleet_generate(self, batch, gen_kwargs, trainer_step: int = 0):
-        raise NotImplementedError(f"GRPO's fleet `n` fan-out {_FLEET_AND_MULTITURN}")
-
     def _multiturn_group_size(self) -> int:
-        raise NotImplementedError(f"GRPO's multi-turn episodes {_FLEET_AND_MULTITURN}")
+        """Same-seed groups of G episodes (the multi-turn analogue of G
+        completions a prompt)."""
+        return int(self.config.method.group_size)
 
-    def _multiturn_elements(self, *args, **kwargs):
-        raise NotImplementedError(f"GRPO's multi-turn episodes {_FLEET_AND_MULTITURN}")
+    def _multiturn_elements(self, rows, prompt_tensors, sample_outputs, loss_mask, env_rewards, logprobs, values,
+                            log_ratio, start, max_r):
+        """Group-relative episode advantages: each episode's total reward
+        is standardized against its G same-seed siblings' and broadcast
+        over the response; `values` carries the reference's logprobs (the
+        in-loss KL anchor). The optional `init_kl_coef` shaping lands on
+        policy tokens only."""
+        method = self.config.method
+        G = int(method.group_size)
+        n = len(rows)
+        assert n % G == 0, "multi-turn chunk must hold whole seed groups"
+        totals = env_rewards.sum(axis=1)
+        adv = group_relative_advantages(torch.from_numpy(totals.reshape(-1, G)),
+                                        mode=method.advantage_mode).reshape(-1).numpy()
+        kl_coef = self.kl_ctl.value
+        elements = []
+        for i, (_p, ids, _lm, _er, _bl, _h) in enumerate(rows):
+            n_resp = max(min(len(ids), max_r), 1)
+            end = start + n_resp
+            lmask_row = np.asarray(loss_mask[i, :n_resp], np.float32)
+            rewards = (-kl_coef * log_ratio[i, start:end]) * lmask_row
+            elements.append(PPORLElement(
+                query_tensor=prompt_tensors[i],
+                response_tensor=sample_outputs[i, :n_resp],
+                logprobs=logprobs[i, start:end],
+                values=values[i, start:end],
+                rewards=rewards.astype(np.float32) + adv[i],
+                group_id=self._group_offset + i // G,
+                loss_mask=lmask_row.copy(),
+            ))
+        self._group_offset += n // G
+        return elements
 
     def _extra_resume_state(self):
         return {**super()._extra_resume_state(), "group_offset": self._group_offset}

@@ -45,9 +45,28 @@ on the device from sampling through training
   as in JAX.
 The JAX trainer only enqueues a sampling loop and overlaps it with host
 work; eager torch runs the loop (one host sync a step), so that overlap
-is absent here. Refused at construction, naming their ROADMAP items:
-multi-turn rollouts and the rollout fleet (queue A item 3), and seq2seq
-(item 4).
+is absent here.
+
+The fleet backend (`train.rollout_backend="fleet"`): `make_experience`
+generates each chunk on a fleet of inference replicas
+(`inference/fleet.py:ReplicaRouter`), given by `rollout_fleet_urls` or
+launched by the trainer itself (`rollout_fleet_supervised`: thread
+replicas of `serve()` under `inference/supervisor.py:FleetSupervisor`).
+A thread replica decodes on its own copy of the weights, refreshed from
+one snapshot a trainer step (`_push_params_to_thread_replicas`), never on
+the module the optimizer writes in place. The replicas' per-token
+logprobs replace the scorer's on the rows whose retokenization round
+trips (the behaviour policy's, for the PPO ratio). When the whole fleet
+is down a chunk is generated locally, with a warning, and counted in
+`fleet/degraded_chunks`. `pipelined_cycle` keeps generating locally.
+
+Multi-turn rollouts (`method.multiturn_env`, fleet only): whole
+environment episodes (`environments.py`) run through fleet `/chat`
+sessions; each episode is one rollout whose policy turns carry
+`loss_mask` 1 and their turn's reward on their last token, and whose
+environment turns carry `loss_mask` 0 and no KL penalty.
+
+Refused at construction: seq2seq (ROADMAP queue A, item 4).
 """
 
 import dataclasses
@@ -55,6 +74,7 @@ import json
 import os
 import time
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -116,10 +136,10 @@ class PPOConfig(MethodConfig):
     multiturn_env_kwargs: dict = field(default_factory=dict)
 
 
-# method flags of features the port does not run yet -> the ROADMAP item
-_UNPORTED_METHOD_FLAGS = {
-    "multiturn_env": "queue A, item 3 (multi-turn rollouts over the fleet)",
-}
+def _host(x) -> np.ndarray:
+    """A sampling dict's entry on the host: the local sampler's are device
+    tensors, the fleet's numpy arrays."""
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def shifted_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -136,9 +156,6 @@ class PPOTrainer(TorchTrainer):
     def __init__(self, config: TRLConfig, **kwargs):
         if config.model.model_arch_type == "seq2seq":
             raise NotImplementedError("seq2seq PPO is not ported yet (ROADMAP queue A, item 4)")
-        for flag, item in _UNPORTED_METHOD_FLAGS.items():
-            if getattr(config.method, flag):
-                raise NotImplementedError(f"method.{flag} is not ported yet (ROADMAP {item})")
         super().__init__(config, **kwargs)
         self.store = PPORolloutStorage(self.tokenizer.pad_token_id, self.tokenizer.padding_side)
         # the frozen reference (hydra): copies of the top of the model at init
@@ -170,6 +187,14 @@ class PPOTrainer(TorchTrainer):
         self._spec_disabled_dense = False
         self._pending_fast = False
         self.cycle_stats: Dict[str, float] = {}
+        # the fleet backend: built at the first fleet collection; the
+        # weights' snapshot the thread replicas decode on, and its step
+        self._rollout_router = None
+        self._rollout_supervisor = None
+        self._fleet_params: Optional[Dict[str, torch.Tensor]] = None
+        self._fleet_params_step: Optional[int] = None
+        # multi-turn: the next episode seed
+        self._mt_seed_offset = 0
         self.log_rollouts = config.train.rollout_logging_dir is not None
         if self.log_rollouts:
             self.setup_rollout_logging(config)
@@ -220,6 +245,10 @@ class PPOTrainer(TorchTrainer):
             start = query_tensors.shape[1] - 1
             end = start + response_length
             mask = attention_mask[:, start + 1:end + 1]
+            if batch.loss_masks is not None:
+                # multi-turn rollouts: the environment's tokens are context,
+                # not actions: no loss weight, out of masked whitening
+                mask = mask * batch.loss_masks.to(mask.dtype)
 
             advantages, returns = get_advantages_and_returns(
                 old_values, old_rewards, method.gamma, method.lam,
@@ -283,27 +312,35 @@ class PPOTrainer(TorchTrainer):
         return logprobs, second, log_ratio, kl.sum(1).mean(), kl.mean()
 
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
-        """Collect rollouts: generate -> decode and reward on the host ->
-        the hydra scoring pass (and the trunk cache's fill) -> per-token
-        KL-penalized rewards -> store."""
+        """Collect rollouts: generate (locally, or on the rollout fleet) ->
+        decode and reward on the host -> the hydra scoring pass (and the
+        trunk cache's fill) -> per-token KL-penalized rewards -> store.
+        Under `method.multiturn_env`, whole episodes instead
+        (`make_experience_multiturn`)."""
+        if getattr(self.config.method, "multiturn_env", None):
+            return self.make_experience_multiturn(num_rollouts, iter_count)
         logger.info("Collecting rollouts")
         clock = Clock()
         elements: List[PPORLElement] = []
         accumulated_stats: List[Dict] = []
         gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
+        use_fleet = self._fleet_rollouts_enabled()
         while len(elements) < num_rollouts:
             stats: Dict[str, float] = {}
             batch = self._next_prompts()
             n_this = len(np.asarray(batch["input_ids"]))
             clock.tick()
-            out = self.generate(batch["input_ids"], batch["attention_mask"], gen_kwargs,
-                                spec_k=self._spec_k_effective())
-            samples = out["samples"].cpu().numpy()
+            if use_fleet:
+                out = self._fleet_generate(batch, gen_kwargs, trainer_step=iter_count)
+            else:
+                out = self.generate(batch["input_ids"], batch["attention_mask"], gen_kwargs,
+                                    spec_k=self._spec_k_effective())
+            samples = _host(out["samples"])
             stats["time/rollout_generate"] = clock.tick()
             # throughput over the real generated tokens (padding after eos
             # does not count); tick() returns ms
             gen_s = max(stats["time/rollout_generate"] / 1000.0, 1e-9)
-            stats["throughput/rollout_tokens_per_s"] = int(out["response_mask"].sum()) / gen_s
+            stats["throughput/rollout_tokens_per_s"] = int(_host(out["response_mask"]).sum()) / gen_s
             stats["throughput/rollout_requests_per_s"] = n_this / gen_s
             self._accum_spec_stats(out, stats)
 
@@ -317,6 +354,13 @@ class PPOTrainer(TorchTrainer):
             h_cache = self.trunk_cache_fill(all_tokens) if self._trunk_cache_available() else None
             logprobs, values, log_ratio = (x.cpu().numpy() for x in scored[:3])
             mean_kl, mean_kl_per_token = float(scored[3]), float(scored[4])
+            if use_fleet:
+                # both keys on every chunk (the averaging below reads the
+                # last chunk's keys), degraded chunks included
+                fleet = bool(out.get("fleet"))
+                hits = self._apply_behavior_logprobs(logprobs, out, prompt_tensors, sample_outputs) if fleet else 0
+                stats["fleet/behavior_logprob_rows"] = float(hits)
+                stats["fleet/degraded_chunks"] = 0.0 if fleet else 1.0
             elements.extend(self._chunk_to_elements(
                 prompt_tensors, sample_outputs, outputs, scores, scores_mask, logprobs, values, log_ratio,
                 h_cache,
@@ -329,6 +373,8 @@ class PPOTrainer(TorchTrainer):
 
         stats = {k: sum(xs[k] for xs in accumulated_stats) / len(accumulated_stats) for k in accumulated_stats[-1]}
         stats["kl_ctl_value"] = self.kl_ctl.value
+        if use_fleet:
+            stats.update(self._fleet_stats())
         self.mean_kl = stats["policy/sqrt_kl"] ** 2
         self.tracker.log(stats, step=iter_count)
         self.push_to_store(elements)
@@ -426,6 +472,409 @@ class PPOTrainer(TorchTrainer):
                 values=values[ix, start:end],
                 rewards=rewards,
                 h_split=None if h_cache is None else h_cache[ix, : prompt_tensors.shape[1] + n_resp],
+            ))
+        return elements
+
+    # ------------------------------------------------------------------
+    # Disaggregated rollouts: the fleet backend (train.rollout_backend)
+    # ------------------------------------------------------------------
+
+    def _fleet_rollouts_enabled(self) -> bool:
+        """Whether `make_experience` generates on the rollout fleet. The
+        default "local" keeps the local sampler."""
+        backend = getattr(self.config.train, "rollout_backend", "local")
+        if backend not in ("local", "fleet"):
+            raise ValueError(f"unknown train.rollout_backend {backend!r} (want 'local' or 'fleet')")
+        return backend == "fleet"
+
+    def _router_kwargs(self) -> Dict:
+        train = self.config.train
+        kwargs = dict(getattr(train, "rollout_fleet_kwargs", None) or {})
+        kwargs.setdefault("max_staleness_steps", getattr(train, "rollout_max_staleness_steps", 1))
+        return kwargs
+
+    def _get_rollout_router(self):
+        """The ReplicaRouter over `train.rollout_fleet_urls`, built once;
+        under `train.rollout_fleet_supervised` the one a FleetSupervisor
+        owns, over the replicas it launches. A router tracer comes only
+        from `rollout_fleet_kwargs` (`train.tracing` is not ported)."""
+        if self._rollout_router is None:
+            train = self.config.train
+            if getattr(train, "rollout_fleet_supervised", False):
+                self._rollout_router = self._start_rollout_supervisor().router
+                return self._rollout_router
+            from trlx_tpu_torch.inference.fleet import ReplicaRouter
+
+            urls = list(getattr(train, "rollout_fleet_urls", None) or [])
+            if not urls:
+                raise ValueError("train.rollout_backend='fleet' needs train.rollout_fleet_urls")
+            self._rollout_router = ReplicaRouter(urls, **self._router_kwargs())
+        return self._rollout_router
+
+    def _snapshot_params(self) -> Dict[str, torch.Tensor]:
+        """One detached copy of the policy's weights, taken in the trainer's
+        thread between optimizer steps: what the thread replicas decode on
+        (every engine copies it into its own module)."""
+        self._fleet_params = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        self._fleet_params_step = self.iter_count
+        return self._fleet_params
+
+    def _start_rollout_supervisor(self):
+        """Launch the trainer's own rollout fleet: `rollout_fleet_size`
+        thread replicas of `serve()` (and `rollout_fleet_spares` warm
+        spares) under a FleetSupervisor: a dead replica respawns with
+        backoff, a crash-looping one is quarantined, and new
+        manifest-complete checkpoints under `train.checkpoint_dir` roll
+        through the fleet one replica at a time. Each replica swaps its
+        engine onto the current snapshot of the weights as it boots, so
+        none ever decodes on the trainer's own module."""
+        if self._rollout_supervisor is None:
+            from trlx_tpu_torch.inference.supervisor import FleetSupervisor, ThreadReplica
+
+            train = self.config.train
+            sup_kwargs = dict(getattr(train, "rollout_fleet_supervisor_kwargs", None) or {})
+            watch_dir = sup_kwargs.pop("watch_dir", train.checkpoint_dir)
+            self._snapshot_params()
+
+            def factory(seat_index):
+                def boot():
+                    # watch_dir "" (None): the supervisor owns reloads
+                    server = self.serve(host="127.0.0.1", port=0, watch_dir="", background=True)
+                    # a respawn boots on the supervisor's thread: it reads
+                    # the last snapshot, never the live weights
+                    server.engine.set_params(self._fleet_params)
+                    server.fault_injector = self.fault_injector
+                    return server
+
+                return ThreadReplica(boot)
+
+            supervisor = FleetSupervisor(
+                factory,
+                num_replicas=int(getattr(train, "rollout_fleet_size", 2)),
+                spares=int(getattr(train, "rollout_fleet_spares", 0)),
+                router_kwargs=self._router_kwargs(),
+                watch_dir=watch_dir,
+                fault_injector=self.fault_injector,
+                **sup_kwargs,
+            )
+            supervisor.start()
+            if not supervisor.wait_ready(timeout_s=supervisor.start_timeout_s):
+                supervisor.stop()
+                raise RuntimeError(
+                    f"supervised rollout fleet failed to reach full capacity within {supervisor.start_timeout_s}s"
+                )
+            self._rollout_supervisor = supervisor
+        return self._rollout_supervisor
+
+    def shutdown_rollout_fleet(self) -> None:
+        """Tear the rollout fleet down: stop supervision, kill (and release)
+        the thread replicas, close the router. A no-op without a fleet;
+        `learn()` calls it on the way out."""
+        supervisor, self._rollout_supervisor = self._rollout_supervisor, None
+        router, self._rollout_router = self._rollout_router, None
+        if supervisor is not None:
+            supervisor.stop()  # kills the replicas, closes the router it owns
+        elif router is not None:
+            router.close()
+        self._fleet_params = None
+
+    def _push_params_to_thread_replicas(self) -> None:
+        """Refresh the trainer's thread replicas with the policy's weights
+        when it has stepped since the last push: one snapshot, set into
+        every seat's engine (each copies it into its own module).
+        Out-of-process replicas take new weights through the supervisor's
+        rolling checkpoint sync. Holds the supervisor's lock, so no seat
+        boots half way through."""
+        sup = self._rollout_supervisor
+        if sup is None or self.iter_count == self._fleet_params_step:
+            return
+        with sup._lock:
+            params = self._snapshot_params()
+            for seat in sup.seats:
+                engine = getattr(getattr(seat.handle, "server", None), "engine", None)
+                if engine is not None and engine.has_params:
+                    engine.set_params(params)
+
+    def _anchor_router(self, router, trainer_step: int) -> None:
+        """The staleness bound: supervised replicas advance only when the
+        supervisor rolls a checkpoint through, so it anchors to the last
+        synced step; a fleet given by URL to the trainer's step."""
+        if self._rollout_supervisor is not None:
+            self._push_params_to_thread_replicas()
+            router.set_trainer_step(self._rollout_supervisor.synced_step)
+        else:
+            router.set_trainer_step(trainer_step)
+
+    def _fleet_generate(self, batch, gen_kwargs, trainer_step: int = 0):
+        """Generate one chunk on the rollout fleet, one request a prompt
+        (unpadded ids). A GRPO batch arrives expanded (G adjacent identical
+        rows a prompt): only its unique prompts travel, each with `n=G`,
+        which the server turns into `Scheduler.submit_n`. Returns the local
+        sampler's out-dict layout (host arrays), or the local sampler's
+        own when the whole fleet is down."""
+        from trlx_tpu_torch.inference.fleet import FleetUnavailableError
+
+        G = int(getattr(self.config.method, "group_size", 1))
+        max_new = int(gen_kwargs.get("max_new_tokens", 40))
+        input_ids = np.asarray(batch["input_ids"])
+        attention_mask = np.asarray(batch["attention_mask"])
+        assert input_ids.shape[0] % G == 0, "expanded batch must hold whole groups"
+        prompts = [[int(t) for t, m in zip(row, mask) if m] for row, mask in zip(input_ids[::G], attention_mask[::G])]
+        router = self._get_rollout_router()
+        self._anchor_router(router, trainer_step)
+        try:
+            replies = router.generate(prompts, max_new_tokens=max_new, **({"n": G} if G > 1 else {}))
+        except FleetUnavailableError as e:
+            # the whole fleet is down: the chunk is generated locally (a
+            # one-time warning; it counts in fleet/degraded_chunks)
+            logger.warning_once(f"rollout fleet unavailable; degrading to local generation ({e})")
+            return self.generate(batch["input_ids"], batch["attention_mask"], gen_kwargs)
+        # the local sampler's layout: the prompt block and the response
+        # columns, plus the replicas' per-token behaviour logprobs
+        pad_id = self.tokenizer.pad_token_id
+        n, plen = input_ids.shape
+        samples = np.full((n, plen + max_new), pad_id, dtype=np.int32)
+        samples[:, :plen] = input_ids
+        response_tokens = np.full((n, max_new), pad_id, dtype=np.int32)
+        response_mask = np.zeros((n, max_new), dtype=np.int32)
+        behavior_logprobs = np.zeros((n, max_new), dtype=np.float32)
+        for p, rep in enumerate(replies):
+            seqs = rep.get("sequences") or [rep]
+            for g in range(G):
+                i, seq = p * G + g, seqs[min(g, len(seqs) - 1)]
+                toks = list(seq["token_ids"])[:max_new]
+                lps = list(seq.get("token_logprobs") or [])[: len(toks)]
+                samples[i, plen:plen + len(toks)] = toks
+                response_tokens[i, : len(toks)] = toks
+                response_mask[i, : len(toks)] = 1
+                behavior_logprobs[i, : len(lps)] = lps
+        return {"samples": samples, "response_tokens": response_tokens, "response_mask": response_mask,
+                "behavior_logprobs": behavior_logprobs, "fleet": True}
+
+    def _apply_behavior_logprobs(self, logprobs, out, prompt_tensors, sample_outputs) -> int:
+        """Overwrite the scorer's policy logprobs with the replicas' (the
+        behaviour policy's, which the importance ratio wants) on the rows
+        whose retokenized response equals the raw sampled tokens; other
+        rows keep the scorer's. Returns the rows overwritten; `logprobs`
+        changes in place."""
+        pad_id = self.tokenizer.pad_token_id
+        raw_tokens, raw_mask = np.asarray(out["response_tokens"]), np.asarray(out["response_mask"])
+        behavior = np.asarray(out["behavior_logprobs"])
+        start = prompt_tensors.shape[1] - 1
+        hits = 0
+        for ix in range(len(sample_outputs)):
+            n_resp = int((sample_outputs[ix] != pad_id).sum())
+            if n_resp == 0 or n_resp != int(raw_mask[ix].sum()):
+                continue
+            if not np.array_equal(sample_outputs[ix, :n_resp], raw_tokens[ix, :n_resp]):
+                continue
+            logprobs[ix, start:start + n_resp] = behavior[ix, :n_resp]
+            hits += 1
+        return hits
+
+    def _fleet_stats(self, supervisor: bool = True) -> Dict[str, float]:
+        """The router's lifetime counters (and the supervisor's lifecycle
+        ones) as `fleet/*` stats."""
+        stats = {}
+        sources = [self._rollout_router] + ([self._rollout_supervisor] if supervisor else [])
+        for source in sources:
+            if source is None:
+                continue
+            for k, v in source.stats().items():
+                if isinstance(v, (int, float)):
+                    stats[f"fleet/{k}"] = float(v)
+        return stats
+
+    # ------------------------------------------------------------------
+    # Multi-turn experience (environments over fleet sessions)
+    # ------------------------------------------------------------------
+
+    def _multiturn_group_size(self) -> int:
+        """Episodes a shared environment seed: 1 for PPO; GRPO's G."""
+        return 1
+
+    def _run_episode(self, router, env, seed, max_new, max_turns):
+        """One conversation: policy turns through one fleet chat session
+        (its replica keeps the conversation's KV between turns, so each
+        turn after the first prefills only its new tokens) alternating
+        with the environment's replies. Returns (prompt_ids, segments,
+        retained_hits); a segment is (kind, ids, logprobs, reward), kind
+        "policy" or "env", the reward belonging to its policy turn."""
+        tok = self.tokenizer
+        obs = env.reset(seed)
+        prompt_ids = [int(t) for t in tok.encode(obs)]
+        key = f"mt-{uuid.uuid4().hex[:12]}"
+        segments = []
+        retained_hits = 0
+        turn_ids = prompt_ids
+        try:
+            for t in range(max_turns):
+                out = router.chat(turn_ids, session_key=key, max_new_tokens=max_new)
+                resp_ids = [int(x) for x in out["token_ids"]]
+                retained_hits += int(bool(out.get("retained_hit")))
+                text = out.get("text")
+                if text is None:
+                    text = tok.decode(resp_ids)
+                step_out = env.step(text)
+                lps = [float(x) for x in (out.get("token_logprobs") or [])]
+                segments.append(("policy", resp_ids, lps[: len(resp_ids)], float(step_out.reward)))
+                if step_out.done or t == max_turns - 1:
+                    break
+                env_ids = [int(x) for x in tok.encode(step_out.text)]
+                if not env_ids:
+                    # /chat needs a non-empty turn: a silent environment
+                    # still hands the floor back to the policy
+                    env_ids = [int(x) for x in tok.encode(" ")]
+                segments.append(("env", env_ids, None, 0.0))
+                turn_ids = env_ids
+        finally:
+            router.end_session(key)
+        return prompt_ids, segments, retained_hits
+
+    def make_experience_multiturn(self, num_rollouts: int = 1024, iter_count: int = 0):
+        """Collect multi-turn rollouts (`method.multiturn_env`): whole
+        environment episodes through fleet chat sessions, 8 at a time. An
+        episode is one rollout element whose response is every turn after
+        the opening observation; the environment's raw turn rewards are
+        used as they are (`scale_reward` does not apply)."""
+        from trlx_tpu_torch.environments import make_environment
+
+        logger.info("Collecting multi-turn rollouts")
+        if not self._fleet_rollouts_enabled():
+            raise ValueError(
+                "method.multiturn_env requires train.rollout_backend='fleet' (episodes run through fleet chat "
+                "sessions)"
+            )
+        method = self.config.method
+        env_kwargs = dict(getattr(method, "multiturn_env_kwargs", None) or {})
+        max_turns = max(int(getattr(method, "multiturn_max_turns", 4)), 1)
+        max_new = self._max_new()
+        G = max(self._multiturn_group_size(), 1)
+        router = self._get_rollout_router()
+        self._anchor_router(router, iter_count)
+
+        elements: List[PPORLElement] = []
+        accumulated: List[Dict] = []
+        seed0 = int(self._mt_seed_offset)
+        chunk_size = max(int(method.chunk_size), 1)
+        clock = Clock()
+        while len(elements) < num_rollouts:
+            n_chunk = min(chunk_size, num_rollouts - len(elements))
+            n_chunk = max((n_chunk + G - 1) // G * G, G)  # whole groups
+            clock.tick()
+
+            def one(i, seed0=seed0):
+                env = make_environment(method.multiturn_env, **env_kwargs)
+                # same-seed groups: episodes with equal i // G play the same
+                # task and differ only by sampling
+                return self._run_episode(router, env, seed0 + i // G, max_new, max_turns)
+
+            with ThreadPoolExecutor(max_workers=min(n_chunk, 8)) as pool:
+                episodes = list(pool.map(one, range(n_chunk)))
+            seed0 += n_chunk // G
+            stats: Dict[str, float] = {"time/rollout_generate": clock.tick()}
+            elements.extend(self._episodes_to_elements(episodes, stats))
+            stats["time/rollout_time"] = clock.tick()
+            accumulated.append(stats)
+            logger.info(f"[multi-turn rollout {len(elements)} / {num_rollouts}]")
+        self._mt_seed_offset = seed0
+        stats = {k: sum(x[k] for x in accumulated) / len(accumulated) for k in accumulated[-1]}
+        stats["kl_ctl_value"] = self.kl_ctl.value
+        stats.update(self._fleet_stats(supervisor=False))
+        self.mean_kl = stats["policy/sqrt_kl"] ** 2
+        self.tracker.log(stats, step=iter_count)
+        self.push_to_store(elements)
+
+    def _episodes_to_elements(self, episodes, stats):
+        """Pad one chunk of episodes into a batch, score it, splice the
+        replicas' behaviour logprobs onto the policy tokens, and hand over
+        to `_multiturn_elements` (PPO's per-token rewards; GRPO's group
+        advantages)."""
+        pad_id = self.tokenizer.pad_token_id
+        n = len(episodes)
+        max_q = max(len(p) for p, _, _ in episodes)
+        rows = []
+        for prompt_ids, segments, hits in episodes:
+            ids: List[int] = []
+            lmask: List[float] = []
+            erew: List[float] = []
+            blps: List[Optional[float]] = []
+            for kind, seg_ids, lps, reward in segments:
+                pol = kind == "policy"
+                ids.extend(seg_ids)
+                lmask.extend([1.0 if pol else 0.0] * len(seg_ids))
+                erew.extend([0.0] * len(seg_ids))
+                if pol and seg_ids:
+                    erew[-1] = float(reward)  # the turn's reward on its last token
+                if pol:
+                    blps.extend(list(lps) + [None] * (len(seg_ids) - len(lps)))
+                else:
+                    blps.extend([None] * len(seg_ids))
+            if not ids:  # a degenerate episode (an empty first reply)
+                ids, lmask, erew, blps = [pad_id], [0.0], [0.0], [None]
+            rows.append((prompt_ids, ids, lmask, erew, blps, hits))
+        # the scored width is capped at the train context: a conversation
+        # past it loses its tail tokens (and any reward on them)
+        cap = max(int(self.config.train.seq_length) - max_q, 1)
+        max_r = min(max(len(r[1]) for r in rows), cap)
+
+        prompt_tensors = np.full((n, max_q), pad_id, np.int32)
+        sample_outputs = np.full((n, max_r), pad_id, np.int32)
+        loss_mask = np.zeros((n, max_r), np.float32)
+        env_rewards = np.zeros((n, max_r), np.float32)
+        left = self.tokenizer.padding_side == "left"
+        for i, (p, ids, lm, er, _bl, _h) in enumerate(rows):
+            w = min(len(ids), max_r)
+            if left:
+                prompt_tensors[i, max_q - len(p):] = p
+            else:
+                prompt_tensors[i, : len(p)] = p
+            sample_outputs[i, :w] = ids[:w]
+            loss_mask[i, :w] = lm[:w]
+            env_rewards[i, :w] = er[:w]
+
+        all_tokens = torch.from_numpy(np.concatenate([prompt_tensors, sample_outputs], axis=1)).to(self.device).long()
+        scored = self.score(all_tokens)
+        logprobs, values, log_ratio = (x.cpu().numpy() for x in scored[:3])
+        mean_kl, mean_kl_per_token = float(scored[3]), float(scored[4])
+        start = max_q - 1
+        # the replica's sampler is the behaviour policy: its logprob for
+        # response token j (all_tokens column max_q + j) lands at scorer
+        # column start + j
+        for i, (_p, _ids, _lm, _er, bl, _h) in enumerate(rows):
+            for j, lp in enumerate(bl[:max_r]):
+                if lp is not None:
+                    logprobs[i, start + j] = lp
+        stats["policy/sqrt_kl"] = float(np.sqrt(max(mean_kl, 0.0)))
+        stats["policy/kl_per_token"] = float(np.sqrt(max(mean_kl_per_token, 0.0)))
+        stats["rollout/mean_env_reward"] = float(env_rewards.sum(1).mean())
+        stats["rollout/mean_turns"] = float(np.mean([sum(1 for s in segs if s[0] == "policy")
+                                                     for _, segs, _ in episodes]))
+        stats["rollout/retained_hit_turns"] = float(sum(r[5] for r in rows))
+        return self._multiturn_elements(rows, prompt_tensors, sample_outputs, loss_mask, env_rewards, logprobs,
+                                        values, log_ratio, start, max_r)
+
+    def _multiturn_elements(self, rows, prompt_tensors, sample_outputs, loss_mask, env_rewards, logprobs,
+                            values, log_ratio, start, max_r):
+        """PPO rewards for a multi-turn chunk: the per-token KL penalty on
+        policy tokens only, plus each turn's reward on its last token; GAE
+        runs over the whole response and the loss mask keeps the
+        environment's tokens out of the objective."""
+        kl_coef = self.kl_ctl.value
+        elements = []
+        for i, (_p, ids, _lm, _er, _bl, _h) in enumerate(rows):
+            n_resp = max(min(len(ids), max_r), 1)
+            end = start + n_resp
+            lmask_row = np.asarray(loss_mask[i, :n_resp], np.float32)
+            rewards = (-kl_coef * log_ratio[i, start:end]) * lmask_row
+            rewards = rewards.astype(np.float32) + env_rewards[i, :n_resp]
+            elements.append(PPORLElement(
+                query_tensor=prompt_tensors[i],
+                response_tensor=sample_outputs[i, :n_resp],
+                logprobs=logprobs[i, start:end],
+                values=values[i, start:end],
+                rewards=rewards,
+                loss_mask=lmask_row.copy(),
             ))
         return elements
 
@@ -724,6 +1173,11 @@ class PPOTrainer(TorchTrainer):
             raise NotImplementedError(
                 f"pipelined_cycle requires num_rollouts to be a multiple of chunk_size (got "
                 f"{method.num_rollouts} vs {method.chunk_size}); use make_experience + learn for ragged collections"
+            )
+        if self._fleet_rollouts_enabled():
+            logger.warning_once(
+                "rollout_backend='fleet' applies to make_experience only; pipelined_cycle keeps generating "
+                "locally (its schedule keeps the rollouts on the device from sampling through training)"
             )
         k = method.num_rollouts // method.chunk_size
         max_new = self._max_new()
