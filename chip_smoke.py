@@ -184,6 +184,35 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    4 turns of 8 tokens) over /chat, PPO and GRPO (same-seed groups of 4):
    retained-KV turns, K1 exact, one step with the loss masks; at f32
    every policy turn equals /generate over its transcript.
+19. the reward model, reward serving and best-of-n, then the resilience
+   of training (`build/chip_smoke_{bon,chaos,resume,drain}*`): (a) a
+   reward model (`models/reward.py`) at gpt2-small full width (bf16, flash)
+   trained pairwise for 40 steps on seeded separable pairs, held-out
+   accuracy above 0.9, a scoring call K3 x12 and a step K4-K6 x12 exactly;
+   at f32 (4 layers) its rewards and one step's gradients kernels vs plain
+   versions; (b) it serves behind `serving.RewardModelServer` with a
+   `mixed` fault injector (remote scores equal `make_reward_fn`'s), and
+   best-of-n (`default_bon_config`, 8 prompts x n 4 x 40 tokens)
+   runs through `trlx_tpu_torch.train(reward_fn=remote_reward_fn(url))`
+   locally (3 rounds, 2 CE steps) and on two in-process replicas of the
+   trainer with the `n` fan-out (K1 = the replicas' decode dispatches x
+   12); a CE step RFT's launches, K3 = 12 x the reward model's calls; at
+   f32 (4 layers, greedy) the fleet's candidates equal the local sampler's
+   under phase 11's tie rule; (c) phase 9's configuration with the health
+   sentinel, the step watchdog (`on_timeout` injected) and a FaultInjector
+   (NaN at step 3, 1e4 spikes at 7 and 8, an 8 s hang at 12): the NaN and
+   spike steps skipped with the trainable parameters, Adam state and
+   schedule bitwise unchanged (the NaN and huge gradients reach the guard
+   through K5, K6 and K7's backward), one rewind to last_good, the
+   watchdog fired by the hang, 32 steps completed, launches exact a step
+   and a chunk; (d) at 4 layers two uninterrupted PPO runs (the card's
+   repeat spread), a run in its own process sent SIGTERM after step 6
+   exits 75, and a new trainer with `auto_resume` continues from its
+   `_preempt` checkpoint to the uninterrupted run's parameters (bitwise
+   when the card repeats bitwise, else within the spread); (e) `python -m
+   trlx_tpu_torch.inference.serve_policy` at gpt2-small under SIGTERM
+   with 8 requests of 256 tokens in flight: 8 full replies, 503 with
+   Retry-After for a new one, exit 0.
 Phase 6 also holds K7 and its backward at the randomwalks curves' rows (a
 24-token vocabulary, f32 and bf16, shifted labels, padded rows).
 
@@ -191,7 +220,7 @@ The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object (with `ppo_options`, phase 11's
 checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
 `ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16, `serving`, phase
-17's, `fleet`, phase 18's); the last line is
+17's, `fleet`, phase 18's, `phase19`, phase 19's); the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
 """
@@ -3462,6 +3491,723 @@ def phase_fleet(card, ppo_base, grpo_base):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the reward model, reward serving and best-of-n; the health
+# sentinel's chaos run, auto_resume and the policy server's drain
+# ---------------------------------------------------------------------------
+
+RM_T, RM_PAIRS, RM_STEPS, RM_EVAL_PAIRS, RM_LR = 128, 32, 40, 128, 1e-4
+RM_ACCURACY = 0.9
+# a scoring call under no_grad: the forward-only kernel in every block; a
+# training step over the pairs (one forward over chosen and rejected
+# rows): the forward with lse and both backward kernels in every block;
+# the reward model has no LM head, so no K7
+RM_SCORE_KERNELS = {"flash_fwd": 12}
+RM_STEP_KERNELS = {"flash_fwd_lse": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+RM_F32_STEP_KERNELS = {"flash_fwd_lse": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+BON_PROMPTS, BON_N, BON_EPOCHS = 8, 4, 2
+BON_STEP_KERNELS = RFT_KERNELS_PER_STEP  # the SFT step's CE over every block
+# the chaos run: the ladder takes only catastrophes (z 50), a skipped step
+# is one whose norm is not finite or above 1e3; faults by iter_count
+CHAOS_SENTINEL = dict(sentinel=True, grad_skip_threshold=1e3, sentinel_window=8, sentinel_warmup=2,
+                      sentinel_zscore=50.0, sentinel_skip_after=2, sentinel_rewind_after=2, sentinel_good_steps=2,
+                      sentinel_pin_interval=4, max_rewinds=2, sentinel_cooldown_steps=4)
+CHAOS_TIMEOUT_S, CHAOS_HANG_S = 6.0, 8.0
+CHAOS_FAULTS = dict(nan_grad_steps=[3], loss_spike_steps=[7, 8], hang_steps=[12], hang_step_s=CHAOS_HANG_S)
+RESUME_ROLLOUTS, RESUME_BATCH, RESUME_PREEMPT_AT = 32, 8, 6
+# the preempted run's process: imports this script and runs (d)'s child
+RESUME_CHILD = "import sys; sys.path.insert(0, {root!r}); import chip_smoke; chip_smoke.auto_resume_child({run!r})"
+DRAIN_REQUESTS, DRAIN_NEW = 8, 256
+RM_DEVICE = "cuda"  # where the reward model lives
+
+
+def rm_texts(n, rng, chosen):
+    """Byte strings of 16-120 lowercase letters: a-m for a chosen text,
+    n-z for a rejected one (separable pairs from a seed)."""
+    base = 97 if chosen else 110
+    return ["".join(chr(base + c) for c in rng.randint(0, 13, rng.randint(16, 121))) for _ in range(n)]
+
+
+def rm_batch(tokenizer, texts, device):
+    import torch
+
+    enc = tokenizer(texts, max_length=RM_T, truncation=True, padding="max_length")
+    return (torch.from_numpy(enc["input_ids"]).to(device).long(),
+            torch.from_numpy(enc["attention_mask"]).to(device).long())
+
+
+def rm_tokenizer():
+    from trlx_tpu_torch.data.configs import TokenizerConfig
+    from trlx_tpu_torch.tokenizers import get_tokenizer
+
+    # the head reads the last valid token at mask.sum - 1: right padding
+    return get_tokenizer(TokenizerConfig(tokenizer_path="byte", padding_side="right"))
+
+
+def rm_model(seed=0, **extra):
+    import torch
+
+    from trlx_tpu_torch.models import config_from_preset
+    from trlx_tpu_torch.models.reward import build_reward_model
+
+    cfg = config_from_preset("gpt2-small", vocab_size=50257, attn_impl="flash", **extra)
+    return build_reward_model(cfg, seed=seed, device=torch.device(RM_DEVICE))
+
+
+def phase_reward_model(card):
+    """(a) The reward model at gpt2-small full width (bf16, flash): pairwise
+    training on seeded separable pairs, held-out accuracy above 0.9, the
+    launches of a scoring call and of a step exact; at f32 (4 layers) the
+    rewards and one step's gradients with the kernels vs the plain
+    versions. Returns (model, tokenizer, launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.models.reward import pairwise_loss
+
+    t0 = time.perf_counter()
+    tokenizer, device = rm_tokenizer(), torch.device(RM_DEVICE)
+    rm = rm_model()
+    opt = torch.optim.AdamW([p for p in rm.parameters()], lr=RM_LR)
+    rng = np.random.RandomState(19)
+    launches, step_launches, step_s = {}, [], []
+    for step in range(RM_STEPS):
+        c_ids, c_mask = rm_batch(tokenizer, rm_texts(RM_PAIRS, rng, True), device)
+        r_ids, r_mask = rm_batch(tokenizer, rm_texts(RM_PAIRS, rng, False), device)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        rewards = rm(torch.cat([c_ids, r_ids]), torch.cat([c_mask, r_mask]))
+        loss, stats = pairwise_loss(rewards[:RM_PAIRS], rewards[RM_PAIRS:])
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        step_launches.append({k: v for k, v in kernels.LAUNCHES.items() if v})
+        loss = loss.detach()
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"[rm] step {step}: loss {float(loss)}")
+    for k in RM_STEP_KERNELS:
+        launches[k] = sum(s.get(k, 0) for s in step_launches)
+    eval_rng = np.random.RandomState(20)
+    c_ids, c_mask = rm_batch(tokenizer, rm_texts(RM_EVAL_PAIRS, eval_rng, True), device)
+    r_ids, r_mask = rm_batch(tokenizer, rm_texts(RM_EVAL_PAIRS, eval_rng, False), device)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        r_c = rm(c_ids, c_mask)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t1
+        score_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        r_r = rm(r_ids, r_mask)
+    launches["flash_fwd"] = kernels.LAUNCHES.get("flash_fwd", 0)
+    accuracy = float((r_c > r_r).float().mean())
+    bad_steps = [s for s in step_launches if s != RM_STEP_KERNELS]
+    log(f"[rm] gpt2-small reward model (vocab 50257, bf16, flash, every block trainable): {RM_STEPS} AdamW steps of "
+        f"{RM_PAIRS} pairs x {RM_T} tokens (right-padded), last loss {float(loss):.5f} accuracy "
+        f"{float(stats['accuracy']):.3f}; median step_s={statistics.median(step_s[1:]):.4f}; held-out accuracy "
+        f"{accuracy:.4f} over {RM_EVAL_PAIRS} pairs, margin {float((r_c - r_r).mean()):.4f}; a scoring call of "
+        f"{RM_EVAL_PAIRS} rows {score_s * 1e3:.2f} ms ({RM_EVAL_PAIRS / score_s:.1f} samples/s), launches "
+        f"{score_launches}; a step launches {step_launches[-1]} ({card})")
+    if accuracy <= RM_ACCURACY or bad_steps or score_launches != RM_SCORE_KERNELS or \
+            launches["flash_fwd"] != 2 * RM_SCORE_KERNELS["flash_fwd"]:
+        raise AssertionError(f"[rm] accuracy {accuracy}, steps launching otherwise {bad_steps[:2]}, scoring "
+                             f"{score_launches}")
+    numbers = dict(steps=RM_STEPS, pairs=RM_PAIRS, t=RM_T, accuracy=accuracy, last_loss=float(loss),
+                   step_s=statistics.median(step_s[1:]), score_ms=score_s * 1e3,
+                   score_samples_per_s=RM_EVAL_PAIRS / score_s, score_kernels=RM_SCORE_KERNELS,
+                   step_kernels=RM_STEP_KERNELS)
+
+    # at f32, 4 layers: the rewards and one step's gradients, kernels vs plain
+    import types
+
+    f32 = rm_model(seed=1, dtype=torch.float32, n_layers=4)
+    ids, mask = torch.cat([c_ids[:16], r_ids[:16]]), torch.cat([c_mask[:16], r_mask[:16]])
+
+    def loss_fn(batch):
+        r = f32(*batch)
+        return pairwise_loss(r[:16], r[16:])
+
+    fake = types.SimpleNamespace(model=f32, make_loss_fn=lambda: loss_fn, batch_to_device=lambda b: b)
+    with torch.no_grad():
+        with plain_versions():
+            r_plain = f32(ids, mask)
+        kernels.reset_launches()
+        r_kern = f32(ids, mask)
+    err = float((r_kern - r_plain).abs().max())
+    with plain_versions():
+        loss_p, grads_p, gates = step_grads(fake, (ids, mask))
+    kernels.reset_launches()
+    loss_k, grads_k, gates_k = step_grads(fake, (ids, mask), gates)
+    f32_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    worst = check_grads(grads_k, grads_p)
+    flips = gate_flips(gates_k, gates)
+    log(f"[rm-f32] gpt2-small width, 4 layers, f32, 32 rows t {RM_T}: rewards kernels vs plain max|diff| {err:.3g} "
+        f"(tol {SCORE_TOL['atol']}); loss kernels={loss_k:.7f} plain={loss_p:.7f}; {len(grads_k)} grads, worst "
+        f"max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}) under the plain run's head gate ({flips[0]}/{flips[1]} "
+        f"entries its own ReLU sets otherwise); launches {f32_launches}")
+    torch.testing.assert_close(r_kern, r_plain, **SCORE_TOL)
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) or f32_launches != RM_F32_STEP_KERNELS:
+        raise AssertionError(f"[rm-f32] loss {loss_k} vs {loss_p}, launches {f32_launches}")
+    del f32, opt
+    release()
+    numbers.update(f32_reward_err=err, f32_loss=[loss_k, loss_p], f32_grad_worst=worst,
+                   seconds=time.perf_counter() - t0)
+    log(f"[rm] (a) took {numbers['seconds']:.1f} s")
+    return rm, tokenizer, launches, numbers
+
+
+def bon_config(work, **model_extra):
+    from trlx_tpu_torch.data.default_configs import default_bon_config
+
+    return default_bon_config().evolve(
+        train=dict(seq_length=1024, batch_size=BON_PROMPTS, epochs=BON_EPOCHS, eval_interval=10000,
+                   checkpoint_dir=str(work / "ckpts"), logging_dir=str(work / "logs")),
+        model=dict(model_path="random:gpt2-small",
+                   model_extra_configs={"vocab_size": 50257, "attn_impl": "flash", **model_extra}),
+        method=dict(best_of_n=BON_N, gen_kwargs=dict(max_new_tokens=PPO_NEW, top_k=0, top_p=1.0, do_sample=True,
+                                                     suppress_tokens=PPO_SUPPRESS)),
+        inference=dict(FLEET_INFERENCE, sessions=False, prefix_cache=False, max_new_tokens=PPO_NEW),
+    )
+
+
+@contextmanager
+def counting_calls(module, calls):
+    """Count a module's forward calls (the reward model's, whose K3
+    launches a best-of-n run adds to its own)."""
+    hook = module.register_forward_hook(lambda *a: calls.append(1))
+    try:
+        yield
+    finally:
+        hook.remove()
+
+
+def bon_run(card, tag, work, rm, config, fleet=False, reward_fn=None):
+    """A best-of-n run: through `trlx_tpu_torch.train` (local), or (fleet)
+    a trainer wired as `train` wires it, serving itself on two in-process
+    replicas (the trainer's own `serve()`, on its live weights) and
+    sampling through them with the `n` fan-out. Launches exact: a CE step
+    RFT's, K3 = 12 x the reward model's forward calls, K1 (fleet) = the
+    replicas' decode dispatches x 12, nothing else."""
+    import shutil
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.bon_trainer import BestOfNTrainer
+
+    if work.exists():
+        shutil.rmtree(work)
+    record, rm_calls, servers = [], [], []
+    prompts = ppo_prompts(BON_PROMPTS, seed=7)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ppo_probes(record, BestOfNTrainer, ("make_experience", "_sample_candidates", "train_minibatch")), \
+            counting_calls(rm, rm_calls), recording_servers(servers):
+        if not fleet:
+            trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, config=config)
+        else:
+            trainer = BestOfNTrainer(config, reward_fn=reward_fn)
+            trainer.add_prompt_pipeline(PromptPipeline(prompts, config.train.seq_length - PPO_NEW, trainer.tokenizer))
+            trainer.add_eval_pipeline(PromptPipeline(prompts, config.train.seq_length - PPO_NEW, trainer.tokenizer))
+            for _ in range(FLEET_SIZE):
+                trainer.serve(host="127.0.0.1", port=0, background=True)
+            trainer.config.train.rollout_backend = "fleet"
+            trainer.config.train.rollout_fleet_urls = [s.url for s in servers]
+            trainer.config.train.rollout_fleet_kwargs = dict(concurrency=64, hedge=False)
+            try:
+                trainer.learn()
+            finally:
+                for s in servers:
+                    s.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    rows = metric_rows(work, "bon/n_winners")
+    rounds = [c for c in record if c[0] == "make_experience"]
+    sampled = [c for c in record if c[0] == "_sample_candidates"]
+    steps = [c for c in record if c[0] == "train_minibatch"]
+    step_rows = [r for r in metric_rows(work, "time/train_step_s")]
+    for c in steps:
+        if c[3] != BON_STEP_KERNELS:
+            raise AssertionError(f"[{tag}] a CE step launched {c[3]}, expected {BON_STEP_KERNELS}")
+    want = {k: v * len(steps) for k, v in BON_STEP_KERNELS.items()}
+    want["flash_fwd"] = RM_SCORE_KERNELS["flash_fwd"] * len(rm_calls)
+    dispatches = 0
+    if fleet:
+        dispatches = check_k1(tag, launches, servers)  # K1 = the replicas' decode dispatches x 12
+        if FLEET_KERNEL in launches:
+            want[FLEET_KERNEL] = launches[FLEET_KERNEL]
+    round_s = [c[2] - c[1] for c in rounds]
+    sample_s = [c[2] - c[1] for c in sampled]
+    n_samples = BON_PROMPTS * BON_N
+    numbers = dict(wall_s=wall, rounds=len(rounds), steps=len(steps), round_s=round_s,
+                   samples_per_s=[n_samples / s for s in round_s], sampling_s=sample_s,
+                   scores_mean=[r["bon/scores_mean"] for r in rows],
+                   winner_scores_mean=[r["bon/winner_scores_mean"] for r in rows],
+                   reward_model_calls=len(rm_calls), decode_dispatches=dispatches,
+                   step_s=[r["time/train_step_s"] for r in step_rows])
+    log(f"[{tag}] gpt2-small best-of-n ({'through 2 in-process replicas, n fan-out' if fleet else 'local sampler'}): "
+        f"{BON_PROMPTS} prompts x n {BON_N} x {PPO_NEW} tokens a round, {len(rounds)} rounds in "
+        f"{[round(s, 3) for s in round_s]} s (samples/s {[round(x, 1) for x in numbers['samples_per_s']]}; "
+        f"sampling {[round(s, 3) for s in sample_s]} s), scores mean {[round(x, 4) for x in numbers['scores_mean']]} "
+        f"winners {[round(x, 4) for x in numbers['winner_scores_mean']]}, {len(steps)} CE steps "
+        f"({[round(x, 4) for x in numbers['step_s']]} s), {len(rm_calls)} reward-model calls through the server, "
+        f"{wall:.2f} s wall; launches {launches} ({card})")
+    if launches != want or len(rounds) != config.train.epochs + 1 or any(r["bon/n_winners"] != BON_PROMPTS
+                                                                         for r in rows):
+        raise AssertionError(f"[{tag}] launches {launches} != {want}; {len(rounds)} rounds; {rows}")
+    if not isinstance(trainer, BestOfNTrainer) or not all(math.isfinite(r["loss"]) for r in step_rows):
+        raise AssertionError(f"[{tag}] trainer {type(trainer)}, losses {[r['loss'] for r in step_rows]}")
+    del trainer
+    release()
+    return launches, numbers
+
+
+def bon_f32_fleet_vs_local(card):
+    """At f32 (4 layers, greedy): one batch's candidates through two
+    in-process replicas with the `n` fan-out against the local sampler's,
+    token for token under phase 11's tie rule."""
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.ops import sampling
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.bon_trainer import BestOfNTrainer
+
+    work = ROOT / "build" / "chip_smoke_bon_f32"
+    config = bon_config(work, dtype="float32", n_layers=4).evolve(method=dict(gen_kwargs=dict(
+        max_new_tokens=PPO_NEW, do_sample=False, suppress_tokens=PPO_SUPPRESS)))
+    trainer = BestOfNTrainer(config, reward_fn=ppo_reward)
+    trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(BON_PROMPTS, seed=8), 984, trainer.tokenizer))
+    batch = next(iter(trainer.prompt_dataloader))
+    ids, mask = np.asarray(batch["input_ids"]), np.asarray(batch["attention_mask"])
+    gaps, process, generate = [], sampling.process_logits, trainer.generate
+    local_tokens = []
+
+    def recording(logits, cfg, step, seen=None):
+        res = process(logits, cfg, step, seen)
+        top = torch.topk(res, 2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        return res
+
+    def generating(*args, **kwargs):
+        out = generate(*args, **kwargs)
+        local_tokens.append(out["response_tokens"].cpu().numpy())
+        return out
+
+    sampling.process_logits, trainer.generate = recording, generating
+    try:
+        local = trainer._sample_candidates(ids, mask, BON_N)
+    finally:
+        sampling.process_logits, trainer.generate = process, generate
+    servers = [trainer.serve(host="127.0.0.1", port=0, background=True) for _ in range(FLEET_SIZE)]
+    trainer.config.train.rollout_backend = "fleet"
+    trainer.config.train.rollout_fleet_urls = [s.url for s in servers]
+    trainer.config.train.rollout_fleet_kwargs = dict(concurrency=64, hedge=False)
+    replies = []
+    router = trainer._get_bon_router()
+    route = router.generate
+    router.generate = lambda prompts, **kw: replies.append(route(prompts, **kw)) or replies[-1]
+    try:
+        fleet = trainer._sample_candidates(ids, mask, BON_N)
+    finally:
+        trainer.shutdown_rollout_fleet()
+        for s in servers:
+            s.shutdown()
+    steps = len(gaps) // BON_N
+    gap = torch.stack(gaps[:steps], dim=1).cpu().numpy()
+    differ = []
+    for p, rep in enumerate(replies[0]):
+        for seq in rep.get("sequences") or [rep]:
+            got = np.asarray(seq["token_ids"][:PPO_NEW])
+            want = local_tokens[0][p, :len(got)]
+            if not np.array_equal(got, want):
+                pos = int(np.argmax(got != want))
+                differ.append((p, pos, float(gap[p, pos])))
+    equal = sum(a == b for a, b in zip(local, fleet))
+    log(f"[bon-f32] gpt2-small width, 4 layers, f32, greedy: {BON_PROMPTS} prompts x n {BON_N} through 2 replicas "
+        f"(one request a prompt) vs the local sampler: {equal}/{BON_PROMPTS} prompts' candidates equal; differing "
+        f"sequences (prompt, position, local top-two gap) {differ} (tie rule {TIE_GAP}) ({card})")
+    if len(replies) != 1 or len(replies[0]) != BON_PROMPTS or any(g >= TIE_GAP for _, _, g in differ):
+        raise AssertionError(f"[bon-f32] {len(replies)} fleet calls, differing {differ}")
+    if not differ and equal != BON_PROMPTS:
+        raise AssertionError(f"[bon-f32] tokens equal but {equal}/{BON_PROMPTS} candidate strings")
+    del trainer
+    release()
+    return dict(prompts_equal=equal, differ=differ)
+
+
+def phase_bon(card, rm, tokenizer):
+    """(b) The reward model behind `RewardModelServer` with a `mixed`
+    fault injector: `remote_reward_fn` scores equal in-process
+    `make_reward_fn` scores; then best-of-n through
+    `trlx_tpu_torch.train(reward_fn=remote_reward_fn(url))` locally, and
+    on the trainer's two in-process replicas; at f32 the fleet's
+    candidates against the local ones."""
+    from trlx_tpu_torch.models.reward import make_reward_fn
+    from trlx_tpu_torch.resilience import FaultInjector
+    from trlx_tpu_torch.serving import RewardModelServer, remote_reward_fn
+
+    t0 = time.perf_counter()
+    rm.eval()
+    local_fn = make_reward_fn(rm, None, tokenizer, max_length=RM_T, batch_size=64)
+    # every other request fails, a 503 and a dropped connection in turn
+    injector = FaultInjector(schedule=[True, False], cycle=True, mode="mixed")
+    server = RewardModelServer(local_fn, host="127.0.0.1", port=0, fault_injector=injector)
+    url = server.start_background()
+    launches, out = {}, {}
+    try:
+        client = remote_reward_fn(url, retries=8, retry_base_delay=0.01, retry_max_delay=0.05)
+        import numpy as np
+
+        rng = np.random.RandomState(21)
+        samples = rm_texts(48, rng, True) + rm_texts(48, rng, False)
+        calls = 0
+        for _ in range(4):
+            got = client(samples)
+            calls += 1
+        want = local_fn(samples)
+        log(f"[bon-serving] the reward model behind RewardModelServer (mixed faults, every other request): {calls} calls of "
+            f"{len(samples)} samples, {injector.injected} injected faults (503 or dropped connection) retried; "
+            f"remote scores equal the in-process make_reward_fn's: {got == want}")
+        if got != want or not injector.injected:
+            raise AssertionError(f"[bon-serving] remote {got[:4]} vs local {want[:4]}, injected {injector.injected}")
+        out["serving"] = dict(calls=calls, samples=len(samples), injected=injector.injected, equal=True)
+        server.fault_injector = None  # the runs below score through a healthy server
+        reward_fn = remote_reward_fn(url)
+        work = ROOT / "build" / "chip_smoke_bon"
+        launches["local"], out["local"] = bon_run(card, "bon", work, rm, bon_config(work), reward_fn=reward_fn)
+        work = ROOT / "build" / "chip_smoke_bon_fleet"
+        config = bon_config(work).evolve(train=dict(epochs=1))
+        launches["fleet"], out["fleet"] = bon_run(card, "bon-fleet", work, rm, config, fleet=True,
+                                                  reward_fn=reward_fn)
+    finally:
+        server.shutdown()
+    out["f32"] = bon_f32_fleet_vs_local(card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[bon] (b) took {out['seconds']:.1f} s")
+    return launches, out
+
+
+def chaos_state(trainer):
+    """Clones of what a skipped step must leave bitwise: the trainable
+    parameters, the optimizer's state and the scheduler's."""
+    params = [p.detach().clone() for p in trainer.trainable_params]
+    opt = [{k: (v.clone() if hasattr(v, "clone") else v) for k, v in trainer.optimizer.state[p].items()}
+           for p in trainer.trainable_params]
+    return params, opt, dict(trainer.scheduler.state_dict())
+
+
+def same_state(a, b):
+    import torch
+
+    return (all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+            and all(x.keys() == y.keys() and all(torch.equal(x[k], y[k]) if hasattr(x[k], "shape") else x[k] == y[k]
+                                                 for k in x) for x, y in zip(a[1], b[1]))
+            and a[2] == b[2])
+
+
+def phase_chaos(card):
+    """(c) Phase 9's configuration with the health sentinel, the step
+    watchdog (its `on_timeout` injected) and a FaultInjector: a NaN step,
+    two 1e4 loss spikes and a wedged step. The NaN and spike steps are
+    skipped with the parameters, Adam state and schedule bitwise as they
+    were (the NaN and huge gradients reach the guard through K5, K6 and
+    K7's backward), the spikes climb the ladder to one rewind to
+    last_good, the hang fires the watchdog, and the run completes its 32
+    steps; launches exact a step and a scoring chunk."""
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.resilience import FaultInjector
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_chaos"
+    if work.exists():
+        shutil.rmtree(work)
+    config = ppo_config(work).evolve(train=dict(step_timeout_s=CHAOS_TIMEOUT_S, **CHAOS_SENTINEL))
+    record, guarded, actions, fired = [], [], [], []
+
+    def guarded_step(self, minibatch):
+        before = chaos_state(self)
+        out = step(self, minibatch)
+        if out["train/skipped_updates"]:
+            guarded.append((self.iter_count, out["train/grad_global_norm"], same_state(before, chaos_state(self))))
+        return out
+
+    with ppo_probes(record, names=("make_experience", "score", "evaluate", "train_minibatch")):
+        step = PPOTrainer.train_minibatch  # the probe's
+        PPOTrainer.train_minibatch = guarded_step
+        try:
+            trainer = PPOTrainer(config, reward_fn=ppo_reward)
+            max_prompt = config.train.seq_length - PPO_NEW
+            trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), max_prompt, trainer.tokenizer))
+            trainer.add_eval_pipeline(PromptPipeline(ppo_prompts()[:PPO_BATCH], max_prompt, trainer.tokenizer))
+            trainer.fault_injector = FaultInjector(**CHAOS_FAULTS)
+            trainer._watchdog_on_timeout = lambda: fired.append((trainer.iter_count, time.perf_counter()))
+            observe = trainer._sentinel.observe_step
+
+            def observing(stats, s):
+                verdict = observe(stats, s)
+                actions.append((s, verdict.action))
+                return verdict
+
+            trainer._sentinel.observe_step = observing
+            trainer.learn()
+        finally:
+            PPOTrainer.train_minibatch = step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sen = trainer._sentinel
+    steps = [c for c in record if c[0] == "train_minibatch"]
+    chunks = [c for c in record if c[0] == "score"]
+    rows = metric_rows(work, "losses/total_loss")
+    faulted = sorted(CHAOS_FAULTS["nan_grad_steps"] + CHAOS_FAULTS["loss_spike_steps"])
+    log(f"[chaos] gpt2-small PPO (phase 9's configuration) with the sentinel: actions that were not ok "
+        f"{[a for a in actions if a[1] != 'ok']}; skipped steps (iter_count before, global norm, state bitwise "
+        f"unchanged) {guarded}; rewinds {sen.rewinds_used} to last_good {sen.last_good}; watchdog fired at "
+        f"{[f[0] for f in fired]}; {len(steps)} optimizer steps ({trainer.iter_count} counted), {len(chunks)} "
+        f"collections, quarantined rows {sen.quarantined_rows}, final loss {rows[-1]['losses/total_loss']:.6f}; "
+        f"{wall:.1f} s ({card})")
+    bad_launches = [c[3] for c in steps if c[3] != PPO_KERNELS_PER_STEP] + \
+        [c[3] for c in chunks if c[3] != PPO_KERNELS_PER_CHUNK]
+    nan_norms = [n for s, n, _ in guarded if s in CHAOS_FAULTS["nan_grad_steps"]]
+    spike_norms = [n for s, n, _ in guarded if s in CHAOS_FAULTS["loss_spike_steps"]]
+    if [s for s, _, _ in guarded] != faulted or not all(ok for _, _, ok in guarded):
+        raise AssertionError(f"[chaos] skipped {guarded}, expected the faulted steps {faulted} with state unchanged")
+    if any(math.isfinite(n) for n in nan_norms) or not all(math.isfinite(n) and n > 1e3 for n in spike_norms):
+        raise AssertionError(f"[chaos] NaN step norms {nan_norms}, spike norms {spike_norms}")
+    hang = CHAOS_FAULTS["hang_steps"]
+    if sen.rewinds_used != 1 or trainer.iter_count != 2 * 4 * (PPO_ROLLOUTS // PPO_BATCH) or \
+            [f[0] for f in fired] != hang:
+        raise AssertionError(f"[chaos] rewinds {sen.rewinds_used}, steps {trainer.iter_count}, watchdog {fired}")
+    if bad_launches or not math.isfinite(rows[-1]["losses/total_loss"]) or sen.skipped_updates != len(faulted):
+        raise AssertionError(f"[chaos] launches {bad_launches[:2]}, final loss {rows[-1]['losses/total_loss']}, "
+                             f"skipped {sen.skipped_updates}")
+    launches = {k: v * len(steps) for k, v in PPO_KERNELS_PER_STEP.items()}
+    for k, v in PPO_KERNELS_PER_CHUNK.items():
+        launches[k] = launches.get(k, 0) + v * len(chunks)
+    out = dict(actions=[a for a in actions if a[1] != "ok"], skipped=[(s, n) for s, n, _ in guarded],
+               rewinds=sen.rewinds_used, last_good_step=sen.last_good["step"], watchdog_fired_at=[f[0] for f in fired],
+               steps_run=len(steps), collections=len(chunks), wall_s=wall)
+    del trainer
+    shutil.rmtree(work, ignore_errors=True)  # the pins and checkpoints: gigabytes
+    release()
+    log(f"[chaos] (c) took {wall:.1f} s")
+    return launches, out
+
+
+def resume_config(work):
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+
+    return default_ppo_config().evolve(
+        train=dict(seq_length=1024, batch_size=RESUME_BATCH, epochs=2, total_steps=1000, eval_interval=10000,
+                   checkpoint_interval=10000, checkpoint_dir=str(work / "ckpts"), logging_dir=str(work / "logs"),
+                   auto_resume=True, sentinel=True, sentinel_zscore=50.0),
+        model=dict(model_path="random:gpt2-small", num_layers_unfrozen=2,
+                   model_extra_configs={"vocab_size": 50257, "attn_impl": "flash", "n_layers": 4}),
+        method=dict(num_rollouts=RESUME_ROLLOUTS, chunk_size=RESUME_ROLLOUTS, ppo_epochs=2,
+                    gen_kwargs=dict(max_new_tokens=PPO_NEW, top_k=0, top_p=1.0, do_sample=True,
+                                    suppress_tokens=PPO_SUPPRESS)),
+    )
+
+
+def resume_trainer(work):
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    config = resume_config(work)
+    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    max_prompt = config.train.seq_length - PPO_NEW
+    trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(64), max_prompt, trainer.tokenizer))
+    trainer.add_eval_pipeline(PromptPipeline(ppo_prompts(8), max_prompt, trainer.tokenizer))
+    return trainer
+
+
+def auto_resume_child(work):
+    """The preempted run of (d), in its own process: after step
+    RESUME_PREEMPT_AT it writes `ready` and waits for the SIGTERM that the
+    parent sends, which ends the run at that step boundary (exit 75)."""
+    work = Path(work)
+    trainer = resume_trainer(work)
+    step = trainer.train_minibatch
+
+    def waiting(minibatch):
+        out = step(minibatch)
+        if trainer.iter_count + 1 == RESUME_PREEMPT_AT:
+            (work / "ready").write_text(str(RESUME_PREEMPT_AT))
+            deadline = time.monotonic() + 120
+            while not trainer._preemption_guard.triggered and time.monotonic() < deadline:
+                time.sleep(0.02)
+        return out
+
+    trainer.train_minibatch = waiting
+    trainer.learn()
+
+
+def phase_auto_resume(card):
+    """(d) At 4 layers (gpt2-small width, bf16, sampled rollouts): two
+    uninterrupted runs, to measure whether the card repeats a run
+    bitwise; a run in its own process, sent SIGTERM after step 6, exits
+    75; a new trainer with auto_resume and no explicit path continues from
+    its `_preempt` checkpoint, and ends with the uninterrupted run's
+    parameters, bitwise when the card repeats bitwise, else within the
+    repeat spread."""
+    import shutil
+    import signal
+
+    import torch
+
+    t0 = time.perf_counter()
+    base = ROOT / "build" / "chip_smoke_resume"
+    if base.exists():
+        shutil.rmtree(base)
+    finals = []
+    for tag in ("a", "b"):
+        trainer = resume_trainer(base / tag)
+        trainer.learn()
+        finals.append({k: v.detach().clone() for k, v in trainer.model.state_dict().items()})
+        steps = trainer.iter_count
+        del trainer
+        release()
+    spread = max(float((finals[0][k].float() - finals[1][k].float()).abs().max()) for k in finals[0])
+    run = base / "run"
+    run.mkdir(parents=True)
+    code = RESUME_CHILD.format(root=str(ROOT), run=str(run))
+    log_path = run / "child.log"
+    with open(log_path, "w") as log_file:
+        child = subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), stdout=log_file,
+                                 stderr=subprocess.STDOUT)
+        try:
+            wait_for(lambda: (run / "ready").exists() or child.poll() is not None, "the child's step 6")
+            child.send_signal(signal.SIGTERM)
+            rc = child.wait(timeout=300)
+        finally:
+            if child.poll() is None:
+                child.kill()
+    preempt = sorted(p.name for p in (run / "ckpts").iterdir())
+    if rc != 75 or not any(p.endswith("_preempt") for p in preempt):
+        raise AssertionError(f"[resume] the child exited {rc}, checkpoints {preempt}: "
+                             f"{log_path.read_text()[-3000:]}")
+    trainer = resume_trainer(run)
+    loaded, load = [], trainer.load
+    trainer.load = lambda path: (loaded.append(Path(path).name), load(path))[1]
+    trainer.learn()
+    resumed = {k: v.detach() for k, v in trainer.model.state_dict().items()}
+    diff = max(float((finals[0][k].float() - resumed[k].float()).abs().max()) for k in resumed)
+    bitwise_repeat = spread == 0.0
+    log(f"[resume] gpt2-small width, 4 layers, bf16, PPO {RESUME_ROLLOUTS} sampled rollouts x 2 collections, "
+        f"{steps} steps: two uninterrupted runs {'bitwise equal' if bitwise_repeat else f'differ by {spread:.3g}'}; "
+        f"the run in its own process exited {rc} on SIGTERM after step {RESUME_PREEMPT_AT} ({preempt}); a new "
+        f"trainer with auto_resume loaded {loaded} and ended at step {trainer.iter_count} with parameters "
+        f"{'bitwise equal to' if diff == 0 else f'within {diff:.3g} of'} the uninterrupted run's ({card})")
+    if loaded != [f"checkpoint_{RESUME_PREEMPT_AT:0{len(str(steps))}d}_preempt"] or trainer.iter_count != steps:
+        raise AssertionError(f"[resume] loaded {loaded}, ended at {trainer.iter_count}")
+    if diff > spread:
+        raise AssertionError(f"[resume] resumed run differs by {diff}, the repeat spread is {spread}")
+    del trainer
+    shutil.rmtree(base, ignore_errors=True)
+    release()
+    out = dict(bitwise_repeat=bitwise_repeat, repeat_spread=spread, resumed_diff=diff, child_exit=rc, steps=steps,
+               seconds=time.perf_counter() - t0)
+    log(f"[resume] (d) took {out['seconds']:.1f} s")
+    return out
+
+
+def phase_drain(card):
+    """(e) `python -m trlx_tpu_torch.inference.serve_policy` serving
+    random:gpt2-small on the card: SIGTERM with 8 requests of 256 tokens
+    in flight; all 8 reply in full, a new request answers 503 with
+    Retry-After, and the process exits 0."""
+    import signal
+    import socket
+
+    t0 = time.perf_counter()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    hparams = {"checkpoint": "random:gpt2-small", "port": port, "device": SUBPROCESS_DEVICE,
+               "model.model_extra_configs": {"vocab_size": 50257},
+               "inference.max_new_tokens": DRAIN_NEW, "inference.num_slots": DRAIN_REQUESTS,
+               "inference.gen_kwargs": {"max_new_tokens": DRAIN_NEW, "min_new_tokens": DRAIN_NEW}}
+    work = ROOT / "build" / "chip_smoke_drain"
+    work.mkdir(parents=True, exist_ok=True)
+    log_path = work / "serve.log"
+    url = f"http://127.0.0.1:{port}"
+    replies = [None] * DRAIN_REQUESTS
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen([sys.executable, "-m", "trlx_tpu_torch.inference.serve_policy", json.dumps(hparams)],
+                                cwd=str(ROOT), stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            def up():
+                try:
+                    return http(url, "/healthz", timeout=2)[1].get("ready")
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    return proc.poll() is not None
+            boot_s = wait_for(up, "the policy server")
+            prompts = [list(p.encode()) for p in ppo_prompts(DRAIN_REQUESTS, seed=9)]
+            with ThreadPoolExecutor(DRAIN_REQUESTS) as pool:
+                futures = [pool.submit(http, url, "/generate", {"prompt_ids": p, "max_new_tokens": DRAIN_NEW})
+                           for p in prompts]
+                wait_for(lambda: http(url, "/healthz")[1].get("slots_active", 0) >= DRAIN_REQUESTS,
+                         "8 requests in flight")
+                proc.send_signal(signal.SIGTERM)
+                t_term = time.perf_counter()
+                time.sleep(0.1)
+                req = urllib.request.Request(url + "/generate", headers={"Content-Type": "application/json"},
+                                             data=json.dumps({"prompt_ids": prompts[0], "max_new_tokens": 4}).encode())
+                try:
+                    with urllib.request.urlopen(req, timeout=30) as r:
+                        rejected = (r.status, dict(r.headers))
+                except urllib.error.HTTPError as e:
+                    rejected = (e.code, dict(e.headers))
+                replies = [f.result() for f in futures]
+            drained_s = time.perf_counter() - t_term
+            rc = proc.wait(timeout=120)
+            exit_s = time.perf_counter() - t_term
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+    full = [code == 200 and len(body["token_ids"]) == DRAIN_NEW and body["finish_reason"] != "shutdown"
+            for code, body in replies]
+    log(f"[drain] serve_policy (gpt2-small, the card) up in {boot_s:.1f} s; SIGTERM with {DRAIN_REQUESTS} requests of "
+        f"{DRAIN_NEW} tokens in flight: {sum(full)}/{DRAIN_REQUESTS} complete replies within {drained_s:.2f} s, a new "
+        f"request answered {rejected[0]} (Retry-After {rejected[1].get('Retry-After')}), the process exited {rc} "
+        f"{exit_s:.2f} s after the signal ({card})")
+    if not all(full) or rejected[0] != 503 or not rejected[1].get("Retry-After") or rc != 0:
+        raise AssertionError(f"[drain] replies {full}, new request {rejected}, exit {rc}: {log_path.read_text()[-2000:]}")
+    out = dict(boot_s=boot_s, complete=sum(full), rejected=rejected[0], exit_code=rc, drained_s=drained_s,
+               seconds=time.perf_counter() - t0)
+    log(f"[drain] (e) took {out['seconds']:.1f} s")
+    return out
+
+
+def phase_resilience_methods(card):
+    """Phase 19. Returns ({part: launches}, numbers)."""
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    rm, tokenizer, launches["rm"], out["rm"] = phase_reward_model(card)
+    bon_launches, out["bon"] = phase_bon(card, rm, tokenizer)
+    launches.update({f"bon_{k}": v for k, v in bon_launches.items()})
+    del rm
+    release()
+    launches["chaos"], out["chaos"] = phase_chaos(card)
+    out["auto_resume"] = phase_auto_resume(card)
+    out["drain"] = phase_drain(card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase19] took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -3471,6 +4217,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from trlx_tpu_torch import kernels  # fails outside a checkout of the repository
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -3501,6 +4248,7 @@ def main() -> int:
     rft_launches, rft = phase_rft(card)
     serving_launches, serving = phase_serving_features(card, serve_bf16)
     fleet_launches, fleet = phase_fleet(card, ppo_metrics, grpo["runs"]["grpo"])
+    p19_launches, p19 = phase_resilience_methods(card)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -3517,6 +4265,7 @@ def main() -> int:
              launches_rft=rft_launches.get("paged_decode", 0),
              launches_serving={t: n.get("paged_decode", 0) for t, n in serving_launches.items()},
              launches_fleet={t: n.get("paged_decode", 0) for t, n in fleet_launches.items()},
+             launches_phase19={t: n.get("paged_decode", 0) for t, n in p19_launches.items()},
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
@@ -3529,6 +4278,7 @@ def main() -> int:
              launches_rft=rft_launches.get("paged_decode_int8", 0),
              launches_serving={t: n.get("paged_decode_int8", 0) for t, n in serving_launches.items()},
              launches_fleet={t: n.get("paged_decode_int8", 0) for t, n in fleet_launches.items()},
+             launches_phase19={t: n.get("paged_decode_int8", 0) for t, n in p19_launches.items()},
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
     ]}
     train_rows = [
@@ -3554,6 +4304,7 @@ def main() -> int:
             launches_grpo={t: n.get(name, 0) for t, n in grpo_launches.items()},
             launches_rft=rft_launches.get(name, 0),
             launches_fleet={t: n.get(name, 0) for t, n in fleet_launches.items()},
+            launches_phase19={t: n.get(name, 0) for t, n in p19_launches.items()},
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
@@ -3581,6 +4332,11 @@ def main() -> int:
     report["serving"] = serving
     # phase 18's
     report["fleet"] = fleet
+    # phase 19's: the reward model, reward serving and best-of-n, the
+    # sentinel's chaos run, auto_resume and the drain
+    report["phase19"] = p19
+    report["seconds"] = time.perf_counter() - started
+    log(f"[smoke] every phase passed in {report['seconds']:.1f} s ({card})")
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

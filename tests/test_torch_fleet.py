@@ -115,9 +115,24 @@ def test_should_fail_sequence_matches_jax(kwargs):
 
 @pytest.mark.parametrize("name", ["nan_grad_steps", "loss_spike_steps", "hang_steps", "spike_scale",
                                   "hang_step_s"])
-def test_train_side_faults_are_refused(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
-        resilience.FaultInjector(**{name: [1] if name.endswith("steps") else 1.0})
+def test_train_side_faults_match_jax(name):
+    """Each train-side argument of the injector is accepted and gives the
+    JAX injector's schedule, poisoning and hang time (an unknown name
+    still raises TypeError)."""
+    kwargs = {name: [1, 3] if name.endswith("steps") else 7.0}
+    if name in ("spike_scale", "hang_step_s"):
+        kwargs.update(nan_grad_steps=[2], loss_spike_steps=[1, 2], hang_steps=[3])
+    ours, theirs = resilience.FaultInjector(**kwargs), j_resilience.FaultInjector(**kwargs)
+    assert [ours.train_fault(s) for s in (0, 1, 1, 2, 2, 2, 3, 3)] == \
+        [theirs.train_fault(s) for s in (0, 1, 1, 2, 2, 2, 3, 3)]
+    assert ours.injected == theirs.injected and ours.hang_step_s == theirs.hang_step_s
+    rewards = np.array([[1.0, -2.0], [0.5, 3.0]], np.float32)
+    for fault in ("nan_grad", "loss_spike"):
+        a = ours.poison_batch({"rewards": rewards, "ids": np.ones(2, np.int64)}, fault)
+        b = theirs.poison_batch({"rewards": rewards, "ids": np.ones(2, np.int64)}, fault)
+        np.testing.assert_array_equal(a["rewards"], np.asarray(b["rewards"]))
+        assert a["rewards"].dtype == np.float32
+        np.testing.assert_array_equal(a["ids"], np.asarray(b["ids"]))
     with pytest.raises(TypeError):
         resilience.FaultInjector(no_such_fault=1)
 

@@ -223,7 +223,7 @@ def test_gc_checkpoints_matches_jax(keep_n, tmp_path):
     ("train", "fuse_inner_epoch", True, "item 4"),
     ("model", "peft_config", {"peft_type": "LORA", "r": 8}, "item 4"),
     ("train", "tracing", True, "item 4"),
-    ("train", "auto_resume", True, "item 4"),
+    ("train", "profile_dir", "profiles", "item 4"),
     ("model", "model_arch_type", "seq2seq", "item 4"),
 ])
 def test_unported_ppo_features_are_refused(section, key, value, item):
@@ -487,9 +487,10 @@ def test_train_entry_point_runs_ppo_retention_and_exact_resume(tmp_path):
 def test_train_entry_point_refuses_other_online_trainers(tmp_path):
     import trlx_tpu_torch
 
-    # RFT and GRPO/RLOO are ported (tests/test_torch_rft.py, test_torch_grpo.py);
-    # best-of-n is not, and SFT and ILQL are not online trainers
-    for trainer in ("BestOfNTrainer", "SFTTrainer", "ILQLTrainer"):
+    # RFT, GRPO/RLOO and best-of-n are ported (tests/test_torch_rft.py,
+    # test_torch_grpo.py, test_torch_bon.py); the pipelined PPO trainer is
+    # not, and SFT and ILQL are not online trainers
+    for trainer in ("PipelinedPPOTrainer", "SFTTrainer", "ILQLTrainer"):
         cfg = _ppo_config(default_ppo_config, "gpt2-tiny", tmp_path, "t").evolve(train=dict(trainer=trainer))
         with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
             trlx_tpu_torch.train(reward_fn=reward_fn, prompts=["a"], config=cfg, device="cpu")

@@ -22,6 +22,10 @@ Slices ported so far (ROADMAP.md, queue A):
 - ILQL: `trlx_tpu_torch.train(samples=..., rewards=..., config=...)` ->
   `ILQLTrainer.learn()`: Q, target Q and V heads over the LM, the ILQL
   loss, Polyak target syncs and Q-guided sampling, on the same kernels.
+- GRPO/RLOO, RFT and best-of-n through `train(reward_fn=...)`, the
+  reward model (`models/reward.py`) and its server (`serving.py`), the
+  rollout fleet, and training's resilience (`sentinel.py`, the
+  watchdog, `auto_resume`, the server's SIGTERM drain).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 asking for `cuda` where there is none raises.

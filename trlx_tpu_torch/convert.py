@@ -10,8 +10,10 @@ modules carry the same names, so the mapping is mechanical:
 
 The same rule carries the deeper value branch
 (`value_branch/{block_i, ln_f, v_head}` -> `value_branch.block_i...`) and
-ILQL's heads (`ilql_heads/{q_head_i, target_q_head_i, v_head}`). With it
-the tests run both packages on the same weights.
+ILQL's heads (`ilql_heads/{q_head_i, target_q_head_i, v_head}`) and the
+reward model's head (`r_head/{dense_in, dense_out}` ->
+`r_head.dense_in...`, `models/reward.py`). With it the tests run both
+packages on the same weights.
 """
 
 from typing import Dict
@@ -33,8 +35,9 @@ def _flatten(tree, prefix=()):
 
 def params_from_jax(np_params: Dict, cfg=None) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (nested dict of numpy arrays) -> state dict for
-    the port's policy modules (`CausalLMWithValueHead`, with or without
-    its value branch, and `CausalLMWithILQLHeads`). With `cfg`, checks
+    the port's modules (`CausalLMWithValueHead`, with or without its
+    value branch, `CausalLMWithILQLHeads` and `CausalLMWithRewardHead`).
+    With `cfg`, checks
     that the LM holds exactly `cfg.n_layers` blocks."""
     state = {}
     for path, leaf in _flatten(np_params):

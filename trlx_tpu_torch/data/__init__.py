@@ -31,8 +31,8 @@ class PPORLElement:
     h_split: Optional[torch.Tensor] = None
     # the GRPO prompt group the rollout belongs to (None under PPO)
     group_id: Optional[int] = None
-    # the multi-turn loss mask of the JAX package; multi-turn rollouts are
-    # not ported yet (ROADMAP queue A, item 3), so it stays None
+    # the multi-turn loss mask: 1 on policy tokens, 0 on the environment's
+    # (set by multi-turn rollouts; None on single-turn ones)
     loss_mask: Optional[np.ndarray] = None
 
 

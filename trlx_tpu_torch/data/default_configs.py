@@ -11,6 +11,7 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
+from trlx_tpu_torch.trainer.bon_trainer import BONConfig
 from trlx_tpu_torch.trainer.grpo_trainer import GRPOConfig
 from trlx_tpu_torch.trainer.ilql_trainer import ILQLConfig
 from trlx_tpu_torch.trainer.ppo_trainer import PPOConfig
@@ -172,5 +173,17 @@ def default_grpo_config():
         ref_std=None,
         cliprange_reward=10,
         gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+    ).to_dict()
+    return TRLConfig.from_dict(cfg)
+
+
+def default_bon_config():
+    """Best-of-n rejection-sampling distillation defaults."""
+    cfg = default_sft_config().to_dict()
+    cfg["train"]["trainer"] = "BestOfNTrainer"
+    cfg["method"] = BONConfig(
+        name="BONConfig",
+        gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+        best_of_n=8,
     ).to_dict()
     return TRLConfig.from_dict(cfg)

@@ -197,8 +197,12 @@ class InferenceServer:
         tracer=None,
         slos=None,
         fault_injector: Optional["resilience.FaultInjector"] = None,
+        drain_on_term_s: float = 30.0,
     ):
         self.scheduler = scheduler
+        # how long the blocking `serve()` lets in-flight requests finish
+        # after SIGTERM/SIGINT before it closes
+        self.drain_on_term_s = float(drain_on_term_s)
         # read per request, so a test (or a chaos run) may swap it live
         self.fault_injector = fault_injector
         self.engine = scheduler.engine
@@ -789,13 +793,41 @@ class InferenceServer:
         return self.url
 
     def serve(self) -> None:
-        """Blocking serve (the standalone policy-server process)."""
+        """Blocking serve (the standalone policy-server process).
+
+        SIGTERM and SIGINT start a drain, then exit: the scheduler turns to
+        reject-new (new requests answer 503 with Retry-After, so a fleet
+        router fails them over), in-flight decodes run to their end and
+        reply over the still-open listener, and only then does the
+        listener close; the previous handlers come back and the call ends
+        with `shutdown(drain_s=drain_on_term_s)`."""
+        import signal
+
         self._bind()
         logger.info(f"Inference server listening on :{self.port}")
+
+        def graceful(signum):
+            logger.warning(f"signal {signum}: draining scheduler (reject-new) before exit")
+            self.scheduler.reject_new()
+            self.scheduler.wait_idle(self.drain_on_term_s)
+            self._httpd.shutdown()  # ends serve_forever below
+
+        def on_term(signum, frame):
+            threading.Thread(target=graceful, args=(signum,), name="trlx-tpu-torch-server-drain",
+                             daemon=True).start()
+
+        previous = {}
+        try:  # handlers install only from the main thread
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                previous[sig] = signal.signal(sig, on_term)
+        except ValueError:
+            previous = {}
         try:
             self._httpd.serve_forever()
         finally:
-            self.shutdown()
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+            self.shutdown(drain_s=self.drain_on_term_s)
 
     def shutdown(self, drain_s: float = 0.0) -> None:
         """Stop serving. With `drain_s > 0` the scheduler first finishes

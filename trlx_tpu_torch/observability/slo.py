@@ -344,7 +344,7 @@ class SLOEngine:
             logger.warning(
                 f"SLO {slo.name} exhausted its error budget "
                 f"({spent:.4f} spent); postmortem bundles are not ported yet "
-                "(ROADMAP queue A, observability)"
+                "(ROADMAP queue A, item 4.7)"
             )
 
     # ------------------------------------------------------------------

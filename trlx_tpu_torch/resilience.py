@@ -18,13 +18,17 @@ Port of the JAX package's `resilience.py`:
 - `FaultInjector`, its serving side: the HTTP faults a server answers
   with, a stale checkpoint step, crash-looping and wedged replicas for
   the fleet supervisor, killing an in-process replica and truncating a
-  checkpoint.
+  checkpoint;
 
-`auto_resume` and the injector's train-side faults (they feed the health
-sentinel and the step watchdog) are not ported yet (ROADMAP queue A,
-item 4).
+- its train side: NaN gradients, loss spikes and wedged steps on a
+  schedule, for the health sentinel and the step watchdog
+  (`sentinel.py`), and `deliver_signal` for a preemption in-process.
+
+`find_latest_valid_checkpoint` is also `train.auto_resume`'s choice of
+checkpoint (`TorchTrainer._resolve_resume_checkpoint`).
 """
 
+import dataclasses
 import json
 import os
 import random
@@ -33,6 +37,8 @@ import signal
 import threading
 import time
 from typing import Callable, Iterable, List, Optional, Tuple, Type
+
+import numpy as np
 
 from trlx_tpu_torch.utils import logging
 
@@ -330,11 +336,6 @@ class CircuitBreaker:
 # Deterministic fault injection (tests and the chip smoke's chaos runs)
 # ----------------------------------------------------------------------
 
-# the JAX injector's train-side arguments: they feed the health sentinel
-# and the step watchdog, which are not ported yet
-_TRAIN_FAULT_ARGS = ("nan_grad_steps", "loss_spike_steps", "hang_steps", "spike_scale", "hang_step_s")
-
-
 class FaultInjector:
     """Deterministic fault schedules for servers and fleets.
 
@@ -354,9 +355,14 @@ class FaultInjector:
     `crash_loop_after_s` after every (re)spawn, and `healthz_hang_s > 0`
     wedges a server's /healthz (held socket, no answer).
 
-    The JAX injector's train-side faults (`nan_grad_steps`,
-    `loss_spike_steps`, `hang_steps` and their knobs) are refused: they
-    wait for the sentinel and the watchdog.
+    Train-side faults for the health sentinel (`sentinel.py`): the
+    trainer consults `train_fault(step)` before each optimizer step and,
+    per the schedule, poisons the minibatch's rewards with NaN (a NaN
+    loss, so NaN gradients end to end), scales them by `spike_scale` (a
+    large but finite loss spike), or sleeps `hang_step_s` (a wedged step
+    for the watchdog). Each scheduled step fires at most once: after a
+    sentinel rewind the loop replays the same `iter_count` range, and
+    injecting again would pin the run in a rewind cycle.
     """
 
     def __init__(
@@ -372,15 +378,12 @@ class FaultInjector:
         crash_loop_replicas: Iterable[int] = (),
         crash_loop_after_s: float = 0.25,
         healthz_hang_s: float = 0.0,
-        **train_faults,
+        nan_grad_steps: Iterable[int] = (),
+        loss_spike_steps: Iterable[int] = (),
+        hang_steps: Iterable[int] = (),
+        spike_scale: float = 1e4,
+        hang_step_s: float = 30.0,
     ):
-        for name in train_faults:
-            if name not in _TRAIN_FAULT_ARGS:
-                raise TypeError(f"FaultInjector got an unexpected argument {name!r}")
-            raise NotImplementedError(
-                f"FaultInjector({name}=...): train-side faults feed the health sentinel and the step "
-                "watchdog, not ported yet (ROADMAP queue A, item 4, resilience)"
-            )
         self.rate = rate
         self.mode = mode
         self.schedule = list(schedule) if schedule is not None else None
@@ -391,6 +394,12 @@ class FaultInjector:
         self.crash_loop_replicas = set(int(s) for s in crash_loop_replicas)
         self.crash_loop_after_s = float(crash_loop_after_s)
         self.healthz_hang_s = float(healthz_hang_s)
+        self.nan_grad_steps = set(int(s) for s in nan_grad_steps)
+        self.loss_spike_steps = set(int(s) for s in loss_spike_steps)
+        self.hang_steps = set(int(s) for s in hang_steps)
+        self.spike_scale = float(spike_scale)
+        self.hang_step_s = float(hang_step_s)
+        self._fired_train_steps: set = set()
         self._rng = random.Random(seed)
         self._calls = 0
         self.injected = 0
@@ -410,6 +419,55 @@ class FaultInjector:
             self.injected += 1
         return fail
 
+    # -- train-side faults (the sentinel's) --------------------------------
+
+    def train_fault(self, step: int) -> Optional[str]:
+        """The fault scheduled for optimizer step `step`, or None.
+        One-shot: the same (step, fault) never fires twice, so a replay of
+        the step range after a rewind trains clean. Priority nan > spike >
+        hang when a step is in several schedules."""
+        step = int(step)
+        for fault, steps in (
+            ("nan_grad", self.nan_grad_steps),
+            ("loss_spike", self.loss_spike_steps),
+            ("hang", self.hang_steps),
+        ):
+            if step in steps and (step, fault) not in self._fired_train_steps:
+                self._fired_train_steps.add((step, fault))
+                self.injected += 1
+                return fault
+        return None
+
+    def poison_batch(self, batch, fault: str):
+        """`batch` (a host microbatch, before it goes to the device) with
+        its rewards poisoned per `fault`: "nan_grad" makes every reward NaN
+        (the loss and so every gradient go NaN), "loss_spike" multiplies
+        them by `spike_scale` (a finite loss, finite but huge gradients).
+        A dataclass batch with a `rewards` field (`PPORLBatch`) has that
+        field replaced; any other batch has every float numpy leaf
+        scaled."""
+        if fault == "hang":
+            return batch
+        factor = float("nan") if fault == "nan_grad" else self.spike_scale
+
+        def poison(leaf):
+            if isinstance(leaf, np.ndarray) and np.issubdtype(leaf.dtype, np.floating):
+                return leaf * np.asarray(factor, leaf.dtype)
+            return leaf
+
+        if dataclasses.is_dataclass(batch):
+            names = [f.name for f in dataclasses.fields(batch)]
+            if "rewards" in names:
+                return dataclasses.replace(batch, rewards=poison(batch.rewards))
+            return dataclasses.replace(batch, **{n: poison(getattr(batch, n)) for n in names})
+        return {k: poison(v) for k, v in batch.items()}
+
+    def maybe_hang(self, fault: Optional[str]) -> None:
+        """Block the calling (training) thread for `hang_step_s` when the
+        fault is "hang": to the watchdog the step has wedged."""
+        if fault == "hang":
+            time.sleep(self.hang_step_s)
+
     @staticmethod
     def kill_replica(server) -> None:
         """Take an in-process `InferenceServer` down as a preemption
@@ -424,3 +482,13 @@ class FaultInjector:
         path = os.path.join(directory, MANIFEST_NAME)
         if os.path.exists(path):
             os.unlink(path)
+
+    @staticmethod
+    def deliver_signal(signum: int = signal.SIGTERM) -> None:
+        """Deliver `signum` to this process's installed handler
+        synchronously (no asynchronous signal timing)."""
+        handler = signal.getsignal(signum)
+        if callable(handler):
+            handler(signum, None)
+        else:
+            os.kill(os.getpid(), signum)

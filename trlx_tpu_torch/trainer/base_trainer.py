@@ -17,7 +17,19 @@ newest N step checkpoints are kept (`resilience.gc_checkpoints`).
 
 With `train.handle_preemption` (the default) `learn` installs a
 `PreemptionGuard`: after SIGTERM or SIGINT the loop finishes its step,
-writes `checkpoint_<step>_preempt` and exits with code 75.
+writes `checkpoint_<step>_preempt` and exits with code 75;
+`train.auto_resume` then continues from the newest manifest-complete
+checkpoint under `checkpoint_dir` when no explicit
+`resume_from_checkpoint` is given.
+
+With `train.sentinel` the health sentinel (`sentinel.py`) guards each
+optimizer step (a step whose global gradient norm is not finite, or above
+`train.grad_skip_threshold`, is skipped: read on the host, one sync a
+step), watches the step and rollout statistics, pins `last_good` after
+clean steps and rewinds to it, or aborts, on escalation;
+`train.step_timeout_s` starts the step watchdog. `fault_injector`'s
+train-side faults poison a step's host batch before it goes to the
+device.
 
 A trainer that collects through a rollout fleet (PPO and GRPO with
 `train.rollout_backend="fleet"`) tears it down on the way out of `learn`,
@@ -26,14 +38,16 @@ so no replica outlives the trainer. `fault_injector` (a
 of a trainer-launched fleet.
 
 Not ported yet, and refused when their flags are set: the fused-epoch
-dispatch, the health sentinel, the step watchdog, tracing (timeline,
-goodput and the ledgers), `auto_resume` and parallelism (any `parallel`
-axis above one device; ROADMAP queue A, item 4).
+dispatch, tracing (timeline, goodput and the ledgers), profiler capture
+(ROADMAP queue A, item 4.7) and parallelism (any `parallel` axis above
+one device; item 4.8). With tracing refused, the JAX trainer's watchdog
+and sentinel postmortem bundles have nothing to write here.
 """
 
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import shutil
 import tempfile
@@ -48,6 +62,7 @@ from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.models.policy import resolve_split, trainable_mask
 from trlx_tpu_torch.pipeline import MiniBatchIterator
 from trlx_tpu_torch.resilience import MANIFEST_NAME, MODEL_FILE, is_valid_checkpoint
+from trlx_tpu_torch.sentinel import LAST_GOOD_NAME, HealthSentinel, SentinelRewind, StepWatchdog
 from trlx_tpu_torch.tokenizers import get_tokenizer
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.utils import Clock, get_optimizer, get_scheduler, logging, resolve_device, set_seed, significant
@@ -101,10 +116,7 @@ def write_manifest(directory: str, step: int) -> dict:
 _UNPORTED_TRAIN_FLAGS = {
     "fuse_inner_epoch": "the fused-epoch dispatch",
     "fuse_all_inner_epochs": "the fused-epoch dispatch",
-    "sentinel": "the health sentinel",
-    "step_timeout_s": "the step watchdog",
     "tracing": "training tracing (timeline, goodput, compile/HBM ledgers)",
-    "auto_resume": "auto_resume",
     "profile_dir": "profiler capture",
 }
 # parallel-config axes; the port runs on one device, so none may exceed 1
@@ -141,10 +153,17 @@ class TorchTrainer:
         for flag, what in _UNPORTED_TRAIN_FLAGS.items():
             if getattr(config.train, flag, None):
                 raise NotImplementedError(
-                    f"train.{flag} ({what}) is not ported yet (ROADMAP queue A, item 4)"
+                    f"train.{flag} ({what}) is not ported yet (ROADMAP queue A, item 4.7)"
                 )
         check_single_device(config.parallel)
         self.fault_injector: Optional[resilience.FaultInjector] = None
+        # the health sentinel, built only when train.sentinel is on: with
+        # it off, the step and the loop run as they did before it
+        self._sentinel = HealthSentinel.from_train_config(config.train) if config.train.sentinel else None
+        self._watchdog: Optional[StepWatchdog] = None
+        # injectable for tests (the default on timeout is os._exit(75))
+        self._watchdog_on_timeout = None
+        self._sentinel_skip_chunk = False
         set_seed(config.train.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(config.train.seed))
@@ -241,11 +260,14 @@ class TorchTrainer:
 
     def _extra_resume_state(self) -> Dict[str, Any]:
         """Trainer-specific host state that a checkpoint carries for an
-        exact resume (picklable); saved in `state.pt` when not empty."""
-        return {}
+        exact resume (picklable); saved in `state.pt` when not empty. The
+        base carries the sentinel's state; subclasses extend super()'s."""
+        return {"sentinel": self._sentinel.state_dict()} if self._sentinel is not None else {}
 
     def _load_extra_resume_state(self, state: Dict[str, Any]) -> None:
         """Inverse of `_extra_resume_state`."""
+        if self._sentinel is not None and "sentinel" in state:
+            self._sentinel.load_state_dict(state["sentinel"])
 
     def add_eval_pipeline(self, eval_pipeline):
         """Set the evaluation pipeline used during evaluate()."""
@@ -412,15 +434,50 @@ class TorchTrainer:
             for p in self.trainable_params:
                 if p.grad is not None:
                     p.grad.div_(self.num_mb)
-        self.optimizer.step()
-        self.scheduler.step()
-        return stats_list
+        if self._sentinel is None:
+            self.optimizer.step()
+            self.scheduler.step()
+            return stats_list
+        guard = self._guarded_update()
+        return [{**s, **guard} for s in stats_list]
+
+    def _guarded_update(self) -> Dict[str, torch.Tensor]:
+        """The sentinel's gradient guard: the global norm of the trainable
+        parameters' gradients, in f32; a step whose norm is not finite, or
+        above `train.grad_skip_threshold`, runs neither `optimizer.step()`
+        nor the scheduler's step, so the parameters, the optimizer's
+        moments and step counts and the LR schedule's position are left
+        as they were. The cooldown's `lr_scale` scales the whole update,
+        weight decay included (the update is linear in the lr); at 1.0 the
+        step is the unguarded one, bit for bit. Returns the guard's stats
+        as device tensors."""
+        grads = [p.grad if p.grad.dtype == torch.float32 else p.grad.float()
+                 for p in self.trainable_params if p.grad is not None]
+        gnorm = torch.nn.utils.get_total_norm(grads) if grads else torch.zeros((), device=self.device)
+        # the guard's one host sync a step: skipping on the host keeps
+        # torch's optimizer and scheduler untouched, where masking on the
+        # device would need a copy of every moment to select from
+        norm = float(gnorm)
+        threshold = self.config.train.grad_skip_threshold
+        ok = math.isfinite(norm) and (threshold is None or norm <= threshold)
+        if ok:
+            scale = self._sentinel.lr_scale(self.iter_count)
+            lrs = [g["lr"] for g in self.optimizer.param_groups]
+            if scale != 1.0:
+                for g in self.optimizer.param_groups:
+                    g["lr"] = g["lr"] * scale
+            self.optimizer.step()
+            for g, lr in zip(self.optimizer.param_groups, lrs):
+                g["lr"] = lr
+            self.scheduler.step()
+        return {"train/grad_global_norm": gnorm, "train/skipped_updates": gnorm.new_tensor(0.0 if ok else 1.0)}
 
     def train_minibatch(self, minibatch: List[Any]) -> Dict[str, float]:
         """`optimizer_step` over the host microbatches of `minibatch`.
         Returns the microbatch-mean stats, plus the step's wall time and
         real tokens per second."""
         t0 = time.perf_counter()
+        minibatch = self._maybe_inject_train_fault(minibatch)
         tokens = sum(self.count_tokens(mb) for mb in minibatch)
         stats_list = self.optimizer_step([self.batch_to_device(mb) for mb in minibatch])
         # the host fetch of the stats also waits for the step on the device
@@ -431,17 +488,52 @@ class TorchTrainer:
         stats["throughput/train_tokens_per_s"] = tokens / step_s
         return stats
 
+    def _maybe_inject_train_fault(self, minibatch: List[Any]) -> List[Any]:
+        """Apply a scheduled train-side fault (`resilience.FaultInjector`)
+        to this step's host microbatches; a no-op without an injector."""
+        if self.fault_injector is None:
+            return minibatch
+        fault = self.fault_injector.train_fault(self.iter_count)
+        if fault is None:
+            return minibatch
+        logger.warning(f"FaultInjector: injecting '{fault}' at step {self.iter_count}")
+        self.fault_injector.maybe_hang(fault)
+        if fault == "hang":
+            return minibatch
+        return [self.fault_injector.poison_batch(mb, fault) for mb in minibatch]
+
     # ------------------------------------------------------------------
     # Learn / evaluate / checkpoints
     # ------------------------------------------------------------------
 
+    def _resolve_resume_checkpoint(self) -> Optional[str]:
+        """An explicit `train.resume_from_checkpoint` wins; otherwise, with
+        `train.auto_resume`, the newest manifest-complete checkpoint under
+        `checkpoint_dir` (a truncated one gives way to the previous valid
+        one)."""
+        cfg = self.config.train
+        if cfg.resume_from_checkpoint:
+            if os.path.exists(cfg.resume_from_checkpoint):
+                return os.path.abspath(cfg.resume_from_checkpoint)
+            logger.warning(f"resume_from_checkpoint={cfg.resume_from_checkpoint} does not exist; starting fresh")
+        if cfg.auto_resume:
+            found = resilience.find_latest_valid_checkpoint(cfg.checkpoint_dir)
+            if found:
+                logger.info(f"auto_resume: continuing from {found}")
+            else:
+                logger.info(f"auto_resume: no valid checkpoint under '{cfg.checkpoint_dir}'; starting fresh")
+            return found
+        return None
+
     def learn(self):
         """Outer loop: initial evaluation, then optimizer steps over the
         train loader's minibatches with crossing-interval checkpoints and
-        evaluations. An explicit `train.resume_from_checkpoint` loads first
-        and continues at the saved loop position. A preemption signal ends
-        the run at the next step boundary with a `_preempt` checkpoint and
-        `SystemExit(75)`."""
+        evaluations. The checkpoint `_resolve_resume_checkpoint` picks (an
+        explicit `train.resume_from_checkpoint`, or under `auto_resume` the
+        newest valid one) loads first and the loop continues at its saved
+        position. A preemption signal ends the run at the next step
+        boundary with a `_preempt` checkpoint and `SystemExit(75)`; a
+        sentinel rewind restores `last_good` and goes on."""
         logger.info("Starting training")
         self.iter_count = 0
         self.nth_evaluation = 0
@@ -449,23 +541,30 @@ class TorchTrainer:
         self._resume_pos = None
         self._best_reward = -float("inf")
         self._resumed = False
-        resume = self.config.train.resume_from_checkpoint
+        resume = self._resolve_resume_checkpoint()
         if resume:
-            if os.path.exists(resume):
-                # load() before prepare_learning, so the restored state
-                # (generator, step, a rollout store) feeds the loaders
-                self.load(resume)
-                self._resumed = True
-            else:
-                logger.warning(f"resume_from_checkpoint={resume} does not exist; starting fresh")
+            # load() before prepare_learning, so the restored state
+            # (generator, step, a rollout store) feeds the loaders
+            self.load(resume)
+            self._resumed = True
         self.prepare_learning()
         if not self._resumed:
             results = self.evaluate()
             self.tracker.log(results, step=self.iter_count)
+        clock = Clock()
         if self.config.train.handle_preemption:
             self._preemption_guard = resilience.PreemptionGuard().install()
+        if self.config.train.step_timeout_s:
+            # beats arrive at step boundaries and at rollout chunks; a
+            # wedged step dumps every thread's stack and exits 75
+            self._watchdog = StepWatchdog(self.config.train.step_timeout_s,
+                                          on_timeout=self._watchdog_on_timeout).start()
         try:
-            return self._learn_loop(self._best_reward, Clock())
+            while True:
+                try:
+                    return self._learn_loop(self._best_reward, clock)
+                except SentinelRewind as e:
+                    self._sentinel_rewind(e)
         except resilience.PreemptionInterrupt as e:
             logger.warning(
                 f"Preempted (signal {e.signum}); emergency checkpoint at step {self.iter_count} under "
@@ -476,6 +575,9 @@ class TorchTrainer:
             if self._preemption_guard is not None:
                 self._preemption_guard.uninstall()
                 self._preemption_guard = None
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
             # a trainer-launched rollout fleet must not outlive learn()
             shutdown_fleet = getattr(self, "shutdown_rollout_fleet", None)
             if shutdown_fleet is not None:
@@ -509,13 +611,25 @@ class TorchTrainer:
                     results = res or results
                     if done:
                         return results
+                    if self._sentinel_skip_chunk:
+                        break
                 self.post_backward_callback()
+                if self._sentinel_skip_chunk:
+                    # the sentinel's skip rung: leave the remaining inner
+                    # epochs over this suspect batch and collect fresh
+                    # experience through post_epoch_callback
+                    self._sentinel_skip_chunk = False
+                    logger.warning(f"Sentinel: skipping the rest of the current chunk at step {self.iter_count}; "
+                                   "collecting fresh experience")
+                    break
             self.post_epoch_callback()
         return results
 
     def _post_step(self, stats, clock, best_reward, n_steps: int = 1):
-        """Divergence check, crossing-interval checkpoint and evaluation,
-        best checkpoint, logging. Returns (eval results, best_reward, done)."""
+        """The watchdog's beat, the sentinel's verdict (or, with it off, the
+        divergence check), crossing-interval checkpoint and evaluation, the
+        sentinel's `last_good` pin, best checkpoint, logging. Returns (eval
+        results, best_reward, done)."""
         results = {}
         done = self.iter_count >= self.total_steps
         self._best_reward = best_reward
@@ -523,9 +637,34 @@ class TorchTrainer:
         def crossed(interval: int) -> bool:
             return self.iter_count // interval > (self.iter_count - n_steps) // interval
 
+        if self._watchdog is not None:
+            self._watchdog.beat()
         # checked before any checkpoint write, so a NaN-poisoned state never
         # overwrites the last good checkpoint
-        self._check_divergence(stats)
+        verdict = None
+        if self._sentinel is not None:
+            # the guard reports the share of skipped steps; a count for the
+            # cumulative counter
+            self._sentinel.record_skipped(stats.get("train/skipped_updates", 0.0) * n_steps)
+            verdict = self._sentinel.observe_step(stats, self.iter_count)
+            stats.update(self._sentinel.stats())
+            if verdict.action != "ok":
+                logger.warning(f"Sentinel {verdict.action} at step {self.iter_count}: " + "; ".join(verdict.reasons))
+            if verdict.action == "skip":
+                self._sentinel_skip_chunk = True
+            elif verdict.action == "rewind":
+                # this step's stats go out first, the anomaly among them
+                self.tracker.log(stats, step=self.iter_count)
+                raise SentinelRewind(self.iter_count, verdict.reasons)
+            elif verdict.action == "abort":
+                self.tracker.log(stats, step=self.iter_count)
+                raise FloatingPointError(
+                    f"Health sentinel abort at step {self.iter_count}: " + "; ".join(verdict.reasons)
+                    + f". Resume from a checkpoint under '{self.config.train.checkpoint_dir}' with a lower "
+                    "learning rate or tighter clipping (train.resume_from_checkpoint)."
+                )
+        else:
+            self._check_divergence(stats)
         subfolder = f"checkpoint_{self.iter_count:0{len(str(self.total_steps))}d}"
         guard = self._preemption_guard
         if guard is not None and guard.triggered:
@@ -541,6 +680,13 @@ class TorchTrainer:
             self.save_pretrained(os.path.join(directory, "hf_model"))
             if self.config.train.checkpoint_keep_n > 0:
                 resilience.gc_checkpoints(self.config.train.checkpoint_dir, self.config.train.checkpoint_keep_n)
+        if verdict is not None and verdict.action == "ok" and self._sentinel.should_pin(self.iter_count):
+            # the rewind target, pinned after enough clean steps; noted
+            # before the save so the pin's own state carries the pointer
+            directory = os.path.join(self.config.train.checkpoint_dir, LAST_GOOD_NAME)
+            self._sentinel.note_pinned(directory, self.iter_count)
+            logger.info(f"Sentinel: pinning last_good checkpoint at step {self.iter_count}")
+            self.save(directory)
         stats["time/step"] = clock.tick(self.config.train.batch_size * n_steps) / n_steps
         stats["learning_rate"] = float(self.lr_schedule(self.iter_count))
 
@@ -582,6 +728,35 @@ class TorchTrainer:
                 f"the last checkpoint under '{self.config.train.checkpoint_dir}' with a lower learning "
                 "rate or tighter clipping (train.resume_from_checkpoint)."
             )
+
+    def _sentinel_rewind(self, e: SentinelRewind):
+        """Restore the pinned `last_good` checkpoint exactly, carry the
+        sentinel's own ladder state across the load (its rewind budget
+        must survive, or the run would rewind forever), move the sampling
+        generator off the pinned stream so the chunk that bred the anomaly
+        is not drawn again, and open the cooldown window."""
+        sen = self._sentinel
+        path = sen.last_good["path"]
+        logger.warning(
+            f"Sentinel rewind #{sen.rewinds_used + 1}/{sen.max_rewinds}: restoring last_good (step "
+            f"{sen.last_good['step']}) from {path} after: " + "; ".join(e.reasons)
+        )
+        ladder_state = sen.state_dict()
+        self.load(path)
+        sen.load_state_dict(ladder_state)
+        sen.note_rewind(self.iter_count)
+        # the counterpart of JAX's fold_in(rng, step): a new seed drawn
+        # deterministically from the restored generator's state and the
+        # rewind's step (the two packages' streams differ anyway)
+        digest = hashlib.sha256(self.generator.get_state().cpu().numpy().tobytes()
+                                + int(e.step).to_bytes(8, "little")).digest()
+        self.generator.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+        self._sentinel_skip_chunk = False
+        self._post_rewind()
+
+    def _post_rewind(self):
+        """Trainer-specific work after a sentinel rewind (PPO drops the
+        restored rollout store and collects fresh experience)."""
 
     def evaluate(self) -> Dict[str, Any]:
         """Generate on the eval prompts and score with reward_fn/metric_fn.

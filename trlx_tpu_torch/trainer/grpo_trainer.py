@@ -182,7 +182,7 @@ class GRPOTrainer(PPOTrainer):
         sample_scores = np.where(scores_mask, scores, 0.0).sum(axis=1)
         adv = group_relative_advantages(torch.from_numpy(sample_scores.reshape(-1, G)),
                                         mode=method.advantage_mode).reshape(-1).numpy()
-        kl_penalty = -self.kl_ctl.value * log_ratio
+        kl_penalty = -self._kl_coef() * log_ratio
         elements = []
         for ix in range(n_rows):
             # an empty response keeps one (padding) slot
@@ -225,7 +225,7 @@ class GRPOTrainer(PPOTrainer):
         totals = env_rewards.sum(axis=1)
         adv = group_relative_advantages(torch.from_numpy(totals.reshape(-1, G)),
                                         mode=method.advantage_mode).reshape(-1).numpy()
-        kl_coef = self.kl_ctl.value
+        kl_coef = self._kl_coef()
         elements = []
         for i, (_p, ids, _lm, _er, _bl, _h) in enumerate(rows):
             n_resp = max(min(len(ids), max_r), 1)

@@ -90,6 +90,7 @@ from trlx_tpu_torch.models.transformer import position_ids
 from trlx_tpu_torch.ops import quant
 from trlx_tpu_torch.ops.ppo import AdaptiveKLController, FixedKLController, get_advantages_and_returns, ppo_loss
 from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
+from trlx_tpu_torch.sentinel import repetition_frac
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base_trainer import TorchTrainer
 from trlx_tpu_torch.utils import Clock, flatten_dict, infinite_dataloader, logging
@@ -326,6 +327,10 @@ class PPOTrainer(TorchTrainer):
         gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
         use_fleet = self._fleet_rollouts_enabled()
         while len(elements) < num_rollouts:
+            if self._watchdog is not None:
+                # a rollout chunk is a legitimate long gap between step
+                # boundaries: each one is a heartbeat
+                self._watchdog.beat()
             stats: Dict[str, float] = {}
             batch = self._next_prompts()
             n_this = len(np.asarray(batch["input_ids"]))
@@ -361,10 +366,21 @@ class PPOTrainer(TorchTrainer):
                 hits = self._apply_behavior_logprobs(logprobs, out, prompt_tensors, sample_outputs) if fleet else 0
                 stats["fleet/behavior_logprob_rows"] = float(hits)
                 stats["fleet/degraded_chunks"] = 0.0 if fleet else 1.0
-            elements.extend(self._chunk_to_elements(
+            chunk = self._chunk_to_elements(
                 prompt_tensors, sample_outputs, outputs, scores, scores_mask, logprobs, values, log_ratio,
                 h_cache,
-            ))
+            )
+            if self._sentinel is not None:
+                # the rollout quarantine and the anomaly watch, on the
+                # elements (dropping rows leaves the scorer's shapes); the
+                # keys are set on every chunk (the averaging below reads
+                # the last chunk's keys), and an under-filled collection
+                # draws another chunk
+                chunk, n_dropped = self._quarantine_elements(chunk, scores, scores_mask, outputs)
+                stats["sentinel/quarantined_rows"] = float(n_dropped)
+                stats["rollout/entropy"] = float(np.mean([-np.mean(e.logprobs) for e in chunk])) if chunk else 0.0
+                self._sentinel.observe_rollout(stats)
+            elements.extend(chunk)
             stats["time/rollout_time"] = clock.tick()
             stats["policy/sqrt_kl"] = float(np.sqrt(max(mean_kl, 0.0)))
             stats["policy/kl_per_token"] = float(np.sqrt(max(mean_kl_per_token, 0.0)))
@@ -452,7 +468,7 @@ class PPOTrainer(TorchTrainer):
         its query and response tokens (the loader re-pads them)."""
         pad_id = self.tokenizer.pad_token_id
         start = prompt_tensors.shape[1] - 1
-        kl_penalty = -self.kl_ctl.value * log_ratio
+        kl_penalty = -self._kl_coef() * log_ratio
         elements = []
         for ix in range(len(sample_outputs)):
             # an empty response keeps one (padding) slot
@@ -474,6 +490,29 @@ class PPOTrainer(TorchTrainer):
                 h_split=None if h_cache is None else h_cache[ix, : prompt_tensors.shape[1] + n_resp],
             ))
         return elements
+
+    def _kl_coef(self) -> float:
+        """The KL penalty's coefficient for the rewards built now: the
+        controller's, times the sentinel's cooldown boost after a rewind
+        (`train.sentinel_kl_boost`; 1.0 is off). The pipelined cycle's
+        in-graph rewards read the controller's alone, as JAX's do."""
+        kl_coef = self.kl_ctl.value
+        if self._sentinel is not None:
+            kl_coef *= self._sentinel.kl_scale(self.iter_count)
+        return kl_coef
+
+    def _quarantine_elements(self, elements, scores, scores_mask, outputs):
+        """The sentinel's rollout quarantine: drop reward outliers and
+        degenerate rows (length collapse, one token repeated) of one
+        chunk's elements before they enter the store. Returns (kept,
+        n_dropped)."""
+        sample_scores = np.where(scores_mask, scores, 0.0).sum(axis=1)
+        resp_lens = np.array([len(o) for o in outputs], dtype=np.int32)
+        rep_fracs = np.array([repetition_frac(o) for o in outputs], dtype=np.float64)
+        drop = self._sentinel.quarantine_mask(sample_scores, resp_lens, rep_fracs)
+        if not drop.any():
+            return elements, 0
+        return [e for e, d in zip(elements, drop) if not d], int(drop.sum())
 
     # ------------------------------------------------------------------
     # Disaggregated rollouts: the fleet backend (train.rollout_backend)
@@ -759,6 +798,8 @@ class PPOTrainer(TorchTrainer):
         chunk_size = max(int(method.chunk_size), 1)
         clock = Clock()
         while len(elements) < num_rollouts:
+            if self._watchdog is not None:
+                self._watchdog.beat()
             n_chunk = min(chunk_size, num_rollouts - len(elements))
             n_chunk = max((n_chunk + G - 1) // G * G, G)  # whole groups
             clock.tick()
@@ -860,7 +901,7 @@ class PPOTrainer(TorchTrainer):
         policy tokens only, plus each turn's reward on its last token; GAE
         runs over the whole response and the loss mask keeps the
         environment's tokens out of the objective."""
-        kl_coef = self.kl_ctl.value
+        kl_coef = self._kl_coef()
         elements = []
         for i, (_p, ids, _lm, _er, _bl, _h) in enumerate(rows):
             n_resp = max(min(len(ids), max_r), 1)
@@ -1322,6 +1363,17 @@ class PPOTrainer(TorchTrainer):
         self.store.clear_history()
         self.make_experience(self.config.method.num_rollouts, self.iter_count)
 
+    def _post_rewind(self):
+        """After a sentinel rewind the restored store is the one whose
+        successors bred the anomaly: drop it and collect fresh experience
+        under the moved generator and the cooldown. A supervised fleet's
+        thread replicas get a snapshot of the restored weights before they
+        decode again (the step-keyed refresh alone could take the rewound
+        step for one already pushed)."""
+        self.store.clear_history()
+        self._fleet_params_step = None
+        self.make_experience(self.config.method.num_rollouts, self.iter_count)
+
     def create_train_dataloader(self, seed_offset: int = 0, drop_last: bool = False):
         """A loader over the store, reshuffled per inner epoch. The query
         width is the store's longest query rounded up to a 64-token bucket
@@ -1359,6 +1411,7 @@ class PPOTrainer(TorchTrainer):
         were drawn and the speculative draft head (an untied head moves in
         training, so it is not recomputed)."""
         return {
+            **super()._extra_resume_state(),
             "spec_draft_head": self._spec_draft_head_cache,
             "store_history": list(self.store.history),
             "kl_ctl_value": float(self.kl_ctl.value),
@@ -1371,6 +1424,7 @@ class PPOTrainer(TorchTrainer):
         }
 
     def _load_extra_resume_state(self, state):
+        super()._load_extra_resume_state(state)
         self.store.clear_history()
         self.store.push(state["store_history"])
         self.kl_ctl.value = state["kl_ctl_value"]

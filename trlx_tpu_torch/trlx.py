@@ -2,9 +2,9 @@
 
 Samples without rewards run supervised fine-tuning; samples with
 `rewards` run offline RL with ILQL; a `reward_fn` runs online RL with
-PPO, GRPO/RLOO (`default_grpo_config`) or RFT (`default_rft_config`).
-Best-of-n, the last `reward_fn` trainer, is not ported yet (ROADMAP
-queue A, item 4). `model_path` (or `config.model.model_path`) is a
+PPO, GRPO/RLOO (`default_grpo_config`), RFT (`default_rft_config`) or
+best-of-n (`default_bon_config`; `serving.remote_reward_fn(url)` scores
+through a reward server). `model_path` (or `config.model.model_path`) is a
 `random:<preset>` or a local gpt2 or llama HF checkpoint directory.
 """
 
@@ -34,7 +34,7 @@ def train(
     logit_mask=None,
     device=None,
 ):
-    """Train with PPO, GRPO/RLOO or RFT (by `config.train.trainer`)
+    """Train with PPO, GRPO/RLOO, RFT or best-of-n (by `config.train.trainer`)
     against `reward_fn` over `prompts`, with ILQL on
     `samples` labelled by `rewards`, or fine-tune on `samples` (strings,
     or alternating prompt/output dialogues), and return the trainer.
@@ -62,7 +62,8 @@ def train(
     online = bool(reward_fn)
     if online or rewards is not None:
         # the trainers of the branch that are not ported yet are refused
-        want, others = ((PPOTrainer, RFTTrainer), "best-of-n, ...") if online else ((ILQLTrainer,), "seq2seq, 1F1B, ...")
+        want, others = ((PPOTrainer, RFTTrainer), "the pipelined and sequence-parallel trainers") if online \
+            else ((ILQLTrainer,), "seq2seq, 1F1B, ...")
         try:
             trainer_cls = get_trainer(config.train.trainer)
         except ValueError:  # not registered in the port

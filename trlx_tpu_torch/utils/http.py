@@ -2,8 +2,8 @@
 
 Port of the JAX package's `utils/http.py` (plain Python, copied so the
 port imports nothing of that package). The policy inference client
-(`trlx_tpu_torch.inference.client`) sits on it; the reward client will
-when reward serving is ported (ROADMAP queue A, item 4).
+(`trlx_tpu_torch.inference.client`) and the reward client
+(`trlx_tpu_torch.serving.remote_reward_fn`) sit on it.
 
 Error taxonomy (single source of truth, mirrored from the reward
 client's original classification):

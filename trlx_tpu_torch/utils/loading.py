@@ -5,6 +5,7 @@ ported trainer and pipeline."""
 from trlx_tpu_torch.pipeline import _DATAPIPELINE
 from trlx_tpu_torch.pipeline import offline_pipeline  # noqa: F401  (registers PromptPipeline)
 from trlx_tpu_torch.trainer import _TRAINERS
+from trlx_tpu_torch.trainer import bon_trainer  # noqa: F401  (registers BestOfNTrainer)
 from trlx_tpu_torch.trainer import grpo_trainer  # noqa: F401  (registers GRPOTrainer)
 from trlx_tpu_torch.trainer import ilql_trainer  # noqa: F401  (registers ILQLTrainer)
 from trlx_tpu_torch.trainer import ppo_trainer  # noqa: F401  (registers PPOTrainer)
