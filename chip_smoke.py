@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    shapes of gpt2-small (12/12/64), llama-7b (32/32/128), GQA (32/8/128)
    and MQA (16/1/64) with 32-token blocks, row lengths at block
    boundaries plus one inactive row (exactly 0), and at gqa-4k (Llama-3-8B's
-   32/8/128 over rows of up to 4096 tokens, crossing split edges), KV in
+   32/8/128 over rows of up to 4096 tokens, crossing split edges) and
+   gptj-6b (16/16/256, phase 20 (b)'s decode), KV in
    f32, bf16 and int8; two calls on the same inputs bitwise equal; with
    kernel, plain-version, library (scaled_dot_product_attention over the
    gathered KV, a yardstick the port never calls) and bound times (device
@@ -213,14 +214,45 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    trlx_tpu_torch.inference.serve_policy` at gpt2-small under SIGTERM
    with 8 requests of 256 tokens in flight: 8 full replies, 503 with
    Retry-After for a new one, exit 0.
+20. the model families at their published widths (bf16, flash, the byte
+   tokenizer at each model's vocabulary, every `parallel` axis at 1 where
+   the JAX recipes shard a pod; each sub-phase's seconds and peak memory):
+   (a) the HH recipe's "1B" (random:pythia-1.4b: 24 blocks, 16 heads of
+   128, rotary_dim 32, vocab 50304; batch 8, seq 128, 64 rollouts in
+   chunks of 16, 32 new tokens, lr 6e-6, 2 trainable blocks), two PPO
+   cycles through `trlx_tpu_torch.train(reward_fn=...)` with launches
+   exact (a step K3 x22, K4-K6 x2, K7 and its backward; a chunk K3 x26,
+   K7 x2), an f32 scoring pass and step (4 blocks) kernels vs plain
+   versions, `serve()` over bf16 and int8 arenas (K1/K2 at hd 128 with
+   partial rotary) and at f32 the kernel's greedy streams equal the
+   gather path's; (b) the "6B" (random:gptj-6b: 28 blocks, 16 heads of
+   256, vocab 50400, a biased head; batch 4, seq 512) for one PPO cycle
+   through the trainer's own collection and steps (K3 x26, K4-K6 x2 at hd
+   256), its peak memory, then `serve()` (K1 at hd 256) and, at f32 and 2
+   blocks of its width, the kernel's greedy streams equal the gather
+   path's; (c) SFT on
+   random:opt-125m (vocab 50272, every kernel) and random:bloom-560m
+   (vocab 250880, ALiBi: no flash or paged-kernel launch, every decode
+   step an `alibi` fallback) through `train` (4 steps, seq 512), a paged
+   burst each, and opt-125m's `save_pretrained` export loaded back by
+   `model_path` bitwise; (d) Mistral-7B's published config.json at 2
+   blocks, written by the port's exporter and loaded by `model_path`: an
+   SFT step at b 1 t 4096 (inside the window: K4-K6) and t 4608 (across
+   it: none), f32 logits at 4096 kernels vs plain versions and at 4608
+   (where neither side launches a kernel) the card vs the same model on
+   the CPU, and paged decode counted as `sliding_window` fallbacks.
 Phase 6 also holds K7 and its backward at the randomwalks curves' rows (a
-24-token vocabulary, f32 and bf16, shifted labels, padded rows).
+24-token vocabulary, f32 and bf16, shifted labels, padded rows), K3-K6 at
+phase 20's head dims (pythia-1.4b's 128 at the HH "1B" shape, gptj-6b's
+256 at b 4, t 512, left padded) and K7 and its backward at its four
+vocabularies (50304, 50400, 50272, 250880).
 
 The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object (with `ppo_options`, phase 11's
 checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
 `ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16, `serving`, phase
-17's, `fleet`, phase 18's, `phase19`, phase 19's); the last line is
+17's, `fleet`, phase 18's, `phase19`, phase 19's, `phase20`, phase 20's);
+the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
 """
@@ -360,6 +392,8 @@ SHAPES = {  # name: (nh, nkv, hd, row lengths, table entries, arena pairs rotate
     # Llama-3-8B's attention at 4096 tokens: an arena pair is 134 MB in bf16,
     # so 3 pairs (more than the 50 MB L2) stand in for the layers
     "gqa-4k": (32, 8, 128, LENS_4K, 128, 3),
+    # GPT-J-6B's attention (phase 20 (b) serves it): 16 heads of 256
+    "gptj-6b": (16, 16, 256, LENS, N_TBL, LAYERS),
 }
 
 
@@ -539,38 +573,23 @@ def http(url, path, payload=None, timeout=300):
 PAGED_KERNELS = ("paged_decode", "paged_decode_int8")
 
 
-def serve_and_check(config, n_requests, counter, card):
-    """Phase 4's burst of `n_requests` concurrent /generate requests
-    against `SFTTrainer(config).serve()`; `counter` names the paged kernel
-    the decode must launch once a layer a dispatch, or None for the
-    fixed-slot pool, which launches none. Returns (its launches, the
-    burst's numbers)."""
-    import numpy as np
-    import torch
-
+def burst(trainer, jobs):
+    """POST every job to /generate at once against `trainer.serve()`.
+    Returns (replies, wall_s, launches, kv_stats, decode steps, decode_s):
+    the decode steps are the scheduler's own count, apart from the
+    engine's kernel accounting."""
     from trlx_tpu_torch import kernels
-    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
 
-    trainer = SFTTrainer(config)  # device defaults to cuda
-    n_layers = trainer.model_cfg.n_layers
     server = trainer.serve(port=0, background=True)
     try:
-        rng = np.random.RandomState(1)
-        plens = [31, 32, 33, 5, 64, 100, 200, 256, 17, 48, 96, 1, 128, 250, 63, 65]
-        jobs = []
-        for i in range(n_requests):
-            plen = plens[i % len(plens)]
-            max_new = int(16 + (i * 7) % 49)  # 16..64
-            jobs.append({"prompt_ids": rng.randint(0, 256, plen).tolist(), "max_new_tokens": max_new})
         kernels.reset_launches()
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(n_requests) as pool:
+        with ThreadPoolExecutor(len(jobs)) as pool:
             replies = list(pool.map(lambda j: http(server.url, "/generate", j), jobs))
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         stats = server.engine.kv_stats()
-        # wall time of the scheduler's decode steps (this server's only ones)
-        decode_s = server.metrics.histograms_snapshot()["decode_step_latency_seconds"][2]
+        _, _, decode_s, decode_steps = server.metrics.histograms_snapshot()["decode_step_latency_seconds"]
     finally:
         server.shutdown()
     for job, (code, out) in zip(jobs, replies):
@@ -581,19 +600,40 @@ def serve_and_check(config, n_requests, counter, card):
             raise AssertionError(f"got {n} tokens for max_new_tokens={job['max_new_tokens']}: {out['finish_reason']}")
         if not all(math.isfinite(x) for x in out["token_logprobs"]):
             raise AssertionError("non-finite token logprob")
-    dispatches = stats["kv_kernel_dispatches"]
-    if counter is None:
-        # the fixed-slot pool has no kernel, as in JAX: every decode
-        # dispatch is a counted kv_paging_off fallback, no paged launch
-        dispatches = stats["kv_kernel_fallbacks"].get("kv_paging_off", 0)
-        want = {"kv_kernel_dispatches": 0, "kv_kernel_fallbacks": {"kv_paging_off": dispatches}}
-        if dispatches <= 0 or stats != want or any(launches.get(k, 0) for k in PAGED_KERNELS):
-            raise AssertionError(f"fixed-slot pool: {stats}, launches {launches}")
+    return replies, wall, launches, stats, decode_steps, decode_s
+
+
+def serve_and_check(config, n_requests, counter, card, fallback=None, trainer=None, tag="serve"):
+    """Phase 4's burst of `n_requests` concurrent /generate requests
+    against `serve()` of `trainer` (by default a new `SFTTrainer(config)`)
+    and its decode accounting: every decode step a kernel dispatch that
+    launches `counter` once a block, or, with a `fallback` (the fixed-slot
+    pool's `kv_paging_off`, or a bias term the paged kernel does not
+    express), no paged launch and every decode step that counted fallback,
+    as in JAX. Returns (its launches, the burst's numbers)."""
+    import numpy as np
+
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    trainer = trainer or SFTTrainer(config)  # device defaults to cuda
+    config, n_layers = trainer.config, trainer.model_cfg.n_layers
+    rng = np.random.RandomState(1)
+    plens = [31, 32, 33, 5, 64, 100, 200, 256, 17, 48, 96, 1, 128, 250, 63, 65]
+    jobs = []
+    for i in range(n_requests):
+        plen = plens[i % len(plens)]
+        max_new = min(int(16 + (i * 7) % 49), config.inference.max_new_tokens)  # 16..64
+        jobs.append({"prompt_ids": rng.randint(0, 256, plen).tolist(), "max_new_tokens": max_new})
+    # decode_s: wall time of the scheduler's decode steps (this server's only ones)
+    replies, wall, launches, stats, steps, decode_s = burst(trainer, jobs)
+    if fallback is None:
+        want = ({"kv_kernel_dispatches": steps, "kv_kernel_fallbacks": {}}, {counter: steps * n_layers})
     else:
-        if dispatches <= 0 or stats["kv_kernel_fallbacks"] != {}:
-            raise AssertionError(f"kernel not on the decode path: {stats}")
-        if launches.get(counter, 0) != dispatches * n_layers:
-            raise AssertionError(f"{counter} launches {launches} != {dispatches} dispatches x {n_layers} layers")
+        want = ({"kv_kernel_dispatches": 0, "kv_kernel_fallbacks": {fallback: steps}}, {})
+    got = ({k: stats[k] for k in ("kv_kernel_dispatches", "kv_kernel_fallbacks")},
+           {k: v for k, v in launches.items() if v})
+    if steps <= 0 or got != want:
+        raise AssertionError(f"{tag}: decode accounting {got} != {want} over {steps} decode steps")
     # every token is emitted by a decode step (the first one was sampled at
     # prefill): tokens_per_s is end to end over the burst's wall time,
     # decode_tok_per_s over the decode steps' time alone
@@ -601,16 +641,17 @@ def serve_and_check(config, n_requests, counter, card):
     ttft = statistics.median(o["ttft_s"] for _, o in replies)
     pool = "paged" if config.inference.kv_paging else "fixed-slot"
     log(
-        f"[serve] {pool} kv={config.inference.kv_cache_dtype} requests={n_requests} tokens={tokens} "
+        f"[{tag}] {pool} kv={config.inference.kv_cache_dtype} requests={n_requests} tokens={tokens} "
         f"wall_s={wall:.3f} tokens_per_s={tokens / wall:.1f} decode_s={decode_s:.3f} "
         f"decode_tok_per_s={tokens / decode_s:.1f} median_ttft_s={ttft:.4f} "
-        f"dispatches={dispatches} launches={launches} ({card})"
+        f"decode_steps={steps} kernel accounting {got[0]} launches={got[1]} ({card})"
     )
-    del trainer, server
+    del trainer
     release()
     numbers = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall, decode_tok_per_s=tokens / decode_s,
-                   median_ttft_s=ttft, dispatches=dispatches, launches=launches)
-    return (launches.get(counter, 0) if counter else 0), numbers
+                   median_ttft_s=ttft, dispatches=stats["kv_kernel_dispatches"], decode_steps=steps,
+                   kv=got[0], launches=got[1])
+    return got[1].get(counter, 0), numbers
 
 
 # ---------------------------------------------------------------------------
@@ -646,15 +687,14 @@ def greedy_prompts():
     return [rng.randint(0, 256, n).tolist() for n in (7, 31, 32, 33, 64, 100)]
 
 
-def phase_greedy():
-    import numpy as np
-    import torch
-
+def phase_greedy(config=None, kvs=("auto", "int8"), tag="greedy"):
+    """Phase 5 (or phase 20's `config`): greedy streams of the engine with
+    the kernel and with the gather path at f32, for each KV dtype."""
     from trlx_tpu_torch.inference import InferenceEngine
     from trlx_tpu_torch.ops.sampling import GenerationConfig
     from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
 
-    config = serving_config().evolve(
+    config = config or serving_config().evolve(
         model=dict(model_extra_configs={"vocab_size": 50257, "dtype": "float32"})
     )
     trainer = SFTTrainer(config)
@@ -667,11 +707,11 @@ def phase_greedy():
                                max_prompt_len=256, kv_paging=True, kv_block_size=32,
                                kv_cache_dtype=kv, decode_kernel=kernel)
 
-    for kv in ("auto", "int8"):
+    for kv in kvs:
         kern = run_serial(engine("auto", kv), prompts, 16)
         gather = run_serial(engine("xla", kv), prompts, 16)
         same = sum(a == b for a, b in zip(kern, gather))
-        log(f"[greedy] f32 model kv={kv}: {same}/{len(prompts)} streams equal kernel vs gather")
+        log(f"[{tag}] f32 model kv={kv}: {same}/{len(prompts)} streams equal kernel vs gather")
         need = len(prompts) if kv == "auto" else len(prompts) - 1
         if same < need:
             raise AssertionError(f"kv={kv}: kernel {kern} vs gather {gather}")
@@ -721,6 +761,11 @@ FLASH_SHAPES = {
     "ppo-score": (128, PPO_T, 12, 12, 64, ppo_mask_rows(128), ("flash_fwd",)),
     "ppo-train": (32, PPO_T, 12, 12, 64, ppo_mask_rows(32), ALL_FLASH[1:]),
     "ilql-train": (128, 64, 12, 12, 64, left_pad_rows(64, [0] * 128), ALL_FLASH[1:]),
+    # phase 20's head dims: the HH recipe's "1B" (pythia-1.4b, 16 heads of
+    # 128, seq 128, batch 8) and "6B" (gptj-6b, 16 heads of 256, seq 512,
+    # batch 4; the CUDA-core kernels at both dtypes), left padded
+    "pythia-1.4b": (8, 128, 16, 16, 128, left_pad_rows(128, [0, 3, 17, 40, 64, 90, 100, 127]), ALL_FLASH),
+    "gptj-6b": (4, 512, 16, 16, 256, left_pad_rows(512, [0, 31, 200, 450]), ALL_FLASH),
 }
 CE_ROWS, CE_VOCAB = 8 * 1023, 50257
 # K7 at phase 9's shapes: scoring reads the full [128, 104, V] logits with
@@ -731,6 +776,12 @@ CE_ROWS, CE_VOCAB = 8 * 1023, 50257
 CE_PPO = {"ppo-score": (128, PPO_T), "ppo-train": (32, 40), "ppo-fast-score": (128, 40),
           "ppo-branch-train": (32, PPO_T)}
 CE_BWD_PPO = ("ppo-train", "ppo-branch-train")  # the shapes a step's backward runs at
+# K7 and its backward at phase 20's vocabularies, at the rows of its runs:
+# the HH "1B" step's response window [8 x 32], the "6B" one's [4 x 32], and
+# the SFT steps of opt-125m and bloom-560m (batch 8, seq 512, shifted)
+CE_FAMILIES = {"pythia-1.4b": (8 * 32, 50304), "gptj-6b": (4 * 32, 50400), "opt-125m": (8 * 511, 50272),
+               "bloom-560m": (8 * 511, 250880)}
+FAMILY_SHAPES = ("pythia-1.4b", "gptj-6b", "opt-125m", "bloom-560m")  # phase 6's rows for phase 20
 # tolerances: bf16 outputs (out, dq): both sides round once to bf16 from
 # f32 values that differ only in summation order, so one bf16 ulp apart at
 # most: rtol 8e-3, atol 1e-3. That holds for the bf16 kernels on the
@@ -940,6 +991,11 @@ def phase_train_kernels(device):
         errs = [note("flash_fwd", out3, out_p, BF16_TOL), note("flash_fwd_lse", out4, out_p, BF16_TOL),
                 note("flash_fwd_lse", lse, lse_p, LSE_TOL), note("flash_bwd_dq", dq, dq_p, BF16_TOL),
                 note("flash_bwd_dkv", dk, dk_p, DKV_TOL), note("flash_bwd_dkv", dv, dv_p, DKV_TOL)]
+        # dk/dv are f32 at either input type: how many elements differ at
+        # all from the plain version's, and their scale (an error of 0 is
+        # read against these)
+        dkv_unequal = int((dk != dk_p).sum()) + int((dv != dv_p).sum())
+        dkv_scale = max(float(dk_p.abs().max()), float(dv_p.abs().max()))
         dead = mask.sum(-1) == 0
         if bool(dead.any()) and not (bool((out3[dead] == 0).all()) and bool((lse[dead] == A.DEAD_LSE).all())):
             raise AssertionError(f"{shape}: a row with no valid key is not exactly 0 / DEAD_LSE")
@@ -970,6 +1026,7 @@ def phase_train_kernels(device):
         skipped, total = skipped_tiles(rows)
         log(f"[train-kernels] {shape}: max_abs_err out/out_lse/lse/dq/dk/dv = "
             + " ".join(f"{e:.3g}" for e in errs)
+            + f"; dk/dv elements unequal {dkv_unequal} of {2 * dk.numel()}, max|plain dk, dv| {dkv_scale:.3g}"
             + f"; causal tiles skipped as padding by the bf16 forward and backward (K3-K6): "
             f"{skipped}/{total} ({skipped / total:.3f})")
         del q, k, v, mask, g, lse_p, delta, out3, out4, lse, dq, dk, dv, out_p, dq_p, dk_p, dv_p
@@ -1052,6 +1109,20 @@ def phase_train_kernels(device):
             results[("label_logprobs", "randomwalks")] = ce_times(x, lab)
             results[("label_logprobs_bwd", "randomwalks")] = ce_bwd_times(x, lab, lse, g.reshape(-1))
         del logits, tokens, g, got, want, lab, x, lse
+    # K7 and its backward at phase 20's vocabularies (bf16)
+    for shape, (n, v) in CE_FAMILIES.items():
+        logits = torch.randn(n, v, generator=gen, device=device).mul_(3).to(torch.bfloat16)
+        labels = torch.randint(0, v, (n,), generator=gen, device=device, dtype=torch.int32)
+        got, _ = label_logprobs(logits, labels)
+        e = note("label_logprobs", got, label_logprobs_plain(logits, labels)[0], CE_TOL)
+        g = torch.randn(n, generator=gen, device=device)
+        g[::13] = 0.0
+        lse = check_ce_bwd(note, logits, labels, g, shape)
+        log(f"[train-kernels] label_logprobs {shape} [{n}, {v}] bf16: max_abs_err logprob = {e:.3g}")
+        results[("label_logprobs", shape)] = ce_times(logits, labels)
+        results[("label_logprobs_bwd", shape)] = ce_bwd_times(logits, labels, lse, g)
+        del logits, labels, got, g, lse
+        torch.cuda.empty_cache()
     kernels.reset_launches()  # the comparison launches above do not count
     return results, err
 
@@ -1209,10 +1280,12 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def check_grads(grads_k, grads_p):
+def check_grads(grads_k, grads_p, cfg=None):
     """Each trainable gradient kernels vs plain within GRAD_TOL of its
-    largest element; the key bias's (exactly 0) rounding noise only.
-    Returns the worst max|diff| / max|g|."""
+    largest element; the key bias's (exactly 0) rounding noise only. Under
+    partial rotary (`cfg`, pythia) the bias's rotated dims rotate with the
+    position, so only its unrotated dims are exactly 0; the rotated ones
+    are held as gradients. Returns the worst max|diff| / max|g|."""
     import torch
 
     worst = 0.0
@@ -1220,10 +1293,15 @@ def check_grads(grads_k, grads_p):
     for name, gk in grads_k.items():
         gp = grads_p[name]
         if name.endswith("attn.k_proj.bias"):
-            noise = max(float(gk.abs().max()), float(gp.abs().max()))
+            rotated = cfg.rotary_dim if cfg is not None and cfg.pos_embed == "rope" else 0
+            heads = cfg.kv_heads if cfg is not None else 1
+            gk, gp = gk.reshape(heads, -1), gp.reshape(heads, -1)
+            noise = max(float(gk[:, rotated:].abs().max()), float(gp[:, rotated:].abs().max()))
             if noise > ZERO_GRAD_TOL * largest:
                 raise AssertionError(f"{name}: gradient {noise} is not rounding noise")
-            continue
+            if not rotated:
+                continue
+            gk, gp = gk[:, :rotated], gp[:, :rotated]
         scale = float(gp.abs().max())
         torch.testing.assert_close(gk, gp, rtol=GRAD_TOL, atol=GRAD_TOL * max(scale, 1e-12))
         worst = max(worst, float((gk - gp).abs().max()) / max(scale, 1e-12))
@@ -1275,7 +1353,13 @@ PPO_NEW = 40
 # to printable ASCII (suppress_tokens, the full 50257-way softmax still
 # runs); eos is held back too, so every response is the 40 tokens of the
 # workload.
-PPO_SUPPRESS = [i for i in range(50257) if not 32 <= i < 127]
+def printable_only(vocab):
+    """suppress_tokens holding sampling to printable ASCII: the byte
+    tokenizer decodes only ids below 256."""
+    return [i for i in range(vocab) if not 32 <= i < 127]
+
+
+PPO_SUPPRESS = printable_only(50257)
 
 
 def ppo_prompts(n=256, seed=0):
@@ -1604,7 +1688,7 @@ def ppo_f32_kernels_vs_plain(config):
         errs[name] = float((a - b).abs().max())
     if float(scored_k[3]) <= 0:
         raise AssertionError("the perturbed reference gave no KL")
-    worst = check_grads(grads_k, grads_p)
+    worst = check_grads(grads_k, grads_p, trainer.model_cfg)
     if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
         raise AssertionError(f"f32 PPO loss kernels {loss_k} vs plain {loss_p}")
     flips, entries = gate_flips(gates_k, gates_p)
@@ -2912,7 +2996,7 @@ def phase_serving_features(card, paged4):
 
     work = ROOT / "build" / "chip_smoke_serving"
     shutil.rmtree(work, ignore_errors=True)
-    _, fixed = serve_and_check(serving_config(kv_paging=False), 16, None, card)
+    _, fixed = serve_and_check(serving_config(kv_paging=False), 16, None, card, fallback="kv_paging_off")
     # phase 4's burst was the process's first: its prefills met each GEMM
     # shape cold. The same burst on the paged pool now, every shape warm
     _, paged = serve_and_check(serving_config(), 16, "paged_decode", card)
@@ -4208,6 +4292,475 @@ def phase_resilience_methods(card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the model families at their published widths
+# ---------------------------------------------------------------------------
+
+# The HH recipe's prompts (the QUESTIONS of the JAX package's examples/hh,
+# copied: this script imports nothing of that package or its examples)
+HH_QUESTIONS = [
+    "Human: How do I bake sourdough bread?\n\nAssistant:",
+    "Human: Can you explain photosynthesis simply?\n\nAssistant:",
+    "Human: What's a good way to learn guitar?\n\nAssistant:",
+    "Human: How should I start investing?\n\nAssistant:",
+    "Human: Why is the sky blue?\n\nAssistant:",
+    "Human: How do I fix a leaky faucet?\n\nAssistant:",
+]
+# examples/hh/ppo_hh.py's base configuration (64 rollouts in chunks of 16,
+# 32 new tokens, 2 trainable blocks) under examples/hh/__init__.py's "1B"
+# and "6B" sizes, at each model's published vocabulary; the recipes'
+# fsdp/tensor axes shard a pod, and the port runs on one card
+HH_ROLLOUTS, HH_CHUNK, HH_NEW = 64, 16, 32
+HH = {
+    "1B": dict(preset="pythia-1.4b", vocab=50304, batch=8, seq=128, lr=6e-6, cycles=2,
+               cut="parallel.fsdp 4 -> 1 (one card)"),
+    "6B": dict(preset="gptj-6b", vocab=50400, batch=4, seq=512, lr=None, cycles=1,
+               cut="parallel.fsdp 4 and parallel.tensor 2 -> 1 (one card)"),
+}
+# OPT's and Bloom's SFT runs, and their published vocabularies
+FAMILY_SFT = {"opt-125m": 50272, "bloom-560m": 250880}
+FAMILY_SFT_STEPS, FAMILY_SFT_SEQ = 4, 512
+# Mistral-7B-v0.1's published config.json, its depth cut to 2 blocks
+MISTRAL_HF = dict(architectures=["MistralForCausalLM"], model_type="mistral", vocab_size=32000, hidden_size=4096,
+                  intermediate_size=14336, num_hidden_layers=2, num_attention_heads=32, num_key_value_heads=8,
+                  hidden_act="silu", max_position_embeddings=32768, rms_norm_eps=1e-5, rope_theta=10000.0,
+                  sliding_window=4096, tie_word_embeddings=False)
+MISTRAL_LENS = (4096, 4608)  # inside the 4096 window (the flash kernels), across it (the dense band)
+# f32 logits with the kernels vs the plain versions: the same f32 sums in
+# another order through 2-24 blocks (phase 10's scoring holds logprobs to
+# 1e-5; raw logits of a random model run to a few units)
+FAMILY_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+FAMILY_REQUESTS, FAMILY_NEW = 4, 32
+
+
+def family_inference(max_new=HH_NEW):
+    return dict(kv_paging=True, kv_block_size=32, num_slots=8, max_prompt_len=128, max_new_tokens=max_new,
+                decode_kernel="auto", gen_kwargs=dict(max_new_tokens=max_new))
+
+
+def hh_config(work, name, **model_extra):
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+
+    h = HH[name]
+    config = default_ppo_config().evolve(
+        # save_best off: the done checkpoint alone (pythia-1.4b's is about 12 GB with its export)
+        train=dict(seq_length=h["seq"], batch_size=h["batch"], epochs=h["cycles"], eval_interval=10**6,
+                   checkpoint_interval=10**6, save_best=False, checkpoint_dir=str(work / "ckpts"),
+                   logging_dir=str(work / "logs")),
+        model=dict(model_path=f"random:{h['preset']}", num_layers_unfrozen=2,
+                   model_extra_configs={"vocab_size": h["vocab"], "attn_impl": "flash", **model_extra}),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(num_rollouts=HH_ROLLOUTS, chunk_size=HH_CHUNK,
+                    gen_kwargs=dict(max_new_tokens=HH_NEW, top_k=0, top_p=1.0, do_sample=True,
+                                    suppress_tokens=printable_only(h["vocab"]))),
+        inference=family_inference(),
+    )
+    return config.evolve(optimizer=dict(kwargs=dict(lr=h["lr"]))) if h["lr"] else config
+
+
+def hh_launches(n_layers):
+    """(a step's, a scoring chunk's) launches under 2 trainable blocks: a
+    step K3 over the frozen blocks, K4-K6 over the top 2, K7 and its
+    backward on the window; a chunk K3 over every policy block and the
+    reference's 2, K7 for each."""
+    step = {"flash_fwd": n_layers - 2, "flash_fwd_lse": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+            "label_logprobs": 1, "label_logprobs_bwd": 1}
+    return {k: v for k, v in step.items() if v}, {"flash_fwd": n_layers + 2, "label_logprobs": 2}
+
+
+def peak_gb():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_ppo_calls(tag, record, launches, per_step, per_chunk, n_steps, n_chunks):
+    """Every optimizer step and scoring chunk launched exactly its kernels,
+    the run as a whole nothing else, every response HH_NEW tokens."""
+    steps = [c for c in record if c[0] == "train_minibatch"]
+    chunks = [c for c in record if c[0] == "score"]
+    lengths = [n for c in record if c[0] == "make_experience" for n in c[4]]
+    if len(steps) != n_steps or len(chunks) != n_chunks:
+        raise AssertionError(f"{tag}: {len(steps)} steps and {len(chunks)} scoring chunks, "
+                             f"expected {n_steps} and {n_chunks}")
+    for name, calls, want in (("step", steps, per_step), ("chunk", chunks, per_chunk)):
+        for c in calls:
+            if c[3] != want:
+                raise AssertionError(f"{tag}: a {name} launched {c[3]}, expected {want}")
+    want = {k: n_steps * per_step.get(k, 0) + n_chunks * per_chunk.get(k, 0) for k in set(per_step) | set(per_chunk)}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    if set(lengths) != {HH_NEW}:
+        raise AssertionError(f"{tag}: response lengths {sorted(set(lengths))}, expected {HH_NEW}")
+    return [(c[2] - c[1]) for c in steps], [(c[2] - c[1]) for c in chunks]
+
+
+def phase_hh_1b(card):
+    """Phase 20 (a): two PPO cycles of the HH "1B" configuration through
+    `train`, an f32 scoring pass and step kernels vs plain versions, and
+    `serve()` over bf16 and int8 arenas with f32 greedy kernel = gather."""
+    import shutil
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    h = HH["1B"]
+    work = ROOT / "build" / "chip_smoke_hh_1b"
+    if work.exists():
+        shutil.rmtree(work)
+    config = hh_config(work, "1B")
+    record = []
+    kernels.reset_launches()
+    with ppo_probes(record):
+        trainer = trlx_tpu_torch.train(reward_fn=ppo_reward, prompts=HH_QUESTIONS * 16, eval_prompts=HH_QUESTIONS,
+                                       config=config)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    n_layers = trainer.model_cfg.n_layers
+    per_step, per_chunk = hh_launches(n_layers)
+    n_steps = h["cycles"] * config.method.ppo_epochs * (HH_ROLLOUTS // h["batch"])
+    step_s, chunk_s = check_ppo_calls("hh-1b", record, launches, per_step, per_chunk, n_steps,
+                                      h["cycles"] * HH_ROLLOUTS // HH_CHUNK)
+    rows = [json.loads(line) for line in next((work / "logs").glob("*.metrics.jsonl")).read_text().splitlines()]
+    losses = [r["losses/total_loss"] for r in rows if "losses/total_loss" in r]
+    if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"hh-1b: expected {n_steps} finite losses, got {losses}")
+    gens = [r["time/rollout_generate"] / 1e3 for r in rows if "time/rollout_generate" in r]
+    cfg = trainer.model_cfg
+    out = dict(steps=n_steps, step_s=statistics.median(step_s[1:]), score_chunk_s=statistics.median(chunk_s),
+               generate_s=gens, losses=[losses[0], losses[-1]], launches=launches)
+    log(f"[hh-1b] pythia-1.4b (d {cfg.d_model}, {cfg.n_layers} blocks, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"rotary_dim {cfg.rotary_dim}, vocab {cfg.vocab_size}), batch {h['batch']}, seq {h['seq']}, "
+        f"{HH_ROLLOUTS} rollouts in chunks of {HH_CHUNK}, {HH_NEW} new tokens, lr {h['lr']}, bf16 flash, cut: "
+        f"{h['cut']}: {n_steps} steps in {h['cycles']} cycles, median step_s={out['step_s']:.4f}, scoring chunk "
+        f"s={out['score_chunk_s']:.4f}, generate_s={[round(g, 3) for g in gens]}, loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; launches exact (a step {per_step}, a chunk {per_chunk}): {launches} ({card})")
+    del trainer
+    shutil.rmtree(work / "ckpts", ignore_errors=True)
+    release()
+
+    # f32, 4 blocks: a scoring pass and a step, kernels vs plain versions
+    grad_trainer, _, _, n = ppo_f32_kernels_vs_plain(hh_config(work / "grad", "1B", dtype="float32", n_layers=4))
+    log(f"[hh-1b] f32, pythia-1.4b width, 4 blocks, split 2, {PPO_BATCH} injected rows t {PPO_T}: {n['summary']}")
+    out["f32"] = dict(errs=n["errs"], loss_k=n["loss_k"], loss_p=n["loss_p"], worst_grad=n["worst"])
+    del grad_trainer
+    release()
+
+    # serve() over bf16 and int8 arenas (K1, K2 at hd 128, partial rotary)
+    serve = serving_config().evolve(model=dict(model_path=f"random:{h['preset']}",
+                                               model_extra_configs={"vocab_size": h["vocab"]}))
+    out["serve"] = {}
+    for kv, counter in (("auto", "paged_decode"), ("int8", "paged_decode_int8")):
+        n_launch, numbers = serve_and_check(serve.evolve(inference=dict(kv_cache_dtype=kv)), 8, counter, card)
+        out["serve"][kv] = dict(numbers, launches=n_launch)
+    # f32: the kernel's greedy streams equal the gather path's (phase 5's rule)
+    phase_greedy(serve.evolve(model=dict(model_extra_configs={"vocab_size": h["vocab"], "dtype": "float32"})),
+                 kvs=("auto",), tag="hh-1b greedy")
+    out["seconds"], out["peak_gb"] = time.perf_counter() - t0, peak_gb()
+    log(f"[hh-1b] took {out['seconds']:.1f} s, peak device memory {out['peak_gb']:.2f} GB ({card})")
+    return out
+
+
+def phase_hh_6b(card):
+    """Phase 20 (b): one PPO cycle of the HH "6B" configuration at GPT-J-6B's
+    full width, driven through the trainer's own collection and steps (a
+    run through `train` ends in a checkpoint of the 24 GB model and its
+    export), then `serve()` with K1 at hd 256."""
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    h = HH["6B"]
+    work = ROOT / "build" / "chip_smoke_hh_6b"
+    config = hh_config(work, "6B")
+    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    build_s, weights_gb = time.perf_counter() - t0, torch.cuda.memory_allocated() / 1e9
+    trainer.add_prompt_pipeline(PromptPipeline(HH_QUESTIONS * 16, h["seq"] - HH_NEW, trainer.tokenizer))
+    record = []
+    kernels.reset_launches()
+    with ppo_probes(record):
+        trainer.make_experience(HH_ROLLOUTS)
+        for _ in range(config.method.ppo_epochs):
+            for batch in trainer.create_train_dataloader():
+                stats = trainer.train_minibatch([batch])
+                if not math.isfinite(stats["losses/total_loss"]):
+                    raise AssertionError(f"hh-6b: loss {stats['losses/total_loss']}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    cfg = trainer.model_cfg
+    per_step, per_chunk = hh_launches(cfg.n_layers)
+    n_steps = config.method.ppo_epochs * HH_ROLLOUTS // h["batch"]
+    step_s, chunk_s = check_ppo_calls("hh-6b", record, launches, per_step, per_chunk, n_steps,
+                                      HH_ROLLOUTS // HH_CHUNK)
+    gen_s = [c[2] - c[1] for c in record if c[0] == "make_experience"][0]
+    out = dict(steps=n_steps, step_s=statistics.median(step_s[1:]), score_chunk_s=statistics.median(chunk_s),
+               collection_s=gen_s, build_s=build_s, weights_gb=weights_gb, train_peak_gb=peak_gb(),
+               launches=launches)
+    log(f"[hh-6b] gptj-6b (d {cfg.d_model}, {cfg.n_layers} blocks, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"rotary_dim {cfg.rotary_dim}, vocab {cfg.vocab_size}, a biased head), batch {h['batch']}, seq {h['seq']}, "
+        f"{HH_ROLLOUTS} rollouts in chunks of {HH_CHUNK}, {HH_NEW} new tokens, bf16 flash, cut: {h['cut']}: "
+        f"built in {build_s:.1f}s ({weights_gb:.2f} GB of f32 weights on the card); one cycle through the "
+        f"trainer's make_experience and train_minibatch (no done checkpoint of 24 GB): collection "
+        f"{gen_s:.2f}s, {n_steps} steps, median step_s={out['step_s']:.4f}, scoring chunk s="
+        f"{out['score_chunk_s']:.4f}; peak device memory {out['train_peak_gb']:.2f} GB; launches exact "
+        f"(a step {per_step}, a chunk {per_chunk}): {launches} ({card})")
+    _, out["serve"] = serve_and_check(None, FAMILY_REQUESTS, "paged_decode", card, trainer=trainer, tag="hh-6b")
+    del trainer
+    release()
+    # f32 at GPT-J-6B's width, 2 blocks: the kernel's greedy streams (K1 at
+    # hd 256) equal the gather path's (phase 5's rule)
+    phase_greedy(serving_config().evolve(model=dict(
+        model_path=f"random:{h['preset']}",
+        model_extra_configs={"vocab_size": h["vocab"], "dtype": "float32", "n_layers": 2})),
+        kvs=("auto",), tag="hh-6b greedy")
+    out["seconds"], out["peak_gb"] = time.perf_counter() - t0, peak_gb()
+    log(f"[hh-6b] took {out['seconds']:.1f} s, peak device memory {out['peak_gb']:.2f} GB ({card})")
+    return out
+
+
+def family_sft_config(work, preset, vocab, **model_extra):
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+
+    return default_sft_config().evolve(
+        train=dict(seq_length=FAMILY_SFT_SEQ, batch_size=8, total_steps=FAMILY_SFT_STEPS, eval_interval=10**6,
+                   checkpoint_interval=10**6, checkpoint_dir=str(work / "ckpts"), logging_dir=str(work / "logs")),
+        model=dict(model_path=f"random:{preset}", num_layers_unfrozen=2,
+                   model_extra_configs={"vocab_size": vocab, "attn_impl": "flash", **model_extra}),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(gen_kwargs=dict(max_new_tokens=16, do_sample=False)),
+        inference=family_inference(FAMILY_NEW),
+    )
+
+
+def phase_opt_bloom(card):
+    """Phase 20 (c): SFT on opt-125m and bloom-560m through `train`, then a
+    paged burst; opt-125m's export loaded back by `model_path`, bitwise."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.data.configs import ModelConfig
+    from trlx_tpu_torch.models import build_model
+
+    t0 = time.perf_counter()
+    out = {}
+    for preset, vocab in FAMILY_SFT.items():
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        work = ROOT / "build" / f"chip_smoke_{preset}"
+        if work.exists():
+            shutil.rmtree(work)
+        config = family_sft_config(work, preset, vocab)
+        kernels.reset_launches()
+        trainer = trlx_tpu_torch.train(samples=sft_samples(), config=config)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        cfg = trainer.model_cfg
+        # ALiBi takes the dense path (no flash kernel); K7 and its backward always
+        flash = not cfg.alibi
+        per_step = {"label_logprobs": 1, "label_logprobs_bwd": 1}
+        if flash:
+            per_step.update({"flash_fwd": cfg.n_layers - 2, "flash_fwd_lse": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2})
+        want = {k: v * FAMILY_SFT_STEPS for k, v in per_step.items() if v}
+        rows = [json.loads(line) for line in next((work / "logs").glob("*.metrics.jsonl")).read_text().splitlines()]
+        steps = [r for r in rows if "loss" in r]
+        losses = [r["loss"] for r in steps]
+        if launches != want or len(steps) != FAMILY_SFT_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{preset}: launches {launches} != {want}, or losses {losses}")
+        r = dict(losses=losses, step_s=statistics.median(x["time/train_step_s"] for x in steps[1:]),
+                 train_tokens_per_s=statistics.median(x["throughput/train_tokens_per_s"] for x in steps[1:]),
+                 launches=launches, train_peak_gb=peak_gb())
+        log(f"[{preset}] SFT (d {cfg.d_model}, {cfg.n_layers} blocks, {cfg.n_heads} heads of {cfg.head_dim}, vocab "
+            f"{cfg.vocab_size}, alibi={cfg.alibi}, pos_offset={cfg.pos_offset}, embed_ln={cfg.embed_ln}), seq "
+            f"{FAMILY_SFT_SEQ}, batch 8, bf16 flash, 2 trainable blocks: losses {[round(x, 5) for x in losses]}, "
+            f"median step_s={r['step_s']:.4f}, train_tokens_per_s={r['train_tokens_per_s']:.1f}, peak "
+            f"{r['train_peak_gb']:.2f} GB; launches exact ({per_step} a step): {launches} ({card})")
+        if preset.startswith("opt"):  # the export round trip
+            export = work / "hf_model"
+            trainer.save_pretrained(str(export))
+            loaded, lcfg, _ = build_model(ModelConfig(model_path=str(export), model_extra_configs={"attn_impl": "flash"}),
+                                          0, seed=trainer.config.train.seed, device=trainer.device)
+            batch = ppo_injected_batch(8)
+            tokens = torch.from_numpy(np.concatenate([batch.query_tensors, batch.response_tensors], 1)).long()
+            tokens = tokens.to(trainer.device)
+            mask = (tokens != trainer.tokenizer.pad_token_id).long()
+            with torch.no_grad():
+                same_logits = torch.equal(trainer.model(tokens, mask)[0], loaded(tokens, mask)[0])
+            same = all(torch.equal(w, loaded.state_dict()[k]) for k, w in trainer.model.state_dict().items())
+            if not (same and same_logits and lcfg.hf_family == "opt" and lcfg.pos_offset == 2):
+                raise AssertionError(f"{preset}: the export did not load back bitwise (params equal: {same})")
+            log(f"[{preset}] save_pretrained export ({sorted(p.name for p in export.iterdir())}) loaded by "
+                f"model_path: every parameter and the bf16 logits bitwise the trainer's")
+            del loaded
+        _, r["serve"] = serve_and_check(None, FAMILY_REQUESTS, "paged_decode", card,
+                                        fallback="alibi" if cfg.alibi else None, trainer=trainer, tag=preset)
+        r["seconds"], r["peak_gb"] = time.perf_counter() - t1, peak_gb()
+        log(f"[{preset}] took {r['seconds']:.1f} s, peak device memory {r['peak_gb']:.2f} GB ({card})")
+        out[preset] = r
+        del trainer
+        shutil.rmtree(work, ignore_errors=True)
+        release()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mistral_text(n_bytes, seed=7):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return "".join(chr(c) for c in rng.randint(97, 123, n_bytes))
+
+
+def phase_mistral(card):
+    """Phase 20 (d): Mistral-7B's published widths at 2 blocks, written to an
+    HF directory by the port's own exporter and loaded by `model_path`; an
+    SFT step inside the window (K4-K6) and across it (none); f32 logits
+    inside the window kernels vs plain versions, across it the card vs the
+    CPU; paged decode's fallbacks."""
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.data.configs import ModelConfig
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+    from trlx_tpu_torch.models import CausalLMWithValueHead, build_model
+    from trlx_tpu_torch.models import hf_interop
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    work = ROOT / "build" / "chip_smoke_mistral"
+    if work.exists():
+        shutil.rmtree(work)
+    hf_dir = work / "hf"
+    hf_dir.mkdir(parents=True)
+    (hf_dir / "config.json").write_text(json.dumps(MISTRAL_HF))
+    cfg = hf_interop.config_from_hf(str(hf_dir))
+    published = (MISTRAL_HF["hidden_size"], MISTRAL_HF["num_key_value_heads"], MISTRAL_HF["sliding_window"])
+    if cfg.hf_family != "llama" or (cfg.d_model, cfg.kv_heads, cfg.sliding_window) != published:
+        raise AssertionError(f"mistral: config_from_hf gave {cfg}")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    model = CausalLMWithValueHead(cfg, device=torch.device("cuda"), generator=gen)
+    sd = hf_interop.params_to_hf_state_dict(model.state_dict(), cfg)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, hf_dir / "pytorch_model.bin")
+    if hf_interop.config_to_hf(cfg)["model_type"] != "mistral":
+        raise AssertionError("mistral: config_to_hf lost the model type")
+    del model, sd
+    release()
+    config = default_sft_config().evolve(
+        train=dict(seq_length=max(MISTRAL_LENS), batch_size=1, total_steps=1, checkpoint_dir=str(work / "ckpts"),
+                   logging_dir=str(work / "logs")),
+        model=dict(model_path=str(hf_dir), num_layers_unfrozen=2, model_extra_configs={"attn_impl": "flash"}),
+        tokenizer=dict(tokenizer_path="byte"),
+        inference=family_inference(16),
+    )
+    trainer = SFTTrainer(config)
+    out = dict(steps={})
+    n_layers = trainer.model_cfg.n_layers
+    for t in MISTRAL_LENS:
+        trainer.make_experience([mistral_text(t + 100)], t)
+        batch = next(iter(trainer.store.create_loader(1)))
+        if tuple(batch["input_ids"].shape) != (1, t):
+            raise AssertionError(f"mistral: batch {tuple(batch['input_ids'].shape)}, expected (1, {t})")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = trainer.train_minibatch([batch])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = {"label_logprobs": 1, "label_logprobs_bwd": 1}
+        if t <= cfg.sliding_window:
+            want.update({"flash_fwd_lse": n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers})
+        if launches != want or not math.isfinite(stats["loss"]):
+            raise AssertionError(f"mistral t {t}: launches {launches} != {want} (loss {stats['loss']})")
+        out["steps"][t] = dict(loss=stats["loss"], step_s=step_s, launches=launches)
+        log(f"[mistral] SFT step b 1 t {t} ({'inside' if t <= cfg.sliding_window else 'across'} the window of "
+            f"{cfg.sliding_window}): loss {stats['loss']:.5f}, {step_s:.3f}s (first call), launches {launches}")
+    _, out["serve"] = serve_and_check(None, FAMILY_REQUESTS, "paged_decode", card, fallback="sliding_window",
+                                      trainer=trainer, tag="mistral")
+    del trainer
+    release()
+
+    # f32 logits at both lengths. Inside the window, kernels vs plain
+    # versions on the card. Across it neither side launches a kernel, so
+    # the card's dense band is held against the same model on the CPU (the
+    # CPU tests hold the band against JAX)
+    def f32_model(device):
+        extra = {"attn_impl": "flash", "dtype": "float32"}
+        return build_model(ModelConfig(model_path=str(hf_dir), model_extra_configs=extra), 0, device=device)[0]
+
+    f32 = f32_model("cuda")
+    out["f32_max_abs_err"] = {}
+    for t in MISTRAL_LENS:
+        ids = torch.tensor([[ord(c) for c in mistral_text(t, seed=t)]], device="cuda")
+        mask = torch.ones_like(ids)
+        pads = min(37, t // 4)
+        mask[0, :pads] = 0  # left padding
+        inside = t <= cfg.sliding_window
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            got = f32(ids, mask)[0]
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            if inside:
+                with plain_versions():
+                    want = f32(ids, mask)[0]
+                witness = "plain versions on the card"
+            else:
+                cpu = f32_model("cpu")
+                want = cpu(ids.cpu(), mask.cpu())[0].to(got.device)
+                del cpu
+                witness = "the same model on the CPU"
+        witness_s = time.perf_counter() - t1
+        valid = mask[0].bool()
+        torch.testing.assert_close(got[0, valid], want[0, valid], **FAMILY_LOGIT_TOL)
+        out["f32_max_abs_err"][t] = float((got[0, valid] - want[0, valid]).abs().max())
+        expect = {"flash_fwd": n_layers} if inside else {}
+        if launched != expect:
+            raise AssertionError(f"mistral f32 t {t}: launches {launched} != {expect}")
+        log(f"[mistral] f32 logits t {t}, {pads} left pads: the card vs {witness} max|diff| "
+            f"{out['f32_max_abs_err'][t]:.3g} (tol {FAMILY_LOGIT_TOL}, {witness_s:.1f} s); launches {launched}")
+        del got, want
+    del f32
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    out["seconds"], out["peak_gb"] = time.perf_counter() - t0, peak_gb()
+    log(f"[mistral] took {out['seconds']:.1f} s, peak device memory {out['peak_gb']:.2f} GB ({card})")
+    return out
+
+
+def phase_families(card):
+    """Phase 20. Returns ({sub-phase: launches}, numbers)."""
+    t0 = time.perf_counter()
+    out = {"hh_1b": phase_hh_1b(card), "hh_6b": phase_hh_6b(card), "opt_bloom": phase_opt_bloom(card),
+           "mistral": phase_mistral(card)}
+    launches = {
+        "a": out["hh_1b"]["launches"], "a_serve_bf16": {"paged_decode": out["hh_1b"]["serve"]["auto"]["launches"]},
+        "a_serve_int8": {"paged_decode_int8": out["hh_1b"]["serve"]["int8"]["launches"]},
+        "b": out["hh_6b"]["launches"], "b_serve": out["hh_6b"]["serve"]["launches"],
+        **{f"c_{p}": out["opt_bloom"][p]["launches"] for p in FAMILY_SFT},
+        **{f"c_{p}_serve": out["opt_bloom"][p]["serve"]["launches"] for p in FAMILY_SFT},
+        **{f"d_{t}": out["mistral"]["steps"][t]["launches"] for t in MISTRAL_LENS},
+        "d_serve": out["mistral"]["serve"]["launches"],
+    }
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase20] took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -4249,6 +4802,7 @@ def main() -> int:
     serving_launches, serving = phase_serving_features(card, serve_bf16)
     fleet_launches, fleet = phase_fleet(card, ppo_metrics, grpo["runs"]["grpo"])
     p19_launches, p19 = phase_resilience_methods(card)
+    p20_launches, p20 = phase_families(card)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -4266,7 +4820,9 @@ def main() -> int:
              launches_serving={t: n.get("paged_decode", 0) for t, n in serving_launches.items()},
              launches_fleet={t: n.get("paged_decode", 0) for t, n in fleet_launches.items()},
              launches_phase19={t: n.get("paged_decode", 0) for t, n in p19_launches.items()},
-             max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16),
+             launches_phase20={t: n.get("paged_decode", 0) for t, n in p20_launches.items()},
+             max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16,
+             gptj_6b=timings[("gptj-6b", "bf16")]),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
              launches_ppo=ppo_launches.get("paged_decode_int8", 0),
@@ -4279,7 +4835,9 @@ def main() -> int:
              launches_serving={t: n.get("paged_decode_int8", 0) for t, n in serving_launches.items()},
              launches_fleet={t: n.get("paged_decode_int8", 0) for t, n in fleet_launches.items()},
              launches_phase19={t: n.get("paged_decode_int8", 0) for t, n in p19_launches.items()},
-             max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8),
+             launches_phase20={t: n.get("paged_decode_int8", 0) for t, n in p20_launches.items()},
+             max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8,
+             gptj_6b=timings[("gptj-6b", "int8")]),
     ]}
     train_rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_attention.cu", "trlx_tpu/ops/attention.py:207"),
@@ -4305,10 +4863,14 @@ def main() -> int:
             launches_rft=rft_launches.get(name, 0),
             launches_fleet={t: n.get(name, 0) for t, n in fleet_launches.items()},
             launches_phase19={t: n.get(name, 0) for t, n in p19_launches.items()},
+            launches_phase20={t: n.get(name, 0) for t, n in p20_launches.items()},
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
-            ilql=train_timings.get((name, "ilql-train")), randomwalks=train_timings.get((name, "randomwalks"))))
+            ilql=train_timings.get((name, "ilql-train")), randomwalks=train_timings.get((name, "randomwalks")),
+            # phase 20's shapes: K3-K6 at hd 128 (pythia-1.4b) and 256
+            # (gptj-6b), K7 and its backward at the four vocabularies
+            families={s: train_timings[(name, s)] for s in FAMILY_SHAPES if (name, s) in train_timings}))
     # phase 11's checks: the exact launch counts (K3 none a step, 24 a
     # chunk), no fallback, greedy speculative vs plain under the tie rule,
     # the trunk cache against the full path; and its numbers
@@ -4335,6 +4897,9 @@ def main() -> int:
     # phase 19's: the reward model, reward serving and best-of-n, the
     # sentinel's chaos run, auto_resume and the drain
     report["phase19"] = p19
+    # phase 20's: the model families (HH 1B and 6B PPO, OPT and Bloom SFT,
+    # Mistral's window)
+    report["phase20"] = p20
     report["seconds"] = time.perf_counter() - started
     log(f"[smoke] every phase passed in {report['seconds']:.1f} s ({card})")
     print(json.dumps(report), flush=True)

@@ -174,12 +174,19 @@ def _write_config(d, **hf):
 
 
 def test_refusals(exports, tmp_path, monkeypatch):
-    """Other families name their ROADMAP item; an unknown architecture, a
-    directory without config.json or without weights, and safetensors
-    where the package does not import each raise, naming the cause."""
-    for mt in ("gpt_neox", "opt", "t5"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
-            resolve_transformer_config(ModelConfig(model_path=_write_config(tmp_path / mt, model_type=mt)), 0)
+    """t5 names its ROADMAP item (gpt_neox and opt load since the model
+    families ported); an unknown architecture, a directory without
+    config.json or without weights, and safetensors where the package
+    does not import each raise, naming the cause."""
+    neox = dict(model_type="gpt_neox", vocab_size=64, hidden_size=32, num_hidden_layers=1, num_attention_heads=4,
+                intermediate_size=64, max_position_embeddings=32)
+    opt = dict(model_type="opt", vocab_size=64, hidden_size=32, num_hidden_layers=1, num_attention_heads=4,
+               ffn_dim=64, max_position_embeddings=32)
+    for mt, hf in (("gpt_neox", neox), ("opt", opt)):
+        cfg = resolve_transformer_config(ModelConfig(model_path=_write_config(tmp_path / mt, **hf)), 0)
+        assert cfg.hf_family == mt
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
+        resolve_transformer_config(ModelConfig(model_path=_write_config(tmp_path / "t5", model_type="t5")), 0)
     with pytest.raises(ValueError, match="Unsupported HF architecture"):
         hf_interop.config_from_hf(_write_config(tmp_path / "x", model_type="mamba"))
     with pytest.raises(FileNotFoundError, match="config.json"):

@@ -102,7 +102,7 @@ def _long_case(seed, nh, nkv, hd, b=4, blk=32, n_tbl=72):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nh,nkv,hd", [(16, 1, 64), (16, 4, 128)])
+@pytest.mark.parametrize("nh,nkv,hd", [(16, 1, 64), (16, 4, 128), (16, 16, 256)])
 @pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("mask_dtype", [torch.int32, torch.bool])
 def test_paged_decode_kernel_split_edges_and_repeats(cuda, nh, nkv, hd, kv, mask_dtype):
@@ -175,10 +175,13 @@ def _flash_case(seed, b, t, nh, nkv, hd, dtype, device, pads=None, causal=True):
 # pads 200 and 131 rows whose first key tiles are all padding; t = 1 and t
 # not a multiple of 64 exercise the ragged tail; t 1024 with pads 0, 511
 # and 1024 is phase 6 of chip_smoke.py in small, with many tiles skipped.
+# Head dim 256 (GPT-J-6B) runs the CUDA-core kernels on 32-row tiles at
+# both dtypes: t 130 and 97 leave ragged tails of 2 and 1 rows.
 FLASH_SHAPES = [(3, 130, 4, 4, 64, None), (2, 96, 4, 2, 32, None), (3, 64, 4, 1, 128, None),
                 (2, 200, 2, 2, 16, None), (4, 300, 4, 2, 64, [0, 200, 300, 131]),
                 (2, 1, 4, 1, 32, [0, 1]), (2, 257, 4, 2, 128, [190, 0]),
-                (3, 1024, 2, 2, 64, [0, 511, 1024])]
+                (3, 1024, 2, 2, 64, [0, 511, 1024]), (3, 130, 4, 4, 256, None),
+                (2, 97, 4, 2, 256, [40, 0])]
 
 
 def _dead_rows(mask, causal):

@@ -3,7 +3,9 @@
 //
 // Replaces the four TPU kernels of trlx_tpu/ops/attention.py:
 //   K3 `_flash_fwd_kernel`       -> flash_fwd_wgmma_kernel<HD, false> (bf16),
-//                                   flash_fwd_kernel<float, HD, false> (f32)
+//                                   flash_fwd_kernel<float, HD, false> (f32;
+//                                   and <__nv_bfloat16, 256, *> for bf16 at
+//                                   hd 256, as for K4-K6 below)
 //   K4 `_flash_fwd_kernel_lse`   -> flash_fwd_wgmma_kernel<HD, true> (bf16),
 //                                   flash_fwd_kernel<float, HD, true> (f32)
 //   K5 `_flash_bwd_dq_kernel`    -> flash_bwd_dq_wgmma_kernel<HD> (bf16),
@@ -103,6 +105,15 @@
 // lanes of a half warp with shuffles. The f32 forward runs its q tiles in
 // reverse order, so the long causal rows start first.
 //
+// Head dim 256 (GPT-J-6B: d 4096 over 16 heads), f32 and bf16: the same
+// CUDA-core kernels with 32-row tiles (2 rows and 2 score columns a
+// thread), since 64-row f32 tiles of 256 columns overflow shared memory
+// in dq and dk/dv; bf16 operands are widened to f32 as they are staged, so
+// every product is exact in f32 and p.V, ds.k, p^T.dO and ds^T.q take the
+// f32 p and ds unsplit. The wgmma kernels stay at hd <= 128: their f32
+// accumulator for 64 x 256 is 128 registers a thread (two in dk/dv). A
+// simple route, correct first; its times are in PERF.md.
+//
 // Bound. At gpt2-small training shapes (b 8, t 1024, 12 heads, hd 64,
 // bf16) the forward moves q, k, v and out once, about 50 MB: 0.0150 ms at
 // 3.35 TB/s. Its products, 2 * 2 * hd flops per allowed (query, key) pair
@@ -125,13 +136,24 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr float DEAD_LSE = 1e9f;
 constexpr int THREADS = 256;
-constexpr int TILE = 64;         // rows of every tile (q and k side)
-constexpr int TP = TILE + 1;     // padded row length of a 64-wide score tile
+constexpr int TILE = 64;         // rows of a CUDA-core tile (q and k side) up to hd 128
 
-// the CUDA-core kernels run at f32 only (bf16 takes the tensor cores)
+// the CUDA-core kernels run at f32, and at bf16 for head dims the wgmma
+// kernels do not take (256): bf16 operands are widened to f32 as staged
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Rows of a CUDA-core tile (q and k side) for a head dim: 64, or 32 at
+// hd 256, where the f32 staging of 64-row tiles would exceed the 227 KB of
+// shared memory a block may take (dq 280 KB, dk/dv 297 KB). A thread owns
+// rows ty * RI .. ty * RI + RI - 1 (RI = R / 16) of the R x R score tile
+// at columns tx + 16 j, j < RI.
+__host__ __device__ constexpr int tile_rows(int hd) { return hd > 128 ? 32 : TILE; }
 
 // Sum / max over the 16 lanes of a half warp (lanes differing in bits 0-3).
 __device__ __forceinline__ float half_warp_sum(float x) {
@@ -143,12 +165,12 @@ __device__ __forceinline__ float half_warp_max(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + TILE) of head `head` of a [batch, t, heads, HD]
+// Stage rows [row0, row0 + R) of head `head` of a [batch, t, heads, HD]
 // tensor into dst[r * stride + d] as f32; rows at or past t read 0.
-template <typename T, int HD>
+template <typename T, int HD, int R = tile_rows(HD)>
 __device__ __forceinline__ void stage_rows(float* dst, int stride, const T* src, int batch, int t,
                                            int heads, int head, int row0) {
-  for (int idx = threadIdx.x; idx < TILE * HD; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < R * HD; idx += THREADS) {
     const int r = idx / HD, d = idx % HD;
     const int row = row0 + r;
     float x = 0.f;
@@ -164,61 +186,62 @@ __global__ void __launch_bounds__(THREADS)
                      float* __restrict__ lse, int tq, int tk, int nh, int nkv, int causal,
                      float scale) {
   constexpr int J = HD / 16;  // accumulator columns per thread
+  constexpr int R = tile_rows(HD), RI = R / 16, RP = R + 1;
   extern __shared__ float smem[];
-  float* Qs = smem;                 // [TILE][HD + 1]
-  float* Ks = Qs + TILE * (HD + 1);  // [TILE][HD + 1]
-  float* Vs = Ks + TILE * (HD + 1);  // [TILE][HD]
-  float* Ps = Vs + TILE * HD;        // [TILE][TP]
-  int* Ms = reinterpret_cast<int*>(Ps + TILE * TP);  // [TILE]
+  float* Qs = smem;               // [R][HD + 1]
+  float* Ks = Qs + R * (HD + 1);  // [R][HD + 1]
+  float* Vs = Ks + R * (HD + 1);  // [R][HD]
+  float* Ps = Vs + R * HD;        // [R][RP]
+  int* Ms = reinterpret_cast<int*>(Ps + R * RP);  // [R]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
   const int kvh = h / (nh / nkv);
 
   stage_rows<T, HD>(Qs, HD + 1, q, bi, tq, nh, h, q0);
 
-  float m[4], l[4], acc[4][J];
+  float m[RI], l[RI], acc[RI][J];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) acc[i][jj] = 0.f;
   }
 
-  const int k_end = causal ? min(tk, q0 + TILE) : tk;
-  for (int k0 = 0; k0 < k_end; k0 += TILE) {
+  const int k_end = causal ? min(tk, q0 + R) : tk;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();  // the previous tile's readers are done
     stage_rows<T, HD>(Ks, HD + 1, k, bi, tk, nkv, kvh, k0);
     stage_rows<T, HD>(Vs, HD, v, bi, tk, nkv, kvh, k0);
-    if (tid < TILE) Ms[tid] = (k0 + tid < tk) ? mask[(size_t)bi * tk + k0 + tid] : 0;
+    if (tid < R) Ms[tid] = (k0 + tid < tk) ? mask[(size_t)bi * tk + k0 + tid] : 0;
     __syncthreads();
 
-    float s[4][4];
+    float s[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
+      float qv[RI], kv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * (HD + 1) + d];
+      for (int i = 0; i < RI; ++i) qv[i] = Qs[(ty * RI + i) * (HD + 1) + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (HD + 1) + d];
+      for (int j = 0; j < RI; ++j) kv[j] = Ks[(tx + 16 * j) * (HD + 1) + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < RI; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int row = q0 + ty * RI + i;
       float mc = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const bool ok = Ms[c] > 0 && (!causal || k0 + c <= row);
         s[i][j] = ok ? s[i][j] * scale : NEG_INF;
@@ -229,9 +252,9 @@ __global__ void __launch_bounds__(THREADS)
       const float shift = m_new <= NEG_INF / 2 ? 0.f : m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const float p = s[i][j] <= NEG_INF / 2 ? 0.f : expf(s[i][j] - shift);
-        Ps[(ty * 4 + i) * TP + tx + 16 * j] = p;
+        Ps[(ty * RI + i) * RP + tx + 16 * j] = p;
         rs += p;
       }
       rs = half_warp_sum(rs);
@@ -244,22 +267,22 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < TILE; ++kk) {
-      float pv[4];
+    for (int kk = 0; kk < R; ++kk) {
+      float pv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * TP + kk];
+      for (int i = 0; i < RI; ++i) pv[i] = Ps[(ty * RI + i) * RP + kk];
 #pragma unroll
       for (int jj = 0; jj < J; ++jj) {
         const float vv = Vs[kk * HD + tx + 16 * jj];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
+        for (int i = 0; i < RI; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty * RI + i;
     if (row >= tq) continue;
     const float denom = l[i] > 0.f ? l[i] : 1.f;
     T* o = out + (((size_t)bi * tq + row) * nh + h) * HD;
@@ -510,25 +533,26 @@ __global__ void __launch_bounds__(THREADS)
                         const float* __restrict__ delta, T* __restrict__ dq, int tq, int tk,
                         int nh, int nkv, int causal, float scale) {
   constexpr int J = HD / 16;
+  constexpr int R = tile_rows(HD), RI = R / 16, RP = R + 1;
   extern __shared__ float smem[];
-  float* Qs = smem;                    // [TILE][HD + 1]
-  float* Os = Qs + TILE * (HD + 1);    // dout tile
-  float* Ks = Os + TILE * (HD + 1);
-  float* Vs = Ks + TILE * (HD + 1);
-  float* Ds = Vs + TILE * (HD + 1);    // ds tile [TILE][TP]
-  int* Ms = reinterpret_cast<int*>(Ds + TILE * TP);
+  float* Qs = smem;                 // [R][HD + 1]
+  float* Os = Qs + R * (HD + 1);    // dout tile
+  float* Ks = Os + R * (HD + 1);
+  float* Vs = Ks + R * (HD + 1);
+  float* Ds = Vs + R * (HD + 1);    // ds tile [R][RP]
+  int* Ms = reinterpret_cast<int*>(Ds + R * RP);
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
   const int kvh = h / (nh / nkv);
 
   stage_rows<T, HD>(Qs, HD + 1, q, bi, tq, nh, h, q0);
   stage_rows<T, HD>(Os, HD + 1, dout, bi, tq, nh, h, q0);
-  float lse_r[4], delta_r[4], acc[4][J];
+  float lse_r[RI], delta_r[RI], acc[RI][J];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty * RI + i;
     const size_t at = ((size_t)bi * nh + h) * tq + row;
     lse_r[i] = row < tq ? lse[at] : DEAD_LSE;
     delta_r[i] = row < tq ? delta[at] : 0.f;
@@ -536,70 +560,70 @@ __global__ void __launch_bounds__(THREADS)
     for (int jj = 0; jj < J; ++jj) acc[i][jj] = 0.f;
   }
 
-  const int k_end = causal ? min(tk, q0 + TILE) : tk;
-  for (int k0 = 0; k0 < k_end; k0 += TILE) {
+  const int k_end = causal ? min(tk, q0 + R) : tk;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();
     stage_rows<T, HD>(Ks, HD + 1, k, bi, tk, nkv, kvh, k0);
     stage_rows<T, HD>(Vs, HD + 1, v, bi, tk, nkv, kvh, k0);
-    if (tid < TILE) Ms[tid] = (k0 + tid < tk) ? mask[(size_t)bi * tk + k0 + tid] : 0;
+    if (tid < R) Ms[tid] = (k0 + tid < tk) ? mask[(size_t)bi * tk + k0 + tid] : 0;
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      float qv[RI], ov[RI], kv[RI], vv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * (HD + 1) + d];
-        ov[i] = Os[(ty * 4 + i) * (HD + 1) + d];
+      for (int i = 0; i < RI; ++i) {
+        qv[i] = Qs[(ty * RI + i) * (HD + 1) + d];
+        ov[i] = Os[(ty * RI + i) * (HD + 1) + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         kv[j] = Ks[(tx + 16 * j) * (HD + 1) + d];
         vv[j] = Vs[(tx + 16 * j) * (HD + 1) + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int row = q0 + ty * RI + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const bool ok = Ms[c] > 0 && (!causal || k0 + c <= row);
         const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        Ds[(ty * 4 + i) * TP + c] = p * (dp[i][j] - delta_r[i]) * scale;
+        Ds[(ty * RI + i) * RP + c] = p * (dp[i][j] - delta_r[i]) * scale;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < TILE; ++kk) {
-      float dsv[4];
+    for (int kk = 0; kk < R; ++kk) {
+      float dsv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ds[(ty * 4 + i) * TP + kk];
+      for (int i = 0; i < RI; ++i) dsv[i] = Ds[(ty * RI + i) * RP + kk];
 #pragma unroll
       for (int jj = 0; jj < J; ++jj) {
         const float kv = Ks[kk * (HD + 1) + tx + 16 * jj];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(dsv[i], kv, acc[i][jj]);
+        for (int i = 0; i < RI; ++i) acc[i][jj] = fmaf(dsv[i], kv, acc[i][jj]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty * RI + i;
     if (row >= tq) continue;
     T* o = dq + (((size_t)bi * tq + row) * nh + h) * HD;
 #pragma unroll
@@ -618,40 +642,41 @@ __global__ void __launch_bounds__(THREADS)
                          float* __restrict__ dv, int tq, int tk, int nh, int nkv, int causal,
                          float scale) {
   constexpr int J = HD / 16;
+  constexpr int R = tile_rows(HD), RI = R / 16, RP = R + 1;
   extern __shared__ float smem[];
-  float* Ks = smem;                    // [TILE][HD + 1]
-  float* Vs = Ks + TILE * (HD + 1);
-  float* Qs = Vs + TILE * (HD + 1);
-  float* Os = Qs + TILE * (HD + 1);    // dout tile
-  float* Pt = Os + TILE * (HD + 1);    // p^T  [key][query], [TILE][TP]
-  float* Dt = Pt + TILE * TP;          // ds^T
-  float* Ls = Dt + TILE * TP;          // lse of the q tile [TILE]
-  float* Es = Ls + TILE;               // delta of the q tile [TILE]
+  float* Ks = smem;                 // [R][HD + 1]
+  float* Vs = Ks + R * (HD + 1);
+  float* Qs = Vs + R * (HD + 1);
+  float* Os = Qs + R * (HD + 1);    // dout tile
+  float* Pt = Os + R * (HD + 1);    // p^T  [key][query], [R][RP]
+  float* Dt = Pt + R * RP;          // ds^T
+  float* Ls = Dt + R * RP;          // lse of the q tile [R]
+  float* Es = Ls + R;               // delta of the q tile [R]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.x * R;
   const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
   const int kvh = h / (nh / nkv);
 
   stage_rows<T, HD>(Ks, HD + 1, k, bi, tk, nkv, kvh, k0);
   stage_rows<T, HD>(Vs, HD + 1, v, bi, tk, nkv, kvh, k0);
-  bool key_ok[4];
-  float dk_acc[4][J], dv_acc[4][J];
+  bool key_ok[RI];
+  float dk_acc[RI][J], dv_acc[RI][J];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty * RI + i;
     key_ok[i] = key < tk && mask[(size_t)bi * tk + key] > 0;
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
   }
 
   // causal: only q tiles holding a row >= k0 can reach this k tile
-  const int q_begin = causal ? (k0 / TILE) * TILE : 0;
-  for (int q0 = q_begin; q0 < tq; q0 += TILE) {
+  const int q_begin = causal ? (k0 / R) * R : 0;
+  for (int q0 = q_begin; q0 < tq; q0 += R) {
     __syncthreads();
     stage_rows<T, HD>(Qs, HD + 1, q, bi, tq, nh, h, q0);
     stage_rows<T, HD>(Os, HD + 1, dout, bi, tq, nh, h, q0);
-    if (tid < TILE) {
+    if (tid < R) {
       const int row = q0 + tid;
       const size_t at = ((size_t)bi * nh + h) * tq + row;
       Ls[tid] = row < tq ? lse[at] : DEAD_LSE;
@@ -659,61 +684,61 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
+      float kv[RI], vv[RI], qv[RI], ov[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(ty * 4 + i) * (HD + 1) + d];
-        vv[i] = Vs[(ty * 4 + i) * (HD + 1) + d];
+      for (int i = 0; i < RI; ++i) {
+        kv[i] = Ks[(ty * RI + i) * (HD + 1) + d];
+        vv[i] = Vs[(ty * RI + i) * (HD + 1) + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         qv[j] = Qs[(tx + 16 * j) * (HD + 1) + d];
         ov[j] = Os[(tx + 16 * j) * (HD + 1) + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
           dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int key = k0 + ty * RI + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const int row = q0 + c;
         const bool ok = key_ok[i] && row < tq && (!causal || key <= row);
         const float p = ok ? expf(s[i][j] * scale - Ls[c]) : 0.f;
-        Pt[(ty * 4 + i) * TP + c] = p;
-        Dt[(ty * 4 + i) * TP + c] = p * (dp[i][j] - Es[c]) * scale;
+        Pt[(ty * RI + i) * RP + c] = p;
+        Dt[(ty * RI + i) * RP + c] = p * (dp[i][j] - Es[c]) * scale;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int qq = 0; qq < TILE; ++qq) {
-      float pv[4], dsv[4];
+    for (int qq = 0; qq < R; ++qq) {
+      float pv[RI], dsv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Pt[(ty * 4 + i) * TP + qq];
-        dsv[i] = Dt[(ty * 4 + i) * TP + qq];
+      for (int i = 0; i < RI; ++i) {
+        pv[i] = Pt[(ty * RI + i) * RP + qq];
+        dsv[i] = Dt[(ty * RI + i) * RP + qq];
       }
 #pragma unroll
       for (int jj = 0; jj < J; ++jj) {
         const float ov = Os[qq * (HD + 1) + tx + 16 * jj];
         const float qv = Qs[qq * (HD + 1) + tx + 16 * jj];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           dv_acc[i][jj] = fmaf(pv[i], ov, dv_acc[i][jj]);
           dk_acc[i][jj] = fmaf(dsv[i], qv, dk_acc[i][jj]);
         }
@@ -722,8 +747,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty * RI + i;
     if (key >= tk) continue;
     const size_t base = (((size_t)bi * tk + key) * nh + h) * HD;
 #pragma unroll
@@ -1127,12 +1152,26 @@ __global__ void __launch_bounds__(WG_THREADS)
 }
 
 size_t fwd_smem(int hd) {
-  return (2 * TILE * (hd + 1) + TILE * hd + TILE * TP) * sizeof(float) + TILE * sizeof(int);
+  const size_t r = tile_rows(hd);
+  return (2 * r * (hd + 1) + r * hd + r * (r + 1)) * sizeof(float) + r * sizeof(int);
 }
 size_t dq_smem(int hd) {
-  return (4 * TILE * (hd + 1) + TILE * TP) * sizeof(float) + TILE * sizeof(int);
+  const size_t r = tile_rows(hd);
+  return (4 * r * (hd + 1) + r * (r + 1)) * sizeof(float) + r * sizeof(int);
 }
-size_t dkv_smem(int hd) { return (4 * TILE * (hd + 1) + 2 * TILE * TP + 2 * TILE) * sizeof(float); }
+size_t dkv_smem(int hd) {
+  const size_t r = tile_rows(hd);
+  return (4 * r * (hd + 1) + 2 * r * (r + 1) + 2 * r) * sizeof(float);
+}
+
+// The bf16 tensor-core (wgmma) kernels take head dims up to 128; hd 256
+// runs the CUDA-core kernels on bf16 operands (its f32 accumulators, one
+// warpgroup's 64 x 256 tile, would need 128 registers a thread, two of
+// them in dk/dv).
+template <typename T, int HD>
+constexpr bool on_tensor_cores() {
+  return std::is_same<T, __nv_bfloat16>::value && HD <= 128;
+}
 
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
@@ -1164,13 +1203,13 @@ int fwd_wgmma(const void* q, const void* k, const void* v, const int32_t* mask, 
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, const int32_t* mask, void* out, float* lse,
         int b, int tq, int tk, int nh, int nkv, int causal, float scale, cudaStream_t s) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // tensor cores
+  if constexpr (on_tensor_cores<T, HD>()) {
     if (lse != nullptr)
       return fwd_wgmma<HD, true>(q, k, v, mask, out, lse, b, tq, tk, nh, nkv, causal, scale, s);
     return fwd_wgmma<HD, false>(q, k, v, mask, out, nullptr, b, tq, tk, nh, nkv, causal, scale, s);
-  } else {  // f32: CUDA cores
+  } else {  // CUDA cores
     const size_t smem = fwd_smem(HD);
-    const dim3 grid((tq + TILE - 1) / TILE, b * nh);
+    const dim3 grid((tq + tile_rows(HD) - 1) / tile_rows(HD), b * nh);
     if (lse != nullptr) {
       auto kernel = flash_fwd_kernel<T, HD, true>;
       if (int err = prepare(kernel, smem)) return err;
@@ -1192,7 +1231,7 @@ template <typename T, int HD>
 int bwd_dq(const void* q, const void* k, const void* v, const int32_t* mask, const void* dout,
            const float* lse, const float* delta, void* dq, int b, int tq, int tk, int nh, int nkv,
            int causal, float scale, cudaStream_t s) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // tensor cores
+  if constexpr (on_tensor_cores<T, HD>()) {
     if (misaligned(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
     const size_t smem = wgmma_dq_smem(HD, tk);
     auto kernel = flash_bwd_dq_wgmma_kernel<HD>;
@@ -1203,11 +1242,11 @@ int bwd_dq(const void* q, const void* k, const void* v, const int32_t* mask, con
         static_cast<const __nv_bfloat16*>(v), mask, static_cast<const __nv_bfloat16*>(dout), lse,
         delta, static_cast<__nv_bfloat16*>(dq), tq, tk, nh, nkv, causal, scale);
     return (int)cudaGetLastError();
-  } else {  // f32: CUDA cores
+  } else {  // CUDA cores
     const size_t smem = dq_smem(HD);
     auto kernel = flash_bwd_dq_kernel<T, HD>;
     if (int err = prepare(kernel, smem)) return err;
-    const dim3 grid((tq + TILE - 1) / TILE, b * nh);
+    const dim3 grid((tq + tile_rows(HD) - 1) / tile_rows(HD), b * nh);
     kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                        static_cast<const T*>(v), mask, static_cast<const T*>(dout),
                                        lse, delta, static_cast<T*>(dq), tq, tk, nh, nkv, causal,
@@ -1220,7 +1259,7 @@ template <typename T, int HD>
 int bwd_dkv(const void* q, const void* k, const void* v, const int32_t* mask, const void* dout,
             const float* lse, const float* delta, float* dk, float* dv, int b, int tq, int tk,
             int nh, int nkv, int causal, float scale, cudaStream_t s) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // tensor cores
+  if constexpr (on_tensor_cores<T, HD>()) {
     if (misaligned(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
     const size_t smem = wgmma_dkv_smem(HD);
     auto kernel = flash_bwd_dkv_wgmma_kernel<HD>;
@@ -1231,11 +1270,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const int32_t* mask, co
         static_cast<const __nv_bfloat16*>(v), mask, static_cast<const __nv_bfloat16*>(dout), lse,
         delta, dk, dv, tq, tk, nh, nkv, causal, scale);
     return (int)cudaGetLastError();
-  } else {  // f32: CUDA cores
+  } else {  // CUDA cores
     const size_t smem = dkv_smem(HD);
     auto kernel = flash_bwd_dkv_kernel<T, HD>;
     if (int err = prepare(kernel, smem)) return err;
-    const dim3 grid((tk + TILE - 1) / TILE, b * nh);
+    const dim3 grid((tk + tile_rows(HD) - 1) / tile_rows(HD), b * nh);
     kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                        static_cast<const T*>(v), mask, static_cast<const T*>(dout),
                                        lse, delta, dk, dv, tq, tk, nh, nkv, causal, scale);
@@ -1243,17 +1282,20 @@ int bwd_dkv(const void* q, const void* k, const void* v, const int32_t* mask, co
   }
 }
 
-// Dispatch on (dtype code, head_dim): 0 = f32, 1 = bf16; hd in {16, 32, 64, 128}.
+// Dispatch on (dtype code, head_dim): 0 = f32, 1 = bf16; hd in {16, 32,
+// 64, 128, 256} (bf16 at 256 on the CUDA cores, on_tensor_cores).
 #define TRLX_FLASH_DISPATCH(FN, ...)                                         \
   switch (dtype * 1000 + hd) {                                               \
     case 16: return FN<float, 16>(__VA_ARGS__);                              \
     case 32: return FN<float, 32>(__VA_ARGS__);                              \
     case 64: return FN<float, 64>(__VA_ARGS__);                              \
     case 128: return FN<float, 128>(__VA_ARGS__);                            \
+    case 256: return FN<float, 256>(__VA_ARGS__);                            \
     case 1016: return FN<__nv_bfloat16, 16>(__VA_ARGS__);                    \
     case 1032: return FN<__nv_bfloat16, 32>(__VA_ARGS__);                    \
     case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                    \
     case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                   \
+    case 1256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);                   \
     default: return (int)cudaErrorInvalidValue;                              \
   }
 

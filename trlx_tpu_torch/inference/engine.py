@@ -35,7 +35,10 @@ path; "auto" and "pallas" select the paged-attention kernel (the CUDA
 kernel for a model on a cuda device, its plain PyTorch version on the
 CPU; `ops/paged_attention.py` dispatches on the tensor's device). The
 fixed-slot pool has no kernel, as in JAX: each of its decode dispatches
-is counted as a `kv_paging_off` fallback. Speculative dispatches over the
+is counted as a `kv_paging_off` fallback, and so is each decode dispatch
+of an ALiBi model (`alibi`) or one with a sliding window
+(`sliding_window`), whose bias terms the kernel does not express: they
+read through the gather path. Speculative dispatches over the
 arena run the t = 1 draft steps through the kernel and count a
 `spec_verify_rows` fallback for the batched verify, which takes the
 gather path.
@@ -264,13 +267,24 @@ class InferenceEngine:
         self.decode_kernel = decode_kernel
         self._attn_kernel = self._resolve_attn_kernel()
         # engine-static reason the paged kernel cannot serve this pool,
-        # counted once per decode dispatch. The JAX engine's other reasons
-        # (alibi, sliding window) are refused at model build
-        # (models/transformer.py:check_supported) until their families port
-        self._kernel_unsupported = None if self.kv_paging else "kv_paging_off"
+        # counted once per decode dispatch (the JAX engine's own fallback:
+        # the kernel expresses no ALiBi or window term, as the Pallas
+        # kernel does not)
+        self._kernel_unsupported = self._kernel_unsupported_reason()
         self._kv_kernel_dispatches = 0
         self._kv_kernel_fallbacks: Dict[str, int] = {}
         self._decode_fn = self._make_spec_decode() if self.spec_k > 0 else self._make_decode()
+
+    def _kernel_unsupported_reason(self) -> Optional[str]:
+        """Engine-static reason the paged decode kernel cannot serve this
+        config (counted once per decode dispatch), or None."""
+        if not self.kv_paging:
+            return "kv_paging_off"
+        if self.model_cfg.alibi:
+            return "alibi"
+        if self.model_cfg.sliding_window is not None:
+            return "sliding_window"
+        return None
 
     def _resolve_attn_kernel(self) -> Optional[str]:
         """Map the decode_kernel knob onto the attn_kernel value threaded

@@ -1,8 +1,8 @@
 """Model construction from a ModelConfig: causal value-head policies (with
 the deeper value branch under `num_value_layers`), the critic-free policy
 of GRPO/RLOO (`value_head=False`) and ILQL policies, from `random:`
-presets or from a local HF checkpoint directory (gpt2 and llama,
-`models/hf_interop.py`)."""
+presets or from a local HF checkpoint directory (gpt2, llama/mistral,
+gpt_neox, gptj, opt, bloom and gpt_bigcode, `models/hf_interop.py`)."""
 
 from typing import Tuple, Union
 

@@ -1,14 +1,22 @@
-"""HF checkpoint interop for the gpt2 and llama families (port of the JAX
-package's `models/hf_interop.py`): build a TransformerConfig from a local
+"""HF checkpoint interop (port of the JAX package's `models/hf_interop.py`
+for the decoder families): build a TransformerConfig from a local
 directory's `config.json`, load its weights (`pytorch_model.bin`, its
 sharded index, or safetensors where the `safetensors` package imports)
 into the policy's state dict, and export the policy back to that layout
-(`save_pretrained`). The other families are ROADMAP queue A, item 4.
-Nothing is downloaded: a model path is a local directory.
+(`save_pretrained`). Families: GPT2LMHeadModel, LlamaForCausalLM (and
+MistralForCausalLM, its sliding window), GPTNeoXForCausalLM (pythia),
+GPTJForCausalLM, OPTForCausalLM, BloomForCausalLM and
+GPTBigCodeForCausalLM. T5 (encoder-decoder) is ROADMAP queue A, item 4.4.
+Nothing is downloaded and `transformers` is not imported: a model path is
+a local directory, read with json and torch.
 
 The port's parameters carry the JAX tree's names with torch layouts
-(`lm.block_0.attn.q_proj.weight` is the JAX kernel transposed), so load
-and export read and write the module's state dict directly.
+(`lm.block_0.attn.q_proj.weight` is the JAX kernel transposed, [out, in]
+as HF's Linear weights are), so load and export read and write the
+module's state dict directly. Rotary convention: the model rotates
+half-split ("rotate_half") pairs; GPT-J checkpoints rotate interleaved
+pairs, so their q/k projection rows are permuted within the rotary dims
+at load and back at export (exact, no runtime cost).
 """
 
 import json
@@ -20,8 +28,7 @@ import torch
 
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
-_PORTED_FAMILIES = ("gpt2", "llama")
-_OTHER_FAMILIES = "(ROADMAP queue A, item 4: the other HF families)"
+_T5 = "the t5 family (encoder-decoder) is not ported yet (ROADMAP queue A, item 4.4: model features)"
 
 
 def _read_hf_config(path: str) -> Dict:
@@ -57,14 +64,13 @@ def _family_of(hf: Dict) -> str:
 
 
 def _check_ported(fam: str, path: str) -> None:
-    if fam not in _PORTED_FAMILIES:
-        raise NotImplementedError(f"loading the {fam!r} family from '{path}' is not ported yet; gpt2 and llama "
-                                  f"are {_OTHER_FAMILIES}")
+    if fam == "t5":
+        raise NotImplementedError(f"loading '{path}': {_T5}")
 
 
 def config_from_hf(path: str, **overrides) -> TransformerConfig:
-    """A TransformerConfig from the directory's `config.json` (gpt2 and
-    llama; `overrides` win, as `model_extra_configs` do for presets)."""
+    """A TransformerConfig from the directory's `config.json` (`overrides`
+    win, as `model_extra_configs` do for presets)."""
     hf = _read_hf_config(path)
     fam = _family_of(hf)
     _check_ported(fam, path)
@@ -78,7 +84,7 @@ def config_from_hf(path: str, **overrides) -> TransformerConfig:
             use_bias=True,
             layer_norm_epsilon=hf.get("layer_norm_epsilon", 1e-5),
         )
-    else:
+    elif fam == "llama":
         kwargs = dict(
             vocab_size=hf["vocab_size"], d_model=hf["hidden_size"],
             n_layers=hf["num_hidden_layers"], n_heads=hf["num_attention_heads"],
@@ -88,7 +94,63 @@ def config_from_hf(path: str, **overrides) -> TransformerConfig:
             tie_embeddings=bool(hf.get("tie_word_embeddings", False)), use_bias=False,
             rope_theta=hf.get("rope_theta", 10000.0),
             layer_norm_epsilon=hf.get("rms_norm_eps", 1e-6),
+            # Mistral: banded causal attention; plain Llama leaves it None
             sliding_window=hf.get("sliding_window"),
+        )
+    elif fam == "gpt_neox":
+        kwargs = dict(
+            vocab_size=hf["vocab_size"], d_model=hf["hidden_size"],
+            n_layers=hf["num_hidden_layers"], n_heads=hf["num_attention_heads"],
+            d_ff=hf["intermediate_size"], max_seq_len=hf["max_position_embeddings"],
+            pos_embed="rope", rotary_pct=hf.get("rotary_pct", 1.0),
+            rope_theta=hf.get("rotary_emb_base", 10000.0),
+            norm="layernorm", activation="gelu_exact" if hf.get("hidden_act", "gelu") == "gelu" else "gelu",
+            parallel_residual=bool(hf.get("use_parallel_residual", True)),
+            tie_embeddings=bool(hf.get("tie_word_embeddings", False)), use_bias=True,
+            layer_norm_epsilon=hf.get("layer_norm_eps", 1e-5),
+        )
+    elif fam == "gptj":
+        hd = hf["n_embd"] // hf["n_head"]
+        kwargs = dict(
+            vocab_size=hf["vocab_size"], d_model=hf["n_embd"], n_layers=hf["n_layer"],
+            n_heads=hf["n_head"], d_ff=hf.get("n_inner") or 4 * hf["n_embd"],
+            max_seq_len=hf["n_positions"], pos_embed="rope",
+            rotary_pct=(hf.get("rotary_dim") or hd) / hd,
+            norm="layernorm", activation="gelu",
+            parallel_residual=True, shared_ln=True,
+            tie_embeddings=False, attn_bias=False, lm_head_bias=True, use_bias=True,
+            layer_norm_epsilon=hf.get("layer_norm_epsilon", 1e-5),
+        )
+    elif fam == "opt":
+        if not hf.get("do_layer_norm_before", True):
+            raise ValueError("OPT variants with do_layer_norm_before=False (350m) are unsupported")
+        if hf.get("word_embed_proj_dim", hf["hidden_size"]) != hf["hidden_size"]:
+            raise ValueError("OPT word_embed_proj_dim != hidden_size is unsupported")
+        kwargs = dict(
+            vocab_size=hf["vocab_size"], d_model=hf["hidden_size"],
+            n_layers=hf["num_hidden_layers"], n_heads=hf["num_attention_heads"],
+            d_ff=hf["ffn_dim"], max_seq_len=hf["max_position_embeddings"],
+            pos_embed="learned", pos_offset=2, norm="layernorm",
+            activation="relu" if hf.get("activation_function", "relu") == "relu" else "gelu",
+            tie_embeddings=True, use_bias=True,
+            layer_norm_epsilon=1e-5,
+        )
+    elif fam == "bloom":
+        kwargs = dict(
+            vocab_size=hf["vocab_size"], d_model=hf["hidden_size"],
+            n_layers=hf["n_layer"], n_heads=hf["n_head"], d_ff=4 * hf["hidden_size"],
+            max_seq_len=2048, pos_embed="none", alibi=True, embed_ln=True,
+            norm="layernorm", activation="gelu", tie_embeddings=True, use_bias=True,
+            layer_norm_epsilon=hf.get("layer_norm_epsilon", 1e-5),
+        )
+    else:  # gpt_bigcode
+        kwargs = dict(
+            vocab_size=hf["vocab_size"], d_model=hf["n_embd"], n_layers=hf["n_layer"],
+            n_heads=hf["n_head"], n_kv_heads=1 if hf.get("multi_query", True) else None,
+            d_ff=hf.get("n_inner") or 4 * hf["n_embd"], max_seq_len=hf["n_positions"],
+            pos_embed="learned", norm="layernorm", activation="gelu",
+            tie_embeddings=True, use_bias=True,
+            layer_norm_epsilon=hf.get("layer_norm_epsilon", 1e-5),
         )
     kwargs["hf_family"] = fam
     kwargs.update(overrides)
@@ -129,33 +191,82 @@ def _load_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def _strip_prefix(sd: Dict, *prefixes: str) -> Dict:
-    """Drop a leading wrapper prefix (`transformer.`) if any key carries it."""
+    """Drop a leading wrapper prefix (`transformer.`, `model.decoder.`) if
+    any key carries it."""
     for p in prefixes:
         if any(k.startswith(p) for k in sd):
             return {k[len(p):] if k.startswith(p) else k: v for k, v in sd.items()}
     return sd
 
 
+def _gptj_rope_perm(rd: int) -> np.ndarray:
+    """Permutation from the interleaved rotary layout to the half-split
+    one: target dim i reads source dim 2i (first half) or 2(i - rd/2) + 1
+    (second half)."""
+    half = rd // 2
+    return np.concatenate([np.arange(half) * 2, np.arange(half) * 2 + 1])
+
+
+def _permute_rotary_cols(w, cfg: TransformerConfig, n_heads: int, inverse: bool = False):
+    """Permute a projection's output dims (the rows of a torch [heads*hd,
+    in] weight, the columns of the JAX kernel) from the interleaved to the
+    half-split rotary convention, or back with `inverse`."""
+    rd, hd = cfg.rotary_dim, cfg.head_dim
+    perm = _gptj_rope_perm(rd)
+    if inverse:
+        perm = np.argsort(perm)
+    w = w.reshape((n_heads, hd) + tuple(w.shape[1:])).clone()
+    w[:, :rd] = w[:, torch.from_numpy(perm)]
+    return w.reshape((n_heads * hd,) + tuple(w.shape[2:]))
+
+
+def _split_fused_qkv_per_head(qkv, n_heads: int, head_dim: int):
+    """Split a fused projection whose outputs are laid out per head as
+    (q, k, v) triples (GPT-NeoX, Bloom): a [heads*3*hd, in] weight or a
+    [heads*3*hd] bias -> q, k, v of [heads*hd, ...]."""
+    rest = tuple(qkv.shape[1:])
+    x = qkv.reshape((n_heads, 3, head_dim) + rest)
+    return tuple(x[:, i].reshape((n_heads * head_dim,) + rest) for i in range(3))
+
+
+def _fuse_qkv_per_head(q, k, v, n_heads: int, head_dim: int):
+    """Inverse of `_split_fused_qkv_per_head` on numpy arrays."""
+    rest = q.shape[1:]
+    stack = np.stack([x.reshape((n_heads, head_dim) + rest) for x in (q, k, v)], axis=1)
+    return stack.reshape((n_heads * 3 * head_dim,) + rest)
+
+
+# ---------------------------------------------------------------------------
+# Per-family loaders: HF state dict -> the LM's state dict (names under lm.)
+# ---------------------------------------------------------------------------
+
+
+def _copy(lm: Dict, ours: str, sd: Dict, theirs: str, bias: bool = True) -> None:
+    """A norm, or an HF Linear ([out, in], the port's layout), as it is."""
+    lm[ours + ".weight"] = sd[theirs + ".weight"]
+    if bias:
+        lm[ours + ".bias"] = sd[theirs + ".bias"]
+
+
+def _qkv(lm: Dict, b: str, ws, bs=None) -> None:
+    for n, i in zip(("q_proj", "k_proj", "v_proj"), range(3)):
+        lm[b + f"attn.{n}.weight"] = ws[i]
+        if bs is not None:
+            lm[b + f"attn.{n}.bias"] = bs[i]
+
+
 def _load_gpt2(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
     """GPT-2's Conv1D weights are [in, out]: the port's Linear weight is
     their transpose; the fused c_attn splits into q, k, v."""
     sd = _strip_prefix(sd, "transformer.")
-    lm = {
-        "embed_tokens.weight": sd["wte.weight"],
-        "embed_pos.weight": sd["wpe.weight"],
-        "ln_f.weight": sd["ln_f.weight"],
-        "ln_f.bias": sd["ln_f.bias"],
-    }
+    lm = {"embed_tokens.weight": sd["wte.weight"], "embed_pos.weight": sd["wpe.weight"]}
+    _copy(lm, "ln_f", sd, "ln_f")
     for i in range(cfg.n_layers):
         p, b = f"h.{i}.", f"block_{i}."
-        for ours, theirs in (("ln_attn", "ln_1"), ("ln_mlp", "ln_2")):
-            lm[b + ours + ".weight"] = sd[p + theirs + ".weight"]
-            lm[b + ours + ".bias"] = sd[p + theirs + ".bias"]
-        qkv_w = torch.chunk(sd[p + "attn.c_attn.weight"], 3, dim=1)
-        qkv_b = torch.chunk(sd[p + "attn.c_attn.bias"], 3, dim=0)
-        for n, w, bias in zip(("q_proj", "k_proj", "v_proj"), qkv_w, qkv_b):
-            lm[b + f"attn.{n}.weight"] = w.t()
-            lm[b + f"attn.{n}.bias"] = bias
+        _copy(lm, b + "ln_attn", sd, p + "ln_1")
+        _copy(lm, b + "ln_mlp", sd, p + "ln_2")
+        _qkv(lm, b, [w.t() for w in torch.chunk(sd[p + "attn.c_attn.weight"], 3, dim=1)],
+             torch.chunk(sd[p + "attn.c_attn.bias"], 3, dim=0))
         for ours, theirs in (("attn.o_proj", "attn.c_proj"), ("mlp.up_proj", "mlp.c_fc"),
                              ("mlp.down_proj", "mlp.c_proj")):
             lm[b + ours + ".weight"] = sd[p + theirs + ".weight"].t()
@@ -164,7 +275,6 @@ def _load_gpt2(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str,
 
 
 def _load_llama(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
-    """Llama's Linear weights are [out, in], as the port's are."""
     pre = "model." if any(k.startswith("model.") for k in sd) else ""
     lm = {"embed_tokens.weight": sd[f"{pre}embed_tokens.weight"], "ln_f.weight": sd[f"{pre}norm.weight"]}
     for i in range(cfg.n_layers):
@@ -180,7 +290,101 @@ def _load_llama(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str
     return lm
 
 
-_LOADERS = {"gpt2": _load_gpt2, "llama": _load_llama}
+def _load_gpt_neox(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    sd = _strip_prefix(sd, "gpt_neox.")
+    lm = {"embed_tokens.weight": sd["embed_in.weight"], "lm_head.weight": sd["embed_out.weight"]}
+    _copy(lm, "ln_f", sd, "final_layer_norm")
+    for i in range(cfg.n_layers):
+        p, b = f"layers.{i}.", f"block_{i}."
+        _copy(lm, b + "ln_attn", sd, p + "input_layernorm")
+        _copy(lm, b + "ln_mlp", sd, p + "post_attention_layernorm")
+        _qkv(lm, b, _split_fused_qkv_per_head(sd[p + "attention.query_key_value.weight"], cfg.n_heads, cfg.head_dim),
+             _split_fused_qkv_per_head(sd[p + "attention.query_key_value.bias"], cfg.n_heads, cfg.head_dim))
+        _copy(lm, b + "attn.o_proj", sd, p + "attention.dense")
+        _copy(lm, b + "mlp.up_proj", sd, p + "mlp.dense_h_to_4h")
+        _copy(lm, b + "mlp.down_proj", sd, p + "mlp.dense_4h_to_h")
+    return lm
+
+
+def _load_gptj(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    sd = _strip_prefix(sd, "transformer.")
+    lm = {"embed_tokens.weight": sd["wte.weight"]}
+    _copy(lm, "ln_f", sd, "ln_f")
+    _copy(lm, "lm_head", sd, "lm_head")
+    for i in range(cfg.n_layers):
+        p, b = f"h.{i}.", f"block_{i}."
+        _copy(lm, b + "ln_attn", sd, p + "ln_1")
+        lm[b + "attn.q_proj.weight"] = _permute_rotary_cols(sd[p + "attn.q_proj.weight"], cfg, cfg.n_heads)
+        lm[b + "attn.k_proj.weight"] = _permute_rotary_cols(sd[p + "attn.k_proj.weight"], cfg, cfg.kv_heads)
+        _copy(lm, b + "attn.v_proj", sd, p + "attn.v_proj", bias=False)
+        _copy(lm, b + "attn.o_proj", sd, p + "attn.out_proj", bias=False)
+        _copy(lm, b + "mlp.up_proj", sd, p + "mlp.fc_in")
+        _copy(lm, b + "mlp.down_proj", sd, p + "mlp.fc_out")
+    return lm
+
+
+def _load_opt(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    sd = _strip_prefix(sd, "model.decoder.", "decoder.")
+    lm = {"embed_tokens.weight": sd["embed_tokens.weight"], "embed_pos.weight": sd["embed_positions.weight"]}
+    _copy(lm, "ln_f", sd, "final_layer_norm")
+    for i in range(cfg.n_layers):
+        p, b = f"layers.{i}.", f"block_{i}."
+        _copy(lm, b + "ln_attn", sd, p + "self_attn_layer_norm")
+        _copy(lm, b + "ln_mlp", sd, p + "final_layer_norm")
+        for ours, theirs in (("q_proj", "q_proj"), ("k_proj", "k_proj"), ("v_proj", "v_proj"),
+                             ("o_proj", "out_proj")):
+            _copy(lm, b + f"attn.{ours}", sd, p + f"self_attn.{theirs}")
+        _copy(lm, b + "mlp.up_proj", sd, p + "fc1")
+        _copy(lm, b + "mlp.down_proj", sd, p + "fc2")
+    return lm
+
+
+def _load_bloom(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    sd = _strip_prefix(sd, "transformer.")
+    lm = {"embed_tokens.weight": sd["word_embeddings.weight"]}
+    _copy(lm, "ln_embed", sd, "word_embeddings_layernorm")
+    _copy(lm, "ln_f", sd, "ln_f")
+    for i in range(cfg.n_layers):
+        p, b = f"h.{i}.", f"block_{i}."
+        _copy(lm, b + "ln_attn", sd, p + "input_layernorm")
+        _copy(lm, b + "ln_mlp", sd, p + "post_attention_layernorm")
+        _qkv(lm, b,
+             _split_fused_qkv_per_head(sd[p + "self_attention.query_key_value.weight"], cfg.n_heads, cfg.head_dim),
+             _split_fused_qkv_per_head(sd[p + "self_attention.query_key_value.bias"], cfg.n_heads, cfg.head_dim))
+        _copy(lm, b + "attn.o_proj", sd, p + "self_attention.dense")
+        _copy(lm, b + "mlp.up_proj", sd, p + "mlp.dense_h_to_4h")
+        _copy(lm, b + "mlp.down_proj", sd, p + "mlp.dense_4h_to_h")
+    return lm
+
+
+def _load_gpt_bigcode(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """GPTBigCode's Linear weights are [out, in]; the fused c_attn's
+    outputs are [q (d), k (kv), v (kv)]."""
+    sd = _strip_prefix(sd, "transformer.")
+    d, kv = cfg.d_model, cfg.kv_heads * cfg.head_dim
+    lm = {"embed_tokens.weight": sd["wte.weight"], "embed_pos.weight": sd["wpe.weight"]}
+    _copy(lm, "ln_f", sd, "ln_f")
+    for i in range(cfg.n_layers):
+        p, b = f"h.{i}.", f"block_{i}."
+        _copy(lm, b + "ln_attn", sd, p + "ln_1")
+        _copy(lm, b + "ln_mlp", sd, p + "ln_2")
+        w, bias = sd[p + "attn.c_attn.weight"], sd[p + "attn.c_attn.bias"]
+        _qkv(lm, b, (w[:d], w[d:d + kv], w[d + kv:]), (bias[:d], bias[d:d + kv], bias[d + kv:]))
+        _copy(lm, b + "attn.o_proj", sd, p + "attn.c_proj")
+        _copy(lm, b + "mlp.up_proj", sd, p + "mlp.c_fc")
+        _copy(lm, b + "mlp.down_proj", sd, p + "mlp.c_proj")
+    return lm
+
+
+_LOADERS = {
+    "gpt2": _load_gpt2,
+    "llama": _load_llama,
+    "gpt_neox": _load_gpt_neox,
+    "gptj": _load_gptj,
+    "opt": _load_opt,
+    "bloom": _load_bloom,
+    "gpt_bigcode": _load_gpt_bigcode,
+}
 
 
 def load_params_from_hf(path: str, cfg: TransformerConfig,
@@ -206,68 +410,189 @@ def load_params_from_hf(path: str, cfg: TransformerConfig,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Export: the policy's state dict -> an HF-layout state dict (f32 numpy)
+# ---------------------------------------------------------------------------
+
+
 def _f32(x: torch.Tensor) -> np.ndarray:
     return x.detach().float().cpu().numpy()
+
+
+class _Writer:
+    """Reads the policy's `lm.*` tensors as f32 numpy and writes HF names."""
+
+    def __init__(self, sd: Dict[str, torch.Tensor]):
+        self.sd, self.out = sd, {}
+
+    def get(self, name: str) -> np.ndarray:
+        return _f32(self.sd["lm." + name])
+
+    def copy(self, theirs: str, ours: str, bias: bool = True) -> None:
+        """A norm, or a Linear (HF's has the port's [out, in] layout)."""
+        self.out[theirs + ".weight"] = self.get(ours + ".weight")
+        if bias:
+            self.out[theirs + ".bias"] = self.get(ours + ".bias")
 
 
 def _export_gpt2(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, np.ndarray]:
     """GPT-2's Conv1D weights are [in, out]: the torch Linear weight
     transposed (the JAX kernel)."""
-    out = {
-        "transformer.wte.weight": _f32(sd["lm.embed_tokens.weight"]),
-        "transformer.wpe.weight": _f32(sd["lm.embed_pos.weight"]),
-        "transformer.ln_f.weight": _f32(sd["lm.ln_f.weight"]),
-        "transformer.ln_f.bias": _f32(sd["lm.ln_f.bias"]),
-    }
+    w = _Writer(sd)
+    w.out["transformer.wte.weight"] = w.get("embed_tokens.weight")
+    w.out["transformer.wpe.weight"] = w.get("embed_pos.weight")
+    w.copy("transformer.ln_f", "ln_f")
     for i in range(cfg.n_layers):
-        b, p = f"lm.block_{i}.", f"transformer.h.{i}."
-        out[p + "ln_1.weight"] = _f32(sd[b + "ln_attn.weight"])
-        out[p + "ln_1.bias"] = _f32(sd[b + "ln_attn.bias"])
-        out[p + "ln_2.weight"] = _f32(sd[b + "ln_mlp.weight"])
-        out[p + "ln_2.bias"] = _f32(sd[b + "ln_mlp.bias"])
-        out[p + "attn.c_attn.weight"] = np.concatenate(
-            [_f32(sd[b + f"attn.{n}.weight"]).T for n in ("q_proj", "k_proj", "v_proj")], axis=1
-        )
-        out[p + "attn.c_attn.bias"] = np.concatenate(
-            [_f32(sd[b + f"attn.{n}.bias"]) for n in ("q_proj", "k_proj", "v_proj")], axis=0
-        )
-        out[p + "attn.c_proj.weight"] = _f32(sd[b + "attn.o_proj.weight"]).T
-        out[p + "attn.c_proj.bias"] = _f32(sd[b + "attn.o_proj.bias"])
-        out[p + "mlp.c_fc.weight"] = _f32(sd[b + "mlp.up_proj.weight"]).T
-        out[p + "mlp.c_fc.bias"] = _f32(sd[b + "mlp.up_proj.bias"])
-        out[p + "mlp.c_proj.weight"] = _f32(sd[b + "mlp.down_proj.weight"]).T
-        out[p + "mlp.c_proj.bias"] = _f32(sd[b + "mlp.down_proj.bias"])
-    out["lm_head.weight"] = out["transformer.wte.weight"]
-    return out
+        b, p = f"block_{i}.", f"transformer.h.{i}."
+        w.copy(p + "ln_1", b + "ln_attn")
+        w.copy(p + "ln_2", b + "ln_mlp")
+        w.out[p + "attn.c_attn.weight"] = np.concatenate(
+            [w.get(b + f"attn.{n}.weight").T for n in ("q_proj", "k_proj", "v_proj")], axis=1)
+        w.out[p + "attn.c_attn.bias"] = np.concatenate(
+            [w.get(b + f"attn.{n}.bias") for n in ("q_proj", "k_proj", "v_proj")], axis=0)
+        for theirs, ours in (("attn.c_proj", "attn.o_proj"), ("mlp.c_fc", "mlp.up_proj"),
+                             ("mlp.c_proj", "mlp.down_proj")):
+            w.out[p + theirs + ".weight"] = w.get(b + ours + ".weight").T
+            w.out[p + theirs + ".bias"] = w.get(b + ours + ".bias")
+    w.out["lm_head.weight"] = w.out["transformer.wte.weight"]
+    return w.out
 
 
 def _export_llama(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, np.ndarray]:
-    """Llama's Linear weights are [out, in], as the port's are."""
-    out = {
-        "model.embed_tokens.weight": _f32(sd["lm.embed_tokens.weight"]),
-        "model.norm.weight": _f32(sd["lm.ln_f.weight"]),
-    }
+    w = _Writer(sd)
+    w.out["model.embed_tokens.weight"] = w.get("embed_tokens.weight")
+    w.out["model.norm.weight"] = w.get("ln_f.weight")
     for i in range(cfg.n_layers):
-        b, p = f"lm.block_{i}.", f"model.layers.{i}."
-        out[p + "input_layernorm.weight"] = _f32(sd[b + "ln_attn.weight"])
-        out[p + "post_attention_layernorm.weight"] = _f32(sd[b + "ln_mlp.weight"])
+        b, p = f"block_{i}.", f"model.layers.{i}."
+        w.out[p + "input_layernorm.weight"] = w.get(b + "ln_attn.weight")
+        w.out[p + "post_attention_layernorm.weight"] = w.get(b + "ln_mlp.weight")
         for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            out[p + f"self_attn.{n}.weight"] = _f32(sd[b + f"attn.{n}.weight"])
+            w.out[p + f"self_attn.{n}.weight"] = w.get(b + f"attn.{n}.weight")
         for n in ("gate_proj", "up_proj", "down_proj"):
-            out[p + f"mlp.{n}.weight"] = _f32(sd[b + f"mlp.{n}.weight"])
+            w.out[p + f"mlp.{n}.weight"] = w.get(b + f"mlp.{n}.weight")
     if "lm.lm_head.weight" in sd:
-        out["lm_head.weight"] = _f32(sd["lm.lm_head.weight"])
+        w.out["lm_head.weight"] = w.get("lm_head.weight")
     else:
-        out["lm_head.weight"] = out["model.embed_tokens.weight"]
-    return out
+        w.out["lm_head.weight"] = w.out["model.embed_tokens.weight"]
+    return w.out
 
 
-_EXPORTERS = {"gpt2": _export_gpt2, "llama": _export_llama}
+def _fused_qkv(w: _Writer, b: str, cfg: TransformerConfig, leaf: str) -> np.ndarray:
+    return _fuse_qkv_per_head(*(w.get(b + f"attn.{n}.{leaf}") for n in ("q_proj", "k_proj", "v_proj")),
+                              cfg.n_heads, cfg.head_dim)
+
+
+def _export_gpt_neox(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, np.ndarray]:
+    w = _Writer(sd)
+    w.out["gpt_neox.embed_in.weight"] = w.get("embed_tokens.weight")
+    w.copy("gpt_neox.final_layer_norm", "ln_f")
+    w.out["embed_out.weight"] = w.get("lm_head.weight")
+    for i in range(cfg.n_layers):
+        b, p = f"block_{i}.", f"gpt_neox.layers.{i}."
+        w.copy(p + "input_layernorm", b + "ln_attn")
+        w.copy(p + "post_attention_layernorm", b + "ln_mlp")
+        w.out[p + "attention.query_key_value.weight"] = _fused_qkv(w, b, cfg, "weight")
+        w.out[p + "attention.query_key_value.bias"] = _fused_qkv(w, b, cfg, "bias")
+        w.copy(p + "attention.dense", b + "attn.o_proj")
+        w.copy(p + "mlp.dense_h_to_4h", b + "mlp.up_proj")
+        w.copy(p + "mlp.dense_4h_to_h", b + "mlp.down_proj")
+    return w.out
+
+
+def _export_gptj(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, np.ndarray]:
+    w = _Writer(sd)
+    w.out["transformer.wte.weight"] = w.get("embed_tokens.weight")
+    w.copy("transformer.ln_f", "ln_f")
+    w.copy("lm_head", "lm_head")
+    for i in range(cfg.n_layers):
+        b, p = f"block_{i}.", f"transformer.h.{i}."
+        w.copy(p + "ln_1", b + "ln_attn")
+        for n, heads in (("q_proj", cfg.n_heads), ("k_proj", cfg.kv_heads)):
+            w.out[p + f"attn.{n}.weight"] = _permute_rotary_cols(
+                torch.from_numpy(w.get(b + f"attn.{n}.weight")), cfg, heads, inverse=True).numpy()
+        w.copy(p + "attn.v_proj", b + "attn.v_proj", bias=False)
+        w.copy(p + "attn.out_proj", b + "attn.o_proj", bias=False)
+        w.copy(p + "mlp.fc_in", b + "mlp.up_proj")
+        w.copy(p + "mlp.fc_out", b + "mlp.down_proj")
+    return w.out
+
+
+def _export_opt(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, np.ndarray]:
+    w = _Writer(sd)
+    w.out["model.decoder.embed_tokens.weight"] = w.get("embed_tokens.weight")
+    w.out["model.decoder.embed_positions.weight"] = w.get("embed_pos.weight")
+    w.copy("model.decoder.final_layer_norm", "ln_f")
+    for i in range(cfg.n_layers):
+        b, p = f"block_{i}.", f"model.decoder.layers.{i}."
+        w.copy(p + "self_attn_layer_norm", b + "ln_attn")
+        w.copy(p + "final_layer_norm", b + "ln_mlp")
+        for ours, theirs in (("q_proj", "q_proj"), ("k_proj", "k_proj"), ("v_proj", "v_proj"),
+                             ("o_proj", "out_proj")):
+            w.copy(p + f"self_attn.{theirs}", b + f"attn.{ours}")
+        w.copy(p + "fc1", b + "mlp.up_proj")
+        w.copy(p + "fc2", b + "mlp.down_proj")
+    w.out["lm_head.weight"] = w.out["model.decoder.embed_tokens.weight"]
+    return w.out
+
+
+def _export_bloom(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, np.ndarray]:
+    w = _Writer(sd)
+    w.out["transformer.word_embeddings.weight"] = w.get("embed_tokens.weight")
+    w.copy("transformer.word_embeddings_layernorm", "ln_embed")
+    w.copy("transformer.ln_f", "ln_f")
+    for i in range(cfg.n_layers):
+        b, p = f"block_{i}.", f"transformer.h.{i}."
+        w.copy(p + "input_layernorm", b + "ln_attn")
+        w.copy(p + "post_attention_layernorm", b + "ln_mlp")
+        w.out[p + "self_attention.query_key_value.weight"] = _fused_qkv(w, b, cfg, "weight")
+        w.out[p + "self_attention.query_key_value.bias"] = _fused_qkv(w, b, cfg, "bias")
+        w.copy(p + "self_attention.dense", b + "attn.o_proj")
+        w.copy(p + "mlp.dense_h_to_4h", b + "mlp.up_proj")
+        w.copy(p + "mlp.dense_4h_to_h", b + "mlp.down_proj")
+    w.out["lm_head.weight"] = w.out["transformer.word_embeddings.weight"]
+    return w.out
+
+
+def _export_gpt_bigcode(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, np.ndarray]:
+    w = _Writer(sd)
+    w.out["transformer.wte.weight"] = w.get("embed_tokens.weight")
+    w.out["transformer.wpe.weight"] = w.get("embed_pos.weight")
+    w.copy("transformer.ln_f", "ln_f")
+    for i in range(cfg.n_layers):
+        b, p = f"block_{i}.", f"transformer.h.{i}."
+        w.copy(p + "ln_1", b + "ln_attn")
+        w.copy(p + "ln_2", b + "ln_mlp")
+        w.out[p + "attn.c_attn.weight"] = np.concatenate(
+            [w.get(b + f"attn.{n}.weight") for n in ("q_proj", "k_proj", "v_proj")], axis=0)
+        w.out[p + "attn.c_attn.bias"] = np.concatenate(
+            [w.get(b + f"attn.{n}.bias") for n in ("q_proj", "k_proj", "v_proj")], axis=0)
+        w.copy(p + "attn.c_proj", b + "attn.o_proj")
+        w.copy(p + "mlp.c_fc", b + "mlp.up_proj")
+        w.copy(p + "mlp.c_proj", b + "mlp.down_proj")
+    w.out["lm_head.weight"] = w.out["transformer.wte.weight"]
+    return w.out
+
+
+_EXPORTERS = {
+    "gpt2": _export_gpt2,
+    "llama": _export_llama,
+    "gpt_neox": _export_gpt_neox,
+    "gptj": _export_gptj,
+    "opt": _export_opt,
+    "bloom": _export_bloom,
+    "gpt_bigcode": _export_gpt_bigcode,
+}
 
 
 def infer_family(cfg: TransformerConfig) -> str:
-    """The HF family of a model config that was not loaded from an HF dir
-    (the families the port runs: llama-style rope models and gpt2)."""
+    """The HF family of a model config that was not loaded from an HF
+    directory, from its structure (the JAX package's rules)."""
+    if cfg.alibi:
+        return "bloom"
+    if cfg.pos_offset:
+        return "opt"
+    if cfg.parallel_residual:
+        return "gptj" if cfg.shared_ln else "gpt_neox"
     if cfg.pos_embed == "rope":
         return "llama"
     if cfg.kv_heads != cfg.n_heads:
@@ -279,15 +604,14 @@ def params_to_hf_state_dict(state_dict: Dict[str, torch.Tensor], cfg: Transforme
                             family: str = None) -> Dict[str, np.ndarray]:
     """The policy's state dict -> an HF-layout state dict of f32 arrays."""
     family = family or cfg.hf_family or infer_family(cfg)
-    if family not in _EXPORTERS:
-        raise NotImplementedError(
-            f"HF export of the {family!r} family is not ported yet (ROADMAP queue A, item 4)"
-        )
+    if family == "t5":
+        raise NotImplementedError(f"HF export: {_T5}")
     return _EXPORTERS[family](state_dict, cfg)
 
 
 def config_to_hf(cfg: TransformerConfig, family: str = None) -> Dict:
-    """A loadable HF config dict (model_type and architectures included)."""
+    """Inverse of `config_from_hf`: a loadable HF config dict (model_type
+    and architectures included), also for models born from presets."""
     family = family or cfg.hf_family or infer_family(cfg)
     if family == "gpt2":
         return dict(
@@ -299,13 +623,69 @@ def config_to_hf(cfg: TransformerConfig, family: str = None) -> Dict:
             tie_word_embeddings=cfg.tie_embeddings,
         )
     if family == "llama":
+        mistral = cfg.sliding_window is not None
         return dict(
-            model_type="llama", architectures=["LlamaForCausalLM"],
+            model_type="mistral" if mistral else "llama",
+            architectures=["MistralForCausalLM" if mistral else "LlamaForCausalLM"],
             vocab_size=cfg.vocab_size, hidden_size=cfg.d_model,
             num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads,
             num_key_value_heads=cfg.kv_heads, intermediate_size=cfg.d_ff,
             max_position_embeddings=cfg.max_seq_len, rope_theta=cfg.rope_theta,
             rms_norm_eps=cfg.layer_norm_epsilon,
             tie_word_embeddings=cfg.tie_embeddings, hidden_act="silu",
+            **({"sliding_window": cfg.sliding_window} if mistral else {}),
         )
-    raise NotImplementedError(f"HF config export of the {family!r} family is not ported yet (ROADMAP queue A, item 4)")
+    if family == "gpt_neox":
+        return dict(
+            model_type="gpt_neox", architectures=["GPTNeoXForCausalLM"],
+            vocab_size=cfg.vocab_size, hidden_size=cfg.d_model,
+            num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads,
+            intermediate_size=cfg.d_ff, max_position_embeddings=cfg.max_seq_len,
+            rotary_pct=cfg.rotary_pct, rotary_emb_base=cfg.rope_theta,
+            use_parallel_residual=cfg.parallel_residual,
+            tie_word_embeddings=cfg.tie_embeddings,
+            layer_norm_eps=cfg.layer_norm_epsilon,
+            # import maps hidden_act == "gelu" to gelu_exact, else tanh-gelu
+            hidden_act="gelu" if cfg.activation == "gelu_exact" else "gelu_new",
+        )
+    if family == "gptj":
+        return dict(
+            model_type="gptj", architectures=["GPTJForCausalLM"],
+            vocab_size=cfg.vocab_size, n_embd=cfg.d_model, n_layer=cfg.n_layers,
+            n_head=cfg.n_heads, n_inner=cfg.d_ff, n_positions=cfg.max_seq_len,
+            rotary_dim=cfg.rotary_dim, layer_norm_epsilon=cfg.layer_norm_epsilon,
+            activation_function="gelu_new",
+        )
+    if family == "opt":
+        return dict(
+            model_type="opt", architectures=["OPTForCausalLM"],
+            vocab_size=cfg.vocab_size, hidden_size=cfg.d_model,
+            num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads,
+            ffn_dim=cfg.d_ff, max_position_embeddings=cfg.max_seq_len,
+            do_layer_norm_before=True, word_embed_proj_dim=cfg.d_model,
+            activation_function="relu" if cfg.activation == "relu" else "gelu",
+        )
+    if family == "bloom":
+        if cfg.d_ff != 4 * cfg.d_model:
+            # the HF bloom config has no d_ff field (import assumes 4x)
+            raise ValueError(f"bloom export requires d_ff == 4*d_model, got {cfg.d_ff}")
+        return dict(
+            model_type="bloom", architectures=["BloomForCausalLM"],
+            vocab_size=cfg.vocab_size, hidden_size=cfg.d_model,
+            n_layer=cfg.n_layers, n_head=cfg.n_heads,
+            layer_norm_epsilon=cfg.layer_norm_epsilon,
+        )
+    if family == "gpt_bigcode":
+        if cfg.kv_heads not in (1, cfg.n_heads):
+            raise ValueError("gpt_bigcode export supports multi_query (1 kv head) or "
+                             f"full MHA only, got n_kv_heads={cfg.kv_heads}")
+        return dict(
+            model_type="gpt_bigcode", architectures=["GPTBigCodeForCausalLM"],
+            vocab_size=cfg.vocab_size, n_embd=cfg.d_model, n_layer=cfg.n_layers,
+            n_head=cfg.n_heads, n_inner=cfg.d_ff, n_positions=cfg.max_seq_len,
+            multi_query=cfg.kv_heads == 1,
+            layer_norm_epsilon=cfg.layer_norm_epsilon,
+        )
+    if family == "t5":
+        raise NotImplementedError(f"HF config export: {_T5}")
+    raise ValueError(f"No HF config export for family '{family}'")

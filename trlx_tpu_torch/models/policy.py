@@ -31,6 +31,7 @@ from trlx_tpu_torch.models.transformer import (
     Block,
     TransformerConfig,
     TransformerLM,
+    embed_inputs,
     make_norm,
     position_ids,
     train_bias,
@@ -320,6 +321,7 @@ class HydraReference(nn.Module):
         names = []
         if split == 0:
             names += ["embed_tokens"] + (["embed_pos"] if cfg.pos_embed == "learned" else [])
+            names += ["ln_embed"] if cfg.embed_ln else []
         names += [f"block_{i}" for i in range(split, cfg.n_layers)] + ["ln_f"]
         head = "embed_tokens" if cfg.tie_embeddings else "lm_head"
         if head not in names:
@@ -336,9 +338,7 @@ class HydraReference(nn.Module):
         if positions is None:
             positions = position_ids(attn_mask)
         if self.split == 0:
-            h = self.embed_tokens(tokens)
-            if cfg.pos_embed == "learned":
-                h = h + self.embed_pos(positions)
+            h = embed_inputs(self, cfg, tokens, positions)
         else:
             h = h_split.detach()
         return self._suffix(h, attn_mask, positions, 0, h.shape[1])

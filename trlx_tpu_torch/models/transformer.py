@@ -13,8 +13,18 @@ speculative sampler's `spec_draft_step` (the trunk alone) and
 `spec_verify_rows` (the suffix over all drafted positions at once), and
 the per-row cached `prefill_rows` and `decode_step_rows` over a paged KV
 arena (`init_paged_kv_arena`) that the inference engine uses. Families: GPT-2
-(learned positions, LayerNorm, tanh-gelu, tied embeddings) and the llama
-knobs (rope, RMSNorm, silu-glu, GQA/MQA, untied head, no biases).
+(learned positions, LayerNorm, tanh-gelu, tied embeddings), the llama
+knobs (rope, RMSNorm, silu-glu, GQA/MQA, untied head, no biases) and
+Mistral's sliding window, GPT-NeoX/pythia (partial rotary, parallel
+residual), GPT-J (the parallel residual's shared norm, no attention
+biases, a biased head), OPT (positions read at an offset of 2), Bloom
+(ALiBi, a norm after the embedding, no position embedding) and
+GPTBigCode (MQA).
+
+ALiBi and an active sliding window need the dense bias: the flash kernels
+(`fused_attention_ok`) and the paged decode kernel express plain causal
+attention only, as the Pallas kernels do, so those configurations take
+the einsum path; a window no shorter than the sequence keeps the kernels.
 
 Numerics follow the flax layers: parameters are f32 and cast to
 `cfg.dtype` at use (a `Dense` with `param_dtype=f32, dtype=bf16`),
@@ -60,17 +70,17 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     layer_norm_epsilon: float = 1e-5
     use_bias: bool = True
+    parallel_residual: bool = False  # h + attn(ln(h)) + mlp(·) (GPT-NeoX/GPT-J)
+    shared_ln: bool = False  # the parallel MLP reads ln_attn's output (GPT-J): no ln_mlp
+    rotary_pct: float = 1.0  # share of head_dim that rotates (pythia 0.25)
+    alibi: bool = False  # ALiBi key-position bias (Bloom)
+    pos_offset: int = 0  # learned positions read at positions + offset (OPT: 2)
+    embed_ln: bool = False  # a norm right after the embedding (Bloom)
+    attn_bias: Optional[bool] = None  # q/k/v/o bias; None = use_bias (GPT-J: False)
+    lm_head_bias: bool = False  # an untied head with a bias (GPT-J)
+    sliding_window: Optional[int] = None  # banded causal attention (Mistral)
     # knobs of the JAX config this package does not run yet; kept so
     # configs carry over, and refused by `check_supported`
-    parallel_residual: bool = False
-    shared_ln: bool = False
-    rotary_pct: float = 1.0
-    alibi: bool = False
-    pos_offset: int = 0
-    embed_ln: bool = False
-    attn_bias: Optional[bool] = None
-    lm_head_bias: bool = False
-    sliding_window: Optional[int] = None
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_aux_coef: float = 0.01
@@ -96,26 +106,15 @@ class TransformerConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    @property
+    def rotary_dim(self) -> int:
+        rd = int(self.head_dim * self.rotary_pct)
+        return rd - (rd % 2)
+
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Refuse the knobs this port does not run yet, naming the ROADMAP
     item that brings them."""
-    later = {
-        "alibi": cfg.alibi,
-        "parallel_residual": cfg.parallel_residual or cfg.shared_ln,
-        "partial rotary (rotary_pct < 1)": cfg.rotary_pct != 1.0,
-        "pos_offset": cfg.pos_offset != 0,
-        "embed_ln": cfg.embed_ln,
-        "attn_bias override": cfg.attn_bias is not None and cfg.attn_bias != cfg.use_bias,
-        "lm_head_bias": cfg.lm_head_bias,
-        "sliding_window": cfg.sliding_window is not None,
-        "pos_embed='none'": cfg.pos_embed not in ("learned", "rope"),
-    }
-    for name, on in later.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP queue A, item 4: model families)"
-            )
     if cfg.moe_experts > 0:
         raise NotImplementedError("the MoE MLP is not ported yet (ROADMAP queue A, item 4: model features)")
     if cfg.lora_rank > 0 or cfg.prompt_tokens > 0 or cfg.prefix_tokens > 0:
@@ -129,13 +128,16 @@ def check_supported(cfg: TransformerConfig) -> None:
         )
 
 
-def fused_attention_ok(cfg: TransformerConfig) -> bool:
+def fused_attention_ok(cfg: TransformerConfig, seq_len: Optional[int] = None) -> bool:
     """Whether the flash kernels express cfg's attention structure (plain
-    causal plus key padding). The single source of truth for Attention's
-    branch and `train_bias`: the bias is None exactly when the kernel
-    builds the structure itself. (ALiBi and sliding windows, which need
-    the dense bias, are refused by `check_supported` until they port.)"""
-    return cfg.attn_impl == "flash"
+    causal plus key padding) for a length-`seq_len` forward. The single
+    source of truth for Attention's branch and `train_bias`: the bias is
+    None exactly when the kernel builds the structure itself. ALiBi never
+    fits; a sliding window is a no-op when seq_len <= window, so such a
+    forward keeps the kernels (Mistral's 4096 window at shorter lengths)."""
+    if cfg.attn_impl != "flash" or cfg.alibi:
+        return False
+    return cfg.sliding_window is None or (seq_len is not None and seq_len <= cfg.sliding_window)
 
 
 def activation_fn(cfg: TransformerConfig):
@@ -226,15 +228,56 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotary_dim: Optional[int] = None) -> torch.Tensor:
     """Rotary position embedding (half-split / rotate_half convention).
-    x: [b, t, h, hd], positions: [b, t]."""
-    freqs = torch.from_numpy(np.asarray(rope_frequencies(x.shape[-1], theta), np.float32))
-    angles = positions[..., None].float() * freqs.to(x.device)  # [b, t, hd/2]
+    x: [b, t, h, hd], positions: [b, t]. With rotary_dim < hd only the
+    first rotary_dim dims rotate (pythia/GPT-J partial rotary; GPT-J's
+    interleaved checkpoints are permuted to this layout at load)."""
+    hd = x.shape[-1]
+    rd = hd if rotary_dim is None else rotary_dim
+    rot = x if rd == hd else x[..., :rd]
+    freqs = torch.from_numpy(np.asarray(rope_frequencies(rd, theta), np.float32))
+    angles = positions[..., None].float() * freqs.to(x.device)  # [b, t, rd/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    x1, x2 = rot.float().chunk(2, dim=-1)
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return rotated if rd == hd else torch.cat([rotated, x[..., rd:]], dim=-1)
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes (Press et al.; as HF Bloom builds them)."""
+
+    def pow2(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        return np.asarray(pow2(n_heads), dtype=np.float32)
+    closest = 2 ** math.floor(math.log2(n_heads))
+    extra = pow2(2 * closest)[0::2][: n_heads - closest]
+    return np.asarray(pow2(closest) + extra, dtype=np.float32)
+
+
+def alibi_bias(key_mask: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Additive ALiBi bias [b, h, 1, S] f32 from the key validity mask [b,
+    S]: slope * k_pos with k_pos the key's position among the row's valid
+    keys (0 on padding), HF Bloom's cumsum form; the per-query constant of
+    the relative form cancels in the softmax."""
+    m = key_mask.float()
+    k_pos = torch.clamp(torch.cumsum(m, dim=-1) - 1.0, min=0.0) * m
+    slopes = torch.from_numpy(alibi_slopes(n_heads)).to(key_mask.device)
+    return slopes[None, :, None, None] * k_pos[:, None, None, :]
+
+
+def window_bias(q_positions: torch.Tensor, key_mask: torch.Tensor, window: int) -> torch.Tensor:
+    """Additive sliding-window term of a cached call: -1e9 on keys whose
+    position trails the query's by `window` or more. q_positions [b, t],
+    key_mask [b, S] -> [b, 1, t, S] f32."""
+    k_pos = torch.clamp(torch.cumsum(key_mask.to(torch.int64), dim=-1) - 1, min=0)
+    delta = q_positions[:, :, None] - k_pos[:, None, :]
+    return torch.where(delta >= window, -1e9, 0.0)[:, None].to(torch.float32)
 
 
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -248,7 +291,8 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        lin = lambda i, o: Linear(i, o, cfg.use_bias, cfg.dtype, cfg.param_dtype, device, generator)
+        bias = cfg.use_bias if cfg.attn_bias is None else cfg.attn_bias
+        lin = lambda i, o: Linear(i, o, bias, cfg.dtype, cfg.param_dtype, device, generator)
         self.q_proj = lin(d, nh * hd)
         self.k_proj = lin(d, nkv * hd)
         self.v_proj = lin(d, nkv * hd)
@@ -271,11 +315,11 @@ class Attention(nn.Module):
         k = self.k_proj(h).reshape(b, t, nkv, hd)
         v = self.v_proj(h).reshape(b, t, nkv, hd)
         if cfg.pos_embed == "rope":
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_dim)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_dim)
 
         if layer_cache is None:
-            if fused_attention_ok(cfg) and attn_mask is not None:
+            if fused_attention_ok(cfg, t) and attn_mask is not None:
                 # Fused training/scoring path: causal and key-padding
                 # structure come from `attn_mask` inside the kernels
                 # (attn_bias encodes exactly that structure and is
@@ -340,6 +384,9 @@ class Attention(nn.Module):
             # a cuda device, its plain version on the CPU
             if t != 1:
                 raise ValueError(f"paged decode kernel takes single-position queries; got t={t}")
+            if cfg.alibi or cfg.sliding_window is not None:
+                raise ValueError("paged decode kernel cannot express alibi/window bias terms "
+                                 "(the engine should have fallen back)")
             from trlx_tpu_torch.ops.paged_attention import paged_attention_decode
 
             # decode_bias writes exactly 0.0 on attendable columns
@@ -398,18 +445,27 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """Pre-norm block, sequential (h + attn, then + mlp) or, under
+    `parallel_residual`, h + attn(ln_attn(h)) + mlp(ln_mlp(h)) (GPT-NeoX);
+    with `shared_ln` the MLP reads ln_attn's output and the block has no
+    ln_mlp (GPT-J), as the JAX tree has none."""
+
     def __init__(self, cfg: TransformerConfig, device=None, generator=None):
         super().__init__()
+        self.cfg = cfg
         self.ln_attn = make_norm(cfg, device)
         self.attn = Attention(cfg, device, generator)
-        self.ln_mlp = make_norm(cfg, device)
+        if not (cfg.parallel_residual and cfg.shared_ln):
+            self.ln_mlp = make_norm(cfg, device)
         self.mlp = MLP(cfg, device, generator)
 
     def forward(self, h, attn_bias, positions, layer_cache=None, cache_index=None,
                 attn_mask=None, attn_kernel=None):
-        attn_out, new_cache = self.attn(
-            self.ln_attn(h), attn_bias, positions, layer_cache, cache_index, attn_mask, attn_kernel
-        )
+        h_ln = self.ln_attn(h)
+        attn_out, new_cache = self.attn(h_ln, attn_bias, positions, layer_cache, cache_index, attn_mask, attn_kernel)
+        if self.cfg.parallel_residual:
+            mlp_in = h_ln if self.cfg.shared_ln else self.ln_mlp(h)
+            return h + attn_out + self.mlp(mlp_in), new_cache
         h = h + attn_out
         h = h + self.mlp(self.ln_mlp(h))
         return h, new_cache
@@ -427,22 +483,55 @@ def decode_bias(cache_mask: torch.Tensor, t: int) -> torch.Tensor:
     return torch.where(allowed, 0.0, -1e9).to(torch.float32)
 
 
-def causal_bias(attn_mask: torch.Tensor) -> torch.Tensor:
-    """Additive bias of a no-cache forward: causal plus key padding.
-    attn_mask [b, t] (1 = real token) -> [b, 1, t, t] f32, 0.0 where
+def causal_bias(attn_mask: torch.Tensor, sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Additive bias of a no-cache forward: causal plus key padding, and
+    the sliding-window band when set (query i sees keys in (i - window,
+    i]). attn_mask [b, t] (1 = real token) -> [b, 1, t, t] f32, 0.0 where
     allowed and -1e9 elsewhere."""
     t = attn_mask.shape[-1]
     causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=attn_mask.device))
+    if sliding_window is not None:
+        ids = torch.arange(t, device=attn_mask.device)
+        causal = causal & ((ids[:, None] - ids[None, :]) < sliding_window)
     allowed = causal[None, None] & attn_mask[:, None, None, :].bool()
     return torch.where(allowed, 0.0, -1e9).to(torch.float32)
 
 
 def train_bias(cfg: TransformerConfig, attn_mask: torch.Tensor) -> Optional[torch.Tensor]:
     """Additive bias for a no-cache forward, or None when the flash kernels
-    build the structure themselves."""
-    if fused_attention_ok(cfg):
+    build the structure themselves (`fused_attention_ok` at the mask's
+    length, as Attention decides): causal, the window's band and ALiBi's
+    term."""
+    if fused_attention_ok(cfg, attn_mask.shape[-1]):
         return None
-    return causal_bias(attn_mask)
+    bias = causal_bias(attn_mask, cfg.sliding_window)
+    if cfg.alibi:
+        bias = bias + alibi_bias(attn_mask, cfg.n_heads)
+    return bias
+
+
+def cached_bias(cfg: TransformerConfig, cache_mask: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The bias of a cached call over the cache columns `cache_mask` [b,
+    S] for queries at `positions` [b, t]: `decode_bias`, then the ALiBi
+    and window terms, added in the JAX package's order."""
+    bias = decode_bias(cache_mask, positions.shape[1])
+    if cfg.alibi:
+        bias = bias + alibi_bias(cache_mask, cfg.n_heads)
+    if cfg.sliding_window is not None:
+        bias = bias + window_bias(positions, cache_mask, cfg.sliding_window)
+    return bias
+
+
+def embed_inputs(mod: nn.Module, cfg: TransformerConfig, tokens, positions):
+    """Token embedding, the learned positions read at positions +
+    pos_offset, and the embedding norm: `TransformerLM.embed` for any
+    module holding those submodules (the LM, the split-0 reference)."""
+    h = mod.embed_tokens(tokens)
+    if cfg.pos_embed == "learned":
+        h = h + mod.embed_pos(positions + cfg.pos_offset)
+    if cfg.embed_ln:
+        h = mod.ln_embed(h)
+    return h
 
 
 class TransformerLM(nn.Module):
@@ -454,7 +543,10 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.embed_tokens = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, cfg.param_dtype, device, generator)
         if cfg.pos_embed == "learned":
-            self.embed_pos = Embed(cfg.max_seq_len, cfg.d_model, cfg.dtype, cfg.param_dtype, device, generator)
+            self.embed_pos = Embed(cfg.max_seq_len + cfg.pos_offset, cfg.d_model, cfg.dtype, cfg.param_dtype,
+                                   device, generator)
+        if cfg.embed_ln:
+            self.ln_embed = make_norm(cfg, device)
         self.blocks = []
         for i in range(cfg.n_layers):
             blk = Block(cfg, device, generator)
@@ -462,13 +554,11 @@ class TransformerLM(nn.Module):
             self.blocks.append(blk)
         self.ln_f = make_norm(cfg, device)
         if not cfg.tie_embeddings:
-            self.lm_head = Linear(cfg.d_model, cfg.vocab_size, False, cfg.dtype, cfg.param_dtype, device, generator)
+            self.lm_head = Linear(cfg.d_model, cfg.vocab_size, cfg.lm_head_bias, cfg.dtype, cfg.param_dtype,
+                                  device, generator)
 
     def embed(self, tokens, positions):
-        h = self.embed_tokens(tokens)
-        if self.cfg.pos_embed == "learned":
-            h = h + self.embed_pos(positions)
-        return h
+        return embed_inputs(self, self.cfg, tokens, positions)
 
     def unembed(self, h):
         """Final norm + output projection. Returns (logits, h_final)."""
@@ -585,7 +675,7 @@ class TransformerLM(nn.Module):
             next_pos = cache["pos"] + token_mask[:, 0].to(torch.int64)
         new_mask = cache["mask"].clone()
         new_mask[:, index:index + t] = token_mask.to(new_mask.dtype)
-        bias = decode_bias(new_mask, t)
+        bias = cached_bias(self.cfg, new_mask, positions)
         if is_prefill:
             # causal structure within the prefill block
             S = new_mask.shape[-1]
@@ -627,7 +717,7 @@ class TransformerLM(nn.Module):
         cur = torch.gather(mask, 1, col)
         val = torch.where(row_index[:, None] < S, token_mask[:, :1].to(mask.dtype), cur)
         new_mask = mask.scatter(1, col, val)
-        bias = decode_bias(new_mask, 1)
+        bias = cached_bias(self.cfg, new_mask, positions)
         h = self.embed(tokens, positions)
         h, new_layers = self.run_blocks(
             h, bias, positions, cache["layers"], row_index, attn_mask=token_mask,
@@ -671,7 +761,7 @@ class TransformerLM(nn.Module):
         cur = torch.gather(mask, 1, col)
         val = torch.where(row_index[:, None] < S, token_mask[:, :1].to(mask.dtype), cur)
         new_mask = mask.scatter(1, col, val)
-        bias = decode_bias(new_mask, 1)
+        bias = cached_bias(self.cfg, new_mask, positions)
         h = self.embed(tokens, positions)
         h, _ = self.run_blocks(h, bias, positions, cache["layers"], row_index, attn_mask=token_mask,
                                attn_kernel=attn_kernel, stop=split)
@@ -703,7 +793,7 @@ class TransformerLM(nn.Module):
         b, t, _ = h.shape
         mask = cache["mask"]
         S = mask.shape[-1]
-        bias = decode_bias(mask, t)
+        bias = cached_bias(self.cfg, mask, positions)
         q_ids = torch.arange(t, device=h.device)[None, :, None]
         k_ids = torch.arange(S, device=h.device)[None, None, :]
         start = row_start[:, None, None]
@@ -736,7 +826,7 @@ class TransformerLM(nn.Module):
         # pad columns land on already-zero cells (or clip to S-1, also zero
         # until decode begins), so their 0 writes are no-ops
         new_mask = mask.scatter(1, cols.clamp(0, S - 1), token_mask.to(mask.dtype))
-        bias = decode_bias(new_mask, t)
+        bias = cached_bias(self.cfg, new_mask, positions)
         q_ids = torch.arange(t, device=tokens.device)[None, :, None]
         k_ids = torch.arange(S, device=tokens.device)[None, None, :]
         start = row_index[:, None, None]
@@ -797,8 +887,8 @@ def init_paged_kv_arena(cfg: TransformerConfig, num_blocks: int, block_size: int
 
 
 # ---------------------------------------------------------------------------
-# Model family presets (the JAX package's table; the families this port
-# refuses raise in TransformerConfig.__post_init__)
+# Model family presets (the JAX package's table; moe-tiny raises in
+# TransformerConfig.__post_init__ until the MoE MLP ports)
 # ---------------------------------------------------------------------------
 
 PRESETS: Dict[str, Dict[str, Any]] = {

@@ -19,7 +19,10 @@ bias tensor; q head h reads kv head h // (nh // nkv).
   the backward run on the tensor cores: the products of two bf16 operands
   (q.k^T, dO.v^T) are exact, and the products with an f32 operand (p.V,
   p^T.dO, ds.k, ds^T.q) go through a bf16 hi/lo split of p and ds. At f32
-  every kernel runs on the CUDA cores in f32. The dtype picks the route.
+  every kernel runs on the CUDA cores in f32, and so does bf16 at head dim
+  256 (GPT-J-6B), on its operands widened to f32 as they are staged: the
+  tensor-core kernels take head dims up to 128. The dtype and the head
+  dim pick the route.
   On cuda tensors they launch the kernel or raise; on CPU tensors they
   run the plain versions `flash_fwd_plain` (blockwise online softmax with
   lse, the JAX package's `blockwise_attention_lse`), `flash_bwd_dq_plain` and
@@ -43,7 +46,7 @@ from trlx_tpu_torch import kernels
 
 NEG_INF = -1e30
 DEAD_LSE = 1e9  # lse of a row with no allowed key: exp(s - 1e9) == 0
-HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instantiations (bf16 at 256: the CUDA-core kernels)
 BLOCK_K = 128  # key block of the plain versions
 
 # launch-counter names (kernels.LAUNCHES)

@@ -879,8 +879,9 @@ class TorchTrainer:
 
     def save_pretrained(self, directory: Optional[str] = None, **kwargs):
         """Portable export: an HF-layout `pytorch_model.bin` and
-        `config.json` (gpt2 and llama families), else the raw state dict in
-        `model_state.pt`; the run config beside it."""
+        `config.json` (every decoder family of `models/hf_interop.py`),
+        else the raw state dict in `model_state.pt`; the run config beside
+        it."""
         from trlx_tpu_torch.models.hf_interop import config_to_hf, params_to_hf_state_dict
 
         directory = directory or os.path.join(self.config.train.checkpoint_dir, "hf_model")
