@@ -44,8 +44,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    t 64, full rows);
    with kernel, plain-version, library (scaled_dot_product_attention
    forward / backward; logsumexp plus gather; the backward of
-   cross_entropy) and bound times, and the share of causal tiles the bf16
-   forward and backward skip as padding;
+   cross_entropy) and bound times, the route each flash kernel took at
+   the row's head dim (wgmma or CUDA cores, as the built library
+   dispatches), and the share of causal tiles the bf16 forward and
+   backward skip as padding;
 7. training, the port's second main path: `trlx_tpu_torch.train(samples=
    ..., config=cfg)` runs SFT on random:gpt2-small at full width (seq 1024,
    batch 8, bf16 activations, attn_impl="flash", num_layers_unfrozen=2):
@@ -763,7 +765,8 @@ FLASH_SHAPES = {
     "ilql-train": (128, 64, 12, 12, 64, left_pad_rows(64, [0] * 128), ALL_FLASH[1:]),
     # phase 20's head dims: the HH recipe's "1B" (pythia-1.4b, 16 heads of
     # 128, seq 128, batch 8) and "6B" (gptj-6b, 16 heads of 256, seq 512,
-    # batch 4; the CUDA-core kernels at both dtypes), left padded
+    # batch 4; the forward on wgmma with two warpgroups, the backward on
+    # the CUDA cores), left padded
     "pythia-1.4b": (8, 128, 16, 16, 128, left_pad_rows(128, [0, 3, 17, 40, 64, 90, 100, 127]), ALL_FLASH),
     "gptj-6b": (4, 512, 16, 16, 256, left_pad_rows(512, [0, 31, 200, 450]), ALL_FLASH),
 }
@@ -1016,11 +1019,12 @@ def phase_train_kernels(device):
             if name not in kinds:
                 continue
             least_ms, bound_by = flash_bound(b, t, nh, nkv, hd, rows, kind)
+            design = "wgmma" if A.on_tensor_cores(name, q.dtype, hd) else "cuda-cores"
             results[(name, shape)] = dict(ms=device_time_ms(kern, 10, label=f"{name} {shape} kernel"),
                                           plain_ms=device_time_ms(plain, 3, label=f"{name} {shape} plain"),
-                                          library_ms=lib, bound_ms=least_ms, bound_by=bound_by)
+                                          library_ms=lib, bound_ms=least_ms, bound_by=bound_by, design=design)
             r = results[(name, shape)]
-            log(f"[train-kernels] {name} {shape} b={b} t={t} nh={nh} nkv={nkv} hd={hd}: "
+            log(f"[train-kernels] {name} {shape} b={b} t={t} nh={nh} nkv={nkv} hd={hd} ({design}): "
                 f"kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms={lib:.5f} "
                 f"bound_ms={least_ms:.5f} ({bound_by})")
         skipped, total = skipped_tiles(rows)
@@ -4486,6 +4490,7 @@ def phase_hh_6b(card):
     trainer.add_prompt_pipeline(PromptPipeline(HH_QUESTIONS * 16, h["seq"] - HH_NEW, trainer.tokenizer))
     record = []
     kernels.reset_launches()
+    t_cycle = time.perf_counter()
     with ppo_probes(record):
         trainer.make_experience(HH_ROLLOUTS)
         for _ in range(config.method.ppo_epochs):
@@ -4494,6 +4499,7 @@ def phase_hh_6b(card):
                 if not math.isfinite(stats["losses/total_loss"]):
                     raise AssertionError(f"hh-6b: loss {stats['losses/total_loss']}")
     torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t_cycle
     launches = dict(kernels.LAUNCHES)
     cfg = trainer.model_cfg
     per_step, per_chunk = hh_launches(cfg.n_layers)
@@ -4502,15 +4508,15 @@ def phase_hh_6b(card):
                                       HH_ROLLOUTS // HH_CHUNK)
     gen_s = [c[2] - c[1] for c in record if c[0] == "make_experience"][0]
     out = dict(steps=n_steps, step_s=statistics.median(step_s[1:]), score_chunk_s=statistics.median(chunk_s),
-               collection_s=gen_s, build_s=build_s, weights_gb=weights_gb, train_peak_gb=peak_gb(),
-               launches=launches)
+               collection_s=gen_s, cycle_s=cycle_s, build_s=build_s, weights_gb=weights_gb,
+               train_peak_gb=peak_gb(), launches=launches)
     log(f"[hh-6b] gptj-6b (d {cfg.d_model}, {cfg.n_layers} blocks, {cfg.n_heads} heads of {cfg.head_dim}, "
         f"rotary_dim {cfg.rotary_dim}, vocab {cfg.vocab_size}, a biased head), batch {h['batch']}, seq {h['seq']}, "
         f"{HH_ROLLOUTS} rollouts in chunks of {HH_CHUNK}, {HH_NEW} new tokens, bf16 flash, cut: {h['cut']}: "
         f"built in {build_s:.1f}s ({weights_gb:.2f} GB of f32 weights on the card); one cycle through the "
         f"trainer's make_experience and train_minibatch (no done checkpoint of 24 GB): collection "
         f"{gen_s:.2f}s, {n_steps} steps, median step_s={out['step_s']:.4f}, scoring chunk s="
-        f"{out['score_chunk_s']:.4f}; peak device memory {out['train_peak_gb']:.2f} GB; launches exact "
+        f"{out['score_chunk_s']:.4f}, the cycle {cycle_s:.2f}s; peak device memory {out['train_peak_gb']:.2f} GB; launches exact "
         f"(a step {per_step}, a chunk {per_chunk}): {launches} ({card})")
     _, out["serve"] = serve_and_check(None, FAMILY_REQUESTS, "paged_decode", card, trainer=trainer, tag="hh-6b")
     del trainer

@@ -70,7 +70,7 @@ def main() -> int:
     libs, logs = build_variants(ROOT / "build" / "flash_bwd_ablation", VARIANTS)
     used = {name: {"dq": resources(log, "flash_bwd_dq_wgmma_kernelILi64E"),
                    "dkv": resources(log, "flash_bwd_dkv_wgmma_kernelILi64E")} for name, log in logs.items()}
-    b, t, nh, nkv, hd, pads = FLASH_SHAPES["gpt2-small"]
+    b, t, nh, nkv, hd, pads, _ = FLASH_SHAPES["gpt2-small"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     q, k, v, mask, g, lse, delta = flash_case(b, t, nh, nkv, hd, pads, gen, torch.device("cuda"))

@@ -30,7 +30,13 @@ With `--value-branch` the policy's value head is phase 13's deeper
 branch (`num_value_layers_unfrozen=2`): scoring runs its 2 blocks, and
 each step runs the full forward and K7 over the full logits.
 
-    python3 scripts/profile_torch_ppo.py [--options] [--pipelined [--fast]] [--value-branch]
+With `--hh-6b` the trainer is phase 20 (b)'s HH "6B" configuration
+(random:gptj-6b at full width, 16 heads of 256, batch 4, seq 512, 64
+rollouts in chunks of 16, 32 new tokens, 2 trainable blocks): one chunk's
+sampling and scoring and the cycle's 64 steps. Copied into another
+checkout (a parent unpacked with `git archive`), it profiles that tree.
+
+    python3 scripts/profile_torch_ppo.py [--options] [--pipelined [--fast]] [--value-branch] [--hh-6b]
 """
 
 import argparse
@@ -49,6 +55,9 @@ OURS = {  # name fragments of the hand-written kernels in the trace
     "flash_bwd_dkv_wgmma_kernel": "flash dk/dv, bf16 (K6)",
     "label_logprob_kernel": "label logprob (K7)",
     "label_logprob_bwd_kernel": "label logprob backward (K7 bwd)",
+    "flash_fwd_kernel": "flash forward, CUDA cores (K3, K4)",
+    "flash_bwd_dq_kernel": "flash dq, CUDA cores (K5)",
+    "flash_bwd_dkv_kernel": "flash dk/dv, CUDA cores (K6)",
 }
 
 
@@ -147,7 +156,8 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from chip_smoke import PPO_OPTIONS, PPO_ROLLOUTS, VALUE_BRANCH, ppo_config, ppo_prompts, ppo_reward
+    from chip_smoke import (HH, HH_NEW, HH_QUESTIONS, HH_ROLLOUTS, PPO_OPTIONS, PPO_ROLLOUTS, VALUE_BRANCH,
+                            hh_config, ppo_config, ppo_prompts, ppo_reward)
     from trlx_tpu_torch.pipeline import MiniBatchIterator
     from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
@@ -163,10 +173,15 @@ def main() -> int:
     parser.add_argument("--pipelined", action="store_true", help="profile pipelined_cycle (phase 12)")
     parser.add_argument("--fast", action="store_true", help="with --pipelined: the capture fast path on")
     parser.add_argument("--value-branch", action="store_true", help="phase 13's value branch")
+    parser.add_argument("--hh-6b", action="store_true", help="phase 20 (b)'s HH \"6B\" trainer (gptj-6b)")
     args = parser.parse_args()
     if args.fast and not args.pipelined:
         parser.error("--fast needs --pipelined")
-    config = ppo_config(ROOT / "build" / "profile_torch_ppo")
+    if args.hh_6b and (args.options or args.pipelined or args.value_branch):
+        parser.error("--hh-6b takes no other option")
+    work = ROOT / "build" / "profile_torch_ppo"
+    config = hh_config(work, "6B") if args.hh_6b else ppo_config(work)
+    rollouts = HH_ROLLOUTS if args.hh_6b else PPO_ROLLOUTS
     if args.options:
         config = config.evolve(method=PPO_OPTIONS)
     if args.fast:
@@ -174,7 +189,10 @@ def main() -> int:
     if args.value_branch:
         config = config.evolve(method=VALUE_BRANCH)
     trainer = PPOTrainer(config, reward_fn=ppo_reward)
-    trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
+    if args.hh_6b:
+        trainer.add_prompt_pipeline(PromptPipeline(HH_QUESTIONS * 16, HH["6B"]["seq"] - HH_NEW, trainer.tokenizer))
+    else:
+        trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
     method = config.method
 
     def train_cycle():
@@ -195,7 +213,7 @@ def main() -> int:
             raise AssertionError(f"the speculative scorer fell back {trainer.spec_fallbacks} times")
         return report(card, args, phases, cycle_ms, PPO_ROLLOUTS, 4 * PPO_ROLLOUTS // config.train.batch_size)
 
-    trainer.make_experience(PPO_ROLLOUTS)  # warm-up: one collection and one cycle of steps
+    trainer.make_experience(rollouts)  # warm-up: one collection and one cycle of steps
     train_cycle()
 
     phases = {}
@@ -215,7 +233,7 @@ def main() -> int:
         phases["trunk_cache_fill"] = (wall, rows)
     n_steps, wall, rows = traced(train_cycle)
     phases["train_steps"] = (wall, rows)
-    return report(card, args, phases, sum(w for w, _ in phases.values()), PPO_ROLLOUTS, n_steps)
+    return report(card, args, phases, sum(w for w, _ in phases.values()), rollouts, n_steps)
 
 
 def report(card, args, phases, cycle_ms, rollouts, n_steps) -> int:
@@ -223,7 +241,8 @@ def report(card, args, phases, cycle_ms, rollouts, n_steps) -> int:
     then the JSON line."""
     print(f"card: {card}")
     out = {"card": card, "options": args.options, "pipelined": args.pipelined, "fast": args.fast,
-           "value_branch": args.value_branch, "rollouts": rollouts, "train_steps": n_steps, "phases": {}}
+           "value_branch": args.value_branch, "hh_6b": args.hh_6b, "rollouts": rollouts, "train_steps": n_steps,
+           "phases": {}}
     for name, (wall, rows) in phases.items():
         device_ms = sum(r[1] for r in rows)
         ours = {label: sum(ms for k, ms, _ in rows if frag in k) for frag, label in OURS.items()}

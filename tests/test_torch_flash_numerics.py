@@ -15,10 +15,13 @@ Tolerances: out within one bf16 ulp (rtol 8e-3, atol 1e-3: both sides
 round once to bf16 from f32 values that differ by the split's error and
 the order of the sums), lse within 2e-5. Before the final rounding, on
 inputs exact in bf16 with the Pallas forward run in f32, the split keeps
-the output within 1e-5 of it (measured on the CPU: 4.7e-6 at hd 32 and
-4.8e-6 at hd 64, from the exp2 form and the order of the sums), while p_hi
-alone is off by about 2^-9 of the values (2.9e-3 and 2.3e-3), some 500
-times more.
+the output within 1e-5 of it (measured on the CPU: 4.7e-6 at hd 32,
+4.8e-6 at hd 64 and 9.5e-6 at hd 256, from the exp2 form and the order of
+the sums), while p_hi alone is off by about 2^-9 of the values (2.9e-3,
+2.3e-3 and 3.7e-3), some 400 to 600 times more. Head dim 256 is
+GPT-J-6B's: there the kernel runs two warpgroups, each forming all of S
+and the same softmax and adding p.V into its half of the columns, which
+is this arithmetic column by column.
 """
 
 import math
@@ -84,7 +87,7 @@ def emulate(q, k, v, mask, split=True):
     return out, lse
 
 
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 256])
 def test_bf16_forward_arithmetic_matches_pallas(hd):
     (q, k, v), mask = _inputs(hd, seed=hd)
     j_out, j_lse = _flash_fwd_pallas_lse(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), jnp.asarray(mask),
@@ -97,7 +100,7 @@ def test_bf16_forward_arithmetic_matches_pallas(hd):
     assert bool((out[dead] == 0).all()) and bool((lse.transpose(1, 2)[dead] == A.DEAD_LSE).all())
 
 
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 256])
 def test_p_lo_product_is_what_keeps_the_forward_exact(hd):
     (q, k, v), mask = _inputs(hd, seed=100 + hd)
     j_out, _ = _flash_fwd_pallas_lse(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask),

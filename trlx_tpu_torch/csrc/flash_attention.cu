@@ -2,16 +2,17 @@
 // bound to Python with ctypes.
 //
 // Replaces the four TPU kernels of trlx_tpu/ops/attention.py:
-//   K3 `_flash_fwd_kernel`       -> flash_fwd_wgmma_kernel<HD, false> (bf16),
-//                                   flash_fwd_kernel<float, HD, false> (f32;
-//                                   and <__nv_bfloat16, 256, *> for bf16 at
-//                                   hd 256, as for K4-K6 below)
+//   K3 `_flash_fwd_kernel`       -> flash_fwd_wgmma_kernel<HD, false> (bf16,
+//                                   every head dim; two warpgroups at 256),
+//                                   flash_fwd_kernel<float, HD, false> (f32)
 //   K4 `_flash_fwd_kernel_lse`   -> flash_fwd_wgmma_kernel<HD, true> (bf16),
 //                                   flash_fwd_kernel<float, HD, true> (f32)
-//   K5 `_flash_bwd_dq_kernel`    -> flash_bwd_dq_wgmma_kernel<HD> (bf16),
-//                                   flash_bwd_dq_kernel<float, HD> (f32)
-//   K6 `_flash_bwd_dkv_kernel`   -> flash_bwd_dkv_wgmma_kernel<HD> (bf16),
-//                                   flash_bwd_dkv_kernel<float, HD> (f32)
+//   K5 `_flash_bwd_dq_kernel`    -> flash_bwd_dq_wgmma_kernel<HD> (bf16 up to
+//                                   hd 128), flash_bwd_dq_kernel<T, HD> (f32,
+//                                   and bf16 at hd 256)
+//   K6 `_flash_bwd_dkv_kernel`   -> flash_bwd_dkv_wgmma_kernel<HD> (bf16 up
+//                                   to hd 128), flash_bwd_dkv_kernel<T, HD>
+//                                   (f32, and bf16 at hd 256)
 //
 // Layouts (the model's, read in place; no transposes around the calls):
 //   q, out, dout  [b, tq, nh, hd]    T (f32 or bf16)
@@ -53,8 +54,19 @@
 // memory (both K-major), and O += P.V is wgmma m64n{hd}k16 with P from
 // registers (the S accumulator repacked to bf16 pairs) and V from shared
 // memory as a transposed B ([key][hd], tnspB). Tiles are swizzled for
-// wgmma (32, 64, 128 and 2 x 128 bytes for hd 16, 32, 64, 128; see
-// wgmma.cuh). K/V tiles come into a two-stage ring with 16-byte cp.async
+// wgmma (32, 64, 128, 2 x 128 and 4 x 128 bytes for hd 16, 32, 64, 128,
+// 256; see wgmma.cuh). At hd 256 a block is two warpgroups (256 threads)
+// owning the same 64 rows, each one 128-column half of O: a 64 x 128 f32
+// accumulator, 64 registers a thread, as at hd 128 (one warpgroup's
+// 64 x 256 would be 128). Each warpgroup forms all of S (16 m64n64k16 over
+// the 256 columns) and runs the same online softmax, so the two hold the
+// same m and l bitwise and need no exchange; that costs a third more
+// tensor work on a forward bound by bytes (splitting the reduction instead
+// would add 16 KB of shared memory, a barrier between the warpgroups and
+// another order of the f32 sums). Its half then takes p_hi.V_h + p_lo.V_h
+// with m64n128k16 from column block 2h of the V tile. Q (32 KB) and two
+// K/V stages (128 KB) take about 161 KB of shared memory: one block an
+// SM. K/V tiles come into a two-stage ring with 16-byte cp.async
 // copies, so tile k + 1 loads while tile k computes; the ragged tail reads
 // zeros. At the start the block reads its batch row's mask once into a
 // bitmask of valid keys and skips every 64-key tile with no valid key, as
@@ -105,14 +117,16 @@
 // lanes of a half warp with shuffles. The f32 forward runs its q tiles in
 // reverse order, so the long causal rows start first.
 //
-// Head dim 256 (GPT-J-6B: d 4096 over 16 heads), f32 and bf16: the same
-// CUDA-core kernels with 32-row tiles (2 rows and 2 score columns a
-// thread), since 64-row f32 tiles of 256 columns overflow shared memory
-// in dq and dk/dv; bf16 operands are widened to f32 as they are staged, so
-// every product is exact in f32 and p.V, ds.k, p^T.dO and ds^T.q take the
-// f32 p and ds unsplit. The wgmma kernels stay at hd <= 128: their f32
-// accumulator for 64 x 256 is 128 registers a thread (two in dk/dv). A
-// simple route, correct first; its times are in PERF.md.
+// Head dim 256 (GPT-J-6B: d 4096 over 16 heads): the f32 kernels, and the
+// bf16 backward, are the same CUDA-core kernels with 32-row tiles (2 rows
+// and 2 score columns a thread), since 64-row f32 tiles of 256 columns
+// overflow shared memory in dq and dk/dv; in the bf16 backward the
+// operands are widened to f32 as they are staged, so every product is
+// exact in f32 and ds.k, p^T.dO and ds^T.q take the f32 p and ds unsplit.
+// The bf16 backward's wgmma kernels stay at hd <= 128: their f32
+// accumulators for 64 x 256 are 128 registers a thread (two in dk/dv). A
+// simple route, correct first; its times are in PERF.md. The bf16 forward
+// at hd 256 is the wgmma kernel above, with two warpgroups.
 //
 // Bound. At gpt2-small training shapes (b 8, t 1024, 12 heads, hd 64,
 // bf16) the forward moves q, k, v and out once, about 50 MB: 0.0150 ms at
@@ -138,8 +152,9 @@ constexpr float DEAD_LSE = 1e9f;
 constexpr int THREADS = 256;
 constexpr int TILE = 64;         // rows of a CUDA-core tile (q and k side) up to hd 128
 
-// the CUDA-core kernels run at f32, and at bf16 for head dims the wgmma
-// kernels do not take (256): bf16 operands are widened to f32 as staged
+// the CUDA-core kernels run at f32, and the backward at bf16 for the head
+// dim its wgmma kernels do not take (256): bf16 operands are widened to
+// f32 as staged
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -328,23 +343,34 @@ size_t wgmma_fwd_smem(int hd, int tk) {
   return 1024 + 5 * (size_t)WG_ROWS * hd * 2 + 8 * (size_t)((tk + WG_KEYS - 1) / WG_KEYS);
 }
 
+// Warpgroups of the bf16 forward's block: one up to hd 128; two at hd 256,
+// each owning one 128-column half of O (a 64 x 128 f32 accumulator, 64
+// registers a thread, as at hd 128).
+__host__ __device__ constexpr int fwd_warpgroups(int hd) { return hd > 128 ? 2 : 1; }
+
 template <int HD, bool LSE>
-__global__ void __launch_bounds__(WG_THREADS)
+__global__ void __launch_bounds__(WG_THREADS * fwd_warpgroups(HD))
     flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ mask,
                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int tq, int tk,
                            int nh, int nkv, int causal, float scale) {
   using namespace hopper;
+  constexpr int WGS = fwd_warpgroups(HD);
+  constexpr int NT = WG_THREADS * WGS;  // threads of the block
+  constexpr int OHD = HD / WGS;         // columns of O a warpgroup owns
   constexpr uint32_t TILE_BYTES = WG_ROWS * HD * 2;  // a bf16 tile of 64 rows
+  constexpr uint32_t HALF_BYTES = WG_KEYS * OHD * 2;  // a warpgroup's column blocks of a V tile
   constexpr int CHUNKS = HD / 8;  // 16-byte chunks of a row
-  constexpr int NO = HD / 2;      // output accumulator registers
+  constexpr int NO = OHD / 2;     // output accumulator registers
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t sQ = base, sK = base + TILE_BYTES, sV = base + 3 * TILE_BYTES;
   uint32_t* valid = reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + 5 * TILE_BYTES);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup (the half of O at hd 256) and the warp inside it
+  const int wg = WGS == 1 ? 0 : tid / WG_THREADS, warp = (WGS == 1 ? tid : tid % WG_THREADS) >> 5;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * WG_ROWS;  // long causal rows first
   const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
   const int kvh = h / (nh / nkv);
@@ -353,7 +379,7 @@ __global__ void __launch_bounds__(WG_THREADS)
 
   // The batch row's mask, read once: bit i of word w is key 32 w + i.
   const int32_t* mrow = mask + (size_t)bi * tk;
-  for (int w = warp; w < 2 * n_tiles; w += WG_THREADS / 32) {
+  for (int w = tid >> 5; w < 2 * n_tiles; w += NT / 32) {
     const int key = w * 32 + lane;
     const unsigned bits = __ballot_sync(0xffffffffu, key < k_end && mrow[key] > 0);
     if (lane == 0) valid[w] = bits;
@@ -371,7 +397,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   int j = next_live(0);
   if (j == n_tiles) {  // no query of the tile has an allowed key
     const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-    for (int i = tid; i < WG_ROWS * HD / 2; i += WG_THREADS) {
+    for (int i = tid; i < WG_ROWS * HD / 2; i += NT) {
       const int r = i / (HD / 2), c = 2 * (i % (HD / 2));
       if (q0 + r < tq)
         *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)bi * tq + q0 + r) * nh + h) * HD + c) = zero;
@@ -381,7 +407,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   }
 
   const __nv_bfloat16* qh = q + ((size_t)bi * tq * nh + h) * HD;
-  for (int i = tid; i < WG_ROWS * CHUNKS; i += WG_THREADS) {
+  for (int i = tid; i < WG_ROWS * CHUNKS; i += NT) {
     const int r = i / CHUNKS, c = i % CHUNKS;
     const bool ok = q0 + r < tq;
     cp_async16(sQ + tile_offset<HD>(WG_ROWS, r, c), qh + (size_t)(ok ? q0 + r : 0) * nh * HD + c * 8, ok);
@@ -393,7 +419,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   const __nv_bfloat16* vh = v + ((size_t)bi * tk * nkv + kvh) * HD;
   auto load_kv = [&](int tile, int stage) {
     const int k0 = tile * WG_KEYS;
-    for (int i = tid; i < WG_KEYS * CHUNKS; i += WG_THREADS) {
+    for (int i = tid; i < WG_KEYS * CHUNKS; i += NT) {
       const int r = i / CHUNKS, c = i % CHUNKS;
       const bool ok = k0 + r < tk;
       const size_t src = (size_t)(ok ? k0 + r : 0) * kv_stride + c * 8;
@@ -404,6 +430,9 @@ __global__ void __launch_bounds__(WG_THREADS)
     cp_async_commit();
   };
 
+  // Each warpgroup forms all of S and runs the same online softmax on it,
+  // so both hold the same m and l bitwise; then each adds p.V into its own
+  // OHD columns of O.
   float o[NO], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
@@ -484,7 +513,7 @@ __global__ void __launch_bounds__(WG_THREADS)
       l[hh] = l[hh] * corr + rs;
       m[hh] = m_new;
 #pragma unroll
-      for (int jj = 0; jj < HD / 8; ++jj) {
+      for (int jj = 0; jj < OHD / 8; ++jj) {
         o[4 * jj + 2 * hh] *= corr;
         o[4 * jj + 2 * hh + 1] *= corr;
       }
@@ -496,9 +525,9 @@ __global__ void __launch_bounds__(WG_THREADS)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = desc_mnmajor<HD>(vt, WG_KEYS, kk);
-      wgmma_rs<HD>(o, a_hi[kk], dv);
-      wgmma_rs<HD>(o, a_lo[kk], dv);
+      const uint64_t dv = desc_mnmajor<HD>(vt + wg * HALF_BYTES, WG_KEYS, kk);
+      wgmma_rs<OHD>(o, a_hi[kk], dv);
+      wgmma_rs<OHD>(o, a_lo[kk], dv);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -513,12 +542,12 @@ __global__ void __launch_bounds__(WG_THREADS)
     const int row = row0 + 8 * hh;
     if (row >= tq) continue;
     const float denom = l[hh] > 0.f ? l[hh] : 1.f;
-    __nv_bfloat16* orow = out + (((size_t)bi * tq + row) * nh + h) * HD;
+    __nv_bfloat16* orow = out + (((size_t)bi * tq + row) * nh + h) * HD + wg * OHD;
 #pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj)
+    for (int jj = 0; jj < OHD / 8; ++jj)
       *reinterpret_cast<uint32_t*>(orow + 8 * jj + col0) =
           pack_bf16(o[4 * jj + 2 * hh] / denom, o[4 * jj + 2 * hh + 1] / denom);
-    if (LSE && (lane & 3) == 0)
+    if (LSE && wg == 0 && (lane & 3) == 0)
       lse[((size_t)bi * nh + h) * tq + row] = l[hh] > 0.f ? m[hh] + logf(denom) : DEAD_LSE;
   }
 }
@@ -1164,13 +1193,16 @@ size_t dkv_smem(int hd) {
   return (4 * r * (hd + 1) + 2 * r * (r + 1) + 2 * r) * sizeof(float);
 }
 
-// The bf16 tensor-core (wgmma) kernels take head dims up to 128; hd 256
-// runs the CUDA-core kernels on bf16 operands (its f32 accumulators, one
+// Which route a kernel takes (which: 0 forward, 1 dq, 2 dk/dv). At bf16
+// the forward runs on the tensor cores (wgmma) at every head dim, with two
+// warpgroups at 256; the backward up to hd 128, while hd 256 runs the
+// CUDA-core kernels on bf16 operands (its f32 accumulators, one
 // warpgroup's 64 x 256 tile, would need 128 registers a thread, two of
-// them in dk/dv).
-template <typename T, int HD>
-constexpr bool on_tensor_cores() {
-  return std::is_same<T, __nv_bfloat16>::value && HD <= 128;
+// them in dk/dv). f32 runs the CUDA cores.
+constexpr bool on_tensor_cores(int which, bool bf16, int hd) { return bf16 && (which == 0 || hd <= 128); }
+template <typename T>
+constexpr bool is_bf16() {
+  return std::is_same<T, __nv_bfloat16>::value;
 }
 
 template <typename Kernel>
@@ -1193,7 +1225,7 @@ int fwd_wgmma(const void* q, const void* k, const void* v, const int32_t* mask, 
   auto kernel = flash_fwd_wgmma_kernel<HD, LSE>;
   if (int err = prepare(kernel, smem)) return err;
   const dim3 grid((tq + WG_ROWS - 1) / WG_ROWS, b * nh);
-  kernel<<<grid, WG_THREADS, smem, s>>>(
+  kernel<<<grid, WG_THREADS * fwd_warpgroups(HD), smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), lse, tq, tk,
       nh, nkv, causal, scale);
@@ -1203,11 +1235,11 @@ int fwd_wgmma(const void* q, const void* k, const void* v, const int32_t* mask, 
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, const int32_t* mask, void* out, float* lse,
         int b, int tq, int tk, int nh, int nkv, int causal, float scale, cudaStream_t s) {
-  if constexpr (on_tensor_cores<T, HD>()) {
+  if constexpr (on_tensor_cores(0, is_bf16<T>(), HD)) {
     if (lse != nullptr)
       return fwd_wgmma<HD, true>(q, k, v, mask, out, lse, b, tq, tk, nh, nkv, causal, scale, s);
     return fwd_wgmma<HD, false>(q, k, v, mask, out, nullptr, b, tq, tk, nh, nkv, causal, scale, s);
-  } else {  // CUDA cores
+  } else {  // CUDA cores, f32
     const size_t smem = fwd_smem(HD);
     const dim3 grid((tq + tile_rows(HD) - 1) / tile_rows(HD), b * nh);
     if (lse != nullptr) {
@@ -1231,7 +1263,7 @@ template <typename T, int HD>
 int bwd_dq(const void* q, const void* k, const void* v, const int32_t* mask, const void* dout,
            const float* lse, const float* delta, void* dq, int b, int tq, int tk, int nh, int nkv,
            int causal, float scale, cudaStream_t s) {
-  if constexpr (on_tensor_cores<T, HD>()) {
+  if constexpr (on_tensor_cores(1, is_bf16<T>(), HD)) {
     if (misaligned(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
     const size_t smem = wgmma_dq_smem(HD, tk);
     auto kernel = flash_bwd_dq_wgmma_kernel<HD>;
@@ -1259,7 +1291,7 @@ template <typename T, int HD>
 int bwd_dkv(const void* q, const void* k, const void* v, const int32_t* mask, const void* dout,
             const float* lse, const float* delta, float* dk, float* dv, int b, int tq, int tk,
             int nh, int nkv, int causal, float scale, cudaStream_t s) {
-  if constexpr (on_tensor_cores<T, HD>()) {
+  if constexpr (on_tensor_cores(2, is_bf16<T>(), HD)) {
     if (misaligned(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
     const size_t smem = wgmma_dkv_smem(HD);
     auto kernel = flash_bwd_dkv_wgmma_kernel<HD>;
@@ -1283,7 +1315,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const int32_t* mask, co
 }
 
 // Dispatch on (dtype code, head_dim): 0 = f32, 1 = bf16; hd in {16, 32,
-// 64, 128, 256} (bf16 at 256 on the CUDA cores, on_tensor_cores).
+// 64, 128, 256} (the route by on_tensor_cores).
 #define TRLX_FLASH_DISPATCH(FN, ...)                                         \
   switch (dtype * 1000 + hd) {                                               \
     case 16: return FN<float, 16>(__VA_ARGS__);                              \
@@ -1311,6 +1343,12 @@ extern "C" {
 // which = 0 forward (f32), 1 dq, 2 dk/dv.
 size_t trlx_flash_smem_bytes(int which, int hd) {
   return which == 0 ? fwd_smem(hd) : which == 1 ? dq_smem(hd) : dkv_smem(hd);
+}
+
+// 1 when kernel `which` (0 forward, 1 dq, 2 dk/dv) runs on the tensor
+// cores at this dtype code and head dim, 0 when on the CUDA cores.
+int trlx_flash_on_tensor_cores(int which, int dtype, int hd) {
+  return on_tensor_cores(which, dtype == 1, hd) ? 1 : 0;
 }
 
 // K3 (lse == NULL) and K4. Returns the CUDA error of the launch.

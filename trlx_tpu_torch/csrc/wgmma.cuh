@@ -6,7 +6,10 @@
 //
 // Tile layout. A tile of R rows by HD bf16 columns (R a multiple of 8) is
 // stored as HD / CB column blocks of CB = min(HD, 64) columns, each block
-// [R][CB] row-major, so a row of a block is CB * 2 = 32, 64 or 128 bytes.
+// [R][CB] row-major, so a row of a block is CB * 2 = 32, 64 or 128 bytes
+// (hd 256: four 64-column blocks of 128-byte rows; the columns from block
+// 2 on are a tile of hd 128 of their own, which an MN-major descriptor
+// may start at).
 // Inside a block the 16-byte chunks of row r are permuted by the swizzle of
 // that row width (byte-offset bits [4, 4 + b) ^= bits [7, 7 + b), b = 1, 2,
 // 3 for 32, 64, 128 bytes: the patterns CU_TENSOR_MAP_SWIZZLE_32B/64B/128B
@@ -48,7 +51,7 @@ struct TileShape {
   static constexpr int BLOCKS = HD / CB;
   static constexpr int SWZ_BITS = ROW == 128 ? 3 : ROW == 64 ? 2 : 1;
   static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
-  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "head dim 16, 32, 64 or 128");
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "head dim 16, 32, or a multiple of 64 (64, 128, 256)");
 };
 
 // Byte offset in a [rows] x HD swizzled tile of the 16-byte chunk holding

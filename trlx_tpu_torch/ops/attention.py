@@ -18,11 +18,12 @@ bias tensor; q head h reads kv head h // (nh // nkv).
   (`csrc/flash_attention.cu`, CUDA for sm_90a). At bf16 the forward and
   the backward run on the tensor cores: the products of two bf16 operands
   (q.k^T, dO.v^T) are exact, and the products with an f32 operand (p.V,
-  p^T.dO, ds.k, ds^T.q) go through a bf16 hi/lo split of p and ds. At f32
-  every kernel runs on the CUDA cores in f32, and so does bf16 at head dim
-  256 (GPT-J-6B), on its operands widened to f32 as they are staged: the
-  tensor-core kernels take head dims up to 128. The dtype and the head
-  dim pick the route.
+  p^T.dO, ds.k, ds^T.q) go through a bf16 hi/lo split of p and ds. The
+  forward does so at every head dim (at 256, GPT-J-6B's, with two
+  warpgroups each holding half of the output), the backward up to 128:
+  at 256 it runs on the CUDA cores in f32, on its operands widened as
+  they are staged. At f32 every kernel runs on the CUDA cores in f32.
+  The dtype and the head dim pick the route (`on_tensor_cores`).
   On cuda tensors they launch the kernel or raise; on CPU tensors they
   run the plain versions `flash_fwd_plain` (blockwise online softmax with
   lse, the JAX package's `blockwise_attention_lse`), `flash_bwd_dq_plain` and
@@ -46,7 +47,7 @@ from trlx_tpu_torch import kernels
 
 NEG_INF = -1e30
 DEAD_LSE = 1e9  # lse of a row with no allowed key: exp(s - 1e9) == 0
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instantiations (bf16 at 256: the CUDA-core kernels)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instantiations (bf16 backward at 256: the CUDA cores)
 BLOCK_K = 128  # key block of the plain versions
 
 # launch-counter names (kernels.LAUNCHES)
@@ -181,8 +182,18 @@ def _load():
         lib.trlx_flash_bwd_dq.restype = i32
         lib.trlx_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 8 + [f32, ptr]
         lib.trlx_flash_bwd_dkv.restype = i32
+        lib.trlx_flash_on_tensor_cores.argtypes = [i32] * 3
+        lib.trlx_flash_on_tensor_cores.restype = i32
         _lib = lib
     return _lib
+
+
+def on_tensor_cores(kernel: str, dtype: torch.dtype, hd: int) -> bool:
+    """Whether the kernel named by its launch counter (`KERNEL_FWD`, ...)
+    runs on the tensor cores (wgmma) at this dtype and head dim, as the
+    built library dispatches it; False means the CUDA cores."""
+    which = {KERNEL_FWD: 0, KERNEL_FWD_LSE: 0, KERNEL_BWD_DQ: 1, KERNEL_BWD_DKV: 2}[kernel]
+    return bool(_load().trlx_flash_on_tensor_cores(which, _CODES[dtype], hd))
 
 
 def _check_cuda(q, k, v, mask, *extra):
