@@ -765,10 +765,15 @@ FLASH_SHAPES = {
     "ilql-train": (128, 64, 12, 12, 64, left_pad_rows(64, [0] * 128), ALL_FLASH[1:]),
     # phase 20's head dims: the HH recipe's "1B" (pythia-1.4b, 16 heads of
     # 128, seq 128, batch 8) and "6B" (gptj-6b, 16 heads of 256, seq 512,
-    # batch 4; the forward on wgmma with two warpgroups, the backward on
-    # the CUDA cores), left padded
+    # batch 4; forward and backward on wgmma with two warpgroups a block),
+    # left padded
     "pythia-1.4b": (8, 128, 16, 16, 128, left_pad_rows(128, [0, 3, 17, 40, 64, 90, 100, 127]), ALL_FLASH),
     "gptj-6b": (4, 512, 16, 16, 256, left_pad_rows(512, [0, 31, 200, 450]), ALL_FLASH),
+    # the HH "6B" step's own length (phase 20 (b)): the byte tokenizer's
+    # HH questions (39-57 tokens) left padded to the 64-token query bucket
+    # (`create_train_dataloader`), then 32 new tokens; these four are the
+    # first four questions (49, 57, 53 and 48 tokens)
+    "hh-6b-step": (4, 64 + 32, 16, 16, 256, left_pad_rows(64 + 32, [15, 7, 11, 16]), ALL_FLASH[1:]),
 }
 CE_ROWS, CE_VOCAB = 8 * 1023, 50257
 # K7 at phase 9's shapes: scoring reads the full [128, 104, V] logits with
@@ -784,7 +789,7 @@ CE_BWD_PPO = ("ppo-train", "ppo-branch-train")  # the shapes a step's backward r
 # the SFT steps of opt-125m and bloom-560m (batch 8, seq 512, shifted)
 CE_FAMILIES = {"pythia-1.4b": (8 * 32, 50304), "gptj-6b": (4 * 32, 50400), "opt-125m": (8 * 511, 50272),
                "bloom-560m": (8 * 511, 250880)}
-FAMILY_SHAPES = ("pythia-1.4b", "gptj-6b", "opt-125m", "bloom-560m")  # phase 6's rows for phase 20
+FAMILY_SHAPES = ("pythia-1.4b", "gptj-6b", "hh-6b-step", "opt-125m", "bloom-560m")  # phase 6's rows for phase 20
 # tolerances: bf16 outputs (out, dq): both sides round once to bf16 from
 # f32 values that differ only in summation order, so one bf16 ulp apart at
 # most: rtol 8e-3, atol 1e-3. That holds for the bf16 kernels on the
@@ -1002,6 +1007,11 @@ def phase_train_kernels(device):
         dead = mask.sum(-1) == 0
         if bool(dead.any()) and not (bool((out3[dead] == 0).all()) and bool((lse[dead] == A.DEAD_LSE).all())):
             raise AssertionError(f"{shape}: a row with no valid key is not exactly 0 / DEAD_LSE")
+        # the backward's exact zeros: dq of a query with no allowed key,
+        # the per-head dk/dv of a padding key
+        dead_q, padding = mask.cumsum(-1) == 0, mask == 0
+        if not (bool((dq[dead_q] == 0).all()) and bool((dk[padding] == 0).all()) and bool((dv[padding] == 0).all())):
+            raise AssertionError(f"{shape}: dq of a query with no allowed key or dk/dv of a padding key is not 0")
         sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, g, nh, nkv)
         lib_fwd = device_time_ms(sdpa_fwd, 20, label=f"{shape} SDPA forward")
         lib_bwd = device_time_ms(sdpa_bwd, 10, label=f"{shape} SDPA backward")
@@ -1024,7 +1034,7 @@ def phase_train_kernels(device):
                                           plain_ms=device_time_ms(plain, 3, label=f"{name} {shape} plain"),
                                           library_ms=lib, bound_ms=least_ms, bound_by=bound_by, design=design)
             r = results[(name, shape)]
-            log(f"[train-kernels] {name} {shape} b={b} t={t} nh={nh} nkv={nkv} hd={hd} ({design}): "
+            log(f"[train-kernels] {name} {shape} b={b} t={t} nh={nh} nkv={nkv} hd={hd} design={design}: "
                 f"kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms={lib:.5f} "
                 f"bound_ms={least_ms:.5f} ({bound_by})")
         skipped, total = skipped_tiles(rows)
@@ -4875,7 +4885,8 @@ def main() -> int:
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
             ilql=train_timings.get((name, "ilql-train")), randomwalks=train_timings.get((name, "randomwalks")),
             # phase 20's shapes: K3-K6 at hd 128 (pythia-1.4b) and 256
-            # (gptj-6b), K7 and its backward at the four vocabularies
+            # (gptj-6b), K4-K6 at the HH "6B" step's length (hh-6b-step),
+            # K7 and its backward at the four vocabularies
             families={s: train_timings[(name, s)] for s in FAMILY_SHAPES if (name, s) in train_timings}))
     # phase 11's checks: the exact launch counts (K3 none a step, 24 a
     # chunk), no fallback, greedy speculative vs plain under the tie rule,

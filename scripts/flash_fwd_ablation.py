@@ -45,8 +45,8 @@ VARIANTS = {
     "serial_loads": ("each K/V tile waited for before the tile computes (no ring)",
                      [("      cp_async_wait<1>();\n", "      cp_async_wait<0>();\n")]),
     "four_blocks": ("registers capped at 128 a thread, so four blocks fit an SM (up to hd 128)",
-                    [("__launch_bounds__(WG_THREADS * fwd_warpgroups(HD))\n    flash_fwd_wgmma_kernel",
-                      "__launch_bounds__(WG_THREADS * fwd_warpgroups(HD), 4)\n    flash_fwd_wgmma_kernel")]),
+                    [("__launch_bounds__(WG_THREADS * warpgroups(HD))\n    flash_fwd_wgmma_kernel",
+                      "__launch_bounds__(WG_THREADS * warpgroups(HD), 4)\n    flash_fwd_wgmma_kernel")]),
     "no_skip": ("every causal tile computed, padding included",
                 [("    while (j < n_tiles && (valid[2 * j] | valid[2 * j + 1]) == 0u) ++j;\n", "")]),
 }

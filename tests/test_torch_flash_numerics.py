@@ -9,7 +9,9 @@ values summed in f32 (each product is exact in f32), then the scale; p in
 f32 from exp2 with log2(e) folded in; p.V as two bf16 products, p_hi =
 bf16(p) and p_lo = bf16(p - p_hi), against V exact in bf16, summed in f32;
 the row sum over the f32 p; 64-key tiles in an online softmax, skipping
-tiles with no valid key.
+tiles with no valid key. The second half of the file does the same for
+the backward (K5 `flash_bwd_dq_wgmma_kernel` and K6
+`flash_bwd_dkv_wgmma_kernel`) against the Pallas backward.
 
 Tolerances: out within one bf16 ulp (rtol 8e-3, atol 1e-3: both sides
 round once to bf16 from f32 values that differ by the split's error and
@@ -19,8 +21,9 @@ the output within 1e-5 of it (measured on the CPU: 4.7e-6 at hd 32,
 4.8e-6 at hd 64 and 9.5e-6 at hd 256, from the exp2 form and the order of
 the sums), while p_hi alone is off by about 2^-9 of the values (2.9e-3,
 2.3e-3 and 3.7e-3), some 400 to 600 times more. Head dim 256 is
-GPT-J-6B's: there the kernel runs two warpgroups, each forming all of S
-and the same softmax and adding p.V into its half of the columns, which
+GPT-J-6B's: there the forward's and the backward's kernels run two
+warpgroups a block, each forming all of S (and in the backward dP, p and
+ds) and adding its products into its half of the output's columns, which
 is this arithmetic column by column.
 """
 
@@ -188,7 +191,7 @@ def _backward_case(hd, seed):
     return tensors, [np.array(x) for x in j_grads]
 
 
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 256])
 def test_bf16_backward_arithmetic_matches_pallas(hd):
     """dq within one bf16 ulp of the Pallas dq once both are rounded to
     bf16; the f32 dk/dv within phase 6's DKV_TOL; dq of rows with no
@@ -205,14 +208,14 @@ def test_bf16_backward_arithmetic_matches_pallas(hd):
     assert bool((dk[padding] == 0).all()) and bool((dv[padding] == 0).all())
 
 
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 256])
 def test_lo_halves_are_what_keep_the_backward_exact(hd):
     """Against the Pallas backward in f32 on the same bf16-exact values,
     before any output rounding: with the hi/lo split of p and ds the
-    largest error over dq, dk and dv is 1.05e-5 at hd 32 and 1.53e-5 at
-    hd 64 (measured on the CPU; the order of the sums and the exp2 form,
-    on values up to about 10); with the hi halves alone it is 7.66e-3 and
-    7.03e-3, some 460 to 730 times more."""
+    largest error over dq, dk and dv is 1.05e-5 at hd 32, 1.53e-5 at hd
+    64 and 1.63e-5 at hd 256 (measured on the CPU; the order of the sums
+    and the exp2 form, on values up to about 10); with the hi halves alone
+    it is 7.66e-3, 7.03e-3 and 9.16e-3, some 460 to 730 times more."""
     (q, k, v, mask, g, lse, delta), j_grads = _backward_case(hd, seed=300 + hd)
 
     def worst(split):

@@ -175,12 +175,14 @@ def _flash_case(seed, b, t, nh, nkv, hd, dtype, device, pads=None, causal=True):
 # pads 200 and 131 rows whose first key tiles are all padding; t = 1 and t
 # not a multiple of 64 exercise the ragged tail; t 1024 with pads 0, 511
 # and 1024 is phase 6 of chip_smoke.py in small, with many tiles skipped.
-# Head dim 256 (GPT-J-6B): the f32 kernels and the bf16 backward run the
-# CUDA-core kernels on 32-row tiles (t 130 and 97 leave ragged tails of 2
-# and 1 rows); the bf16 forward runs the wgmma kernel with two warpgroups
-# on 64-row tiles, where t 200 under pads 0, 70 and 200 gives GQA (four q
-# heads on one kv head), a q tile with no valid key, a key tile of padding
-# and a wholly dead batch row.
+# Head dim 256 (GPT-J-6B): the f32 kernels run the CUDA-core kernels on
+# 32-row tiles (t 130 and 97 leave ragged tails of 2 and 1 rows); the bf16
+# forward and backward (K3-K6) run the wgmma kernels with two warpgroups
+# on 64-row tiles, where t 130 and 97 leave ragged tails of 2 and 33 rows
+# (pad 40 a key tile partly padding), and t 200 under pads 0, 70 and 200
+# gives GQA (four q heads on one kv head), a q tile with no valid key (a
+# dq tile written 0), a key tile of padding (dk/dv written 0) and a
+# wholly dead batch row.
 FLASH_SHAPES = [(3, 130, 4, 4, 64, None), (2, 96, 4, 2, 32, None), (3, 64, 4, 1, 128, None),
                 (2, 200, 2, 2, 16, None), (4, 300, 4, 2, 64, [0, 200, 300, 131]),
                 (2, 1, 4, 1, 32, [0, 1]), (2, 257, 4, 2, 128, [190, 0]),
@@ -285,31 +287,32 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     for bwd in (A.flash_bwd_dq, A.flash_bwd_dkv):
         with pytest.raises(ValueError, match="aligned"):
             bwd(qb, k.bfloat16(), v.bfloat16(), mask, shifted, lse, lse)
-    # hd 256: the bf16 forward's wgmma kernel copies 16-byte chunks too
+    # hd 256: the bf16 forward's and backward's wgmma kernels copy 16-byte
+    # chunks too
     q, k, v, mask, *_ = _flash_case(3, 2, 64, 4, 4, 256, torch.bfloat16, cuda)
     shifted = torch.empty(k.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(k.shape)
     shifted.copy_(k)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device=cuda)
     kernels.reset_launches()
     for with_lse in (False, True):
         with pytest.raises(ValueError, match="aligned"):
             A.flash_fwd(q, shifted, v, mask, with_lse=with_lse)
+    for bwd in (A.flash_bwd_dq, A.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="aligned"):
+            bwd(q, shifted, v, mask, q, lse, lse)
     assert not any(kernels.LAUNCHES.values())
 
 
 @pytest.mark.cuda
 def test_flash_routes_as_the_library_dispatches(cuda):
-    """The built library's dispatch: the bf16 forward (K3/K4) on the
-    tensor cores at every head dim (two warpgroups at 256), the bf16
-    backward (K5/K6) up to hd 128 and on the CUDA cores at 256, every f32
-    kernel on the CUDA cores."""
+    """The built library's dispatch: every bf16 kernel (K3-K6) on the
+    tensor cores at every head dim (two warpgroups a block at 256), every
+    f32 kernel on the CUDA cores."""
     from trlx_tpu_torch.ops import attention as A
 
     every = (A.KERNEL_FWD, A.KERNEL_FWD_LSE, A.KERNEL_BWD_DQ, A.KERNEL_BWD_DKV)
     for hd in A.HEAD_DIMS:
-        assert A.on_tensor_cores(A.KERNEL_FWD, torch.bfloat16, hd)
-        assert A.on_tensor_cores(A.KERNEL_FWD_LSE, torch.bfloat16, hd)
-        assert A.on_tensor_cores(A.KERNEL_BWD_DQ, torch.bfloat16, hd) == (hd <= 128)
-        assert A.on_tensor_cores(A.KERNEL_BWD_DKV, torch.bfloat16, hd) == (hd <= 128)
+        assert all(A.on_tensor_cores(name, torch.bfloat16, hd) for name in every)
         assert not any(A.on_tensor_cores(name, torch.float32, hd) for name in every)
 
 

@@ -399,8 +399,9 @@ def test_one_ppo_step_matches_jax(name, tmp_path):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_wrapper_takes_head_dim_256_and_matches_pallas(dtype):
-    """HEAD_DIMS holds 256 (the card launches the bf16 forward on wgmma
-    there, the f32 kernels and the bf16 backward on the CUDA cores);
+    """HEAD_DIMS holds 256 (the card launches the bf16 kernels on wgmma
+    there, with two warpgroups a block, and the f32 kernels on the CUDA
+    cores);
     the plain versions agree with the JAX package's Pallas kernels in
     interpret mode, forward and backward, with the tolerances of
     test_torch_flash_attention.py (f32 1e-5 / 2e-5, bf16 one ulp)."""

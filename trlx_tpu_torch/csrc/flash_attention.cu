@@ -2,17 +2,16 @@
 // bound to Python with ctypes.
 //
 // Replaces the four TPU kernels of trlx_tpu/ops/attention.py:
-//   K3 `_flash_fwd_kernel`       -> flash_fwd_wgmma_kernel<HD, false> (bf16,
-//                                   every head dim; two warpgroups at 256),
-//                                   flash_fwd_kernel<float, HD, false> (f32)
+//   K3 `_flash_fwd_kernel`       -> flash_fwd_wgmma_kernel<HD, false> (bf16),
+//                                   flash_fwd_kernel<HD, false> (f32)
 //   K4 `_flash_fwd_kernel_lse`   -> flash_fwd_wgmma_kernel<HD, true> (bf16),
-//                                   flash_fwd_kernel<float, HD, true> (f32)
-//   K5 `_flash_bwd_dq_kernel`    -> flash_bwd_dq_wgmma_kernel<HD> (bf16 up to
-//                                   hd 128), flash_bwd_dq_kernel<T, HD> (f32,
-//                                   and bf16 at hd 256)
-//   K6 `_flash_bwd_dkv_kernel`   -> flash_bwd_dkv_wgmma_kernel<HD> (bf16 up
-//                                   to hd 128), flash_bwd_dkv_kernel<T, HD>
-//                                   (f32, and bf16 at hd 256)
+//                                   flash_fwd_kernel<HD, true> (f32)
+//   K5 `_flash_bwd_dq_kernel`    -> flash_bwd_dq_wgmma_kernel<HD> (bf16),
+//                                   flash_bwd_dq_kernel<HD> (f32)
+//   K6 `_flash_bwd_dkv_kernel`   -> flash_bwd_dkv_wgmma_kernel<HD> (bf16),
+//                                   flash_bwd_dkv_kernel<HD> (f32)
+// The bf16 kernels run on the tensor cores at every head dim, with two
+// warpgroups a block at 256; the f32 kernels on the CUDA cores.
 //
 // Layouts (the model's, read in place; no transposes around the calls):
 //   q, out, dout  [b, tq, nh, hd]    T (f32 or bf16)
@@ -97,19 +96,32 @@
 // + ds^T_lo.Q read the same Q and dO tiles as MN-major B. Padding is
 // skipped exactly as in the forward: K5 skips key tiles with no valid key
 // (a q tile with none writes 0), K6 writes 0 for a key tile with no valid
-// key and does nothing else. At gpt2-small training shapes the backward
+// key and does nothing else. At hd 256 a block of either kernel is two
+// warpgroups (256 threads) owning the same 64 rows (q rows in K5, keys of
+// one q head in K6), each one 128-column half of the output: K5's dq half
+// is 64 registers a thread, K6's dk and dv halves 64 each, hd 128's
+// picture (one warpgroup's 64 x 256 would be 128, two of them in K6). Each
+// warpgroup forms all of S and dP (16 m64n64k16 each over the 256
+// columns) and the same p and ds, bitwise equal in both since lse and delta
+// are per row: no exchange. That is half again K5's tensor work and a
+// third more of K6's; splitting the reduction would add about 32 KB of
+// shared memory, a barrier between the warpgroups and another order of the
+// f32 sums. Warpgroup h then reads column block 2h of the K tile (K5) or
+// of the Q and dO tiles (K6) as an hd-128 MN-major B, m64n128k16, as the
+// forward reads V. Q, dO and two K/V stages (K5), or K, V and two Q/dO
+// stages (K6), take about 193 KB of shared memory: one block an SM. At
+// gpt2-small training shapes the backward
 // is bound by bytes: 0.019 ms (K5) and 0.030 ms (K6) at 3.35 TB/s, against
 // 0.015 and 0.023 ms for its 4 and 6 tile products a pair at the bf16
 // peak (chip_smoke.py `flash_bound`).
 //
-// Forward and backward, f32: flash_fwd_kernel<float, HD, LSE>,
-// flash_bwd_dq_kernel<float, HD> and flash_bwd_dkv_kernel<float, HD>
-// compute every product on the CUDA cores in f32. One block of 256
-// threads owns a 64-row tile (a q tile in the forward and dq kernels, a k
-// tile in the dk/dv kernel) and
-// loops over the other side's 64-row tiles (the TPU's sequential grid axis
-// becomes this loop), with causal=1 skipping the tiles wholly above the
-// diagonal. Tiles are staged in shared memory as f32 with one padding
+// Forward and backward, f32: flash_fwd_kernel<HD, LSE>,
+// flash_bwd_dq_kernel<HD> and flash_bwd_dkv_kernel<HD> compute every
+// product on the CUDA cores in f32. One block of 256 threads owns a
+// 64-row tile (a q tile in the forward and dq kernels, a k tile in the
+// dk/dv kernel) and loops over the other side's 64-row tiles (the TPU's
+// sequential grid axis becomes this loop), with causal=1 skipping the
+// tiles wholly above the diagonal. Tiles are staged in shared memory as f32 with one padding
 // column, so the 16 threads of a half warp read 16 distinct banks. Thread
 // (ty, tx) = (tid / 16, tid % 16) owns the 4 rows ty*4..ty*4+3 of the
 // 64x64 score tile at columns tx + 16 j, and the same rows of the
@@ -117,16 +129,11 @@
 // lanes of a half warp with shuffles. The f32 forward runs its q tiles in
 // reverse order, so the long causal rows start first.
 //
-// Head dim 256 (GPT-J-6B: d 4096 over 16 heads): the f32 kernels, and the
-// bf16 backward, are the same CUDA-core kernels with 32-row tiles (2 rows
-// and 2 score columns a thread), since 64-row f32 tiles of 256 columns
-// overflow shared memory in dq and dk/dv; in the bf16 backward the
-// operands are widened to f32 as they are staged, so every product is
-// exact in f32 and ds.k, p^T.dO and ds^T.q take the f32 p and ds unsplit.
-// The bf16 backward's wgmma kernels stay at hd <= 128: their f32
-// accumulators for 64 x 256 are 128 registers a thread (two in dk/dv). A
-// simple route, correct first; its times are in PERF.md. The bf16 forward
-// at hd 256 is the wgmma kernel above, with two warpgroups.
+// Head dim 256 (GPT-J-6B: d 4096 over 16 heads): the f32 kernels are the
+// same CUDA-core kernels with 32-row tiles (2 rows and 2 score columns a
+// thread), since 64-row f32 tiles of 256 columns overflow shared memory
+// in dq and dk/dv. The bf16 kernels at hd 256 are the wgmma kernels above,
+// with two warpgroups.
 //
 // Bound. At gpt2-small training shapes (b 8, t 1024, 12 heads, hd 64,
 // bf16) the forward moves q, k, v and out once, about 50 MB: 0.0150 ms at
@@ -152,17 +159,6 @@ constexpr float DEAD_LSE = 1e9f;
 constexpr int THREADS = 256;
 constexpr int TILE = 64;         // rows of a CUDA-core tile (q and k side) up to hd 128
 
-// the CUDA-core kernels run at f32, and the backward at bf16 for the head
-// dim its wgmma kernels do not take (256): bf16 operands are widened to
-// f32 as staged
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // Rows of a CUDA-core tile (q and k side) for a head dim: 64, or 32 at
 // hd 256, where the f32 staging of 64-row tiles would exceed the 227 KB of
 // shared memory a block may take (dq 280 KB, dk/dv 297 KB). A thread owns
@@ -181,23 +177,23 @@ __device__ __forceinline__ float half_warp_max(float x) {
 }
 
 // Stage rows [row0, row0 + R) of head `head` of a [batch, t, heads, HD]
-// tensor into dst[r * stride + d] as f32; rows at or past t read 0.
-template <typename T, int HD, int R = tile_rows(HD)>
-__device__ __forceinline__ void stage_rows(float* dst, int stride, const T* src, int batch, int t,
+// f32 tensor into dst[r * stride + d]; rows at or past t read 0.
+template <int HD, int R = tile_rows(HD)>
+__device__ __forceinline__ void stage_rows(float* dst, int stride, const float* src, int batch, int t,
                                            int heads, int head, int row0) {
   for (int idx = threadIdx.x; idx < R * HD; idx += THREADS) {
     const int r = idx / HD, d = idx % HD;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < t) x = to_f32(src[(((size_t)batch * t + row) * heads + head) * HD + d]);
+    if (row < t) x = src[(((size_t)batch * t + row) * heads + head) * HD + d];
     dst[r * stride + d] = x;
   }
 }
 
-template <typename T, int HD, bool LSE>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const int32_t* __restrict__ mask, T* __restrict__ out,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const int32_t* __restrict__ mask, float* __restrict__ out,
                      float* __restrict__ lse, int tq, int tk, int nh, int nkv, int causal,
                      float scale) {
   constexpr int J = HD / 16;  // accumulator columns per thread
@@ -214,7 +210,7 @@ __global__ void __launch_bounds__(THREADS)
   const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
   const int kvh = h / (nh / nkv);
 
-  stage_rows<T, HD>(Qs, HD + 1, q, bi, tq, nh, h, q0);
+  stage_rows<HD>(Qs, HD + 1, q, bi, tq, nh, h, q0);
 
   float m[RI], l[RI], acc[RI][J];
 #pragma unroll
@@ -228,8 +224,8 @@ __global__ void __launch_bounds__(THREADS)
   const int k_end = causal ? min(tk, q0 + R) : tk;
   for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();  // the previous tile's readers are done
-    stage_rows<T, HD>(Ks, HD + 1, k, bi, tk, nkv, kvh, k0);
-    stage_rows<T, HD>(Vs, HD, v, bi, tk, nkv, kvh, k0);
+    stage_rows<HD>(Ks, HD + 1, k, bi, tk, nkv, kvh, k0);
+    stage_rows<HD>(Vs, HD, v, bi, tk, nkv, kvh, k0);
     if (tid < R) Ms[tid] = (k0 + tid < tk) ? mask[(size_t)bi * tk + k0 + tid] : 0;
     __syncthreads();
 
@@ -300,9 +296,9 @@ __global__ void __launch_bounds__(THREADS)
     const int row = q0 + ty * RI + i;
     if (row >= tq) continue;
     const float denom = l[i] > 0.f ? l[i] : 1.f;
-    T* o = out + (((size_t)bi * tq + row) * nh + h) * HD;
+    float* o = out + (((size_t)bi * tq + row) * nh + h) * HD;
 #pragma unroll
-    for (int jj = 0; jj < J; ++jj) o[tx + 16 * jj] = from_f32<T>(acc[i][jj] / denom);
+    for (int jj = 0; jj < J; ++jj) o[tx + 16 * jj] = acc[i][jj] / denom;
     if (LSE && tx == 0)
       lse[((size_t)bi * nh + h) * tq + row] = l[i] > 0.f ? m[i] + logf(denom) : DEAD_LSE;
   }
@@ -343,19 +339,19 @@ size_t wgmma_fwd_smem(int hd, int tk) {
   return 1024 + 5 * (size_t)WG_ROWS * hd * 2 + 8 * (size_t)((tk + WG_KEYS - 1) / WG_KEYS);
 }
 
-// Warpgroups of the bf16 forward's block: one up to hd 128; two at hd 256,
-// each owning one 128-column half of O (a 64 x 128 f32 accumulator, 64
-// registers a thread, as at hd 128).
-__host__ __device__ constexpr int fwd_warpgroups(int hd) { return hd > 128 ? 2 : 1; }
+// Warpgroups of a bf16 (wgmma) kernel's block: one up to hd 128; two at
+// hd 256, each owning one 128-column half of the output (O, dq, or dk and
+// dv: a 64 x 128 f32 accumulator, 64 registers a thread, as at hd 128).
+__host__ __device__ constexpr int warpgroups(int hd) { return hd > 128 ? 2 : 1; }
 
 template <int HD, bool LSE>
-__global__ void __launch_bounds__(WG_THREADS * fwd_warpgroups(HD))
+__global__ void __launch_bounds__(WG_THREADS * warpgroups(HD))
     flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ mask,
                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int tq, int tk,
                            int nh, int nkv, int causal, float scale) {
   using namespace hopper;
-  constexpr int WGS = fwd_warpgroups(HD);
+  constexpr int WGS = warpgroups(HD);
   constexpr int NT = WG_THREADS * WGS;  // threads of the block
   constexpr int OHD = HD / WGS;         // columns of O a warpgroup owns
   constexpr uint32_t TILE_BYTES = WG_ROWS * HD * 2;  // a bf16 tile of 64 rows
@@ -554,12 +550,12 @@ __global__ void __launch_bounds__(WG_THREADS * fwd_warpgroups(HD))
 
 // dq = sum over allowed keys of ds * k, with p = exp(s * scale - lse) and
 // ds = p * (dp - delta) * scale, dp = dout . v (FlashAttention-2).
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int32_t* __restrict__ mask,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq, int tq, int tk,
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int32_t* __restrict__ mask,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq, int tq, int tk,
                         int nh, int nkv, int causal, float scale) {
   constexpr int J = HD / 16;
   constexpr int R = tile_rows(HD), RI = R / 16, RP = R + 1;
@@ -576,8 +572,8 @@ __global__ void __launch_bounds__(THREADS)
   const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
   const int kvh = h / (nh / nkv);
 
-  stage_rows<T, HD>(Qs, HD + 1, q, bi, tq, nh, h, q0);
-  stage_rows<T, HD>(Os, HD + 1, dout, bi, tq, nh, h, q0);
+  stage_rows<HD>(Qs, HD + 1, q, bi, tq, nh, h, q0);
+  stage_rows<HD>(Os, HD + 1, dout, bi, tq, nh, h, q0);
   float lse_r[RI], delta_r[RI], acc[RI][J];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -592,8 +588,8 @@ __global__ void __launch_bounds__(THREADS)
   const int k_end = causal ? min(tk, q0 + R) : tk;
   for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();
-    stage_rows<T, HD>(Ks, HD + 1, k, bi, tk, nkv, kvh, k0);
-    stage_rows<T, HD>(Vs, HD + 1, v, bi, tk, nkv, kvh, k0);
+    stage_rows<HD>(Ks, HD + 1, k, bi, tk, nkv, kvh, k0);
+    stage_rows<HD>(Vs, HD + 1, v, bi, tk, nkv, kvh, k0);
     if (tid < R) Ms[tid] = (k0 + tid < tk) ? mask[(size_t)bi * tk + k0 + tid] : 0;
     __syncthreads();
 
@@ -654,19 +650,19 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty * RI + i;
     if (row >= tq) continue;
-    T* o = dq + (((size_t)bi * tq + row) * nh + h) * HD;
+    float* o = dq + (((size_t)bi * tq + row) * nh + h) * HD;
 #pragma unroll
-    for (int jj = 0; jj < J; ++jj) o[tx + 16 * jj] = from_f32<T>(acc[i][jj]);
+    for (int jj = 0; jj < J; ++jj) o[tx + 16 * jj] = acc[i][jj];
   }
 }
 
 // Per q head h and k tile: dv = sum over queries of p * dout and
 // dk = sum of ds * q, in f32, written to the head's own slice.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const int32_t* __restrict__ mask,
-                         const T* __restrict__ dout, const float* __restrict__ lse,
+    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int32_t* __restrict__ mask,
+                         const float* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, float* __restrict__ dk,
                          float* __restrict__ dv, int tq, int tk, int nh, int nkv, int causal,
                          float scale) {
@@ -687,8 +683,8 @@ __global__ void __launch_bounds__(THREADS)
   const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
   const int kvh = h / (nh / nkv);
 
-  stage_rows<T, HD>(Ks, HD + 1, k, bi, tk, nkv, kvh, k0);
-  stage_rows<T, HD>(Vs, HD + 1, v, bi, tk, nkv, kvh, k0);
+  stage_rows<HD>(Ks, HD + 1, k, bi, tk, nkv, kvh, k0);
+  stage_rows<HD>(Vs, HD + 1, v, bi, tk, nkv, kvh, k0);
   bool key_ok[RI];
   float dk_acc[RI][J], dv_acc[RI][J];
 #pragma unroll
@@ -703,8 +699,8 @@ __global__ void __launch_bounds__(THREADS)
   const int q_begin = causal ? (k0 / R) * R : 0;
   for (int q0 = q_begin; q0 < tq; q0 += R) {
     __syncthreads();
-    stage_rows<T, HD>(Qs, HD + 1, q, bi, tq, nh, h, q0);
-    stage_rows<T, HD>(Os, HD + 1, dout, bi, tq, nh, h, q0);
+    stage_rows<HD>(Qs, HD + 1, q, bi, tq, nh, h, q0);
+    stage_rows<HD>(Os, HD + 1, dout, bi, tq, nh, h, q0);
     if (tid < R) {
       const int row = q0 + tid;
       const size_t at = ((size_t)bi * nh + h) * tq + row;
@@ -799,18 +795,25 @@ size_t wgmma_dkv_smem(int hd) { return 1024 + 6 * (size_t)WG_KEYS * hd * 2 + 4 *
 // K5 at bf16: one warpgroup owns 64 q rows and loops over the live key
 // tiles up to the diagonal: S = Q.K^T and dP = dO.V^T (SS, both K-major),
 // then dq += ds_hi.K + ds_lo.K with the same K tile read as an MN-major B.
-// lse and delta are per row: two registers each.
+// lse and delta are per row: two registers each. At hd 256 two warpgroups
+// own the same rows: each forms all of S, dP and ds (bitwise equal in
+// both) and adds ds.K_h into its 128-column half of dq, K_h being column
+// blocks 2h and 2h + 1 of the K tile.
 template <int HD>
-__global__ void __launch_bounds__(WG_THREADS)
+__global__ void __launch_bounds__(WG_THREADS * warpgroups(HD))
     flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ mask,
                               const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int tq,
                               int tk, int nh, int nkv, int causal, float scale) {
   using namespace hopper;
+  constexpr int WGS = warpgroups(HD);
+  constexpr int NT = WG_THREADS * WGS;  // threads of the block
+  constexpr int OHD = HD / WGS;         // columns of dq a warpgroup owns
   constexpr uint32_t TILE_BYTES = WG_ROWS * HD * 2;
+  constexpr uint32_t HALF_BYTES = WG_KEYS * OHD * 2;  // a warpgroup's column blocks of a K tile
   constexpr int CHUNKS = HD / 8;
-  constexpr int NA = HD / 2;  // dq accumulator registers
+  constexpr int NA = OHD / 2;  // dq accumulator registers
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -818,7 +821,9 @@ __global__ void __launch_bounds__(WG_THREADS)
                  sV = base + 4 * TILE_BYTES;
   uint32_t* valid = reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + 6 * TILE_BYTES);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warp inside its warpgroup, and the warpgroup (the half of dq at hd 256)
+  const int tid = threadIdx.x, warp = (WGS == 1 ? tid : tid % WG_THREADS) >> 5, lane = tid & 31;
+  const int wg = WGS == 1 ? 0 : tid / WG_THREADS;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * WG_ROWS;  // long causal rows first
   const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
   const int kvh = h / (nh / nkv);
@@ -826,7 +831,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   const int n_tiles = (k_end + WG_KEYS - 1) / WG_KEYS;
 
   const int32_t* mrow = mask + (size_t)bi * tk;
-  for (int w = warp; w < 2 * n_tiles; w += WG_THREADS / 32) {
+  for (int w = tid >> 5; w < 2 * n_tiles; w += NT / 32) {
     const int key = w * 32 + lane;
     const unsigned bits = __ballot_sync(0xffffffffu, key < k_end && mrow[key] > 0);
     if (lane == 0) valid[w] = bits;
@@ -842,7 +847,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   int j = next_live(0);
   if (j == n_tiles) {  // no row of the tile has an allowed key: dq is 0
     const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-    for (int i = tid; i < WG_ROWS * HD / 2; i += WG_THREADS) {
+    for (int i = tid; i < WG_ROWS * HD / 2; i += NT) {
       const int r = i / (HD / 2), c = 2 * (i % (HD / 2));
       if (q0 + r < tq)
         *reinterpret_cast<__nv_bfloat162*>(dq + (((size_t)bi * tq + q0 + r) * nh + h) * HD + c) = zero;
@@ -853,7 +858,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   const size_t q_stride = (size_t)nh * HD;
   const __nv_bfloat16* qh = q + ((size_t)bi * tq * nh + h) * HD;
   const __nv_bfloat16* oh = dout + ((size_t)bi * tq * nh + h) * HD;
-  for (int i = tid; i < WG_ROWS * CHUNKS; i += WG_THREADS) {
+  for (int i = tid; i < WG_ROWS * CHUNKS; i += NT) {
     const int r = i / CHUNKS, c = i % CHUNKS;
     const bool ok = q0 + r < tq;
     const size_t src = (size_t)(ok ? q0 + r : 0) * q_stride + c * 8;
@@ -867,7 +872,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   const __nv_bfloat16* vh = v + ((size_t)bi * tk * nkv + kvh) * HD;
   auto load_kv = [&](int tile, int stage) {
     const int k0 = tile * WG_KEYS;
-    for (int i = tid; i < WG_KEYS * CHUNKS; i += WG_THREADS) {
+    for (int i = tid; i < WG_KEYS * CHUNKS; i += NT) {
       const int r = i / CHUNKS, c = i % CHUNKS;
       const bool ok = k0 + r < tk;
       const size_t src = (size_t)(ok ? k0 + r : 0) * kv_stride + c * 8;
@@ -957,9 +962,9 @@ __global__ void __launch_bounds__(WG_THREADS)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t bk = desc_mnmajor<HD>(kt, WG_KEYS, kk);
-      wgmma_rs<HD>(acc, d_hi[kk], bk);
-      wgmma_rs<HD>(acc, d_lo[kk], bk);
+      const uint64_t bk = desc_mnmajor<HD>(kt + wg * HALF_BYTES, WG_KEYS, kk);
+      wgmma_rs<OHD>(acc, d_hi[kk], bk);
+      wgmma_rs<OHD>(acc, d_lo[kk], bk);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -973,9 +978,9 @@ __global__ void __launch_bounds__(WG_THREADS)
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
     if (row >= tq) continue;
-    __nv_bfloat16* drow = dq + (((size_t)bi * tq + row) * nh + h) * HD;
+    __nv_bfloat16* drow = dq + (((size_t)bi * tq + row) * nh + h) * HD + wg * OHD;
 #pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj)
+    for (int jj = 0; jj < OHD / 8; ++jj)
       *reinterpret_cast<uint32_t*>(drow + 8 * jj + col0) =
           pack_bf16(acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
   }
@@ -987,9 +992,13 @@ __global__ void __launch_bounds__(WG_THREADS)
 // accumulator layout, which is an A operand after packing; then
 // dv += p^T_hi.dO + p^T_lo.dO and dk += ds^T_hi.Q + ds^T_lo.Q read the
 // same Q and dO tiles as MN-major B. lse and delta are per column: each q
-// tile's 64 values come into shared memory beside the tile.
+// tile's 64 values come into shared memory beside the tile. At hd 256 two
+// warpgroups own the same keys: each forms all of S^T, dP^T, p^T and ds^T
+// (bitwise equal in both) and adds p^T.dO_h and ds^T.Q_h into its
+// 128-column halves of dv and dk, dO_h and Q_h being column blocks 2h and
+// 2h + 1 of the dO and Q tiles.
 template <int HD>
-__global__ void __launch_bounds__(WG_THREADS)
+__global__ void __launch_bounds__(WG_THREADS * warpgroups(HD))
     flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ mask,
                                const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
@@ -997,9 +1006,13 @@ __global__ void __launch_bounds__(WG_THREADS)
                                float* __restrict__ dv, int tq, int tk, int nh, int nkv, int causal,
                                float scale) {
   using namespace hopper;
+  constexpr int WGS = warpgroups(HD);
+  constexpr int NT = WG_THREADS * WGS;  // threads of the block
+  constexpr int OHD = HD / WGS;         // columns of dk and dv a warpgroup owns
   constexpr uint32_t TILE_BYTES = WG_KEYS * HD * 2;
+  constexpr uint32_t HALF_BYTES = WG_ROWS * OHD * 2;  // a warpgroup's column blocks of a Q or dO tile
   constexpr int CHUNKS = HD / 8;
-  constexpr int NA = HD / 2;  // registers of each of the dk and dv accumulators
+  constexpr int NA = OHD / 2;  // registers of each of the dk and dv accumulators
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1009,14 +1022,16 @@ __global__ void __launch_bounds__(WG_THREADS)
   const float* rows_f = reinterpret_cast<const float*>(smem_raw + (sRows - raw));
   uint32_t* valid = reinterpret_cast<uint32_t*>(smem_raw + (sRows - raw) + 4 * WG_ROWS * 4);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warp inside its warpgroup, and the warpgroup (the half of dk and dv at hd 256)
+  const int tid = threadIdx.x, warp = (WGS == 1 ? tid : tid % WG_THREADS) >> 5, lane = tid & 31;
+  const int wg = WGS == 1 ? 0 : tid / WG_THREADS;
   const int k0 = blockIdx.x * WG_KEYS;  // key tile 0 has the most q tiles: it starts first
   const int bi = blockIdx.y / nh, h = blockIdx.y % nh;
   const int kvh = h / (nh / nkv);
-  if (warp < 2) {
-    const int key = k0 + warp * 32 + lane;
+  if (const int w = tid >> 5; w < 2) {  // warps 0 and 1: the tile's two words
+    const int key = k0 + w * 32 + lane;
     const unsigned bits = __ballot_sync(0xffffffffu, key < tk && mask[(size_t)bi * tk + key] > 0);
-    if (lane == 0) valid[warp] = bits;
+    if (lane == 0) valid[w] = bits;
   }
   __syncthreads();
   const uint64_t bits = ((uint64_t)valid[1] << 32) | valid[0];
@@ -1024,7 +1039,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   const int i_begin = causal ? k0 / WG_ROWS : 0;  // the first q tile holding a row >= k0
 
   if (bits == 0ull || i_begin >= n_q) {  // no allowed pair: dk and dv are 0
-    for (int i = tid; i < WG_KEYS * HD; i += WG_THREADS) {
+    for (int i = tid; i < WG_KEYS * HD; i += NT) {
       const int r = i / HD, c = i % HD;
       if (k0 + r < tk) {
         const size_t at = (((size_t)bi * tk + k0 + r) * nh + h) * HD + c;
@@ -1038,7 +1053,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   const size_t kv_stride = (size_t)nkv * HD;
   const __nv_bfloat16* kh = k + ((size_t)bi * tk * nkv + kvh) * HD;
   const __nv_bfloat16* vh = v + ((size_t)bi * tk * nkv + kvh) * HD;
-  for (int i = tid; i < WG_KEYS * CHUNKS; i += WG_THREADS) {
+  for (int i = tid; i < WG_KEYS * CHUNKS; i += NT) {
     const int r = i / CHUNKS, c = i % CHUNKS;
     const bool ok = k0 + r < tk;
     const size_t src = (size_t)(ok ? k0 + r : 0) * kv_stride + c * 8;
@@ -1056,7 +1071,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   // threads 0-63 copy the tile's lse, threads 64-127 its delta
   auto load_q = [&](int tile, int stage) {
     const int q0 = tile * WG_ROWS;
-    for (int i = tid; i < WG_ROWS * CHUNKS; i += WG_THREADS) {
+    for (int i = tid; i < WG_ROWS * CHUNKS; i += NT) {
       const int r = i / CHUNKS, c = i % CHUNKS;
       const bool ok = q0 + r < tq;
       const size_t src = (size_t)(ok ? q0 + r : 0) * q_stride + c * 8;
@@ -1064,10 +1079,12 @@ __global__ void __launch_bounds__(WG_THREADS)
       cp_async16(sQ + dst, qh + src, ok);
       cp_async16(sO + dst, oh + src, ok);
     }
-    const int r = tid % WG_ROWS;
-    const bool ok = q0 + r < tq;
-    cp_async4(sRows + (uint32_t)(stage * 2 * WG_ROWS + tid) * 4,
-              (tid < WG_ROWS ? lrow : erow) + (ok ? q0 + r : 0), ok);
+    if (WGS == 1 || tid < 2 * WG_ROWS) {
+      const int r = tid % WG_ROWS;
+      const bool ok = q0 + r < tq;
+      cp_async4(sRows + (uint32_t)(stage * 2 * WG_ROWS + tid) * 4,
+                (tid < WG_ROWS ? lrow : erow) + (ok ? q0 + r : 0), ok);
+    }
     cp_async_commit();
   };
 
@@ -1153,11 +1170,12 @@ __global__ void __launch_bounds__(WG_THREADS)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t bo = desc_mnmajor<HD>(ot, WG_ROWS, kk), bq = desc_mnmajor<HD>(qt, WG_ROWS, kk);
-      wgmma_rs<HD>(acc_v, p_hi[kk], bo);
-      wgmma_rs<HD>(acc_v, p_lo[kk], bo);
-      wgmma_rs<HD>(acc_k, d_hi[kk], bq);
-      wgmma_rs<HD>(acc_k, d_lo[kk], bq);
+      const uint64_t bo = desc_mnmajor<HD>(ot + wg * HALF_BYTES, WG_ROWS, kk),
+                     bq = desc_mnmajor<HD>(qt + wg * HALF_BYTES, WG_ROWS, kk);
+      wgmma_rs<OHD>(acc_v, p_hi[kk], bo);
+      wgmma_rs<OHD>(acc_v, p_lo[kk], bo);
+      wgmma_rs<OHD>(acc_k, d_hi[kk], bq);
+      wgmma_rs<OHD>(acc_k, d_lo[kk], bq);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1171,9 +1189,9 @@ __global__ void __launch_bounds__(WG_THREADS)
   for (int hh = 0; hh < 2; ++hh) {
     const int key = k0 + kr0 + 8 * hh;
     if (key >= tk) continue;
-    const size_t at = (((size_t)bi * tk + key) * nh + h) * HD + col0;
+    const size_t at = (((size_t)bi * tk + key) * nh + h) * HD + wg * OHD + col0;
 #pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj) {
+    for (int jj = 0; jj < OHD / 8; ++jj) {
       *reinterpret_cast<float2*>(dk + at + 8 * jj) = make_float2(acc_k[4 * jj + 2 * hh], acc_k[4 * jj + 2 * hh + 1]);
       *reinterpret_cast<float2*>(dv + at + 8 * jj) = make_float2(acc_v[4 * jj + 2 * hh], acc_v[4 * jj + 2 * hh + 1]);
     }
@@ -1193,13 +1211,8 @@ size_t dkv_smem(int hd) {
   return (4 * r * (hd + 1) + 2 * r * (r + 1) + 2 * r) * sizeof(float);
 }
 
-// Which route a kernel takes (which: 0 forward, 1 dq, 2 dk/dv). At bf16
-// the forward runs on the tensor cores (wgmma) at every head dim, with two
-// warpgroups at 256; the backward up to hd 128, while hd 256 runs the
-// CUDA-core kernels on bf16 operands (its f32 accumulators, one
-// warpgroup's 64 x 256 tile, would need 128 registers a thread, two of
-// them in dk/dv). f32 runs the CUDA cores.
-constexpr bool on_tensor_cores(int which, bool bf16, int hd) { return bf16 && (which == 0 || hd <= 128); }
+// The route: every bf16 kernel runs on the tensor cores (wgmma) at every
+// head dim, with two warpgroups at 256; every f32 kernel on the CUDA cores.
 template <typename T>
 constexpr bool is_bf16() {
   return std::is_same<T, __nv_bfloat16>::value;
@@ -1225,7 +1238,7 @@ int fwd_wgmma(const void* q, const void* k, const void* v, const int32_t* mask, 
   auto kernel = flash_fwd_wgmma_kernel<HD, LSE>;
   if (int err = prepare(kernel, smem)) return err;
   const dim3 grid((tq + WG_ROWS - 1) / WG_ROWS, b * nh);
-  kernel<<<grid, WG_THREADS * fwd_warpgroups(HD), smem, s>>>(
+  kernel<<<grid, WG_THREADS * warpgroups(HD), smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), lse, tq, tk,
       nh, nkv, causal, scale);
@@ -1235,25 +1248,25 @@ int fwd_wgmma(const void* q, const void* k, const void* v, const int32_t* mask, 
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, const int32_t* mask, void* out, float* lse,
         int b, int tq, int tk, int nh, int nkv, int causal, float scale, cudaStream_t s) {
-  if constexpr (on_tensor_cores(0, is_bf16<T>(), HD)) {
+  if constexpr (is_bf16<T>()) {
     if (lse != nullptr)
       return fwd_wgmma<HD, true>(q, k, v, mask, out, lse, b, tq, tk, nh, nkv, causal, scale, s);
     return fwd_wgmma<HD, false>(q, k, v, mask, out, nullptr, b, tq, tk, nh, nkv, causal, scale, s);
   } else {  // CUDA cores, f32
     const size_t smem = fwd_smem(HD);
     const dim3 grid((tq + tile_rows(HD) - 1) / tile_rows(HD), b * nh);
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v);
     if (lse != nullptr) {
-      auto kernel = flash_fwd_kernel<T, HD, true>;
+      auto kernel = flash_fwd_kernel<HD, true>;
       if (int err = prepare(kernel, smem)) return err;
-      kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), mask, static_cast<T*>(out), lse,
-                                         tq, tk, nh, nkv, causal, scale);
+      kernel<<<grid, THREADS, smem, s>>>(qf, kf, vf, mask, static_cast<float*>(out), lse, tq, tk, nh, nkv,
+                                         causal, scale);
     } else {
-      auto kernel = flash_fwd_kernel<T, HD, false>;
+      auto kernel = flash_fwd_kernel<HD, false>;
       if (int err = prepare(kernel, smem)) return err;
-      kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), mask, static_cast<T*>(out),
-                                         nullptr, tq, tk, nh, nkv, causal, scale);
+      kernel<<<grid, THREADS, smem, s>>>(qf, kf, vf, mask, static_cast<float*>(out), nullptr, tq, tk, nh,
+                                         nkv, causal, scale);
     }
     return (int)cudaGetLastError();
   }
@@ -1263,25 +1276,25 @@ template <typename T, int HD>
 int bwd_dq(const void* q, const void* k, const void* v, const int32_t* mask, const void* dout,
            const float* lse, const float* delta, void* dq, int b, int tq, int tk, int nh, int nkv,
            int causal, float scale, cudaStream_t s) {
-  if constexpr (on_tensor_cores(1, is_bf16<T>(), HD)) {
+  if constexpr (is_bf16<T>()) {
     if (misaligned(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
     const size_t smem = wgmma_dq_smem(HD, tk);
     auto kernel = flash_bwd_dq_wgmma_kernel<HD>;
     if (int err = prepare(kernel, smem)) return err;
     const dim3 grid((tq + WG_ROWS - 1) / WG_ROWS, b * nh);
-    kernel<<<grid, WG_THREADS, smem, s>>>(
+    kernel<<<grid, WG_THREADS * warpgroups(HD), smem, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), mask, static_cast<const __nv_bfloat16*>(dout), lse,
         delta, static_cast<__nv_bfloat16*>(dq), tq, tk, nh, nkv, causal, scale);
     return (int)cudaGetLastError();
-  } else {  // CUDA cores
+  } else {  // CUDA cores, f32
     const size_t smem = dq_smem(HD);
-    auto kernel = flash_bwd_dq_kernel<T, HD>;
+    auto kernel = flash_bwd_dq_kernel<HD>;
     if (int err = prepare(kernel, smem)) return err;
     const dim3 grid((tq + tile_rows(HD) - 1) / tile_rows(HD), b * nh);
-    kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), mask, static_cast<const T*>(dout),
-                                       lse, delta, static_cast<T*>(dq), tq, tk, nh, nkv, causal,
+    kernel<<<grid, THREADS, smem, s>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                       static_cast<const float*>(v), mask, static_cast<const float*>(dout),
+                                       lse, delta, static_cast<float*>(dq), tq, tk, nh, nkv, causal,
                                        scale);
     return (int)cudaGetLastError();
   }
@@ -1291,31 +1304,31 @@ template <typename T, int HD>
 int bwd_dkv(const void* q, const void* k, const void* v, const int32_t* mask, const void* dout,
             const float* lse, const float* delta, float* dk, float* dv, int b, int tq, int tk,
             int nh, int nkv, int causal, float scale, cudaStream_t s) {
-  if constexpr (on_tensor_cores(2, is_bf16<T>(), HD)) {
+  if constexpr (is_bf16<T>()) {
     if (misaligned(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
     const size_t smem = wgmma_dkv_smem(HD);
     auto kernel = flash_bwd_dkv_wgmma_kernel<HD>;
     if (int err = prepare(kernel, smem)) return err;
     const dim3 grid((tk + WG_KEYS - 1) / WG_KEYS, b * nh);
-    kernel<<<grid, WG_THREADS, smem, s>>>(
+    kernel<<<grid, WG_THREADS * warpgroups(HD), smem, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), mask, static_cast<const __nv_bfloat16*>(dout), lse,
         delta, dk, dv, tq, tk, nh, nkv, causal, scale);
     return (int)cudaGetLastError();
-  } else {  // CUDA cores
+  } else {  // CUDA cores, f32
     const size_t smem = dkv_smem(HD);
-    auto kernel = flash_bwd_dkv_kernel<T, HD>;
+    auto kernel = flash_bwd_dkv_kernel<HD>;
     if (int err = prepare(kernel, smem)) return err;
     const dim3 grid((tk + tile_rows(HD) - 1) / tile_rows(HD), b * nh);
-    kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), mask, static_cast<const T*>(dout),
+    kernel<<<grid, THREADS, smem, s>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                       static_cast<const float*>(v), mask, static_cast<const float*>(dout),
                                        lse, delta, dk, dv, tq, tk, nh, nkv, causal, scale);
     return (int)cudaGetLastError();
   }
 }
 
 // Dispatch on (dtype code, head_dim): 0 = f32, 1 = bf16; hd in {16, 32,
-// 64, 128, 256} (the route by on_tensor_cores).
+// 64, 128, 256} (the route by is_bf16).
 #define TRLX_FLASH_DISPATCH(FN, ...)                                         \
   switch (dtype * 1000 + hd) {                                               \
     case 16: return FN<float, 16>(__VA_ARGS__);                              \
@@ -1346,10 +1359,10 @@ size_t trlx_flash_smem_bytes(int which, int hd) {
 }
 
 // 1 when kernel `which` (0 forward, 1 dq, 2 dk/dv) runs on the tensor
-// cores at this dtype code and head dim, 0 when on the CUDA cores.
-int trlx_flash_on_tensor_cores(int which, int dtype, int hd) {
-  return on_tensor_cores(which, dtype == 1, hd) ? 1 : 0;
-}
+// cores at this dtype code and head dim, 0 when on the CUDA cores: every
+// bf16 kernel takes the tensor cores at every head dim, every f32 kernel
+// the CUDA cores.
+int trlx_flash_on_tensor_cores(int which, int dtype, int hd) { return dtype == 1 ? 1 : 0; }
 
 // K3 (lse == NULL) and K4. Returns the CUDA error of the launch.
 int trlx_flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,

@@ -18,11 +18,10 @@ bias tensor; q head h reads kv head h // (nh // nkv).
   (`csrc/flash_attention.cu`, CUDA for sm_90a). At bf16 the forward and
   the backward run on the tensor cores: the products of two bf16 operands
   (q.k^T, dO.v^T) are exact, and the products with an f32 operand (p.V,
-  p^T.dO, ds.k, ds^T.q) go through a bf16 hi/lo split of p and ds. The
-  forward does so at every head dim (at 256, GPT-J-6B's, with two
-  warpgroups each holding half of the output), the backward up to 128:
-  at 256 it runs on the CUDA cores in f32, on its operands widened as
-  they are staged. At f32 every kernel runs on the CUDA cores in f32.
+  p^T.dO, ds.k, ds^T.q) go through a bf16 hi/lo split of p and ds. Both
+  do so at every head dim (at 256, GPT-J-6B's, a block is two warpgroups
+  each holding half of the output's columns). At f32 every kernel runs
+  on the CUDA cores in f32.
   The dtype and the head dim pick the route (`on_tensor_cores`).
   On cuda tensors they launch the kernel or raise; on CPU tensors they
   run the plain versions `flash_fwd_plain` (blockwise online softmax with
@@ -47,7 +46,7 @@ from trlx_tpu_torch import kernels
 
 NEG_INF = -1e30
 DEAD_LSE = 1e9  # lse of a row with no allowed key: exp(s - 1e9) == 0
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instantiations (bf16 backward at 256: the CUDA cores)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instantiations (bf16 at 256: two warpgroups a block)
 BLOCK_K = 128  # key block of the plain versions
 
 # launch-counter names (kernels.LAUNCHES)
