@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and MQA (16/1/64) with 32-token blocks, row lengths at block
    boundaries plus one inactive row (exactly 0), and at gqa-4k (Llama-3-8B's
    32/8/128 over rows of up to 4096 tokens, crossing split edges) and
-   gptj-6b (16/16/256, phase 20 (b)'s decode), KV in
+   gptj-6b (16/16/256, phase 20 (b)'s decode) and pythia-2.8b (32/32/80,
+   phase 21 (a)'s decode), KV in
    f32, bf16 and int8; two calls on the same inputs bitwise equal; with
    kernel, plain-version, library (scaled_dot_product_attention over the
    gathered KV, a yardstick the port never calls) and bound times (device
@@ -243,17 +244,42 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    it: none), f32 logits at 4096 kernels vs plain versions and at 4608
    (where neither side launches a kernel) the card vs the same model on
    the CPU, and paged decode counted as `sliding_window` fallbacks.
+21. the adapters (`model.peft_config`; bf16, the byte tokenizer): (a)
+   LoRA PPO at pythia-2.8b's published widths (32 blocks, d 2560 over 32
+   heads of 80, d_ff 10240, vocab 50304, on the pythia-1.4b preset; the
+   peft example's r 8, alpha 32 on q_proj and v_proj; the HH "1B" trainer
+   settings), one cycle through the trainer's own collection and steps:
+   launches exact (a step K4-K6 x32 at hd 80 through the padded route, K7
+   and its backward; a chunk K3 x64, the policy's and the adapters-off
+   reference's, K7 x2), only the LoRA factors and the value head moved
+   (the base bitwise, against a copy on the host), the reference the
+   adapters-off forward bitwise, no second copy of the base (the memory
+   allocated after the trainer's build under 1.05x the model's weights;
+   the cycle's peak under 2x them, a sanity bound); `serve()` of the
+   unmerged policy, K1 at hd 80; at f32 and 2 blocks the merged `save_pretrained` export loaded by
+   `model_path` against the adapter model's logits, its served greedy
+   streams (K1) against its gather path and the adapter model's dense
+   greedy (phase 11's tie rule); (b) prompt tuning (8 soft-prompt rows,
+   seq_length 1016, flash: K3-K7) and prefix tuning (8 prefixes a block,
+   `attn_impl="xla"`: K7 only) at phase 9's configuration, one cycle
+   each with the same checks; (c) the HH "20B" shape (d 6144 over 64
+   heads of 96, vocab 50432) cut to 2 blocks: one PPO cycle at batch 1,
+   seq 512, 16 rollouts in chunks of 4, K3-K6 at hd 96 (padded).
 Phase 6 also holds K7 and its backward at the randomwalks curves' rows (a
 24-token vocabulary, f32 and bf16, shifted labels, padded rows), K3-K6 at
 phase 20's head dims (pythia-1.4b's 128 at the HH "1B" shape, gptj-6b's
 256 at b 4, t 512, left padded) and K7 and its backward at its four
-vocabularies (50304, 50400, 50272, 250880).
+vocabularies (50304, 50400, 50272, 250880), and phase 21's: K3-K6 at hd
+80 (pythia-2.8b, b 8, t 128, 32 heads) and 96 (the HH "20B" shape, b 1,
+t 512, 64 heads) through the padded route, every output at the true head
+dim, the bound computed on it, and K7 at the vocabulary 50432.
 
 The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object (with `ppo_options`, phase 11's
 checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
 `ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16, `serving`, phase
-17's, `fleet`, phase 18's, `phase19`, phase 19's, `phase20`, phase 20's);
+17's, `fleet`, phase 18's, `phase19`, phase 19's, `phase20`, phase 20's,
+`phase21`, phase 21's);
 the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
@@ -396,6 +422,8 @@ SHAPES = {  # name: (nh, nkv, hd, row lengths, table entries, arena pairs rotate
     "gqa-4k": (32, 8, 128, LENS_4K, 128, 3),
     # GPT-J-6B's attention (phase 20 (b) serves it): 16 heads of 256
     "gptj-6b": (16, 16, 256, LENS, N_TBL, LAYERS),
+    # pythia-2.8b's attention (phase 21 (a) serves its LoRA policy): 32 heads of 80
+    "pythia-2.8b": (32, 32, 80, LENS, N_TBL, LAYERS),
 }
 
 
@@ -774,6 +802,12 @@ FLASH_SHAPES = {
     # (`create_train_dataloader`), then 32 new tokens; these four are the
     # first four questions (49, 57, 53 and 48 tokens)
     "hh-6b-step": (4, 64 + 32, 16, 16, 256, left_pad_rows(64 + 32, [15, 7, 11, 16]), ALL_FLASH[1:]),
+    # phase 21's head dims, which the kernels reach through the padded
+    # route (zero-padded to 128, the true scale, sliced back): pythia-2.8b's
+    # 32 heads of 80 at the HH "1B" step (b 8, t 128) and the HH "20B"
+    # recipe's 64 heads of 96 at its batch 1, seq 512
+    "pythia-2.8b-step": (8, 128, 32, 32, 80, left_pad_rows(128, [0, 3, 17, 40, 64, 90, 100, 127]), ALL_FLASH),
+    "hh-20b": (1, 512, 64, 64, 96, left_pad_rows(512, [0]), ALL_FLASH),
 }
 CE_ROWS, CE_VOCAB = 8 * 1023, 50257
 # K7 at phase 9's shapes: scoring reads the full [128, 104, V] logits with
@@ -788,8 +822,9 @@ CE_BWD_PPO = ("ppo-train", "ppo-branch-train")  # the shapes a step's backward r
 # the HH "1B" step's response window [8 x 32], the "6B" one's [4 x 32], and
 # the SFT steps of opt-125m and bloom-560m (batch 8, seq 512, shifted)
 CE_FAMILIES = {"pythia-1.4b": (8 * 32, 50304), "gptj-6b": (4 * 32, 50400), "opt-125m": (8 * 511, 50272),
-               "bloom-560m": (8 * 511, 250880)}
+               "bloom-560m": (8 * 511, 250880), "hh-20b": (1 * 32, 50432)}
 FAMILY_SHAPES = ("pythia-1.4b", "gptj-6b", "hh-6b-step", "opt-125m", "bloom-560m")  # phase 6's rows for phase 20
+ADAPTER_SHAPES = ("pythia-2.8b-step", "hh-20b")  # phase 6's rows for phase 21 (K7 at V 50432: "hh-20b")
 # tolerances: bf16 outputs (out, dq): both sides round once to bf16 from
 # f32 values that differ only in summation order, so one bf16 ulp apart at
 # most: rtol 8e-3, atol 1e-3. That holds for the bf16 kernels on the
@@ -996,6 +1031,8 @@ def phase_train_kernels(device):
         out_p, _ = A.flash_fwd_plain(q, k, v, mask, True)
         dq_p = A.flash_bwd_dq_plain(q, k, v, mask, g, lse_p, delta, True)
         dk_p, dv_p = A.flash_bwd_dkv_plain(q, k, v, mask, g, lse_p, delta, True)
+        if {x.shape[-1] for x in (out3, out4, dq, dk, dv)} != {hd}:  # the padded route's columns stay inside
+            raise AssertionError(f"{shape}: an output's head dim is not {hd}")
         errs = [note("flash_fwd", out3, out_p, BF16_TOL), note("flash_fwd_lse", out4, out_p, BF16_TOL),
                 note("flash_fwd_lse", lse, lse_p, LSE_TOL), note("flash_bwd_dq", dq, dq_p, BF16_TOL),
                 note("flash_bwd_dkv", dk, dk_p, DKV_TOL), note("flash_bwd_dkv", dv, dv_p, DKV_TOL)]
@@ -1028,8 +1065,11 @@ def phase_train_kernels(device):
         for name, (kern, plain, lib, kind) in timed.items():
             if name not in kinds:
                 continue
-            least_ms, bound_by = flash_bound(b, t, nh, nkv, hd, rows, kind)
-            design = "wgmma" if A.on_tensor_cores(name, q.dtype, hd) else "cuda-cores"
+            least_ms, bound_by = flash_bound(b, t, nh, nkv, hd, rows, kind)  # the true head dim
+            hp = A.padded_head_dim(hd)
+            design = "wgmma" if A.on_tensor_cores(name, q.dtype, hp) else "cuda-cores"
+            if hp != hd:
+                design += f" (padded {hd} -> {hp})"
             results[(name, shape)] = dict(ms=device_time_ms(kern, 10, label=f"{name} {shape} kernel"),
                                           plain_ms=device_time_ms(plain, 3, label=f"{name} {shape} plain"),
                                           library_ms=lib, bound_ms=least_ms, bound_by=bound_by, design=design)
@@ -1276,8 +1316,8 @@ def plain_versions():
     from trlx_tpu_torch.ops import attention as A
     from trlx_tpu_torch.ops import fused_ce
 
-    swaps = {(A, "flash_fwd"): lambda q, k, v, m, c=True, with_lse=False: (
-                 A.flash_fwd_plain(q, k, v, m, c) if with_lse else A.flash_fwd_plain(q, k, v, m, c)[0]),
+    swaps = {(A, "flash_fwd"): lambda q, k, v, m, c=True, with_lse=False, scale=None: (
+                 A.flash_fwd_plain(q, k, v, m, c, scale) if with_lse else A.flash_fwd_plain(q, k, v, m, c, scale)[0]),
              (A, "flash_bwd_dq"): A.flash_bwd_dq_plain, (A, "flash_bwd_dkv"): A.flash_bwd_dkv_plain,
              (fused_ce, "label_logprobs"): fused_ce.label_logprobs_plain,
              (fused_ce, "label_logprobs_bwd"): fused_ce.label_logprobs_bwd_plain}
@@ -4330,6 +4370,10 @@ HH = {
                cut="parallel.fsdp 4 -> 1 (one card)"),
     "6B": dict(preset="gptj-6b", vocab=50400, batch=4, seq=512, lr=None, cycles=1,
                cut="parallel.fsdp 4 and parallel.tensor 2 -> 1 (one card)"),
+    # examples/hh/__init__.py:100-104: pythia-6.9b widened to d 6144 over 64
+    # heads of 96 (GPT-NeoX-20B's shape and vocabulary), 44 blocks
+    "20B": dict(preset="pythia-6.9b", vocab=50432, batch=1, seq=512, lr=1e-6, cycles=1,
+                cut="n_layers 44 -> 2, parallel.fsdp 8 and parallel.tensor 4 -> 1 (one card)"),
 }
 # OPT's and Bloom's SFT runs, and their published vocabularies
 FAMILY_SFT = {"opt-125m": 50272, "bloom-560m": 250880}
@@ -4388,9 +4432,9 @@ def peak_gb():
     return torch.cuda.max_memory_allocated() / 1e9
 
 
-def check_ppo_calls(tag, record, launches, per_step, per_chunk, n_steps, n_chunks):
+def check_ppo_calls(tag, record, launches, per_step, per_chunk, n_steps, n_chunks, new=HH_NEW):
     """Every optimizer step and scoring chunk launched exactly its kernels,
-    the run as a whole nothing else, every response HH_NEW tokens."""
+    the run as a whole nothing else, every response `new` tokens."""
     steps = [c for c in record if c[0] == "train_minibatch"]
     chunks = [c for c in record if c[0] == "score"]
     lengths = [n for c in record if c[0] == "make_experience" for n in c[4]]
@@ -4404,8 +4448,8 @@ def check_ppo_calls(tag, record, launches, per_step, per_chunk, n_steps, n_chunk
     want = {k: n_steps * per_step.get(k, 0) + n_chunks * per_chunk.get(k, 0) for k in set(per_step) | set(per_chunk)}
     if {k: v for k, v in launches.items() if v} != want:
         raise AssertionError(f"{tag}: launches {launches} != {want}")
-    if set(lengths) != {HH_NEW}:
-        raise AssertionError(f"{tag}: response lengths {sorted(set(lengths))}, expected {HH_NEW}")
+    if set(lengths) != {new}:
+        raise AssertionError(f"{tag}: response lengths {sorted(set(lengths))}, expected {new}")
     return [(c[2] - c[1]) for c in steps], [(c[2] - c[1]) for c in chunks]
 
 
@@ -4777,6 +4821,353 @@ def phase_families(card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the adapters (LoRA, prompt tuning, prefix tuning) at full width
+# ---------------------------------------------------------------------------
+
+# the reference's peft example (examples/sentiments/ppo_sentiments_peft.py)
+LORA_PEFT = {"peft_type": "LORA", "r": 8, "lora_alpha": 32, "target_modules": ["q_proj", "v_proj"]}
+VIRTUAL_TOKENS = 8
+PROMPT_PEFT = {"peft_type": "PROMPT_TUNING", "num_virtual_tokens": VIRTUAL_TOKENS}
+PREFIX_PEFT = {"peft_type": "PREFIX_TUNING", "num_virtual_tokens": VIRTUAL_TOKENS}
+# pythia-2.8b's published widths on the pythia-1.4b preset (no download):
+# 32 blocks, d 2560 over 32 heads of 80, d_ff 10240, vocab 50304
+PYTHIA_2P8B = dict(d_model=2560, n_layers=32, n_heads=32, d_ff=10240)
+# HH "20B": 16 rollouts in chunks of 4, 2 PPO epochs (examples/hh/__init__.py:100-104)
+HH_20B_METHOD = dict(num_rollouts=16, chunk_size=4, ppo_epochs=2)
+EXPORT_BLOCKS = 2  # the f32 export round trip's depth at pythia-2.8b's widths
+
+
+def adapter_launches(n_layers):
+    """(a step's, a scoring chunk's) launches under LoRA or prompt tuning:
+    split 0 and the adapters in every block, so a step runs K4-K6 in each
+    (none of K3) and K7 and its backward once, over the response window or
+    (prompt tuning) the full logits; a chunk runs K3 over the policy's
+    blocks and the adapters-off reference's, and K7 for each."""
+    step = {"flash_fwd_lse": n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers, "label_logprobs": 1,
+            "label_logprobs_bwd": 1}
+    return step, {"flash_fwd": 2 * n_layers, "label_logprobs": 2}
+
+
+def adapter_cycle(card, tag, trainer, prompts, new, per_step, per_chunk, n_rollouts):
+    """One PPO cycle through the trainer's own `make_experience` and
+    `train_minibatch` (no done checkpoint of the 11 GB model), with the
+    launches of every step and chunk checked; then what moved: only the
+    adapters and the value head (the base compared bitwise to a copy on
+    the host), and the reference is the adapters-off forward bitwise.
+    Returns the numbers."""
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.models.lora import is_adapter_name
+    from trlx_tpu_torch.models.transformer import position_ids
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+
+    cfg = trainer.model_cfg
+    before = {n: p.detach().to("cpu", copy=True) for n, p in trainer.model.named_parameters()}
+    trainer.add_prompt_pipeline(PromptPipeline(prompts, trainer.config.train.seq_length - new, trainer.tokenizer))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    record, losses = [], []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ppo_probes(record):
+        trainer.make_experience(n_rollouts)
+        for _ in range(trainer.config.method.ppo_epochs):
+            for batch in trainer.create_train_dataloader():
+                losses.append(trainer.train_minibatch([batch])["losses/total_loss"])
+    torch.cuda.synchronize()
+    cycle_s, cycle_peak = time.perf_counter() - t0, peak_gb()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    n_steps = trainer.config.method.ppo_epochs * n_rollouts // trainer.config.train.batch_size
+    step_s, chunk_s = check_ppo_calls(tag, record, launches, per_step, per_chunk, n_steps,
+                                      n_rollouts // trainer.config.method.chunk_size, new)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: losses {losses}")
+    moved, frozen_moved = [], []
+    for n, p in trainer.model.named_parameters():
+        same = torch.equal(p.detach().cpu(), before[n])
+        if not same:
+            (moved if is_adapter_name(n) or not n.startswith("lm.") else frozen_moved).append(n)
+    adapters = [n for n in before if is_adapter_name(n)]
+    if frozen_moved or not any(is_adapter_name(n) for n in moved) or not any(n.startswith("v_head.") for n in moved):
+        raise AssertionError(f"{tag}: base weights moved {frozen_moved[:4]}, or the adapters / value head did not "
+                             f"({moved[:6]})")
+    del before
+    # the reference: the live LM with its adapters off, bitwise
+    rows = trainer.store.history[:4]  # one chunk: the same query width
+    tokens = torch.cat([torch.stack([torch.as_tensor(e.query_tensor) for e in rows]),
+                        torch.stack([torch.as_tensor(e.response_tensor) for e in rows])], 1).to(trainer.device).long()
+    mask = (tokens != trainer.tokenizer.pad_token_id).long()
+    positions = position_ids(mask)
+    with torch.no_grad():
+        ref = trainer.ref_model(tokens, None, mask, positions)
+        off = trainer.model.lm(tokens, mask, positions, adapters=False)[0]
+        on = trainer.model.lm(tokens, mask, positions)[0]
+    if not torch.equal(ref, off) or torch.equal(ref, on) or list(trainer.ref_model.parameters()):
+        raise AssertionError(f"{tag}: the reference is not the adapters-off forward of the live LM")
+    out = dict(steps=n_steps, step_s=statistics.median(step_s[1:]), score_chunk_s=statistics.median(chunk_s),
+               collection_s=[c[2] - c[1] for c in record if c[0] == "make_experience"][0], cycle_s=cycle_s,
+               cycle_peak_gb=cycle_peak, losses=[losses[0], losses[-1]], launches=launches,
+               adapter_tensors=len(adapters), adapter_params=sum(trainer.model.get_parameter(n).numel() for n in adapters),
+               moved=len(moved))
+    log(f"[{tag}] d {cfg.d_model}, {cfg.n_layers} blocks, {cfg.n_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, lora_rank {cfg.lora_rank}, prompt {cfg.prompt_tokens}, prefix {cfg.prefix_tokens}, "
+        f"attn {cfg.attn_impl}, batch {trainer.config.train.batch_size}, {n_rollouts} rollouts in chunks of "
+        f"{trainer.config.method.chunk_size}, {new} new tokens: {n_steps} steps, median step_s={out['step_s']:.4f}, "
+        f"scoring chunk s={out['score_chunk_s']:.4f}, collection {out['collection_s']:.2f}s, the cycle "
+        f"{cycle_s:.2f}s, peak {cycle_peak:.2f} GB, loss {losses[0]:.5f} -> {losses[-1]:.5f}; {len(moved)} tensors "
+        f"moved, all adapters or the value head ({out['adapter_params']:,} adapter parameters in {len(adapters)} "
+        f"tensors), the base bitwise unchanged; the reference = the adapters-off forward bitwise; launches exact "
+        f"(a step {per_step}, a chunk {per_chunk}): {launches} ({card})")
+    return out
+
+
+def dense_greedy_with_gaps(model, cfg, prompts, max_new):
+    """Greedy streams of the trainer's dense sampler (the fixed-slot cache),
+    one prompt a call, and at each step the top two scores' gap."""
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch.ops import sampling
+
+    gen = sampling.GenerationConfig(max_new_tokens=max_new, do_sample=False, eos_token_id=10**6, pad_token_id=0)
+    fn = sampling.make_generate_fn(model, cfg, gen)
+    streams, gaps, process = [], [], sampling.process_logits
+
+    def recording(logits, gcfg, step, seen=None):
+        out = process(logits, gcfg, step, seen)
+        top = torch.topk(out, 2, dim=-1).values
+        gaps[-1].append(float(top[0, 0] - top[0, 1]))
+        return out
+
+    sampling.process_logits = recording
+    try:
+        for p in prompts:
+            gaps.append([])
+            ids = np.asarray([p], np.int32)
+            streams.append([int(x) for x in fn(ids, np.ones_like(ids))["response_tokens"][0].tolist()])
+    finally:
+        sampling.process_logits = process
+    return streams, gaps
+
+
+def phase_lora_2p8b(card):
+    """Phase 21 (a): LoRA PPO at pythia-2.8b's widths (the peft example's
+    r 8, alpha 32 on q_proj and v_proj; the HH "1B" trainer settings), one
+    cycle, K3-K7 at hd 80 (the padded route), no second copy of the base
+    (peak memory); `serve()` of the unmerged policy with K1 at hd 80; at
+    f32 and 2 blocks the merged export loaded back by `build_model` gives
+    the adapter model's logits, its served greedy streams (K1) equal the
+    adapter model's dense greedy (phase 11's tie rule) and its own gather
+    path's (phase 5's rule)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.data.configs import ModelConfig
+    from trlx_tpu_torch.inference import InferenceEngine
+    from trlx_tpu_torch.models import build_model
+    from trlx_tpu_torch.models.lora import is_lora_name
+    from trlx_tpu_torch.ops.sampling import GenerationConfig
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_lora_2p8b"
+    if work.exists():
+        shutil.rmtree(work)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    config = hh_config(work, "1B", **PYTHIA_2P8B).evolve(model=dict(peft_config=LORA_PEFT))
+    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    build_s, weights_gb = time.perf_counter() - t0, torch.cuda.memory_allocated() / 1e9
+    cfg = trainer.model_cfg
+    if (cfg.head_dim, cfg.lora_rank, trainer.split) != (80, 8, 0):
+        raise AssertionError(f"lora-2.8b: head_dim {cfg.head_dim}, lora_rank {cfg.lora_rank}, split {trainer.split}")
+    per_step, per_chunk = adapter_launches(cfg.n_layers)
+    out = adapter_cycle(card, "lora-2.8b", trainer, HH_QUESTIONS * 16, HH_NEW, per_step, per_chunk, HH_ROLLOUTS)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    model_gb = sum(p.numel() * p.element_size() for p in trainer.model.parameters()) / 1e9
+    out.update(build_s=build_s, weights_gb=weights_gb, model_gb=model_gb, params=n_params,
+               cut="none: every published width and depth (random weights); parallel.fsdp 4 -> 1 (one card)")
+    # no second copy of the base: the trainer holds the model's own bytes
+    # (the hydra reference's deep copy at split 0 would double them), and
+    # the cycle's peak stays under twice them (it adds the activations and
+    # the bf16 casts of the weights the backward keeps)
+    if not (weights_gb < 1.05 * model_gb and out["cycle_peak_gb"] < 2 * model_gb):
+        raise AssertionError(f"lora-2.8b: {weights_gb:.2f} GB allocated after the build, peak "
+                             f"{out['cycle_peak_gb']:.2f} GB, for a model of {model_gb:.2f} GB")
+    log(f"[lora-2.8b] {n_params:,} parameters, {model_gb:.2f} GB of f32 weights; {weights_gb:.2f} GB allocated "
+        f"after the trainer's build (no second copy of the base), built in {build_s:.1f}s; the cycle's peak "
+        f"{out['cycle_peak_gb']:.2f} GB ({card})")
+    _, out["serve"] = serve_and_check(None, FAMILY_REQUESTS, "paged_decode", card, trainer=trainer, tag="lora-2.8b")
+    del trainer
+    release()
+
+    # f32, 2 blocks of its width: the merged export against the adapter model
+    f32 = hh_config(work / "f32", "1B", **dict(PYTHIA_2P8B, n_layers=EXPORT_BLOCKS), dtype="float32").evolve(
+        model=dict(peft_config=LORA_PEFT))
+    small = PPOTrainer(f32, reward_fn=ppo_reward)
+    gen = torch.Generator(device=small.device).manual_seed(5)
+    with torch.no_grad():
+        for n, p in small.model.named_parameters():
+            if is_lora_name(n):  # trained factors: B is zero at init
+                p.add_(0.05 * torch.randn(p.shape, generator=gen, device=p.device))
+    export = work / "hf_merged"
+    small.save_pretrained(str(export))
+    merged, mcfg, _ = build_model(ModelConfig(model_path=str(export), model_extra_configs={
+        "attn_impl": "flash", "dtype": "float32"}), 0, device=small.device)
+    if mcfg.lora_rank or any(is_lora_name(n) for n in merged.state_dict()):
+        raise AssertionError("lora-2.8b: the merged export still holds LoRA factors")
+    batch = ppo_injected_batch(8)
+    tokens = torch.from_numpy(np.concatenate([batch.query_tensors, batch.response_tensors], 1)).long()
+    tokens = tokens.to(small.device)
+    mask = (tokens != small.tokenizer.pad_token_id).long()
+    with torch.no_grad():
+        want, got = small.model(tokens, mask)[0], merged(tokens, mask)[0]
+        base = small.model.lm(tokens, mask, adapters=False)[0]
+    valid = mask.bool()
+    torch.testing.assert_close(got[valid], want[valid], **FAMILY_LOGIT_TOL)
+    merge_err, lora_effect = float((got - want)[valid].abs().max()), float((want - base)[valid].abs().max())
+    if not lora_effect > 100 * FAMILY_LOGIT_TOL["atol"]:
+        raise AssertionError(f"lora-2.8b: the adapters move the logits by {lora_effect} only")
+    prompts, max_new = greedy_prompts(), 16
+    gcfg = GenerationConfig(max_new_tokens=max_new, do_sample=False, eos_token_id=10**6,
+                            pad_token_id=small.tokenizer.pad_token_id)
+
+    def engine(model, c, kernel):
+        return InferenceEngine(model, c, None, gcfg, num_slots=8, max_prompt_len=128, kv_paging=True,
+                               kv_block_size=32, decode_kernel=kernel)
+
+    kernels.reset_launches()
+    paged = engine(merged, mcfg, "auto")
+    served = run_serial(paged, prompts, max_new)
+    k1, dispatches = kernels.LAUNCHES.get("paged_decode", 0), paged.kv_stats()["kv_kernel_dispatches"]
+    gather = run_serial(engine(merged, mcfg, "xla"), prompts, max_new)
+    dense, gaps = dense_greedy_with_gaps(small.model, small.model_cfg, prompts, max_new)
+    differ = []
+    for i, (a, b) in enumerate(zip(served, dense)):
+        if a != b:
+            j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            differ.append((i, j, gaps[i][j]))
+    if served != gather or not 0 < k1 == EXPORT_BLOCKS * dispatches or any(g >= TIE_GAP for *_, g in differ):
+        raise AssertionError(f"lora-2.8b export: served {served} gather {gather} dense {dense}; K1 {k1}; {differ}")
+    out["export"] = dict(blocks=EXPORT_BLOCKS, merged_max_abs_err=merge_err, lora_effect=lora_effect,
+                         files=sorted(p.name for p in export.iterdir()), streams=len(prompts),
+                         equal_dense=len(prompts) - len(differ), ties=differ, k1=k1)
+    log(f"[lora-2.8b] f32, {EXPORT_BLOCKS} blocks of its width: the merged export ({out['export']['files']}) loaded "
+        f"by model_path: logits max|merged - adapter| {merge_err:.3g} (tol {FAMILY_LOGIT_TOL}; the adapters move "
+        f"them by {lora_effect:.3g}); served greedy (paged engine, K1 x{k1} at hd 80) = its gather path, "
+        f"{len(prompts) - len(differ)}/{len(prompts)} streams = the adapter model's dense greedy "
+        f"(differences at top-two gaps {[round(g, 7) for *_, g in differ]} < {TIE_GAP}) ({card})")
+    del small, merged
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    out["seconds"], out["peak_gb"] = time.perf_counter() - t0, peak_gb()
+    log(f"[lora-2.8b] took {out['seconds']:.1f} s ({card})")
+    return out
+
+
+def phase_virtual_tokens(card):
+    """Phase 21 (b): prompt tuning (seq_length 1016: the learned positions
+    leave room for the 8 soft-prompt rows; flash, K3-K7) and prefix tuning
+    (8 prefixes in every block; the dense-bias path, K7 only) at phase 9's
+    gpt2-small configuration, one PPO cycle each."""
+    import torch
+
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    out = {}
+    for kind, peft, extra, seq in (("prompt", PROMPT_PEFT, {}, 1024 - VIRTUAL_TOKENS),
+                                   ("prefix", PREFIX_PEFT, {"attn_impl": "xla"}, 1024)):
+        t0 = time.perf_counter()
+        work = ROOT / "build" / f"chip_smoke_{kind}_tuning"
+        config = ppo_config(work, **extra).evolve(model=dict(peft_config=peft), train=dict(seq_length=seq))
+        trainer = PPOTrainer(config, reward_fn=ppo_reward)
+        n = trainer.model_cfg.n_layers
+        if kind == "prompt":  # K7 over the full logits (the soft prompt shifts every position)
+            per_step, per_chunk = adapter_launches(n)
+        else:  # the dense-bias path: no flash kernel
+            per_step, per_chunk = {"label_logprobs": 1, "label_logprobs_bwd": 1}, {"label_logprobs": 2}
+        r = adapter_cycle(card, f"{kind}-tuning", trainer, ppo_prompts(PPO_ROLLOUTS), PPO_NEW, per_step, per_chunk,
+                          PPO_ROLLOUTS)
+        r["seconds"] = time.perf_counter() - t0
+        out[kind] = r
+        del trainer
+        torch.cuda.empty_cache()
+        release()
+    return out
+
+
+def phase_hh_20b(card):
+    """Phase 21 (c): the HH "20B" recipe's shape (d 6144 over 64 heads of
+    96, vocab 50432) cut to 2 blocks, one PPO cycle at its batch 1, seq
+    512, 16 rollouts in chunks of 4, 2 PPO epochs, under flash: K3-K6 at
+    hd 96 (the padded route)."""
+    import torch
+
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    t0 = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    h = HH["20B"]
+    work = ROOT / "build" / "chip_smoke_hh_20b"
+    config = hh_config(work, "20B", d_model=6144, n_layers=2, n_heads=64).evolve(method=HH_20B_METHOD)
+    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    cfg = trainer.model_cfg
+    if (cfg.head_dim, cfg.vocab_size, trainer.split) != (96, h["vocab"], 0):
+        raise AssertionError(f"hh-20b: {cfg}, split {trainer.split}")
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+
+    trainer.add_prompt_pipeline(PromptPipeline(HH_QUESTIONS * 16, h["seq"] - HH_NEW, trainer.tokenizer))
+    record, losses = [], []
+    kernels.reset_launches()
+    with ppo_probes(record):
+        trainer.make_experience(HH_20B_METHOD["num_rollouts"])
+        for _ in range(config.method.ppo_epochs):
+            for batch in trainer.create_train_dataloader():
+                losses.append(trainer.train_minibatch([batch])["losses/total_loss"])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    per_step, per_chunk = hh_launches(cfg.n_layers)
+    n_steps = config.method.ppo_epochs * HH_20B_METHOD["num_rollouts"] // h["batch"]
+    step_s, chunk_s = check_ppo_calls("hh-20b", record, launches, per_step, per_chunk, n_steps,
+                                      HH_20B_METHOD["num_rollouts"] // HH_20B_METHOD["chunk_size"])
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"hh-20b: losses {losses}")
+    out = dict(steps=n_steps, step_s=statistics.median(step_s[1:]), score_chunk_s=statistics.median(chunk_s),
+               collection_s=[c[2] - c[1] for c in record if c[0] == "make_experience"][0],
+               losses=[losses[0], losses[-1]], launches=launches, cut=h["cut"])
+    del trainer
+    release()
+    out["seconds"], out["peak_gb"] = time.perf_counter() - t0, peak_gb()
+    log(f"[hh-20b] d {cfg.d_model}, {cfg.n_layers} of 44 blocks, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; batch {h['batch']}, seq {h['seq']}, {HH_20B_METHOD}, bf16 flash, cut: "
+        f"{h['cut']}: {n_steps} steps, median step_s={out['step_s']:.4f}, scoring chunk s={out['score_chunk_s']:.4f}, "
+        f"collection {out['collection_s']:.2f}s, loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches exact (a step "
+        f"{per_step}, a chunk {per_chunk}): {launches}; took {out['seconds']:.1f} s, peak {out['peak_gb']:.2f} GB "
+        f"({card})")
+    return out
+
+
+def phase_adapters(card):
+    """Phase 21. Returns ({sub-phase: launches}, numbers)."""
+    t0 = time.perf_counter()
+    out = {"lora_2p8b": phase_lora_2p8b(card), "virtual_tokens": phase_virtual_tokens(card),
+           "hh_20b": phase_hh_20b(card)}
+    launches = {"a": out["lora_2p8b"]["launches"], "a_serve": out["lora_2p8b"]["serve"]["launches"],
+                "a_export_serve": {"paged_decode": out["lora_2p8b"]["export"]["k1"]},
+                "b_prompt": out["virtual_tokens"]["prompt"]["launches"],
+                "b_prefix": out["virtual_tokens"]["prefix"]["launches"], "c": out["hh_20b"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase21] took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -4819,6 +5210,7 @@ def main() -> int:
     fleet_launches, fleet = phase_fleet(card, ppo_metrics, grpo["runs"]["grpo"])
     p19_launches, p19 = phase_resilience_methods(card)
     p20_launches, p20 = phase_families(card)
+    p21_launches, p21 = phase_adapters(card)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -4837,8 +5229,9 @@ def main() -> int:
              launches_fleet={t: n.get("paged_decode", 0) for t, n in fleet_launches.items()},
              launches_phase19={t: n.get("paged_decode", 0) for t, n in p19_launches.items()},
              launches_phase20={t: n.get("paged_decode", 0) for t, n in p20_launches.items()},
+             launches_phase21={t: n.get("paged_decode", 0) for t, n in p21_launches.items()},
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16,
-             gptj_6b=timings[("gptj-6b", "bf16")]),
+             gptj_6b=timings[("gptj-6b", "bf16")], pythia_2p8b=timings[("pythia-2.8b", "bf16")]),
         dict(name="paged_decode_int8", route="cuda", source=source,
              replaces="trlx_tpu/ops/paged_attention.py:110", launches=launches_int8,
              launches_ppo=ppo_launches.get("paged_decode_int8", 0),
@@ -4852,8 +5245,9 @@ def main() -> int:
              launches_fleet={t: n.get("paged_decode_int8", 0) for t, n in fleet_launches.items()},
              launches_phase19={t: n.get("paged_decode_int8", 0) for t, n in p19_launches.items()},
              launches_phase20={t: n.get("paged_decode_int8", 0) for t, n in p20_launches.items()},
+             launches_phase21={t: n.get("paged_decode_int8", 0) for t, n in p21_launches.items()},
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8,
-             gptj_6b=timings[("gptj-6b", "int8")]),
+             gptj_6b=timings[("gptj-6b", "int8")], pythia_2p8b=timings[("pythia-2.8b", "int8")]),
     ]}
     train_rows = [
         ("flash_fwd", "trlx_tpu_torch/csrc/flash_attention.cu", "trlx_tpu/ops/attention.py:207"),
@@ -4880,6 +5274,7 @@ def main() -> int:
             launches_fleet={t: n.get(name, 0) for t, n in fleet_launches.items()},
             launches_phase19={t: n.get(name, 0) for t, n in p19_launches.items()},
             launches_phase20={t: n.get(name, 0) for t, n in p20_launches.items()},
+            launches_phase21={t: n.get(name, 0) for t, n in p21_launches.items()},
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
@@ -4887,7 +5282,10 @@ def main() -> int:
             # phase 20's shapes: K3-K6 at hd 128 (pythia-1.4b) and 256
             # (gptj-6b), K4-K6 at the HH "6B" step's length (hh-6b-step),
             # K7 and its backward at the four vocabularies
-            families={s: train_timings[(name, s)] for s in FAMILY_SHAPES if (name, s) in train_timings}))
+            families={s: train_timings[(name, s)] for s in FAMILY_SHAPES if (name, s) in train_timings},
+            # phase 21's: K3-K6 at hd 80 and 96 (the padded route), K7 and
+            # its backward at the HH "20B" vocabulary
+            adapters={s: train_timings[(name, s)] for s in ADAPTER_SHAPES if (name, s) in train_timings}))
     # phase 11's checks: the exact launch counts (K3 none a step, 24 a
     # chunk), no fallback, greedy speculative vs plain under the tie rule,
     # the trunk cache against the full path; and its numbers
@@ -4917,6 +5315,9 @@ def main() -> int:
     # phase 20's: the model families (HH 1B and 6B PPO, OPT and Bloom SFT,
     # Mistral's window)
     report["phase20"] = p20
+    # phase 21's: LoRA PPO at pythia-2.8b's widths and its export, prompt
+    # and prefix tuning, the HH "20B" shape
+    report["phase21"] = p21
     report["seconds"] = time.perf_counter() - started
     log(f"[smoke] every phase passed in {report['seconds']:.1f} s ({card})")
     print(json.dumps(report), flush=True)

@@ -36,7 +36,13 @@ rollouts in chunks of 16, 32 new tokens, 2 trainable blocks): one chunk's
 sampling and scoring and the cycle's 64 steps. Copied into another
 checkout (a parent unpacked with `git archive`), it profiles that tree.
 
+With `--lora-2p8b` the trainer is phase 21 (a)'s LoRA PPO at pythia-2.8b's
+widths (32 blocks, 32 heads of 80, d_ff 10240; LoRA r 8 on q_proj and
+v_proj; the HH "1B" settings): one chunk's sampling and scoring and the
+cycle's 32 steps.
+
     python3 scripts/profile_torch_ppo.py [--options] [--pipelined [--fast]] [--value-branch] [--hh-6b]
+    python3 scripts/profile_torch_ppo.py --lora-2p8b
 """
 
 import argparse
@@ -156,8 +162,8 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from chip_smoke import (HH, HH_NEW, HH_QUESTIONS, HH_ROLLOUTS, PPO_OPTIONS, PPO_ROLLOUTS, VALUE_BRANCH,
-                            hh_config, ppo_config, ppo_prompts, ppo_reward)
+    from chip_smoke import (HH_NEW, HH_QUESTIONS, HH_ROLLOUTS, LORA_PEFT, PPO_OPTIONS, PPO_ROLLOUTS,
+                            PYTHIA_2P8B, VALUE_BRANCH, hh_config, ppo_config, ppo_prompts, ppo_reward)
     from trlx_tpu_torch.pipeline import MiniBatchIterator
     from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
@@ -174,14 +180,20 @@ def main() -> int:
     parser.add_argument("--fast", action="store_true", help="with --pipelined: the capture fast path on")
     parser.add_argument("--value-branch", action="store_true", help="phase 13's value branch")
     parser.add_argument("--hh-6b", action="store_true", help="phase 20 (b)'s HH \"6B\" trainer (gptj-6b)")
+    parser.add_argument("--lora-2p8b", action="store_true", help="phase 21 (a)'s LoRA PPO at pythia-2.8b's widths")
     args = parser.parse_args()
     if args.fast and not args.pipelined:
         parser.error("--fast needs --pipelined")
-    if args.hh_6b and (args.options or args.pipelined or args.value_branch):
-        parser.error("--hh-6b takes no other option")
+    hh = args.hh_6b or args.lora_2p8b
+    if hh and (args.options or args.pipelined or args.value_branch or (args.hh_6b and args.lora_2p8b)):
+        parser.error("--hh-6b and --lora-2p8b take no other option")
     work = ROOT / "build" / "profile_torch_ppo"
-    config = hh_config(work, "6B") if args.hh_6b else ppo_config(work)
-    rollouts = HH_ROLLOUTS if args.hh_6b else PPO_ROLLOUTS
+    config = ppo_config(work)
+    if args.hh_6b:
+        config = hh_config(work, "6B")
+    if args.lora_2p8b:
+        config = hh_config(work, "1B", **PYTHIA_2P8B).evolve(model=dict(peft_config=LORA_PEFT))
+    rollouts = HH_ROLLOUTS if hh else PPO_ROLLOUTS
     if args.options:
         config = config.evolve(method=PPO_OPTIONS)
     if args.fast:
@@ -189,8 +201,9 @@ def main() -> int:
     if args.value_branch:
         config = config.evolve(method=VALUE_BRANCH)
     trainer = PPOTrainer(config, reward_fn=ppo_reward)
-    if args.hh_6b:
-        trainer.add_prompt_pipeline(PromptPipeline(HH_QUESTIONS * 16, HH["6B"]["seq"] - HH_NEW, trainer.tokenizer))
+    if hh:
+        trainer.add_prompt_pipeline(PromptPipeline(HH_QUESTIONS * 16, config.train.seq_length - HH_NEW,
+                                                   trainer.tokenizer))
     else:
         trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 984, trainer.tokenizer))
     method = config.method
@@ -241,7 +254,8 @@ def report(card, args, phases, cycle_ms, rollouts, n_steps) -> int:
     then the JSON line."""
     print(f"card: {card}")
     out = {"card": card, "options": args.options, "pipelined": args.pipelined, "fast": args.fast,
-           "value_branch": args.value_branch, "hh_6b": args.hh_6b, "rollouts": rollouts, "train_steps": n_steps,
+           "value_branch": args.value_branch, "hh_6b": args.hh_6b, "lora_2p8b": args.lora_2p8b,
+           "rollouts": rollouts, "train_steps": n_steps,
            "phases": {}}
     for name, (wall, rows) in phases.items():
         device_ms = sum(r[1] for r in rows)

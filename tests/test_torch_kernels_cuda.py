@@ -102,7 +102,7 @@ def _long_case(seed, nh, nkv, hd, b=4, blk=32, n_tbl=72):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nh,nkv,hd", [(16, 1, 64), (16, 4, 128), (16, 16, 256)])
+@pytest.mark.parametrize("nh,nkv,hd", [(16, 1, 64), (16, 4, 128), (16, 16, 256), (32, 32, 80)])
 @pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("mask_dtype", [torch.int32, torch.bool])
 def test_paged_decode_kernel_split_edges_and_repeats(cuda, nh, nkv, hd, kv, mask_dtype):
@@ -187,7 +187,10 @@ FLASH_SHAPES = [(3, 130, 4, 4, 64, None), (2, 96, 4, 2, 32, None), (3, 64, 4, 1,
                 (2, 200, 2, 2, 16, None), (4, 300, 4, 2, 64, [0, 200, 300, 131]),
                 (2, 1, 4, 1, 32, [0, 1]), (2, 257, 4, 2, 128, [190, 0]),
                 (3, 1024, 2, 2, 64, [0, 511, 1024]), (3, 130, 4, 4, 256, None),
-                (2, 97, 4, 2, 256, [40, 0]), (3, 200, 4, 1, 256, [0, 70, 200])]
+                (2, 97, 4, 2, 256, [40, 0]), (3, 200, 4, 1, 256, [0, 70, 200]),
+                # head dims the kernels reach by padding to the next
+                # instantiation: 80 (pythia-2.8b), 96 (the HH "20B" shape), 40
+                (2, 130, 4, 2, 80, [0, 37]), (3, 97, 4, 4, 96, [5, 0, 97]), (2, 64, 4, 1, 40, None)]
 
 
 def _dead_rows(mask, causal):
@@ -251,6 +254,46 @@ def test_flash_attention_autograd_matches_cpu(cuda, nh, nkv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_route_autograd_and_scale(cuda, dtype):
+    """Head dim 80 (pythia-2.8b's) through the padded route: the autograd
+    Function launches K4, K5 and K6 once each and matches the same
+    function on CPU copies; each wrapper honours a given scale as at an
+    instantiated head dim."""
+    from trlx_tpu_torch.ops import attention as A
+
+    q, k, v, mask, g, *_ = _flash_case(4, 3, 97, 4, 2, 80, dtype, torch.device("cpu"), [0, 9, 97])
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        kernels.reset_launches()
+        qs, ks, vs = (x.to(dev).requires_grad_(True) for x in (q, k, v))
+        out = A.flash_attention(qs, ks, vs, mask.to(dev), causal=True)
+        out.backward(g.to(dev))
+        grads.append([out.detach().float().cpu(), qs.grad.float().cpu(), ks.grad.float().cpu(), vs.grad.float().cpu()])
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert {n: kernels.LAUNCHES.get(n) for n in (A.KERNEL_FWD_LSE, A.KERNEL_BWD_DQ, A.KERNEL_BWD_DKV)} == {
+                A.KERNEL_FWD_LSE: 1, A.KERNEL_BWD_DQ: 1, A.KERNEL_BWD_DKV: 1}
+    for a, b_ in zip(*grads):
+        assert a.shape[-1] == 80
+        torch.testing.assert_close(a, b_, **BWD_TOL[dtype])
+    scale = 0.05
+    q, k, v, mask, g = (x.to(cuda) for x in (q, k, v, mask, g))
+    out_ref, lse_ref = A.flash_fwd_plain(q, k, v, mask, True, scale)
+    delta = (g.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    out, lse = A.flash_fwd(q, k, v, mask, True, with_lse=True, scale=scale)
+    torch.testing.assert_close(out.float(), out_ref.float(), **FWD_TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+    dq = A.flash_bwd_dq(q, k, v, mask, g, lse_ref, delta, True, scale)
+    torch.testing.assert_close(dq.float(), A.flash_bwd_dq_plain(q, k, v, mask, g, lse_ref, delta, True, scale).float(),
+                               **BWD_TOL[dtype])
+    dk, dv = A.flash_bwd_dkv(q, k, v, mask, g, lse_ref, delta, True, scale)
+    dk_ref, dv_ref = A.flash_bwd_dkv_plain(q, k, v, mask, g, lse_ref, delta, True, scale)
+    torch.testing.assert_close(dk, dk_ref, **F32_BWD_TOL)
+    torch.testing.assert_close(dv, dv_ref, **F32_BWD_TOL)
+
+
+@pytest.mark.cuda
 def test_flash_attention_dispatch_k3_without_grad_k4_with(cuda):
     from trlx_tpu_torch.ops import attention as A
 
@@ -270,8 +313,10 @@ def test_flash_attention_dispatch_k3_without_grad_k4_with(cuda):
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     from trlx_tpu_torch.ops import attention as A
 
-    q, k, v, mask, *_ = _flash_case(3, 2, 64, 4, 4, 48, torch.float32, cuda)
-    with pytest.raises(ValueError, match="head_dim"):
+    # a head dim outside the instantiations pads to the next one (FLASH_SHAPES'
+    # 40, 80, 96 rows); above the largest, 256, nothing reaches it
+    q, k, v, mask, *_ = _flash_case(3, 2, 64, 4, 4, 288, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim 288 .*ROADMAP queue C"):
         A.flash_fwd(q, k, v, mask)
     q, k, v, mask, *_ = _flash_case(3, 2, 64, 4, 4, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):

@@ -287,6 +287,22 @@ def test_trainer_gates_and_fallback_counter_match_jax(case):
     assert port._trunk_cache_available() == jax_t._trunk_cache_available()
 
 
+@pytest.mark.parametrize("virtual", [dict(prompt_tokens=8), dict(prefix_tokens=8)])
+@pytest.mark.parametrize("split", [0, 1])
+def test_trainer_gates_refuse_virtual_tokens_as_jax(split, virtual):
+    """With every option on, a soft prompt or prefixes turn speculative
+    decode off (one fallback counted) at any split, as JAX's gate does;
+    the trunk-cache gate follows the split."""
+    case = dict(method=dict(speculative_decode=True, cache_trunk_activations=True), split=split)
+    port, jax_t = _dummy(PPOTrainer, **case), _dummy(JPPOTrainer, **case)
+    for t in (port, jax_t):
+        for k, v in virtual.items():
+            setattr(t.model_cfg, k, v)
+    assert port._spec_k_effective() == jax_t._spec_k_effective() == 0
+    assert port.spec_decode_fallbacks == jax_t.spec_decode_fallbacks == 1
+    assert port._trunk_cache_available() == jax_t._trunk_cache_available() == (split > 0)
+
+
 def test_decode_view_is_built_once_and_only_under_a_split(tmp_path):
     cfg = _ppo_config(default_ppo_config, tmp_path, "t", quantize_frozen_trunk=True)
     trainer = PPOTrainer(cfg, reward_fn=reward_fn, device="cpu")

@@ -187,6 +187,22 @@ def test_gates_match_jax_over_splits_and_branch_depths(split, depth):
     assert got[0] == (split > 0 and 4 - depth >= split) and got[3] == (split > 0 and depth == 0)
 
 
+@pytest.mark.parametrize("virtual", ["prompt", "prefix"])
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("split", [0, 1, 3])
+def test_gates_match_jax_under_prompt_and_prefix_tokens(split, depth, virtual):
+    """The same four gates with 4 soft-prompt or prefix tokens: the
+    speculative sampler refuses virtual tokens at any split (counted as a
+    fallback), the rest follow the split as before; JAX's answers."""
+    port, jax_t = _gate_dummy(PPOTrainer, split, depth), _gate_dummy(JPPOTrainer, split, depth)
+    for t in (port, jax_t):
+        t.model_cfg.prompt_tokens, t.model_cfg.prefix_tokens = (4, 0) if virtual == "prompt" else (0, 4)
+    gates = ("_trunk_cache_available", "_spec_decode_available", "_spec_path_available", "_fast_rollout_available")
+    got = [getattr(port, g)() for g in gates]
+    assert got == [getattr(jax_t, g)() for g in gates]
+    assert not got[1] and port.spec_decode_fallbacks == jax_t.spec_decode_fallbacks == 1
+
+
 # ---------------------------------------------------------------------------
 # PPOTrainer with a branch against the JAX trainer
 # ---------------------------------------------------------------------------

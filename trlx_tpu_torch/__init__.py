@@ -25,7 +25,14 @@ Slices ported so far (ROADMAP.md, queue A):
 - GRPO/RLOO, RFT and best-of-n through `train(reward_fn=...)`, the
   reward model (`models/reward.py`) and its server (`serving.py`), the
   rollout fleet, and training's resilience (`sentinel.py`, the
-  watchdog, `auto_resume`, the server's SIGTERM drain).
+  watchdog, `auto_resume`, the server's SIGTERM drain);
+- the model families and their HF load and export, and the flash
+  kernels at any head dim up to 256 (padded to the next instantiation);
+- adapters (`models/lora.py`) through `model.peft_config` on those
+  trainers: LoRA (merged at export), prompt tuning and prefix tuning
+  (`"PROMPT_TUNING"` / `"PREFIX_TUNING"`, written beside the base at
+  export); other peft types, adapters under the rollout fleet and
+  multi-tenant adapters are refused (ROADMAP queue A, item 4.5).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 asking for `cuda` where there is none raises.

@@ -6,7 +6,12 @@ modules carry the same names, so the mapping is mechanical:
 
 - a Dense `kernel` [in, out] becomes the Linear `weight`, transposed;
 - an Embed `embedding` [V, d] (`embed_tokens`, `embed_pos`) becomes `weight`;
-- a norm's `scale` becomes `weight`; a `bias` stays `bias`.
+- a norm's `scale` becomes `weight`; a `bias` stays `bias`;
+- the adapters keep their JAX orientation: a LoRA leaf `<proj>_lora_a`
+  [in, r] / `<proj>_lora_b` [r, out] becomes `<proj>.lora_a` /
+  `<proj>.lora_b` of that projection's Linear (`attn/q_proj_lora_a` ->
+  `attn.q_proj.lora_a`), and `soft_prompt`, `prefix_k` and `prefix_v`
+  keep their names.
 
 The same rule carries the deeper value branch
 (`value_branch/{block_i, ln_f, v_head}` -> `value_branch.block_i...`) and
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
+_ADAPTERS = ("soft_prompt", "prefix_k", "prefix_v")
 
 
 def _flatten(tree, prefix=()):
@@ -42,12 +48,18 @@ def params_from_jax(np_params: Dict, cfg=None) -> Dict[str, torch.Tensor]:
     state = {}
     for path, leaf in _flatten(np_params):
         *mods, name = path
-        if name not in _LEAF:
-            raise KeyError(f"unexpected parameter {'/'.join(path)}")
         arr = np.array(leaf, np.float32)  # a writable copy for torch.from_numpy
-        if name == "kernel":
-            arr = arr.T
-        state[".".join([*mods, _LEAF[name]])] = torch.from_numpy(np.ascontiguousarray(arr))
+        if name.endswith(("_lora_a", "_lora_b")):
+            key = ".".join([*mods, name[:-len("_lora_a")], name[-len("lora_a"):]])
+        elif name in _ADAPTERS:
+            key = ".".join([*mods, name])
+        elif name in _LEAF:
+            key = ".".join([*mods, _LEAF[name]])
+            if name == "kernel":
+                arr = arr.T
+        else:
+            raise KeyError(f"unexpected parameter {'/'.join(path)}")
+        state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     if cfg is not None:
         blocks = {p.split(".")[1] for p in state if p.startswith("lm.block_")}
         if len(blocks) != cfg.n_layers:

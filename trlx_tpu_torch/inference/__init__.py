@@ -3,7 +3,7 @@ KV pool, speculative decode), scheduler, HTTP server with checkpoint
 hot-reload, chat sessions and token streaming, the HTTP client, and the
 rollout fleet: the replica router, the fleet supervisor and the policy
 server process (`serve_policy`). Multi-tenant adapters are not ported yet
-(ROADMAP queue A, item 4, with LoRA)."""
+(ROADMAP queue A, item 4.5)."""
 
 from trlx_tpu_torch.inference.client import (
     ChatSession,

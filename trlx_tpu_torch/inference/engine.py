@@ -43,9 +43,10 @@ arena run the t = 1 draft steps through the kernel and count a
 `spec_verify_rows` fallback for the batched verify, which takes the
 gather path.
 
-Not ported yet (each raises `NotImplementedError`): multi-tenant adapters
-(ROADMAP queue A, item 4, with LoRA) and the compile and HBM ledgers
-(item 4, observability).
+A LoRA policy is served as any other (merged or not); prompt and prefix
+tuning are refused with the JAX engine's message. Not ported yet (each
+raises `NotImplementedError`): multi-tenant adapters (ROADMAP queue A,
+item 4.5) and the compile and HBM ledgers (item 4, observability).
 
 Thread safety: device-touching methods are called from ONE loop thread
 (the scheduler loop). `set_params` may be called from any thread (the
@@ -155,7 +156,7 @@ class InferenceEngine:
     ):
         if multi_tenant or adapter_store is not None:
             raise NotImplementedError(
-                "multi-tenant adapters need LoRA, not ported yet (ROADMAP queue A, item 4)"
+                "multi-tenant adapters are not ported yet (ROADMAP queue A, item 4.5)"
             )
         if compile_ledger is not None or hbm_ledger is not None:
             raise NotImplementedError(
@@ -163,6 +164,8 @@ class InferenceEngine:
             )
         if spec_k > 0 and spec_split <= 0:
             raise ValueError("speculative decode needs a hydra split > 0 (the frozen trunk is the draft model)")
+        if model_cfg.prompt_tokens > 0 or model_cfg.prefix_tokens > 0:
+            raise NotImplementedError("slot-pool decode under prompt/prefix tuning is unsupported")
         if gen_cfg.num_beams > 1:
             raise NotImplementedError("beam search is not servable slot-wise")
         if gen_cfg.repetition_penalty != 1.0:
@@ -462,7 +465,7 @@ class InferenceEngine:
         for row in rows:
             if len(row) == 3 and row[2] is not None:
                 raise NotImplementedError(
-                    "adapter_id needs multi-tenant serving, not ported yet (ROADMAP queue A, item 4)"
+                    "adapter_id needs multi-tenant serving, not ported yet (ROADMAP queue A, item 4.5)"
                 )
             norm.append((row[0], row[1], None))
         with self._param_lock:

@@ -28,13 +28,13 @@ server process (the counterpart of the JAX package's
 back to the CPU by itself). Any other dotted TRLConfig key overrides the
 config; the `inference.*` section holds the serving knobs. Multi-tenant
 adapters (`adapter_dir`, `inference.multi_tenant`) are not ported yet
-(ROADMAP queue A, item 4, with LoRA) and are refused.
+(ROADMAP queue A, item 4.5) and are refused.
 """
 
 import json
 import sys
 
-ADAPTERS_NOT_PORTED = "multi-tenant adapters need LoRA, not ported yet (ROADMAP queue A, item 4)"
+ADAPTERS_NOT_PORTED = "multi-tenant adapters are not ported yet (ROADMAP queue A, item 4.5)"
 
 
 def main(hparams=None):

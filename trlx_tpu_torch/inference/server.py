@@ -29,7 +29,7 @@ and /chat request, wedges /healthz for `healthz_hang_s`, and overrides
 the reported checkpoint step with `stale_checkpoint_step`.
 
 Not ported yet: ``/admin/adapters`` answers 501 (multi-tenant adapters,
-ROADMAP queue A, item 4, with LoRA).
+ROADMAP queue A, item 4.5).
 """
 
 import json
@@ -56,7 +56,7 @@ from trlx_tpu_torch.utils import logging
 logger = logging.get_logger(__name__)
 
 ADAPTERS_NOT_PORTED = (
-    "multi-tenant adapters need LoRA, not ported yet (ROADMAP queue A, item 4)"
+    "multi-tenant adapters are not ported yet (ROADMAP queue A, item 4.5)"
 )
 _GENERATE_KEYS = {
     "prompt", "prompt_ids", "max_new_tokens", "deadline_s", "n",

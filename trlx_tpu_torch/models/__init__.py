@@ -2,20 +2,25 @@
 the deeper value branch under `num_value_layers`), the critic-free policy
 of GRPO/RLOO (`value_head=False`) and ILQL policies, from `random:`
 presets or from a local HF checkpoint directory (gpt2, llama/mistral,
-gpt_neox, gptj, opt, bloom and gpt_bigcode, `models/hf_interop.py`)."""
+gpt_neox, gptj, opt, bloom and gpt_bigcode, `models/hf_interop.py`), with
+the adapters of a `peft_config` (LoRA, prompt tuning, prefix tuning,
+`models/lora.py`)."""
 
 from typing import Tuple, Union
 
 import torch
 
 from trlx_tpu_torch.models.heads import ILQLHeads, MLPHead, sync_target_q_heads  # noqa: F401
+from trlx_tpu_torch.models.lora import lora_overrides_from_peft_config
 from trlx_tpu_torch.models.policy import (  # noqa: F401
+    AdapterReference,
     CausalLMPolicy,
     CausalLMWithILQLHeads,
     CausalLMWithValueHead,
     HydraReference,
     ValueBranch,
     forward_policy_and_ref,
+    make_reference,
     resolve_split,
     target_q_mask,
     trainable_mask,
@@ -44,18 +49,17 @@ def resolve_transformer_config(model_config, vocab_size: int) -> TransformerConf
     may override config fields and `dtype` (the activation dtype, as a
     string); for a preset also `vocab_size` (e.g. the real 50257-token
     softmax with a byte tokenizer), which a checkpoint takes as a plain
-    override."""
+    override. A `peft_config` adds its adapters' overrides."""
     path = model_config.model_path
     extra = dict(model_config.model_extra_configs or {})
     if getattr(model_config, "model_arch_type", "causal") != "causal":
         raise NotImplementedError("seq2seq models are not ported yet (ROADMAP queue A, item 4: model features)")
-    if getattr(model_config, "peft_config", None) is not None:
-        raise NotImplementedError("peft/LoRA is not ported yet (ROADMAP queue A, item 4: model features)")
     if "dtype" in extra:
         name = str(extra.pop("dtype"))
         if name not in DTYPES:
             raise ValueError(f"dtype {name!r} not in {sorted(DTYPES)}")
         extra["dtype"] = DTYPES[name]
+    extra.update(lora_overrides_from_peft_config(getattr(model_config, "peft_config", None)))
     if not path.startswith("random:"):
         from trlx_tpu_torch.models import hf_interop
 
@@ -76,6 +80,9 @@ def build_model(model_config, vocab_size: int, seed: int = 0, device="cuda", wit
     `value_head=False` the critic-free `CausalLMPolicy` (GRPO/RLOO); or
     with `with_ilql_heads` an LM with ILQL's heads."""
     cfg = resolve_transformer_config(model_config, vocab_size)
+    if num_value_layers > 0 and (cfg.prompt_tokens > 0 or cfg.prefix_tokens > 0):
+        raise NotImplementedError("num_value_layers_unfrozen with prompt/prefix tuning is not supported (the "
+                                  "reference likewise leaves peft off the value branch)")
     if not value_head:
         if with_ilql_heads:
             raise ValueError("value_head=False conflicts with with_ilql_heads (ILQL needs its heads)")
@@ -93,6 +100,11 @@ def build_model(model_config, vocab_size: int, seed: int = 0, device="cuda", wit
         model = CausalLMPolicy(cfg, device=device, generator=generator)
     else:
         model = CausalLMWithValueHead(cfg, device=device, generator=generator, num_value_layers=num_value_layers)
+    if cfg.lora_rank > 0 and not any(name.endswith(".lora_a") for name, _ in model.named_parameters()):
+        # e.g. HF-native names ('c_attn', 'query_key_value'): training the
+        # heads alone would pass silently
+        raise ValueError(f"peft_config target modules {cfg.lora_targets} matched no projection; valid targets: "
+                         "q_proj, k_proj, v_proj, o_proj, up_proj, gate_proj, down_proj")
     if not model_config.model_path.startswith("random:"):
         from trlx_tpu_torch.models import hf_interop
 

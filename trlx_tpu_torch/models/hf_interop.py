@@ -26,6 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from trlx_tpu_torch.models.lora import is_adapter_name
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
 _T5 = "the t5 family (encoder-decoder) is not ported yet (ROADMAP queue A, item 4.4: model features)"
@@ -389,17 +390,19 @@ _LOADERS = {
 
 def load_params_from_hf(path: str, cfg: TransformerConfig,
                         state_template: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The template state dict with every `lm.*` entry replaced by the
+    """The template state dict with every base `lm.*` entry replaced by the
     directory's weights, in the template's dtype and device (a shape that
-    differs raises). Entries outside the LM (the value head) keep the
-    template's fresh init, as in the JAX package."""
+    differs raises). Entries outside the LM (the value head) and the
+    adapters (LoRA factors, the soft prompt, the prefixes: an HF base
+    checkpoint has none) keep the template's fresh init, as in the JAX
+    package."""
     hf = _read_hf_config(path)
     fam = _family_of(hf)
     _check_ported(fam, path)
     lm = _LOADERS[fam](_load_state_dict(path), cfg)
     out = dict(state_template)
     for name, tpl in state_template.items():
-        if not name.startswith("lm."):
+        if not name.startswith("lm.") or is_adapter_name(name):
             continue
         if name[3:] not in lm:
             raise KeyError(f"{name} has no counterpart in the {fam} checkpoint at {path}")

@@ -14,10 +14,11 @@ GRPO/RLOO (the LM alone, no value parameters anywhere in its state dict);
 `CausalLMWithILQLHeads` (the LM with ILQL's V,
 Q and target Q heads, `models/heads.py`); the frozen hydra reference
 (`HydraReference`, the JAX `ref_param_subtree` with `forward_ref_suffix`,
-`forward_ref_suffix_window` and `forward_ref_full`),
+`forward_ref_suffix_window` and `forward_ref_full`); under adapters
+(`models/lora.py`) the reference is `AdapterReference`, the live LM with
+its adapters off (the JAX `zero_lora` view), which copies nothing;
 `forward_policy_and_ref`, `resolve_split`, `trainable_mask` and
-`target_q_mask`. LoRA and prompt tuning are refused at model build until
-they port (ROADMAP queue A, item 4).
+`target_q_mask`.
 """
 
 import copy
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 
 from trlx_tpu_torch.models.heads import ILQLHeads, MLPHead
+from trlx_tpu_torch.models.lora import PREFIX_NAMES, PROMPT_NAME, has_adapters, is_lora_name
 from trlx_tpu_torch.models.transformer import (
     Block,
     TransformerConfig,
@@ -92,14 +94,14 @@ class CausalLMWithValueHead(nn.Module):
     def forward(self, tokens, attn_mask, positions=None, split: int = 0):
         """Returns (logits, values, h_split). `split` is the hydra branch
         point (0: h_split is the embedding output)."""
-        if positions is None:
-            positions = position_ids(attn_mask)
         branch = self.num_value_layers > 0
         logits, h_split, h_final, h_value = self.lm.forward_captures(
             tokens, attn_mask, positions, split, self.value_split if branch else split)
         if branch:
             # the branch's blocks see the trunk's positions: the rotary
             # phases of the blocks they were cloned from
+            if positions is None:
+                positions = position_ids(attn_mask)
             return logits, self.value_branch(h_value, attn_mask, positions), h_split
         return logits, self.v_head(h_final)[..., 0], h_split
 
@@ -268,7 +270,11 @@ class CausalLMWithILQLHeads(nn.Module):
 def resolve_split(cfg: TransformerConfig, num_layers_unfrozen: int) -> int:
     """Map `num_layers_unfrozen` to the hydra split layer: -1 = everything
     trainable (split 0), 0 = the whole LM frozen (split n_layers), k > 0 =
-    the top k blocks trainable."""
+    the top k blocks trainable. Under any adapter the split is 0: the
+    adapters change every hidden state from the first block on, so the
+    reference is a whole adapters-off forward."""
+    if has_adapters(cfg):
+        return 0
     if num_layers_unfrozen == -1:
         return 0
     if num_layers_unfrozen == 0:
@@ -280,13 +286,20 @@ def trainable_mask(model: nn.Module, cfg: TransformerConfig, num_layers_unfrozen
     """{parameter name: trainable}. Heads (anything outside `lm`) are
     trainable; in the LM, -1 = all, 0 = none, k > 0 = the top k blocks and
     the final norm (and an untied lm_head) — the embeddings stay frozen,
-    as the reference's freeze_bottom_causal_layers does."""
+    as the reference's freeze_bottom_causal_layers does. Under adapters
+    only they (and the heads) train, whatever `num_layers_unfrozen` says
+    (peft's semantics)."""
     split = resolve_split(cfg, num_layers_unfrozen)
+    virtual = cfg.prompt_tokens > 0 or cfg.prefix_tokens > 0
 
     def _trainable(name: str) -> bool:
         parts = name.split(".")
         if parts[0] != "lm":
             return True
+        if virtual:
+            return parts[-1] == PROMPT_NAME or parts[-1] in PREFIX_NAMES
+        if cfg.lora_rank > 0:
+            return is_lora_name(name)
         if num_layers_unfrozen == -1:
             return True
         if num_layers_unfrozen == 0:
@@ -362,7 +375,31 @@ class HydraReference(nn.Module):
         return self.embed_tokens.attend(h) if self.cfg.tie_embeddings else self.lm_head(h)
 
 
-def forward_policy_and_ref(model: CausalLMWithValueHead, ref: HydraReference, tokens, attn_mask,
+class AdapterReference(nn.Module):
+    """The reference under adapters: the live LM run with its adapters off
+    (no LoRA delta, soft prompt or prefixes), the JAX `zero_lora` /
+    `use_prompt=False` forward. The base weights are frozen under
+    adapters, so this equals the model before training and holds no copy:
+    the LM is kept outside the module tree (no parameters, an empty state
+    dict). Split 0: a whole forward from the tokens."""
+
+    split = 0
+
+    def __init__(self, lm: TransformerLM):
+        super().__init__()
+        object.__setattr__(self, "_lm", lm)  # not a submodule: nothing of it to save, move or train
+
+    def forward(self, tokens, h_split, attn_mask, positions=None):
+        return self._lm(tokens, attn_mask, positions, adapters=False)[0]
+
+
+def make_reference(lm: TransformerLM, split: int) -> nn.Module:
+    """PPO's frozen reference: `AdapterReference` under adapters, else the
+    hydra copy from `split` up."""
+    return AdapterReference(lm) if has_adapters(lm.cfg) else HydraReference(lm, split)
+
+
+def forward_policy_and_ref(model: CausalLMWithValueHead, ref: nn.Module, tokens, attn_mask,
                            positions: Optional[torch.Tensor] = None):
     """Policy logits and values and the frozen reference's logits: the
     trunk below the split runs once, the reference runs only its copied

@@ -21,6 +21,16 @@ biases, a biased head), OPT (positions read at an offset of 2), Bloom
 (ALiBi, a norm after the embedding, no position embedding) and
 GPTBigCode (MQA).
 
+Adapters (`models/lora.py`): a `Linear` named in `cfg.lora_targets` adds
+its LoRA delta, every attention sees `cfg.prefix_tokens` trainable keys
+and values (the dense-bias path only), and the LM prepends
+`cfg.prompt_tokens` trainable embeddings (the training forward slices
+them off before the head; the cached prefill writes them into the
+cache's first columns, which `init_kv_cache` reserves). The no-cache
+forwards take `adapters=False`, the base model alone (the reference under
+adapters); the slot-pool paths refuse prompt and prefix tuning, as JAX
+does.
+
 ALiBi and an active sliding window need the dense bias: the flash kernels
 (`fused_attention_ok`) and the paged decode kernel express plain causal
 attention only, as the Pallas kernels do, so those configurations take
@@ -79,12 +89,16 @@ class TransformerConfig:
     attn_bias: Optional[bool] = None  # q/k/v/o bias; None = use_bias (GPT-J: False)
     lm_head_bias: bool = False  # an untied head with a bias (GPT-J)
     sliding_window: Optional[int] = None  # banded causal attention (Mistral)
-    # knobs of the JAX config this package does not run yet; kept so
-    # configs carry over, and refused by `check_supported`
+    # the MoE MLP is not ported yet: kept so configs carry over, and
+    # refused by `check_supported`
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_aux_coef: float = 0.01
     hf_family: Optional[str] = None
+    # adapters (`models/lora.py`): LoRA of rank `lora_rank` on the
+    # projections named in `lora_targets`; `prompt_tokens` trainable
+    # embeddings prepended to every sequence; `prefix_tokens` trainable
+    # keys and values in every attention (the dense-bias path only)
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: Tuple[str, ...] = ("q_proj", "v_proj")
@@ -96,6 +110,12 @@ class TransformerConfig:
     attn_impl: str = "xla"
 
     def __post_init__(self):
+        if self.moe_experts > 0 and self.lora_rank > 0:
+            raise NotImplementedError(
+                "LoRA adapters on MoE expert weights are not supported; set moe_experts=0 or lora_rank=0"
+            )
+        if self.prefix_tokens > 0 and self.attn_impl != "xla":
+            raise NotImplementedError("prefix tuning needs the dense-bias attention path; set attn_impl='xla'")
         check_supported(self)
 
     @property
@@ -117,10 +137,6 @@ def check_supported(cfg: TransformerConfig) -> None:
     item that brings them."""
     if cfg.moe_experts > 0:
         raise NotImplementedError("the MoE MLP is not ported yet (ROADMAP queue A, item 4: model features)")
-    if cfg.lora_rank > 0 or cfg.prompt_tokens > 0 or cfg.prefix_tokens > 0:
-        raise NotImplementedError(
-            "LoRA / prompt / prefix tuning are not ported yet (ROADMAP queue A, item 4: model features)"
-        )
     if cfg.attn_impl not in ("xla", "flash"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} (ring/blockwise attention) is not ported yet "
@@ -157,10 +173,13 @@ def _normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]) 
 class Linear(nn.Module):
     """flax `nn.Dense(param_dtype=f32, dtype=cfg.dtype)`: weight [out, in]
     (the JAX kernel transposed), input, weight and bias cast to the compute
-    dtype at use."""
+    dtype at use. With `lora_rank > 0` (the JAX `lora_dense`) it also owns
+    `lora_a` [in, r] (normal, std 1/r) and `lora_b` [r, out] (zeros), the
+    JAX leaves in their own orientation, and adds `lora_delta(x)` unless
+    the call passes `adapters=False`."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool, dtype, param_dtype,
-                 device=None, generator=None):
+                 device=None, generator=None, lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=param_dtype, device=device))
@@ -168,10 +187,35 @@ class Linear(nn.Module):
         self.bias = (
             nn.Parameter(torch.zeros(out_features, dtype=param_dtype, device=device)) if bias else None
         )
+        self.lora_rank = lora_rank
+        if lora_rank > 0:
+            self.lora_scale = lora_alpha / lora_rank
+            self.lora_a = nn.Parameter(torch.empty(in_features, lora_rank, dtype=param_dtype, device=device))
+            _normal_(self.lora_a, 1.0 / lora_rank, generator)
+            self.lora_b = nn.Parameter(torch.zeros(lora_rank, out_features, dtype=param_dtype, device=device))
 
-    def forward(self, x):
+    def forward(self, x, adapters: bool = True):
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+        y = F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+        if self.lora_rank > 0 and adapters:
+            y = y + self.lora_delta(x)
+        return y
+
+    def lora_delta(self, x):
+        """((x A) B) alpha / r in the compute dtype: the one place the
+        factors are read (per-row factors of multi-tenant serving would
+        come in here)."""
+        dt = self.dtype
+        return ((x.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)) * self.lora_scale
+
+
+def make_linear(cfg: "TransformerConfig", name: str, in_features: int, out_features: int, bias: bool,
+                device=None, generator=None) -> Linear:
+    """A projection of a block, named as in the JAX tree (`q_proj`, ...,
+    `down_proj`), with a LoRA pair when its name is a LoRA target."""
+    rank = cfg.lora_rank if name in cfg.lora_targets else 0
+    return Linear(in_features, out_features, bias, cfg.dtype, cfg.param_dtype, device, generator,
+                  lora_rank=rank, lora_alpha=cfg.lora_alpha)
 
 
 class LayerNorm(nn.Module):
@@ -292,11 +336,19 @@ class Attention(nn.Module):
         self.cfg = cfg
         d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
         bias = cfg.use_bias if cfg.attn_bias is None else cfg.attn_bias
-        lin = lambda i, o: Linear(i, o, bias, cfg.dtype, cfg.param_dtype, device, generator)
-        self.q_proj = lin(d, nh * hd)
-        self.k_proj = lin(d, nkv * hd)
-        self.v_proj = lin(d, nkv * hd)
-        self.o_proj = lin(nh * hd, d)
+        lin = lambda name, i, o: make_linear(cfg, name, i, o, bias, device, generator)
+        self.q_proj = lin("q_proj", d, nh * hd)
+        self.k_proj = lin("k_proj", d, nkv * hd)
+        self.v_proj = lin("v_proj", d, nkv * hd)
+        self.o_proj = lin("o_proj", nh * hd, d)
+        if cfg.prefix_tokens > 0:
+            # prefix tuning: keys and values every query sees, unrotated
+            # like a cache's (the JAX `prefix_k` / `prefix_v`)
+            shape = (cfg.prefix_tokens, nkv, hd)
+            self.prefix_k = nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
+            self.prefix_v = nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
+            _normal_(self.prefix_k, 0.02, generator)
+            _normal_(self.prefix_v, 0.02, generator)
 
     def forward(
         self,
@@ -307,13 +359,14 @@ class Attention(nn.Module):
         cache_index: Optional[torch.Tensor] = None,  # [b] per-row write offsets
         attn_mask: Optional[torch.Tensor] = None,  # [b, t] write validity
         attn_kernel: Optional[str] = None,  # paged decode read: None (gather) | "kernel"
+        adapters: bool = True,  # False: no LoRA delta, no prefixes (the reference forward)
     ):
         cfg = self.cfg
         b, t, d = h.shape
         nh, nkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        q = self.q_proj(h).reshape(b, t, nh, hd)
-        k = self.k_proj(h).reshape(b, t, nkv, hd)
-        v = self.v_proj(h).reshape(b, t, nkv, hd)
+        q = self.q_proj(h, adapters).reshape(b, t, nh, hd)
+        k = self.k_proj(h, adapters).reshape(b, t, nkv, hd)
+        v = self.v_proj(h, adapters).reshape(b, t, nkv, hd)
         if cfg.pos_embed == "rope":
             q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_dim)
             k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_dim)
@@ -327,8 +380,8 @@ class Attention(nn.Module):
                 from trlx_tpu_torch.ops.attention import flash_attention
 
                 out = flash_attention(q, k, v, mask=attn_mask, causal=True).to(cfg.dtype)
-                return self.o_proj(out.reshape(b, t, nh * hd)), None
-            return self._dense(q, k, v, attn_bias), None
+                return self.o_proj(out.reshape(b, t, nh * hd), adapters), None
+            return self._dense(q, k, v, attn_bias, adapters), None
         if "table" not in layer_cache:
             # Fixed-slot dense cache (the sampler's): write this step's K/V
             # in place at the scalar column `cache_index` (every row at one
@@ -347,7 +400,7 @@ class Attention(nn.Module):
                 idx = int(cache_index)
                 ck[:, idx:idx + t] = k.to(ck.dtype)
                 cv[:, idx:idx + t] = v.to(cv.dtype)
-            return self._dense(q, ck, cv, attn_bias), layer_cache
+            return self._dense(q, ck, cv, attn_bias, adapters), layer_cache
         # Paged KV pool: a global block arena k/v [n_blocks + 1, blk, nkv,
         # hd] shared by every slot plus a per-row block table [b, n_tbl].
         # This step's K/V is written in place at per-row columns
@@ -384,8 +437,8 @@ class Attention(nn.Module):
             # a cuda device, its plain version on the CPU
             if t != 1:
                 raise ValueError(f"paged decode kernel takes single-position queries; got t={t}")
-            if cfg.alibi or cfg.sliding_window is not None:
-                raise ValueError("paged decode kernel cannot express alibi/window bias terms "
+            if cfg.alibi or cfg.sliding_window is not None or cfg.prefix_tokens > 0:
+                raise ValueError("paged decode kernel cannot express alibi/window/prefix bias terms "
                                  "(the engine should have fallen back)")
             from trlx_tpu_torch.ops.paged_attention import paged_attention_decode
 
@@ -396,7 +449,7 @@ class Attention(nn.Module):
                 k_scale=layer_cache.get("k_scale"), v_scale=layer_cache.get("v_scale"),
                 out_dtype=cfg.dtype,
             )
-            return self.o_proj(out.reshape(b, 1, nh * hd)), layer_cache
+            return self.o_proj(out.reshape(b, 1, nh * hd), adapters), layer_cache
 
         idx = table.long().clamp(0, arena_k.shape[0] - 1)
         S = n_tbl * blk_sz
@@ -410,13 +463,20 @@ class Attention(nn.Module):
         else:
             k = arena_k[idx].reshape(b, S, nkv, hd)
             v = arena_v[idx].reshape(b, S, nkv, hd)
-        return self._dense(q, k, v, attn_bias), layer_cache
+        return self._dense(q, k, v, attn_bias, adapters), layer_cache
 
-    def _dense(self, q, k, v, attn_bias):
-        """The einsum path: f32 scores, the additive bias, softmax in f32,
+    def _dense(self, q, k, v, attn_bias, adapters: bool = True):
+        """The einsum path: the prefixes (when on) before the keys and
+        values, f32 scores, the additive bias, softmax in f32,
         probabilities cast to cfg.dtype, then o_proj."""
         cfg = self.cfg
         b, t, nh, hd = q.shape
+        if cfg.prefix_tokens > 0 and adapters:
+            # after the cache update, in the keys' dtype; every query sees them
+            P = cfg.prefix_tokens
+            k = torch.cat([self.prefix_k.to(k.dtype)[None].expand(b, -1, -1, -1), k], dim=1)
+            v = torch.cat([self.prefix_v.to(v.dtype)[None].expand(b, -1, -1, -1), v], dim=1)
+            attn_bias = torch.cat([attn_bias.new_zeros(attn_bias.shape[:3] + (P,)), attn_bias], dim=-1)
         if k.shape[2] != nh:  # GQA: q head h reads kv head h // group
             k = k.repeat_interleave(nh // k.shape[2], dim=2)
             v = v.repeat_interleave(nh // v.shape[2], dim=2)
@@ -424,24 +484,24 @@ class Attention(nn.Module):
         scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (1.0 / math.sqrt(hd))
         probs = torch.softmax(scores + attn_bias, dim=-1).to(cfg.dtype)
         out = _einsum("bhts,bshd->bthd", probs, v).reshape(b, t, nh * hd)
-        return self.o_proj(out)
+        return self.o_proj(out, adapters)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, generator=None):
         super().__init__()
         self.cfg = cfg
-        lin = lambda i, o: Linear(i, o, cfg.use_bias, cfg.dtype, cfg.param_dtype, device, generator)
-        self.up_proj = lin(cfg.d_model, cfg.d_ff)
+        lin = lambda name, i, o: make_linear(cfg, name, i, o, cfg.use_bias, device, generator)
+        self.up_proj = lin("up_proj", cfg.d_model, cfg.d_ff)
         if cfg.glu:
-            self.gate_proj = lin(cfg.d_model, cfg.d_ff)
-        self.down_proj = lin(cfg.d_ff, cfg.d_model)
+            self.gate_proj = lin("gate_proj", cfg.d_model, cfg.d_ff)
+        self.down_proj = lin("down_proj", cfg.d_ff, cfg.d_model)
         self.act = activation_fn(cfg)
 
-    def forward(self, h):
+    def forward(self, h, adapters: bool = True):
         if self.cfg.glu:
-            return self.down_proj(self.act(self.gate_proj(h)) * self.up_proj(h))
-        return self.down_proj(self.act(self.up_proj(h)))
+            return self.down_proj(self.act(self.gate_proj(h, adapters)) * self.up_proj(h, adapters), adapters)
+        return self.down_proj(self.act(self.up_proj(h, adapters)), adapters)
 
 
 class Block(nn.Module):
@@ -460,14 +520,15 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device, generator)
 
     def forward(self, h, attn_bias, positions, layer_cache=None, cache_index=None,
-                attn_mask=None, attn_kernel=None):
+                attn_mask=None, attn_kernel=None, adapters: bool = True):
         h_ln = self.ln_attn(h)
-        attn_out, new_cache = self.attn(h_ln, attn_bias, positions, layer_cache, cache_index, attn_mask, attn_kernel)
+        attn_out, new_cache = self.attn(h_ln, attn_bias, positions, layer_cache, cache_index, attn_mask, attn_kernel,
+                                        adapters)
         if self.cfg.parallel_residual:
             mlp_in = h_ln if self.cfg.shared_ln else self.ln_mlp(h)
-            return h + attn_out + self.mlp(mlp_in), new_cache
+            return h + attn_out + self.mlp(mlp_in, adapters), new_cache
         h = h + attn_out
-        h = h + self.mlp(self.ln_mlp(h))
+        h = h + self.mlp(self.ln_mlp(h), adapters)
         return h, new_cache
 
 
@@ -547,6 +608,11 @@ class TransformerLM(nn.Module):
                                    device, generator)
         if cfg.embed_ln:
             self.ln_embed = make_norm(cfg, device)
+        if cfg.prompt_tokens > 0:
+            # prompt tuning's trainable embeddings (the JAX `soft_prompt`)
+            self.soft_prompt = nn.Parameter(torch.empty(cfg.prompt_tokens, cfg.d_model, dtype=cfg.param_dtype,
+                                                        device=device))
+            _normal_(self.soft_prompt, 0.02, generator)
         self.blocks = []
         for i in range(cfg.n_layers):
             blk = Block(cfg, device, generator)
@@ -559,6 +625,32 @@ class TransformerLM(nn.Module):
 
     def embed(self, tokens, positions):
         return embed_inputs(self, self.cfg, tokens, positions)
+
+    def _embed_soft_prompt(self, b, positions_virt):
+        """The soft prompt's rows as embeddings [b, P, d], with the
+        positions and the embedding norm real tokens get."""
+        cfg = self.cfg
+        h = self.soft_prompt.to(cfg.dtype)[None].expand(b, -1, -1)
+        if cfg.pos_embed == "learned":
+            h = h + self.embed_pos(positions_virt + cfg.pos_offset)
+        if cfg.embed_ln:
+            h = self.ln_embed(h)
+        return h
+
+    def _embed_prompted(self, tokens, attn_mask, positions):
+        """Prompt tuning's input: the soft prompt's P rows before the
+        tokens. Returns (h, attn_mask, positions), all P columns wider:
+        without given positions they come from the widened mask, else the
+        prompt takes 0..P-1 and the tokens' shift by P (as JAX's)."""
+        b, P = tokens.shape[0], self.cfg.prompt_tokens
+        attn_mask = torch.cat([attn_mask.new_ones((b, P)), attn_mask], dim=1)
+        if positions is None:
+            positions = position_ids(attn_mask)
+        else:
+            virt = torch.arange(P, dtype=positions.dtype, device=positions.device)[None].expand(b, P)
+            positions = torch.cat([virt, positions + P], dim=1)
+        h = torch.cat([self._embed_soft_prompt(b, positions[:, :P]), self.embed(tokens, positions[:, P:])], dim=1)
+        return h, attn_mask, positions
 
     def unembed(self, h):
         """Final norm + output projection. Returns (logits, h_final)."""
@@ -577,29 +669,39 @@ class TransformerLM(nn.Module):
             new_layers.append(new_cache)
         return h, new_layers
 
-    def forward(self, tokens, attn_mask, positions=None, split: int = 0):
+    def forward(self, tokens, attn_mask, positions=None, split: int = 0, adapters: bool = True):
         """Training/scoring forward (no cache). tokens, attn_mask [b, t].
         Returns (logits, h_split, h_final): h_split is the activation
-        entering block `split` (the embedding output for split 0)."""
-        return self.forward_captures(tokens, attn_mask, positions, split, split)[:3]
+        entering block `split` (the embedding output for split 0).
+        `adapters=False` runs the base model alone (no LoRA delta, soft
+        prompt or prefixes): the reference forward under adapters."""
+        return self.forward_captures(tokens, attn_mask, positions, split, split, adapters)[:3]
 
-    def forward_captures(self, tokens, attn_mask, positions=None, split: int = 0, value_split: int = 0):
+    def forward_captures(self, tokens, attn_mask, positions=None, split: int = 0, value_split: int = 0,
+                         adapters: bool = True):
         """`forward` that also keeps the activation entering block
         `value_split`, the deeper value branch's input. Returns (logits,
         h_split, h_final, h_value); a split at or past the last block
-        captures the last block's output."""
-        if positions is None:
-            positions = position_ids(attn_mask)
+        captures the last block's output. Under prompt tuning (with the
+        adapters on) the soft prompt is prepended and sliced off before
+        the head, so the logits keep the caller's length; the captures
+        carry the wider rows (their consumers take split 0 then)."""
+        P = self.cfg.prompt_tokens if adapters else 0
+        if P > 0:
+            h, attn_mask, positions = self._embed_prompted(tokens, attn_mask, positions)
+        else:
+            if positions is None:
+                positions = position_ids(attn_mask)
+            h = self.embed(tokens, positions)
         n = self.cfg.n_layers
         split, value_split = min(split, n), min(value_split, n)
-        h = self.embed(tokens, positions)
         caps = {}
         bounds = sorted({0, split, value_split, n})
         for s, e in zip(bounds, bounds[1:]):
             caps[s] = h
-            h = self._run_from(h, attn_mask, positions, s, e)
+            h = self._run_from(h, attn_mask, positions, s, e, adapters)
         caps[n] = h
-        logits, h_final = self.unembed(h)
+        logits, h_final = self.unembed(h[:, P:] if P > 0 else h)
         return logits, caps[split], h_final, caps[value_split]
 
     def forward_window(self, tokens, attn_mask, positions=None, start: int = 0, length: int = 1):
@@ -607,6 +709,9 @@ class TransformerLM(nn.Module):
         over positions [start, start + length) only: the slice a PPO step
         reads (the [b, t, V] head was the largest product of the step).
         Returns (logits_win, h_final_win)."""
+        if self.cfg.prompt_tokens > 0:
+            raise NotImplementedError("forward_window under prompt tuning is unsupported; use the full forward "
+                                      "(the soft prompt shifts every position)")
         if positions is None:
             positions = position_ids(attn_mask)
         return self.forward_from_window(self.embed(tokens, positions), attn_mask, positions, 0, start, length)
@@ -615,6 +720,9 @@ class TransformerLM(nn.Module):
         """Embeddings and blocks [0, split) only: the activation entering
         block `split` (the h_split `forward` returns), no head. One such
         pass per rollout chunk fills the PPO trunk cache."""
+        if self.cfg.prompt_tokens > 0:
+            raise NotImplementedError("forward_trunk under prompt tuning is unsupported (the soft prompt widens "
+                                      "the captured rows; resolve_split gates it off)")
         if positions is None:
             positions = position_ids(attn_mask)
         return self._run_from(self.embed(tokens, positions), attn_mask, positions, 0, split)
@@ -648,12 +756,17 @@ class TransformerLM(nn.Module):
         h = self._run_from(h, attn_mask, positions, start_layer)
         return self.unembed(h[:, start:start + length])
 
-    def _run_from(self, h, attn_mask, positions, start_layer: int, stop_layer: Optional[int] = None):
+    def _run_from(self, h, attn_mask, positions, start_layer: int, stop_layer: Optional[int] = None,
+                  adapters: bool = True):
         """Blocks [start_layer, stop_layer) of a no-cache forward."""
         bias = train_bias(self.cfg, attn_mask)
         for blk in self.blocks[start_layer:stop_layer]:
-            h, _ = blk(h, bias, positions, attn_mask=attn_mask)
+            h, _ = blk(h, bias, positions, attn_mask=attn_mask, adapters=adapters)
         return h
+
+    def _no_virtual_tokens(self, what: str) -> None:
+        if self.cfg.prompt_tokens > 0 or self.cfg.prefix_tokens > 0:
+            raise NotImplementedError(f"{what} under prompt/prefix tuning is unsupported")
 
     def decode_step(self, tokens, cache: Dict[str, Any], token_mask, is_prefill: bool = False,
                     capture_split: Optional[int] = None):
@@ -664,9 +777,18 @@ class TransformerLM(nn.Module):
         `layers`; its K/V tensors are written in place. Returns (logits,
         h_final, new_cache); with `capture_split` (the rollout fast path)
         also the activation entering that block, (logits, h_final,
-        new_cache, h_cap)."""
-        b, t = tokens.shape
+        new_cache, h_cap). Under prompt tuning the prefill writes the soft
+        prompt into the cache's first columns (`init_kv_cache` reserves
+        them) and the logits keep the caller's length."""
+        t = tokens.shape[1]
         index = int(cache["index"])
+        P = self.cfg.prompt_tokens if is_prefill else 0
+        if capture_split is not None and self.cfg.prompt_tokens > 0:
+            raise NotImplementedError("split-activation capture under prompt tuning is unsupported (the soft "
+                                      "prompt widens the captured rows)")
+        if P > 0:
+            h, token_mask, positions = self._embed_prompted(tokens, token_mask, None)
+        t_ext = t + P
         if is_prefill:
             positions = position_ids(token_mask)
             next_pos = token_mask.sum(-1).to(torch.int64)
@@ -674,23 +796,24 @@ class TransformerLM(nn.Module):
             positions = cache["pos"][:, None]
             next_pos = cache["pos"] + token_mask[:, 0].to(torch.int64)
         new_mask = cache["mask"].clone()
-        new_mask[:, index:index + t] = token_mask.to(new_mask.dtype)
+        new_mask[:, index:index + t_ext] = token_mask.to(new_mask.dtype)
         bias = cached_bias(self.cfg, new_mask, positions)
         if is_prefill:
             # causal structure within the prefill block
             S = new_mask.shape[-1]
-            q_ids = torch.arange(t, device=tokens.device)[:, None]
+            q_ids = torch.arange(t_ext, device=tokens.device)[:, None]
             k_ids = torch.arange(S, device=tokens.device)[None, :]
-            within = (k_ids < index + t) & (k_ids >= index) & (k_ids - index > q_ids)
+            within = (k_ids < index + t_ext) & (k_ids >= index) & (k_ids - index > q_ids)
             bias = bias + torch.where(within[None, None], -1e9, 0.0).to(torch.float32)
-        h = self.embed(tokens, positions)
+        if P == 0:
+            h = self.embed(tokens, positions)
         h, new_layers = self.run_blocks(h, bias, positions, cache["layers"], index, stop=capture_split)
         if capture_split is not None:
             h_cap = h
             h, high = self.run_blocks(h, bias, positions, cache["layers"], index, start=capture_split)
             new_layers = new_layers + high
-        logits, h_final = self.unembed(h)
-        new_cache = {"index": index + t, "mask": new_mask, "pos": next_pos, "layers": new_layers}
+        logits, h_final = self.unembed(h[:, P:] if P > 0 else h)
+        new_cache = {"index": index + t_ext, "mask": new_mask, "pos": next_pos, "layers": new_layers}
         if capture_split is not None:
             return logits, h_final, new_cache, h_cap
         return logits, h_final, new_cache
@@ -707,6 +830,7 @@ class TransformerLM(nn.Module):
         pool. Inactive rows write a 0 into the mask at their current
         column (a no-op) and do not advance; their arena writes go to the
         spare block. Returns (logits, new_cache)."""
+        self._no_virtual_tokens("slot-pool decode")
         row_index = cache["row_index"]
         positions = cache["pos"][:, None]
         step_valid = token_mask[:, 0].to(row_index.dtype)
@@ -751,6 +875,7 @@ class TransformerLM(nn.Module):
         back by clearing bits, and stale K/V past the frontier contributes
         exactly 0 (exp(-1e9) is 0.0 in f32). Returns (h_split [b, 1, d],
         ln_f(h_split), new_cache)."""
+        self._no_virtual_tokens("speculative decode")
         row_index = cache["row_index"]
         positions = cache["pos"][:, None]
         step_valid = token_mask[:, 0].to(row_index.dtype)
@@ -816,6 +941,7 @@ class TransformerLM(nn.Module):
         column plus the causal prefix of their own span. Right-pad
         positions write nothing the model can see. Returns (logits,
         new_cache)."""
+        self._no_virtual_tokens("slot-pool prefill")
         b, t = tokens.shape
         row_index = cache["row_index"]
         lens = token_mask.sum(-1).to(row_index.dtype)
@@ -848,8 +974,10 @@ class TransformerLM(nn.Module):
 
 def init_kv_cache(cfg: TransformerConfig, batch_size: int, max_len: int, dtype=None, device=None):
     """An empty fixed-slot KV cache of `max_len` columns per row (see
-    `TransformerLM.decode_step`)."""
+    `TransformerLM.decode_step`), and `cfg.prompt_tokens` more for the
+    soft prompt that the prefill writes first."""
     dtype = dtype or cfg.dtype
+    max_len = max_len + cfg.prompt_tokens
     shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
     layers = [
         {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -871,6 +999,8 @@ def init_paged_kv_arena(cfg: TransformerConfig, num_blocks: int, block_size: int
     table names it). Block 0 is reserved by the engine as the zero block
     backing padding table entries. int8 arenas carry f32 scale planes
     (per token per kv head, ops/quant.quantize_kv)."""
+    if cfg.prompt_tokens > 0 or cfg.prefix_tokens > 0:
+        raise NotImplementedError("paged KV cache under prompt/prefix tuning is unsupported")
     dtype = dtype or cfg.dtype
     shape = (num_blocks + 1, block_size, cfg.kv_heads, cfg.head_dim)
     layers = []

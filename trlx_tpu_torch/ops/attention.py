@@ -23,6 +23,15 @@ bias tensor; q head h reads kv head h // (nh // nkv).
   each holding half of the output's columns). At f32 every kernel runs
   on the CUDA cores in f32.
   The dtype and the head dim pick the route (`on_tensor_cores`).
+  A head dim the kernels are not instantiated at (`HEAD_DIMS`), up to
+  256, takes the padded route: q, k, v (and dO) are zero-padded on the
+  last axis to the next instantiation (80 and 96 -> 128, 40 -> 64), the
+  same kernel runs on them with the true scale 1/sqrt(hd), and out, dq,
+  dk, dv are sliced back. Zero columns add nothing to q.k^T (so lse is
+  unchanged) nor to delta = sum(g * out), and the padded columns'
+  gradients are exactly 0; each call is still one launch of one kernel.
+  `_FlashAttention` pads q, k, v once a call and keeps them padded for
+  its backward; a direct call of a wrapper pads its own operands.
   On cuda tensors they launch the kernel or raise; on CPU tensors they
   run the plain versions `flash_fwd_plain` (blockwise online softmax with
   lse, the JAX package's `blockwise_attention_lse`), `flash_bwd_dq_plain` and
@@ -99,10 +108,16 @@ def _kv32(x, group):
     return x.repeat_interleave(group, dim=2) if group > 1 else x
 
 
-def flash_fwd_plain(q, k, v, mask, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [b, tq, nh, hd] in q's dtype, lse [b, nh, tq] f32)."""
+def _scale(hd: int, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(hd) if scale is None else scale
+
+
+def flash_fwd_plain(q, k, v, mask, causal: bool = True,
+                    scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [b, tq, nh, hd] in q's dtype, lse [b, nh, tq] f32); the scores
+    are scaled by `scale`, 1/sqrt(hd) by default."""
     b, tq, tk, nh, nkv, hd = _shapes(q, k, v, mask)
-    scale = 1.0 / math.sqrt(hd)
+    scale = _scale(hd, scale)
     q32, k32, v32 = q.float(), _kv32(k, nh // nkv), _kv32(v, nh // nkv)
     acc = torch.zeros_like(q32)
     m = torch.full((b, nh, tq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -127,11 +142,11 @@ def flash_fwd_plain(q, k, v, mask, causal: bool = True) -> Tuple[torch.Tensor, t
     return out.to(q.dtype), lse
 
 
-def _bwd_blocks(q, k, v, mask, g, lse, delta, causal):
+def _bwd_blocks(q, k, v, mask, g, lse, delta, causal, scale):
     """Yield (start, stop, k32 block, p, ds) over key blocks, FA-2 math in
     f32 (`_bwd_block_terms` of the JAX package)."""
     b, tq, tk, nh, nkv, hd = _shapes(q, k, v, mask)
-    scale = 1.0 / math.sqrt(hd)
+    scale = _scale(hd, scale)
     q32, do = q.float(), g.float()
     k32, v32 = _kv32(k, nh // nkv), _kv32(v, nh // nkv)
     for start in range(0, tk, BLOCK_K):
@@ -145,21 +160,22 @@ def _bwd_blocks(q, k, v, mask, g, lse, delta, causal):
         yield start, stop, kf, p, ds
 
 
-def flash_bwd_dq_plain(q, k, v, mask, g, lse, delta, causal: bool = True) -> torch.Tensor:
+def flash_bwd_dq_plain(q, k, v, mask, g, lse, delta, causal: bool = True,
+                       scale: Optional[float] = None) -> torch.Tensor:
     """dq [b, tq, nh, hd] in q's dtype."""
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    for _, _, kf, _, ds in _bwd_blocks(q, k, v, mask, g, lse, delta, causal):
+    for _, _, kf, _, ds in _bwd_blocks(q, k, v, mask, g, lse, delta, causal, scale):
         dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     return dq.to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, mask, g, lse, delta, causal: bool = True):
+def flash_bwd_dkv_plain(q, k, v, mask, g, lse, delta, causal: bool = True, scale: Optional[float] = None):
     """Per-q-head (dk, dv), each f32 [b, tk, nh, hd]."""
     b, tq, tk, nh, nkv, hd = _shapes(q, k, v, mask)
     q32, do = q.float(), g.float()
     dk = torch.empty((b, tk, nh, hd), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    for start, stop, _, p, ds in _bwd_blocks(q, k, v, mask, g, lse, delta, causal):
+    for start, stop, _, p, ds in _bwd_blocks(q, k, v, mask, g, lse, delta, causal, scale):
         dv[:, start:stop] = torch.einsum("bhqk,bqhd->bkhd", p, do)
         dk[:, start:stop] = torch.einsum("bhqk,bqhd->bkhd", ds, q32)
     return dk, dv
@@ -193,6 +209,37 @@ def on_tensor_cores(kernel: str, dtype: torch.dtype, hd: int) -> bool:
     built library dispatches it; False means the CUDA cores."""
     which = {KERNEL_FWD: 0, KERNEL_FWD_LSE: 0, KERNEL_BWD_DQ: 1, KERNEL_BWD_DKV: 2}[kernel]
     return bool(_load().trlx_flash_on_tensor_cores(which, _CODES[dtype], hd))
+
+
+def padded_head_dim(hd: int) -> int:
+    """The instantiation the kernels run a head dim at: hd itself when it
+    is one of `HEAD_DIMS`, else the next larger one (the padded route)."""
+    for inst in HEAD_DIMS:
+        if hd <= inst:
+            return inst
+    raise ValueError(f"head_dim {hd} is above the flash kernels' largest instantiation {HEAD_DIMS[-1]} "
+                     "(ROADMAP queue C: a head dim the kernels cannot reach)")
+
+
+def pad_head_dim(x: torch.Tensor, hp: int) -> torch.Tensor:
+    """x zero-padded on its last axis to `hp` columns: a fresh contiguous
+    (so 16-byte aligned) tensor."""
+    return torch.nn.functional.pad(x, (0, hp - x.shape[-1])).contiguous()
+
+
+def pad_operands(hd: int, *xs):
+    """The padded route's operands: each of xs (head dim `hd`) zero-padded
+    to `padded_head_dim(hd)`. The kernel then runs at that width with the
+    true scale, and its outputs are sliced back to hd."""
+    hp = padded_head_dim(hd)
+    return [pad_head_dim(x, hp) for x in xs]
+
+
+def takes_padded_route(q: torch.Tensor) -> bool:
+    """Whether attention on q runs at a padded head dim: a cuda tensor whose
+    head dim the kernels are not instantiated at (the plain versions on the
+    CPU take any head dim)."""
+    return q.device.type != "cpu" and q.shape[-1] not in HEAD_DIMS
 
 
 def _check_cuda(q, k, v, mask, *extra):
@@ -230,12 +277,17 @@ def _check_rc(rc, name):
     kernels.count_launch(name)
 
 
-def flash_fwd(q, k, v, mask, causal: bool = True, with_lse: bool = False):
+def flash_fwd(q, k, v, mask, causal: bool = True, with_lse: bool = False, scale: Optional[float] = None):
     """Forward: out [b, tq, nh, hd] in q's dtype, and with `with_lse` also
-    lse [b, nh, tq] f32. K4 with the lse, K3 without."""
+    lse [b, nh, tq] f32. K4 with the lse, K3 without; a head dim outside
+    `HEAD_DIMS` on padded operands (`pad_operands`)."""
     if q.device.type == "cpu":
-        out, lse = flash_fwd_plain(q, k, v, mask, causal)
+        out, lse = flash_fwd_plain(q, k, v, mask, causal, scale)
         return (out, lse) if with_lse else out
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS:
+        res = flash_fwd(*pad_operands(hd, q, k, v), mask, causal, with_lse, _scale(hd, scale))
+        return (res[0][..., :hd].contiguous(), res[1]) if with_lse else res[..., :hd].contiguous()
     (b, tq, tk, nh, nkv, hd), mask = _check_cuda(q, k, v, mask)
     _check_aligned("forward", q, k, v)
     out = torch.empty_like(q)
@@ -244,16 +296,20 @@ def flash_fwd(q, k, v, mask, causal: bool = True, with_lse: bool = False):
         rc = _load().trlx_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, _CODES[q.dtype],
-            b, tq, tk, nh, nkv, hd, int(causal), 1.0 / math.sqrt(hd), _stream(q.device),
+            b, tq, tk, nh, nkv, hd, int(causal), _scale(hd, scale), _stream(q.device),
         )
     _check_rc(rc, KERNEL_FWD_LSE if with_lse else KERNEL_FWD)
     return (out, lse) if with_lse else out
 
 
-def flash_bwd_dq(q, k, v, mask, g, lse, delta, causal: bool = True) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, mask, g, lse, delta, causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
     """dq [b, tq, nh, hd] in q's dtype (K5)."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, mask, g, lse, delta, causal)
+        return flash_bwd_dq_plain(q, k, v, mask, g, lse, delta, causal, scale)
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS:
+        qp, kp, vp, gp = pad_operands(hd, q, k, v, g)
+        return flash_bwd_dq(qp, kp, vp, mask, gp, lse, delta, causal, _scale(hd, scale))[..., :hd].contiguous()
     (b, tq, tk, nh, nkv, hd), mask = _check_cuda(q, k, v, mask, g, lse, delta)
     _check_rows(q, g, lse, delta)
     _check_aligned("backward", q, k, v, g)
@@ -262,16 +318,21 @@ def flash_bwd_dq(q, k, v, mask, g, lse, delta, causal: bool = True) -> torch.Ten
         rc = _load().trlx_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _CODES[q.dtype],
-            b, tq, tk, nh, nkv, hd, int(causal), 1.0 / math.sqrt(hd), _stream(q.device),
+            b, tq, tk, nh, nkv, hd, int(causal), _scale(hd, scale), _stream(q.device),
         )
     _check_rc(rc, KERNEL_BWD_DQ)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, mask, g, lse, delta, causal: bool = True):
+def flash_bwd_dkv(q, k, v, mask, g, lse, delta, causal: bool = True, scale: Optional[float] = None):
     """Per-q-head (dk, dv), each f32 [b, tk, nh, hd] (K6)."""
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, mask, g, lse, delta, causal)
+        return flash_bwd_dkv_plain(q, k, v, mask, g, lse, delta, causal, scale)
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS:
+        qp, kp, vp, gp = pad_operands(hd, q, k, v, g)
+        dk, dv = flash_bwd_dkv(qp, kp, vp, mask, gp, lse, delta, causal, _scale(hd, scale))
+        return dk[..., :hd].contiguous(), dv[..., :hd].contiguous()
     (b, tq, tk, nh, nkv, hd), mask = _check_cuda(q, k, v, mask, g, lse, delta)
     _check_rows(q, g, lse, delta)
     _check_aligned("backward", q, k, v, g)
@@ -281,7 +342,7 @@ def flash_bwd_dkv(q, k, v, mask, g, lse, delta, causal: bool = True):
         rc = _load().trlx_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _CODES[q.dtype],
-            b, tq, tk, nh, nkv, hd, int(causal), 1.0 / math.sqrt(hd), _stream(q.device),
+            b, tq, tk, nh, nkv, hd, int(causal), _scale(hd, scale), _stream(q.device),
         )
     _check_rc(rc, KERNEL_BWD_DKV)
     return dk, dv
@@ -296,15 +357,15 @@ def _check_rows(q, g, lse, delta):
             raise ValueError(f"{name} must be f32 [b, nh, tq] = {(b, nh, tq)}; got {tuple(t.shape)} {t.dtype}")
 
 
-def flash_backward(q, k, v, mask, out, lse, g, causal: bool = True):
+def flash_backward(q, k, v, mask, out, lse, g, causal: bool = True, scale: Optional[float] = None):
     """FlashAttention-2 backward from the (out, lse) residuals: delta in
     torch, dq (K5), per-q-head dk/dv (K6) summed over each kv head's
     group in torch. Returns (dq, dk, dv) in the inputs' dtypes."""
     b, tq, tk, nh, nkv, hd = _shapes(q, k, v, mask)
     g = g.to(q.dtype).contiguous()
     delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()  # [b, nh, tq]
-    dq = flash_bwd_dq(q, k, v, mask, g, lse, delta, causal)
-    dk, dv = flash_bwd_dkv(q, k, v, mask, g, lse, delta, causal)
+    dq = flash_bwd_dq(q, k, v, mask, g, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, mask, g, lse, delta, causal, scale)
     group = nh // nkv
     if group > 1:  # q head h's slice folds onto kv head h // group
         dk = dk.reshape(b, tk, nkv, group, hd).sum(dim=3)
@@ -313,17 +374,30 @@ def flash_backward(q, k, v, mask, out, lse, g, causal: bool = True):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """On the padded route q, k, v are padded once here and saved padded
+    (with the padded out, whose extra columns are exactly 0); the backward
+    pads g once and slices dq, dk, dv once."""
+
     @staticmethod
     def forward(ctx, q, k, v, mask, causal):
-        out, lse = flash_fwd(q, k, v, mask, causal, with_lse=True)
-        ctx.causal = causal
+        hd = q.shape[-1]
+        ctx.causal, ctx.hd, ctx.scale = causal, hd, _scale(hd, None)
+        if takes_padded_route(q):
+            q, k, v = pad_operands(hd, q, k, v)
+        out, lse = flash_fwd(q, k, v, mask, causal, with_lse=True, scale=ctx.scale)
         ctx.save_for_backward(q, k, v, mask, out, lse)
-        return out
+        return out if out.shape[-1] == hd else out[..., :hd].contiguous()
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, mask, out, lse, g, ctx.causal)
+        hd = ctx.hd
+        if q.shape[-1] != hd:
+            g = pad_head_dim(g.to(q.dtype), q.shape[-1])
+        grads = flash_backward(q, k, v, mask, out, lse, g, ctx.causal, ctx.scale)
+        if q.shape[-1] != hd:
+            grads = [x[..., :hd].contiguous() for x in grads]
+        dq, dk, dv = grads
         return dq, dk, dv, None, None
 
 

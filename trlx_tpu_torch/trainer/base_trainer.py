@@ -171,6 +171,15 @@ class TorchTrainer:
         self.max_length = config.train.seq_length
 
         self.model, self.model_cfg, _ = self.get_arch(config)
+        P, cfg = self.model_cfg.prompt_tokens, self.model_cfg
+        if P > 0 and cfg.pos_embed == "learned" and config.train.seq_length + P > cfg.max_seq_len:
+            # the soft prompt shifts the tokens' positions by P; past the
+            # learned-position table the lookup would fail (JAX's gather
+            # would clamp silently), so refuse up front
+            raise ValueError(
+                f"prompt_tokens={P} + train.seq_length={config.train.seq_length} exceeds the learned-position "
+                f"table ({cfg.max_seq_len}); lower seq_length by the prompt length"
+            )
         self.split = resolve_split(self.model_cfg, config.model.num_layers_unfrozen)
         mask = self.make_trainable_mask()
         for name, p in self.model.named_parameters():
@@ -881,17 +890,36 @@ class TorchTrainer:
         """Portable export: an HF-layout `pytorch_model.bin` and
         `config.json` (every decoder family of `models/hf_interop.py`),
         else the raw state dict in `model_state.pt`; the run config beside
-        it."""
+        it. LoRA is merged into the base weights first (peft's
+        merge_and_unload); a soft prompt or prefixes, which an HF base
+        checkpoint has no slot for, are written beside the unmodified
+        base (`soft_prompt.npy`, `prefix_kv.npz`)."""
         from trlx_tpu_torch.models.hf_interop import config_to_hf, params_to_hf_state_dict
+        from trlx_tpu_torch.models.lora import merge_lora_into_state_dict
 
         directory = directory or os.path.join(self.config.train.checkpoint_dir, "hf_model")
         os.makedirs(directory, exist_ok=True)
+        cfg = self.model_cfg
+        state = self.model.state_dict()
+        if cfg.lora_rank > 0:
+            state = merge_lora_into_state_dict(state, cfg)
+        f32 = lambda t: t.detach().float().cpu().numpy()
+        if cfg.prompt_tokens > 0:
+            np.save(os.path.join(directory, "soft_prompt.npy"), f32(state["lm.soft_prompt"]))
+            logger.warning("Prompt-tuning export: pytorch_model.bin holds the UNMODIFIED base weights; the trained "
+                           "soft prompt is in soft_prompt.npy (prepend its embeddings to use it)")
+        if cfg.prefix_tokens > 0:
+            np.savez(os.path.join(directory, "prefix_kv.npz"),
+                     **{f"block_{i}.attn.{kv}": f32(state[f"lm.block_{i}.attn.{kv}"])
+                        for i in range(cfg.n_layers) for kv in ("prefix_k", "prefix_v")})
+            logger.warning("Prefix-tuning export: pytorch_model.bin holds the UNMODIFIED base weights; the trained "
+                           "K/V prefixes are in prefix_kv.npz")
         try:
-            sd = params_to_hf_state_dict(self.model.state_dict(), self.model_cfg)
+            sd = params_to_hf_state_dict(state, cfg)
             hf_cfg = config_to_hf(self.model_cfg)
         except NotImplementedError as e:
             logger.warning(f"HF export unavailable ({e}); saving the state dict instead")
-            torch.save(self.model.state_dict(), os.path.join(directory, "model_state.pt"))
+            torch.save(state, os.path.join(directory, "model_state.pt"))
         else:
             torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()},
                        os.path.join(directory, "pytorch_model.bin"))

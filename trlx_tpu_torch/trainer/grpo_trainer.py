@@ -115,8 +115,8 @@ class GRPOTrainer(PPOTrainer):
     def make_loss_fn(self) -> Callable:
         """The clipped ratio and the in-loss KL to the reference over the
         response window: no GAE, no value loss. The windowed head where
-        `_window_loss_ok` (always, until soft prompts port), else the full
-        forward with the labels shifted one column."""
+        `_window_loss_ok` (all but prompt tuning), else the full forward
+        with the labels shifted one column."""
         model = self.model
         method = self.config.method
         pad_id = self.tokenizer.pad_token_id

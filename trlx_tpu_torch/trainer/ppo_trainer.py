@@ -66,7 +66,14 @@ sessions; each episode is one rollout whose policy turns carry
 `loss_mask` 1 and their turn's reward on their last token, and whose
 environment turns carry `loss_mask` 0 and no KL penalty.
 
-Refused at construction: seq2seq (ROADMAP queue A, item 4).
+Under adapters (`model.peft_config`: LoRA, prompt or prefix tuning) the
+split is 0 and the reference is the live LM with its adapters off
+(`models/policy.py:AdapterReference`), so the trunk cache, the capture
+fast path and speculative decode are off; under prompt tuning the loss
+reads the full forward (the soft prompt shifts every position).
+
+Refused at construction: seq2seq (ROADMAP queue A, item 4) and adapters
+under the fleet backend (item 4.5).
 """
 
 import dataclasses
@@ -85,7 +92,8 @@ from trlx_tpu_torch.data import PPORLBatch, PPORLElement
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
 from trlx_tpu_torch.models import build_model
-from trlx_tpu_torch.models.policy import HydraReference, forward_policy_and_ref
+from trlx_tpu_torch.models.lora import has_adapters
+from trlx_tpu_torch.models.policy import forward_policy_and_ref, make_reference
 from trlx_tpu_torch.models.transformer import position_ids
 from trlx_tpu_torch.ops import quant
 from trlx_tpu_torch.ops.ppo import AdaptiveKLController, FixedKLController, get_advantages_and_returns, ppo_loss
@@ -158,9 +166,13 @@ class PPOTrainer(TorchTrainer):
         if config.model.model_arch_type == "seq2seq":
             raise NotImplementedError("seq2seq PPO is not ported yet (ROADMAP queue A, item 4)")
         super().__init__(config, **kwargs)
+        if has_adapters(self.model_cfg) and getattr(config.train, "rollout_backend", "local") == "fleet":
+            raise NotImplementedError("adapters (peft_config) under the rollout fleet are not ported yet "
+                                      "(ROADMAP queue A, item 4.5)")
         self.store = PPORolloutStorage(self.tokenizer.pad_token_id, self.tokenizer.padding_side)
-        # the frozen reference (hydra): copies of the top of the model at init
-        self.ref_model = HydraReference(self.model.lm, self.split)
+        # the frozen reference: copies of the top of the model at init
+        # (hydra), or under adapters the live LM with its adapters off
+        self.ref_model = make_reference(self.model.lm, self.split)
         method = config.method
         if method.target is not None:
             self.kl_ctl = AdaptiveKLController(method.init_kl_coef, method.target, method.horizon)
@@ -224,10 +236,11 @@ class PPOTrainer(TorchTrainer):
                    + (np.asarray(minibatch.response_tensors) != pad_id).sum())
 
     def _window_loss_ok(self) -> bool:
-        """Whether the loss may read the windowed head: only the plain MLP
-        value head (the branch's blocks attend over the full sequence). The
-        JAX gate's soft-prompt condition is refused at construction."""
-        return getattr(self.config.method, "num_value_layers_unfrozen", 0) == 0
+        """Whether the loss may read the windowed head: the plain MLP value
+        head (the branch's blocks attend over the full sequence) and no
+        soft prompt (it shifts every position)."""
+        return (getattr(self.config.method, "num_value_layers_unfrozen", 0) == 0
+                and self.model_cfg.prompt_tokens == 0)
 
     def make_loss_fn(self) -> Callable:
         model = self.model
@@ -926,15 +939,17 @@ class PPOTrainer(TorchTrainer):
     def _spec_decode_available(self) -> bool:
         """Whether sampling may run the draft/verify sampler: the JAX gate.
         It needs a real hydra split (the frozen trunk is the draft model),
-        one beam and no repetition penalty (its seen set cannot be rolled
-        back); MoE, virtual tokens and seq2seq are refused at construction
-        in the port. A refusal while the flag is on counts in
+        no prompt or prefix tokens, one beam and no repetition penalty (its
+        seen set cannot be rolled back); MoE and seq2seq are refused at
+        construction in the port. A refusal while the flag is on counts in
         `spec_decode_fallbacks`."""
         if not getattr(self.config.method, "speculative_decode", False):
             return False
         gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
         ok = (
             self.split > 0
+            and self.model_cfg.prompt_tokens == 0
+            and self.model_cfg.prefix_tokens == 0
             and int(gen_kwargs.get("num_beams", 1) or 1) == 1
             and float(gen_kwargs.get("repetition_penalty", 1.0) or 1.0) == 1.0
         )
