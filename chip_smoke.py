@@ -265,6 +265,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    each with the same checks; (c) the HH "20B" shape (d 6144 over 64
    heads of 96, vocab 50432) cut to 2 blocks: one PPO cycle at batch 1,
    seq 512, 16 rollouts in chunks of 4, K3-K6 at hd 96 (padded).
+22. the MoE MLP at Mixtral-8x7B-v0.1's published widths (d 4096, 32 heads
+   over 8 KV heads of 128, d_ff 14336, 8 experts top-2, vocab 32000,
+   rope_theta 1e6, aux coefficient 0.02) cut to 2 blocks, random weights,
+   bf16, flash: (a) SFT through the trainer's own `make_experience` and
+   `train_minibatch` (a run through `train` would end in a 25 GB
+   checkpoint), every weight trained, 2 steps of b 2 t 512: a step K4-K6
+   a block, K7 and its backward once, `moe_aux_loss` in (0, coef E k] a block, peak memory,
+   step s and training tokens/s, and how many expert sets the kernels move
+   against the plain versions at bf16; at f32 one step of b 2 t 256 with
+   the kernels on the plain run's routes (the routes are non-smooth, as
+   the ReLU gates of phase 10): loss within 1e-5 relative and every
+   gradient within phase 8's tolerance; (b) one PPO cycle (split 1, the HH
+   "1B" shape at 32 rollouts in chunks of 16, 32 new tokens) through the
+   trainer's own collection and steps with `speculative_decode` on: a step
+   K3-K6 x1 and K7 and its backward over the full logits, a chunk K3 x3
+   and K7 x2, `moe_aux_loss` in every step, one speculative fallback a
+   chunk and no trunk cache; (c) `serve()` of that policy over bf16 and
+   int8 arenas (K1/K2, 32 q heads over 8 KV heads of 128), and at f32 the
+   served greedy streams equal to the dense sampler's under phase 11's tie
+   rule; (d) deterministic beam search (B 4, 32 new tokens) at f32 on the
+   card equal to the CPU's on the same weights (a row may differ only at a
+   beam-score gap under 1e-4 or a router gap under 1e-5), on the MoE model
+   and at gpt2-small, and at bf16 beam tokens/s beside the greedy
+   sampler's at b 8, beam-sample repeatable from one generator seed.
 Phase 6 also holds K7 and its backward at the randomwalks curves' rows (a
 24-token vocabulary, f32 and bf16, shifted labels, padded rows), K3-K6 at
 phase 20's head dims (pythia-1.4b's 128 at the HH "1B" shape, gptj-6b's
@@ -279,7 +303,7 @@ before that is the `kernels` JSON object (with `ppo_options`, phase 11's
 checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
 `ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16, `serving`, phase
 17's, `fleet`, phase 18's, `phase19`, phase 19's, `phase20`, phase 20's,
-`phase21`, phase 21's);
+`phase21`, phase 21's, `phase22`, phase 22's);
 the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
@@ -5168,6 +5192,575 @@ def phase_adapters(card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the MoE MLP at Mixtral-8x7B's widths, and beam search
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B-v0.1's published config.json (hidden 4096, 32 heads over 8 KV
+# heads, intermediate 14336, 8 local experts, 2 per token, vocab 32000,
+# rope_theta 1e6, RMS eps 1e-5, no sliding window, router_aux_loss_coef
+# 0.02) on the llama-7b preset's block (RMSNorm, silu GLU, rope, no biases,
+# an untied head), its depth cut from 32 blocks to 2; random weights
+MIXTRAL_PRESET = "llama-7b"
+MIXTRAL_EXTRA = dict(n_layers=2, n_kv_heads=8, d_ff=14336, rope_theta=1e6, vocab_size=32000, moe_experts=8,
+                     moe_top_k=2, moe_aux_coef=0.02, layer_norm_epsilon=1e-5, max_seq_len=4096)
+MIXTRAL_CUT = "n_layers 32 -> 2 (every width published, random weights)"
+MOE_SFT = dict(batch=2, seq=512, steps=2)  # about 1024 tokens a step (every weight trained: ~51 GB of state)
+MOE_F32 = dict(batch=2, seq=256)  # the f32 kernel-vs-plain step
+MOE_PPO = dict(batch=8, seq=128, rollouts=32, chunk=16, new=32)  # the HH "1B" recipe's shape, 32 rollouts
+BEAMS, BEAM_NEW, BEAM_ROWS = 4, 32, 8  # the timed beam runs: b 8 prompts, B 4, 32 new tokens
+BEAM_CPU_ROWS = 2  # the f32 card-vs-CPU beam runs
+ROUTER_TIE = 1e-5  # two router probabilities at the top-k edge this close may order otherwise
+
+
+@contextmanager
+def moe_routes(replay=None):
+    """Record every MoE MLP's expert choice ([..., k] indices) in call
+    order; with `replay` (a recorded run's list) each call takes the
+    recorded choice in place of its own, as phase 10 fixes the ReLU gates
+    (the routes are non-smooth: a choice at a near tie may go either way
+    between two routes). Yields [(own, used), ...]: measurement of this
+    script, the model is unchanged."""
+    from trlx_tpu_torch.models.transformer import MoEMLP
+
+    original = MoEMLP.select
+    calls = []
+
+    def select(self, probs):
+        own = original(self, probs)
+        used = own if replay is None else replay[len(calls)][1]
+        calls.append((own, used))
+        return used
+
+    MoEMLP.select = select
+    try:
+        yield calls
+    finally:
+        MoEMLP.select = original
+
+
+def route_flips(calls):
+    """Tokens whose expert set differs between their own choice and the
+    one they used (a replayed run's)."""
+    return sum(int((own.sort(-1).values != used.sort(-1).values).any(-1).sum()) for own, used in calls)
+
+
+@contextmanager
+def beam_score_ties(beams):
+    """The smallest gaps a beam run met at decisions that could go either
+    way: between adjacent scores among the top 2B + 1 candidates of a step,
+    or the B-th and B + 1-th live ones (`beam_search.top_k`). Yields a list
+    filled on exit: per batch row (a row's B beams together), its smallest
+    gap."""
+    import torch
+
+    from trlx_tpu_torch.ops import beam_search
+
+    gaps, top_k = [], beam_search.top_k
+
+    def recording_top_k(x, k):
+        if x.shape[-1] > k and (k == 2 * beams or (k == beams and x.shape[-1] == 2 * beams)):
+            top = torch.sort(x.float(), dim=-1, descending=True).values[..., :k + 1]
+            gaps.append((top[..., :-1] - top[..., 1:]).min(-1).values.cpu())
+        return top_k(x, k)
+
+    beam_search.top_k = recording_top_k
+    out = []
+    try:
+        yield out
+    finally:
+        beam_search.top_k = top_k
+        if gaps:
+            out.extend(torch.stack(gaps).min(0).values.tolist())
+
+
+@contextmanager
+def router_gaps(model):
+    """The gap between the k-th and k + 1-th router probability of every
+    MoE MLP (two experts this close may swap between two runs), over the
+    positions that each cached call of `model` (`decode_step`,
+    `prefill_rows`, `decode_step_rows`) marks real in its token mask:
+    padding and idle slots are left out. Yields a list filled on exit, one
+    (starts a stream, [rows] each row's smallest gap over its real
+    positions and every block, inf where it has none) a call."""
+    import torch
+
+    from trlx_tpu_torch.models.transformer import MoEMLP
+
+    calls, select = [], MoEMLP.select
+
+    def recording_select(self, probs):
+        k = self.cfg.moe_top_k
+        top = torch.sort(probs.detach().float(), dim=-1, descending=True).values
+        edge, mask = top[..., k - 1] - top[..., k], calls[-1][2]
+        if edge.shape != mask.shape:
+            raise AssertionError(f"router gaps: probabilities {tuple(probs.shape)} beside a token mask "
+                                 f"{tuple(mask.shape)}")
+        edge = edge.masked_fill(mask.to(edge.device) == 0, float("inf"))
+        calls[-1][1] = torch.minimum(calls[-1][1], edge.min(-1).values.cpu())
+        return select(self, probs)
+
+    def recording(name, starts):
+        method = getattr(model, name)
+
+        def call(tokens, cache, token_mask, *args, **kwargs):
+            first = starts if starts is not None else bool(args[0] if args else kwargs.get("is_prefill", False))
+            mask = torch.as_tensor(token_mask)
+            calls.append([first, torch.full((mask.shape[0],), float("inf")), mask])
+            return method(tokens, cache, token_mask, *args, **kwargs)
+
+        return call
+
+    names = {"decode_step": None, "prefill_rows": True, "decode_step_rows": False}
+    for name, starts in names.items():
+        setattr(model, name, recording(name, starts))
+    MoEMLP.select = recording_select
+    out = []
+    try:
+        yield out
+    finally:
+        MoEMLP.select = select
+        for name in names:
+            delattr(model, name)
+        out.extend((first, gaps) for first, gaps, _ in calls)
+
+
+def stream_router_gaps(calls):
+    """`router_gaps`' calls -> per stream (a prefill starts one), the
+    smallest router gap met up to and including each of its calls; a
+    stream's call j samples its token j, so entry j bounds every route that
+    token depended on."""
+    streams = []
+    for first, gaps in calls:
+        if first:
+            streams.append([])
+        if not streams:
+            raise AssertionError("router gaps: a decode call before any prefill")
+        seen = streams[-1][-1] if streams[-1] else float("inf")
+        streams[-1].append(min(seen, float(gaps.min())))
+    return streams
+
+
+def beams_card_vs_cpu(tag, model, cfg, prompts, mask, eos, pad):
+    """Deterministic beam search (B 4, 32 new tokens) at f32 on the card,
+    then on the CPU with the same weights (the CPU side is what the tests
+    hold against JAX): token for token, a row allowed to differ only where
+    the CPU run met a near tie in that row (`beam_score_ties`: a beam
+    score gap under TIE_GAP, or `router_gaps`: a router probability gap
+    under ROUTER_TIE at a real position of one of its beams). Moves
+    `model` to the CPU. Returns the numbers."""
+    import torch
+
+    from trlx_tpu_torch.ops import sampling
+
+    gen = sampling.GenerationConfig(max_new_tokens=BEAM_NEW, do_sample=False, num_beams=BEAMS, eos_token_id=eos,
+                                    pad_token_id=pad)
+    t0 = time.perf_counter()
+    card = sampling.make_generate_fn(model, cfg, gen)(prompts, mask, None)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card_tokens = card["response_tokens"].cpu()
+    model.to("cpu")
+    release()
+    t0 = time.perf_counter()
+    with beam_score_ties(BEAMS) as scores, router_gaps(model) as calls:
+        cpu = sampling.make_generate_fn(model, cfg, gen)(prompts, mask, None)
+    cpu_s = time.perf_counter() - t0
+    # a batch row's B beams are B consecutive rows of every call
+    routers = torch.stack([g.reshape(len(prompts), -1).min(-1).values for _, g in calls]).min(0).values.tolist()
+    differ = []
+    for r in range(len(prompts)):
+        if not torch.equal(card_tokens[r], cpu["response_tokens"][r]):
+            score, router = scores[r], routers[r]
+            differ.append((r, score, router))
+            if not (score < TIE_GAP or router < ROUTER_TIE):
+                raise AssertionError(f"{tag} beams: row {r} differs card vs CPU without a near tie (smallest score "
+                                     f"gap {score}, router gap {router}): {card_tokens[r]} vs "
+                                     f"{cpu['response_tokens'][r]}")
+    out = dict(rows=len(prompts), equal=len(prompts) - len(differ), ties=differ, card_s=card_s, cpu_s=cpu_s,
+               min_score_gap=min(scores), min_router_gap=min(routers))
+    log(f"[{tag}] f32 beam search B {BEAMS}, {BEAM_NEW} new tokens, {len(prompts)} left-padded rows: the card "
+        f"({card_s:.2f}s) vs the CPU ({cpu_s:.2f}s), {out['equal']}/{len(prompts)} rows token for token; smallest "
+        f"gaps met: beam score {out['min_score_gap']:.3g}, router {out['min_router_gap']} (rows allowed to differ "
+        f"under {TIE_GAP} / {ROUTER_TIE}: {differ})")
+    return out
+
+
+def beam_timing(tag, trainer, prompts, card):
+    """Beam search (B 4) beside the plain greedy sampler at the same b and
+    budget through the trainer's own `generate`, bf16: the output tokens
+    (the winners' response masks) a second, the fastest of 3 calls each;
+    then beam-sample twice from one generator seed, equal, and a third
+    seed."""
+    import numpy as np
+    import torch
+
+    ids = np.asarray([p[0] for p in prompts])
+    mask = np.asarray([p[1] for p in prompts])
+    base = dict(max_new_tokens=BEAM_NEW)
+    out = {}
+    for name, kw in (("greedy", dict(do_sample=False, num_beams=1)), ("beam", dict(do_sample=False, num_beams=BEAMS))):
+        wall = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = trainer.generate(ids, mask, {**base, **kw})
+            torch.cuda.synchronize()
+            wall = min(wall, time.perf_counter() - t0)
+        n = int(np.asarray(res["response_mask"].cpu()).sum())
+        out[name] = dict(s=wall, tokens_per_s=n / wall, tokens=n)
+    draws = []
+    for seed in (5, 5, 6):
+        trainer.generator.manual_seed(seed)
+        draws.append(trainer.generate(ids, mask, {**base, "do_sample": True, "num_beams": BEAMS,
+                                                  "temperature": 1.0})["response_tokens"].cpu())
+    if not torch.equal(draws[0], draws[1]):
+        raise AssertionError(f"{tag}: beam-sample is not repeatable from one generator seed")
+    out["sample_repeatable"], out["sample_moves"] = True, not torch.equal(draws[0], draws[2])
+    log(f"[{tag}] bf16, b {len(prompts)}, {BEAM_NEW} new tokens: beam search B {BEAMS} {out['beam']['s']:.3f}s "
+        f"({out['beam']['tokens_per_s']:.1f} output tokens/s) beside the greedy sampler {out['greedy']['s']:.3f}s "
+        f"({out['greedy']['tokens_per_s']:.1f} tokens/s); beam-sample repeatable from one seed, another seed "
+        f"{'moves' if out['sample_moves'] else 'does not move'} it ({card})")
+    return out
+
+
+def beam_prompts(n, seed=9):
+    """(ids, mask) rows of printable bytes from a seed, left padded to 24
+    tokens (lengths 24 down to 8)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        plen = 24 - (5 * i) % 17
+        ids = np.full(24, 0, np.int64)
+        ids[24 - plen:] = rng.randint(32, 127, plen)
+        mask = np.zeros(24, np.int64)
+        mask[24 - plen:] = 1
+        rows.append((ids, mask))
+    return rows
+
+
+def mixtral_config(work, make=None, **model_extra):
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+
+    return (make or default_sft_config)().evolve(
+        train=dict(seq_length=MOE_SFT["seq"], batch_size=MOE_SFT["batch"], total_steps=MOE_SFT["steps"],
+                   eval_interval=10**6, checkpoint_interval=10**6, save_optimizer=False, save_best=False,
+                   checkpoint_dir=str(work / "ckpts"), logging_dir=str(work / "logs")),
+        model=dict(model_path=f"random:{MIXTRAL_PRESET}", num_layers_unfrozen=-1,
+                   model_extra_configs={**MIXTRAL_EXTRA, "attn_impl": "flash", **model_extra}),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(gen_kwargs=dict(max_new_tokens=16, do_sample=False)),
+        inference=family_inference(),
+    )
+
+
+def moe_sft(card):
+    """Phase 22 (a): SFT, every weight trained, 2 steps of b 2 t 512,
+    through the trainer's own `make_experience` and `train_minibatch` (a
+    run through `train` ends in a done checkpoint of 25 GB with its raw
+    state-dict export, more than the rest of the smoke writes to disk;
+    `tests/test_torch_moe.py` drives `train(samples=...)` under MoE
+    against JAX): each step K4-K6 a block,
+    K7 and its backward once; `moe_aux_loss` in (0, coef E k] a block; peak
+    memory, step s, training tokens/s; then the same model's routes
+    kernels vs plain versions at bf16 (forward)."""
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    t0 = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    config = mixtral_config(ROOT / "build" / "chip_smoke_moe_sft")
+    trainer = SFTTrainer(config)
+    build_s = time.perf_counter() - t0
+    trainer.make_experience(sft_samples(2 * MOE_SFT["batch"], seed=4), MOE_SFT["seq"])
+    record, stats = [], []
+    kernels.reset_launches()
+    with ppo_probes(record, cls=SFTTrainer, names=("train_minibatch",)):
+        for batch in trainer.store.create_loader(MOE_SFT["batch"], shuffle=True, seed=config.train.seed):
+            stats.append(trainer.train_minibatch([batch]))
+    torch.cuda.synchronize()
+    wall, peak = time.perf_counter() - t0, peak_gb()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    cfg = trainer.model_cfg
+    n = cfg.n_layers
+    per_step = {"flash_fwd_lse": n, "flash_bwd_dq": n, "flash_bwd_dkv": n, "label_logprobs": 1,
+                "label_logprobs_bwd": 1}
+    steps = [c for c in record if c[0] == "train_minibatch"]
+    if len(steps) != MOE_SFT["steps"] or any(c[3] != per_step for c in steps):
+        raise AssertionError(f"moe sft: steps launched {[c[3] for c in steps]}, expected {per_step} each")
+    if launches != {k: v * MOE_SFT["steps"] for k, v in per_step.items()}:
+        raise AssertionError(f"moe sft: launches {launches}")
+    bound = n * cfg.moe_aux_coef * cfg.moe_experts * cfg.moe_top_k
+    aux = [r["moe_aux_loss"] for r in stats]
+    losses = [r["loss"] for r in stats]
+    if not all(0 < a <= bound for a in aux) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"moe sft: moe_aux_loss {aux} (bound (0, {bound}]), losses {losses}")
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    experts = sum(p.numel() for name, p in trainer.model.named_parameters() if ".mlp." in name)
+    out = dict(steps=len(stats), losses=losses, moe_aux_loss=aux, aux_bound=bound,
+               step_s=[r["time/train_step_s"] for r in stats],
+               train_tokens_per_s=[r["throughput/train_tokens_per_s"] for r in stats], peak_gb=peak, wall_s=wall,
+               build_s=build_s, params=n_params, expert_params=experts, launches=launches)
+    log(f"[moe-sft] Mixtral-8x7B widths (d {cfg.d_model}, {cfg.n_heads} heads over {cfg.kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.moe_experts} experts top-{cfg.moe_top_k}, vocab {cfg.vocab_size}, "
+        f"rope_theta {cfg.rope_theta}), cut: {MIXTRAL_CUT}: {n_params:,} parameters ({experts:,} in the MoE MLPs), "
+        f"built in {build_s:.1f}s, every weight trained; SFT through the trainer's make_experience and "
+        f"train_minibatch, b {MOE_SFT['batch']} t {MOE_SFT['seq']}, bf16 flash: losses "
+        f"{[round(x, 5) for x in losses]}, moe_aux_loss {[round(a, 6) for a in aux]} (in (0, {bound}]), step_s "
+        f"{[round(s, 4) for s in out['step_s']]}, train tokens/s {[round(s, 1) for s in out['train_tokens_per_s']]}, "
+        f"peak {peak:.2f} GB, wall {wall:.1f}s; launches exact (a step {per_step}): {launches} ({card})")
+    # bf16 routes of one batch, kernels vs plain versions (forward)
+    batch = trainer.batch_to_device(next(iter(trainer.store.create_loader(MOE_SFT["batch"]))))
+    with torch.no_grad():
+        with plain_versions(), moe_routes() as plain:
+            trainer.make_loss_fn()(batch)
+        with moe_routes(replay=plain) as kern:
+            trainer.make_loss_fn()(batch)
+    tokens = sum(int(own[..., 0].numel()) for own, _ in plain)
+    out["bf16_route_flips"], out["route_decisions"] = route_flips(kern), tokens
+    log(f"[moe-sft] bf16 routes, kernels vs plain versions on one batch: {out['bf16_route_flips']} of {tokens} "
+        f"token-block expert sets differ")
+    del trainer
+    release()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def moe_f32(card):
+    """Phase 22 (a), (c) and (d) at f32: one SFT step of b 2 t 256 with the
+    plain versions, then with the kernels on the plain run's routes (loss
+    within 1e-5 relative, every gradient within GRAD_TOL); the served
+    greedy streams (paged engine, K1) against the model's own dense greedy
+    (a stream may differ only at its own near tie: phase 11's rule on its
+    first differing token, or a router gap on its way there); deterministic
+    beams on the card against the CPU's."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.inference import InferenceEngine
+    from trlx_tpu_torch.ops.sampling import GenerationConfig
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    t0 = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    work = ROOT / "build" / "chip_smoke_moe_f32"
+    config = mixtral_config(work, dtype="float32").evolve(
+        train=dict(seq_length=MOE_F32["seq"], batch_size=MOE_F32["batch"]))
+    trainer = SFTTrainer(config)
+    trainer.make_experience(sft_samples(MOE_F32["batch"], seed=6), MOE_F32["seq"])
+    batch = next(iter(trainer.store.create_loader(MOE_F32["batch"])))
+    with plain_versions(), moe_routes() as plain:
+        loss_p, grads_p = sft_step_grads(trainer, batch)
+    kernels.reset_launches()
+    with moe_routes(replay=plain) as kern:
+        loss_k, grads_k = sft_step_grads(trainer, batch)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    n = trainer.model_cfg.n_layers
+    want = {"flash_fwd_lse": n, "flash_bwd_dq": n, "flash_bwd_dkv": n, "label_logprobs": 1, "label_logprobs_bwd": 1}
+    if launched != want:
+        raise AssertionError(f"moe f32: launches {launched} != {want}")
+    worst = check_grads(grads_k, grads_p, trainer.model_cfg)
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        raise AssertionError(f"moe f32: loss kernels {loss_k} vs plain {loss_p}")
+    out = dict(loss_k=loss_k, loss_p=loss_p, worst_grad=worst, grads=len(grads_k), f32_route_flips=route_flips(kern),
+               route_decisions=sum(int(own[..., 0].numel()) for own, _ in plain), launches=launched)
+    del grads_k, grads_p
+    trainer.model.zero_grad(set_to_none=True)
+    release()
+    log(f"[moe-f32] one SFT step b {MOE_F32['batch']} t {MOE_F32['seq']}, every weight trained: loss kernels="
+        f"{loss_k:.7f} plain={loss_p:.7f}; {out['grads']} trainable grads, every element held, worst "
+        f"max|diff|/max|g| = {worst:.3g} (tol {GRAD_TOL}); the kernel run took the plain run's routes "
+        f"({out['f32_route_flips']} of {out['route_decisions']} token-block expert sets differ from its own); "
+        f"launches {launched} ({card})")
+
+    # the served greedy streams (paged arena, K1) against the dense sampler's
+    model, cfg = trainer.model, trainer.model_cfg
+    prompts, max_new = greedy_prompts(), 16
+    gcfg = GenerationConfig(max_new_tokens=max_new, do_sample=False, eos_token_id=10**6,
+                            pad_token_id=trainer.tokenizer.pad_token_id)
+    kernels.reset_launches()
+    engine = InferenceEngine(model, cfg, None, gcfg, num_slots=8, max_prompt_len=128, kv_paging=True,
+                             kv_block_size=32, decode_kernel="auto")
+    with router_gaps(model) as served_calls:
+        served = run_serial(engine, prompts, max_new)
+    k1, dispatches = kernels.LAUNCHES.get("paged_decode", 0), engine.kv_stats()["kv_kernel_dispatches"]
+    with router_gaps(model) as dense_calls:
+        dense, gaps = dense_greedy_with_gaps(model, cfg, prompts, max_new)
+    served_routers, dense_routers = stream_router_gaps(served_calls), stream_router_gaps(dense_calls)
+    if not len(served_routers) == len(dense_routers) == len(prompts):
+        raise AssertionError(f"moe f32 greedy: {len(served_routers)} served and {len(dense_routers)} dense streams "
+                             f"recorded for {len(prompts)} prompts")
+    # a stream that differs is excused only by its own near tie up to its
+    # first differing token: the logits' top two there, or a router gap on
+    # either side at or before it
+    differ = []
+    for i, (a, b) in enumerate(zip(served, dense)):
+        if a != b:
+            j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            router = min(served_routers[i][min(j, len(served_routers[i]) - 1)],
+                         dense_routers[i][min(j, len(dense_routers[i]) - 1)])
+            differ.append((i, j, gaps[i][j], router))
+    router_gap = min(min(r) for r in served_routers + dense_routers)
+    if not 0 < k1 == n * dispatches or not all(g < TIE_GAP or r < ROUTER_TIE for *_, g, r in differ):
+        raise AssertionError(f"moe f32 greedy: served {served} dense {dense}; K1 {k1} over {dispatches} dispatches; "
+                             f"(stream, token, logit gap, router gap) {differ}")
+    out["greedy"] = dict(streams=len(prompts), equal=len(prompts) - len(differ), ties=differ, k1=k1,
+                         min_router_gap=router_gap)
+    log(f"[moe-f32] served greedy (paged engine, K1 x{k1} = {n} x {dispatches} dispatches) = the dense sampler's "
+        f"in {out['greedy']['equal']}/{len(prompts)} streams (differing streams with their own logit gap under "
+        f"{TIE_GAP} or router gap under {ROUTER_TIE} up to the first difference: {differ}; smallest router gap "
+        f"met {router_gap:.3g})")
+    del engine
+    release()
+
+    # deterministic beams, the card against the CPU (moves the model there)
+    rows = beam_prompts(BEAM_CPU_ROWS)
+    ids = np.asarray([r[0] for r in rows])
+    mask = np.asarray([r[1] for r in rows])
+    out["beams"] = beams_card_vs_cpu("moe-f32", model, cfg, ids, mask, eos=10**6,
+                                     pad=trainer.tokenizer.pad_token_id)
+    del trainer, model
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    out["seconds"], out["peak_gb"] = time.perf_counter() - t0, peak_gb()
+    log(f"[moe-f32] took {out['seconds']:.1f} s, peak {out['peak_gb']:.2f} GB ({card})")
+    return out
+
+
+def moe_ppo(card):
+    """Phase 22 (b) and (c): one PPO cycle at Mixtral's widths (split 1, the
+    HH "1B" recipe's shape at 32 rollouts in chunks of 16, 32 new tokens,
+    `speculative_decode` on) through the trainer's own collection and steps:
+    launches exact (a step K3 over block 0, K4-K6 over block 1, K7 and its
+    backward over the full logits; a chunk K3 over the policy's 2 blocks
+    and the reference's 1, K7 x2), `moe_aux_loss` in every step's stats,
+    one speculative-decode fallback a chunk and no trunk cache; then
+    `serve()` over bf16 and int8 arenas and the bf16 beam timings."""
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    t0 = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    p = MOE_PPO
+    work = ROOT / "build" / "chip_smoke_moe_ppo"
+    config = mixtral_config(work, make=default_ppo_config).evolve(
+        train=dict(seq_length=p["seq"], batch_size=p["batch"], epochs=1),
+        model=dict(num_layers_unfrozen=1),
+        method=dict(num_rollouts=p["rollouts"], chunk_size=p["chunk"], speculative_decode=True,
+                    gen_kwargs=dict(max_new_tokens=p["new"], top_k=0, top_p=1.0, do_sample=True,
+                                    suppress_tokens=printable_only(MIXTRAL_EXTRA["vocab_size"]))))
+    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    build_s, weights_gb = time.perf_counter() - t0, torch.cuda.memory_allocated() / 1e9
+    cfg = trainer.model_cfg
+    trainer.add_prompt_pipeline(PromptPipeline(HH_QUESTIONS * 16, p["seq"] - p["new"], trainer.tokenizer))
+    record, stats = [], []
+    kernels.reset_launches()
+    t_cycle = time.perf_counter()
+    with ppo_probes(record):
+        trainer.make_experience(p["rollouts"])
+        for _ in range(config.method.ppo_epochs):
+            for batch in trainer.create_train_dataloader():
+                stats.append(trainer.train_minibatch([batch]))
+    torch.cuda.synchronize()
+    cycle_s, cycle_peak = time.perf_counter() - t_cycle, peak_gb()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    per_step = {"flash_fwd": 1, "flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "label_logprobs": 1,
+                "label_logprobs_bwd": 1}
+    per_chunk = {"flash_fwd": 3, "label_logprobs": 2}
+    n_steps, n_chunks = config.method.ppo_epochs * p["rollouts"] // p["batch"], p["rollouts"] // p["chunk"]
+    step_s, chunk_s = check_ppo_calls("moe-ppo", record, launches, per_step, per_chunk, n_steps, n_chunks, p["new"])
+    aux = [s["moe_aux_loss"] for s in stats]
+    bound = cfg.n_layers * cfg.moe_aux_coef * cfg.moe_experts * cfg.moe_top_k
+    if trainer.split != 1 or not all(0 < a <= bound for a in aux) or not all(
+            math.isfinite(s["losses/total_loss"]) for s in stats):
+        raise AssertionError(f"moe ppo: split {trainer.split}, moe_aux_loss {aux}")
+    if trainer.spec_decode_fallbacks != n_chunks or trainer._trunk_cache_available() or any(
+            e.h_split is not None for e in trainer.store.history):
+        raise AssertionError(f"moe ppo: {trainer.spec_decode_fallbacks} speculative fallbacks for {n_chunks} chunks, "
+                             "or the trunk cache ran")
+    out = dict(steps=n_steps, step_s=statistics.median(step_s[1:]), score_chunk_s=statistics.median(chunk_s),
+               collection_s=[c[2] - c[1] for c in record if c[0] == "make_experience"][0], cycle_s=cycle_s,
+               build_s=build_s, weights_gb=weights_gb, cycle_peak_gb=cycle_peak, moe_aux_loss=[aux[0], aux[-1]],
+               losses=[stats[0]["losses/total_loss"], stats[-1]["losses/total_loss"]], launches=launches,
+               spec_decode_fallbacks=trainer.spec_decode_fallbacks)
+    log(f"[moe-ppo] Mixtral widths, split {trainer.split}, batch {p['batch']}, seq {p['seq']}, {p['rollouts']} "
+        f"rollouts in chunks of {p['chunk']}, {p['new']} new tokens, bf16 flash: built in {build_s:.1f}s "
+        f"({weights_gb:.2f} GB allocated: the policy and the hydra reference's block); collection "
+        f"{out['collection_s']:.2f}s, {n_steps} steps, median step_s={out['step_s']:.4f}, scoring chunk s="
+        f"{out['score_chunk_s']:.4f}, the cycle {cycle_s:.2f}s, peak {cycle_peak:.2f} GB; moe_aux_loss "
+        f"{aux[0]:.6f} -> {aux[-1]:.6f} (in (0, {bound}]); speculative_decode refused by the gate "
+        f"{trainer.spec_decode_fallbacks} times (once a chunk), no trunk cache; launches exact (a step {per_step}, "
+        f"a chunk {per_chunk}): {launches} ({card})")
+    out["serve"] = {}
+    for kv, counter in (("auto", "paged_decode"), ("int8", "paged_decode_int8")):
+        trainer.config = trainer.config.evolve(inference=dict(kv_cache_dtype=kv))
+        n_launch, numbers = serve_and_check(None, FAMILY_REQUESTS, counter, card, trainer=trainer,
+                                            tag=f"moe-serve-{kv}")
+        out["serve"][kv] = dict(numbers, launches=n_launch)
+    out["beam_timing"] = beam_timing("moe-beams", trainer, beam_prompts(BEAM_ROWS), card)
+    del trainer
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    out["seconds"], out["peak_gb"] = time.perf_counter() - t0, peak_gb()
+    log(f"[moe-ppo] took {out['seconds']:.1f} s, peak {out['peak_gb']:.2f} GB ({card})")
+    return out
+
+
+def gpt2_beams(card):
+    """Phase 22 (d) at gpt2-small (phase 9's model): the bf16 beam timings
+    beside the greedy sampler's, then f32 beams on the card against the
+    CPU's."""
+    import numpy as np
+
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    t0 = time.perf_counter()
+    trainer = SFTTrainer(serving_config())
+    out = {"timing": beam_timing("gpt2-beams", trainer, beam_prompts(BEAM_ROWS), card)}
+    del trainer
+    release()
+    trainer = SFTTrainer(serving_config().evolve(model=dict(model_extra_configs={"vocab_size": 50257,
+                                                                                 "dtype": "float32"})))
+    rows = beam_prompts(BEAM_ROWS, seed=3)
+    out["f32"] = beams_card_vs_cpu("gpt2-beams", trainer.model, trainer.model_cfg, np.asarray([r[0] for r in rows]),
+                                   np.asarray([r[1] for r in rows]), eos=10**6, pad=trainer.tokenizer.pad_token_id)
+    del trainer
+    release()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_moe(card):
+    """Phase 22. Returns ({sub-phase: launches}, numbers)."""
+    t0 = time.perf_counter()
+    out = {"sft": moe_sft(card), "f32": moe_f32(card), "ppo": moe_ppo(card), "gpt2_beams": gpt2_beams(card)}
+    out["config"] = dict(preset=MIXTRAL_PRESET, extra=MIXTRAL_EXTRA, cut=MIXTRAL_CUT, sft=MOE_SFT, ppo=MOE_PPO)
+    launches = {"a": out["sft"]["launches"], "a_f32": out["f32"]["launches"],
+                "b": out["ppo"]["launches"],
+                "c_bf16": {"paged_decode": out["ppo"]["serve"]["auto"]["launches"]},
+                "c_int8": {"paged_decode_int8": out["ppo"]["serve"]["int8"]["launches"]},
+                "c_f32_greedy": {"paged_decode": out["f32"]["greedy"]["k1"]}}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase22] took {out['seconds']:.1f} s ({card})")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -5211,6 +5804,7 @@ def main() -> int:
     p19_launches, p19 = phase_resilience_methods(card)
     p20_launches, p20 = phase_families(card)
     p21_launches, p21 = phase_adapters(card)
+    p22_launches, p22 = phase_moe(card)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -5230,6 +5824,7 @@ def main() -> int:
              launches_phase19={t: n.get("paged_decode", 0) for t, n in p19_launches.items()},
              launches_phase20={t: n.get("paged_decode", 0) for t, n in p20_launches.items()},
              launches_phase21={t: n.get("paged_decode", 0) for t, n in p21_launches.items()},
+             launches_phase22={t: n.get("paged_decode", 0) for t, n in p22_launches.items()},
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16,
              gptj_6b=timings[("gptj-6b", "bf16")], pythia_2p8b=timings[("pythia-2.8b", "bf16")]),
         dict(name="paged_decode_int8", route="cuda", source=source,
@@ -5246,6 +5841,7 @@ def main() -> int:
              launches_phase19={t: n.get("paged_decode_int8", 0) for t, n in p19_launches.items()},
              launches_phase20={t: n.get("paged_decode_int8", 0) for t, n in p20_launches.items()},
              launches_phase21={t: n.get("paged_decode_int8", 0) for t, n in p21_launches.items()},
+             launches_phase22={t: n.get("paged_decode_int8", 0) for t, n in p22_launches.items()},
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8,
              gptj_6b=timings[("gptj-6b", "int8")], pythia_2p8b=timings[("pythia-2.8b", "int8")]),
     ]}
@@ -5275,6 +5871,7 @@ def main() -> int:
             launches_phase19={t: n.get(name, 0) for t, n in p19_launches.items()},
             launches_phase20={t: n.get(name, 0) for t, n in p20_launches.items()},
             launches_phase21={t: n.get(name, 0) for t, n in p21_launches.items()},
+            launches_phase22={t: n.get(name, 0) for t, n in p22_launches.items()},
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
@@ -5318,6 +5915,9 @@ def main() -> int:
     # phase 21's: LoRA PPO at pythia-2.8b's widths and its export, prompt
     # and prefix tuning, the HH "20B" shape
     report["phase21"] = p21
+    # phase 22's: the MoE MLP at Mixtral-8x7B's widths (SFT, a PPO cycle,
+    # serving, the f32 checks) and beam search
+    report["phase22"] = p22
     report["seconds"] = time.perf_counter() - started
     log(f"[smoke] every phase passed in {report['seconds']:.1f} s ({card})")
     print(json.dumps(report), flush=True)

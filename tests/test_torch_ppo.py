@@ -221,7 +221,7 @@ def test_gc_checkpoints_matches_jax(keep_n, tmp_path):
 
 @pytest.mark.parametrize("section,key,value,item", [
     ("train", "fuse_inner_epoch", True, "item 4"),
-    ("model", "model_extra_configs", {"moe_experts": 4}, "item 4"),
+    ("optimizer", "name", "adamw_8bit_bnb", "item 4"),
     ("train", "tracing", True, "item 4"),
     ("train", "profile_dir", "profiles", "item 4"),
     ("model", "model_arch_type", "seq2seq", "item 4"),

@@ -11,7 +11,12 @@ modules carry the same names, so the mapping is mechanical:
   [in, r] / `<proj>_lora_b` [r, out] becomes `<proj>.lora_a` /
   `<proj>.lora_b` of that projection's Linear (`attn/q_proj_lora_a` ->
   `attn.q_proj.lora_a`), and `soft_prompt`, `prefix_k` and `prefix_v`
-  keep their names.
+  keep their names;
+- the MoE MLP's expert tensors (`up_proj`, `gate_proj` [E, d, f],
+  `down_proj` [E, f, d], `up_bias`, `down_bias`) are leaves of their own
+  in both trees and come across as they are, the expert axis first; its
+  `router` is a Dense like any other (`router/kernel` [d, E] ->
+  `router.weight` [E, d]).
 
 The same rule carries the deeper value branch
 (`value_branch/{block_i, ln_f, v_head}` -> `value_branch.block_i...`) and
@@ -28,6 +33,7 @@ import torch
 
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
 _ADAPTERS = ("soft_prompt", "prefix_k", "prefix_v")
+_EXPERTS = ("up_proj", "gate_proj", "down_proj", "up_bias", "down_bias")
 
 
 def _flatten(tree, prefix=()):
@@ -51,7 +57,7 @@ def params_from_jax(np_params: Dict, cfg=None) -> Dict[str, torch.Tensor]:
         arr = np.array(leaf, np.float32)  # a writable copy for torch.from_numpy
         if name.endswith(("_lora_a", "_lora_b")):
             key = ".".join([*mods, name[:-len("_lora_a")], name[-len("lora_a"):]])
-        elif name in _ADAPTERS:
+        elif name in _ADAPTERS or name in _EXPERTS:
             key = ".".join([*mods, name])
         elif name in _LEAF:
             key = ".".join([*mods, _LEAF[name]])

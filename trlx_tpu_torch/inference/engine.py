@@ -164,6 +164,8 @@ class InferenceEngine:
             )
         if spec_k > 0 and spec_split <= 0:
             raise ValueError("speculative decode needs a hydra split > 0 (the frozen trunk is the draft model)")
+        if spec_k > 0 and model_cfg.moe_experts > 0:
+            raise NotImplementedError("speculative decode under MoE routing is unsupported")
         if model_cfg.prompt_tokens > 0 or model_cfg.prefix_tokens > 0:
             raise NotImplementedError("slot-pool decode under prompt/prefix tuning is unsupported")
         if gen_cfg.num_beams > 1:

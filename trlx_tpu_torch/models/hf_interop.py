@@ -7,6 +7,9 @@ into the policy's state dict, and export the policy back to that layout
 MistralForCausalLM, its sliding window), GPTNeoXForCausalLM (pythia),
 GPTJForCausalLM, OPTForCausalLM, BloomForCausalLM and
 GPTBigCodeForCausalLM. T5 (encoder-decoder) is ROADMAP queue A, item 4.4.
+A config with MoE blocks is refused both ways: the JAX package has no HF
+layout for the expert tensors either (its export fails on them), so
+`save_pretrained` writes such a model's raw state dict instead.
 Nothing is downloaded and `transformers` is not imported: a model path is
 a local directory, read with json and torch.
 
@@ -30,6 +33,13 @@ from trlx_tpu_torch.models.lora import is_adapter_name
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
 _T5 = "the t5 family (encoder-decoder) is not ported yet (ROADMAP queue A, item 4.4: model features)"
+_MOE = ("MoE blocks have no HF checkpoint layout: the JAX package maps no expert tensors to HF names "
+        "(moe_experts must be 0 to load or export an HF directory)")
+
+
+def _check_dense(cfg: TransformerConfig, what: str) -> None:
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(f"{what}: {_MOE}")
 
 
 def _read_hf_config(path: str) -> Dict:
@@ -396,6 +406,7 @@ def load_params_from_hf(path: str, cfg: TransformerConfig,
     adapters (LoRA factors, the soft prompt, the prefixes: an HF base
     checkpoint has none) keep the template's fresh init, as in the JAX
     package."""
+    _check_dense(cfg, f"loading '{path}'")
     hf = _read_hf_config(path)
     fam = _family_of(hf)
     _check_ported(fam, path)
@@ -606,6 +617,7 @@ def infer_family(cfg: TransformerConfig) -> str:
 def params_to_hf_state_dict(state_dict: Dict[str, torch.Tensor], cfg: TransformerConfig,
                             family: str = None) -> Dict[str, np.ndarray]:
     """The policy's state dict -> an HF-layout state dict of f32 arrays."""
+    _check_dense(cfg, "HF export")
     family = family or cfg.hf_family or infer_family(cfg)
     if family == "t5":
         raise NotImplementedError(f"HF export: {_T5}")
@@ -615,6 +627,7 @@ def params_to_hf_state_dict(state_dict: Dict[str, torch.Tensor], cfg: Transforme
 def config_to_hf(cfg: TransformerConfig, family: str = None) -> Dict:
     """Inverse of `config_from_hf`: a loadable HF config dict (model_type
     and architectures included), also for models born from presets."""
+    _check_dense(cfg, "HF config export")
     family = family or cfg.hf_family or infer_family(cfg)
     if family == "gpt2":
         return dict(

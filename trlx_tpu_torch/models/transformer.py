@@ -19,7 +19,9 @@ Mistral's sliding window, GPT-NeoX/pythia (partial rotary, parallel
 residual), GPT-J (the parallel residual's shared norm, no attention
 biases, a biased head), OPT (positions read at an offset of 2), Bloom
 (ALiBi, a norm after the embedding, no position embedding) and
-GPTBigCode (MQA).
+GPTBigCode (MQA). Under `moe_experts > 0` every block's MLP is the
+mixture of experts (`MoEMLP`, dense dispatch), whose load-balancing terms
+a `collect_moe_aux` block gathers for the losses.
 
 Adapters (`models/lora.py`): a `Linear` named in `cfg.lora_targets` adds
 its LoRA delta, every attention sees `cfg.prefix_tokens` trainable keys
@@ -51,7 +53,9 @@ padding rows with all-out-of-range tables) is redirected there
 explicitly.
 """
 
+import contextvars
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -89,8 +93,8 @@ class TransformerConfig:
     attn_bias: Optional[bool] = None  # q/k/v/o bias; None = use_bias (GPT-J: False)
     lm_head_bias: bool = False  # an untied head with a bias (GPT-J)
     sliding_window: Optional[int] = None  # banded causal attention (Mistral)
-    # the MoE MLP is not ported yet: kept so configs carry over, and
-    # refused by `check_supported`
+    # the MoE MLP (`MoEMLP`): `moe_experts` > 0 experts, top-`moe_top_k`
+    # routing, and the load-balancing term's coefficient in the losses
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_aux_coef: float = 0.01
@@ -135,8 +139,6 @@ class TransformerConfig:
 def check_supported(cfg: TransformerConfig) -> None:
     """Refuse the knobs this port does not run yet, naming the ROADMAP
     item that brings them."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("the MoE MLP is not ported yet (ROADMAP queue A, item 4: model features)")
     if cfg.attn_impl not in ("xla", "flash"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} (ring/blockwise attention) is not ported yet "
@@ -504,6 +506,106 @@ class MLP(nn.Module):
         return self.down_proj(self.act(self.up_proj(h, adapters)), adapters)
 
 
+# The MoE MLPs of one forward append their load-balancing terms here while
+# a `collect_moe_aux` block is open in this thread; None: nothing collects
+_MOE_AUX: contextvars.ContextVar = contextvars.ContextVar("moe_aux", default=None)
+
+
+@contextmanager
+def collect_moe_aux():
+    """Collect the load-balancing terms of the MoE MLPs that run inside
+    the block, in this thread only: yields the list they are appended to
+    (the JAX package's sown `intermediates`, scoped to one call, so no
+    scoring pass, decode step or server thread leaks its terms into a
+    training loss)."""
+    terms = []
+    token = _MOE_AUX.set(terms)
+    try:
+        yield terms
+    finally:
+        _MOE_AUX.reset(token)
+
+
+def _expert_init_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `variance_scaling(1.0, "fan_in", "truncated_normal")` with the
+    expert axis as a batch axis: fan_in is one expert's input width."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # the std of a unit normal truncated at 2
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class MoEMLP(nn.Module):
+    """The mixture-of-experts MLP (the JAX `MoEMLP`): an f32 router, top-k
+    token-choice gates renormalised over the chosen experts, and dense
+    dispatch: every expert computes every token in cfg.dtype and the
+    gates (zero off the chosen experts) mix the outputs. Parameters keep
+    the JAX names and shapes: `router` [d -> E] with no bias, `up_proj`
+    and `gate_proj` [E, d, f], `down_proj` [E, f, d], `up_bias` [E, f] and
+    `down_bias` [E, d] under `use_bias`. While `collect_moe_aux` is open
+    each call appends its Switch-style term E * sum_e(frac_routed_e *
+    mean_prob_e), the means over every position (padding included, as in
+    JAX); the one-hot of the chosen experts carries no gradient."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        E, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+        # nn.Dense(dtype=f32): the input and the kernel are cast to f32
+        self.router = Linear(d, E, False, torch.float32, cfg.param_dtype, device, generator)
+        pd = cfg.param_dtype
+        self.up_proj = nn.Parameter(_expert_init_(torch.empty(E, d, f, dtype=pd, device=device), d, generator))
+        if cfg.glu:
+            self.gate_proj = nn.Parameter(_expert_init_(torch.empty(E, d, f, dtype=pd, device=device), d, generator))
+        self.down_proj = nn.Parameter(_expert_init_(torch.empty(E, f, d, dtype=pd, device=device), f, generator))
+        if cfg.use_bias:
+            self.up_bias = nn.Parameter(torch.zeros(E, f, dtype=pd, device=device))
+            self.down_bias = nn.Parameter(torch.zeros(E, d, dtype=pd, device=device))
+        self.act = activation_fn(cfg)
+
+    def select(self, probs):
+        """The chosen experts [..., k] of each position, the most probable
+        first: a stable descending sort, so equal probabilities go to the
+        lower expert first, as `lax.top_k` does."""
+        return torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :self.cfg.moe_top_k]
+
+    def route(self, h):
+        """(probs, gates, selected), each [..., E] f32: the router's
+        softmax, the renormalised top-k weights scattered to their experts,
+        and the one-hot of the chosen experts (`select`)."""
+        E = self.cfg.moe_experts
+        probs = torch.softmax(self.router(h), dim=-1)
+        top_i = self.select(probs.detach())
+        top_w = torch.gather(probs, -1, top_i)
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
+        onehot = F.one_hot(top_i, E).to(probs.dtype)  # [..., k, E]
+        gates = (top_w[..., None] * onehot).sum(-2)
+        return probs, gates, onehot.sum(-2)
+
+    def forward(self, h, adapters: bool = True):
+        cfg = self.cfg
+        E, dt = cfg.moe_experts, cfg.dtype
+        probs, gates, selected = self.route(h)
+        terms = _MOE_AUX.get()
+        if terms is not None:
+            frac_routed = selected.reshape(-1, E).mean(0)
+            mean_prob = probs.reshape(-1, E).mean(0)
+            terms.append(E * torch.sum(frac_routed * mean_prob))
+        shape = h.shape
+        x = h.reshape(-1, shape[-1]).to(dt)  # [N, d]
+        # one batched product per expert weight: [N, d] x [E, d, f] -> [E, N, f]
+        hidden = torch.matmul(x, self.up_proj.to(dt))
+        if cfg.use_bias:
+            hidden = hidden + self.up_bias.to(dt)[:, None]
+        if cfg.glu:
+            hidden = self.act(torch.matmul(x, self.gate_proj.to(dt))) * hidden
+        else:
+            hidden = self.act(hidden)
+        out = torch.matmul(hidden, self.down_proj.to(dt))  # [E, N, d]
+        if cfg.use_bias:
+            out = out + self.down_bias.to(dt)[:, None]
+        return torch.einsum("ne,end->nd", gates.reshape(-1, E).to(dt), out).reshape(shape)
+
+
 class Block(nn.Module):
     """Pre-norm block, sequential (h + attn, then + mlp) or, under
     `parallel_residual`, h + attn(ln_attn(h)) + mlp(ln_mlp(h)) (GPT-NeoX);
@@ -517,7 +619,7 @@ class Block(nn.Module):
         self.attn = Attention(cfg, device, generator)
         if not (cfg.parallel_residual and cfg.shared_ln):
             self.ln_mlp = make_norm(cfg, device)
-        self.mlp = MLP(cfg, device, generator)
+        self.mlp = (MoEMLP if cfg.moe_experts > 0 else MLP)(cfg, device, generator)
 
     def forward(self, h, attn_bias, positions, layer_cache=None, cache_index=None,
                 attn_mask=None, attn_kernel=None, adapters: bool = True):
@@ -1017,8 +1119,7 @@ def init_paged_kv_arena(cfg: TransformerConfig, num_blocks: int, block_size: int
 
 
 # ---------------------------------------------------------------------------
-# Model family presets (the JAX package's table; moe-tiny raises in
-# TransformerConfig.__post_init__ until the MoE MLP ports)
+# Model family presets (the JAX package's table)
 # ---------------------------------------------------------------------------
 
 PRESETS: Dict[str, Dict[str, Any]] = {

@@ -53,7 +53,8 @@ def quantize_array(w: torch.Tensor, channel_dim: int = -1) -> Tuple[torch.Tensor
     `channel_dim` (the amax runs over every other axis). The JAX package
     takes channels along the last axis of its layout: a Dense kernel's
     output features ([in, out]; dim 0 of the port's [out, in] Linear
-    weight) and an embedding's features ([V, d]; the last axis in both).
+    weight), an embedding's features ([V, d]) and an expert weight's
+    output features ([E, d, f] or [E, f, d]; the last axis in both).
     Returns (q int8 shaped like w, scale f32 with the reduced axes kept
     as size 1)."""
     w32 = w.detach().to(torch.float32)
@@ -86,12 +87,16 @@ def quantize_frozen(model: nn.Module, split: int) -> Dict[str, Tuple[torch.Tenso
     (the JAX `quantize_decode_params` / `quantize_frozen_flat`): built
     once, since those parameters never train; every other parameter the
     sampler reads is the module's live one."""
+    from trlx_tpu_torch.models.transformer import Linear  # that module imports this one
+
     if split <= 0:
         raise ValueError("quantize_frozen requires a hydra split > 0")
     params = dict(model.named_parameters())
-    # embeddings are [V, d] in both packages; Linear weights are the JAX
-    # kernels transposed, so their output channel is dim 0
-    return {name: quantize_array(params[name], -1 if ".embed_" in name else 0)
+    # a Linear weight is the JAX kernel transposed, so its output channel
+    # is dim 0; every other leaf keeps the JAX layout (embeddings [V, d],
+    # the experts' [E, d, f] and [E, f, d]), channels last
+    transposed = {f"{name}.weight" for name, m in model.named_modules() if isinstance(m, Linear)}
+    return {name: quantize_array(params[name], 0 if name in transposed else -1)
             for name in frozen_decode_names(model, split)}
 
 

@@ -33,8 +33,13 @@ each step's scores to `log_softmax(logits) + beta * (Q - V)` before the
 warps, Q the target Q head (the smaller of the two under `two_qs`) and V
 the value head at the new position: ILQL's Q-guided sampling.
 
-Seq2seq and beams (ROADMAP queue A, item 4) raise, and so do ILQL under
-`capture` or `spec_k`, as in the JAX package.
+With `num_beams > 1` it returns the beam sampler (`ops/beam_search.py`:
+beam search, or beam-sample under `do_sample`), after the JAX sampler's
+refusals: no ILQL shift, logit masks, `suppress_tokens`, repetition
+penalty, capture or speculative decode, and no warpers without
+`do_sample`. Seq2seq generation (ROADMAP queue A, item 4.4 part 4)
+raises, and so do ILQL under `capture` or `spec_k`, as in the JAX
+package.
 """
 
 from dataclasses import dataclass
@@ -183,10 +188,15 @@ def make_generate_fn(
     if mode == "ilql" and (capture or spec_k > 0):
         raise NotImplementedError("capture and speculative decode sample a plain LM (mode='lm') only")
     if getattr(model_cfg, "is_seq2seq", False):
-        raise NotImplementedError("seq2seq generation is not ported yet (ROADMAP queue A, item 4)")
-    if gen_cfg.num_beams > 1:
-        raise NotImplementedError("beam search is not ported yet (ROADMAP queue A, item 4)")
+        raise NotImplementedError("seq2seq generation and its beam search are not ported yet (ROADMAP queue A, "
+                                  "item 4.4 part 4)")
+    if capture and gen_cfg.num_beams > 1:
+        raise NotImplementedError("rollout stat capture supports single-beam causal LM generation only (no ILQL, "
+                                  "seq2seq, or beam search)")
     if spec_k > 0:
+        if gen_cfg.num_beams > 1:
+            raise NotImplementedError("speculative decode supports single-beam causal LM generation only (no ILQL, "
+                                      "seq2seq, or beam search)")
         # the JAX sampler's own refusals: a direct caller must not get a
         # sampler whose distribution differs from the plain one
         if gen_cfg.repetition_penalty != 1.0:
@@ -194,12 +204,27 @@ def make_generate_fn(
                 "speculative decode with repetition_penalty != 1 is not supported (the seen-token mask "
                 "would need per-draft rollback)"
             )
+        if model_cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "speculative decode with MoE blocks is not supported (expert routing differs between draft and "
+                "verify widths)"
+            )
         if spec_split <= 0:
             raise ValueError("speculative decode requires a hydra split > 0 (the frozen trunk is the draft model)")
         if spec_draft_head is None:
             raise ValueError("speculative decode requires a draft head (A, B); see spec_draft_head_from_params")
         if capture and capture_split != spec_split:
             raise ValueError("capture_split must equal spec_split under speculative decode (both are the hydra split)")
+    if gen_cfg.num_beams > 1:
+        if mode != "lm" or logit_mask is not None or gen_cfg.suppress_tokens:
+            raise NotImplementedError("num_beams > 1 supports plain LM generation only (no ILQL advantage shift, "
+                                      "transition logit masks, or suppress_tokens)")
+        if gen_cfg.repetition_penalty != 1.0:
+            raise NotImplementedError("repetition_penalty under num_beams > 1 is not supported")
+        if not gen_cfg.do_sample and (gen_cfg.temperature not in (0.0, 1.0) or gen_cfg.top_k or gen_cfg.top_p < 1.0):
+            # HF's deterministic beam search takes no warpers either
+            raise NotImplementedError("temperature/top_k/top_p with num_beams > 1 require do_sample=True (beam "
+                                      "sample); deterministic beam search takes no sampling knobs")
     max_new = gen_cfg.max_new_tokens
     track_seen = gen_cfg.repetition_penalty != 1.0
     greedy = not gen_cfg.do_sample or gen_cfg.temperature == 0.0
@@ -447,7 +472,12 @@ def make_generate_fn(
                        h_split=hs_buf[:, :plen + max_new])
         return out
 
-    sample = generate_spec if spec_k > 0 else generate_plain
+    if gen_cfg.num_beams > 1:
+        from trlx_tpu_torch.ops.beam_search import make_beam_generate_fn
+
+        sample = make_beam_generate_fn(model, model_cfg, gen_cfg)
+    else:
+        sample = generate_spec if spec_k > 0 else generate_plain
 
     @torch.no_grad()
     def generate(input_ids, attn_mask, generator: Optional[torch.Generator] = None, params: Optional[Dict] = None):

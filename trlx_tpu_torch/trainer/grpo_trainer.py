@@ -48,7 +48,7 @@ from trlx_tpu_torch.ops.ppo import group_relative_advantages, grpo_loss
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer, shifted_logprobs
 from trlx_tpu_torch.utils import flatten_dict, infinite_dataloader
-from trlx_tpu_torch.utils.modeling import logprobs_of_labels
+from trlx_tpu_torch.utils.modeling import add_moe_aux, apply_with_moe_aux, logprobs_of_labels
 
 ADVANTAGE_MODES = ("grpo", "rloo")
 
@@ -115,8 +115,9 @@ class GRPOTrainer(PPOTrainer):
     def make_loss_fn(self) -> Callable:
         """The clipped ratio and the in-loss KL to the reference over the
         response window: no GAE, no value loss. The windowed head where
-        `_window_loss_ok` (all but prompt tuning), else the full forward
-        with the labels shifted one column."""
+        `_window_loss_ok` (all but prompt tuning and MoE), else the full
+        forward with the labels shifted one column; under MoE the loss adds
+        the load-balancing term and reports `moe_aux_loss`."""
         model = self.model
         method = self.config.method
         pad_id = self.tokenizer.pad_token_id
@@ -134,15 +135,18 @@ class GRPOTrainer(PPOTrainer):
             if batch.loss_masks is not None:
                 # multi-turn rollouts: the environment's tokens carry no loss weight
                 mask = mask * batch.loss_masks.to(mask.dtype)
+            aux = 0.0
             if window_ok:
                 logits_w, _ = model.forward_window(tokens, attention_mask, positions, start, response_length)
                 logprobs = logprobs_of_labels(logits_w, tokens[:, start + 1:end + 1])
             else:
-                logprobs = shifted_logprobs(model(tokens, attention_mask, positions)[0], tokens)[:, start:end]
+                (logits, _, _), aux = apply_with_moe_aux(self.model_cfg, model, tokens, attention_mask, positions)
+                logprobs = shifted_logprobs(logits, tokens)[:, start:end]
             loss, stats = grpo_loss(
                 logprobs=logprobs, old_logprobs=batch.logprobs, ref_logprobs=batch.values,
                 advantages=batch.rewards, mask=mask, cliprange=method.cliprange, kl_coef=method.grpo_kl_coef,
             )
+            loss, stats = add_moe_aux(self.model_cfg, loss, stats, aux, "losses/total_loss")
             return loss, {k: v.detach() for k, v in flatten_dict(stats).items()}
 
         return loss_fn

@@ -26,6 +26,7 @@ from trlx_tpu_torch.pipeline.offline_pipeline import ILQLRolloutStorage, tokeniz
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base_trainer import TorchTrainer
 from trlx_tpu_torch.utils import flatten_dict, logging
+from trlx_tpu_torch.utils.modeling import add_moe_aux, apply_with_moe_aux
 
 logger = logging.get_logger(__name__)
 
@@ -135,12 +136,13 @@ class ILQLTrainer(TorchTrainer):
         model, cfg = self.model, self.ilql
 
         def loss_fn(batch: ILQLBatch):
-            logits, qs, target_qs, vs, _ = model(batch.input_ids, batch.attention_mask,
-                                                 position_ids(batch.attention_mask),
-                                                 states_ixs=batch.states_ixs, actions_ixs=batch.actions_ixs)
+            (logits, qs, target_qs, vs, _), aux = apply_with_moe_aux(
+                self.model_cfg, model, batch.input_ids, batch.attention_mask, position_ids(batch.attention_mask),
+                states_ixs=batch.states_ixs, actions_ixs=batch.actions_ixs)
             loss, stats = ilql_loss(logits, qs, target_qs, vs, batch.input_ids, batch.actions_ixs, batch.dones,
                                     batch.rewards, tau=cfg.tau, gamma=cfg.gamma, cql_scale=cfg.cql_scale,
                                     awac_scale=cfg.awac_scale, beta=cfg.beta)
+            loss, stats = add_moe_aux(self.model_cfg, loss, stats, aux, "losses/loss")
             return loss, {k: v.detach() for k, v in flatten_dict(stats).items()}
 
         return loss_fn

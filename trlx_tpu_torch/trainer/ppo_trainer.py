@@ -102,7 +102,7 @@ from trlx_tpu_torch.sentinel import repetition_frac
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base_trainer import TorchTrainer
 from trlx_tpu_torch.utils import Clock, flatten_dict, infinite_dataloader, logging
-from trlx_tpu_torch.utils.modeling import RunningMoments, logprobs_of_labels
+from trlx_tpu_torch.utils.modeling import RunningMoments, add_moe_aux, apply_with_moe_aux, logprobs_of_labels
 
 logger = logging.get_logger(__name__)
 
@@ -237,10 +237,11 @@ class PPOTrainer(TorchTrainer):
 
     def _window_loss_ok(self) -> bool:
         """Whether the loss may read the windowed head: the plain MLP value
-        head (the branch's blocks attend over the full sequence) and no
-        soft prompt (it shifts every position)."""
+        head (the branch's blocks attend over the full sequence), no soft
+        prompt (it shifts every position) and no MoE (the load-balancing
+        term's means cover every position of the full forward)."""
         return (getattr(self.config.method, "num_value_layers_unfrozen", 0) == 0
-                and self.model_cfg.prompt_tokens == 0)
+                and self.model_cfg.prompt_tokens == 0 and self.model_cfg.moe_experts == 0)
 
     def make_loss_fn(self) -> Callable:
         model = self.model
@@ -271,6 +272,7 @@ class PPOTrainer(TorchTrainer):
 
             # the windowed head reads exactly the response window of the
             # [b, t, V] logits; under the value branch the full forward runs
+            aux = 0.0
             if batch.h_split is not None:
                 # the trunk cache: resume the trainable blocks from the
                 # activation entering the split. Exact: the trunk is frozen
@@ -285,7 +287,8 @@ class PPOTrainer(TorchTrainer):
             elif window_ok:
                 out = model.forward_window(tokens, attention_mask, positions, start, response_length)
             else:
-                out = model(tokens, attention_mask, positions)[:2]
+                out, aux = apply_with_moe_aux(self.model_cfg, model, tokens, attention_mask, positions)
+                out = out[:2]
             if window_ok:
                 logprobs = logprobs_of_labels(out[0], tokens[:, start + 1:end + 1])
                 values_pred = out[1]
@@ -297,6 +300,7 @@ class PPOTrainer(TorchTrainer):
                 advantages=advantages, returns=returns, mask=mask, cliprange=method.cliprange,
                 cliprange_value=method.cliprange_value, vf_coef=method.vf_coef,
             )
+            loss, stats = add_moe_aux(self.model_cfg, loss, stats, aux, "losses/total_loss")
             return loss, {k: v.detach() for k, v in flatten_dict(stats).items()}
 
         return loss_fn
@@ -939,8 +943,9 @@ class PPOTrainer(TorchTrainer):
     def _spec_decode_available(self) -> bool:
         """Whether sampling may run the draft/verify sampler: the JAX gate.
         It needs a real hydra split (the frozen trunk is the draft model),
-        no prompt or prefix tokens, one beam and no repetition penalty (its
-        seen set cannot be rolled back); MoE and seq2seq are refused at
+        no MoE (the router recomputes per-token state the rollback cannot
+        unwind), no prompt or prefix tokens, one beam and no repetition
+        penalty (its seen set cannot be rolled back); seq2seq is refused at
         construction in the port. A refusal while the flag is on counts in
         `spec_decode_fallbacks`."""
         if not getattr(self.config.method, "speculative_decode", False):
@@ -948,6 +953,7 @@ class PPOTrainer(TorchTrainer):
         gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
         ok = (
             self.split > 0
+            and self.model_cfg.moe_experts == 0
             and self.model_cfg.prompt_tokens == 0
             and self.model_cfg.prefix_tokens == 0
             and int(gen_kwargs.get("num_beams", 1) or 1) == 1
@@ -1001,14 +1007,16 @@ class PPOTrainer(TorchTrainer):
     def _trunk_cache_available(self) -> bool:
         """Whether steps may resume from cached trunk activations: the flag,
         a real hydra split (blocks [0, split) entirely frozen, so the cache
-        cannot go stale within a collection) and a value branch tapping at
-        or above the split (its input must be derivable from the cache).
-        The JAX gate's other conditions (seq2seq, MoE) are refused at
-        construction in the port."""
+        cannot go stale within a collection), no MoE (the load-balancing
+        term comes from the full forward) and a value branch tapping at or
+        above the split (its input must be derivable from the cache). The
+        JAX gate's seq2seq condition is refused at construction in the
+        port."""
         method = self.config.method
         return (
             bool(getattr(method, "cache_trunk_activations", False))
             and self.split > 0
+            and self.model_cfg.moe_experts == 0
             and self.model_cfg.n_layers - getattr(method, "num_value_layers_unfrozen", 0) >= self.split
         )
 

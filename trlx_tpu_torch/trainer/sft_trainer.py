@@ -15,7 +15,7 @@ from trlx_tpu_torch.models.transformer import position_ids
 from trlx_tpu_torch.pipeline.offline_pipeline import DialogStore, PromptPipeline, tokenize_dialogue
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base_trainer import TorchTrainer
-from trlx_tpu_torch.utils.modeling import logprobs_of_labels
+from trlx_tpu_torch.utils.modeling import add_moe_aux, apply_with_moe_aux, logprobs_of_labels
 
 
 @dataclass
@@ -67,14 +67,17 @@ class SFTTrainer(TorchTrainer):
         return {k: (False if k.startswith("v_head.") else v) for k, v in mask.items()}
 
     def make_loss_fn(self) -> Callable:
-        model = self.model
-        if getattr(self.model_cfg, "moe_experts", 0) > 0:
-            raise NotImplementedError("the MoE aux loss is not ported yet (ROADMAP queue A, item 4)")
+        """The shifted CE; under MoE plus the load-balancing term, with
+        `moe_aux_loss` in the stats and `loss` the optimised sum (RFT and
+        best-of-n inherit it)."""
+        model, model_cfg = self.model, self.model_cfg
 
         def loss_fn(batch):
             input_ids, attention_mask = batch["input_ids"], batch["attention_mask"]
-            logits, _, _ = model(input_ids, attention_mask, position_ids(attention_mask))
-            return causal_lm_ce_loss(logits, input_ids, attention_mask, batch.get("labels"))
+            (logits, _, _), aux = apply_with_moe_aux(model_cfg, model, input_ids, attention_mask,
+                                                     position_ids(attention_mask))
+            loss, stats = causal_lm_ce_loss(logits, input_ids, attention_mask, batch.get("labels"))
+            return add_moe_aux(model_cfg, loss, stats, aux, "loss")
 
         return loss_fn
 

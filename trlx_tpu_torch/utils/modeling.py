@@ -3,7 +3,10 @@ package's `utils/modeling.py`): `logprobs_of_labels`, the masked
 statistics, `whiten`, `entropy_from_logits`, `get_tensor_stats` and the
 host-side `RunningMoments`. On one device the global statistics are the
 local ones. `swapped_params` runs a module on other tensors in place of
-some of its parameters (the sampler's int8 decode view)."""
+some of its parameters (the sampler's int8 decode view);
+`apply_with_moe_aux` runs a forward and returns the MoE load-balancing
+term of the losses beside its output, and `add_moe_aux` adds it to a
+loss and its stats."""
 
 from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
@@ -19,6 +22,41 @@ def logprobs_of_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     from trlx_tpu_torch.ops.fused_ce import fused_logprobs_of_labels
 
     return fused_logprobs_of_labels(logits, labels)
+
+
+def apply_with_moe_aux(model_cfg, fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` and the MoE load-balancing LOSS TERM of that
+    one call: `moe_aux_coef` times the sum of the terms of every MoE MLP
+    that ran in it (the value branch's blocks included), 0.0 when the
+    config has no experts. The terms are collected for this call alone
+    (`collect_moe_aux`), so another forward between two steps (a
+    reference or scoring pass, a decode step, a server thread) adds
+    nothing."""
+    if model_cfg.moe_experts == 0:
+        return fn(*args, **kwargs), 0.0
+    from trlx_tpu_torch.models.transformer import collect_moe_aux
+
+    with collect_moe_aux() as terms:
+        out = fn(*args, **kwargs)
+    aux = sum(terms) if terms else torch.zeros((), dtype=torch.float32)
+    return out, model_cfg.moe_aux_coef * aux
+
+
+def add_moe_aux(model_cfg, loss, stats: Dict, aux, total_key: str):
+    """Under MoE, (loss + aux, stats with `moe_aux_loss` and the optimised
+    sum at `total_key`, a "/"-separated path into the nested stats, as JAX
+    reports them); without experts (loss, stats) unchanged."""
+    if model_cfg.moe_experts == 0:
+        return loss, stats
+    loss = loss + aux
+    stats = {**stats, "moe_aux_loss": aux.detach()}
+    node = stats
+    *parents, leaf = total_key.split("/")
+    for key in parents:
+        node[key] = dict(node[key])
+        node = node[key]
+    node[leaf] = loss.detach()
+    return loss, stats
 
 
 @contextmanager
