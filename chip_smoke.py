@@ -91,8 +91,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    (loss within 1e-6 relative, gradients within phase 8's tolerance under
    phase 10's ReLU gate, no K3), a bf16 cache within 2e-3 relative;
 12. the pipelined cycle, the JAX bench's timed schedule: phase 9's
-   configuration under `PPOTrainer.pipelined_cycle` (one warm-up and 3
-   timed cycles) as (a) the speculative scorer, options off, (b) (a) with
+   configuration under `PPOTrainer.pipelined_cycle` (one warm-up and one
+   timed cycle) as (a) the speculative scorer, options off, (b) (a) with
    the capture fast path (`capture_rollout_stats`), (c) phase 11's options,
    (d) (c) with the fast path: samples/s per cycle beside phases 9 and 11,
    the blocking fetch's wait and the host stage's ms, then one cycle under
@@ -222,8 +222,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    the JAX recipes shard a pod; each sub-phase's seconds and peak memory):
    (a) the HH recipe's "1B" (random:pythia-1.4b: 24 blocks, 16 heads of
    128, rotary_dim 32, vocab 50304; batch 8, seq 128, 64 rollouts in
-   chunks of 16, 32 new tokens, lr 6e-6, 2 trainable blocks), two PPO
-   cycles through `trlx_tpu_torch.train(reward_fn=...)` with launches
+   chunks of 16, 32 new tokens, lr 6e-6, 2 trainable blocks), one PPO
+   cycle through `trlx_tpu_torch.train(reward_fn=...)` with launches
    exact (a step K3 x22, K4-K6 x2, K7 and its backward; a chunk K3 x26,
    K7 x2), an f32 scoring pass and step (4 blocks) kernels vs plain
    versions, `serve()` over bf16 and int8 arenas (K1/K2 at hd 128 with
@@ -289,6 +289,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    beam-score gap under 1e-4 or a router gap under 1e-5), on the MoE model
    and at gpt2-small, and at bf16 beam tokens/s beside the greedy
    sampler's at b 8, beam-sample repeatable from one generator seed.
+23. the encoder-decoder at google/flan-t5-large's published widths (d
+   1024, 24 + 24 blocks, 16 heads of d_kv 64, d_ff 2816, gated gelu, an
+   untied head, vocab 32128, 32 buckets to 128; random weights, bf16;
+   attention plain torch, as in JAX): (a) seq2seq PPO through
+   `trlx_tpu_torch.train(reward_fn=...)` (split 22, batch 12, 48 rollouts
+   in chunks of 12, prompts up to 512 bytes, 64 new tokens), then one
+   `pipelined_cycle`: K7 x2 a scoring chunk (policy and reference), K7
+   and its backward once a step, nothing else; every response 64 tokens
+   after the start token; the gates refuse the speculative scorer, the
+   capture, the trunk cache and speculative decode; step s, collection s,
+   peak memory; (b) at f32 and 2 + 2 blocks, one scoring pass and one step
+   kernels vs plain versions (phase 10's rules), greedy `generate_seq2seq`
+   and beams (b 4, B 4, 32 tokens) on the card against the CPU's; (c) ILQL
+   over T5 v1.0 numerics at t5-base's widths: the port's own HF export of
+   random weights loaded back by `model_path` bitwise, 2 steps and
+   Q-guided sampling timed.
+Each phase's wall seconds go to the report's `phase_seconds`.
 Phase 6 also holds K7 and its backward at the randomwalks curves' rows (a
 24-token vocabulary, f32 and bf16, shifted labels, padded rows), K3-K6 at
 phase 20's head dims (pythia-1.4b's 128 at the HH "1B" shape, gptj-6b's
@@ -296,14 +313,15 @@ phase 20's head dims (pythia-1.4b's 128 at the HH "1B" shape, gptj-6b's
 vocabularies (50304, 50400, 50272, 250880), and phase 21's: K3-K6 at hd
 80 (pythia-2.8b, b 8, t 128, 32 heads) and 96 (the HH "20B" shape, b 1,
 t 512, 64 heads) through the padded route, every output at the true head
-dim, the bound computed on it, and K7 at the vocabulary 50432.
+dim, the bound computed on it, and K7 at the vocabulary 50432; and K7
+and its backward at phase 23's decoder logits [12 x 65, 32128].
 
 The line before the last is the card's name and power limit; the line
 before that is the `kernels` JSON object (with `ppo_options`, phase 11's
 checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
 `ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16, `serving`, phase
 17's, `fleet`, phase 18's, `phase19`, phase 19's, `phase20`, phase 20's,
-`phase21`, phase 21's, `phase22`, phase 22's);
+`phase21`, phase 21's, `phase22`, phase 22's, `phase23`, phase 23's);
 the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
@@ -847,6 +865,10 @@ CE_BWD_PPO = ("ppo-train", "ppo-branch-train")  # the shapes a step's backward r
 # the SFT steps of opt-125m and bloom-560m (batch 8, seq 512, shifted)
 CE_FAMILIES = {"pythia-1.4b": (8 * 32, 50304), "gptj-6b": (4 * 32, 50400), "opt-125m": (8 * 511, 50272),
                "bloom-560m": (8 * 511, 250880), "hh-20b": (1 * 32, 50432)}
+# K7 and its backward at phase 23's vocabulary: flan-t5-large's decoder
+# logits [12 x 65, 32128], read with the labels shifted one column, at a
+# scoring chunk and a step alike
+CE_SEQ2SEQ = {"flan-t5-large": (12 * 65, 32128)}
 FAMILY_SHAPES = ("pythia-1.4b", "gptj-6b", "hh-6b-step", "opt-125m", "bloom-560m")  # phase 6's rows for phase 20
 ADAPTER_SHAPES = ("pythia-2.8b-step", "hh-20b")  # phase 6's rows for phase 21 (K7 at V 50432: "hh-20b")
 # tolerances: bf16 outputs (out, dq): both sides round once to bf16 from
@@ -1187,8 +1209,8 @@ def phase_train_kernels(device):
             results[("label_logprobs", "randomwalks")] = ce_times(x, lab)
             results[("label_logprobs_bwd", "randomwalks")] = ce_bwd_times(x, lab, lse, g.reshape(-1))
         del logits, tokens, g, got, want, lab, x, lse
-    # K7 and its backward at phase 20's vocabularies (bf16)
-    for shape, (n, v) in CE_FAMILIES.items():
+    # K7 and its backward at phase 20's and phase 23's vocabularies (bf16)
+    for shape, (n, v) in {**CE_FAMILIES, **CE_SEQ2SEQ}.items():
         logits = torch.randn(n, v, generator=gen, device=device).mul_(3).to(torch.bfloat16)
         labels = torch.randint(0, v, (n,), generator=gen, device=device, dtype=torch.int32)
         got, _ = label_logprobs(logits, labels)
@@ -1964,7 +1986,7 @@ PIPELINED = {
     "c": dict(PPO_OPTIONS),
     "d": dict(PPO_OPTIONS, capture_rollout_stats=True),
 }
-PIPELINED_CYCLES = 3  # timed, after one warm-up cycle
+PIPELINED_CYCLES = 1  # timed, after one warm-up cycle (then one more under synchronizing probes)
 # launches a 128-row chunk, by the scorer's dispatch and the trunk cache's
 # attach: the speculative scorer is phase 9's scoring pass (12 policy and
 # 2 reference blocks K3, two K7); the fast scorer runs the reference's 2
@@ -4390,7 +4412,7 @@ HH_QUESTIONS = [
 # fsdp/tensor axes shard a pod, and the port runs on one card
 HH_ROLLOUTS, HH_CHUNK, HH_NEW = 64, 16, 32
 HH = {
-    "1B": dict(preset="pythia-1.4b", vocab=50304, batch=8, seq=128, lr=6e-6, cycles=2,
+    "1B": dict(preset="pythia-1.4b", vocab=50304, batch=8, seq=128, lr=6e-6, cycles=1,
                cut="parallel.fsdp 4 -> 1 (one card)"),
     "6B": dict(preset="gptj-6b", vocab=50400, batch=4, seq=512, lr=None, cycles=1,
                cut="parallel.fsdp 4 and parallel.tensor 2 -> 1 (one card)"),
@@ -4478,7 +4500,7 @@ def check_ppo_calls(tag, record, launches, per_step, per_chunk, n_steps, n_chunk
 
 
 def phase_hh_1b(card):
-    """Phase 20 (a): two PPO cycles of the HH "1B" configuration through
+    """Phase 20 (a): one PPO cycle of the HH "1B" configuration through
     `train`, an f32 scoring pass and step kernels vs plain versions, and
     `serve()` over bf16 and int8 arenas with f32 greedy kernel = gather."""
     import shutil
@@ -5311,7 +5333,9 @@ def router_gaps(model):
 
         return call
 
-    names = {"decode_step": None, "prefill_rows": True, "decode_step_rows": False}
+    # an encoder-decoder has the sampler's decode step alone
+    names = {name: starts for name, starts in (("decode_step", None), ("prefill_rows", True),
+                                               ("decode_step_rows", False)) if hasattr(model, name)}
     for name, starts in names.items():
         setattr(model, name, recording(name, starts))
     MoEMLP.select = recording_select
@@ -5761,6 +5785,403 @@ def phase_moe(card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the encoder-decoder (seq2seq and t5) at flan-t5-large's widths
+# ---------------------------------------------------------------------------
+
+# google/flan-t5-large's published config.json: d_model 1024, 24 encoder and
+# 24 decoder blocks, 16 heads of d_kv 64, d_ff 2816, gated gelu, an untied
+# lm_head, vocab 32128, 32 buckets to distance 128, eps 1e-6; on the
+# flan-t5-small preset's block (RMSNorm, gated gelu, untied), every width
+# published, random weights. The decoder starts from the byte tokenizer's
+# pad id. trlX's `examples/summarize_daily_cnn/t5_summarize_daily_cnn.py`
+# trains this model.
+FLAN_T5_LARGE = dict(d_model=1024, n_encoder_layers=24, n_decoder_layers=24, n_heads=16, d_kv=64, d_ff=2816,
+                     vocab_size=32128, relative_attention_num_buckets=32, relative_attention_max_distance=128,
+                     layer_norm_epsilon=1e-6, decoder_start_token_id=256)
+S2S_PPO = dict(batch=12, rollouts=48, chunk=12, prompt=512, new=64, unfrozen=2)
+S2S_CUT = dict(n_encoder_layers=2, n_decoder_layers=2)  # (b)'s f32 checks: 24 + 24 -> 2 + 2 blocks
+S2S_GREEDY_NEW, S2S_ROWS = 32, 4  # (b)'s card-vs-CPU greedy and beams: b 4, 32 new tokens (beams B 4)
+# lvwerra/t5-imdb (trlX's `ilql_sentiments_t5`) is a t5-base: d 768, 12 + 12
+# blocks, 12 heads, d_ff 3072, relu, tied, T5 v1.0 numerics (no score
+# scaling, logits scaled by d_model**-0.5), vocab 32128; random weights
+T5_BASE = dict(vocab_size=32128, attention_scale=False, logit_scale=768 ** -0.5, decoder_start_token_id=256)
+S2S_ILQL = dict(batch=32, seq=128, steps=2, new=32)
+# a step: K7 and its backward over the decoder's full logits (shifted
+# labels); a scoring chunk: K7 for the policy and for the reference. The
+# attention is plain torch (the JAX package's einsum), so no flash kernel
+S2S_PER_STEP = {"label_logprobs": 1, "label_logprobs_bwd": 1}
+S2S_PER_CHUNK = {"label_logprobs": 2}
+
+
+def s2s_prompts(n, seed=0, longest=512, shortest=96):
+    """Printable byte strings of `shortest` to `longest` bytes from the
+    repo's README at offsets drawn from a seed."""
+    import numpy as np
+
+    text = "".join(c if 32 <= ord(c) < 127 else " " for c in (ROOT / "README.md").read_text())
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        k = int(rng.randint(shortest, longest + 1))
+        start = int(rng.randint(0, max(len(text) - k, 1)))
+        out.append(text[start:start + k])
+    return out
+
+
+def s2s_config(work, **model_extra):
+    """(a)'s configuration: seq2seq PPO over flan-t5-large's widths, 2
+    trainable decoder blocks (split 22), batch 12, 48 rollouts in chunks of
+    12, prompts up to 512 bytes, 64 new tokens held to printable ASCII."""
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+
+    p = S2S_PPO
+    return default_ppo_config().evolve(
+        train=dict(seq_length=p["prompt"] + p["new"], batch_size=p["batch"], epochs=1, eval_interval=10**6,
+                   checkpoint_interval=10**6, save_best=False, checkpoint_dir=str(work / "ckpts"),
+                   logging_dir=str(work / "logs")),
+        model=dict(model_path="random:flan-t5-small", model_arch_type="seq2seq", num_layers_unfrozen=p["unfrozen"],
+                   model_extra_configs={**FLAN_T5_LARGE, **model_extra}),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(num_rollouts=p["rollouts"], chunk_size=p["chunk"],
+                    gen_kwargs=dict(max_new_tokens=p["new"], top_k=0, top_p=1.0, do_sample=True,
+                                    suppress_tokens=printable_only(FLAN_T5_LARGE["vocab_size"]))),
+    )
+
+
+def check_calls(tag, record, name, want, n):
+    """`n` calls of `name` in the record, each launching exactly `want`."""
+    calls = [c for c in record if c[0] == name]
+    if len(calls) != n or any(c[3] != want for c in calls):
+        raise AssertionError(f"{tag}: {len(calls)} calls of {name} (expected {n}) launched "
+                             f"{[c[3] for c in calls]}, expected {want} each")
+    return [c[2] - c[1] for c in calls]
+
+
+def s2s_ppo(card):
+    """Phase 23 (a): seq2seq PPO at flan-t5-large's full width and depth
+    through `train(reward_fn=...)` (one collection of 48, 16 steps), then
+    one `pipelined_cycle` on the trained trainer: K7 and its backward
+    exact a scoring chunk and a step, every response 64 tokens after the
+    start token, the gates' decisions (no speculative scorer, no capture,
+    no trunk cache, no speculative decode)."""
+    import shutil
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    t0 = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    p = S2S_PPO
+    work = ROOT / "build" / "chip_smoke_s2s_ppo"
+    shutil.rmtree(work, ignore_errors=True)
+    config = s2s_config(work)
+    prompts = s2s_prompts(p["rollouts"])
+    record = []
+    kernels.reset_launches()
+    with ppo_probes(record, names=("make_experience", "score_seq2seq", "train_minibatch", "evaluate")):
+        trainer = trlx_tpu_torch.train(reward_fn=ppo_reward, prompts=prompts, eval_prompts=prompts[:p["batch"]],
+                                       config=config)
+    torch.cuda.synchronize()
+    train_s, train_peak = time.perf_counter() - t0, peak_gb()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    cfg = trainer.model_cfg
+    n_steps, n_chunks = config.method.ppo_epochs * p["rollouts"] // p["batch"], p["rollouts"] // p["chunk"]
+    step_s = check_calls("s2s-ppo", record, "train_minibatch", S2S_PER_STEP, n_steps)
+    chunk_s = check_calls("s2s-ppo", record, "score_seq2seq", S2S_PER_CHUNK, n_chunks)
+    want = {k: n_steps * S2S_PER_STEP.get(k, 0) + n_chunks * S2S_PER_CHUNK.get(k, 0) for k in ("label_logprobs",
+                                                                                           "label_logprobs_bwd")}
+    lengths = {n for c in record if c[0] == "make_experience" for n in c[4]}
+    losses = [r["losses/total_loss"] for r in metric_rows(work, "losses/total_loss")]
+    gates = dict(spec_path=trainer._spec_path_available(), fast=trainer._fast_rollout_available(),
+                 trunk_cache=trainer._trunk_cache_available(), spec_decode=trainer._spec_k_effective())
+    if launches != want or lengths != {p["new"] + 1} or len(losses) != n_steps or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"s2s ppo: launches {launches} (want {want}), response lengths {lengths}, losses "
+                             f"{losses}")
+    if trainer.split != cfg.n_decoder_layers - p["unfrozen"] or any(gates.values()) or any(
+            e.h_split is not None for e in trainer.store.history):
+        raise AssertionError(f"s2s ppo: split {trainer.split}, gates {gates}")
+    n_params = sum(x.numel() for x in trainer.model.lm.parameters())
+    collection_s = [c[2] - c[1] for c in record if c[0] == "make_experience"][0]
+    out = dict(params=n_params, split=trainer.split, steps=n_steps, step_s=statistics.median(step_s[1:]),
+               first_step_s=step_s[0], score_chunk_s=statistics.median(chunk_s), collection_s=collection_s,
+               samples_per_s=p["rollouts"] / collection_s, train_s=train_s, peak_gb=train_peak, gates=gates,
+               losses=[losses[0], losses[-1]], launches=launches)
+    log(f"[s2s-ppo] flan-t5-large widths ({n_params / 1e9:.3f} B LM parameters, {cfg.n_encoder_layers} + "
+        f"{cfg.n_decoder_layers} blocks), split "
+        f"{trainer.split}, batch {p['batch']}, prompts up to {p['prompt']} bytes, {p['rollouts']} rollouts in "
+        f"chunks of {p['chunk']}, {p['new']} new tokens: train() {train_s:.1f}s (the done checkpoint included); "
+        f"collection {collection_s:.2f}s ({out['samples_per_s']:.2f} samples/s), scoring chunk median "
+        f"{out['score_chunk_s']:.4f}s, {n_steps} steps median step_s={out['step_s']:.4f} (first "
+        f"{step_s[0]:.3f}), peak {train_peak:.2f} GB; gates {gates}; launches exact (a step {S2S_PER_STEP}, a chunk "
+        f"{S2S_PER_CHUNK}): {launches}; loss {losses[0]:.5f} -> {losses[-1]:.5f} ({card})")
+    shutil.rmtree(work / "ckpts", ignore_errors=True)  # the done checkpoint (~7 GB) is not read again
+
+    # one pipelined cycle on the trained trainer: the classic scorer
+    record = []
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    steps_before, t1 = trainer.iter_count, time.perf_counter()
+    with ppo_probes(record, names=("dispatch_rollout_generation", "_score_reward", "optimizer_step")):
+        prev, pending = trainer.pipelined_cycle()
+        loss = float(pending[2][0])
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t1
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check_calls("s2s-pipelined", record, "optimizer_step", S2S_PER_STEP, n_steps)
+    score_s = check_calls("s2s-pipelined", record, "_score_reward", S2S_PER_CHUNK, n_chunks)
+    gen_s = check_calls("s2s-pipelined", record, "dispatch_rollout_generation", {}, 2 * n_chunks)
+    if launches != want or prev is not None or not math.isfinite(loss) or trainer.spec_fallbacks != 0 or \
+            trainer.iter_count != steps_before + n_steps:
+        raise AssertionError(f"s2s pipelined: launches {launches} (want {want}), loss {loss}, spec fallbacks "
+                             f"{trainer.spec_fallbacks}, steps {trainer.iter_count - steps_before}")
+    out["pipelined"] = dict(cycle_s=cycle_s, samples_per_s=p["rollouts"] / cycle_s, loss=loss,
+                            score_chunk_s=statistics.median(score_s), generate_chunk_s=statistics.median(gen_s),
+                            host_ms=trainer.cycle_stats.get("host_ms"), peak_gb=peak_gb(), launches=launches)
+    log(f"[s2s-pipelined] one pipelined_cycle (its {n_chunks} chunks scored by the classic scorer, {n_steps} steps, "
+        f"the next {n_chunks} chunks sampled): {cycle_s:.2f}s ({out['pipelined']['samples_per_s']:.2f} samples/s), "
+        f"a chunk's sampling {out['pipelined']['generate_chunk_s']:.3f}s and scoring "
+        f"{out['pipelined']['score_chunk_s']:.4f}s, loss {loss:.5f}, peak {out['pipelined']['peak_gb']:.2f} GB; "
+        f"launches exact: {launches} ({card})")
+    del trainer, pending
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def s2s_injected_batch(n, q, new, seed=4):
+    """A seq2seq rollout batch from a seed: left-padded byte queries of `q`
+    columns, decoder rows [start, bytes..., pad] of 1 + `new` columns
+    (right padded, one of them empty), old logprobs, values and rewards."""
+    import numpy as np
+
+    from trlx_tpu_torch.data import PPORLBatch
+
+    rng = np.random.RandomState(seed)
+    query = np.full((n, q), 256, np.int32)
+    response = np.full((n, 1 + new), 256, np.int32)
+    for i in range(n):
+        k = int(rng.randint(8, q + 1))
+        query[i, q - k:] = rng.randint(32, 127, k)
+        m = 0 if i == 1 else int(rng.randint(1, new + 1))
+        response[i, 1:1 + m] = rng.randint(32, 127, m)
+    stat = lambda scale: (rng.randn(n, new) * scale).astype(np.float32)
+    return PPORLBatch(query_tensors=query, response_tensors=response, logprobs=stat(1.0) - 10.0,
+                      values=stat(0.5), rewards=stat(0.1))
+
+
+def teacher_gaps(model, ids, mask, tokens):
+    """The top-two logit gap of the decoder's teacher-forced forward at
+    each position of `tokens` ([b, 1 + new], the start token first): entry
+    j is the gap where token j + 1 was chosen."""
+    import torch
+
+    with torch.no_grad():
+        logits = model(ids, mask, tokens[:, :-1], torch.ones_like(tokens[:, :-1]))[0].float()
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def s2s_f32(card):
+    """Phase 23 (b) at flan-t5-large's widths cut to 2 + 2 blocks, f32: one
+    scoring pass and one PPO step with the plain versions, then with the
+    kernels under the plain run's ReLU gates (scoring within SCORE_TOL, the
+    loss within 1e-5 relative, every gradient within GRAD_TOL); greedy
+    `generate_seq2seq` on the card against the CPU's token for token (a
+    row may differ only at the CPU's own top-two gap under TIE_GAP); and
+    deterministic beams (b 4, B 4) on the card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.ops import sampling
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    import shutil
+
+    t0 = time.perf_counter()
+    release()
+    p = S2S_PPO
+    work = ROOT / "build" / "chip_smoke_s2s_f32"
+    config = s2s_config(work, dtype="float32", **S2S_CUT).evolve(
+        model=dict(num_layers_unfrozen=1))
+    trainer = PPOTrainer(config, reward_fn=ppo_reward)
+    with torch.no_grad():
+        gen = torch.Generator(device=trainer.device).manual_seed(3)
+        for w in trainer.ref_model.parameters():
+            w.add_(0.02 * torch.randn(w.shape, generator=gen, device=w.device))
+    batch = s2s_injected_batch(p["batch"], p["prompt"], p["new"])
+    q, r = (torch.from_numpy(x).to(trainer.device).long() for x in (batch.query_tensors, batch.response_tensors))
+    with plain_versions():
+        scored_p = trainer.score_seq2seq(q, r)
+        loss_p, grads_p, gates_p = step_grads(trainer, batch)
+    kernels.reset_launches()
+    scored_k = trainer.score_seq2seq(q, r)
+    loss_k, grads_k, gates_k = step_grads(trainer, batch, gates=gates_p)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    errs = {}
+    for name, a, b in zip(("logprobs", "values", "log_ratio", "mean_kl", "mean_kl_per_token"), scored_k, scored_p):
+        torch.testing.assert_close(a, b, **SCORE_TOL, msg=lambda m: f"s2s scoring {name}: {m}")
+        errs[name] = float((a - b).abs().max())
+    worst = check_grads(grads_k, grads_p)
+    if launched != {"label_logprobs": 3, "label_logprobs_bwd": 1} or float(scored_k[3]) <= 0 or \
+            not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        raise AssertionError(f"s2s f32: launches {launched}, KL {float(scored_k[3])}, loss kernels {loss_k} vs "
+                             f"plain {loss_p}")
+    flips, entries = gate_flips(gates_k, gates_p)
+    out = dict(errs=errs, loss_k=loss_k, loss_p=loss_p, worst_grad=worst, grads=len(grads_k), launches=launched)
+    log(f"[s2s-f32] flan-t5-large widths, 2 + 2 blocks, f32, split 1, {p['batch']} injected rows (queries "
+        f"{p['prompt']}, responses 1 + {p['new']}): scoring max|diff| "
+        f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())} (tol {SCORE_TOL}); loss kernels={loss_k:.7f} "
+        f"plain={loss_p:.7f}; {len(grads_k)} trainable grads, worst max|diff|/max|g| = {worst:.3g} (tol "
+        f"{GRAD_TOL}); value-head gates from the plain run ({flips} of {entries} differ from the kernel run's "
+        f"own); launches {launched} ({card})")
+    del grads_k, grads_p, gates_k, gates_p
+    trainer.model.zero_grad(set_to_none=True)
+
+    # greedy on the card, then beams card vs CPU (the model moves there),
+    # then greedy on the CPU
+    model, cfg = trainer.model, trainer.model_cfg
+    pipe = PromptPipeline(s2s_prompts(S2S_ROWS, seed=5), p["prompt"], trainer.tokenizer, add_special_tokens=True)
+    rows = next(iter(pipe.create_loader(S2S_ROWS)))
+    ids, mask = np.asarray(rows["input_ids"]), np.asarray(rows["attention_mask"])
+    eos, pad = 10**6, trainer.tokenizer.pad_token_id
+    gcfg = sampling.GenerationConfig(max_new_tokens=S2S_GREEDY_NEW, do_sample=False, eos_token_id=eos,
+                                     pad_token_id=pad)
+    card_greedy = sampling.make_generate_fn(model, cfg, gcfg)(ids, mask, None)["samples"].cpu()
+    out["beams"] = beams_card_vs_cpu("s2s-f32", model, cfg, ids, mask, eos=eos, pad=pad)
+    cpu_greedy = sampling.make_generate_fn(model, cfg, gcfg)(ids, mask, None)["samples"]
+    gaps = teacher_gaps(model, torch.from_numpy(ids).long(), torch.from_numpy(mask).long(), cpu_greedy)
+    differ = []
+    for i in range(S2S_ROWS):
+        if not torch.equal(card_greedy[i], cpu_greedy[i]):
+            j = int((card_greedy[i] != cpu_greedy[i]).int().argmax()) - 1
+            differ.append((i, j, float(gaps[i, j])))
+    if not all(g < TIE_GAP for *_, g in differ) or card_greedy[:, 0].ne(256).any():
+        raise AssertionError(f"s2s f32 greedy: card {card_greedy} vs CPU {cpu_greedy}; (row, token, gap) {differ}")
+    out["greedy"] = dict(rows=S2S_ROWS, equal=S2S_ROWS - len(differ), ties=differ,
+                         min_gap=float(gaps.min()))
+    log(f"[s2s-f32] greedy generate_seq2seq, {S2S_ROWS} prompts up to {p['prompt']} bytes, {S2S_GREEDY_NEW} new "
+        f"tokens: the card = the CPU in {out['greedy']['equal']}/{S2S_ROWS} rows (differing rows with the CPU's "
+        f"top-two gap under {TIE_GAP} at the first difference: {differ}; smallest gap met "
+        f"{out['greedy']['min_gap']:.3g})")
+    del trainer, model
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def s2s_ilql(card):
+    """Phase 23 (c): ILQL over t5 v1.0 numerics at t5-base's widths. The
+    port's own HF export of random weights (under `build/`) loads back by
+    `model_path` bitwise; then 2 ILQL steps (every weight trained) and
+    Q-guided seq2seq sampling, timed. No kernel runs: the attention is
+    plain torch and ILQL's losses are log-softmax, as in the JAX package."""
+    import json as _json
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.data.configs import ModelConfig
+    from trlx_tpu_torch.data.default_configs import default_ilql_config
+    from trlx_tpu_torch.models import build_model, hf_interop
+    from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
+
+    t0 = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    work = ROOT / "build" / "chip_smoke_t5"
+    shutil.rmtree(work, ignore_errors=True)
+    hf = work / "hf"
+    hf.mkdir(parents=True)
+    source = ModelConfig(model_path="random:t5-base", model_arch_type="seq2seq", model_extra_configs=T5_BASE)
+    _, src_cfg, src_state = build_model(source, 259, seed=11, device="cpu")
+    sd = hf_interop.params_to_hf_state_dict(src_state, src_cfg)
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, hf / "pytorch_model.bin")
+    (hf / "config.json").write_text(_json.dumps(hf_interop.config_to_hf(src_cfg)))
+    export_gb = (hf / "pytorch_model.bin").stat().st_size / 1e9
+    c = S2S_ILQL
+    config = default_ilql_config().evolve(
+        train=dict(seq_length=c["seq"], batch_size=c["batch"], total_steps=c["steps"], checkpoint_dir=str(work / "ckpts"),
+                   logging_dir=str(work / "logs")),
+        model=dict(model_path=str(hf), model_arch_type="seq2seq",
+                   model_extra_configs={"decoder_start_token_id": 256}),
+        method=dict(steps_for_target_q_sync=1, gen_kwargs=dict(max_new_tokens=c["new"], top_k=20, beta=1.0,
+                                                               temperature=1.0)))
+    kernels.reset_launches()
+    trainer = ILQLTrainer(config)
+    cfg, state = trainer.model_cfg, trainer.model.state_dict()
+    moved = [k for k, w in src_state.items() if k.startswith("lm.") and not torch.equal(state[k].cpu(), w)]
+    if moved or not (cfg.hf_family == "t5" and cfg.logit_scale == cfg.d_model ** -0.5 and not cfg.attention_scale
+                     and cfg.tie_embeddings and cfg.activation == "relu"):
+        raise AssertionError(f"t5 load: {len(moved)} tensors differ from the export's source ({moved[:4]}), "
+                             f"config {cfg}")
+    prompts = s2s_prompts(c["batch"], seed=8, longest=c["seq"] // 2, shortest=16)
+    rng = np.random.RandomState(8)
+    samples = [(q, s2s_prompts(1, seed=100 + i, longest=c["seq"] // 2, shortest=8)[0]) for i, q in enumerate(prompts)]
+    trainer.make_experience(samples, list(rng.randn(len(samples))), c["seq"])
+    batch = next(iter(trainer.create_train_dataloader()))
+    step_s, stats = [], []
+    for _ in range(c["steps"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats.append(trainer.train_minibatch([batch]))
+        trainer.iter_count += 1
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    tokens = int(np.asarray(batch.attention_mask).sum() + (np.asarray(batch.decoder_input_ids) != 0).sum())
+    pipe = PromptPipeline(prompts, c["seq"] // 2, trainer.tokenizer, add_special_tokens=True)
+    rows = next(iter(pipe.create_loader(c["batch"])))
+    gen_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = trainer.generate(rows["input_ids"], rows["attention_mask"])
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t1)
+    n_out = int(res["response_mask"].sum()) - c["batch"]  # the start tokens are not sampled
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    losses = [s["losses/loss"] for s in stats]
+    if launches or not all(math.isfinite(x) for x in losses) or res["samples"][:, 0].ne(256).any():
+        raise AssertionError(f"t5 ilql: launches {launches}, losses {losses}")
+    out = dict(export_gb=export_gb, step_s=step_s, train_tokens_per_s=tokens / step_s[-1], losses=losses,
+               generate_s=gen_s, sample_tokens_per_s=n_out / gen_s[-1], peak_gb=peak_gb())
+    log(f"[t5-ilql] t5-base widths, T5 v1.0 numerics (relu, tied, logit scale d**-0.5, unscaled scores): the "
+        f"port's export ({export_gb:.2f} GB) loaded back bitwise; 2 ILQL steps of b {c['batch']} (every weight "
+        f"trained): {step_s[0]:.3f}s, {step_s[1]:.3f}s ({out['train_tokens_per_s']:.1f} tokens/s), loss "
+        f"{losses[0]:.5f} -> {losses[1]:.5f}; Q-guided sampling b {c['batch']}, {c['new']} new tokens: "
+        f"{gen_s[0]:.3f}s, {gen_s[1]:.3f}s ({out['sample_tokens_per_s']:.1f} tokens/s); peak {out['peak_gb']:.2f} "
+        f"GB; no kernel launched ({card})")
+    del trainer
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_seq2seq(card):
+    """Phase 23. Returns ({sub-phase: launches}, numbers)."""
+    t0 = time.perf_counter()
+    out = {"ppo": s2s_ppo(card), "f32": s2s_f32(card), "ilql": s2s_ilql(card)}
+    out["config"] = dict(flan_t5_large=FLAN_T5_LARGE, ppo=S2S_PPO, f32_cut=S2S_CUT, t5_base=T5_BASE, ilql=S2S_ILQL)
+    launches = {"a": out["ppo"]["launches"], "a_pipelined": out["ppo"]["pipelined"]["launches"],
+                "b_f32": out["f32"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase23] took {out['seconds']:.1f} s ({card})")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -5784,27 +6205,39 @@ def main() -> int:
         for line in build_report(out):
             log(f"[build] {name}: {line}")
 
-    timings, errs = phase_kernels(device)
-    launches_bf16, serve_bf16 = serve_and_check(serving_config(), 16, "paged_decode", card)
-    launches_int8, _ = serve_and_check(serving_config(kv_cache_dtype="int8"), 8, "paged_decode_int8", card)
-    phase_greedy()
-    train_timings, train_errs = phase_train_kernels(device)
-    train_launches, _ = phase_train(card)
-    phase_grad_check()
-    ppo_launches, ppo_metrics = phase_ppo(card)
-    phase_ppo_grad_check()
-    options_launches, options = phase_ppo_options(card, ppo_metrics)
-    pipelined, pipelined_launches, pipelined_errs = phase_pipelined(card, ppo_metrics, options)
-    branch_launches, branch = phase_value_branch(card, ppo_metrics)
-    ilql_launches, ilql = phase_ilql(card)
-    grpo_launches, grpo = phase_grpo(card, ppo_metrics)
-    rft_launches, rft = phase_rft(card)
-    serving_launches, serving = phase_serving_features(card, serve_bf16)
-    fleet_launches, fleet = phase_fleet(card, ppo_metrics, grpo["runs"]["grpo"])
-    p19_launches, p19 = phase_resilience_methods(card)
-    p20_launches, p20 = phase_families(card)
-    p21_launches, p21 = phase_adapters(card)
-    p22_launches, p22 = phase_moe(card)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        """Run one phase and keep its wall seconds (the report's `phase_seconds`)."""
+        t = time.perf_counter()
+        result = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t, 1)
+        log(f"[timing] phase {phase}: {seconds[phase]} s")
+        return result
+
+    timings, errs = timed(3, phase_kernels, device)
+    launches_bf16, serve_bf16 = timed(4, serve_and_check, serving_config(), 16, "paged_decode", card)
+    launches_int8, _ = timed("4-int8", serve_and_check, serving_config(kv_cache_dtype="int8"), 8,
+                             "paged_decode_int8", card)
+    timed(5, phase_greedy)
+    train_timings, train_errs = timed(6, phase_train_kernels, device)
+    train_launches, _ = timed(7, phase_train, card)
+    timed(8, phase_grad_check)
+    ppo_launches, ppo_metrics = timed(9, phase_ppo, card)
+    timed(10, phase_ppo_grad_check)
+    options_launches, options = timed(11, phase_ppo_options, card, ppo_metrics)
+    pipelined, pipelined_launches, pipelined_errs = timed(12, phase_pipelined, card, ppo_metrics, options)
+    branch_launches, branch = timed(13, phase_value_branch, card, ppo_metrics)
+    ilql_launches, ilql = timed(14, phase_ilql, card)
+    grpo_launches, grpo = timed(15, phase_grpo, card, ppo_metrics)
+    rft_launches, rft = timed(16, phase_rft, card)
+    serving_launches, serving = timed(17, phase_serving_features, card, serve_bf16)
+    fleet_launches, fleet = timed(18, phase_fleet, card, ppo_metrics, grpo["runs"]["grpo"])
+    p19_launches, p19 = timed(19, phase_resilience_methods, card)
+    p20_launches, p20 = timed(20, phase_families, card)
+    p21_launches, p21 = timed(21, phase_adapters, card)
+    p22_launches, p22 = timed(22, phase_moe, card)
+    p23_launches, p23 = timed(23, phase_seq2seq, card)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -5825,6 +6258,7 @@ def main() -> int:
              launches_phase20={t: n.get("paged_decode", 0) for t, n in p20_launches.items()},
              launches_phase21={t: n.get("paged_decode", 0) for t, n in p21_launches.items()},
              launches_phase22={t: n.get("paged_decode", 0) for t, n in p22_launches.items()},
+             launches_phase23={t: n.get("paged_decode", 0) for t, n in p23_launches.items()},
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16,
              gptj_6b=timings[("gptj-6b", "bf16")], pythia_2p8b=timings[("pythia-2.8b", "bf16")]),
         dict(name="paged_decode_int8", route="cuda", source=source,
@@ -5842,6 +6276,7 @@ def main() -> int:
              launches_phase20={t: n.get("paged_decode_int8", 0) for t, n in p20_launches.items()},
              launches_phase21={t: n.get("paged_decode_int8", 0) for t, n in p21_launches.items()},
              launches_phase22={t: n.get("paged_decode_int8", 0) for t, n in p22_launches.items()},
+             launches_phase23={t: n.get("paged_decode_int8", 0) for t, n in p23_launches.items()},
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8,
              gptj_6b=timings[("gptj-6b", "int8")], pythia_2p8b=timings[("pythia-2.8b", "int8")]),
     ]}
@@ -5872,6 +6307,7 @@ def main() -> int:
             launches_phase20={t: n.get(name, 0) for t, n in p20_launches.items()},
             launches_phase21={t: n.get(name, 0) for t, n in p21_launches.items()},
             launches_phase22={t: n.get(name, 0) for t, n in p22_launches.items()},
+            launches_phase23={t: n.get(name, 0) for t, n in p23_launches.items()},
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
@@ -5882,7 +6318,9 @@ def main() -> int:
             families={s: train_timings[(name, s)] for s in FAMILY_SHAPES if (name, s) in train_timings},
             # phase 21's: K3-K6 at hd 80 and 96 (the padded route), K7 and
             # its backward at the HH "20B" vocabulary
-            adapters={s: train_timings[(name, s)] for s in ADAPTER_SHAPES if (name, s) in train_timings}))
+            adapters={s: train_timings[(name, s)] for s in ADAPTER_SHAPES if (name, s) in train_timings},
+            # phase 23's: K7 and its backward at flan-t5-large's decoder logits
+            seq2seq={s: train_timings[(name, s)] for s in CE_SEQ2SEQ if (name, s) in train_timings}))
     # phase 11's checks: the exact launch counts (K3 none a step, 24 a
     # chunk), no fallback, greedy speculative vs plain under the tie rule,
     # the trunk cache against the full path; and its numbers
@@ -5918,6 +6356,10 @@ def main() -> int:
     # phase 22's: the MoE MLP at Mixtral-8x7B's widths (SFT, a PPO cycle,
     # serving, the f32 checks) and beam search
     report["phase22"] = p22
+    # phase 23's: seq2seq PPO at flan-t5-large's widths (classic and
+    # pipelined), the f32 checks, ILQL over a t5-base export
+    report["phase23"] = p23
+    report["phase_seconds"] = seconds
     report["seconds"] = time.perf_counter() - started
     log(f"[smoke] every phase passed in {report['seconds']:.1f} s ({card})")
     print(json.dumps(report), flush=True)

@@ -159,6 +159,8 @@ def test_speculative_beams_and_seq2seq_beams_are_refused(pair):
     gen = sampling.GenerationConfig(eos_token_id=EOS, pad_token_id=PAD, num_beams=2, max_new_tokens=4)
     with pytest.raises(NotImplementedError, match="single-beam"):
         sampling.make_generate_fn(pair.tmodel, pair.tcfg, gen, spec_k=2, spec_split=1, spec_draft_head=(0, 0))
+    # seq2seq beams run (tests/test_torch_seq2seq.py); the capture stays
+    # causal-only, as in the JAX sampler
     seq2seq = SimpleNamespace(is_seq2seq=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4.4 part 4"):
-        sampling.make_generate_fn(pair.tmodel, seq2seq, gen)
+    with pytest.raises(NotImplementedError, match="single-beam causal LM"):
+        sampling.make_generate_fn(pair.tmodel, seq2seq, gen, capture=True)

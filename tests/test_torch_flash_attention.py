@@ -3,7 +3,8 @@ the JAX package's Pallas kernels run in interpret mode, on the same numpy
 inputs: the forward with and without the lse (K4, K3), the backward's dq
 (K5) and dk/dv (K6, group-summed), causal with left padding and a row
 with no valid key, for MHA (4, 4), GQA (4, 2) and MQA (4, 1), at f32 and
-bf16. On the CPU the port's wrappers run their plain versions.
+bf16 (the forward's case in `test_torch_flash_forward.py`, on this
+file's helpers). On the CPU the port's wrappers run their plain versions.
 
 Tolerances: at f32 both sides compute in f32 and differ in summation
 order only: 1e-5 (the backward sums t products per element: 2e-5). At
@@ -43,22 +44,6 @@ def _case(nkv, dtype, seed=0):
 
 def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32)) if not isinstance(x, torch.Tensor) else x.float().numpy()
-
-
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("nkv", [4, 2, 1])
-def test_flash_forward_and_lse_match_pallas(nkv, dtype):
-    (jq, jk, jv, _, jm), (tq, tk, tv, _, tm) = _case(nkv, dtype)
-    j_out, j_lse = _flash_fwd_pallas_lse(jq, jk, jv, jm, True, BLK, BLK, interpret=True)
-    j_out3 = _flash_fwd_pallas(jq, jk, jv, jm, True, BLK, BLK, interpret=True)
-    t_out, t_lse = A.flash_fwd(tq, tk, tv, tm, True, with_lse=True)
-    t_out3 = A.flash_fwd(tq, tk, tv, tm, True)
-    assert t_out.dtype == tq.dtype
-    np.testing.assert_allclose(_np(t_out), _np(j_out), **TOL[dtype])
-    np.testing.assert_allclose(_np(t_out3), _np(j_out3), **TOL[dtype])
-    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), rtol=1e-5, atol=1e-5)
-    # the row with no valid key: exactly 0 and the dead-row lse
-    assert float(t_out[-1].abs().max()) == 0.0 and bool((t_lse[-1] == A.DEAD_LSE).all())
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -17,6 +17,8 @@ Then the port alone: a replica killed mid-collection (from inside the
 reward function) still gives the exact rollout count, equal to the local
 sampler's greedy rollouts; and a fleet that is entirely down degrades to
 local generation, counted in `fleet/degraded_chunks`.
+
+The multi-turn loss-mask collation is `test_torch_fleet_collation.py`.
 """
 
 import json
@@ -28,20 +30,16 @@ import numpy as np
 import pytest
 import torch
 
-from trlx_tpu.data import PPORLElement as JPPORLElement
 from trlx_tpu.data.default_configs import default_grpo_config as j_default_grpo_config
 from trlx_tpu.data.default_configs import default_ppo_config as j_default_ppo_config
 from trlx_tpu.pipeline.offline_pipeline import PromptPipeline as JPromptPipeline
-from trlx_tpu.pipeline.ppo_pipeline import PPORolloutStorage as JPPORolloutStorage
 from trlx_tpu.trainer.grpo_trainer import GRPOTrainer as JGRPOTrainer
 from trlx_tpu.trainer.ppo_trainer import PPOTrainer as JPPOTrainer
 from trlx_tpu_torch import resilience
 from trlx_tpu_torch.convert import params_from_jax
-from trlx_tpu_torch.data import PPORLElement
 from trlx_tpu_torch.data.default_configs import default_grpo_config, default_ppo_config
 from trlx_tpu_torch.models.policy import HydraReference
 from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
-from trlx_tpu_torch.pipeline.ppo_pipeline import PPORolloutStorage
 from trlx_tpu_torch.trainer.grpo_trainer import GRPOTrainer
 from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
@@ -200,32 +198,6 @@ def test_fleet_grpo_shares_the_prompts_blocks(grpo_pair):
     hits = [sum(s.handle.server.engine.kv_stats().get("prefix_cache_hits", 0) for s in t._rollout_supervisor.seats)
             for t in (tt, jt)]
     assert hits[0] == hits[1] > 0
-
-
-def test_loss_mask_collation_is_bitwise_jax():
-    rng = np.random.RandomState(3)
-    t_elems, j_elems = [], []
-    for i in range(5):
-        q, r = int(rng.randint(2, 7)), int(rng.randint(1, 9))
-        fields = dict(query_tensor=rng.randint(0, 250, q).astype(np.int32),
-                      response_tensor=rng.randint(0, 250, r).astype(np.int32),
-                      logprobs=rng.randn(r).astype(np.float32), values=rng.randn(r).astype(np.float32),
-                      rewards=rng.randn(r).astype(np.float32),
-                      loss_mask=(rng.rand(r) > 0.4).astype(np.float32))
-        t_elems.append(PPORLElement(**fields))
-        j_elems.append(JPPORLElement(**fields))
-    ts, js = PPORolloutStorage(256, "left"), JPPORolloutStorage(256, "left")
-    ts.push(t_elems)
-    js.push(j_elems)
-    tb = next(iter(ts.create_loader(5, max_query_len=8, max_response_len=10, max_stat_len=10)))
-    jb = next(iter(js.create_loader(5, max_query_len=8, max_response_len=10, max_stat_len=10)))
-    for f in ("query_tensors", "response_tensors", "logprobs", "values", "rewards", "loss_masks"):
-        a, b = np.asarray(getattr(tb, f)), np.asarray(getattr(jb, f))
-        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), f
-    # no loss mask on an element: the field stays None on both sides
-    t_elems[0].loss_mask = j_elems[0].loss_mask = None
-    assert next(iter(ts.create_loader(5))).loss_masks is None
-    assert next(iter(js.create_loader(5))).loss_masks is None
 
 
 # ---------------------------------------------------------------------------

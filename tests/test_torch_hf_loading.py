@@ -174,10 +174,11 @@ def _write_config(d, **hf):
 
 
 def test_refusals(exports, tmp_path, monkeypatch):
-    """t5 names its ROADMAP item (gpt_neox and opt load since the model
-    families ported); an unknown architecture, a directory without
-    config.json or without weights, and safetensors where the package
-    does not import each raise, naming the cause."""
+    """A t5 directory under the causal arch type raises as JAX's does (t5
+    loads under "seq2seq" since the encoder-decoder ported; gpt_neox and
+    opt since the model families did); an unknown architecture, a
+    directory without config.json or without weights, and safetensors
+    where the package does not import each raise, naming the cause."""
     neox = dict(model_type="gpt_neox", vocab_size=64, hidden_size=32, num_hidden_layers=1, num_attention_heads=4,
                 intermediate_size=64, max_position_embeddings=32)
     opt = dict(model_type="opt", vocab_size=64, hidden_size=32, num_hidden_layers=1, num_attention_heads=4,
@@ -185,8 +186,11 @@ def test_refusals(exports, tmp_path, monkeypatch):
     for mt, hf in (("gpt_neox", neox), ("opt", opt)):
         cfg = resolve_transformer_config(ModelConfig(model_path=_write_config(tmp_path / mt, **hf)), 0)
         assert cfg.hf_family == mt
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
-        resolve_transformer_config(ModelConfig(model_path=_write_config(tmp_path / "t5", model_type="t5")), 0)
+    t5 = _write_config(tmp_path / "t5", model_type="t5", vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_layers=1,
+                       num_heads=4)
+    with pytest.raises(ValueError, match="is a seq2seq model"):
+        resolve_transformer_config(ModelConfig(model_path=t5), 0)
+    assert resolve_transformer_config(ModelConfig(model_path=t5, model_arch_type="seq2seq"), 0).is_seq2seq
     with pytest.raises(ValueError, match="Unsupported HF architecture"):
         hf_interop.config_from_hf(_write_config(tmp_path / "x", model_type="mamba"))
     with pytest.raises(FileNotFoundError, match="config.json"):

@@ -398,8 +398,9 @@ def test_train_entry_point_runs_ilql_checkpoints_and_resumes_exactly(tmp_path):
 
 def test_train_defaults_to_ilql_and_refuses_other_offline_trainers(tmp_path, monkeypatch):
     """Without a config, `rewards` pick `default_ilql_config` (read here
-    before the trainer is built); another trainer with `rewards`, and
-    seq2seq ILQL, are refused, naming their ROADMAP item."""
+    before the trainer is built); another trainer with `rewards` is
+    refused, naming its ROADMAP item, and a causal preset under seq2seq
+    raises as JAX's build does."""
     import trlx_tpu_torch
     from trlx_tpu_torch import trlx as entry
 
@@ -421,5 +422,5 @@ def test_train_defaults_to_ilql_and_refuses_other_offline_trainers(tmp_path, mon
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
         trlx_tpu_torch.train(samples=["a", "b"], rewards=[1.0, 0.0], config=cfg, device="cpu")
     seq2seq = _config(default_ilql_config, tmp_path, "s").evolve(model=dict(model_arch_type="seq2seq"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4"):
+    with pytest.raises(ValueError, match="Unknown seq2seq preset"):
         ILQLTrainer(seq2seq, device="cpu")

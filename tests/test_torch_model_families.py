@@ -12,7 +12,11 @@ expressions in f32; the flash path is the kernels' plain versions on the
 CPU, JAX's its own CPU route); greedy streams token for token; the paged
 engine's kernel-fallback counts exactly; one PPO step's loss 1e-5 and
 the parameters after it 2e-5 (the key bias's unrotated dims, whose exact
-gradient is 0, within Adam's +-lr, as in test_torch_ppo.py).
+gradient is 0, within Adam's +-lr, as in test_torch_ppo.py). The PPO
+step is `test_torch_family_ppo.py`, the greedy sampler
+`test_torch_family_sampler.py`, the paged engine
+`test_torch_family_engines.py`, on this file's helpers and its
+`trainers` fixture.
 """
 
 import jax
@@ -22,28 +26,20 @@ import pytest
 import torch
 
 from trlx_tpu.data.configs import ModelConfig as JModelConfig
-from trlx_tpu.data.default_configs import default_ppo_config as j_default_ppo_config
 from trlx_tpu.data.default_configs import default_sft_config as j_default_sft_config
 from trlx_tpu.inference.engine import InferenceEngine as JEngine
 from trlx_tpu.models import build_model as j_build_model
 from trlx_tpu.models import transformer as jtf
 from trlx_tpu.ops.sampling import GenerationConfig as JGenerationConfig
-from trlx_tpu.pipeline.offline_pipeline import PromptPipeline as JPromptPipeline
-from trlx_tpu.trainer.ppo_trainer import PPOTrainer as JPPOTrainer
 from trlx_tpu.trainer.sft_trainer import SFTTrainer as JSFTTrainer
 from trlx_tpu_torch.convert import params_from_jax
-from trlx_tpu_torch.data import PPORLBatch
 from trlx_tpu_torch.data.configs import ModelConfig, TRLConfig
-from trlx_tpu_torch.data.default_configs import default_ppo_config
 from trlx_tpu_torch.inference.engine import InferenceEngine
 from trlx_tpu_torch.models import build_model
 from trlx_tpu_torch.models import transformer as tf
 from trlx_tpu_torch.models.policy import HydraReference
 from trlx_tpu_torch.ops.sampling import GenerationConfig
-from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
-from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
-from trlx_tpu_torch.utils import flatten_dict
 
 torch.set_num_threads(1)
 
@@ -258,19 +254,6 @@ def trainers():
     return out
 
 
-@pytest.mark.parametrize("name", list(FAMILIES))
-def test_greedy_sampler_matches_jax(trainers, name):
-    jtr, ttr = trainers[name]
-    rng = np.random.RandomState(1)
-    ids = rng.randint(32, 127, (3, 12)).astype(np.int32)
-    mask = (np.arange(12)[None, :] >= np.asarray([0, 5, 9])[:, None]).astype(np.int32)
-    ids = np.where(mask > 0, ids, ttr.tokenizer.pad_token_id).astype(np.int32)
-    kw = dict(max_new_tokens=10, do_sample=False)
-    got = ttr.generate(ids, mask, kw)["samples"]
-    want = jtr.generate(ids, mask, kw)["samples"]
-    np.testing.assert_array_equal(np.asarray(got.cpu() if torch.is_tensor(got) else got), np.asarray(want))
-
-
 def _engines(jtr, ttr):
     gen = lambda cls, tr: cls(max_new_tokens=MAX_NEW, do_sample=False, eos_token_id=300,
                               pad_token_id=tr.tokenizer.pad_token_id)
@@ -299,36 +282,6 @@ def _serial(engine, prompts, steps=None):
     return outs
 
 
-@pytest.mark.parametrize("name", list(FAMILIES))
-def test_paged_engine_streams_and_fallbacks_match_jax(trainers, name):
-    """The engine asked for the kernel: ALiBi and window models fall back
-    to the gather path once a decode dispatch, counted as JAX counts."""
-    jeng, teng = _engines(*trainers[name])
-    steps = []
-    assert _serial(teng, BOUNDARY_PROMPTS, steps) == _serial(jeng, BOUNDARY_PROMPTS)
-    j_stats, t_stats = jeng.kv_stats(), teng.kv_stats()
-    assert t_stats["kv_kernel_fallbacks"] == j_stats["kv_kernel_fallbacks"]
-    assert t_stats["kv_kernel_dispatches"] == j_stats["kv_kernel_dispatches"]
-    reason = {"bloom": "alibi", "mistral": "sliding_window"}.get(name)
-    if reason:
-        assert t_stats["kv_kernel_fallbacks"] == {reason: len(steps)} and \
-            t_stats["kv_kernel_dispatches"] == 0
-    else:
-        assert t_stats["kv_kernel_fallbacks"] == {} and t_stats["kv_kernel_dispatches"] > 0
-
-
-def test_paged_kernel_refuses_alibi_and_window(trainers):
-    _, ttr = trainers["bloom"]
-    cfg = ttr.model_cfg
-    arena = tf.init_paged_kv_arena(cfg, 4, 8, torch.float32)
-    cache = {"layers": [dict(l, table=torch.ones((1, 2), dtype=torch.int32)) for l in arena],
-             "mask": torch.zeros((1, 16), dtype=torch.int32), "pos": torch.zeros((1,), dtype=torch.long),
-             "row_index": torch.zeros((1,), dtype=torch.long)}
-    with pytest.raises(ValueError, match="alibi/window"), torch.no_grad():
-        ttr.model.decode_step_rows(torch.zeros((1, 1), dtype=torch.long), cache,
-                                   torch.ones((1, 1), dtype=torch.int32), attn_kernel="kernel")
-
-
 # ---------------------------------------------------------------------------
 # One PPO step on the families with a distinct block structure
 # ---------------------------------------------------------------------------
@@ -348,45 +301,6 @@ def _ppo_config(make, preset, tmp, side):
         method=dict(num_rollouts=4, chunk_size=4, ppo_epochs=1, init_kl_coef=0.05,
                     gen_kwargs=dict(max_new_tokens=6, do_sample=False)),
     )
-
-
-@pytest.mark.parametrize("name", ["neox", "gptj", "bloom"])
-def test_one_ppo_step_matches_jax(name, tmp_path):
-    preset = FAMILIES[name][0]
-    jt = JPPOTrainer(_ppo_config(j_default_ppo_config, preset, tmp_path, "jax"), reward_fn=_reward,
-                     devices=jax.devices()[:1])
-    tt = PPOTrainer(_ppo_config(default_ppo_config, preset, tmp_path, "torch"), reward_fn=_reward, device="cpu")
-    tt.model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, jt.params), tt.model_cfg))
-    tt.ref_model = HydraReference(tt.model.lm, tt.split)
-    prompts = ["abc de", "hello there", "q", "the quick fox"]
-    jt.add_prompt_pipeline(JPromptPipeline(prompts, 16, jt.tokenizer))
-    tt.add_prompt_pipeline(PromptPipeline(prompts, 16, tt.tokenizer))
-    jt.make_experience(4)
-    tt.make_experience(4)
-    for e, je in zip(tt.store.history, jt.store.history):
-        np.testing.assert_array_equal(e.response_tensor, np.asarray(je.response_tensor))
-        np.testing.assert_allclose(e.logprobs, np.asarray(je.logprobs), **TOL)
-    (jb,) = [b for b in jt.create_train_dataloader()][:1]
-    fields = ("query_tensors", "response_tensors", "logprobs", "values", "rewards")
-    batch = PPORLBatch(**{f: np.asarray(getattr(jb, f)) for f in fields})
-    j_stats = flatten_dict(jax.tree_util.tree_map(np.asarray, jt.train_minibatch([jb])))
-    t_stats = tt.train_minibatch([batch])
-    np.testing.assert_allclose(t_stats["losses/total_loss"], j_stats["losses/total_loss"], **TOL)
-    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jt.params), tt.model_cfg)
-    got = tt.model.state_dict()
-    assert got.keys() == want.keys()
-    cfg = tt.model_cfg
-    rotated = cfg.rotary_dim if cfg.pos_embed == "rope" else 0
-    for key, w in want.items():
-        if key.endswith("k_proj.bias"):
-            # the unrotated dims' exact gradient is 0: Adam turns its
-            # rounding noise into steps of +-lr (3e-5); the rotated dims
-            # rotate with the position and carry a real gradient
-            g, w = got[key].reshape(cfg.kv_heads, -1), w.reshape(cfg.kv_heads, -1)
-            assert float((g[:, rotated:] - w[:, rotated:]).abs().max()) <= 2 * 3e-5
-            torch.testing.assert_close(g[:, :rotated], w[:, :rotated], rtol=2e-5, atol=2e-5)
-            continue
-        torch.testing.assert_close(got[key], w, rtol=2e-5, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,9 @@ step, as in `test_torch_peft_trainers.py`); PPO's gates and the
 speculative-decode refusals of the sampler and the engine; the int8
 frozen-trunk view of the experts bitwise and its greedy collection token
 for token; the engine's greedy streams token for token; the HF refusal.
+PPO's rollouts and steps are `test_torch_moe_ppo.py`, the RFT and
+best-of-n losses and the `train()` entry points
+`test_torch_moe_trainers.py`, on this file's helpers.
 """
 
 import json
@@ -30,11 +33,9 @@ import numpy as np
 import pytest
 import torch
 
-from trlx_tpu.data.default_configs import default_bon_config as j_default_bon_config
 from trlx_tpu.data.default_configs import default_grpo_config as j_default_grpo_config
 from trlx_tpu.data.default_configs import default_ilql_config as j_default_ilql_config
 from trlx_tpu.data.default_configs import default_ppo_config as j_default_ppo_config
-from trlx_tpu.data.default_configs import default_rft_config as j_default_rft_config
 from trlx_tpu.data.default_configs import default_sft_config as j_default_sft_config
 from trlx_tpu.inference import InferenceEngine as JEngine
 from trlx_tpu.models import policy as j_policy
@@ -43,20 +44,16 @@ from trlx_tpu.models.hf_interop import params_to_hf_state_dict as j_params_to_hf
 from trlx_tpu.ops import quant as j_quant
 from trlx_tpu.ops import sampling as j_sampling
 from trlx_tpu.pipeline.offline_pipeline import PromptPipeline as JPromptPipeline
-from trlx_tpu.trainer.bon_trainer import BestOfNTrainer as JBestOfNTrainer
 from trlx_tpu.trainer.grpo_trainer import GRPOTrainer as JGRPOTrainer
 from trlx_tpu.trainer.ilql_trainer import ILQLTrainer as JILQLTrainer
 from trlx_tpu.trainer.ppo_trainer import PPOTrainer as JPPOTrainer
-from trlx_tpu.trainer.rft_trainer import RFTTrainer as JRFTTrainer
 from trlx_tpu.trainer.sft_trainer import SFTTrainer as JSFTTrainer
 from trlx_tpu_torch.convert import params_from_jax
 from trlx_tpu_torch.data import ILQLBatch, PPORLBatch
 from trlx_tpu_torch.data.default_configs import (
-    default_bon_config,
     default_grpo_config,
     default_ilql_config,
     default_ppo_config,
-    default_rft_config,
     default_sft_config,
 )
 from trlx_tpu_torch.inference import InferenceEngine
@@ -64,11 +61,9 @@ from trlx_tpu_torch.models import hf_interop, policy
 from trlx_tpu_torch.models import transformer as tf
 from trlx_tpu_torch.ops import quant, sampling
 from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
-from trlx_tpu_torch.trainer.bon_trainer import BestOfNTrainer
 from trlx_tpu_torch.trainer.grpo_trainer import GRPOTrainer
 from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
 from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
-from trlx_tpu_torch.trainer.rft_trainer import RFTTrainer
 from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
 from trlx_tpu_torch.utils import flatten_dict
 from trlx_tpu_torch.utils.modeling import apply_with_moe_aux
@@ -323,56 +318,6 @@ def _ppo_config(make, tmp, side, value_layers):
         gen_kwargs=dict(max_new_tokens=8, do_sample=False)))
 
 
-@pytest.fixture(scope="module", params=[0, 1])
-def ppo_pair(request, tmp_path_factory):
-    """Both PPO trainers with (1) and without (0) the value branch of MoE
-    blocks, the speculative-decode and trunk-cache flags on (both gates
-    refuse): a greedy collection of 8 rollouts, then STEPS steps on the JAX
-    loader's batches, injected into both."""
-    tmp = tmp_path_factory.mktemp(f"ppo{request.param}")
-    jt, tt = _pair(JPPOTrainer, PPOTrainer, _ppo_config(j_default_ppo_config, tmp, "jax", request.param),
-                   _ppo_config(default_ppo_config, tmp, "torch", request.param), reward_fn=reward_fn,
-                   stop_sequences=["�"])
-    prompts = _prompts(12, 0)
-    jt.add_prompt_pipeline(JPromptPipeline(prompts, 40, jt.tokenizer))
-    tt.add_prompt_pipeline(PromptPipeline(prompts, 40, tt.tokenizer))
-    jt.make_experience(8)
-    tt.make_experience(8)
-    jbatches = [b for _ in range(2) for b in jt.create_train_dataloader()][:STEPS]
-    fields = ("query_tensors", "response_tensors", "logprobs", "values", "rewards")
-    injected = [PPORLBatch(**{f: np.asarray(getattr(b, f)) for f in fields}) for b in jbatches]
-    j_stats, t_stats = [], []
-    for jb, ib in zip(jbatches, injected):
-        j_stats.append(flatten_dict(_np(jt.train_minibatch([jb]))))
-        t_stats.append(tt.train_minibatch([ib]))
-    return dict(jt=jt, tt=tt, j_stats=j_stats, t_stats=t_stats)
-
-
-def test_ppo_rollouts_and_gates_match_jax(ppo_pair):
-    """Greedy rollouts token for token through the MoE decode, their
-    logprobs, values and rewards; both gates refuse MoE, and each refusal
-    of the speculative one counts, as in JAX."""
-    jt, tt = ppo_pair["jt"], ppo_pair["tt"]
-    for e, je in zip(tt.store.history, jt.store.history):
-        np.testing.assert_array_equal(e.response_tensor, np.asarray(je.response_tensor))
-        for f in ("logprobs", "values", "rewards"):
-            _close(getattr(e, f), getattr(je, f), 1e-5)
-    assert not tt._trunk_cache_available() and not jt._trunk_cache_available()
-    assert tt.split == jt.split == 1
-    assert tt.spec_decode_fallbacks == jt.spec_decode_fallbacks > 0
-    assert tt._spec_decode_available() is jt._spec_decode_available() is False
-    assert tt.spec_decode_fallbacks == jt.spec_decode_fallbacks
-
-
-def test_ppo_steps_and_params_match_jax(ppo_pair):
-    """Each step's stats, `moe_aux_loss` and `losses/total_loss` (the
-    optimised sum) among them, and the parameters after the steps."""
-    for t, j in zip(ppo_pair["t_stats"], ppo_pair["j_stats"]):
-        _check_stats(t, j)
-        _close(t["losses/total_loss"], j["losses/total_loss"], 1e-5)
-    _check_params(ppo_pair["jt"], ppo_pair["tt"], STEPS)
-
-
 def test_int8_frozen_trunk_of_moe_matches_jax(tmp_path):
     """`quantize_frozen_trunk` at split 1: the port's int8 leaves are
     bitwise JAX's `quantize_frozen_flat` (codes, scales, the dequantized
@@ -452,29 +397,6 @@ def test_one_grpo_step_matches_jax(tmp_path):
     _check_params(jt, tt, 1)
 
 
-@pytest.mark.parametrize("kind", ["rft", "bon"])
-def test_rft_and_best_of_n_losses_match_jax(tmp_path, kind):
-    """The CE loss with its term on one batch of rows, through each
-    trainer's own `make_loss_fn`, then one step."""
-    make = {"rft": (j_default_rft_config, default_rft_config, JRFTTrainer, RFTTrainer),
-            "bon": (j_default_bon_config, default_bon_config, JBestOfNTrainer, BestOfNTrainer)}[kind]
-    mk = lambda fn, side: fn().evolve(**_common(tmp_path, side, seq_length=16),
-                                      method=dict(gen_kwargs=dict(max_new_tokens=6, do_sample=True)))
-    jt, tt = _pair(make[2], make[3], mk(make[0], "jax"), mk(make[1], "torch"),
-                   reward_fn=lambda samples, prompts, outputs, **kw: [0.0] * len(samples))
-    ids, mask = _rows(b=4, t=12, seed=3)
-    batch = {"input_ids": ids, "attention_mask": mask}
-    j_loss, j_stats = jt.make_loss_fn()(jt.train_params, jt.frozen_params, {k: jnp.asarray(v) for k, v in batch.items()})
-    t_loss, t_stats = tt.make_loss_fn()({k: torch.from_numpy(v).long() for k, v in batch.items()})
-    _close(float(t_loss), float(j_loss), 1e-5)
-    _check_stats({k: float(v) for k, v in t_stats.items()}, {k: float(v) for k, v in _np(j_stats).items()})
-    j_step = _np(jt.train_minibatch([{k: jnp.asarray(v) for k, v in batch.items()}]))
-    t_step = tt.train_minibatch([batch])
-    _close(t_step["loss"], float(j_step["loss"]), 1e-5)
-    _close(t_step["moe_aux_loss"], float(j_step["moe_aux_loss"]), 1e-5)
-    _check_params(jt, tt, 1)
-
-
 def test_one_ilql_step_matches_jax(tmp_path):
     """The ILQL loss (Q, V, CQL and AWAC terms) plus the MoE term, its
     `losses/loss` the optimised sum, then one step."""
@@ -501,85 +423,6 @@ def _losses(logging_dir, key):
     (path,) = [os.path.join(logging_dir, f) for f in os.listdir(logging_dir) if f.endswith(".metrics.jsonl")]
     with open(path) as f:
         return [row[key] for row in map(json.loads, f) if key in row]
-
-
-def test_train_entry_point_sft_matches_jax(tmp_path, monkeypatch):
-    """`trlx_tpu_torch.train(samples=...)` on random:moe-tiny for 2 steps,
-    every weight trained, against the JAX trainer's `learn()` from the same
-    weights: the logged loss and term of each step, and the parameters.
-    The export beside each checkpoint is the raw state dict (no HF layout
-    for experts)."""
-    import trlx_tpu_torch
-
-    evolve = _common(tmp_path, "x", unfrozen=-1, total_steps=STEPS, eval_interval=10**6)
-    evolve["method"] = dict(gen_kwargs=dict(max_new_tokens=4, do_sample=False))
-    mk = lambda make, side: make().evolve(**{**evolve, "train": dict(
-        evolve["train"], checkpoint_dir=str(tmp_path / side / "ckpts"), logging_dir=str(tmp_path / side / "logs"))})
-    samples = [s * 3 for s in _prompts(12, 2)]
-    jt = JSFTTrainer(mk(j_default_sft_config, "jax"), devices=jax.devices()[:1])
-    start = params_from_jax(_np(jt.params))
-    jt.make_experience(samples, 48)
-    jt.add_eval_pipeline(JPromptPipeline(samples[:2], 42, jt.tokenizer))
-    jt.learn()
-    get_arch = SFTTrainer.get_arch
-
-    def from_jax(self, config):
-        model, cfg, state = get_arch(self, config)
-        model.load_state_dict(start)
-        return model, cfg, state
-
-    monkeypatch.setattr(SFTTrainer, "get_arch", from_jax)
-    tt = trlx_tpu_torch.train(samples=samples, eval_prompts=samples[:2], config=mk(default_sft_config, "torch"),
-                              device="cpu")
-    assert tt.iter_count == jt.iter_count == STEPS
-    for key in ("loss", "moe_aux_loss"):
-        t_vals, j_vals = _losses(str(tmp_path / "torch" / "logs"), key), _losses(str(tmp_path / "jax" / "logs"), key)
-        assert len(t_vals) == len(j_vals) == STEPS
-        _close(t_vals, j_vals, 1e-5)
-    _check_params(jt, tt, STEPS)
-    hf_dir = os.path.join(tt.config.train.checkpoint_dir, f"checkpoint_{STEPS}", "hf_model")
-    assert "model_state.pt" in os.listdir(hf_dir) and "pytorch_model.bin" not in os.listdir(hf_dir)
-
-
-def test_train_entry_point_ppo_matches_jax(tmp_path, monkeypatch):
-    """`trlx_tpu_torch.train(reward_fn=...)` on random:moe-tiny at split 1:
-    one greedy collection of 8 rollouts, then 2 steps over one minibatch of
-    all 8 (so the two loaders' orders cannot differ), against the JAX
-    trainer's `learn()` from the same weights: each step's logged
-    `losses/total_loss` and `moe_aux_loss` (1e-5) and the parameters; the
-    export beside the done checkpoint is the raw state dict."""
-    import trlx_tpu_torch
-
-    def config(make, side):
-        return _ppo_config(make, tmp_path, side, 0).evolve(
-            train=dict(batch_size=8, total_steps=STEPS, eval_interval=10**6),
-            method=dict(speculative_decode=False, cache_trunk_activations=False))
-
-    prompts = _prompts(12, 0)
-    jt = JPPOTrainer(config(j_default_ppo_config, "jax"), devices=jax.devices()[:1], reward_fn=reward_fn,
-                     stop_sequences=["�"])
-    start = params_from_jax(_np(jt.params))
-    jt.add_prompt_pipeline(JPromptPipeline(prompts, 40, jt.tokenizer))
-    jt.add_eval_pipeline(JPromptPipeline(prompts[:2], 40, jt.tokenizer))
-    jt.learn()
-    get_arch = PPOTrainer.get_arch
-
-    def from_jax(self, config):
-        model, cfg, state = get_arch(self, config)
-        model.load_state_dict(start)
-        return model, cfg, state
-
-    monkeypatch.setattr(PPOTrainer, "get_arch", from_jax)
-    tt = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, eval_prompts=prompts[:2],
-                              config=config(default_ppo_config, "torch"), stop_sequences=["�"], device="cpu")
-    assert tt.split == jt.split == 1 and tt.iter_count == jt.iter_count == STEPS
-    for key in ("losses/total_loss", "moe_aux_loss"):
-        t_vals, j_vals = _losses(str(tmp_path / "torch" / "logs"), key), _losses(str(tmp_path / "jax" / "logs"), key)
-        assert len(t_vals) == len(j_vals) == STEPS
-        _close(t_vals, j_vals, 1e-5)
-    _check_params(jt, tt, STEPS)
-    hf_dir = os.path.join(tt.config.train.checkpoint_dir, f"checkpoint_{STEPS}", "hf_model")
-    assert "model_state.pt" in os.listdir(hf_dir) and "pytorch_model.bin" not in os.listdir(hf_dir)
 
 
 # ---------------------------------------------------------------------------

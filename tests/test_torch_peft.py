@@ -6,7 +6,9 @@ weights (carried into the port by `params_from_jax`): LoRA, prompt
 tuning and prefix tuning at gpt2-tiny and llama-tiny, f32. The LoRA
 factors are perturbed (as training would move them) so that no check
 passes on an identity adapter. The PPO, SFT, GRPO, RFT and ILQL trainer
-pairs under adapters are in `test_torch_peft_trainers.py`.
+pairs under adapters are in `test_torch_peft_trainers.py` (PPO's in
+`test_torch_peft_ppo.py`), the adapter leaves and the trainable set in
+`test_torch_peft_leaves.py`, both on this file's helpers.
 
 Tolerances: forwards, reference logits and cached decode against JAX
 1e-5 (f32, the same sums in another order); a prefill's last logits
@@ -35,8 +37,6 @@ from trlx_tpu.models import config_from_preset as j_config_from_preset
 from trlx_tpu.models import forward_policy_and_ref as j_forward_policy_and_ref
 from trlx_tpu.models import init_kv_cache as j_init_kv_cache
 from trlx_tpu.models import ref_param_subtree as j_ref_param_subtree
-from trlx_tpu.models import resolve_split as j_resolve_split
-from trlx_tpu.models import trainable_mask as j_trainable_mask
 from trlx_tpu.models import hf_interop as j_hf_interop
 from trlx_tpu.models import lora as j_lora
 from trlx_tpu.ops.sampling import GenerationConfig as JGenerationConfig
@@ -52,8 +52,6 @@ from trlx_tpu_torch.models import (
     config_from_preset,
     init_kv_cache,
     init_paged_kv_arena,
-    resolve_split,
-    trainable_mask,
 )
 from trlx_tpu_torch.models import hf_interop
 from trlx_tpu_torch.models.lora import (
@@ -164,26 +162,6 @@ def test_unknown_peft_type_raises_as_jax():
     for fn in (lora_overrides_from_peft_config, j_lora.lora_overrides_from_peft_config):
         with pytest.raises(ValueError, match="Unsupported peft_type 'IA3'"):
             fn({"peft_type": "IA3"})
-
-
-@pytest.mark.parametrize("preset", PRESETS)
-@pytest.mark.parametrize("kind", list(PEFT))
-def test_adapter_leaves_and_trainable_set_match_jax(kind, preset):
-    """Every JAX adapter leaf has its port parameter (`_models` checks the
-    key sets), the split is 0 under any adapter, and the trainable set is
-    JAX's: the adapters and the value head, whatever
-    num_layers_unfrozen says."""
-    _, jcfg, np_params, tmodel, tcfg = _models(kind, preset)
-    adapters = {n for n in tmodel.state_dict() if is_adapter_name(n)}
-    want = {"lora": 2 * 2 * 2, "prompt": 1, "prefix": 2 * 2}[kind]
-    assert len(adapters) == want
-    for unfrozen in (-1, 0, 1):
-        assert resolve_split(tcfg, unfrozen) == j_resolve_split(jcfg, unfrozen) == 0
-        jmask = j_trainable_mask(np_params, jcfg, unfrozen)
-        as_leaves = jax.tree_util.tree_map(lambda m, p: np.full(np.shape(p), float(m), np.float32), jmask, np_params)
-        jnames = {n for n, v in params_from_jax(as_leaves).items() if bool(v.flatten()[0])}
-        tnames = {n for n, m in trainable_mask(tmodel, tcfg, unfrozen).items() if m}
-        assert tnames == jnames == adapters | {n for n in tmodel.state_dict() if n.startswith("v_head.")}
 
 
 def test_lora_factors_orientation_and_init():

@@ -224,7 +224,7 @@ def test_gc_checkpoints_matches_jax(keep_n, tmp_path):
     ("optimizer", "name", "adamw_8bit_bnb", "item 4"),
     ("train", "tracing", True, "item 4"),
     ("train", "profile_dir", "profiles", "item 4"),
-    ("model", "model_arch_type", "seq2seq", "item 4"),
+    ("train", "fuse_all_inner_epochs", True, "item 4"),
 ])
 def test_unported_ppo_features_are_refused(section, key, value, item):
     overrides = {"model": dict(model_path="random:gpt2-tiny")}

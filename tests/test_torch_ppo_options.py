@@ -259,10 +259,10 @@ def test_spec_sampler_refusals(lm_pair):
 # ---------------------------------------------------------------------------
 
 
-def _dummy(cls, method, split=1, gen_kwargs=None):
+def _dummy(cls, method, split=1, gen_kwargs=None, seq2seq=False):
     t = object.__new__(cls)
     t.config = SimpleNamespace(method=SimpleNamespace(num_value_layers_unfrozen=0, spec_k=4, **method))
-    t.split, t.seq2seq = split, False
+    t.split, t.seq2seq = split, seq2seq
     t.model_cfg = SimpleNamespace(moe_experts=0, prompt_tokens=0, prefix_tokens=0, n_layers=2)
     t.generate_experience_kwargs, t.generate_kwargs = None, gen_kwargs or {}
     t.spec_decode_fallbacks = 0
@@ -276,6 +276,8 @@ def _dummy(cls, method, split=1, gen_kwargs=None):
     dict(method=dict(speculative_decode=True, cache_trunk_activations=True), gen_kwargs={"num_beams": 2}),
     dict(method=dict(speculative_decode=True, cache_trunk_activations=False),
          gen_kwargs={"repetition_penalty": 1.2}),
+    dict(method=dict(speculative_decode=True, cache_trunk_activations=True), seq2seq=True),
+    dict(method=dict(speculative_decode=False, cache_trunk_activations=True), seq2seq=True, split=2),
 ])
 def test_trainer_gates_and_fallback_counter_match_jax(case):
     """(`test_spec_decode.py:377`, `test_trunk_cache.py:166`) The speculative

@@ -160,13 +160,13 @@ def test_value_branch_refusals(branch_pair):
 # ---------------------------------------------------------------------------
 
 
-def _gate_dummy(cls, split, depth):
+def _gate_dummy(cls, split, depth, seq2seq=False):
     """A trainer shell with every option on, for the four gates alone."""
     t = object.__new__(cls)
     t.config = SimpleNamespace(method=SimpleNamespace(
         num_value_layers_unfrozen=depth, speculative_decode=True, cache_trunk_activations=True,
         capture_rollout_stats=True, spec_k=4))
-    t.split, t.seq2seq, t.stop_sequences, t._spec_disabled_dense = split, False, [], False
+    t.split, t.seq2seq, t.stop_sequences, t._spec_disabled_dense = split, seq2seq, [], False
     t.model_cfg = SimpleNamespace(moe_experts=0, prompt_tokens=0, prefix_tokens=0, n_layers=4)
     t.tokenizer = SimpleNamespace(_n_plain_ids=256)
     t.generate_experience_kwargs, t.generate_kwargs = None, {}
@@ -185,6 +185,18 @@ def test_gates_match_jax_over_splits_and_branch_depths(split, depth):
     got = [getattr(port, g)() for g in gates]
     assert got == [getattr(jax_t, g)() for g in gates]
     assert got[0] == (split > 0 and 4 - depth >= split) and got[3] == (split > 0 and depth == 0)
+
+
+@pytest.mark.parametrize("split", [0, 1, 2, 4])
+def test_gates_match_jax_under_seq2seq(split):
+    """The four gates of an encoder-decoder with every option on: all
+    refuse at any split (the speculative one counting a fallback), as
+    JAX's seq2seq conditions do."""
+    port, jax_t = _gate_dummy(PPOTrainer, split, 0, True), _gate_dummy(JPPOTrainer, split, 0, True)
+    gates = ("_trunk_cache_available", "_spec_decode_available", "_spec_path_available", "_fast_rollout_available")
+    got = [getattr(port, g)() for g in gates]
+    assert got == [getattr(jax_t, g)() for g in gates] == [False] * 4
+    assert port.spec_decode_fallbacks == jax_t.spec_decode_fallbacks == 1
 
 
 @pytest.mark.parametrize("virtual", ["prompt", "prefix"])

@@ -32,7 +32,10 @@ Slices ported so far (ROADMAP.md, queue A):
   trainers: LoRA (merged at export), prompt tuning and prefix tuning
   (`"PROMPT_TUNING"` / `"PREFIX_TUNING"`, written beside the base at
   export); other peft types, adapters under the rollout fleet and
-  multi-tenant adapters are refused (ROADMAP queue A, item 4.5).
+  multi-tenant adapters are refused (ROADMAP queue A, item 4.5);
+- the MoE MLP and beam search, and the encoder-decoder (T5) family
+  (`models/seq2seq.py`, `model_arch_type="seq2seq"`) through PPO, ILQL,
+  the sampler and its beams, and the t5 HF load and export.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 asking for `cuda` where there is none raises.

@@ -18,6 +18,12 @@ modules carry the same names, so the mapping is mechanical:
   `router` is a Dense like any other (`router/kernel` [d, E] ->
   `router.weight` [E, d]).
 
+The seq2seq trees map the same way: `lm/enc_block_i` and `lm/dec_block_i`
+(with `cross_attn`), the relative-bias tables
+(`lm/enc_rel_bias/embedding/embedding` -> `lm.enc_rel_bias.embedding.weight`),
+the untied `lm_head`, `v_head` and `ilql_heads`, and the hydra
+reference's subtree (`dec_block_i`, `dec_ln_f`, `dec_rel_bias`, the head).
+
 The same rule carries the deeper value branch
 (`value_branch/{block_i, ln_f, v_head}` -> `value_branch.block_i...`) and
 ILQL's heads (`ilql_heads/{q_head_i, target_q_head_i, v_head}`) and the
@@ -48,9 +54,10 @@ def _flatten(tree, prefix=()):
 def params_from_jax(np_params: Dict, cfg=None) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (nested dict of numpy arrays) -> state dict for
     the port's modules (`CausalLMWithValueHead`, with or without its
-    value branch, `CausalLMWithILQLHeads` and `CausalLMWithRewardHead`).
-    With `cfg`, checks
-    that the LM holds exactly `cfg.n_layers` blocks."""
+    value branch, `CausalLMWithILQLHeads`, `CausalLMWithRewardHead` and
+    the seq2seq wrappers). With `cfg`, checks that the LM holds exactly
+    `cfg.n_layers` blocks (for a seq2seq config, decoder blocks, and
+    `cfg.n_encoder_layers` encoder blocks)."""
     state = {}
     for path, leaf in _flatten(np_params):
         *mods, name = path
@@ -67,7 +74,11 @@ def params_from_jax(np_params: Dict, cfg=None) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected parameter {'/'.join(path)}")
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     if cfg is not None:
-        blocks = {p.split(".")[1] for p in state if p.startswith("lm.block_")}
-        if len(blocks) != cfg.n_layers:
-            raise ValueError(f"tree holds {len(blocks)} blocks, config has {cfg.n_layers}")
+        seq2seq = getattr(cfg, "is_seq2seq", False)
+        counts = [("dec_block_", cfg.n_layers), ("enc_block_", cfg.n_encoder_layers)] if seq2seq \
+            else [("block_", cfg.n_layers)]
+        for prefix, want in counts:
+            blocks = {p.split(".")[1] for p in state if p.startswith("lm." + prefix)}
+            if len(blocks) != want:
+                raise ValueError(f"tree holds {len(blocks)} {prefix[:-1]}s, config has {want}")
     return state

@@ -69,3 +69,21 @@ class ILQLElement:
 
 # a batch has an element's fields with a leading batch axis, right padded
 ILQLBatch = ILQLElement
+
+
+@dataclass
+class ILQLSeq2SeqElement:
+    """One offline RL sample of an encoder-decoder: the prompt feeds the
+    encoder, the output the decoder (its start token first); the index
+    maps are decoder positions."""
+
+    input_ids: Any  # int32 [s]: the prompt
+    attention_mask: Any  # int32 [s]
+    decoder_input_ids: Any  # int32 [1 + n_actions]: start, output tokens (eos last)
+    rewards: Any  # f32 [n_actions]
+    states_ixs: Any  # int32 [n_actions + 1]
+    actions_ixs: Any  # int32 [n_actions]
+    dones: Any  # int32 [n_actions + 1]
+
+
+ILQLSeq2SeqBatch = ILQLSeq2SeqElement

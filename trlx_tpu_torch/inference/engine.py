@@ -44,7 +44,8 @@ arena run the t = 1 draft steps through the kernel and count a
 gather path.
 
 A LoRA policy is served as any other (merged or not); prompt and prefix
-tuning are refused with the JAX engine's message. Not ported yet (each
+tuning are refused with the JAX engine's message, and so is an
+encoder-decoder (the JAX engine serves causal LMs only). Not ported yet (each
 raises `NotImplementedError`): multi-tenant adapters (ROADMAP queue A,
 item 4.5) and the compile and HBM ledgers (item 4, observability).
 
@@ -162,6 +163,8 @@ class InferenceEngine:
             raise NotImplementedError(
                 "the compile and HBM ledgers are not ported yet (ROADMAP queue A, item 4, observability)"
             )
+        if getattr(model_cfg, "is_seq2seq", False):
+            raise NotImplementedError("the continuous-batching engine serves causal LMs only")
         if spec_k > 0 and spec_split <= 0:
             raise ValueError("speculative decode needs a hydra split > 0 (the frozen trunk is the draft model)")
         if spec_k > 0 and model_cfg.moe_experts > 0:

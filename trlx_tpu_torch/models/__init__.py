@@ -2,16 +2,20 @@
 the deeper value branch under `num_value_layers`), the critic-free policy
 of GRPO/RLOO (`value_head=False`) and ILQL policies, from `random:`
 presets or from a local HF checkpoint directory (gpt2, llama/mistral,
-gpt_neox, gptj, opt, bloom and gpt_bigcode, `models/hf_interop.py`), with
-the adapters of a `peft_config` (LoRA, prompt tuning, prefix tuning,
-`models/lora.py`)."""
+gpt_neox, gptj, opt, bloom, gpt_bigcode and t5, `models/hf_interop.py`),
+with the adapters of a `peft_config` (LoRA, prompt tuning, prefix tuning,
+`models/lora.py`). `model_arch_type="seq2seq"` builds the encoder-decoder
+family (`models/seq2seq.py`): its presets are `SEQ2SEQ_PRESETS`, and a
+checkpoint's family must agree with the arch type, as in the JAX package;
+`trainable_mask` and `make_reference` dispatch on the config."""
 
-from typing import Tuple, Union
+from typing import Dict, Tuple, Union
 
 import torch
 
 from trlx_tpu_torch.models.heads import ILQLHeads, MLPHead, sync_target_q_heads  # noqa: F401
 from trlx_tpu_torch.models.lora import lora_overrides_from_peft_config
+from trlx_tpu_torch.models import policy
 from trlx_tpu_torch.models.policy import (  # noqa: F401
     AdapterReference,
     CausalLMPolicy,
@@ -20,10 +24,19 @@ from trlx_tpu_torch.models.policy import (  # noqa: F401
     HydraReference,
     ValueBranch,
     forward_policy_and_ref,
-    make_reference,
     resolve_split,
     target_q_mask,
-    trainable_mask,
+)
+from trlx_tpu_torch.models.seq2seq import (  # noqa: F401
+    SEQ2SEQ_PRESETS,
+    Seq2SeqConfig,
+    Seq2SeqHydraReference,
+    Seq2SeqLM,
+    Seq2SeqLMWithILQLHeads,
+    Seq2SeqLMWithValueHead,
+    forward_seq2seq_policy_and_ref,
+    seq2seq_config_from_preset,
+    seq2seq_trainable_mask,
 )
 from trlx_tpu_torch.models.transformer import (  # noqa: F401
     PRESETS,
@@ -43,29 +56,68 @@ DTYPES = {
 }
 
 
-def resolve_transformer_config(model_config, vocab_size: int) -> TransformerConfig:
-    """Build a TransformerConfig from a ModelConfig: a `random:<preset>` or
-    a local HF checkpoint directory (its `config.json`). `model_extra_configs`
-    may override config fields and `dtype` (the activation dtype, as a
+def is_seq2seq_config(cfg) -> bool:
+    return bool(getattr(cfg, "is_seq2seq", False))
+
+
+def trainable_mask(model, cfg, num_layers_unfrozen: int) -> Dict[str, bool]:
+    """The family's trainable mask: `seq2seq_trainable_mask` for an
+    encoder-decoder, else `policy.trainable_mask`."""
+    if is_seq2seq_config(cfg):
+        return seq2seq_trainable_mask(model, cfg, num_layers_unfrozen)
+    return policy.trainable_mask(model, cfg, num_layers_unfrozen)
+
+
+def make_reference(lm, split: int):
+    """PPO's frozen reference for the LM's family: the decoder's hydra copy
+    for an encoder-decoder, else `policy.make_reference`."""
+    if is_seq2seq_config(lm.cfg):
+        return Seq2SeqHydraReference(lm, split)
+    return policy.make_reference(lm, split)
+
+
+def resolve_transformer_config(model_config, vocab_size: int) -> Union[TransformerConfig, Seq2SeqConfig]:
+    """Build a TransformerConfig (or, under `model_arch_type="seq2seq"`, a
+    Seq2SeqConfig) from a ModelConfig: a `random:<preset>` or a local HF
+    checkpoint directory (its `config.json`). `model_extra_configs` may
+    override config fields and `dtype` (the activation dtype, as a
     string); for a preset also `vocab_size` (e.g. the real 50257-token
     softmax with a byte tokenizer), which a checkpoint takes as a plain
-    override. A `peft_config` adds its adapters' overrides."""
+    override. A `peft_config` adds its adapters' overrides (causal models
+    only). The arch type is the one source the trainers dispatch on: a
+    seq2seq preset or checkpoint under "causal", or the reverse, raises."""
     path = model_config.model_path
     extra = dict(model_config.model_extra_configs or {})
-    if getattr(model_config, "model_arch_type", "causal") != "causal":
-        raise NotImplementedError("seq2seq models are not ported yet (ROADMAP queue A, item 4: model features)")
+    seq2seq = getattr(model_config, "model_arch_type", "causal") == "seq2seq"
     if "dtype" in extra:
         name = str(extra.pop("dtype"))
         if name not in DTYPES:
             raise ValueError(f"dtype {name!r} not in {sorted(DTYPES)}")
         extra["dtype"] = DTYPES[name]
-    extra.update(lora_overrides_from_peft_config(getattr(model_config, "peft_config", None)))
+    peft_config = getattr(model_config, "peft_config", None)
+    if peft_config is not None and seq2seq:
+        raise NotImplementedError("LoRA is only supported for causal models")
+    extra.update(lora_overrides_from_peft_config(peft_config))
     if not path.startswith("random:"):
         from trlx_tpu_torch.models import hf_interop
 
-        return hf_interop.config_from_hf(path, **extra)
+        cfg = hf_interop.config_from_hf(path, **extra)
+        if is_seq2seq_config(cfg) != seq2seq:
+            want = "seq2seq" if is_seq2seq_config(cfg) else "causal"
+            raise ValueError(
+                f"Checkpoint at '{path}' is a {want} model but "
+                f"model_arch_type={'seq2seq' if seq2seq else 'causal'!r}; set "
+                f"model_arch_type='{want}' in ModelConfig"
+            )
+        return cfg
+    preset = path[len("random:"):]
     vocab_size = extra.pop("vocab_size", vocab_size)
-    return config_from_preset(path[len("random:"):], vocab_size=vocab_size, **extra)
+    if preset in SEQ2SEQ_PRESETS and not seq2seq:
+        raise ValueError(f"Preset '{preset}' is an encoder-decoder model; set model_arch_type='seq2seq' in "
+                         "ModelConfig to use it")
+    if seq2seq:
+        return seq2seq_config_from_preset(preset, vocab_size=vocab_size, **extra)
+    return config_from_preset(preset, vocab_size=vocab_size, **extra)
 
 
 def build_model(model_config, vocab_size: int, seed: int = 0, device="cuda", with_ilql_heads: bool = False,
@@ -78,12 +130,15 @@ def build_model(model_config, vocab_size: int, seed: int = 0, device="cuda", wit
     `num_value_layers > 0` (clones of the top blocks and the final norm,
     taken after init and load; its MLP head keeps its own init); with
     `value_head=False` the critic-free `CausalLMPolicy` (GRPO/RLOO); or
-    with `with_ilql_heads` an LM with ILQL's heads."""
+    with `with_ilql_heads` an LM with ILQL's heads. A seq2seq config
+    builds `Seq2SeqLMWithValueHead` or `Seq2SeqLMWithILQLHeads`."""
     cfg = resolve_transformer_config(model_config, vocab_size)
     if num_value_layers > 0 and (cfg.prompt_tokens > 0 or cfg.prefix_tokens > 0):
         raise NotImplementedError("num_value_layers_unfrozen with prompt/prefix tuning is not supported (the "
                                   "reference likewise leaves peft off the value branch)")
     if not value_head:
+        if is_seq2seq_config(cfg):
+            raise NotImplementedError("critic-free (value_head=False) models are causal-only")
         if with_ilql_heads:
             raise ValueError("value_head=False conflicts with with_ilql_heads (ILQL needs its heads)")
         if num_value_layers > 0:
@@ -94,7 +149,15 @@ def build_model(model_config, vocab_size: int, seed: int = 0, device="cuda", wit
     device = torch.device(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(int(seed))
-    if with_ilql_heads:
+    if is_seq2seq_config(cfg):
+        if num_value_layers > 0:
+            raise NotImplementedError("num_value_layers_unfrozen > 0 is causal-only (as in the reference, whose "
+                                      "make_value_branch targets causal branches)")
+        if with_ilql_heads:
+            model = Seq2SeqLMWithILQLHeads(cfg, device=device, generator=generator, two_qs=two_qs)
+        else:
+            model = Seq2SeqLMWithValueHead(cfg, device=device, generator=generator)
+    elif with_ilql_heads:
         model = CausalLMWithILQLHeads(cfg, device=device, generator=generator, two_qs=two_qs)
     elif not value_head:
         model = CausalLMPolicy(cfg, device=device, generator=generator)

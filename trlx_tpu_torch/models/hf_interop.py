@@ -1,12 +1,14 @@
-"""HF checkpoint interop (port of the JAX package's `models/hf_interop.py`
-for the decoder families): build a TransformerConfig from a local
+"""HF checkpoint interop (port of the JAX package's `models/hf_interop.py`):
+build a TransformerConfig (a Seq2SeqConfig for t5) from a local
 directory's `config.json`, load its weights (`pytorch_model.bin`, its
 sharded index, or safetensors where the `safetensors` package imports)
 into the policy's state dict, and export the policy back to that layout
 (`save_pretrained`). Families: GPT2LMHeadModel, LlamaForCausalLM (and
 MistralForCausalLM, its sliding window), GPTNeoXForCausalLM (pythia),
-GPTJForCausalLM, OPTForCausalLM, BloomForCausalLM and
-GPTBigCodeForCausalLM. T5 (encoder-decoder) is ROADMAP queue A, item 4.4.
+GPTJForCausalLM, OPTForCausalLM, BloomForCausalLM, GPTBigCodeForCausalLM
+and T5ForConditionalGeneration (t5 v1.0: relu, tied, logits scaled by
+d_model**-0.5; v1.1/flan-t5 and mt5: gated gelu, an untied head), whose
+per-stack relative-bias table HF keeps in block 0's self-attention.
 A config with MoE blocks is refused both ways: the JAX package has no HF
 layout for the expert tensors either (its export fails on them), so
 `save_pretrained` writes such a model's raw state dict instead.
@@ -24,15 +26,15 @@ at load and back at export (exact, no runtime cost).
 
 import json
 import os
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
 
 from trlx_tpu_torch.models.lora import is_adapter_name
+from trlx_tpu_torch.models.seq2seq import Seq2SeqConfig
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
-_T5 = "the t5 family (encoder-decoder) is not ported yet (ROADMAP queue A, item 4.4: model features)"
 _MOE = ("MoE blocks have no HF checkpoint layout: the JAX package maps no expert tensors to HF names "
         "(moe_experts must be 0 to load or export an HF directory)")
 
@@ -74,17 +76,45 @@ def _family_of(hf: Dict) -> str:
     raise ValueError(f"Unsupported HF architecture for conversion: {arch or mt}")
 
 
-def _check_ported(fam: str, path: str) -> None:
-    if fam == "t5":
-        raise NotImplementedError(f"loading '{path}': {_T5}")
+def _seq2seq_config_from_hf(hf: Dict, **overrides) -> Seq2SeqConfig:
+    """HF T5Config -> Seq2SeqConfig, by the JAX package's rules: t5 v1.0
+    (relu, tied embeddings, logits scaled by d_model**-0.5), v1.1/flan-t5
+    and mt5 (gated gelu, an untied head, no logit scale); HF-T5 folds the
+    1/sqrt(d_kv) into its init, so `attention_scale` is off."""
+    ffp = hf.get("feed_forward_proj", "relu")
+    gated = ffp.startswith("gated-")
+    # HF forces gelu_new (the tanh form, our "gelu") only for gated-gelu;
+    # a plain 'gelu' runs the exact erf form
+    act = {"relu": "relu", "gelu": "gelu" if gated else "gelu_exact", "gelu_new": "gelu",
+           "silu": "silu"}[ffp.split("-")[-1]]
+    tie = bool(hf.get("tie_word_embeddings", True))
+    kwargs = dict(
+        vocab_size=hf["vocab_size"], d_model=hf["d_model"], n_encoder_layers=hf["num_layers"],
+        n_decoder_layers=hf.get("num_decoder_layers") or hf["num_layers"], n_heads=hf["num_heads"],
+        d_kv=hf.get("d_kv"), d_ff=hf["d_ff"],
+        # T5 has no position cap (the relative bias saturates); 512 is the
+        # tokenizers' model_max_length convention
+        max_seq_len=512, norm="rmsnorm", activation=act, glu=gated, tie_embeddings=tie, use_bias=False,
+        relative_attention=True,
+        relative_attention_num_buckets=hf.get("relative_attention_num_buckets", 32),
+        relative_attention_max_distance=hf.get("relative_attention_max_distance", 128),
+        decoder_start_token_id=hf.get("decoder_start_token_id", 0) or 0,
+        pad_token_id=hf.get("pad_token_id", 0), eos_token_id=hf.get("eos_token_id", 1),
+        layer_norm_epsilon=hf.get("layer_norm_epsilon", 1e-6), attention_scale=False,
+        logit_scale=hf["d_model"] ** -0.5 if tie else None, hf_family="t5",
+    )
+    kwargs.update(overrides)
+    return Seq2SeqConfig(**kwargs)
 
 
-def config_from_hf(path: str, **overrides) -> TransformerConfig:
-    """A TransformerConfig from the directory's `config.json` (`overrides`
-    win, as `model_extra_configs` do for presets)."""
+def config_from_hf(path: str, **overrides) -> Union[TransformerConfig, Seq2SeqConfig]:
+    """A TransformerConfig (a Seq2SeqConfig for t5) from the directory's
+    `config.json` (`overrides` win, as `model_extra_configs` do for
+    presets)."""
     hf = _read_hf_config(path)
     fam = _family_of(hf)
-    _check_ported(fam, path)
+    if fam == "t5":
+        return _seq2seq_config_from_hf(hf, **overrides)
     if fam == "gpt2":
         kwargs = dict(
             vocab_size=hf["vocab_size"], d_model=hf["n_embd"], n_layers=hf["n_layer"],
@@ -387,7 +417,53 @@ def _load_gpt_bigcode(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Di
     return lm
 
 
+_T5_ATTN = ("q", "k", "v", "o")
+
+
+def _t5_mlp_names(cfg: Seq2SeqConfig):
+    """(ours, theirs) of the T5 MLP's projections: the gated form's wi_0 is
+    the gate and wi_1 the up projection."""
+    if cfg.glu:
+        return (("gate_proj", "wi_0"), ("up_proj", "wi_1"), ("down_proj", "wo"))
+    return (("up_proj", "wi"), ("down_proj", "wo"))
+
+
+def _t5_names(cfg: Seq2SeqConfig):
+    """(ours under `lm.`, theirs) for every T5 tensor but the head: the HF
+    Linear weights have the port's [out, in] layout, so each maps as it is.
+    The per-stack relative-bias table lives in block 0's self-attention
+    (HF computes it there and shares it)."""
+    rel = "block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    names = [("embed_tokens.weight", "shared.weight"),
+             ("enc_ln_f.weight", "encoder.final_layer_norm.weight"),
+             ("dec_ln_f.weight", "decoder.final_layer_norm.weight"),
+             ("enc_rel_bias.embedding.weight", "encoder." + rel),
+             ("dec_rel_bias.embedding.weight", "decoder." + rel)]
+    for stack, n, layers in (("enc", cfg.n_encoder_layers, (("attn", "SelfAttention"), ("mlp", None))),
+                             ("dec", cfg.n_decoder_layers,
+                              (("attn", "SelfAttention"), ("cross_attn", "EncDecAttention"), ("mlp", None)))):
+        for i in range(n):
+            b, p = f"{stack}_block_{i}.", f"{'encoder' if stack == 'enc' else 'decoder'}.block.{i}.layer."
+            for j, (ours, theirs) in enumerate(layers):
+                ln = {"attn": "ln_attn", "cross_attn": "ln_cross", "mlp": "ln_mlp"}[ours]
+                names.append((b + ln + ".weight", f"{p}{j}.layer_norm.weight"))
+                if ours == "mlp":
+                    names += [(f"{b}mlp.{o}.weight", f"{p}{j}.DenseReluDense.{t}.weight")
+                              for o, t in _t5_mlp_names(cfg)]
+                else:
+                    names += [(f"{b}{ours}.{x}_proj.weight", f"{p}{j}.{theirs}.{x}.weight") for x in _T5_ATTN]
+    return names
+
+
+def _load_t5(sd: Dict[str, torch.Tensor], cfg: Seq2SeqConfig) -> Dict[str, torch.Tensor]:
+    lm = {ours: sd[theirs] for ours, theirs in _t5_names(cfg)}
+    if not cfg.tie_embeddings:
+        lm["lm_head.weight"] = sd["lm_head.weight"]
+    return lm
+
+
 _LOADERS = {
+    "t5": _load_t5,
     "gpt2": _load_gpt2,
     "llama": _load_llama,
     "gpt_neox": _load_gpt_neox,
@@ -409,7 +485,6 @@ def load_params_from_hf(path: str, cfg: TransformerConfig,
     _check_dense(cfg, f"loading '{path}'")
     hf = _read_hf_config(path)
     fam = _family_of(hf)
-    _check_ported(fam, path)
     lm = _LOADERS[fam](_load_state_dict(path), cfg)
     out = dict(state_template)
     for name, tpl in state_template.items():
@@ -587,7 +662,19 @@ def _export_gpt_bigcode(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> 
     return w.out
 
 
+def _export_t5(sd: Dict[str, torch.Tensor], cfg: Seq2SeqConfig) -> Dict[str, np.ndarray]:
+    """The inverse of `_load_t5`, with the per-stack embedding copies HF
+    checkpoints carry and the head (the shared embedding when tied)."""
+    w = _Writer(sd)
+    for ours, theirs in _t5_names(cfg):
+        w.out[theirs] = w.get(ours)
+    w.out["encoder.embed_tokens.weight"] = w.out["decoder.embed_tokens.weight"] = w.out["shared.weight"]
+    w.out["lm_head.weight"] = w.out["shared.weight"] if cfg.tie_embeddings else w.get("lm_head.weight")
+    return w.out
+
+
 _EXPORTERS = {
+    "t5": _export_t5,
     "gpt2": _export_gpt2,
     "llama": _export_llama,
     "gpt_neox": _export_gpt_neox,
@@ -601,6 +688,8 @@ _EXPORTERS = {
 def infer_family(cfg: TransformerConfig) -> str:
     """The HF family of a model config that was not loaded from an HF
     directory, from its structure (the JAX package's rules)."""
+    if getattr(cfg, "is_seq2seq", False):
+        return "t5"
     if cfg.alibi:
         return "bloom"
     if cfg.pos_offset:
@@ -619,8 +708,6 @@ def params_to_hf_state_dict(state_dict: Dict[str, torch.Tensor], cfg: Transforme
     """The policy's state dict -> an HF-layout state dict of f32 arrays."""
     _check_dense(cfg, "HF export")
     family = family or cfg.hf_family or infer_family(cfg)
-    if family == "t5":
-        raise NotImplementedError(f"HF export: {_T5}")
     return _EXPORTERS[family](state_dict, cfg)
 
 
@@ -629,6 +716,29 @@ def config_to_hf(cfg: TransformerConfig, family: str = None) -> Dict:
     and architectures included), also for models born from presets."""
     _check_dense(cfg, "HF config export")
     family = family or cfg.hf_family or infer_family(cfg)
+    if family == "t5":
+        # the inverse of the import's activation mapping: HF runs
+        # ACT2FN[dense_act_fn], 'gelu' exact and 'gelu_new' the tanh form;
+        # 'gated-gelu' forces gelu_new on import, our "gelu"
+        if cfg.glu:
+            if cfg.activation == "gelu_exact":
+                raise ValueError("T5 cannot express a gated exact-erf GELU (gated-gelu always runs gelu_new)")
+            ffp = {"gelu": "gated-gelu", "silu": "gated-silu", "relu": "gated-relu"}[cfg.activation]
+        else:
+            ffp = {"relu": "relu", "gelu_exact": "gelu", "silu": "silu", "gelu": "gelu_new"}[cfg.activation]
+        return dict(
+            model_type="t5", architectures=["T5ForConditionalGeneration"], is_encoder_decoder=True,
+            vocab_size=cfg.vocab_size, d_model=cfg.d_model, d_kv=cfg.head_dim, d_ff=cfg.d_ff,
+            num_layers=cfg.n_encoder_layers, num_decoder_layers=cfg.n_decoder_layers, num_heads=cfg.n_heads,
+            relative_attention_num_buckets=cfg.relative_attention_num_buckets,
+            relative_attention_max_distance=cfg.relative_attention_max_distance,
+            feed_forward_proj=ffp, tie_word_embeddings=cfg.tie_embeddings,
+            layer_norm_epsilon=cfg.layer_norm_epsilon, decoder_start_token_id=cfg.decoder_start_token_id,
+            # the source tokenizer's ids (recorded at import); a preset's
+            # fall back to T5's conventions
+            pad_token_id=cfg.pad_token_id if cfg.pad_token_id is not None else cfg.decoder_start_token_id,
+            eos_token_id=cfg.eos_token_id if cfg.eos_token_id is not None else 1,
+        )
     if family == "gpt2":
         return dict(
             model_type="gpt2", architectures=["GPT2LMHeadModel"],
@@ -702,6 +812,4 @@ def config_to_hf(cfg: TransformerConfig, family: str = None) -> Dict:
             multi_query=cfg.kv_heads == 1,
             layer_norm_epsilon=cfg.layer_norm_epsilon,
         )
-    if family == "t5":
-        raise NotImplementedError(f"HF config export: {_T5}")
     raise ValueError(f"No HF config export for family '{family}'")

@@ -1,5 +1,5 @@
-"""Beam search for a causal LM (port of the JAX package's
-`ops/beam_search.py`, its causal `generate`).
+"""Beam search (port of the JAX package's `ops/beam_search.py`: its causal
+`generate` and its `generate_seq2seq`).
 
 Two modes, as HF generate runs them:
 - deterministic beam search (`do_sample=False`): the top 2B candidates
@@ -24,11 +24,17 @@ the lower index first, as `lax.top_k` does (ties are certain: the dead
 beams of the first step and the finished store both start at -1e9), so
 the reordered cache and the winner are the JAX sampler's. The JAX loop
 runs one more model step after the last token, whose output it never
-reads; this one does not. Seq2seq beams (the JAX `generate_seq2seq`) wait
-for the encoder-decoder port (ROADMAP queue A, item 4.4 part 4).
+reads; this one does not.
+
+An encoder-decoder encodes each prompt once, repeats the encoder's rows
+(and the prompt mask) for its B beams, projects the cross K/V into the
+cache and decodes from `decoder_start_token_id`; the reorder takes the
+cross K/V and the encoder mask along, as the JAX `_gather_beams` takes
+every leaf.
 
 The output is the sampler's dict: `samples`, `samples_mask`,
-`response_tokens` and `response_mask`, the winning hypothesis of each row.
+`response_tokens` and `response_mask`, the winning hypothesis of each row
+(for an encoder-decoder, [start, tokens] in every key).
 """
 
 from typing import Callable, Optional, Tuple
@@ -77,10 +83,15 @@ def make_beam_generate_fn(model, model_cfg, gen_cfg) -> Callable:
 
     def reorder(cache, flat_idx):
         """Every per-row tensor of the cache (mask, pos, each layer's k and
-        v) follows the selected beams (the JAX `_gather_beams`)."""
-        layers = [{name: t.index_select(0, flat_idx) for name, t in layer.items()} for layer in cache["layers"]]
-        return {"index": cache["index"], "mask": cache["mask"].index_select(0, flat_idx),
-                "pos": cache["pos"].index_select(0, flat_idx), "layers": layers}
+        v; an encoder-decoder's encoder mask and cross k and v) follows the
+        selected beams (the JAX `_gather_beams`)."""
+        sel = lambda t: t.index_select(0, flat_idx)
+        out = dict(cache, mask=sel(cache["mask"]), pos=sel(cache["pos"]),
+                   layers=[{name: sel(t) for name, t in layer.items()} for layer in cache["layers"]])
+        if "cross" in cache:
+            out["enc_mask"] = sel(cache["enc_mask"])
+            out["cross"] = [{name: sel(t) for name, t in c.items()} for c in cache["cross"]]
+        return out
 
     def warp(logits, i):
         """HF's order: log_softmax, then the processors and (sampling) the
@@ -153,6 +164,22 @@ def make_beam_generate_fn(model, model_cfg, gen_cfg) -> Callable:
         r = torch.arange(b, device=device)
         return all_toks[r, best], all_masks[r, best]
 
+    def generate_seq2seq(input_ids, attn_mask, generator: Optional[torch.Generator] = None):
+        device = next(model.parameters()).device
+        input_ids = torch.as_tensor(np.asarray(input_ids), device=device).long()
+        attn_mask = torch.as_tensor(np.asarray(attn_mask), device=device).to(torch.int32)
+        b = input_ids.shape[0]
+        start_id = int(getattr(model_cfg, "decoder_start_token_id", pad))
+        enc_h = model.encode(input_ids, attn_mask).repeat_interleave(B, dim=0)
+        cache = model.prepare_cache(enc_h, attn_mask.repeat_interleave(B, dim=0), 1 + max_new)
+        start = torch.full((b * B, 1), start_id, dtype=torch.long, device=device)
+        logits, cache = step_model(start, cache, torch.ones((b * B, 1), dtype=torch.int32, device=device), True)
+        out_tokens, out_mask = decode(cache, logits, b, generator)
+        samples = torch.cat([torch.full((b, 1), start_id, dtype=torch.long, device=device), out_tokens], dim=1)
+        samples_mask = torch.cat([torch.ones((b, 1), dtype=torch.int32, device=device), out_mask], dim=1)
+        return {"samples": samples, "samples_mask": samples_mask, "response_tokens": samples,
+                "response_mask": samples_mask}
+
     def generate(input_ids, attn_mask, generator: Optional[torch.Generator] = None):
         device = next(model.parameters()).device
         input_ids = torch.as_tensor(np.asarray(input_ids), device=device).long()
@@ -169,4 +196,4 @@ def make_beam_generate_fn(model, model_cfg, gen_cfg) -> Callable:
             "response_mask": out_mask,
         }
 
-    return generate
+    return generate_seq2seq if getattr(model_cfg, "is_seq2seq", False) else generate

@@ -37,9 +37,17 @@ With `num_beams > 1` it returns the beam sampler (`ops/beam_search.py`:
 beam search, or beam-sample under `do_sample`), after the JAX sampler's
 refusals: no ILQL shift, logit masks, `suppress_tokens`, repetition
 penalty, capture or speculative decode, and no warpers without
-`do_sample`. Seq2seq generation (ROADMAP queue A, item 4.4 part 4)
-raises, and so do ILQL under `capture` or `spec_k`, as in the JAX
+`do_sample`. ILQL under `capture` or `spec_k` raises, as in the JAX
 package.
+
+For an encoder-decoder (`model_cfg.is_seq2seq`, the JAX
+`generate_seq2seq`) the encoder runs once over the prompt, the cross K/V
+are projected once into the cache, and the decoder samples from
+`decoder_start_token_id` under the same loop (ILQL's Q-guided shift
+over the seq2seq heads included; the repetition penalty sees
+decoder-side tokens only, the start token among them). Its samples are
+decoder-side only: [start, tokens], and the response keys hold the same
+tensors. Capture and speculative decode sample a causal LM only.
 """
 
 from dataclasses import dataclass
@@ -187,14 +195,12 @@ def make_generate_fn(
         raise ValueError(f"mode={mode!r}: expected 'lm' or 'ilql'")
     if mode == "ilql" and (capture or spec_k > 0):
         raise NotImplementedError("capture and speculative decode sample a plain LM (mode='lm') only")
-    if getattr(model_cfg, "is_seq2seq", False):
-        raise NotImplementedError("seq2seq generation and its beam search are not ported yet (ROADMAP queue A, "
-                                  "item 4.4 part 4)")
-    if capture and gen_cfg.num_beams > 1:
+    is_seq2seq = bool(getattr(model_cfg, "is_seq2seq", False))
+    if capture and (is_seq2seq or gen_cfg.num_beams > 1):
         raise NotImplementedError("rollout stat capture supports single-beam causal LM generation only (no ILQL, "
                                   "seq2seq, or beam search)")
     if spec_k > 0:
-        if gen_cfg.num_beams > 1:
+        if is_seq2seq or gen_cfg.num_beams > 1:
             raise NotImplementedError("speculative decode supports single-beam causal LM generation only (no ILQL, "
                                       "seq2seq, or beam search)")
         # the JAX sampler's own refusals: a direct caller must not get a
@@ -261,6 +267,9 @@ def make_generate_fn(
             logits, _, target_qs, vs, new_cache = model.decode_step(tokens, cache, token_mask, is_prefill)
             q = torch.minimum(target_qs[0], target_qs[1]) if two_qs else target_qs[0]
             return logits, q - vs, new_cache, None
+        if is_seq2seq:
+            logits, _, new_cache = model.decode_step(tokens, cache, token_mask, is_prefill)
+            return logits, None, new_cache, None
         return model.decode_step(tokens, cache, token_mask, is_prefill, with_value=capture,
                                  capture_split=capture_split if capture else None)
 
@@ -272,22 +281,13 @@ def make_generate_fn(
         hs[:, :plen] = h_cap
         return lp, torch.zeros_like(lp), hs
 
-    def generate_plain(input_ids, attn_mask, generator):
-        device, input_ids, attn_mask, shift = setup(input_ids, attn_mask)
-        b, plen = input_ids.shape
-        V = model_cfg.vocab_size
-        cache = init_kv_cache(model_cfg, b, plen + max_new, device=device)
-        logits, value, cache, h_cap = step(input_ids, cache, attn_mask, is_prefill=True)
-        logits = logits[:, -1].float()
-        if capture:
-            lp_buf, v_buf, hs_buf = capture_buffers(b, plen, max_new, h_cap)
-        seen = None
-        if track_seen:  # HF semantics: the penalty covers prompt tokens too
-            counts = torch.zeros((b, V), dtype=torch.int32, device=device)
-            rows = torch.arange(b, device=device)[:, None].expand(b, plen)
-            counts.index_put_((rows, input_ids), attn_mask, accumulate=True)
-            seen = counts > 0
-        prev = input_ids[:, -1]
+    def decode_loop(shift, cache, logits, value, prev, seen, generator, plen=0, caps=None):
+        """Token by token from the prefill's last logits [b, V] (and values)
+        and the previous token [b], until every row is finished or the
+        budget runs out. `caps` (the capture's buffers) take each token's
+        logprob and value and the split activations at `plen + i - 1`.
+        Returns (out_tokens [b, max_new], out_mask)."""
+        b, device = prev.shape[0], prev.device
         finished = torch.zeros(b, dtype=torch.bool, device=device)
         out_tokens = torch.full((b, max_new), gen_cfg.pad_token_id, dtype=torch.long, device=device)
         out_mask = torch.zeros((b, max_new), dtype=torch.int32, device=device)
@@ -295,23 +295,41 @@ def make_generate_fn(
             if i > 0:
                 step_logits, value, cache, h_cap = step(prev[:, None], cache, out_mask[:, i - 1:i])
                 logits = step_logits[:, -1].float()
-                if capture:  # the split activation at prev's position plen + i - 1
-                    hs_buf[:, plen + i - 1] = h_cap[:, 0]
+                if caps is not None:  # the split activation at prev's position plen + i - 1
+                    caps[2][:, plen + i - 1] = h_cap[:, 0]
             adv = value[:, -1] if mode == "ilql" else None
             scores = process_logits(shift(logits, prev, adv), gen_cfg, i, seen)
             token = select_token(scores, generator, gen_cfg)
             token = torch.where(finished, torch.full_like(token, gen_cfg.pad_token_id), token)
             out_tokens[:, i] = token
             out_mask[:, i] = (~finished).to(torch.int32)
-            if capture:
-                lp_buf[:, i] = sampled_token_logprob(logits, token)
-                v_buf[:, i] = value[:, -1].float()
+            if caps is not None:
+                caps[0][:, i] = sampled_token_logprob(logits, token)
+                caps[1][:, i] = value[:, -1].float()
             finished = finished | (token == gen_cfg.eos_token_id)
-            if track_seen:
+            if seen is not None:
                 seen[torch.arange(b, device=device), token] = True
             prev = token
             if bool(finished.all()):  # early exit, like the JAX while_loop's condition
                 break
+        return out_tokens, out_mask
+
+    def generate_plain(input_ids, attn_mask, generator):
+        device, input_ids, attn_mask, shift = setup(input_ids, attn_mask)
+        b, plen = input_ids.shape
+        V = model_cfg.vocab_size
+        cache = init_kv_cache(model_cfg, b, plen + max_new, device=device)
+        logits, value, cache, h_cap = step(input_ids, cache, attn_mask, is_prefill=True)
+        logits = logits[:, -1].float()
+        caps = capture_buffers(b, plen, max_new, h_cap) if capture else None
+        seen = None
+        if track_seen:  # HF semantics: the penalty covers prompt tokens too
+            counts = torch.zeros((b, V), dtype=torch.int32, device=device)
+            rows = torch.arange(b, device=device)[:, None].expand(b, plen)
+            counts.index_put_((rows, input_ids), attn_mask, accumulate=True)
+            seen = counts > 0
+        out_tokens, out_mask = decode_loop(shift, cache, logits, value, input_ids[:, -1], seen, generator, plen,
+                                           caps)
         out = {
             "samples": torch.cat([input_ids, out_tokens], dim=1),
             "samples_mask": torch.cat([attn_mask, out_mask], dim=1),
@@ -319,8 +337,28 @@ def make_generate_fn(
             "response_mask": out_mask,
         }
         if capture:
-            out.update(logprobs=lp_buf, values=v_buf, h_split=hs_buf)
+            out.update(logprobs=caps[0], values=caps[1], h_split=caps[2])
         return out
+
+    def generate_seq2seq(input_ids, attn_mask, generator):
+        """The encoder runs once; the decoder starts from
+        `decoder_start_token_id` with a cache of 1 + max_new columns."""
+        device, input_ids, attn_mask, shift = setup(input_ids, attn_mask)
+        b = input_ids.shape[0]
+        start_id = int(getattr(model_cfg, "decoder_start_token_id", gen_cfg.pad_token_id))
+        cache = model.prepare_cache(model.encode(input_ids, attn_mask), attn_mask, 1 + max_new)
+        start = torch.full((b, 1), start_id, dtype=torch.long, device=device)
+        ones = torch.ones((b, 1), dtype=torch.int32, device=device)
+        logits, value, cache, _ = step(start, cache, ones, is_prefill=True)
+        seen = None
+        if track_seen:  # decoder-side tokens only (HF penalizes the decoder's input ids)
+            seen = torch.zeros((b, model_cfg.vocab_size), dtype=torch.bool, device=device)
+            seen[:, start_id] = True
+        out_tokens, out_mask = decode_loop(shift, cache, logits[:, -1].float(), value, start[:, 0], seen, generator)
+        samples = torch.cat([start, out_tokens], dim=1)
+        samples_mask = torch.cat([ones, out_mask], dim=1)
+        return {"samples": samples, "samples_mask": samples_mask, "response_tokens": samples,
+                "response_mask": samples_mask}
 
     def generate_spec(input_ids, attn_mask, generator):
         """The draft/verify rounds. Each round feeds the pending token and k
@@ -476,6 +514,8 @@ def make_generate_fn(
         from trlx_tpu_torch.ops.beam_search import make_beam_generate_fn
 
         sample = make_beam_generate_fn(model, model_cfg, gen_cfg)
+    elif is_seq2seq:
+        sample = generate_seq2seq
     else:
         sample = generate_spec if spec_k > 0 else generate_plain
 

@@ -1,10 +1,10 @@
 """Offline pipelines: prompt datasets, dialogue tokenization, the SFT
 dialog store and ILQL's rollout storage.
 
-Port of the JAX package's `pipeline/offline_pipeline.py` (the seq2seq
-ILQL storage waits with seq2seq: ROADMAP queue A, item 4). Batches are
-numpy and padded to a pipeline-wide length, as in the JAX package, so
-every step of a run sees one shape.
+Port of the JAX package's `pipeline/offline_pipeline.py`, the seq2seq
+ILQL storage (`ILQLSeq2SeqRolloutStorage`) included. Batches are numpy
+and padded to a pipeline-wide length, as in the JAX package, so every
+step of a run sees one shape.
 """
 
 from dataclasses import dataclass
@@ -12,7 +12,7 @@ from typing import Any, Dict, Iterable, List, Tuple, Union
 
 import numpy as np
 
-from trlx_tpu_torch.data import ILQLElement
+from trlx_tpu_torch.data import ILQLElement, ILQLSeq2SeqElement
 from trlx_tpu_torch.pipeline import BasePipeline, BaseRolloutStore, DataLoader, register_datapipeline
 from trlx_tpu_torch.pipeline.ppo_pipeline import pad_stack
 from trlx_tpu_torch.tokenizers import BaseTokenizer
@@ -183,6 +183,7 @@ class ILQLRolloutStorage(BaseRolloutStore):
     into an `ILQLBatch` with each field right padded with zeros to its
     longest row in the whole store (rewards f32, the rest int32)."""
 
+    element_cls = ILQLElement
     fields = ("input_ids", "attention_mask", "rewards", "states_ixs", "actions_ixs", "dones")
 
     def __init__(self, *columns):
@@ -192,7 +193,7 @@ class ILQLRolloutStorage(BaseRolloutStore):
         self.columns = [list(c) for c in columns]
 
     def __getitem__(self, ix: int) -> ILQLElement:
-        return ILQLElement(*(c[ix] for c in self.columns))
+        return self.element_cls(*(c[ix] for c in self.columns))
 
     def __len__(self) -> int:
         return len(self.columns[0])
@@ -206,7 +207,15 @@ class ILQLRolloutStorage(BaseRolloutStore):
             for field, mx in zip(self.fields, maxes):
                 dtype = np.float32 if field == "rewards" else np.int32
                 arrays.append(pad_stack([np.atleast_1d(getattr(it, field)) for it in items], 0, mx, dtype))
-            return ILQLElement(*arrays)
+            return self.element_cls(*arrays)
 
         return DataLoader([self[i] for i in range(len(self))], batch_size, shuffle=shuffle, collate_fn=collate,
                           drop_last=drop_last, seed=seed)
+
+
+class ILQLSeq2SeqRolloutStorage(ILQLRolloutStorage):
+    """The seq2seq variant: its elements carry `decoder_input_ids` (padded
+    with zeros like every other field, as in the JAX package)."""
+
+    element_cls = ILQLSeq2SeqElement
+    fields = ("input_ids", "attention_mask", "decoder_input_ids", "rewards", "states_ixs", "actions_ixs", "dones")

@@ -59,7 +59,8 @@ import torch
 
 from trlx_tpu_torch import resilience
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.models.policy import resolve_split, trainable_mask
+from trlx_tpu_torch.models import trainable_mask
+from trlx_tpu_torch.models.policy import resolve_split
 from trlx_tpu_torch.pipeline import MiniBatchIterator
 from trlx_tpu_torch.resilience import MANIFEST_NAME, MODEL_FILE, is_valid_checkpoint
 from trlx_tpu_torch.sentinel import LAST_GOOD_NAME, HealthSentinel, SentinelRewind, StepWatchdog
@@ -371,6 +372,10 @@ class TorchTrainer:
         attention_mask = np.asarray(attention_mask)
         if getattr(self.config.train, "bucket_generation", True):
             input_ids, attention_mask, orig = self._bucket_prompts(input_ids, attention_mask)
+            if self.config.model.model_arch_type == "seq2seq":
+                # seq2seq samples are decoder-side only: the encoder's
+                # column padding is not on them
+                orig = (orig[0], 0)
         else:
             orig = (input_ids.shape[0], 0)
         fn = self.get_generate_fn(input_ids.shape[0], input_ids.shape[1], gen_kwargs, mode, capture, spec_k)
@@ -380,15 +385,18 @@ class TorchTrainer:
     def decode(self, prompts, samples, prompt_sizes=None,
                append_eos_token: bool = False) -> Tuple[List[str], List[str], List[str]]:
         """Token -> string decode with stop-sequence trimming and eos
-        restoration."""
+        restoration. Seq2seq samples are decoder-side only: the output is
+        the whole sample, and a sample joins prompt and output with the
+        tokenizer's `sep_token`."""
         prompts = np.asarray(prompts)
         samples = np.asarray(samples)
+        seq2seq = self.config.model.model_arch_type == "seq2seq"
         if prompt_sizes is None:
             prompt_sizes = [prompts.shape[1]] * len(prompts)
         str_samples, str_prompts, str_outputs = [], [], []
         for prompt, sample, prompt_size in zip(prompts, samples, prompt_sizes):
             str_prompt = self.tokenizer.decode(prompt[:prompt_size], skip_special_tokens=True)
-            str_output = self.tokenizer.decode(sample[prompt_size:], skip_special_tokens=True)
+            str_output = self.tokenizer.decode(sample[0 if seq2seq else prompt_size:], skip_special_tokens=True)
             trimmed = False
             for stop in self.stop_sequences or []:
                 stop_ix = str_output.find(stop)
@@ -402,7 +410,8 @@ class TorchTrainer:
                 str_output += self.tokenizer.eos_token
             str_prompts.append(str_prompt)
             str_outputs.append(str_output)
-            str_samples.append(str_prompt + str_output)
+            sep = (getattr(self.tokenizer, "sep_token", "") or "") if seq2seq else ""
+            str_samples.append(str_prompt + sep + str_output)
         return str_samples, str_prompts, str_outputs
 
     # ------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """ILQL trainer: offline RL from reward-labelled samples (port of the JAX
-package's `trainer/ilql_trainer.py`, the causal path).
+package's `trainer/ilql_trainer.py`).
 
 `make_experience` tokenizes the dialogues, derives each sample's state
 and action index maps and puts its normalized return on its last action;
@@ -7,8 +7,10 @@ a step runs the LM with ILQL's heads selected at those indices and
 `ops/ilql.py:ilql_loss`; the target Q heads stay out of the optimizer and
 follow the Q heads by a Polyak sync every `steps_for_target_q_sync`
 steps. Evaluation samples with the beta * (Q - V) shift
-(`generate(mode="ilql")`). Seq2seq ILQL waits with seq2seq, which the
-model build refuses (ROADMAP queue A, item 4).
+(`generate(mode="ilql")`). Under `model_arch_type="seq2seq"` each sample
+is a (prompt, output) pair: the prompt feeds the encoder, the output
+(from `decoder_start_token_id`, eos last) the decoder, whose positions
+the index maps name (`make_experience_seq2seq`).
 """
 
 from dataclasses import dataclass, field
@@ -22,7 +24,11 @@ from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
 from trlx_tpu_torch.models import build_model, sync_target_q_heads, target_q_mask
 from trlx_tpu_torch.models.transformer import position_ids
 from trlx_tpu_torch.ops.ilql import ilql_loss
-from trlx_tpu_torch.pipeline.offline_pipeline import ILQLRolloutStorage, tokenize_dialogue
+from trlx_tpu_torch.pipeline.offline_pipeline import (
+    ILQLRolloutStorage,
+    ILQLSeq2SeqRolloutStorage,
+    tokenize_dialogue,
+)
 from trlx_tpu_torch.trainer import register_trainer
 from trlx_tpu_torch.trainer.base_trainer import TorchTrainer
 from trlx_tpu_torch.utils import flatten_dict, logging
@@ -104,6 +110,32 @@ def make_experience(samples, rewards, tokenizer=None, max_length=2048, verbose=T
                               all_dones)
 
 
+def make_experience_seq2seq(samples, rewards, tokenizer, max_length=2048, decoder_start_token_id=0,
+                            verbose=True) -> ILQLSeq2SeqRolloutStorage:
+    """Seq2seq offline ingestion: each sample is a (prompt, output) pair;
+    the prompt feeds the encoder, the output becomes the decoder's actions
+    (position p predicts token p + 1). The output is truncated before its
+    eos is ensured, so a long one keeps its terminal eos."""
+    if verbose:
+        logger.info("Collecting rollouts")
+    columns = [[] for _ in range(6)]  # input_ids, attention_mask, decoder_input_ids, states, actions, dones
+    for prompt, output in samples:
+        input_ids = np.asarray(tokenizer.encode(prompt)[:max_length], dtype=np.int32)
+        out = list(tokenizer.encode(output, add_special_tokens=False))[: max_length - 2]
+        if not out or out[-1] != tokenizer.eos_token_id:
+            out.append(tokenizer.eos_token_id)
+        actions_ixs = np.arange(len(out), dtype=np.int32)
+        states_ixs = np.concatenate([actions_ixs, [len(out)]]).astype(np.int32)
+        for col, x in zip(columns, (input_ids, np.ones_like(input_ids),
+                                    np.asarray([decoder_start_token_id] + out, dtype=np.int32), states_ixs,
+                                    actions_ixs, np.asarray([1] * (len(states_ixs) - 1) + [0], dtype=np.int32))):
+            col.append(x)
+    input_ids, attention_mask, decoder_input_ids, states_ixs, actions_ixs, dones = columns
+    rewards_per_sample = _normalized_returns_per_sample(rewards, actions_ixs)
+    return ILQLSeq2SeqRolloutStorage(input_ids, attention_mask, decoder_input_ids, rewards_per_sample, states_ixs,
+                                     actions_ixs, dones)
+
+
 @register_trainer
 class ILQLTrainer(TorchTrainer):
     def __init__(self, config: TRLConfig, **kwargs):
@@ -111,6 +143,7 @@ class ILQLTrainer(TorchTrainer):
             raise ValueError("config.method must be ILQLConfig")
         super().__init__(config, **kwargs)
         self.ilql: ILQLConfig = config.method
+        self.seq2seq = config.model.model_arch_type == "seq2seq"
 
     def get_arch(self, config: TRLConfig):
         return build_model(config.model, vocab_size=self.tokenizer.vocab_size, seed=config.train.seed,
@@ -134,6 +167,21 @@ class ILQLTrainer(TorchTrainer):
 
     def make_loss_fn(self) -> Callable:
         model, cfg = self.model, self.ilql
+        pad_id = self.tokenizer.pad_token_id
+
+        if self.seq2seq:
+            def seq2seq_loss_fn(batch):
+                decoder_attn_mask = (batch.decoder_input_ids != pad_id).long()
+                decoder_attn_mask[:, 0] = 1
+                logits, qs, target_qs, vs, _ = model(batch.input_ids, batch.attention_mask, batch.decoder_input_ids,
+                                                     decoder_attn_mask, states_ixs=batch.states_ixs,
+                                                     actions_ixs=batch.actions_ixs)
+                loss, stats = ilql_loss(logits, qs, target_qs, vs, batch.decoder_input_ids, batch.actions_ixs,
+                                        batch.dones, batch.rewards, tau=cfg.tau, gamma=cfg.gamma,
+                                        cql_scale=cfg.cql_scale, awac_scale=cfg.awac_scale, beta=cfg.beta)
+                return loss, {k: v.detach() for k, v in flatten_dict(stats).items()}
+
+            return seq2seq_loss_fn
 
         def loss_fn(batch: ILQLBatch):
             (logits, qs, target_qs, vs, _), aux = apply_with_moe_aux(
@@ -156,7 +204,11 @@ class ILQLTrainer(TorchTrainer):
         return stats
 
     def make_experience(self, samples, rewards, max_length=2048):
-        self.store = make_experience(samples, rewards, self.tokenizer, max_length)
+        if self.seq2seq:
+            self.store = make_experience_seq2seq(samples, rewards, self.tokenizer, max_length,
+                                                 int(self.model_cfg.decoder_start_token_id))
+        else:
+            self.store = make_experience(samples, rewards, self.tokenizer, max_length)
 
     def create_train_dataloader(self, seed_offset: int = 0):
         return self.store.create_loader(self.config.train.batch_size, shuffle=True, drop_last=False,

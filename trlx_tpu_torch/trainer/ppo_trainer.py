@@ -72,8 +72,24 @@ split is 0 and the reference is the live LM with its adapters off
 fast path and speculative decode are off; under prompt tuning the loss
 reads the full forward (the soft prompt shifts every position).
 
-Refused at construction: seq2seq (ROADMAP queue A, item 4) and adapters
-under the fleet backend (item 4.5).
+Seq2seq (`model.model_arch_type="seq2seq"`, the JAX trainer's seq2seq
+branches): the prompt is the encoder's input and the response the
+decoder's, starting with `decoder_start_token_id`, so every window is
+decoder-relative (start 0, the stats one shorter than the response). The
+scorer (`score_seq2seq`) runs the policy and the decoder's hydra
+reference (`models/seq2seq.py`); both logprobs and the loss's go through
+the label logprob kernel on the full decoder logits (`shifted_logprobs`).
+The pipelined cycle runs with the classic scorer (`_score_reward`, the
+JAX `score_reward_s2s`, whose documented divergence from the reference's
+indexing it keeps: the scalar score lands on the last real response
+token and the KL mask is the decoder mask shifted with the labels).
+Speculative decode, the int8 decode view, the trunk cache, the
+speculative scorer and the capture fast path are off, as JAX's gates
+turn them off; the fleet backend generates locally with a warning, and
+multi-turn rollouts are refused.
+
+Refused at construction: adapters under the fleet backend (ROADMAP queue
+A, item 4.5).
 """
 
 import dataclasses
@@ -91,9 +107,10 @@ import torch
 from trlx_tpu_torch.data import PPORLBatch, PPORLElement
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
-from trlx_tpu_torch.models import build_model
+from trlx_tpu_torch.models import build_model, make_reference
 from trlx_tpu_torch.models.lora import has_adapters
-from trlx_tpu_torch.models.policy import forward_policy_and_ref, make_reference
+from trlx_tpu_torch.models.policy import forward_policy_and_ref
+from trlx_tpu_torch.models.seq2seq import forward_seq2seq_policy_and_ref
 from trlx_tpu_torch.models.transformer import position_ids
 from trlx_tpu_torch.ops import quant
 from trlx_tpu_torch.ops.ppo import AdaptiveKLController, FixedKLController, get_advantages_and_returns, ppo_loss
@@ -163,8 +180,7 @@ def shifted_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor
 @register_trainer
 class PPOTrainer(TorchTrainer):
     def __init__(self, config: TRLConfig, **kwargs):
-        if config.model.model_arch_type == "seq2seq":
-            raise NotImplementedError("seq2seq PPO is not ported yet (ROADMAP queue A, item 4)")
+        self.seq2seq = config.model.model_arch_type == "seq2seq"
         super().__init__(config, **kwargs)
         if has_adapters(self.model_cfg) and getattr(config.train, "rollout_backend", "local") == "fleet":
             raise NotImplementedError("adapters (peft_config) under the rollout fleet are not ported yet "
@@ -249,6 +265,32 @@ class PPOTrainer(TorchTrainer):
         pad_id = self.tokenizer.pad_token_id
         window_ok = self._window_loss_ok()
 
+        if self.seq2seq:
+            def seq2seq_loss_fn(batch: PPORLBatch):
+                """The encoder reads the query, the decoder the response
+                (its start token first); the stats are decoder-relative."""
+                query_tensors, response_tensors = batch.query_tensors, batch.response_tensors
+                response_length = batch.rewards.shape[1]
+                attention_mask = (query_tensors != pad_id).long()
+                decoder_attention_mask = (response_tensors != pad_id).long()
+                decoder_attention_mask[:, 0] = 1
+                mask = decoder_attention_mask[:, 1:][:, :response_length]
+                advantages, returns = get_advantages_and_returns(
+                    batch.values, batch.rewards, method.gamma, method.lam,
+                    mask=mask if method.whiten_with_mask else None,
+                )
+                logits, values_pred, _, _ = model(query_tensors, attention_mask, response_tensors,
+                                                  decoder_attention_mask)
+                loss, stats = ppo_loss(
+                    logprobs=shifted_logprobs(logits, response_tensors)[:, :response_length],
+                    values=values_pred[:, :-1][:, :response_length], old_logprobs=batch.logprobs,
+                    old_values=batch.values, advantages=advantages, returns=returns, mask=mask,
+                    cliprange=method.cliprange, cliprange_value=method.cliprange_value, vf_coef=method.vf_coef,
+                )
+                return loss, {k: v.detach() for k, v in flatten_dict(stats).items()}
+
+            return seq2seq_loss_fn
+
         def loss_fn(batch: PPORLBatch):
             query_tensors = batch.query_tensors
             old_logprobs, old_values, old_rewards = batch.logprobs, batch.values, batch.rewards
@@ -329,6 +371,24 @@ class PPOTrainer(TorchTrainer):
         second = ref_logprobs if values is None else values[:, :-1]
         return logprobs, second, log_ratio, kl.sum(1).mean(), kl.mean()
 
+    @torch.no_grad()
+    def score_seq2seq(self, query: torch.Tensor, response: torch.Tensor):
+        """The seq2seq scoring pass over a chunk of queries [b, q] (the
+        encoder's input) and responses [b, 1 + r] (the decoder's, its start
+        token first), on the device: `score`'s tuple, decoder-relative
+        ([b, r] each); the start column is always attended."""
+        pad_id = self.tokenizer.pad_token_id
+        attention_mask = (query != pad_id).long()
+        decoder_attention_mask = (response != pad_id).long()
+        decoder_attention_mask[:, 0] = 1
+        logits, values, ref_logits = forward_seq2seq_policy_and_ref(
+            self.model, self.ref_model, query, attention_mask, response, decoder_attention_mask)
+        logprobs = shifted_logprobs(logits, response)
+        ref_logprobs = shifted_logprobs(ref_logits, response)
+        log_ratio = (logprobs - ref_logprobs) * decoder_attention_mask[:, 1:]
+        kl = torch.exp(log_ratio) - 1 - log_ratio
+        return logprobs, values[:, :-1], log_ratio, kl.sum(1).mean(), kl.mean()
+
     def make_experience(self, num_rollouts: int = 1024, iter_count: int = 0):
         """Collect rollouts: generate (locally, or on the rollout fleet) ->
         decode and reward on the host -> the hydra scoring pass (and the
@@ -369,11 +429,15 @@ class PPOTrainer(TorchTrainer):
             prompt_tensors, sample_outputs, outputs, scores, scores_mask = self._host_process_chunk(
                 batch, samples, stats, clock
             )
-            all_tokens = torch.from_numpy(np.concatenate([prompt_tensors, sample_outputs], axis=1))
-            all_tokens = all_tokens.to(self.device).long()
-            scored = self.score(all_tokens)
-            # the trunk cache over the same retokenized tokens the scorer saw
-            h_cache = self.trunk_cache_fill(all_tokens) if self._trunk_cache_available() else None
+            to_device = lambda a: torch.from_numpy(a).to(self.device).long()
+            h_cache = None
+            if self.seq2seq:
+                scored = self.score_seq2seq(to_device(prompt_tensors), to_device(sample_outputs))
+            else:
+                all_tokens = to_device(np.concatenate([prompt_tensors, sample_outputs], axis=1))
+                scored = self.score(all_tokens)
+                # the trunk cache over the same retokenized tokens the scorer saw
+                h_cache = self.trunk_cache_fill(all_tokens) if self._trunk_cache_available() else None
             logprobs, values, log_ratio = (x.cpu().numpy() for x in scored[:3])
             mean_kl, mean_kl_per_token = float(scored[3]), float(scored[4])
             if use_fleet:
@@ -423,7 +487,9 @@ class PPOTrainer(TorchTrainer):
         """The host stage of one rollout chunk: decode -> reward_fn ->
         retokenize and right-pad the (stop-trimmed) outputs -> clip -> the
         running-moments reward scaling. Returns (prompt_tensors,
-        sample_outputs, outputs, scores, scores_mask)."""
+        sample_outputs, outputs, scores, scores_mask); a seq2seq
+        sample_outputs row is the decoder's, [start, output, pad...] of
+        1 + max_new columns."""
         method = self.config.method
         pad_id = self.tokenizer.pad_token_id
         max_new = self._max_new()
@@ -444,9 +510,12 @@ class PPOTrainer(TorchTrainer):
         scores_mask = scores != -np.inf
 
         outputs = [self.tokenizer.encode(o, add_special_tokens=False)[:max_new] for o in str_outputs]
-        sample_outputs = np.full((n_samples, max_new), pad_id, dtype=np.int32)
+        lead = 1 if self.seq2seq else 0
+        sample_outputs = np.full((n_samples, lead + max_new), pad_id, dtype=np.int32)
+        if self.seq2seq:
+            sample_outputs[:, 0] = int(self.model_cfg.decoder_start_token_id)
         for i, o in enumerate(outputs):
-            sample_outputs[i, : len(o)] = o
+            sample_outputs[i, lead: lead + len(o)] = o
 
         if method.cliprange_reward:
             scores = np.where(scores_mask, np.clip(scores, -method.cliprange_reward, method.cliprange_reward), scores)
@@ -480,16 +549,23 @@ class PPOTrainer(TorchTrainer):
     def _chunk_to_elements(self, prompt_tensors, sample_outputs, outputs, scores, scores_mask,
                            logprobs, values, log_ratio, h_cache=None) -> List[PPORLElement]:
         """Slice each sample's response window into a PPORLElement:
-        logprobs[i] is the logprob with which all_tokens[i + 1] was drawn.
-        With the trunk cache, an element keeps the cache rows of exactly
-        its query and response tokens (the loader re-pads them)."""
+        logprobs[i] is the logprob with which all_tokens[i + 1] was drawn
+        (seq2seq: the decoder's token i + 1, the window starting at 0 and
+        the response keeping its start token). With the trunk cache, an
+        element keeps the cache rows of exactly its query and response
+        tokens (the loader re-pads them)."""
         pad_id = self.tokenizer.pad_token_id
-        start = prompt_tensors.shape[1] - 1
+        start = 0 if self.seq2seq else prompt_tensors.shape[1] - 1
         kl_penalty = -self._kl_coef() * log_ratio
         elements = []
         for ix in range(len(sample_outputs)):
             # an empty response keeps one (padding) slot
-            n_resp = max(int((sample_outputs[ix] != pad_id).sum()), 1)
+            if self.seq2seq:
+                n_resp = max(len(outputs[ix]), 1)
+                response_tensor = sample_outputs[ix, :n_resp + 1]
+            else:
+                n_resp = max(int((sample_outputs[ix] != pad_id).sum()), 1)
+                response_tensor = sample_outputs[ix, :n_resp]
             end = start + n_resp
             rewards = kl_penalty[ix, start:end].copy()
             if scores.shape[1] == 1:
@@ -500,7 +576,7 @@ class PPOTrainer(TorchTrainer):
                 rewards[: len(dense)] += dense
             elements.append(PPORLElement(
                 query_tensor=prompt_tensors[ix],
-                response_tensor=sample_outputs[ix, :n_resp],
+                response_tensor=response_tensor,
                 logprobs=logprobs[ix, start:end],
                 values=values[ix, start:end],
                 rewards=rewards,
@@ -541,6 +617,9 @@ class PPOTrainer(TorchTrainer):
         backend = getattr(self.config.train, "rollout_backend", "local")
         if backend not in ("local", "fleet"):
             raise ValueError(f"unknown train.rollout_backend {backend!r} (want 'local' or 'fleet')")
+        if backend == "fleet" and self.seq2seq:
+            logger.warning_once("rollout_backend='fleet' does not support seq2seq models; generating locally")
+            return False
         return backend == "fleet"
 
     def _router_kwargs(self) -> Dict:
@@ -796,6 +875,8 @@ class PPOTrainer(TorchTrainer):
         from trlx_tpu_torch.environments import make_environment
 
         logger.info("Collecting multi-turn rollouts")
+        if self.seq2seq:
+            raise NotImplementedError("multi-turn rollouts are causal-only")
         if not self._fleet_rollouts_enabled():
             raise ValueError(
                 "method.multiturn_env requires train.rollout_backend='fleet' (episodes run through fleet chat "
@@ -945,14 +1026,14 @@ class PPOTrainer(TorchTrainer):
         It needs a real hydra split (the frozen trunk is the draft model),
         no MoE (the router recomputes per-token state the rollback cannot
         unwind), no prompt or prefix tokens, one beam and no repetition
-        penalty (its seen set cannot be rolled back); seq2seq is refused at
-        construction in the port. A refusal while the flag is on counts in
-        `spec_decode_fallbacks`."""
+        penalty (its seen set cannot be rolled back), and a causal LM. A
+        refusal while the flag is on counts in `spec_decode_fallbacks`."""
         if not getattr(self.config.method, "speculative_decode", False):
             return False
         gen_kwargs = self.generate_experience_kwargs or self.generate_kwargs
         ok = (
-            self.split > 0
+            not self.seq2seq
+            and self.split > 0
             and self.model_cfg.moe_experts == 0
             and self.model_cfg.prompt_tokens == 0
             and self.model_cfg.prefix_tokens == 0
@@ -998,7 +1079,8 @@ class PPOTrainer(TorchTrainer):
         frozen trunk's int8 leaves, quantized once (they never train); the
         sampler reads every other parameter live. None (the dense module)
         otherwise."""
-        if not (getattr(self.config.method, "quantize_frozen_trunk", False) and self.split > 0):
+        if not (getattr(self.config.method, "quantize_frozen_trunk", False) and self.split > 0
+                and not self.seq2seq):
             return None
         if self._quant_frozen is None:
             self._quant_frozen = quant.quantize_frozen(self.model, self.split)
@@ -1008,13 +1090,14 @@ class PPOTrainer(TorchTrainer):
         """Whether steps may resume from cached trunk activations: the flag,
         a real hydra split (blocks [0, split) entirely frozen, so the cache
         cannot go stale within a collection), no MoE (the load-balancing
-        term comes from the full forward) and a value branch tapping at or
-        above the split (its input must be derivable from the cache). The
-        JAX gate's seq2seq condition is refused at construction in the
-        port."""
+        term comes from the full forward), a value branch tapping at or
+        above the split (its input must be derivable from the cache) and a
+        causal LM (an encoder-decoder's split has no single trunk
+        activation)."""
         method = self.config.method
         return (
             bool(getattr(method, "cache_trunk_activations", False))
+            and not self.seq2seq
             and self.split > 0
             and self.model_cfg.moe_experts == 0
             and self.model_cfg.n_layers - getattr(method, "num_value_layers_unfrozen", 0) >= self.split
@@ -1030,10 +1113,11 @@ class PPOTrainer(TorchTrainer):
         id-local tokenizer (`_n_plain_ids`) and no stop sequences (those
         trim by string). Dense rewards turn it off once a chunk shows them:
         its merge is scalar-only, so its forward would only double the
-        scoring. (The JAX gate's seq2seq condition is refused at
-        construction.)"""
+        scoring. Seq2seq has none (the host retokenization is not id-local
+        there)."""
         return (
-            not self.stop_sequences
+            not self.seq2seq
+            and not self.stop_sequences
             and not self._spec_disabled_dense
             and getattr(self.tokenizer, "_n_plain_ids", None) is not None
         )
@@ -1072,13 +1156,15 @@ class PPOTrainer(TorchTrainer):
         return batch, out
 
     def _spec_merge(self, prompt_tensors, responses, lp_win, v_win, logratio_win, scores_eff, kl_coef: float,
-                    scalar: bool) -> PPORLBatch:
+                    scalar: bool, response_tensors=None) -> PPORLBatch:
         """Per-token rewards on the device from the scored response windows
         and the host scores (the JAX `_build_spec_merge_fn`, whose formulas
         the classic scorer shares): the KL penalty on each real response
         token (an empty response keeps one slot), plus a scalar score on
         the last of them or a dense score on each. A PPORLBatch of device
-        tensors, stats zero past each response."""
+        tensors, stats zero past each response; its responses are
+        `response_tensors` when given (seq2seq: the decoder's rows, whose
+        start token `responses` leaves out)."""
         r = responses.shape[1]
         j = torch.arange(r, device=responses.device)[None, :]
         n_resp = (responses != self.tokenizer.pad_token_id).sum(1, keepdim=True).clamp(min=1)
@@ -1088,16 +1174,24 @@ class PPOTrainer(TorchTrainer):
             rewards = rewards + (j == n_resp - 1) * scores_eff[:, :1]
         else:
             rewards = rewards + scores_eff * valid
-        return PPORLBatch(query_tensors=prompt_tensors, response_tensors=responses, logprobs=lp_win * valid,
-                          values=v_win * valid, rewards=rewards)
+        return PPORLBatch(query_tensors=prompt_tensors,
+                          response_tensors=responses if response_tensors is None else response_tensors,
+                          logprobs=lp_win * valid, values=v_win * valid, rewards=rewards)
 
     @torch.no_grad()
     def _score_reward(self, prompt_tensors, sample_outputs, scores_eff, kl_coef: float, scalar: bool):
         """The hydra score of query|response and the per-token rewards, all
         on the device (the JAX `_build_score_reward_fn`, mirroring
         `_chunk_to_elements`): the pipelined cycle's classic scorer and the
-        speculative one's fallback. Returns (PPORLBatch of device tensors,
-        mean_kl, mean_kl_per_token), the last two 0-d tensors."""
+        speculative one's fallback; for seq2seq the JAX `score_reward_s2s`,
+        decoder-relative. Returns (PPORLBatch of device tensors, mean_kl,
+        mean_kl_per_token), the last two 0-d tensors."""
+        if self.seq2seq:
+            logprobs, values, log_ratio, mean_kl, mean_kl_per_token = self.score_seq2seq(prompt_tensors,
+                                                                                        sample_outputs)
+            chunk = self._spec_merge(prompt_tensors, sample_outputs[:, 1:], logprobs, values, log_ratio, scores_eff,
+                                     kl_coef, scalar, response_tensors=sample_outputs)
+            return chunk, mean_kl, mean_kl_per_token
         logprobs, values, log_ratio, mean_kl, mean_kl_per_token = self.score(
             torch.cat([prompt_tensors, sample_outputs], dim=1))
         start, r = prompt_tensors.shape[1] - 1, sample_outputs.shape[1]
@@ -1401,8 +1495,8 @@ class PPOTrainer(TorchTrainer):
         """A loader over the store, reshuffled per inner epoch. The query
         width is the store's longest query rounded up to a 64-token bucket
         (capped by the prompt budget), the response and stat widths the
-        experience budget, so batch shapes stay the same across
-        collections."""
+        experience budget (a seq2seq response one column more, its start
+        token), so batch shapes stay the same across collections."""
         exp_kwargs = self.generate_experience_kwargs or self.generate_kwargs
         exp_max_new = int(exp_kwargs.get("max_new_tokens", 40))
         eval_max_new = int(self.generate_kwargs.get("max_new_tokens", 40))
@@ -1412,7 +1506,8 @@ class PPOTrainer(TorchTrainer):
         return self.store.create_loader(
             self.config.train.batch_size, shuffle=True, drop_last=drop_last,
             seed=self.config.train.seed + self.iter_count + seed_offset,
-            max_query_len=bucket_q, max_response_len=exp_max_new, max_stat_len=exp_max_new,
+            max_query_len=bucket_q, max_response_len=exp_max_new + (1 if self.seq2seq else 0),
+            max_stat_len=exp_max_new,
         )
 
     def prepare_learning(self):

@@ -5,7 +5,9 @@ Samples without rewards run supervised fine-tuning; samples with
 PPO, GRPO/RLOO (`default_grpo_config`), RFT (`default_rft_config`) or
 best-of-n (`default_bon_config`; `serving.remote_reward_fn(url)` scores
 through a reward server). `model_path` (or `config.model.model_path`) is a
-`random:<preset>` or a local gpt2 or llama HF checkpoint directory.
+`random:<preset>` or a local HF checkpoint directory of a ported family;
+`model.model_arch_type="seq2seq"` takes the encoder-decoder (t5) presets
+and directories, whose prompts are tokenized with special tokens.
 """
 
 import warnings
@@ -63,7 +65,7 @@ def train(
     if online or rewards is not None:
         # the trainers of the branch that are not ported yet are refused
         want, others = ((PPOTrainer, RFTTrainer), "the pipelined and sequence-parallel trainers") if online \
-            else ((ILQLTrainer,), "seq2seq, 1F1B, ...")
+            else ((ILQLTrainer,), "1F1B, ...")
         try:
             trainer_cls = get_trainer(config.train.trainer)
         except ValueError:  # not registered in the port
