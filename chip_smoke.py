@@ -167,14 +167,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    width, bf16, flash), collecting through the trainer's own supervised
    fleet (`train.rollout_backend="fleet"`, `rollout_fleet_supervised`, 2
    thread replicas of 64 paged slots): (a) PPO through
-   `trlx_tpu_torch.train`, 2 collections and 32 steps: 128 rows a
-   collection, no degraded chunk, K1 = the replicas' decode dispatches x
+   `trlx_tpu_torch.train`, 1 collection and 16 steps: 128 rows, no
+   degraded chunk, K1 = the replicas' decode dispatches x
    12, phase 9's launches a chunk and a step, every row with the
    replicas' behaviour logprobs, samples/s per cycle beside phase 9's, the
    checkpoint reloaded; then on one trainer the rollout seconds and the
-   device's busy share of a fleet and a local collection, each seat's
-   device memory and what a kill gives back (shutdown alone, release), and
-   (b) seat 0 killed from inside the first chunk's reward_fn: 128 rows
+   device's busy share of a fleet and a local collection (64 rollouts
+   each), each seat's device memory and what a kill gives back (shutdown
+   alone, release), and (b) seat 0 killed from inside the first of 4
+   chunks' reward_fn: 64 rows
    still, the death counted, capacity restored, device memory back within
    one replica's footprint; (c) at f32 (4 layers) greedy fleet rollouts
    equal the local sampler's under phase 11's tie rule and the behaviour
@@ -187,7 +188,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    prefix blocks shared, K1 exact; (e) 32 CalculatorEnv episodes (up to
    4 turns of 8 tokens) over /chat, PPO and GRPO (same-seed groups of 4):
    retained-KV turns, K1 exact, one step with the loss masks; at f32
-   every policy turn equals /generate over its transcript.
+   (under GRPO) every policy turn equals /generate over its transcript.
 19. the reward model, reward serving and best-of-n, then the resilience
    of training (`build/chip_smoke_{bon,chaos,resume,drain}*`): (a) a
    reward model (`models/reward.py`) at gpt2-small full width (bf16, flash)
@@ -215,7 +216,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    `_preempt` checkpoint to the uninterrupted run's parameters (bitwise
    when the card repeats bitwise, else within the spread); (e) `python -m
    trlx_tpu_torch.inference.serve_policy` at gpt2-small under SIGTERM
-   with 8 requests of 256 tokens in flight: 8 full replies, 503 with
+   with 8 requests of 128 tokens in flight: 8 full replies, 503 with
    Retry-After for a new one, exit 0.
 20. the model families at their published widths (bf16, flash, the byte
    tokenizer at each model's vocabulary, every `parallel` axis at 1 where
@@ -305,6 +306,38 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    over T5 v1.0 numerics at t5-base's widths: the port's own HF export of
    random weights loaded back by `model_path` bitwise, 2 steps and
    Q-guided sampling timed.
+24. multi-tenant LoRA serving over one trunk and the remaining optimizers:
+   (a) `serve()` of a LoRA policy at pythia-2.8b's published widths and
+   depth (phase 21's: 32 blocks, 32 heads of 80, vocab 50304; the peft
+   example's r 8, alpha 32 on q_proj and v_proj; bf16, random weights)
+   under `inference.multi_tenant` with a paged pool of 32 slots and
+   `max_resident_adapters` 3 over `build/chip_smoke_multitenant/adapters`
+   (each tenant a tensor-only `model.pt` of its LoRA leaves and the
+   port's manifest): 32 concurrent requests over base and three tenants
+   (K1 = decode dispatches x 32), a base-only burst of 32 on the same
+   server and on a single-tenant server of the same trunk (tokens/s of
+   each), 8 mixed requests over an int8 arena (K2 = dispatches x 32);
+   the trunk held once (the memory after the build under 1.05x the
+   model's bytes; serving adds the arena and the adapter stack only),
+   `bytes_per_adapter` and `resident_bytes`; a fourth adapter loaded over
+   `/admin/adapters` evicts the LRU resident; `{"reload": tenant}` after
+   its checkpoint moves changes its greedy stream and not base's; (b) at
+   f32 and 2 blocks of those widths, one engine over the trunk and its
+   store (tenant a from a real `TorchTrainer.save()`, read back bitwise
+   by the loader): a mixed batch (base, a, b twice each, 16 tokens) row
+   for row as each row alone on the same engine, base rows as a
+   single-tenant engine, each tenant as a single-tenant engine over its
+   merged weights, under phase 11's tie rule, and every run's K1 streams
+   equal to its gather path's; (c) LoRA PPO under the fleet backend at
+   gpt2-small (2 supervised thread replicas, one collection of 128 and a
+   step): K1 = the replicas' dispatches x 12, a chunk K3 x24 and K7 x2, a
+   step K4-K6 x12, K7 and its backward, the replicas holding the
+   trainer's factors; (d) `trlx_tpu_torch.train` (phase 7's SFT, 3 steps)
+   under lion, rmsprop and adamw_8bit_bnb: finite losses, phase 7's
+   launches a step, the 8-bit state's bytes beside AdamW's, and at f32
+   two steps from the run's parameters and gradients, each on the card
+   against the CPU from the same state (1e-6 of the largest parameter;
+   the 8-bit moments' codes within 1, their scales within 1e-6).
 Each phase's wall seconds go to the report's `phase_seconds`.
 Phase 6 also holds K7 and its backward at the randomwalks curves' rows (a
 24-token vocabulary, f32 and bf16, shifted labels, padded rows), K3-K6 at
@@ -321,7 +354,8 @@ before that is the `kernels` JSON object (with `ppo_options`, phase 11's
 checks and numbers, `pipelined`, phase 12's, `value_branch`, phase 13's,
 `ilql`, phase 14's, `grpo` and `rft`, phases 15 and 16, `serving`, phase
 17's, `fleet`, phase 18's, `phase19`, phase 19's, `phase20`, phase 20's,
-`phase21`, phase 21's, `phase22`, phase 22's, `phase23`, phase 23's);
+`phase21`, phase 21's, `phase22`, phase 22's, `phase23`, phase 23's,
+`phase24`, phase 24's);
 the last line is
 `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA device, and
 outside a checkout of the repository.
@@ -3137,6 +3171,9 @@ FLEET_TRAIN = dict(rollout_backend="fleet", rollout_fleet_supervised=True, rollo
                    rollout_fleet_kwargs=dict(concurrency=128, hedge=False),
                    rollout_fleet_supervisor_kwargs=dict(start_timeout_s=300.0))
 FLEET_KERNEL = "paged_decode"
+# the smoke's wall time (ROADMAP queue B lever 9): (a) collects once (phase
+# 9 runs two), the busy-share and chaos collections of (b) hold 64 rollouts
+FLEET_PPO_COLLECTIONS, CHAOS_ROLLOUTS = 1, 64
 # (e): CalculatorEnv episodes of up to 4 turns of 8 sampled tokens (a reply
 # holds no digit, so the episode goes on, 41 % of the time at 10 of 95
 # printable characters); a transcript stays under 160 tokens
@@ -3208,21 +3245,24 @@ def fleet_trainer(config, prompts=None):
 
 def phase_fleet_ppo(card, base):
     """(a) PPO through the supervised fleet via `trlx_tpu_torch.train`, phase
-    9's run otherwise: 2 collections, 32 steps, launches exact (K1 =
-    the replicas' decode dispatches x 12), no degraded chunk, every row
-    with the replicas' behaviour logprobs, the checkpoint loads back."""
+    9's run otherwise but one collection (`FLEET_PPO_COLLECTIONS`): 16
+    steps, launches exact (K1 = the replicas' decode dispatches x 12), no
+    degraded chunk, every row with the replicas' behaviour logprobs, the
+    checkpoint loads back."""
     work = ROOT / "build" / "chip_smoke_fleet_ppo"
     servers, rows = [], []
+    config = fleet_config(ppo_config(work)).evolve(train=dict(epochs=FLEET_PPO_COLLECTIONS))
     with recording_servers(servers):
-        trainer, launches, metrics = ppo_run(card, "fleet-ppo", work, fleet_config(ppo_config(work)),
-                                             PPO_KERNELS_PER_STEP, PPO_KERNELS_PER_CHUNK, elsewhere=(FLEET_KERNEL,),
-                                             rows_out=rows)
+        trainer, launches, metrics = ppo_run(card, "fleet-ppo", work, config, PPO_KERNELS_PER_STEP,
+                                             PPO_KERNELS_PER_CHUNK, collections=FLEET_PPO_COLLECTIONS,
+                                             elsewhere=(FLEET_KERNEL,), rows_out=rows)
     dispatches = check_k1("fleet-ppo", launches, servers)
     rows = [r for r in rows if "fleet/degraded_chunks" in r]
     behavior = [r["fleet/behavior_logprob_rows"] for r in rows]
     degraded = [r["fleet/degraded_chunks"] for r in rows]
     requests = [r["fleet/requests"] for r in rows]
-    if behavior != [float(PPO_ROLLOUTS)] * PPO_EPOCHS or any(degraded) or trainer._rollout_supervisor is not None:
+    if behavior != [float(PPO_ROLLOUTS)] * FLEET_PPO_COLLECTIONS or any(degraded) or \
+            trainer._rollout_supervisor is not None:
         raise AssertionError(f"[fleet-ppo] behaviour logprob rows {behavior}, degraded {degraded}")
     rnd = lambda xs: [round(x, 4) for x in xs]
     log(f"[fleet-ppo] {FLEET_SIZE} thread replicas x {FLEET_INFERENCE['num_slots']} paged slots, {len(servers)} "
@@ -3238,8 +3278,8 @@ def phase_fleet_ppo(card, base):
                           replicas_started=len(servers))
 
 
-def collection_busy(trainer):
-    """One collection of 128 rollouts under torch.profiler (the card's
+def collection_busy(trainer, n=CHAOS_ROLLOUTS):
+    """One collection of `n` rollouts under torch.profiler (the card's
     kernels only): (wall s, device busy s, busy share)."""
     import torch
     from torch.autograd import DeviceType
@@ -3248,7 +3288,7 @@ def collection_busy(trainer):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.make_experience(PPO_ROLLOUTS, trainer.iter_count)
+        trainer.make_experience(n, trainer.iter_count)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
@@ -3288,18 +3328,19 @@ def phase_fleet_chaos(card):
     of one fleet collection beside one local collection of the same
     trainer; each seat's device memory, and what a kill gives back with
     the server's shutdown alone and with its release; then (b) chaos: with
-    4 chunks of 32, seat 0 is killed from inside the first chunk's
-    reward_fn, the collection still holds 128 rows, the supervisor counts
+    4 chunks of 16, seat 0 is killed from inside the first chunk's
+    reward_fn, the collection still holds its 64 rows, the supervisor counts
     the death and respawns to capacity, and device memory comes back to
     within one replica's footprint."""
     from trlx_tpu_torch import resilience
     from trlx_tpu_torch.pipeline.offline_pipeline import PromptPipeline
 
     work = fresh_work("chaos")
-    trainer = fleet_trainer(fleet_config(ppo_config(work)))
+    trainer = fleet_trainer(fleet_config(ppo_config(work)).evolve(
+        method=dict(num_rollouts=CHAOS_ROLLOUTS, chunk_size=CHAOS_ROLLOUTS)))
     out = {}
     try:
-        trainer.make_experience(PPO_ROLLOUTS)  # starts the fleet; the replicas' first decode
+        trainer.make_experience(CHAOS_ROLLOUTS)  # starts the fleet; the replicas' first decode
         seats = [seat.handle.server for seat in trainer._rollout_supervisor.seats]
         before = replica_host_times(seats)
         busy = {"fleet": collection_busy(trainer)}
@@ -3308,11 +3349,11 @@ def phase_fleet_chaos(card):
             f"dispatches, {host['decode_step_latency_seconds'][0]:.4f} s in them (engine.step), "
             f"{host['prefill_latency_seconds'][1]} prefill calls, {host['prefill_latency_seconds'][0]:.4f} s")
         trainer.config.train.rollout_backend = "local"
-        trainer.make_experience(PPO_ROLLOUTS)  # the local sampler's first call
+        trainer.make_experience(CHAOS_ROLLOUTS)  # the local sampler's first call
         busy["local"] = collection_busy(trainer)
         trainer.config.train.rollout_backend = "fleet"
         for name, (wall, dev, share) in busy.items():
-            log(f"[fleet-chaos] one {name} collection of {PPO_ROLLOUTS} after a warm one: {wall:.4f} s wall, "
+            log(f"[fleet-chaos] one {name} collection of {CHAOS_ROLLOUTS} after a warm one: {wall:.4f} s wall, "
                 f"device busy {dev:.4f} s, busy share {share:.4f} ({card})")
         out["busy"] = {k: dict(wall_s=v[0], device_s=v[1], busy_share=v[2]) for k, v in busy.items()}
         out["busy"]["fleet"]["replica_host"] = host
@@ -3340,8 +3381,8 @@ def phase_fleet_chaos(card):
         out["memory"] = dict(module_bytes=module, arena_bytes=arena, freed_by_shutdown=m_a - m_b,
                              freed_by_release=footprint, respawn_delta=m_d - m_a)
 
-        # (b) the chaos collection: 4 chunks of 32, seat 0 killed in the first
-        trainer.config.method.chunk_size = 32
+        # (b) the chaos collection: 4 chunks, seat 0 killed in the first
+        trainer.config.method.chunk_size = CHAOS_ROLLOUTS // 4
         trainer.add_prompt_pipeline(PromptPipeline(ppo_prompts(), 64, trainer.tokenizer))
         killed, deaths0 = [], sup.counters["deaths"]
         victim = sup.seats[0].handle.server
@@ -3355,7 +3396,7 @@ def phase_fleet_chaos(card):
         trainer.reward_fn = killing_reward
         m0 = allocated()
         n0 = len(trainer.store)
-        trainer.make_experience(PPO_ROLLOUTS, trainer.iter_count)
+        trainer.make_experience(CHAOS_ROLLOUTS, trainer.iter_count)
         n_rows = len(trainer.store) - n0
         trainer.reward_fn = ppo_reward
         respawn_s = wait_for(lambda: sup.counters["deaths"] > deaths0 and sup.healthy_active() == FLEET_SIZE,
@@ -3366,7 +3407,7 @@ def phase_fleet_chaos(card):
             f"degraded chunks {row['fleet/degraded_chunks'] * 4:.0f}, failovers {row.get('fleet/failovers')}; deaths "
             f"{sup.counters['deaths'] - deaths0}, capacity {sup.healthy_active()} {respawn_s:.2f} s after the "
             f"collection; device memory {m1 - m0:+d} B against before the collection (footprint {footprint} B)")
-        if not killed or n_rows != PPO_ROLLOUTS or row["fleet/degraded_chunks"] != 0.0:
+        if not killed or n_rows != CHAOS_ROLLOUTS or row["fleet/degraded_chunks"] != 0.0:
             raise AssertionError(f"chaos: killed {bool(killed)}, rows {n_rows}, {row}")
         if abs(m1 - m0) > footprint:
             raise AssertionError(f"device memory after the respawn moved {m1 - m0} B, above one replica's {footprint}")
@@ -3668,7 +3709,11 @@ def phase_fleet(card, ppo_base, grpo_base):
     for tag, make, method in (("multiturn", None, {}), ("multiturn_grpo", default_grpo_config,
                                                          dict(group_size=MT_GROUP))):
         launches[tag], mt[tag] = multiturn_run(card, tag, make, **method)
-        mt[f"{tag}_f32"] = multiturn_f32(card, f"{tag}_f32", make, **method)
+    # the f32 turns check the fleet's /chat against /generate, which the
+    # method does not reach: once, under GRPO's same-seed groups (the
+    # smoke's wall time, ROADMAP queue B lever 9)
+    mt["multiturn_grpo_f32"] = multiturn_f32(card, "multiturn_grpo_f32", default_grpo_config,
+                                             group_size=MT_GROUP)
     out["multiturn"] = mt
     out["seconds"] = time.perf_counter() - t0
     log(f"[fleet] phase 18 took {out['seconds']:.1f} s")
@@ -3701,7 +3746,7 @@ CHAOS_FAULTS = dict(nan_grad_steps=[3], loss_spike_steps=[7, 8], hang_steps=[12]
 RESUME_ROLLOUTS, RESUME_BATCH, RESUME_PREEMPT_AT = 32, 8, 6
 # the preempted run's process: imports this script and runs (d)'s child
 RESUME_CHILD = "import sys; sys.path.insert(0, {root!r}); import chip_smoke; chip_smoke.auto_resume_child({run!r})"
-DRAIN_REQUESTS, DRAIN_NEW = 8, 256
+DRAIN_REQUESTS, DRAIN_NEW = 8, 128
 RM_DEVICE = "cuda"  # where the reward model lives
 
 
@@ -4308,7 +4353,7 @@ def phase_auto_resume(card):
 
 def phase_drain(card):
     """(e) `python -m trlx_tpu_torch.inference.serve_policy` serving
-    random:gpt2-small on the card: SIGTERM with 8 requests of 256 tokens
+    random:gpt2-small on the card: SIGTERM with 8 requests of 128 tokens
     in flight; all 8 reply in full, a new request answers 503 with
     Retry-After, and the process exits 0."""
     import signal
@@ -6182,6 +6227,636 @@ def phase_seq2seq(card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: multi-tenant LoRA serving over one trunk; lion, rmsprop and the
+# 8-bit Adams
+# ---------------------------------------------------------------------------
+
+TENANTS = ("t1", "t2", "t3")  # served together; t4 comes in over /admin/adapters
+TENANT_RESIDENT = 3  # inference.max_resident_adapters: the three tenants, and t4 evicts one
+TENANT_BURST, TENANT_INT8_BURST, TENANT_NEW = 32, 8, 32
+TENANT_B_SCALE = 0.02  # the std a tenant's trained lora_b moved from its zeros (and lora_a around its init)
+TENANT_F32_BLOCKS, TENANT_F32_NEW = 2, 16
+OPT_STEPS = 3
+OPT_NAMES = ("lion", "rmsprop", "adamw_8bit_bnb")
+OPT_LR = {"lion": 3e-5, "rmsprop": 1e-5, "adamw_8bit_bnb": 1e-4}  # lion's sign step wants a smaller lr
+OPT_REL_TOL = 1e-6
+OPT_CARD = "cuda"  # where (d)'s card twin of the f32 optimizer steps runs
+
+
+def mt_config(work, n_layers=None, dtype=None, **inference):
+    """SFTTrainer at pythia-2.8b's published widths (or `n_layers` of
+    them) under the peft example's LoRA, serving the tenants under
+    `work/adapters` with a paged pool of 32 slots, greedy."""
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+
+    extra = dict(PYTHIA_2P8B, vocab_size=50304, attn_impl="flash")
+    if n_layers is not None:
+        extra["n_layers"] = n_layers
+    if dtype is not None:
+        extra["dtype"] = dtype
+    return default_sft_config().evolve(
+        train=dict(seq_length=256, batch_size=8, total_steps=0, tracker=None, checkpoint_dir=str(work / "ckpts"),
+                   logging_dir=str(work / "logs")),
+        model=dict(model_path="random:pythia-1.4b", peft_config=LORA_PEFT, model_extra_configs=extra),
+        tokenizer=dict(tokenizer_path="byte"),
+        inference=dict(dict(
+            kv_paging=True, kv_block_size=32, num_slots=TENANT_BURST, max_prompt_len=128, max_new_tokens=TENANT_NEW,
+            decode_kernel="auto", gen_kwargs=dict(max_new_tokens=TENANT_NEW, do_sample=False), reload_interval_s=3600.0,
+            multi_tenant=True, adapter_dir=str(work / "adapters"), max_resident_adapters=TENANT_RESIDENT), **inference),
+    )
+
+
+def tenant_leaves(state, seed):
+    """A tenant's trained factors: the policy's LoRA leaves (lora_b zeros
+    at init) moved by TENANT_B_SCALE normal noise from a seed, on the CPU."""
+    import torch
+
+    from trlx_tpu_torch.models.lora import is_lora_name
+
+    gen = torch.Generator().manual_seed(seed)
+    return {k: v.detach().float().cpu() + TENANT_B_SCALE * torch.randn(v.shape, generator=gen)
+            for k, v in sorted(state.items()) if is_lora_name(k)}
+
+
+def write_tenant(root, name, leaves, step):
+    """An adapter checkpoint as the store's loader reads it: a tensor-only
+    `model.pt` of the LoRA leaves, then the manifest (the port's
+    `write_manifest`, written last). A full `save()` at pythia-2.8b's
+    widths would write its 11 GB of f32 weights."""
+    import torch
+
+    from trlx_tpu_torch.resilience import MODEL_FILE
+    from trlx_tpu_torch.trainer.base_trainer import write_manifest
+
+    path = root / name
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save(leaves, path / MODEL_FILE)
+    write_manifest(str(path), step)
+
+
+def scheduler_seconds(server):
+    """(decode s, decode steps, prefill s, prefill calls) the server's
+    scheduler has spent so far, from its latency histograms."""
+    hist = server.metrics.histograms_snapshot()
+    none = ((), [], 0.0, 0)  # a series nothing has observed yet
+    decode = hist.get("decode_step_latency_seconds", none)
+    prefill = hist.get("prefill_latency_seconds", none)
+    return decode[2], decode[3], prefill[2], prefill[3]
+
+
+def mt_burst(server, jobs, kernel):
+    """Every job POSTed to /generate at once. Returns (replies, wall s,
+    the burst's launches of `kernel`, its decode dispatches, its kernel
+    fallbacks, its scheduler seconds: `scheduler_seconds`' differences)."""
+    from trlx_tpu_torch import kernels
+
+    engine = server.engine
+    d0, f0, s0 = engine._kv_kernel_dispatches, dict(engine._kv_kernel_fallbacks), scheduler_seconds(server)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        replies = list(pool.map(lambda j: http(server.url, "/generate", j), jobs))
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for job, (code, out) in zip(jobs, replies):
+        if code != 200:
+            raise AssertionError(f"/generate answered {code}: {out}")
+        if out["finish_reason"] != "eos" and len(out["token_ids"]) != job["max_new_tokens"]:
+            raise AssertionError(f"{len(out['token_ids'])} tokens for {job['max_new_tokens']}: {out['finish_reason']}")
+    fallbacks = {k: v - f0.get(k, 0) for k, v in engine._kv_kernel_fallbacks.items() if v - f0.get(k, 0)}
+    spent = dict(zip(("decode_s", "decode_steps", "prefill_s", "prefill_calls"),
+                     (b - a for a, b in zip(s0, scheduler_seconds(server)))))
+    return replies, wall, launches, engine._kv_kernel_dispatches - d0, fallbacks, spent
+
+
+def mt_jobs(n, names, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    plens = [5, 17, 31, 32, 33, 48, 64, 96, 100, 128]
+    jobs = []
+    for i in range(n):
+        job = {"prompt_ids": rng.randint(0, 256, plens[i % len(plens)]).tolist(), "max_new_tokens": TENANT_NEW}
+        if names[i % len(names)] is not None:
+            job["adapter_id"] = names[i % len(names)]
+        jobs.append(job)
+    return jobs
+
+
+def check_burst(tag, kernel, launches, dispatches, fallbacks, n_layers):
+    want = {kernel: dispatches * n_layers}
+    if dispatches <= 0 or fallbacks or launches != want:
+        raise AssertionError(f"[{tag}] launches {launches} != {want} over {dispatches} decode dispatches "
+                             f"(fallbacks {fallbacks})")
+
+
+def phase_mt_serving(card):
+    """Phase 24 (a): `serve()` of a LoRA policy at pythia-2.8b's widths and
+    depth under `inference.multi_tenant` (bf16, paged, 32 slots): base and
+    three tenants in one burst of 32 concurrent requests (K1 = decode
+    dispatches x 32), beside a base-only burst on the same server and on a
+    single-tenant server of the same trunk, and an int8-arena burst of 8
+    (K2 = dispatches x 32); the trunk held once (the memory after the
+    build under 1.05x the model's bytes, and serving adds only the arena
+    and the adapter stack); a fourth adapter loaded over /admin/adapters
+    evicts the LRU resident; a reload after a tenant's checkpoint moves
+    changes its greedy output and not base's."""
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_multitenant"
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = SFTTrainer(mt_config(work))
+    torch.cuda.synchronize()
+    build_s, weights = time.perf_counter() - t0, torch.cuda.memory_allocated()
+    cfg = trainer.model_cfg
+    model_bytes = sum(p.numel() * p.element_size() for p in trainer.model.parameters())
+    if (cfg.n_layers, cfg.head_dim, cfg.lora_rank) != (32, 80, 8) or not weights < 1.05 * model_bytes:
+        raise AssertionError(f"[mt] {cfg.n_layers} blocks, hd {cfg.head_dim}, rank {cfg.lora_rank}; {weights} B "
+                             f"allocated after the build for a model of {model_bytes} B")
+    state = trainer.model.state_dict()
+    root = work / "adapters"
+    for i, name in enumerate(TENANTS + ("t4",)):
+        write_tenant(root, name, tenant_leaves(state, 100 + i), step=1)
+    out = dict(build_s=build_s, model_bytes=model_bytes, weights_after_build=weights, blocks=cfg.n_layers)
+    server = trainer.serve(port=0, background=True)
+    try:
+        store, engine = server.engine.adapter_store, server.engine
+        torch.cuda.synchronize()
+        serving = torch.cuda.memory_allocated()
+        arena = engine.kv_stats()["kv_pool_bytes"]
+        stack = (store.capacity + 1) * store.bytes_per_adapter
+        if not serving < 1.05 * model_bytes + 1.1 * arena + stack:
+            raise AssertionError(f"[mt] {serving} B allocated serving: more than the trunk once ({model_bytes}), the "
+                                 f"arena ({arena}) and the stack ({stack})")
+        # one request a name first: the process's first decode steps, and
+        # the three tenants' loads, stay out of the timed bursts
+        mt_burst(server, mt_jobs(len(TENANTS) + 1, (None,) + TENANTS, 2), "paged_decode")
+        bursts = {}
+        for tag, names in (("mixed", (None,) + TENANTS), ("base", (None,))):
+            replies, wall, launches, dispatches, fallbacks, spent = mt_burst(server, mt_jobs(TENANT_BURST, names, 3),
+                                                                             "paged_decode")
+            check_burst(f"mt-{tag}", "paged_decode", launches, dispatches, fallbacks, cfg.n_layers)
+            tokens = sum(len(o["token_ids"]) for _, o in replies)
+            bursts[tag] = dict(requests=TENANT_BURST, tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                               dispatches=dispatches, launches=launches, **spent)
+        snap = http(server.url, "/admin/adapters")[1]
+        if snap["resident"] != list(TENANTS) or snap["stats"]["loads"] != 3:
+            raise AssertionError(f"[mt] after the mixed burst: {snap}")
+        stats = snap["stats"]
+        # a fourth adapter over the control plane: the LRU idle resident goes
+        code, loaded = http(server.url, "/admin/adapters", {"load": "t4"})
+        evicted = sorted(set(TENANTS) - set(loaded.get("resident", [])))
+        if code != 200 or loaded["stats"]["evictions"] < 1 or len(evicted) != 1 or "t4" not in loaded["resident"]:
+            raise AssertionError(f"[mt] loading t4: {code} {loaded}")
+        health = http(server.url, "/healthz")[1]
+        if sorted(health["adapters"]["resident"]) != sorted(loaded["resident"]):
+            raise AssertionError(f"[mt] /healthz resident {health['adapters']} != {loaded['resident']}")
+        # a reload after the tenant's checkpoint moves
+        tenant = [t for t in TENANTS if t not in evicted][-1]
+        prompt = {"prompt_ids": list(b"Human: Why is the sky blue?\n\nAssistant:"), "max_new_tokens": 16}
+        greedy = lambda name: http(server.url, "/generate", dict(prompt, **({"adapter_id": name} if name else {})))[1]
+        before, base0 = greedy(tenant)["token_ids"], greedy(None)["token_ids"]
+        write_tenant(root, tenant, tenant_leaves(state, 999), step=2)
+        code, reloaded = http(server.url, "/admin/adapters", {"reload": tenant})
+        after, base1 = greedy(tenant)["token_ids"], greedy(None)["token_ids"]
+        if code != 200 or not reloaded["reloaded"] or after == before or base1 != base0:
+            raise AssertionError(f"[mt] reload of {tenant}: {code} {reloaded}; {before} -> {after}; base {base0} -> "
+                                 f"{base1}")
+        final = server.engine.adapter_stats()
+    finally:
+        server.shutdown()
+    # the same trunk served single-tenant (the policy's own zero-B factors):
+    # the per-row LoRA's cost beside the module's own pair
+    icfg = trainer.config.inference
+    icfg.multi_tenant = False
+    try:
+        single = trainer.serve(port=0, background=True)
+        try:
+            mt_burst(single, mt_jobs(1, (None,), 2), "paged_decode")  # its arena's first steps, untimed
+            replies, wall, launches, dispatches, fallbacks, spent = mt_burst(single, mt_jobs(TENANT_BURST, (None,), 3),
+                                                                             "paged_decode")
+        finally:
+            single.shutdown()
+    finally:
+        icfg.multi_tenant = True
+    check_burst("mt-single", "paged_decode", launches, dispatches, fallbacks, cfg.n_layers)
+    tokens = sum(len(o["token_ids"]) for _, o in replies)
+    bursts["single_tenant_base"] = dict(requests=TENANT_BURST, tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                                        dispatches=dispatches, launches=launches, **spent)
+    # the int8 arena: K2 under the same per-row factors
+    icfg.kv_cache_dtype = "int8"
+    try:
+        server = trainer.serve(port=0, background=True)
+        try:
+            mt_burst(server, mt_jobs(len(TENANTS) + 1, (None,) + TENANTS, 2), "paged_decode_int8")  # untimed
+            replies, wall, launches, dispatches, fallbacks, spent = mt_burst(
+                server, mt_jobs(TENANT_INT8_BURST, (None,) + TENANTS, 4), "paged_decode_int8")
+        finally:
+            server.shutdown()
+    finally:
+        icfg.kv_cache_dtype = "auto"
+    check_burst("mt-int8", "paged_decode_int8", launches, dispatches, fallbacks, cfg.n_layers)
+    tokens = sum(len(o["token_ids"]) for _, o in replies)
+    bursts["int8_mixed"] = dict(requests=TENANT_INT8_BURST, tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                                dispatches=dispatches, launches=launches, **spent)
+    torch.cuda.synchronize()
+    out.update(bursts=bursts, serving_bytes=serving, arena_bytes=arena, stack_bytes=stack,
+               bytes_per_adapter=stats["bytes_per_adapter"], resident_bytes=stats["resident_bytes"],
+               capacity=stats["capacity"], evicted=evicted, reloaded=tenant, final_store=final,
+               peak_gb=peak_gb(), seconds=time.perf_counter() - t0)
+    b = bursts
+    log(f"[mt] pythia-2.8b widths ({cfg.n_layers} blocks, d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"vocab {cfg.vocab_size}, bf16, LoRA r {cfg.lora_rank} on {list(cfg.lora_targets)}), built in {build_s:.1f} s: "
+        f"{weights / 1e9:.3f} GB allocated after the build for {model_bytes / 1e9:.3f} GB of weights (the trunk once), "
+        f"{serving / 1e9:.3f} GB serving (arena {arena / 1e9:.3f} GB, adapter stack {stack / 1e6:.2f} MB); "
+        f"bytes_per_adapter {stats['bytes_per_adapter']}, resident_bytes {stats['resident_bytes']} for "
+        f"{len(TENANTS)} tenants ({card})")
+    for tag, v in b.items():
+        log(f"[mt] burst {tag}: {v['tokens']} tokens in {v['wall_s']:.3f} s; the scheduler's decode "
+            f"{v['decode_s']:.3f} s over {v['decode_steps']} steps ({v['decode_s'] / max(v['decode_steps'], 1) * 1e3:.2f} "
+            f"ms a step), prefill {v['prefill_s']:.3f} s over {v['prefill_calls']} calls ({card})")
+    log(f"[mt] bursts of {TENANT_BURST} x {TENANT_NEW} tokens: mixed base+{len(TENANTS)} tenants "
+        f"{b['mixed']['tokens_per_s']:.1f} tokens/s ({b['mixed']['wall_s']:.3f} s, K1 {b['mixed']['launches']} = "
+        f"{b['mixed']['dispatches']} x 32), base only {b['base']['tokens_per_s']:.1f} tokens/s (K1 = "
+        f"{b['base']['dispatches']} x 32), single-tenant base {b['single_tenant_base']['tokens_per_s']:.1f} tokens/s; "
+        f"int8 arena, {TENANT_INT8_BURST} mixed requests: {b['int8_mixed']['tokens_per_s']:.1f} tokens/s, K2 "
+        f"{b['int8_mixed']['launches']} = {b['int8_mixed']['dispatches']} x 32; t4 loaded over /admin/adapters "
+        f"evicted {evicted}; reload of {tenant} changed its greedy stream, base unchanged; peak "
+        f"{out['peak_gb']:.2f} GB; {out['seconds']:.1f} s ({card})")
+    del trainer
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    launches = {f"a_{t}": v["launches"] for t, v in bursts.items()}
+    return launches, out
+
+
+def adapter_pairs(model, leaves):
+    """{Linear: (a [1, in, r], b [1, r, out])} of one adapter's leaves, for
+    `lora_rows` over a batch of one."""
+    from trlx_tpu_torch.models.lora import is_lora_name
+
+    out = {}
+    for name in leaves:
+        if is_lora_name(name) and name.endswith(".lora_a"):
+            base = name[: -len(".lora_a")]
+            dev = model.get_submodule(base).lora_a.device
+            out[model.get_submodule(base)] = (leaves[name][None].to(dev), leaves[base + ".lora_b"][None].to(dev))
+    return out
+
+
+def next_token_gap(model, leaves, ids):
+    """The top-two gap of the f32 next-token scores after `ids` under one
+    adapter's factors (None: the base), by a dense forward."""
+    import torch
+
+    from trlx_tpu_torch.models.transformer import lora_rows
+
+    dev = next(model.parameters()).device
+    x = torch.tensor([ids], device=dev).long()
+    with torch.no_grad(), lora_rows(adapter_pairs(model, leaves) if leaves else {}):
+        logits = model.lm(x, torch.ones_like(x))[0][0, -1].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def run_rows(engine, rows, max_new):
+    """Rows ((ids, adapter)) inserted together, stepped to their ends."""
+    import numpy as np
+
+    engine.insert_requests([(np.asarray(p, np.int32), max_new, a) for p, a in rows] if engine.multi_tenant
+                           else [(np.asarray(p, np.int32), max_new) for p, _ in rows], list(range(len(rows))))
+    outs, done = [[] for _ in rows], [False] * len(rows)
+    for _ in range(max_new + 1):
+        t, _, v, f = engine.step()
+        for i in range(len(rows)):
+            if not done[i] and v[i]:
+                outs[i].append(int(t[i]))
+            if not done[i] and f[i]:
+                done[i] = True
+                engine.reclaim_slots([i])
+        if all(done):
+            break
+    if not all(done):
+        raise AssertionError("[mt-f32] rows did not finish")
+    return outs
+
+
+def tie_check(tag, got, want, model, leaves, prompts):
+    """Streams `got` against `want` row for row: equal, or differing first
+    at a position where the dense forward's top-two gap is under TIE_GAP
+    (phase 11's rule). Returns the differences (row, position, gap)."""
+    differ = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            differ.append((i, j, next_token_gap(model, leaves[i], list(prompts[i]) + b[:j])))
+    if any(g >= TIE_GAP for *_, g in differ):
+        raise AssertionError(f"[{tag}] {got} vs {want}: {differ}")
+    return differ
+
+
+def phase_mt_f32(card):
+    """Phase 24 (b): at f32 and 2 blocks of pythia-2.8b's widths, one
+    engine over the trunk and its adapter store (tenant a from a real
+    `TorchTrainer.save()`, tenant b from the LoRA-leaf writer): each row of
+    a mixed batch (base, a, b twice each) decodes as that row served alone
+    by the same engine; base rows as a single-tenant engine on the base
+    weights; each tenant as a single-tenant engine over its merged weights
+    (`merge_lora_into_state_dict`, what `save_pretrained` exports), under
+    phase 11's tie rule; and every run with K1 equal to its gather path's
+    streams (phase 5's rule), K1 = dispatches x 2."""
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.data.configs import ModelConfig
+    from trlx_tpu_torch.inference import AdapterStore, InferenceEngine, load_adapter_leaves
+    from trlx_tpu_torch.models import build_model
+    from trlx_tpu_torch.models.lora import merge_lora_into_state_dict
+    from trlx_tpu_torch.ops.sampling import GenerationConfig
+    from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_multitenant_f32"
+    shutil.rmtree(work, ignore_errors=True)
+    trainer = SFTTrainer(mt_config(work, n_layers=TENANT_F32_BLOCKS, dtype="float32"))
+    model, cfg = trainer.model, trainer.model_cfg
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ta = tenant_leaves(state, 7)
+    with torch.no_grad():
+        for k, v in ta.items():
+            model.get_parameter(k).copy_(v)
+    trainer.save(str(work / "adapters" / "ta"))  # the real checkpoint: the whole state dict
+    with torch.no_grad():
+        for k in ta:
+            model.get_parameter(k).copy_(state[k])  # the trunk back to the base's zero-B factors
+    loaded = load_adapter_leaves(str(work / "adapters" / "ta"))
+    if sorted(loaded) != sorted(ta) or not all(torch.equal(loaded[k], ta[k]) for k in ta):
+        raise AssertionError("[mt-f32] the loader did not read back the saved factors bitwise")
+    tb = tenant_leaves(state, 8)
+    write_tenant(work / "adapters", "tb", tb, step=1)
+    leaves = {None: None, "ta": ta, "tb": tb}
+    prompts = greedy_prompts()
+    names = [None, "ta", "tb", None, "ta", "tb"]
+    rows = list(zip(prompts, names))
+    gcfg = GenerationConfig(max_new_tokens=TENANT_F32_NEW, do_sample=False, eos_token_id=10**6,
+                            pad_token_id=trainer.tokenizer.pad_token_id)
+    k1_total = 0
+
+    def engine(m, c, kernel, mt):
+        kw = dict(multi_tenant=True, adapter_store=AdapterStore(m.state_dict(), adapter_dir=str(work / "adapters"),
+                                                                max_resident=2)) if mt else {}
+        return InferenceEngine(m, c, None, gcfg, num_slots=8, max_prompt_len=128, kv_paging=True, kv_block_size=32,
+                               decode_kernel=kernel, **kw)
+
+    def both(m, c, mt, go):
+        """`go(engine)` on the kernel engine and on the gather path's:
+        equal streams (phase 5's rule), K1 = dispatches x blocks."""
+        nonlocal k1_total
+        kernels.reset_launches()
+        eng = engine(m, c, "auto", mt)
+        got = go(eng)
+        k1, dispatches = kernels.LAUNCHES.get("paged_decode", 0), eng.kv_stats()["kv_kernel_dispatches"]
+        gather = go(engine(m, c, "xla", mt))
+        if got != gather or not 0 < k1 == dispatches * cfg.n_layers:
+            raise AssertionError(f"[mt-f32] kernel {got} vs gather {gather}; K1 {k1}, {dispatches} dispatches")
+        k1_total += k1
+        return got
+
+    mixed = both(model, cfg, True, lambda e: run_rows(e, rows, TENANT_F32_NEW))
+    alone = [both(model, cfg, True, lambda e, r=r: run_rows(e, [r], TENANT_F32_NEW))[0] for r in rows]
+    row_leaves = [leaves[n] for n in names]
+    d_alone = tie_check("mt-f32 mixed vs alone", mixed, alone, model, row_leaves, prompts)
+    base_rows = [i for i, n in enumerate(names) if n is None]
+    single = both(model, cfg, False, lambda e: run_rows(e, [rows[i] for i in base_rows], TENANT_F32_NEW))
+    d_base = tie_check("mt-f32 base vs single-tenant", [mixed[i] for i in base_rows], single, model,
+                       [None] * len(base_rows), [prompts[i] for i in base_rows])
+    if any(mixed[i] == mixed[i + 1] for i in (0, 3)):
+        raise AssertionError(f"[mt-f32] a tenant decoded as the base: {mixed}")
+    d_merged = {}
+    for name, lv in (("ta", ta), ("tb", tb)):
+        merged_state = merge_lora_into_state_dict({**state, **{k: v.to(trainer.device) for k, v in lv.items()}}, cfg)
+        merged, mcfg, _ = build_model(ModelConfig(model_path="random:pythia-1.4b", model_extra_configs=dict(
+            PYTHIA_2P8B, n_layers=TENANT_F32_BLOCKS, vocab_size=50304, attn_impl="flash", dtype="float32")), 0,
+            device=trainer.device)
+        if mcfg.lora_rank or sorted(merged.state_dict()) != sorted(k for k in merged_state):
+            raise AssertionError(f"[mt-f32] the merged model's tensors differ from the merged state dict")
+        merged.load_state_dict(merged_state)
+        idx = [i for i, n in enumerate(names) if n == name]
+        ref = both(merged, mcfg, False, lambda e: run_rows(e, [rows[i] for i in idx], TENANT_F32_NEW))
+        d_merged[name] = tie_check(f"mt-f32 {name} vs merged", [mixed[i] for i in idx], ref, model, [lv] * len(idx),
+                                   [prompts[i] for i in idx])
+        del merged
+    out = dict(blocks=TENANT_F32_BLOCKS, rows=len(rows), new=TENANT_F32_NEW, ties_alone=d_alone, ties_base=d_base,
+               ties_merged=d_merged, k1=k1_total, saved_files=sorted(p.name for p in (work / "adapters" / "ta").iterdir()),
+               seconds=time.perf_counter() - t0)
+    log(f"[mt-f32] f32, {TENANT_F32_BLOCKS} blocks of pythia-2.8b's widths, {len(rows)} rows (base, ta from "
+        f"TorchTrainer.save {out['saved_files']}, tb; twice each) x {TENANT_F32_NEW} tokens: mixed = alone "
+        f"{len(rows) - len(d_alone)}/{len(rows)} (ties {d_alone}), base = single-tenant engine "
+        f"{len(base_rows) - len(d_base)}/{len(base_rows)} (ties {d_base}), tenants = the merged weights' engine "
+        f"(ties {d_merged}); every run K1 = its gather path, K1 {k1_total} in all; {out['seconds']:.1f} s ({card})")
+    del trainer, model
+    shutil.rmtree(work, ignore_errors=True)
+    release()
+    return {"b": {"paged_decode": k1_total}}, out
+
+
+def phase_mt_fleet_lora(card):
+    """Phase 24 (c): LoRA PPO under the fleet backend at gpt2-small's full
+    width (the peft example's adapter, its lora_b moved from zero so the
+    replicas serve a live adapter): one collection of 128 rollouts through
+    2 supervised thread replicas and one step: K1 = the replicas' decode
+    dispatches x 12; on the trainer, a scoring chunk K3 x24 (the policy
+    and the adapters-off reference) and K7 x2, a step K4-K6 x12 and K7 and
+    its backward once; every row with the replicas' behaviour logprobs;
+    the replicas hold the trainer's factors."""
+    import torch
+
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.models.lora import is_lora_name
+
+    work = fresh_work("lora")
+    config = fleet_config(ppo_config(work)).evolve(model=dict(peft_config=LORA_PEFT))
+    record, servers = [], []
+    per_step, per_chunk = adapter_launches(12)
+    with recording_servers(servers), ppo_probes(record, names=("make_experience", "score", "train_minibatch")):
+        trainer = fleet_trainer(config)
+        gen = torch.Generator(device=trainer.device).manual_seed(11)
+        with torch.no_grad():
+            for n, p in trainer.model.named_parameters():
+                if n.endswith(".lora_b"):
+                    p.add_(TENANT_B_SCALE * torch.randn(p.shape, generator=gen, device=p.device))
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            trainer.make_experience(PPO_ROLLOUTS)
+            collect_s = time.perf_counter() - t0
+            held = [s.engine.model.state_dict() for s in servers]
+            same = all(torch.equal(h[k], v) for h in held for k, v in trainer.model.state_dict().items()
+                       if is_lora_name(k))
+            stats = trainer.train_minibatch([next(iter(trainer.create_train_dataloader()))])
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        finally:
+            trainer.shutdown_rollout_fleet()
+    dispatches = check_k1("mt-fleet-lora", launches, servers)
+    own = {k: v for k, v in launches.items() if k != FLEET_KERNEL}
+    check_ppo_calls("mt-fleet-lora", record, own, per_step, per_chunk, 1, 1, PPO_NEW)
+    row = metric_rows(work, "fleet/behavior_logprob_rows")[-1]
+    if not same or row["fleet/behavior_logprob_rows"] != PPO_ROLLOUTS or row["fleet/degraded_chunks"] or \
+            not math.isfinite(stats["losses/total_loss"]):
+        raise AssertionError(f"[mt-fleet-lora] replicas hold the factors {same}; {row}; loss {stats}")
+    log(f"[mt-fleet-lora] LoRA (r {LORA_PEFT['r']}) PPO at gpt2-small through {FLEET_SIZE} thread replicas: "
+        f"{PPO_ROLLOUTS} rollouts in {collect_s:.2f} s, behaviour logprob rows {row['fleet/behavior_logprob_rows']:.0f}, "
+        f"the replicas hold the trainer's factors; {dispatches} decode dispatches, K1 {launches.get(FLEET_KERNEL)} = "
+        f"{dispatches} x 12; trainer launches {own} (a chunk {per_chunk}, a step {per_step}); loss "
+        f"{stats['losses/total_loss']:.6f} ({card})")
+    del trainer
+    release()
+    return {"c": launches}, dict(collect_s=collect_s, dispatches=dispatches, launches=launches,
+                                 behavior_rows=row["fleet/behavior_logprob_rows"], loss=stats["losses/total_loss"])
+
+
+def optimizer_card_vs_cpu(name, params, grads):
+    """Two f32 steps of `name` (the gradients, then -0.5 times them) from
+    the run's parameters, each taken on the card and on the CPU from the
+    same state (the card's, copied over before each step). Each step's
+    parameters within OPT_REL_TOL of the largest; for the 8-bit Adam each
+    code within 1 of the CPU's and each block scale within OPT_REL_TOL
+    (a rounding tie may land either side, and an ulp of a moment moves
+    its block's absmax; from one step to the next a tie's code step is
+    carried in the moment, so each step is held from the same state).
+    Returns (the worst parameter difference, [the largest code
+    difference, the largest scale difference] or None)."""
+    import torch
+
+    from trlx_tpu_torch.ops.quantized_optim import Adam8bit
+    from trlx_tpu_torch.utils import get_optimizer
+
+    twins = {}
+    for key, dev in (("card", OPT_CARD), ("cpu", "cpu")):
+        ps = [torch.nn.Parameter(p.detach().to(dev, torch.float32, copy=True)) for p in params]
+        o = get_optimizer(name, ps, dict(lr=OPT_LR[name], weight_decay=0.01))
+        for g in o.param_groups:
+            g["lr"] = OPT_LR[name]
+        twins[key] = (ps, o)
+    (pg_all, og), (pc_all, oc) = twins["card"], twins["cpu"]
+    worst, code_err = 0.0, ([0, 0.0] if isinstance(oc, Adam8bit) else None)
+    for scale in (1.0, -0.5):
+        with torch.no_grad():  # the CPU twin starts from the card's state
+            for pc, pg in zip(pc_all, pg_all):
+                pc.copy_(pg.cpu())
+                oc.state[pc] = {k: v.cpu().clone() if torch.is_tensor(v) else v for k, v in og.state[pg].items()}
+        for (ps, o), dev in ((twins["card"], OPT_CARD), (twins["cpu"], "cpu")):
+            for p, g in zip(ps, grads):
+                p.grad = (scale * g).to(dev, torch.float32)
+            o.step()
+        for pc, pg in zip(pc_all, pg_all):
+            a, b = pg.detach().cpu(), pc.detach()
+            worst = max(worst, float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)))
+            if code_err is None:
+                continue
+            sc, sg = oc.state[pc], og.state[pg]
+            for q, sq in (("m_q", "m_scale"), ("v_q", "v_scale")):
+                qc, qg = sc[q], sg[q].cpu()
+                if qc.dtype == torch.int8:
+                    code_err[0] = max(code_err[0], int((qc.int() - qg.int()).abs().max()))
+                    a, b = sc[sq], sg[sq].cpu()
+                else:  # the exact f32 passthrough of a tensor under one block
+                    a, b = qc, qg
+                code_err[1] = max(code_err[1], float(((a - b).abs() / a.abs().clamp_min(1e-30)).max()))
+    if worst > OPT_REL_TOL or (code_err is not None and (code_err[0] > 1 or code_err[1] > OPT_REL_TOL)):
+        raise AssertionError(f"[opt-{name}] f32 steps card vs CPU: parameters {worst} of the largest, moments "
+                             f"{code_err} (codes within 1, scales within {OPT_REL_TOL})")
+    return worst, code_err
+
+
+def phase_mt_optimizers(card):
+    """Phase 24 (d): `trlx_tpu_torch.train` (phase 7's SFT at gpt2-small,
+    3 steps) under lion, rmsprop and adamw_8bit_bnb: every loss finite,
+    the launches phase 7's a step; the 8-bit optimizer's state bytes
+    beside AdamW's over the same parameters; then at f32 two steps from
+    the run's parameters and last gradients, each on the card against the
+    same step on the CPU from the same state (`optimizer_card_vs_cpu`):
+    the parameters within 1e-6 of the largest, and for the 8-bit Adam the
+    moments within one code step."""
+    import shutil
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch import kernels
+    from trlx_tpu_torch.ops.quantized_optim import opt_state_bytes
+
+    out, launches_all = {}, {}
+    for name in OPT_NAMES:
+        work = ROOT / "build" / f"chip_smoke_opt_{name}"
+        shutil.rmtree(work, ignore_errors=True)
+        config = training_config(work).evolve(
+            train=dict(total_steps=OPT_STEPS),
+            optimizer=dict(name=name, kwargs=dict(lr=OPT_LR[name], weight_decay=0.01)))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer = trlx_tpu_torch.train(samples=sft_samples(), config=config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        rows = metric_rows(work, "loss")
+        losses = [r["loss"] for r in rows]
+        want = {n: c * OPT_STEPS for n, c in TRAIN_KERNELS_PER_STEP.items()}
+        if len(losses) != OPT_STEPS or not all(math.isfinite(x) for x in losses) or launches != want:
+            raise AssertionError(f"[opt-{name}] losses {losses}; launches {launches} != {want}")
+        opt = trainer.optimizer
+        params = [p for g in opt.param_groups for p in g["params"]]
+        state_bytes = opt_state_bytes(opt)
+        adamw = torch.optim.AdamW([torch.zeros_like(p, requires_grad=True) for p in params], lr=0.0)
+        for p in adamw.param_groups[0]["params"]:
+            p.grad = torch.zeros_like(p)
+        adamw.step()
+        adamw_bytes = opt_state_bytes(adamw)
+        del adamw
+        if any(p.grad is None for p in params):
+            raise AssertionError(f"[opt-{name}] the run's last step left no gradient on some parameter")
+        worst, code_err = optimizer_card_vs_cpu(name, params, [p.grad.detach().clone() for p in params])
+        r = dict(losses=losses, wall_s=wall, state_bytes=state_bytes, adamw_state_bytes=adamw_bytes,
+                 trainable_params=sum(p.numel() for p in params), f32_card_vs_cpu_rel=worst,
+                 moments_card_vs_cpu=code_err,
+                 step_s=statistics.median(x["time/train_step_s"] for x in rows[1:]))
+        log(f"[opt-{name}] gpt2-small SFT through train(), {OPT_STEPS} steps: losses {[round(x, 5) for x in losses]}, "
+            f"median step_s {r['step_s']:.4f}, launches {launches} (phase 7's a step x {OPT_STEPS}); optimizer state "
+            f"{state_bytes} B beside AdamW's {adamw_bytes} B over {r['trainable_params']:,} parameters; f32 two "
+            f"steps card vs CPU: {worst:.3g} of the largest parameter"
+            + (f", the moments' codes within {code_err[0]} step(s), scales within {code_err[1]:.3g}"
+               if code_err is not None else
+               f" (tol {OPT_REL_TOL})") + f"; {wall:.1f} s ({card})")
+        out[name], launches_all[f"d_{name}"] = r, launches
+        del trainer, params, opt
+        shutil.rmtree(work, ignore_errors=True)
+        release()
+    return launches_all, out
+
+
+def phase_multitenant(card):
+    """Phase 24. Returns ({part: launches}, numbers)."""
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    for key, fn in (("serving", phase_mt_serving), ("f32", phase_mt_f32), ("fleet_lora", phase_mt_fleet_lora),
+                    ("optimizers", phase_mt_optimizers)):
+        part_launches, out[key] = fn(card)
+        launches.update(part_launches)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase24] took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -6238,6 +6913,7 @@ def main() -> int:
     p21_launches, p21 = timed(21, phase_adapters, card)
     p22_launches, p22 = timed(22, phase_moe, card)
     p23_launches, p23 = timed(23, phase_seq2seq, card)
+    p24_launches, p24 = timed(24, phase_multitenant, card)
 
     main_bf16, main_int8 = timings[("gpt2-small", "bf16")], timings[("gpt2-small", "int8")]
     source = "trlx_tpu_torch/csrc/paged_attention.cu"
@@ -6259,6 +6935,7 @@ def main() -> int:
              launches_phase21={t: n.get("paged_decode", 0) for t, n in p21_launches.items()},
              launches_phase22={t: n.get("paged_decode", 0) for t, n in p22_launches.items()},
              launches_phase23={t: n.get("paged_decode", 0) for t, n in p23_launches.items()},
+             launches_phase24={t: n.get("paged_decode", 0) for t, n in p24_launches.items()},
              max_abs_err=errs["paged_decode"], held_against_plain_in=held, **main_bf16,
              gptj_6b=timings[("gptj-6b", "bf16")], pythia_2p8b=timings[("pythia-2.8b", "bf16")]),
         dict(name="paged_decode_int8", route="cuda", source=source,
@@ -6277,6 +6954,7 @@ def main() -> int:
              launches_phase21={t: n.get("paged_decode_int8", 0) for t, n in p21_launches.items()},
              launches_phase22={t: n.get("paged_decode_int8", 0) for t, n in p22_launches.items()},
              launches_phase23={t: n.get("paged_decode_int8", 0) for t, n in p23_launches.items()},
+             launches_phase24={t: n.get("paged_decode_int8", 0) for t, n in p24_launches.items()},
              max_abs_err=errs["paged_decode_int8"], held_against_plain_in=held, **main_int8,
              gptj_6b=timings[("gptj-6b", "int8")], pythia_2p8b=timings[("pythia-2.8b", "int8")]),
     ]}
@@ -6308,6 +6986,7 @@ def main() -> int:
             launches_phase21={t: n.get(name, 0) for t, n in p21_launches.items()},
             launches_phase22={t: n.get(name, 0) for t, n in p22_launches.items()},
             launches_phase23={t: n.get(name, 0) for t, n in p23_launches.items()},
+            launches_phase24={t: n.get(name, 0) for t, n in p24_launches.items()},
             max_abs_err=train_errs[name],
             held_against_plain_in="phase 6: kernel vs plain version on the card",
             **train_timings[(name, "gpt2-small")], ppo={s: train_timings[(name, s)] for s in ppo_shapes},
@@ -6359,6 +7038,9 @@ def main() -> int:
     # phase 23's: seq2seq PPO at flan-t5-large's widths (classic and
     # pipelined), the f32 checks, ILQL over a t5-base export
     report["phase23"] = p23
+    # phase 24's: multi-tenant serving at pythia-2.8b's widths, its f32
+    # checks, LoRA PPO under the fleet, the new optimizers
+    report["phase24"] = p24
     report["phase_seconds"] = seconds
     report["seconds"] = time.perf_counter() - started
     log(f"[smoke] every phase passed in {report['seconds']:.1f} s ({card})")

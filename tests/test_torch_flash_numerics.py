@@ -18,13 +18,15 @@ round once to bf16 from f32 values that differ by the split's error and
 the order of the sums), lse within 2e-5. Before the final rounding, on
 inputs exact in bf16 with the Pallas forward run in f32, the split keeps
 the output within 1e-5 of it (measured on the CPU: 4.7e-6 at hd 32,
-4.8e-6 at hd 64 and 9.5e-6 at hd 256, from the exp2 form and the order of
-the sums), while p_hi alone is off by about 2^-9 of the values (2.9e-3,
-2.3e-3 and 3.7e-3), some 400 to 600 times more. Head dim 256 is
+4.8e-6 at hd 64 and 9.5e-6 at hd 256, from the exp2 form and the order
+of the sums), while p_hi alone is off by about 2^-9 of the values
+(2.9e-3, 2.3e-3 and 3.7e-3), some 400 to 600 times more. Head dim 256 is
 GPT-J-6B's: there the forward's and the backward's kernels run two
 warpgroups a block, each forming all of S (and in the backward dP, p and
 ds) and adding its products into its half of the output's columns, which
-is this arithmetic column by column.
+is this arithmetic column by column. The backward's cases are in
+`test_torch_flash_numerics_bwd.py`, so that `--dist loadfile` hands them
+out after the large files.
 """
 
 import math
@@ -189,41 +191,3 @@ def _backward_case(hd, seed):
     delta = (g * out).sum(-1).transpose(1, 2)  # [b, nh, t], as flash_backward forms it
     tensors = [torch.from_numpy(a) for a in (q, k, v, mask)] + [g, lse, delta]
     return tensors, [np.array(x) for x in j_grads]
-
-
-@pytest.mark.parametrize("hd", [32, 64, 256])
-def test_bf16_backward_arithmetic_matches_pallas(hd):
-    """dq within one bf16 ulp of the Pallas dq once both are rounded to
-    bf16; the f32 dk/dv within phase 6's DKV_TOL; dq of rows with no
-    allowed key and the per-head dk/dv of padding keys exactly 0."""
-    (q, k, v, mask, g, lse, delta), (j_dq, j_dk, j_dv) = _backward_case(hd, seed=200 + hd)
-    dq, dk, dv = emulate_backward(q, k, v, mask, g, lse, delta)
-    np.testing.assert_allclose(dq.bfloat16().float().numpy(),
-                               torch.from_numpy(j_dq).bfloat16().float().numpy(), **BF16_TOL)
-    np.testing.assert_allclose(_fold(dk, NKV).numpy(), j_dk, **DKV_TOL)
-    np.testing.assert_allclose(_fold(dv, NKV).numpy(), j_dv, **DKV_TOL)
-    dead = mask.cumsum(-1) == 0  # [b, t] rows with no allowed key
-    padding = mask == 0
-    assert bool(dead.any()) and bool((dq[dead] == 0).all())
-    assert bool((dk[padding] == 0).all()) and bool((dv[padding] == 0).all())
-
-
-@pytest.mark.parametrize("hd", [32, 64, 256])
-def test_lo_halves_are_what_keep_the_backward_exact(hd):
-    """Against the Pallas backward in f32 on the same bf16-exact values,
-    before any output rounding: with the hi/lo split of p and ds the
-    largest error over dq, dk and dv is 1.05e-5 at hd 32, 1.53e-5 at hd
-    64 and 1.63e-5 at hd 256 (measured on the CPU; the order of the sums
-    and the exp2 form, on values up to about 10); with the hi halves alone
-    it is 7.66e-3, 7.03e-3 and 9.16e-3, some 460 to 730 times more."""
-    (q, k, v, mask, g, lse, delta), j_grads = _backward_case(hd, seed=300 + hd)
-
-    def worst(split):
-        dq, dk, dv = emulate_backward(q, k, v, mask, g, lse, delta, split=split)
-        got = (dq, _fold(dk, NKV), _fold(dv, NKV))
-        return max(float(np.abs(a.numpy() - j).max()) for a, j in zip(got, j_grads))
-
-    err_split, err_hi = worst(True), worst(False)
-    msg = f"hd {hd}: max abs error hi + lo {err_split:.3g}, hi alone {err_hi:.3g}"
-    assert err_split < 2e-5, msg
-    assert err_hi > 100 * err_split, msg

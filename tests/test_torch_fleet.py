@@ -153,9 +153,9 @@ def test_router_stats_keys_match_jax(pair):
         theirs.probe_all(force=True)
         a, b = ours.stats(), theirs.stats()
         assert a.keys() == b.keys()
-        # a replica's snapshot less what waits for item 4 (adapters, the
-        # compile and HBM ledgers)
-        deferred = {"adapters", "compiles_total", "compile_storms", "hbm_peak_bytes"}
+        # a replica's snapshot less what waits for item 4.7 (the compile
+        # and HBM ledgers); its adapter residency is ported
+        deferred = {"compiles_total", "compile_storms", "hbm_peak_bytes"}
         assert [set(r) for r in a["replicas"]] == [set(r) - deferred for r in b["replicas"]]
         assert a["capacity"] == b["capacity"] == 2
     finally:
@@ -170,8 +170,12 @@ def test_router_stats_keys_match_jax(pair):
 
 def test_router_failover_on_faulty_replica(server_trainer, pair):
     """A replica answering only 503s: every request fails over to the other
-    one, nothing is dropped, the outputs stay right, its breaker opens."""
-    router = _router(pair)
+    one, nothing is dropped, the outputs stay right, its breaker opens.
+    The prompts go one at a time, so the faulty replica takes two of them
+    (its breaker's threshold) whatever the host's load: with concurrent
+    coordinators, a slow host can order the dispatches so that only one
+    reaches it and its breaker never opens."""
+    router = _router(pair, concurrency=1)
     pair[0].fault_injector = resilience.FaultInjector(rate=1.0, mode="http_500")
     try:
         results = router.generate(ID_PROMPTS, max_new_tokens=MAX_NEW)

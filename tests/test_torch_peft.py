@@ -15,8 +15,12 @@ Tolerances: forwards, reference logits and cached decode against JAX
 against the forward 1e-4 (as `tests/test_peft.py`); the merged weights
 against JAX's merge 1e-6, and the merged model's logits against the
 adapter model's 1e-5; the reference against the adapters-off forward,
-the adapters-off forward against zeroed LoRA factors, and the state
-that a checkpoint carries: bitwise.
+the adapters-off forward against zeroed LoRA factors, and the state that
+a checkpoint carries: bitwise. The refusals, the learned-position guard
+and the HF load under a template, the exports and the cached decode are
+in `test_torch_peft_refusals.py`, `test_torch_peft_exports.py` and
+`test_torch_peft_decode.py`, so that `--dist loadfile` hands them out
+after the large files.
 """
 
 import functools
@@ -266,74 +270,9 @@ def test_merge_and_unload_matches_jax(preset):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("preset", PRESETS)
-@pytest.mark.parametrize("kind", ["prompt", "prefix", "lora"])
-def test_decode_matches_the_forward_and_jax(kind, preset):
-    """A prefill's last logits equal the forward's (the soft prompt in the
-    cache's first columns, the prefixes before the keys), a cached step
-    after it equals the forward over the longer rows, and both equal JAX's
-    `decode_step`."""
-    jmodel, jcfg, np_params, tmodel, tcfg = _models(kind, preset)
-    tokens, mask = _rows(5)
-    nxt = np.asarray([[7], [9]], np.int32)
-    full, fmask = np.concatenate([tokens, nxt], 1), np.concatenate([mask, np.ones((2, 1), np.int32)], 1)
-    jp = _jax(np_params)
-    jcache = j_init_kv_cache(jcfg, 2, 16)
-    jd, _, jcache = jmodel.apply({"params": jp}, jnp.asarray(tokens), jcache, jnp.asarray(mask), True,
-                                 method=JCausalLMWithValueHead.decode_step)
-    jd2, _, _ = jmodel.apply({"params": jp}, jnp.asarray(nxt), jcache, jnp.ones((2, 1), jnp.int32), False,
-                             method=JCausalLMWithValueHead.decode_step)
-    cache = init_kv_cache(tcfg, 2, 16)
-    assert cache["mask"].shape[1] == jcache["mask"].shape[1] == 16 + tcfg.prompt_tokens
-    with torch.no_grad():
-        d, _, cache, _ = tmodel.decode_step(_t(tokens), cache, _t(mask), is_prefill=True)
-        d2, _, _, _ = tmodel.decode_step(_t(nxt), cache, torch.ones((2, 1), dtype=torch.long))
-        fl = tmodel(_t(tokens), _t(mask))[0]
-        fl2 = tmodel(_t(full), _t(fmask))[0]
-    torch.testing.assert_close(d[:, -1], fl[:, -1], rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(d2[:, -1], fl2[:, -1], rtol=1e-4, atol=1e-4)
-    _close(d.numpy(), np.asarray(jd), 1e-5)
-    _close(d2.numpy(), np.asarray(jd2), 1e-5)
-
-
 # ---------------------------------------------------------------------------
 # What stays refused, with JAX's messages
 # ---------------------------------------------------------------------------
-
-
-def test_refusals_match_jax():
-    """Targets that name no projection, a value branch or a fused
-    attention under prefixes, MoE under LoRA, the window and trunk passes
-    under prompt tuning, and the slot-pool paths under virtual tokens."""
-    for build, mc in ((j_build_model, JModelConfig), (build_model, ModelConfig)):
-        kw = {} if build is j_build_model else dict(device="cpu")
-        with pytest.raises(ValueError, match="matched no projection"):
-            build(mc(model_path="random:gpt2-tiny",
-                     peft_config={"peft_type": "LORA", "r": 2, "target_modules": ["c_attn"]}), V, **kw)
-        with pytest.raises(NotImplementedError, match="num_value_layers_unfrozen with prompt/prefix tuning"):
-            build(mc(model_path="random:gpt2-tiny", peft_config=PEFT["prompt"]), V, num_value_layers=1, **kw)
-        with pytest.raises(NotImplementedError, match="prefix tuning needs the dense-bias attention path"):
-            build(mc(model_path="random:gpt2-tiny", peft_config=PEFT["prefix"],
-                     model_extra_configs={"attn_impl": "flash"}), V, **kw)
-    for make in (j_config_from_preset, config_from_preset):
-        with pytest.raises(NotImplementedError, match="LoRA adapters on MoE expert weights"):
-            make("moe-tiny", vocab_size=V, lora_rank=4)
-    _, _, _, tmodel, tcfg = _models("prompt", "gpt2-tiny")
-    tokens, mask = _t(_rows()[0]), _t(_rows()[1])
-    with pytest.raises(NotImplementedError, match="forward_window under prompt tuning"):
-        tmodel.forward_window(tokens, mask, None, 2, 3)
-    with pytest.raises(NotImplementedError, match="forward_trunk under prompt tuning"):
-        tmodel.forward_trunk(tokens, mask, None, 1)
-    with pytest.raises(NotImplementedError, match="split-activation capture under prompt tuning"):
-        tmodel.decode_step(tokens, init_kv_cache(tcfg, 2, 16), mask, True, capture_split=1)
-    for kind in ("prompt", "prefix"):
-        _, _, _, tmodel, tcfg = _models(kind, "gpt2-tiny")
-        with pytest.raises(NotImplementedError, match="paged KV cache under prompt/prefix tuning"):
-            init_paged_kv_arena(tcfg, 4, 8)
-        for call, what in ((tmodel.decode_step_rows, "slot-pool decode"), (tmodel.prefill_rows, "slot-pool prefill"),
-                           (lambda *a: tmodel.spec_draft_step(*a, split=1), "speculative decode")):
-            with pytest.raises(NotImplementedError, match=f"{what} under prompt/prefix tuning is unsupported"):
-                call(tokens, {}, mask)
 
 
 @pytest.mark.parametrize("kind", ["prompt", "prefix"])
@@ -363,42 +302,6 @@ def _hf_dir(tmp_path, preset):
     torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, path / "pytorch_model.bin")
     (path / "config.json").write_text(__import__("json").dumps(hf_interop.config_to_hf(cfg)))
     return str(path), model
-
-
-@pytest.mark.parametrize("kind", list(PEFT))
-def test_hf_load_with_an_adapter_template_matches_jax(kind, tmp_path):
-    """The base weights come from the directory, the adapters keep the
-    template's fresh init (an HF base checkpoint has none): JAX's
-    `load_params_from_hf` on its template and the port's on the same
-    template give the same state; the adapters-off forward is the plain
-    model's."""
-    path, plain = _hf_dir(tmp_path, "gpt2-tiny")
-    overrides = lora_overrides_from_peft_config(PEFT[kind])
-    jcfg = j_hf_interop.config_from_hf(path, dtype=jnp.float32, **overrides)
-    jtemplate = _perturb(jax.tree_util.tree_map(
-        np.asarray, JCausalLMWithValueHead(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
-                                                      jnp.ones((1, 8), jnp.int32))["params"]))
-    jloaded = j_hf_interop.load_params_from_hf(path, jcfg, jtemplate)
-    tcfg = hf_interop.config_from_hf(path, dtype=torch.float32, **overrides)
-    template = params_from_jax(jtemplate, tcfg)
-    loaded = hf_interop.load_params_from_hf(path, tcfg, template)
-    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jloaded), tcfg)
-    assert loaded.keys() == want.keys()
-    for name, w in want.items():
-        assert torch.equal(loaded[name], w), name
-        if is_adapter_name(name) or not name.startswith("lm."):
-            assert torch.equal(loaded[name], template[name]), name
-    model = CausalLMWithValueHead(tcfg).eval()
-    model.load_state_dict(loaded)
-    mc = ModelConfig(model_path=path, peft_config=PEFT[kind], model_extra_configs={"dtype": "float32"})
-    built, bcfg, _ = build_model(mc, V, seed=0, device="cpu")
-    assert (bcfg.lora_rank, bcfg.prompt_tokens, bcfg.prefix_tokens) == (tcfg.lora_rank, tcfg.prompt_tokens,
-                                                                       tcfg.prefix_tokens)
-    tokens, mask = _t(_rows(6)[0]), _t(_rows(6)[1])
-    with torch.no_grad():
-        base = plain(tokens, mask)[0]
-        torch.testing.assert_close(model.lm(tokens, mask, adapters=False)[0], base, rtol=1e-6, atol=1e-6)
-        assert torch.equal(built.lm(tokens, mask, adapters=False)[0], model.lm(tokens, mask, adapters=False)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -452,66 +355,6 @@ def test_lora_checkpoint_round_trip_is_exact(tmp_path):
     mask = torch.ones_like(tokens)
     with torch.no_grad():
         assert torch.equal(b.ref_model(tokens, None, mask), b.model.lm(tokens, mask, adapters=False)[0])
-
-
-def test_learned_position_guard_matches_jax(tmp_path):
-    """A soft prompt with learned positions: seq_length + P must fit the
-    position table (gpt2-tiny's 256)."""
-    from trlx_tpu.data.default_configs import default_ppo_config as j_default_ppo_config
-    from trlx_tpu.trainer.ppo_trainer import PPOTrainer as JPPOTrainer
-
-    for make, cls, kw in ((j_default_ppo_config, JPPOTrainer, dict(devices=jax.devices()[:1])),
-                          (default_ppo_config, PPOTrainer, dict(device="cpu"))):
-        cfg = make().evolve(**{k: v for k, v in _ppo_config(tmp_path, "prompt", seq_length=256).to_dict().items()
-                               if k in ("model", "tokenizer", "train", "method")})
-        with pytest.raises(ValueError, match="learned-position table"):
-            cls(cfg, reward_fn=reward_fn, **kw)
-    PPOTrainer(_ppo_config(tmp_path, "prompt", seq_length=252), reward_fn=reward_fn, device="cpu")
-
-
-@pytest.mark.parametrize("kind", list(PEFT))
-def test_save_pretrained_exports_match_jax(kind, tmp_path):
-    """The export from the same weights: LoRA merged into the base
-    (JAX's merge, 1e-6), and loaded back by `model_path` a plain model
-    with the adapter model's logits (1e-5); the soft prompt and the
-    prefixes beside the unmodified base, equal to JAX's files."""
-    from trlx_tpu.data.default_configs import default_ppo_config as j_default_ppo_config
-    from trlx_tpu.trainer.base_trainer import partition_params
-    from trlx_tpu.trainer.ppo_trainer import PPOTrainer as JPPOTrainer
-
-    cfg = _ppo_config(tmp_path, kind)
-    jt = JPPOTrainer(j_default_ppo_config().evolve(**{k: v for k, v in cfg.to_dict().items()
-                                                      if k in ("model", "tokenizer", "train", "method")}),
-                     reward_fn=reward_fn, devices=jax.devices()[:1])
-    np_params = _perturb(jax.tree_util.tree_map(np.asarray, jt.params))
-    jtree = _jax(np_params)
-    jt.train_params, jt.frozen_params = partition_params(jtree, jt.make_trainable_mask(jtree))
-    tt = PPOTrainer(cfg, reward_fn=reward_fn, device="cpu")
-    tt.model.load_state_dict(params_from_jax(np_params, tt.model_cfg))
-    jdir, tdir = tmp_path / "jax_hf", tmp_path / "torch_hf"
-    jt.save_pretrained(str(jdir))
-    tt.save_pretrained(str(tdir))
-    extra = {"lora": [], "prompt": ["soft_prompt.npy"], "prefix": ["prefix_kv.npz"]}[kind]
-    assert set(extra) <= set(os.listdir(tdir)) and set(extra) <= set(os.listdir(jdir))
-    got, want = (torch.load(d / "pytorch_model.bin", weights_only=True) for d in (tdir, jdir))
-    assert got.keys() == want.keys()
-    for name, w in want.items():
-        torch.testing.assert_close(got[name].float(), w.float(), rtol=1e-6, atol=1e-6)
-    if kind == "prompt":
-        np.testing.assert_array_equal(np.load(tdir / "soft_prompt.npy"), np.load(jdir / "soft_prompt.npy"))
-    if kind == "prefix":
-        tz, jz = np.load(tdir / "prefix_kv.npz"), np.load(jdir / "prefix_kv.npz")
-        assert sorted(tz.files) == sorted(jz.files) and len(tz.files) == 4
-        for name in jz.files:
-            np.testing.assert_array_equal(tz[name], jz[name])
-    loaded, lcfg, _ = build_model(ModelConfig(model_path=str(tdir), model_extra_configs={"dtype": "float32"}), V,
-                                  device="cpu")
-    assert (lcfg.lora_rank, lcfg.prompt_tokens, lcfg.prefix_tokens) == (0, 0, 0)
-    tokens, mask = _t(_rows(7)[0]), _t(_rows(7)[1])
-    with torch.no_grad():
-        # merged: the adapter model's logits; prompt/prefix: the base's
-        want_logits = tt.model.lm(tokens, mask, adapters=kind == "lora")[0]
-        torch.testing.assert_close(loaded.lm(tokens, mask)[0], want_logits, rtol=1e-5, atol=1e-5)
 
 
 def test_serving_a_lora_policy_equals_serving_its_merged_export(tmp_path):

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from trlx_tpu.data.default_configs import default_grpo_config as j_default_grpo_config
+from trlx_tpu.data.default_configs import default_ppo_config as j_default_ppo_config
 from trlx_tpu.data.default_configs import default_ilql_config as j_default_ilql_config
 from trlx_tpu.data.default_configs import default_rft_config as j_default_rft_config
 from trlx_tpu.data.default_configs import default_sft_config as j_default_sft_config
@@ -149,9 +150,23 @@ def _ppo_config(make, tmp, side, kind):
 
 
 def test_adapters_under_the_fleet_backend_are_refused(tmp_path):
-    cfg = _ppo_config(default_ppo_config, tmp_path, "torch", "lora").evolve(train=dict(rollout_backend="fleet"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 4.5"):
-        PPOTrainer(cfg, reward_fn=reward_fn, device="cpu")
+    """Adapters under the fleet backend are ported: a LoRA PPO trainer
+    builds (its replicas serve the LoRA policy; `test_torch_fleet_lora.py`
+    runs it against JAX's), and prompt tuning fails where JAX's does, at
+    a replica's engine build, with JAX's message."""
+    fleet = dict(train=dict(rollout_backend="fleet"))
+    PPOTrainer(_ppo_config(default_ppo_config, tmp_path, "torch", "lora").evolve(**fleet),
+               reward_fn=reward_fn, device="cpu")
+    from trlx_tpu.trainer.ppo_trainer import PPOTrainer as JPPOTrainer
+
+    msg = "slot-pool decode under prompt/prefix tuning is unsupported"
+    tt = PPOTrainer(_ppo_config(default_ppo_config, tmp_path, "torch", "prompt").evolve(**fleet),
+                    reward_fn=reward_fn, device="cpu")
+    jt = JPPOTrainer(_ppo_config(j_default_ppo_config, tmp_path, "jax", "prompt").evolve(**fleet),
+                     reward_fn=reward_fn, devices=jax.devices()[:1])
+    for trainer in (tt, jt):
+        with pytest.raises(NotImplementedError, match=msg):
+            trainer.serve(port=0, background=True)
 
 
 # ---------------------------------------------------------------------------

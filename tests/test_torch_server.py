@@ -86,13 +86,19 @@ def test_greedy_generate_matches_jax_server(servers, prompt, max_new):
 
 
 def test_not_ported_surface_answers_501(servers):
-    _, tsrv = servers
-    req = urllib.request.Request(tsrv.url + "/admin/adapters", data=json.dumps({"load": "a"}).encode(),
-                                 headers={"Content-Type": "application/json"})
-    with pytest.raises(urllib.error.HTTPError) as err:
-        urllib.request.urlopen(req, timeout=60)
-    assert err.value.code == 501
-    assert "ROADMAP queue A, item 4" in json.loads(err.value.read())["error"]
+    """`/admin/adapters` is ported (multi-tenant serving): a single-tenant
+    server answers it as the JAX server does, 400 with JAX's message, to
+    a POST and a GET."""
+    answers = []
+    for srv in servers:
+        for data in (json.dumps({"load": "a"}).encode(), None):
+            req = urllib.request.Request(srv.url + "/admin/adapters", data=data,
+                                         headers={"Content-Type": "application/json"})
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(req, timeout=60)
+            answers.append((err.value.code, json.loads(err.value.read())["error"]))
+    assert answers[2:] == answers[:2]
+    assert answers[2] == (400, "server is not multi-tenant (start with inference.multi_tenant and an adapter_dir)")
 
 
 def test_kernel_failure_answers_500_and_stops_serving(monkeypatch):

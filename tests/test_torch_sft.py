@@ -93,8 +93,23 @@ def test_optimizer_and_schedule_match_optax(opt, sched, kw):
 
 @pytest.mark.parametrize("opt", ["lion", "rmsprop", "adamw_8bit_bnb"])
 def test_unported_optimizers_raise(opt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_optimizer(opt, [torch.nn.Parameter(torch.zeros(2))], {})
+    """These optimizers are ported (ROADMAP queue A, item 4.6; their steps
+    are held to JAX's in `test_torch_quantized_optim.py`): each builds with
+    the config's arguments at the port's lr of 1.0, and an argument the
+    JAX package's optimizer does not take raises as there."""
+    from trlx_tpu_torch.ops.quantized_optim import Adam8bit
+    from trlx_tpu_torch.utils import Lion, RMSprop
+
+    p = [torch.nn.Parameter(torch.zeros(2))]
+    opt_ = get_optimizer(opt, p, dict(lr=3e-4, betas=(0.8, 0.9), eps=1e-6, weight_decay=0.05))
+    group = opt_.param_groups[0]
+    want = {"lion": (Lion, dict(lr=1.0, betas=(0.8, 0.9), weight_decay=0.05)),
+            "rmsprop": (RMSprop, dict(lr=1.0, eps=1e-6, momentum=0.9, decay=0.9)),
+            "adamw_8bit_bnb": (Adam8bit, dict(lr=1.0, betas=(0.8, 0.9), eps=1e-6, weight_decay=0.05))}[opt]
+    assert type(opt_) is want[0] and {k: group[k] for k in want[1]} == want[1]
+    if opt != "lion":  # optax.lion takes no extra argument, and JAX's branch passes none
+        with pytest.raises(TypeError):
+            get_optimizer(opt, p, {"amsgrad": True})
 
 
 # ---------------------------------------------------------------------------

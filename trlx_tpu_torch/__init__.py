@@ -31,8 +31,9 @@ Slices ported so far (ROADMAP.md, queue A):
 - adapters (`models/lora.py`) through `model.peft_config` on those
   trainers: LoRA (merged at export), prompt tuning and prefix tuning
   (`"PROMPT_TUNING"` / `"PREFIX_TUNING"`, written beside the base at
-  export); other peft types, adapters under the rollout fleet and
-  multi-tenant adapters are refused (ROADMAP queue A, item 4.5);
+  export), LoRA under the rollout fleet, and multi-tenant serving of
+  many LoRA adapters over one trunk (`inference/adapters.py`,
+  `inference.multi_tenant`); other peft types are refused;
 - the MoE MLP and beam search, and the encoder-decoder (T5) family
   (`models/seq2seq.py`, `model_arch_type="seq2seq"`) through PPO, ILQL,
   the sampler and its beams, and the t5 HF load and export.

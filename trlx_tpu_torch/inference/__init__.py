@@ -2,9 +2,17 @@
 KV pool, speculative decode), scheduler, HTTP server with checkpoint
 hot-reload, chat sessions and token streaming, the HTTP client, and the
 rollout fleet: the replica router, the fleet supervisor and the policy
-server process (`serve_policy`). Multi-tenant adapters are not ported yet
-(ROADMAP queue A, item 4.5)."""
+server process (`serve_policy`), and multi-tenant serving: many tenants'
+LoRA adapters over one trunk (`adapters.AdapterStore`)."""
 
+from trlx_tpu_torch.inference.adapters import (
+    AdapterCapacityError,
+    AdapterError,
+    AdapterNotFoundError,
+    AdapterStore,
+    adapter_salt,
+    load_adapter_leaves,
+)
 from trlx_tpu_torch.inference.client import (
     ChatSession,
     remote_generate,
@@ -41,6 +49,10 @@ from trlx_tpu_torch.inference.supervisor import (
 )
 
 __all__ = [
+    "AdapterCapacityError",
+    "AdapterError",
+    "AdapterNotFoundError",
+    "AdapterStore",
     "BlockPool",
     "ChatSession",
     "CheckpointWatcher",
@@ -63,6 +75,8 @@ __all__ = [
     "SessionStore",
     "SubprocessReplica",
     "ThreadReplica",
+    "adapter_salt",
+    "load_adapter_leaves",
     "load_checkpoint_params",
     "prefix_keys",
     "remote_generate",

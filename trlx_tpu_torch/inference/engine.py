@@ -45,9 +45,21 @@ gather path.
 
 A LoRA policy is served as any other (merged or not); prompt and prefix
 tuning are refused with the JAX engine's message, and so is an
-encoder-decoder (the JAX engine serves causal LMs only). Not ported yet (each
-raises `NotImplementedError`): multi-tenant adapters (ROADMAP queue A,
-item 4.5) and the compile and HBM ledgers (item 4, observability).
+encoder-decoder (the JAX engine serves causal LMs only).
+
+Multi-tenant serving (`multi_tenant=True` with an `AdapterStore`,
+`inference/adapters.py`): many tenants' LoRA adapters over the one trunk.
+A row names its adapter as the third element of its insert row; the
+engine pins it in the store for the request's life (released in
+`reclaim_slots`), and every prefill and decode dispatch gathers each
+row's factor pair from the store's stack by the row's slot there
+(`pool["adapter"]`, 0 = the base policy's zeros) and runs the model
+inside `models/transformer.py:lora_rows`. Paged prefix-cache keys are
+salted by adapter, so K/V never crosses tenants. Speculative decode is
+refused under it, as in JAX (the draft head is one policy's).
+
+Not ported yet (raises `NotImplementedError`): the compile and HBM
+ledgers (ROADMAP queue A, item 4.7, observability).
 
 Thread safety: device-touching methods are called from ONE loop thread
 (the scheduler loop). `set_params` may be called from any thread (the
@@ -57,6 +69,7 @@ dispatch holds. The block pool and the session store are guarded by
 `_kv_lock`.
 """
 
+import contextlib
 import copy
 import threading
 import time
@@ -65,8 +78,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from trlx_tpu_torch.inference.adapters import adapter_salt
 from trlx_tpu_torch.inference.paging import BlockPool, KVPoolExhaustedError, prefix_keys
-from trlx_tpu_torch.models.transformer import init_kv_cache, init_paged_kv_arena
+from trlx_tpu_torch.models.lora import is_lora_name
+from trlx_tpu_torch.models.transformer import init_kv_cache, init_paged_kv_arena, lora_rows
 from trlx_tpu_torch.ops.sampling import (
     GenerationConfig,
     process_logits,
@@ -155,16 +170,21 @@ class InferenceEngine:
         compile_ledger=None,
         hbm_ledger=None,
     ):
-        if multi_tenant or adapter_store is not None:
-            raise NotImplementedError(
-                "multi-tenant adapters are not ported yet (ROADMAP queue A, item 4.5)"
-            )
         if compile_ledger is not None or hbm_ledger is not None:
             raise NotImplementedError(
                 "the compile and HBM ledgers are not ported yet (ROADMAP queue A, item 4, observability)"
             )
         if getattr(model_cfg, "is_seq2seq", False):
             raise NotImplementedError("the continuous-batching engine serves causal LMs only")
+        if multi_tenant:
+            if adapter_store is None:
+                raise ValueError("multi_tenant serving needs an AdapterStore")
+            if spec_k > 0:
+                raise NotImplementedError(
+                    "speculative decode under multi-tenant adapters is unsupported (the draft head is per-policy)"
+                )
+            if model_cfg.lora_rank <= 0:
+                raise ValueError("multi_tenant serving needs a LoRA-enabled policy (cfg.lora_rank > 0)")
         if spec_k > 0 and spec_split <= 0:
             raise ValueError("speculative decode needs a hydra split > 0 (the frozen trunk is the draft model)")
         if spec_k > 0 and model_cfg.moe_experts > 0:
@@ -200,8 +220,16 @@ class InferenceEngine:
         self.kv_paging = bool(kv_paging)
         self.kv_block_size = int(kv_block_size)
         self.prefix_cache = bool(prefix_cache) and self.kv_paging
-        self.multi_tenant = False
-        self.adapter_store = None
+        self.multi_tenant = bool(multi_tenant)
+        self.adapter_store = adapter_store if self.multi_tenant else None
+        if self.adapter_store is not None:
+            # store-internal LRU eviction can later re-load an adapter whose
+            # checkpoint moved while it was out: the store calls back so
+            # that adapter's salted prefix blocks flush on load
+            self.adapter_store.flush_prefixes = self.flush_adapter_prefixes
+        # slot -> adapter name for requests in flight (store pin held)
+        self._slot_adapter: Dict[int, Optional[str]] = {}
+        self._lora_modules = self._find_lora_modules(self.model) if self.multi_tenant else []
         self.kv_cache_dtype = _KV_DTYPES[kv_cache_dtype] or model_cfg.dtype
         if self.kv_cache_dtype == torch.int8 and not self.kv_paging:
             raise NotImplementedError("int8 KV cache requires kv_paging")
@@ -272,6 +300,10 @@ class InferenceEngine:
         if self.kv_paging:
             # table entries default to the zero block
             self._pool["table"] = torch.zeros((P, self._n_tbl), dtype=torch.int32, device=dev)
+        if self.multi_tenant:
+            # each slot's row in the adapter stack (0 = base), gathered by
+            # every decode dispatch
+            self._pool["adapter"] = torch.zeros((P,), **long)
         self.decode_kernel = decode_kernel
         self._attn_kernel = self._resolve_attn_kernel()
         # engine-static reason the paged kernel cannot serve this pool,
@@ -340,8 +372,10 @@ class InferenceEngine:
                 self._block_pool.flush_cached()
         if self.session_store is not None:
             self.session_store.invalidate_all("weights_updated")
+        lora_modules = self._find_lora_modules(staged) if self.multi_tenant else []
         with self._param_lock:
             self.model, self._lm = staged, getattr(staged, "lm", staged)
+            self._lora_modules = lora_modules
             self._decode_fn = self._make_spec_decode() if self.spec_k > 0 else self._make_decode()
             self._spec_head = head
             self._param_version += 1
@@ -392,7 +426,7 @@ class InferenceEngine:
     # Prefill + insert
     # ------------------------------------------------------------------
 
-    def _dense_insert(self, n_real, ids, mask, slot_ids, max_new) -> None:
+    def _dense_insert(self, n_real, ids, mask, slot_ids, max_new, aidx) -> None:
         """Fixed-slot prefill+insert for one (rows, prompt-width) bucket:
         `decode_step` prefills the LEFT-padded prompts into a cache of
         their own (at cfg.dtype, as the JAX engine's prefill program), the
@@ -400,7 +434,9 @@ class InferenceEngine:
         are copied into their slots (re-typed to the pool's dtype)."""
         pool, S = self._pool, self._cache_len
         cache = init_kv_cache(self.model_cfg, ids.shape[0], S, device=ids.device)
-        logits, _, new_cache = self._lm.decode_step(ids, cache, mask, is_prefill=True)
+        # the prompt's K/V carry each row's own adapter
+        with self._adapters(aidx):
+            logits, _, new_cache = self._lm.decode_step(ids, cache, mask, is_prefill=True)
         token, lp = self._sample_fused(logits[:, -1].float(), 0)
         # padding rows (the trailing pb - n_real, slot_id == num_slots) are
         # sliced off: the JAX engine's out-of-bounds scatters drop them
@@ -416,8 +452,10 @@ class InferenceEngine:
         pool["max_new"][sl] = max_new[:n_real]
         pool["next_token"][sl] = token[:n_real]
         pool["next_logprob"][sl] = lp[:n_real]
+        if self.multi_tenant:
+            pool["adapter"][sl] = aidx[:n_real]
 
-    def _paged_insert(self, n_real, ids, tmask, tables, slot_ids, max_new, shared_len) -> None:
+    def _paged_insert(self, n_real, ids, tmask, tables, slot_ids, max_new, shared_len, aidx) -> None:
         """Paged prefill+insert for one (rows, suffix-width) bucket: one
         `prefill_rows` call writes each row's right-padded prompt suffix
         straight into the shared arena through its fresh block table,
@@ -434,7 +472,8 @@ class InferenceEngine:
             "pos": shared_len,
             "row_index": shared_len,
         }
-        logits, new_cache = self.model.prefill_rows(ids, cache, tmask)
+        with self._adapters(aidx):
+            logits, new_cache = self.model.prefill_rows(ids, cache, tmask)
         # per-row LAST-valid-position logits (right padding)
         lens = tmask.sum(-1)
         last_idx = torch.clamp(lens - 1, 0, plen - 1)
@@ -450,15 +489,20 @@ class InferenceEngine:
         pool["max_new"][sl] = max_new[:n_real]
         pool["next_token"][sl] = token[:n_real]
         pool["next_logprob"][sl] = lp[:n_real]
+        if self.multi_tenant:
+            pool["adapter"][sl] = aidx[:n_real]
 
     def _insert_requests_impl(self, rows: Sequence[Tuple], slot_ids: Sequence[int],
                               sessions: Optional[Sequence] = None) -> None:
-        """Prefill `rows` ((prompt ids, max_new) pairs) into the given free
-        slots: length-bucketed left-padded prefills into the fixed-slot
-        pool, or (paged) block allocation, prefix-store probing and
-        right-padded suffix prefills. `sessions` (paged only) attaches a
-        row to a chat session: its retained blocks seed the shared prefix,
-        so only the conversation's delta tokens prefill."""
+        """Prefill `rows` ((prompt ids, max_new[, adapter_id])) into the
+        given free slots: length-bucketed left-padded prefills into the
+        fixed-slot pool, or (paged) block allocation, prefix-store probing
+        and right-padded suffix prefills. Under multi-tenant serving each
+        row's adapter is pinned in the store for the request's life and
+        its prefill applies that adapter's factors. `sessions` (paged
+        only) attaches a row to a chat session: its retained blocks seed
+        the shared prefix, so only the conversation's delta tokens
+        prefill."""
         if len(rows) != len(slot_ids):
             raise ValueError(f"{len(rows)} rows for {len(slot_ids)} slots")
         if sessions is not None and any(s is not None for s in sessions):
@@ -466,26 +510,76 @@ class InferenceEngine:
                 raise ValueError("sessions require kv_paging")
         else:
             sessions = None
-        norm = []
-        for row in rows:
-            if len(row) == 3 and row[2] is not None:
-                raise NotImplementedError(
-                    "adapter_id needs multi-tenant serving, not ported yet (ROADMAP queue A, item 4.5)"
-                )
-            norm.append((row[0], row[1], None))
-        with self._param_lock:
-            if self.kv_paging:
-                self._insert_paged(norm, slot_ids, sessions)
-            else:
-                self._insert_dense(norm, slot_ids)
+        norm = [(row[0], row[1], row[2] if len(row) == 3 else None) for row in rows]
+        if not self.multi_tenant and any(name is not None for _, _, name in norm):
+            raise ValueError("adapter_id requires an engine built with inference.multi_tenant")
+        aslots = self._acquire_adapters(norm, slot_ids) if self.multi_tenant else [0] * len(norm)
+        try:
+            with self._param_lock:
+                if self.kv_paging:
+                    self._insert_paged(norm, slot_ids, aslots, sessions)
+                else:
+                    self._insert_dense(norm, slot_ids, aslots)
+        except Exception:
+            if self.multi_tenant:
+                self._release_adapters(slot_ids)
+            raise
 
-    def _insert_dense(self, rows, slot_ids) -> None:
+    def _acquire_adapters(self, norm, slot_ids) -> List[int]:
+        """Pin every row's adapter (loading on demand) and return their
+        stack slots. All or nothing: a capacity failure releases the pins
+        already taken, so the scheduler can retry with a smaller batch (it
+        sheds distinct-adapter groups until the rest fit)."""
+        aslots: List[int] = []
+        acquired: List[Tuple[int, Optional[str]]] = []
+        try:
+            for (_ids, _max_new, name), slot in zip(norm, slot_ids):
+                t0 = time.monotonic() if self.trace_buf is not None else 0.0
+                aslots.append(self.adapter_store.acquire(name))
+                if self.trace_buf is not None:
+                    self.trace_buf.append(("adapter_load", t0, time.monotonic(), {"adapter": name or "base"}))
+                acquired.append((int(slot), name))
+        except Exception:
+            for _, name in acquired:
+                self.adapter_store.release(name)
+            raise
+        for slot, name in acquired:
+            self._slot_adapter[slot] = name
+        return aslots
+
+    def _release_adapters(self, slots) -> None:
+        for slot in slots:
+            if int(slot) in self._slot_adapter:
+                self.adapter_store.release(self._slot_adapter.pop(int(slot)))
+
+    @staticmethod
+    def _find_lora_modules(model) -> List[Tuple[Any, str, str]]:
+        """(module, its lora_a name, its lora_b name) for every LoRA
+        `Linear` of `model`, named as in its state dict (the store's
+        leaf names)."""
+        out = []
+        for name in model.state_dict():
+            if is_lora_name(name) and name.endswith(".lora_a"):
+                base = name[: -len(".lora_a")]
+                out.append((model.get_submodule(base), name, base + ".lora_b"))
+        return out
+
+    def _adapters(self, aidx: Optional[torch.Tensor]):
+        """A `lora_rows` block handing every LoRA `Linear` row i's factor
+        pair, gathered from the store's stack at aidx[i]; a null block
+        when single-tenant."""
+        if not self.multi_tenant:
+            return contextlib.nullcontext()
+        stack = self.adapter_store.stacked()
+        return lora_rows({mod: (stack[a][aidx], stack[b][aidx]) for mod, a, b in self._lora_modules})
+
+    def _insert_dense(self, rows, slot_ids, aslots) -> None:
         pad_id = self.gen_cfg.pad_token_id
-        groups: Dict[int, List[Tuple[np.ndarray, int, int]]] = {}
-        for (ids, max_new, _name), slot in zip(rows, slot_ids):
+        groups: Dict[int, List[Tuple[np.ndarray, int, int, int]]] = {}
+        for (ids, max_new, _name), slot, aslot in zip(rows, slot_ids, aslots):
             ids = self._check_row(ids, max_new)
             plen = _round_up(ids.size, self.prompt_bucket)
-            groups.setdefault(plen, []).append((ids, int(max_new), int(slot)))
+            groups.setdefault(plen, []).append((ids, int(max_new), int(slot), int(aslot)))
         dev = self.device
         for plen, members in groups.items():
             for i in range(0, len(members), self.max_prefill_batch):
@@ -495,11 +589,13 @@ class InferenceEngine:
                 mask_arr = np.zeros((pb, plen), np.int32)
                 slots_arr = np.full((pb,), self.num_slots, np.int64)
                 max_new_arr = np.full((pb,), self.gen_cfg.max_new_tokens, np.int64)
-                for j, (ids, max_new, slot) in enumerate(chunk):
+                aidx_arr = np.zeros((pb,), np.int64)  # padding rows gather base
+                for j, (ids, max_new, slot, aslot) in enumerate(chunk):
                     ids_arr[j, plen - ids.size :] = ids  # LEFT-padded (decode convention)
                     mask_arr[j, plen - ids.size :] = 1
                     slots_arr[j] = slot
                     max_new_arr[j] = max_new
+                    aidx_arr[j] = aslot
                 # padding rows repeat row 0 (a real prompt: no fully masked
                 # row) and are sliced off before the pool writes
                 ids_arr[len(chunk):] = ids_arr[0]
@@ -509,6 +605,7 @@ class InferenceEngine:
                     len(chunk),
                     torch.from_numpy(ids_arr).to(dev), torch.from_numpy(mask_arr).to(dev),
                     torch.from_numpy(slots_arr).to(dev), torch.from_numpy(max_new_arr).to(dev),
+                    torch.from_numpy(aidx_arr).to(dev),
                 )
                 if self.trace_buf is not None:
                     self.trace_buf.append((
@@ -536,10 +633,12 @@ class InferenceEngine:
             self.session_store.evict_for_blocks(n)
             return self._block_pool.alloc(n)
 
-    def _insert_paged(self, rows, slot_ids, sessions: Optional[Sequence] = None) -> None:
+    def _insert_paged(self, rows, slot_ids, aslots, sessions: Optional[Sequence] = None) -> None:
         """Allocate each request's blocks up front (prompt + max_new +
         spec_k: no mid-decode OOM, no preemption), probing the prefix
-        store for resident leading blocks first. Requests whose probe would
+        store for resident leading blocks first; under multi-tenant
+        serving the prefix keys are salted by the row's adapter, so
+        prefix blocks never cross tenants. Requests whose probe would
         hit keys registered earlier in this call are deferred one placement
         round (the registering prefill has not run yet). On pool
         exhaustion the whole call rolls back so the scheduler can requeue
@@ -551,10 +650,12 @@ class InferenceEngine:
         blocks are never published under keys."""
         bs, pool = self.kv_block_size, self._block_pool
         store = self.session_store
+        mt = self.multi_tenant
         pending = [
             (self._check_row(ids, max_new), int(max_new), int(slot),
+             adapter_salt(name) if mt else b"", int(aslots[i]),
              sessions[i] if sessions is not None else None)
-            for i, ((ids, max_new, _name), slot) in enumerate(zip(rows, slot_ids))
+            for i, ((ids, max_new, name), slot) in enumerate(zip(rows, slot_ids))
         ]
         rounds: List[List] = []
         journal: List[Tuple[int, List[int], List[bytes]]] = []
@@ -564,7 +665,7 @@ class InferenceEngine:
                 while pending:
                     placed, deferred = [], []
                     round_keys: set = set()
-                    for ids, max_new, slot, sess in pending:
+                    for ids, max_new, slot, salt, aslot, sess in pending:
                         if sess is not None:
                             keys = []
                             shared = store.acquire_blocks(sess, ids)
@@ -574,9 +675,9 @@ class InferenceEngine:
                                 store.retained_hits += 1
                                 store.retained_blocks_reused += len(shared)
                         else:
-                            keys = prefix_keys(ids, bs, b"") if self.prefix_cache else []
+                            keys = prefix_keys(ids, bs, salt) if self.prefix_cache else []
                             if any(k in round_keys for k in keys):
-                                deferred.append((ids, max_new, slot, sess))
+                                deferred.append((ids, max_new, slot, salt, aslot, sess))
                                 continue
                             shared = []
                             for key in keys:
@@ -604,7 +705,7 @@ class InferenceEngine:
                         self._slot_blocks[slot] = blocks
                         journal.append((slot, blocks, registered))
                         T = len(shared) * bs
-                        placed.append((ids[T:], T, blocks, max_new, slot))
+                        placed.append((ids[T:], T, blocks, max_new, slot, aslot))
                     rounds.append(placed)
                     pending = deferred
             except KVPoolExhaustedError:
@@ -641,7 +742,8 @@ class InferenceEngine:
                 slots_arr = np.full((pb,), self.num_slots, np.int64)
                 max_new_arr = np.full((pb,), self.gen_cfg.max_new_tokens, np.int64)
                 shared_arr = np.zeros((pb,), np.int64)
-                for j, (suffix, T, blocks, max_new, slot) in enumerate(chunk):
+                aidx_arr = np.zeros((pb,), np.int64)  # padding rows gather base
+                for j, (suffix, T, blocks, max_new, slot, aslot) in enumerate(chunk):
                     ids_arr[j, : len(suffix)] = suffix  # RIGHT-padded
                     tmask[j, : len(suffix)] = 1
                     tables[j, : len(blocks)] = blocks
@@ -649,6 +751,7 @@ class InferenceEngine:
                     slots_arr[j] = slot
                     max_new_arr[j] = max_new
                     shared_arr[j] = T
+                    aidx_arr[j] = aslot
                 # padding rows repeat row 0's tokens but keep all-out-of-range
                 # tables and slot ids: every write they make is masked out
                 ids_arr[len(chunk):] = ids_arr[0]
@@ -659,6 +762,7 @@ class InferenceEngine:
                     torch.from_numpy(ids_arr).to(dev), torch.from_numpy(tmask).to(dev),
                     torch.from_numpy(tables).to(dev), torch.from_numpy(slots_arr).to(dev),
                     torch.from_numpy(max_new_arr).to(dev), torch.from_numpy(shared_arr).to(dev),
+                    torch.from_numpy(aidx_arr).to(dev),
                 )
                 if self.trace_buf is not None:
                     self.trace_buf.append((
@@ -866,7 +970,10 @@ class InferenceEngine:
                         self._kv_kernel_fallbacks.get("spec_verify_rows", 0) + 1
                     )
         with self._param_lock:
-            token, logprob, valid, finished = self._decode_fn()
+            # one heterogeneous step: each row applies its own adapter's
+            # factors, gathered by its slot's row in the stack
+            with self._adapters(self._pool["adapter"] if self.multi_tenant else None):
+                token, logprob, valid, finished = self._decode_fn()
             ints = torch.cat([token.reshape(-1), valid.long().reshape(-1), finished.long()]).cpu().numpy()
             logprob = logprob.cpu().numpy().astype(np.float32)
         n = token.numel()
@@ -888,10 +995,12 @@ class InferenceEngine:
         self.reclaim_slots(slots)
 
     def reclaim_slots(self, slots: Sequence[int]) -> None:
-        """Return a finished slot's blocks to the pool (host bookkeeping
-        only; a freed slot's stale table is harmless because inactive
-        rows' arena writes are masked out). Idempotent; a no-op for the
-        fixed-slot pool."""
+        """Return a finished slot's blocks to the pool and drop its
+        adapter pin (host bookkeeping only; a freed slot's stale table is
+        harmless because inactive rows' arena writes are masked out).
+        Idempotent."""
+        if self.multi_tenant:
+            self._release_adapters(slots)
         if not self.kv_paging:
             return
         with self._kv_lock:
@@ -908,9 +1017,9 @@ class InferenceEngine:
                          adapter_id: Optional[str] = None, session=None) -> int:
         """Blocks this request would claim if admitted now:
         ceil((prompt + max_new + spec_k) / block_size) minus the leading
-        blocks a read-only prefix-store probe says are resident, or minus
-        the session's retained blocks when the request rides one. 0 when
-        paging is off."""
+        blocks a read-only prefix-store probe says are resident (in the
+        request's own adapter key space), or minus the session's retained
+        blocks when the request rides one. 0 when paging is off."""
         if not self.kv_paging:
             return 0
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -931,7 +1040,8 @@ class InferenceEngine:
                 )
             return max(1, n_cap - shared)
         with self._kv_lock:
-            shared = 0 if ignore_cache else self._block_pool.lookup_chain(ids, b"")
+            salt = adapter_salt(adapter_id) if self.multi_tenant else b""
+            shared = 0 if ignore_cache else self._block_pool.lookup_chain(ids, salt)
         return max(1, n_cap - shared)
 
     def blocks_available(self) -> int:
@@ -1018,6 +1128,27 @@ class InferenceEngine:
     def session_stats(self) -> Dict[str, float]:
         """Session-store counters for metrics/healthz; {} when off."""
         return self.session_store.stats() if self.session_store is not None else {}
+
+    # ------------------------------------------------------------------
+    # Multi-tenant adapter plumbing
+    # ------------------------------------------------------------------
+
+    def flush_adapter_prefixes(self, name: Optional[str]) -> int:
+        """Drop one adapter's cached prefix blocks (per-adapter hot-reload:
+        its K/V went stale, everyone else's is still good). Returns the
+        number of keys flushed; 0 when prefix caching is off. The
+        adapter's sessions reset for the same reason: their retained KV
+        was written under the replaced factors."""
+        if self.session_store is not None:
+            self.session_store.invalidate_adapter(name)
+        if not self.prefix_cache:
+            return 0
+        with self._kv_lock:
+            return self._block_pool.flush_prefix(adapter_salt(name))
+
+    def adapter_stats(self) -> Dict[str, Any]:
+        """Store counters for metrics and healthz; {} when single-tenant."""
+        return self.adapter_store.stats() if self.multi_tenant else {}
 
     @property
     def active_slots(self) -> int:

@@ -117,9 +117,13 @@ class Replica:
         self.last_error: Optional[str] = None
         # paged KV-pool occupancy from the last probe ({} on fixed-slot
         # replicas) — supervisors export these per-replica. The JAX
-        # router's adapter residency and compile/HBM forensics wait for
-        # multi-tenant adapters and those ledgers (ROADMAP queue A, item 4)
+        # router's compile/HBM forensics wait for those ledgers (ROADMAP
+        # queue A, item 4.7)
         self.kv: Dict[str, Any] = {}
+        # resident adapter ids from the last probe ([] on single-tenant
+        # replicas): dispatch prefers a replica already holding the
+        # request's adapter, so the hot path does not wait on a disk load
+        self.adapters: List[str] = []
 
     @property
     def breaker(self) -> resilience.CircuitBreaker:
@@ -138,6 +142,7 @@ class Replica:
             "failures": self.failures,
             "last_error": self.last_error,
             "kv": dict(self.kv),
+            "adapters": list(self.adapters),
         }
 
 
@@ -272,6 +277,8 @@ class ReplicaRouter:
         rep.param_version = info.get("param_version")
         kv = info.get("kv")
         rep.kv = dict(kv) if isinstance(kv, dict) else {}
+        adapters = info.get("adapters")
+        rep.adapters = list(adapters.get("resident") or []) if isinstance(adapters, dict) else []
         rep.last_probe = time.monotonic()
         rep.last_error = None
         return rep.live
@@ -313,18 +320,22 @@ class ReplicaRouter:
             and self._fresh_step(rep.checkpoint_step)
         )
 
-    def _pick(self, exclude: Sequence[Replica] = ()) -> Optional[Replica]:
+    def _pick(self, exclude: Sequence[Replica] = (), adapter_id: Optional[str] = None) -> Optional[Replica]:
         """Least-loaded dispatch among eligible replicas (ties broken by
-        fewest lifetime requests, then list order)."""
+        fewest lifetime requests, then list order). With an `adapter_id`,
+        replicas already holding that adapter resident sort first:
+        affinity, not pinning, so a replica without it still serves the
+        request (its store loads the adapter on demand) when the ones
+        holding it are excluded or down."""
         with self._lock:
             candidates = [
-                (rep.inflight, rep.served, i, rep)
+                (int(bool(adapter_id) and adapter_id not in rep.adapters), rep.inflight, rep.served, i, rep)
                 for i, rep in enumerate(self.replicas)
                 if rep not in exclude and self._eligible(rep)
             ]
         if not candidates:
             return None
-        return min(candidates)[3]
+        return min(candidates)[4]
 
     # ------------------------------------------------------------------
     # Request path
@@ -378,6 +389,7 @@ class ReplicaRouter:
             payload["prompt_ids"] = list(map(int, prompt))
         with self._lock:
             self.counters["requests"] += 1
+        adapter_id = payload.get("adapter_id")  # the affinity hint for _pick
 
         # explicit trace context: local variables only — attempts run on
         # pool threads, so nothing ambient would survive the hop anyway
@@ -394,13 +406,13 @@ class ReplicaRouter:
         reprobed = False
         last_exc: Optional[BaseException] = None
         while True:
-            rep = self._pick(exclude=tried)
+            rep = self._pick(exclude=tried, adapter_id=adapter_id)
             if rep is None and not reprobed:
                 # a replica may have recovered (or finished reloading)
                 # since its last probe — one forced pass before giving up
                 reprobed = True
                 if self.probe_all(force=True):
-                    rep = self._pick(exclude=tried)
+                    rep = self._pick(exclude=tried, adapter_id=adapter_id)
             if rep is None:
                 if dispatch is not None:
                     dispatch.end(status="error")
@@ -425,7 +437,7 @@ class ReplicaRouter:
                     set(pending), timeout=delay, return_when=futures.FIRST_COMPLETED
                 )
                 if not done:
-                    hedge_rep = self._pick(exclude=tried)
+                    hedge_rep = self._pick(exclude=tried, adapter_id=adapter_id)
                     if hedge_rep is not None:
                         hfut = self._requests.submit(self._post, hedge_rep, payload)
                         pending[hfut] = hedge_rep
@@ -573,15 +585,16 @@ class ReplicaRouter:
         `ids`, with generate-style failover across eligible replicas."""
         payload = dict(kwargs)
         payload["prompt_ids"] = list(map(int, ids))
+        adapter_id = payload.get("adapter_id")
         tried: List[Replica] = []
         reprobed = False
         last_exc: Optional[BaseException] = None
         while True:
-            rep = self._pick(exclude=tried)
+            rep = self._pick(exclude=tried, adapter_id=adapter_id)
             if rep is None and not reprobed:
                 reprobed = True
                 if self.probe_all(force=True):
-                    rep = self._pick(exclude=tried)
+                    rep = self._pick(exclude=tried, adapter_id=adapter_id)
             if rep is None:
                 raise FleetUnavailableError(
                     f"no eligible replica for chat (tried "

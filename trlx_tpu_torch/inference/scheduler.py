@@ -35,7 +35,7 @@ from typing import Deque, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
-from trlx_tpu_torch.inference.errors import AdapterCapacityError, AdapterError
+from trlx_tpu_torch.inference.adapters import AdapterCapacityError, AdapterError
 from trlx_tpu_torch.inference.metrics import InferenceMetrics
 from trlx_tpu_torch.inference.paging import KVPoolExhaustedError
 from trlx_tpu_torch.observability.tracing import Span

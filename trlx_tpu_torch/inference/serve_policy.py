@@ -23,18 +23,23 @@ server process (the counterpart of the JAX package's
         '{"checkpoint": "random:gpt2-tiny", "replicas": 3, "supervised": true,
           "spares": 1, "watch_dir": "ckpts", "metrics_port": 8700}'
 
+    # many tenants' LoRA adapters over one trunk: each subdirectory of
+    # adapter_dir is a checkpoint of a LoRA run (its name is the
+    # request's adapter_id); the trunk must be LoRA-enabled
+    python -m trlx_tpu_torch.inference.serve_policy \
+        '{"checkpoint": "random:gpt2-tiny", "adapter_dir": "adapters",
+          "model.peft_config": {"peft_type": "LORA", "r": 8}}'
+
 `checkpoint` is a `save_pretrained` directory or `random:<preset>`;
 `device` is where the policy runs (cuda unless given: no replica falls
 back to the CPU by itself). Any other dotted TRLConfig key overrides the
-config; the `inference.*` section holds the serving knobs. Multi-tenant
-adapters (`adapter_dir`, `inference.multi_tenant`) are not ported yet
-(ROADMAP queue A, item 4.5) and are refused.
+config; the `inference.*` section holds the serving knobs. An
+`adapter_dir` implies multi-tenant serving (`inference.multi_tenant`,
+which the hparams may still set explicitly).
 """
 
 import json
 import sys
-
-ADAPTERS_NOT_PORTED = "multi-tenant adapters are not ported yet (ROADMAP queue A, item 4.5)"
 
 
 def main(hparams=None):
@@ -54,8 +59,7 @@ def main(hparams=None):
     metrics_port = hparams.pop("metrics_port", None)
     supervisor_kwargs = dict(hparams.pop("supervisor_kwargs", None) or {})
     device = hparams.pop("device", "cuda")
-    if hparams.pop("adapter_dir", None):
-        raise NotImplementedError(ADAPTERS_NOT_PORTED)
+    adapter_dir = hparams.pop("adapter_dir", None)
 
     config = default_sft_config().evolve(
         model=dict(model_path=checkpoint),
@@ -63,12 +67,16 @@ def main(hparams=None):
         train=dict(total_steps=0, tracker=None),
         # under supervision the replicas must not watch the directory
         # themselves: the supervisor owns reloads (rolling, one at a time)
-        inference=dict(port=port, watch_dir=None if supervised else watch_dir),
+        inference=dict(
+            port=port,
+            watch_dir=None if supervised else watch_dir,
+            # an adapter_dir implies multi-tenant serving (the hparams can
+            # still set inference.multi_tenant explicitly)
+            **({"adapter_dir": adapter_dir, "multi_tenant": True} if adapter_dir else {}),
+        ),
     )
     if hparams:
         config = TRLConfig.update(config, hparams)
-    if config.inference.multi_tenant or config.inference.adapter_dir:
-        raise NotImplementedError(ADAPTERS_NOT_PORTED)
 
     from trlx_tpu_torch.trainer.sft_trainer import SFTTrainer
 

@@ -4,7 +4,9 @@ hot-reload.
 Port of the JAX package's `inference/server.py`:
 
 - ``POST /generate``: one prompt, or `n` completions of it, with optional
-  stop strings; ``"stream": true`` (n = 1) answers server-sent events;
+  stop strings and, on a multi-tenant server, the `adapter_id` that
+  decodes it (omitted: the base policy); ``"stream": true`` (n = 1)
+  answers server-sent events;
 - ``POST /chat``: a turn of a multi-turn session whose KV blocks stay
   resident between turns (`inference.sessions`; paged pool only); 409
   when the session was reset or has a turn in flight;
@@ -13,7 +15,12 @@ Port of the JAX package's `inference/server.py`:
   /debug/slo`` (``/debug/trace`` too when tracing is on);
 - ``POST /admin/drain|undrain|reload``: reject-new drain, reopening, and
   a drain-swap to an explicit checkpoint path or the newest in
-  `watch_dir`.
+  `watch_dir`;
+- ``GET/POST /admin/adapters`` (multi-tenant serving): GET lists the
+  resident and on-disk adapters and the store's counters; POST takes one
+  of ``{"load": name}``, ``{"evict": name}``, ``{"reload": name}``. A
+  load that finds every slot pinned answers 503 with Retry-After; a
+  single-tenant server answers 400, as the JAX server does.
 
 Hot-reload: with `watch_dir` set, a daemon thread polls for the newest
 manifest-complete checkpoint of the port's trainer (manifest written
@@ -28,8 +35,12 @@ the server runs) injects its HTTP faults at the top of every /generate
 and /chat request, wedges /healthz for `healthz_hang_s`, and overrides
 the reported checkpoint step with `stale_checkpoint_step`.
 
-Not ported yet: ``/admin/adapters`` answers 501 (multi-tenant adapters,
-ROADMAP queue A, item 4.5).
+On a multi-tenant server the watcher also reloads adapters one at a time
+(`poll_adapters`, `reload_adapter`): a resident adapter whose checkpoint
+under `adapter_dir` moved is drained alone (the other tenants keep
+decoding), re-read into its slot of the store, and its salted prefix
+blocks flush. ``/healthz`` reports the resident set, which fleet routers
+read for adapter affinity.
 """
 
 import json
@@ -39,12 +50,13 @@ import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from trlx_tpu_torch import resilience
+from trlx_tpu_torch.inference.adapters import AdapterCapacityError, AdapterError
 from trlx_tpu_torch.resilience import MODEL_FILE
 from trlx_tpu_torch.inference.metrics import dedupe_metadata
 from trlx_tpu_torch.inference.scheduler import DrainingError, QueueFullError, Scheduler
@@ -55,9 +67,6 @@ from trlx_tpu_torch.utils import logging
 
 logger = logging.get_logger(__name__)
 
-ADAPTERS_NOT_PORTED = (
-    "multi-tenant adapters are not ported yet (ROADMAP queue A, item 4.5)"
-)
 _GENERATE_KEYS = {
     "prompt", "prompt_ids", "max_new_tokens", "deadline_s", "n",
     "adapter_id", "trace_id", "stop", "stream",
@@ -172,12 +181,56 @@ class CheckpointWatcher(threading.Thread):
         logger.info(f"hot-reload: serving checkpoint {path} (step {step})")
         return True
 
+    # -- per-adapter hot-reload (multi-tenant serving) ------------------
+
+    def poll_adapters(self) -> int:
+        """Hot-reload every resident adapter whose on-disk checkpoint
+        moved, each drained alone (the per-tenant analogue of
+        `poll_once`). Returns the number of adapters swapped."""
+        store = self.engine.adapter_store
+        if store is None:
+            return 0
+        return sum(1 for name in store.changed() if self.reload_adapter(name))
+
+    def reload_adapter(self, name: str) -> bool:
+        """Drain-swap one adapter: that tenant's admission pauses, its
+        requests in flight decode to their end, its factors are re-read
+        into the same stack slot and its salted prefix blocks flush (their
+        K/V was computed under the old factors). Other tenants keep
+        decoding throughout. Returns False when the on-disk version
+        already matches, the drain timed out or the load failed."""
+        store = self.engine.adapter_store
+        if self.scheduler is not None and not self.scheduler.drain_tenant(name, self.drain_timeout_s):
+            logger.warning(f"adapter hot-reload: drain of '{name}' timed out after "
+                           f"{self.drain_timeout_s}s; deferring to the next poll")
+            self.scheduler.resume_tenant(name)
+            return False
+        try:
+            try:
+                reloaded = store.reload(name)
+            except Exception as e:
+                logger.warning(f"adapter hot-reload: failed for '{name}': {e}")
+                return False
+            if reloaded:
+                self.engine.flush_adapter_prefixes(name)
+                if self.metrics is not None:
+                    self.metrics.inc("adapter_reload_events_total", labels={"adapter": str(name)})
+                logger.info(f"adapter hot-reload: '{name}' serving new factors")
+            return reloaded
+        finally:
+            if self.scheduler is not None:
+                self.scheduler.resume_tenant(name)
+
     def run(self) -> None:
         while not self._stop.wait(self.interval_s):
             try:
                 self.poll_once()
             except Exception:  # keep watching
                 logger.exception("checkpoint watcher scan failed")
+            try:
+                self.poll_adapters()
+            except Exception:  # keep watching
+                logger.exception("adapter watcher scan failed")
 
     def stop(self) -> None:
         self._stop.set()
@@ -557,7 +610,34 @@ class InferenceServer:
                 "checkpoint_step": self._effective_checkpoint_step(),
                 "reloads": self.watcher.reloads,
             }
+        if path == "/admin/adapters":
+            store = self._adapter_store(required=True)
+            actions = [k for k in ("load", "evict", "reload") if k in payload]
+            if len(actions) != 1:
+                raise ValueError('POST /admin/adapters takes exactly one of '
+                                 '{"load": name} / {"evict": name} / {"reload": name}')
+            action, name = actions[0], str(payload[actions[0]])
+            out: Dict[str, Any] = {"action": action, "adapter": name}
+            if action == "load":
+                out["slot"] = store.load(name)
+            elif action == "evict":
+                store.evict(name)
+                self.engine.flush_adapter_prefixes(name)
+            else:
+                out["reloaded"] = self.watcher.reload_adapter(name)
+            out.update(self._adapter_snapshot())
+            return out
         raise ValueError(f"unknown admin endpoint {path}")
+
+    def _adapter_store(self, required: bool = False):
+        store = self.engine.adapter_store
+        if store is None and required:
+            raise ValueError("server is not multi-tenant (start with inference.multi_tenant and an adapter_dir)")
+        return store
+
+    def _adapter_snapshot(self) -> Dict:
+        store = self._adapter_store(required=True)
+        return {"resident": store.resident(), "available": store.scan(), "stats": store.stats()}
 
     def _make_handler(self):
         server = self
@@ -578,15 +658,16 @@ class InferenceServer:
 
             def do_POST(self):  # noqa: N802
                 path = self.path.rstrip("/")
-                if path == "/admin/adapters":
-                    self._reply_json(501, {"error": ADAPTERS_NOT_PORTED})
-                    return
                 if path.startswith("/admin/"):
                     try:
                         length = int(self.headers.get("Content-Length", 0))
                         payload = json.loads(self.rfile.read(length) or b"{}")
                         self._reply_json(200, server._handle_admin(path, payload))
-                    except (ValueError, TypeError) as e:
+                    except AdapterCapacityError as e:
+                        # every slot is pinned by requests in flight: a
+                        # retry after they finish can succeed
+                        self._reply_json(503, {"error": str(e)}, headers={"Retry-After": "1"})
+                    except (ValueError, TypeError, AdapterError) as e:
                         self._reply_json(400, {"error": str(e)})
                     except Exception as e:
                         self._reply_json(500, {"error": repr(e)})
@@ -713,7 +794,10 @@ class InferenceServer:
                     self._reply_json(200, {"traces": server.tracer.recent(last)})
                     return
                 if path == "/admin/adapters":
-                    self._reply_json(501, {"error": ADAPTERS_NOT_PORTED})
+                    try:
+                        self._reply_json(200, server._adapter_snapshot())
+                    except (ValueError, AdapterError) as e:
+                        self._reply_json(400, {"error": str(e)})
                     return
                 if path == "/debug/slo":
                     server.slo.ingest_registry(server.metrics)
@@ -740,6 +824,7 @@ class InferenceServer:
                     ready = server.ready
                     kv = server.engine.kv_stats()
                     sstats = server.engine.session_stats()
+                    store = server._adapter_store()
                     self._reply_json(200, {
                         # liveness ("process is up") vs readiness ("can take
                         # traffic now"): a reload in flight is live, not ready
@@ -756,6 +841,11 @@ class InferenceServer:
                         "reloads": watcher.reloads,
                         **({"kv": kv} if kv else {}),
                         **({"sessions": sstats} if sstats else {}),
+                        # the resident adapters (multi-tenant only): fleet
+                        # routers prefer a replica already holding the
+                        # request's adapter (no load on the hot path)
+                        **({"adapters": {"resident": store.resident(), "capacity": store.capacity}}
+                           if store is not None else {}),
                     })
                     return
                 self.send_error(404)
@@ -776,7 +866,10 @@ class InferenceServer:
         self.port = self._httpd.server_address[1]  # resolve port 0
         self._shutdown_done = False
         self.scheduler.start()
-        if self.watcher.watch_dir:
+        store = self._adapter_store()
+        if self.watcher.watch_dir or (store is not None and store.adapter_dir):
+            # the poll thread also drives per-adapter hot-reload, so a
+            # multi-tenant server needs it even without a watch_dir
             self.watcher.start()
 
     @property

@@ -31,7 +31,10 @@ them off before the head; the cached prefill writes them into the
 cache's first columns, which `init_kv_cache` reserves). The no-cache
 forwards take `adapters=False`, the base model alone (the reference under
 adapters); the slot-pool paths refuse prompt and prefix tuning, as JAX
-does.
+does. Multi-tenant serving hands per-row factor pairs to the `Linear`s
+through a `lora_rows` block (one pair a batch row, each row's own
+tenant), which replace each module's own pair for the calls made inside
+it, in this thread only.
 
 ALiBi and an active sliding window need the dense bias: the flash kernels
 (`fused_attention_ok`) and the paged decode kernel express plain causal
@@ -172,13 +175,34 @@ def _normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]) 
         return t.normal_(0.0, std, generator=generator)
 
 
+# per-row LoRA factors of multi-tenant serving, {Linear: (a [b, in, r],
+# b [b, r, out])}, while a `lora_rows` block is open in this thread
+_LORA_ROWS: contextvars.ContextVar = contextvars.ContextVar("lora_rows", default=None)
+
+
+@contextmanager
+def lora_rows(factors: Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]):
+    """Per-row LoRA factors for the calls made inside the block, in this
+    thread only (the JAX package's `lora_rows` variable collection): each
+    `Linear` in `factors` applies row i's pair to batch row i in place of
+    its own `lora_a` / `lora_b`. Scoped to the thread so a server thread
+    decoding on a trainer's module never leaks a tenant's factors into a
+    training forward that runs beside it."""
+    token = _LORA_ROWS.set(factors)
+    try:
+        yield
+    finally:
+        _LORA_ROWS.reset(token)
+
+
 class Linear(nn.Module):
     """flax `nn.Dense(param_dtype=f32, dtype=cfg.dtype)`: weight [out, in]
     (the JAX kernel transposed), input, weight and bias cast to the compute
     dtype at use. With `lora_rank > 0` (the JAX `lora_dense`) it also owns
     `lora_a` [in, r] (normal, std 1/r) and `lora_b` [r, out] (zeros), the
     JAX leaves in their own orientation, and adds `lora_delta(x)` unless
-    the call passes `adapters=False`."""
+    the call passes `adapters=False`; inside a `lora_rows` block that
+    names it, the per-row pair replaces its own."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool, dtype, param_dtype,
                  device=None, generator=None, lora_rank: int = 0, lora_alpha: float = 16.0):
@@ -200,15 +224,23 @@ class Linear(nn.Module):
         dt = self.dtype
         y = F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
         if self.lora_rank > 0 and adapters:
-            y = y + self.lora_delta(x)
+            rows = _LORA_ROWS.get()
+            pair = None if rows is None else rows.get(self)
+            y = y + (self.lora_delta(x) if pair is None else self.lora_delta_rows(x, *pair))
         return y
 
     def lora_delta(self, x):
-        """((x A) B) alpha / r in the compute dtype: the one place the
-        factors are read (per-row factors of multi-tenant serving would
-        come in here)."""
+        """((x A) B) alpha / r in the compute dtype."""
         dt = self.dtype
         return ((x.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)) * self.lora_scale
+
+    def lora_delta_rows(self, x, a_rows, b_rows):
+        """The delta with row i's own pair (a_rows [b, in, r], b_rows
+        [b, r, out]), as the JAX `lora_dense`'s two einsums; a zero pair
+        adds exactly 0.0."""
+        dt = self.dtype
+        xr = torch.einsum("b...d,bdr->b...r", x.to(dt), a_rows.to(dt))
+        return torch.einsum("b...r,brf->b...f", xr, b_rows.to(dt)) * self.lora_scale
 
 
 def make_linear(cfg: "TransformerConfig", name: str, in_features: int, out_features: int, bias: bool,

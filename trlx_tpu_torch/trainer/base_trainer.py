@@ -958,10 +958,13 @@ class TorchTrainer:
         With `watch_dir` (or `inference.watch_dir`) the server hot-reloads
         the newest manifest-complete checkpoint of a training run every
         `inference.reload_interval_s`; `inference.sessions` turns on
-        `/chat` (paged pool only). `background=True` starts a daemon
+        `/chat` (paged pool only). `inference.multi_tenant` serves the
+        LoRA adapters checkpointed under `inference.adapter_dir` over this
+        policy's trunk (`inference/adapters.py`), with fair-share
+        admission across tenants. `background=True` starts a daemon
         thread and returns the `InferenceServer` (its `.url` is the base
         endpoint); otherwise this blocks serving."""
-        from trlx_tpu_torch.inference import InferenceEngine, InferenceServer, Scheduler
+        from trlx_tpu_torch.inference import AdapterStore, InferenceEngine, InferenceServer, Scheduler
         from trlx_tpu_torch.ops.sampling import GenerationConfig
 
         icfg = self.config.inference
@@ -971,6 +974,17 @@ class TorchTrainer:
         gen_cfg = GenerationConfig.from_gen_kwargs(
             gen_kwargs, self.tokenizer.eos_token_id, self.tokenizer.pad_token_id
         )
+        adapter_store = None
+        if icfg.multi_tenant:
+            # the served state dict only gives the store its LoRA leaves'
+            # names, shapes, dtype and device: a multi-tenant engine reads
+            # factors from the stack alone (slot 0 = zeros = the base)
+            adapter_store = AdapterStore(
+                self.serving_params(),
+                adapter_dir=icfg.adapter_dir,
+                max_resident=icfg.max_resident_adapters,
+                hbm_budget_bytes=int(icfg.adapter_hbm_budget_mb * 1024 * 1024),
+            )
         engine = InferenceEngine(
             self.model, self.model_cfg, self.serving_params(), gen_cfg,
             num_slots=icfg.num_slots,
@@ -985,6 +999,7 @@ class TorchTrainer:
             prefix_cache=icfg.prefix_cache,
             prefix_cache_capacity=icfg.prefix_cache_capacity,
             multi_tenant=icfg.multi_tenant,
+            adapter_store=adapter_store,
             decode_kernel=icfg.decode_kernel,
         )
         if icfg.sessions:
@@ -1003,6 +1018,9 @@ class TorchTrainer:
             max_queue_depth=icfg.max_queue_depth,
             max_wait_s=icfg.max_wait_s,
             default_deadline_s=icfg.default_deadline_s,
+            fair_share=icfg.fair_share and icfg.multi_tenant,
+            tenant_weights=icfg.tenant_weights,
+            tenant_queue_depth=icfg.tenant_queue_depth,
             tracer=tracer,
         )
         server = InferenceServer(

@@ -70,7 +70,10 @@ Under adapters (`model.peft_config`: LoRA, prompt or prefix tuning) the
 split is 0 and the reference is the live LM with its adapters off
 (`models/policy.py:AdapterReference`), so the trunk cache, the capture
 fast path and speculative decode are off; under prompt tuning the loss
-reads the full forward (the soft prompt shifts every position).
+reads the full forward (the soft prompt shifts every position). LoRA runs
+under the fleet backend too: the thread replicas take the adapter
+factors with the rest of the state dict. Prompt and prefix tuning fail
+there where JAX's do, at a replica's engine build.
 
 Seq2seq (`model.model_arch_type="seq2seq"`, the JAX trainer's seq2seq
 branches): the prompt is the encoder's input and the response the
@@ -87,9 +90,6 @@ Speculative decode, the int8 decode view, the trunk cache, the
 speculative scorer and the capture fast path are off, as JAX's gates
 turn them off; the fleet backend generates locally with a warning, and
 multi-turn rollouts are refused.
-
-Refused at construction: adapters under the fleet backend (ROADMAP queue
-A, item 4.5).
 """
 
 import dataclasses
@@ -108,7 +108,6 @@ from trlx_tpu_torch.data import PPORLBatch, PPORLElement
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.method_configs import MethodConfig, register_method
 from trlx_tpu_torch.models import build_model, make_reference
-from trlx_tpu_torch.models.lora import has_adapters
 from trlx_tpu_torch.models.policy import forward_policy_and_ref
 from trlx_tpu_torch.models.seq2seq import forward_seq2seq_policy_and_ref
 from trlx_tpu_torch.models.transformer import position_ids
@@ -182,9 +181,6 @@ class PPOTrainer(TorchTrainer):
     def __init__(self, config: TRLConfig, **kwargs):
         self.seq2seq = config.model.model_arch_type == "seq2seq"
         super().__init__(config, **kwargs)
-        if has_adapters(self.model_cfg) and getattr(config.train, "rollout_backend", "local") == "fleet":
-            raise NotImplementedError("adapters (peft_config) under the rollout fleet are not ported yet "
-                                      "(ROADMAP queue A, item 4.5)")
         self.store = PPORolloutStorage(self.tokenizer.pad_token_id, self.tokenizer.padding_side)
         # the frozen reference: copies of the top of the model at init
         # (hydra), or under adapters the live LM with its adapters off

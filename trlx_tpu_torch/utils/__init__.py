@@ -2,7 +2,8 @@
 scheduler registries, dict helpers.
 
 Port of the JAX package's `utils/__init__.py`. Its optax optimizers
-become `torch.optim` optimizers over the trainable parameters only, and
+become `torch.optim` optimizers over the trainable parameters only (lion
+and rmsprop as this module's own, with optax's update rules), and
 its optax schedules become plain functions of the step that a
 `LambdaLR` applies (see `get_scheduler`).
 """
@@ -12,7 +13,7 @@ import random
 import time
 from enum import Enum
 from numbers import Number
-from typing import Any, Callable, Dict, Iterable
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,16 +97,93 @@ class OptimizerName(str, Enum):
     RMSPROP = "rmsprop"
 
 
+class Lion(torch.optim.Optimizer):
+    """optax's `lion` (`scale_by_lion`, `add_decayed_weights`,
+    `scale_by_learning_rate`): u = sign((1 - b1) g + b1 mu), then
+    mu = (1 - b2) g + b2 mu, and p += -lr (u + weight_decay p). The lr
+    follows the port's convention (1.0 times the schedule)."""
+
+    def __init__(self, params, lr: float = 1.0, betas: Tuple[float, float] = (0.9, 0.999),
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["exp_avg"] = torch.zeros_like(p)
+                mu, g = state["exp_avg"], p.grad
+                u = torch.sign((1.0 - b1) * g + b1 * mu)
+                state["exp_avg"] = (1 - b2) * g + b2 * mu
+                p.add_((u + group["weight_decay"] * p) * -group["lr"])
+        return loss
+
+
+class RMSprop(torch.optim.Optimizer):
+    """optax's `rmsprop` (`scale_by_rms`, `scale_by_learning_rate`,
+    `trace`): nu = (1 - decay) g^2 + decay nu from `initial_scale`,
+    u = g / sqrt(nu + eps) (eps inside the root unless `eps_in_sqrt=False`,
+    where torch's RMSprop puts it), scaled by -lr before the momentum
+    trace, t = u + momentum t, p += t. The lr follows the port's
+    convention (1.0 times the schedule). optax's `centered` and
+    `nesterov` variants are not taken."""
+
+    def __init__(self, params, lr: float = 1.0, decay: float = 0.9, eps: float = 1e-8,
+                 initial_scale: float = 0.0, eps_in_sqrt: bool = True, momentum: Optional[float] = None):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, initial_scale=initial_scale,
+                                      eps_in_sqrt=eps_in_sqrt, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            decay, eps, momentum = group["decay"], group["eps"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.full_like(p, group["initial_scale"])
+                    if momentum is not None:
+                        state["trace"] = torch.zeros_like(p)
+                g = p.grad
+                nu = state["nu"] = (1 - decay) * g ** 2 + decay * state["nu"]
+                if group["eps_in_sqrt"]:
+                    u = torch.rsqrt(nu + eps) * g
+                else:
+                    u = 1 / (torch.sqrt(nu) + eps) * g
+                u = u * -group["lr"]
+                if momentum is not None:
+                    u = state["trace"] = u + momentum * state["trace"]
+                p.add_(u)
+        return loss
+
+
 def get_optimizer(name: str, params, kwargs: Dict[str, Any] = None) -> torch.optim.Optimizer:
     """A torch optimizer over `params` (the trainable parameters only) from
-    a torch-style kwargs dict (lr/betas/eps/weight_decay/momentum). Its lr
-    starts at 1.0: the trainer's `LambdaLR` sets it to the schedule's value
-    at every step (`get_scheduler`), so kwargs['lr'] only seeds the
-    schedule.
+    a torch-style kwargs dict (lr/betas/eps/weight_decay/momentum), with
+    the JAX package's mapping onto optax. Its lr starts at 1.0: the
+    trainer's `LambdaLR` sets it to the schedule's value at every step
+    (`get_scheduler`), so kwargs['lr'] only seeds the schedule.
 
     torch's AdamW is optax's `adamw`: the decay is decoupled and applied to
     the old parameter (p -= lr * wd * p), and eps sits outside the square
-    root of the bias-corrected second moment."""
+    root of the bias-corrected second moment. Lion and rmsprop are this
+    module's own, with optax's semantics (lion's betas from the config,
+    default (0.9, 0.999), not optax's own default; rmsprop's momentum 0.9
+    unless given); the 8-bit Adams are `ops/quantized_optim.Adam8bit`."""
     kwargs = dict(kwargs or {})
     kwargs.pop("lr", None)
     betas = tuple(kwargs.pop("betas", (0.9, 0.999)))
@@ -118,11 +196,16 @@ def get_optimizer(name: str, params, kwargs: Dict[str, Any] = None) -> torch.opt
         return torch.optim.AdamW(params, lr=1.0, betas=betas, eps=eps, weight_decay=weight_decay, **kwargs)
     if name == OptimizerName.ADAM:
         return torch.optim.Adam(params, lr=1.0, betas=betas, eps=eps, **kwargs)
+    if name in (OptimizerName.ADAMW_8BIT_BNB, OptimizerName.ADAM_8BIT_BNB):
+        from trlx_tpu_torch.ops.quantized_optim import Adam8bit
+
+        decay = weight_decay if name == OptimizerName.ADAMW_8BIT_BNB else 0.0
+        return Adam8bit(params, lr=1.0, betas=betas, eps=eps, weight_decay=decay, **kwargs)
     if name == OptimizerName.SGD:
         return torch.optim.SGD(params, lr=1.0, momentum=momentum, **kwargs)
-    raise NotImplementedError(
-        f"optimizer {name.value!r} is not ported yet (ROADMAP queue A, item 4: the rest)"
-    )
+    if name == OptimizerName.LION:
+        return Lion(params, lr=1.0, betas=betas, weight_decay=weight_decay)
+    return RMSprop(params, lr=1.0, eps=eps, momentum=momentum, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Experiment tracking (port of the JAX package's `utils/tracking.py`).
 
-The default tracker writes one JSON line of metrics per log call; wandb
-is not ported.
+The default tracker writes one JSON line of metrics per log call.
+`tracker="wandb"` logs through wandb when the package is installed
+(imported only then), and otherwise falls back to the JSONL tracker with
+a warning, as the JAX package does.
 """
 
 import json
@@ -74,12 +76,38 @@ class JSONLTracker(Tracker):
         self._fh.close()
 
 
+class WandbTracker(Tracker):
+    """Logs to a wandb run (`wandb.init` with the run's config)."""
+
+    def __init__(self, config_dict: Dict, run_name: str, logging_dir: Optional[str] = None,
+                 project: str = "trlx_tpu", entity: Optional[str] = None,
+                 group: Optional[str] = None, tags=None):
+        super().__init__(config_dict, run_name, logging_dir)
+        import wandb
+
+        self.run = wandb.init(
+            project=project, name=run_name, entity=entity, group=group,
+            tags=tags, config=config_dict, dir=logging_dir,
+        )
+        self.wandb = wandb
+
+    def log(self, stats: Dict[str, Any], step: int):
+        self.wandb.log(stats, step=step)
+
+    def finish(self):
+        self.run.finish()
+
+
 def get_tracker(name: Optional[str], config_dict: Dict, run_name: str,
                 logging_dir: Optional[str] = None, **kwargs) -> Tracker:
     if name in (None, "none", "jsonl"):
         return JSONLTracker(config_dict, run_name, logging_dir)
     if name == "wandb":
-        raise NotImplementedError("the wandb tracker is not ported (ROADMAP queue A, item 4: tooling)")
+        try:
+            return WandbTracker(config_dict, run_name, logging_dir, **kwargs)
+        except ImportError:
+            logger.warning("wandb not installed; falling back to JSONL tracker")
+            return JSONLTracker(config_dict, run_name, logging_dir)
     if name == "tensorboard":
         logger.warning("tensorboard tracker not available in this build; using JSONL")
         return JSONLTracker(config_dict, run_name, logging_dir)
